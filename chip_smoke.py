@@ -1,5 +1,5 @@
 #!/usr/bin/env python3
-"""Drive the PyTorch port's Delay TTS main path once on one NVIDIA GPU.
+"""Drive the PyTorch port's Delay TTS paths once on one NVIDIA GPU.
 
 Run from the repository root with no arguments:
 
@@ -8,17 +8,29 @@ Run from the repository root with no arguments:
 Phases, one or more lines each; any failure raises and exits non-zero:
 
 1. device: the card's name and power limit; TF32 off.
-2. build: nvcc builds the CUDA kernels from ``mosstts_tpu_torch/csrc``.
-3. kernels: each kernel against its plain PyTorch version in bf16 at the
-   main path's shapes (max error within tolerance; device time per call,
-   from CUDA-graph replays so that host launch cost is left out), then the
-   backbone and a greedy generate of a small float32 model on the card
-   (kernels) against the same model on the CPU (plain versions).
-4. main path at MOSS-TTS 8B width (``delay_8b()``, random bf16 weights made
+2. build: nvcc builds the CUDA kernels from ``mosstts_tpu_torch/csrc``, one
+   process per source, all started together.
+3. kernels: each kernel against its plain PyTorch version at the main
+   paths' shapes (max error within tolerance; device time per call, from
+   CUDA-graph replays so that host launch cost is left out; the plain
+   version's time; ``F.scaled_dot_product_attention``'s where that one call
+   computes the same function; the least time the card could take, from the
+   bytes and operations this call's data needs), then the backbone and a
+   greedy generate of a small float32 model on the card (kernels) against
+   the same model on the CPU (plain versions).
+3b. a 2-slot ``DelayBatchServer`` of that small model, 4 greedy requests:
+   linear and paged grids on the card equal the CPU's, and on the card
+   paged equals linear for the f32 and the int8 cache.
+4. solo path at MOSS-TTS 8B width (``delay_8b()``, random bf16 weights made
    on the card, the ``codec_1p6b()`` codec in f32): three ``synthesize``
-   requests and one greedy batch-4 ``DelayEngine.generate``. The kernels'
-   launch counts are set to 0 just before and read just after, and must
-   show every prefill and every decode step went through the kernels.
+   requests and one greedy batch-4 ``DelayEngine.generate``.
+5. continuous batching at the same width, reusing phase 4's weights: a
+   16-slot ``DelayBatchServer`` serves 24 sampled requests (8 admitted
+   mid-flight) in each cache mode: linear bf16, linear int8, paged bf16,
+   paged int8.
+The kernels' launch counts are set to 0 just before phase 4 and before each
+mode of phase 5 and read just after, and must show every prefill and every
+decode step went through the kernels.
 
 Then one JSON line with the kernels' numbers, the nvidia-smi line, and the
 result line ``{"ok": true, "device": {...}}``. Without a CUDA device the
@@ -27,26 +39,32 @@ script raises before printing any result.
 from __future__ import annotations
 
 import copy
+import gc
 import json
 import statistics
-import subprocess
 import sys
 import time
 from pathlib import Path
 
 import numpy as np
 import torch
+import torch.nn.functional as F
 
 sys.path.insert(0, str(Path(__file__).resolve().parent))
 
 from mosstts_tpu_torch.core.config import DelayConfig, codec_1p6b, delay_8b, tiny_qwen3  # noqa: E402
+from mosstts_tpu_torch.engine.batch_server import DelayBatchServer  # noqa: E402
 from mosstts_tpu_torch.engine.delay_engine import DelayEngine  # noqa: E402
+from mosstts_tpu_torch.models.delay import make_sampling  # noqa: E402
 from mosstts_tpu_torch.nn import qwen3  # noqa: E402
-from mosstts_tpu_torch.ops.kernels import _build, decode_attn, flash  # noqa: E402
+from mosstts_tpu_torch.ops.kernels import _build, decode_attn, flash, paged_attn  # noqa: E402
 from mosstts_tpu_torch.serve.pipelines import demo_backend, synthesize  # noqa: E402
+from mosstts_tpu_torch.tools.kernel_inputs import (  # noqa: E402
+    bound, card_line, decode_bound, decode_inputs)
 
 DEV = "cuda"
 L8, B8, KV8, S8, HD8, H8 = 36, 4, 8, 512, 128, 32  # 8B layers / heads; batch 4, cache 512
+BS, SS, PS = 16, 1024, 128  # the server's batch, capacity and page size at 8B width
 # Tolerance, kernel vs plain, elementwise in bf16: both compute in f32 from the
 # same bf16 inputs and round once to bf16, so their f32 results differ only
 # by summation order (~1e-6) and may round one bf16 ulp (2^-7 relative)
@@ -57,12 +75,6 @@ REL_TOL, ABS_TOL = 2.0 ** -6, 1e-5
 
 def log(msg: str) -> None:
     print(msg, flush=True)
-
-
-def card_line() -> str:
-    return subprocess.run(
-        ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
-        capture_output=True, text=True, check=True, timeout=60).stdout.strip()
 
 
 def time_ms(fn, n: int = 36, reps: int = 7) -> float:
@@ -106,6 +118,20 @@ def check_close(name: str, out: torch.Tensor, ref: torch.Tensor, rows=None) -> f
     return worst
 
 
+def library_ms(fn) -> float | None:
+    """Device time of the one PyTorch call that computes the same function,
+    or None (with the reason logged) where this PyTorch build refuses it."""
+    try:
+        return time_ms(fn)
+    except RuntimeError as e:
+        log(f"  (library call refused: {str(e).splitlines()[0]})")
+        return None
+
+
+def fmt_ms(ms) -> str:
+    return "refused" if ms is None else f"{ms:.4f} ms"
+
+
 def phase_kernels() -> dict:
     g = torch.Generator(device=DEV).manual_seed(0)
     bf = torch.bfloat16
@@ -128,6 +154,26 @@ def phase_kernels() -> dict:
             ref = flash.flash_attention_ref(*args, scale=scale, kv_major=True)
             flash_err = max(flash_err, check_close(
                 f"flash q_start={q_start} layer={li}", out, ref, rows))
+    # the server's admissions: one left-padded prompt of T=64 or 96 rows at
+    # batch 1 and q_start 0 (a tensor, as qwen3_forward passes it); the
+    # int8 caches attend the prompt's own (B, T, KV, hd) k/v, the bf16 ones
+    # a kv-major linear cache of the server's 1024 slots
+    zero = torch.zeros((), dtype=torch.int32, device=DEV)
+    kc1, vc1 = (torch.randn((1, KV8, SS, HD8), generator=g, device=DEV).to(bf) for _ in "kv")
+    for T1 in (64, 96):
+        q1 = torch.randn((1, T1, H8, HD8), generator=g, device=DEV).to(bf)
+        k1, v1 = (torch.randn((1, T1, KV8, HD8), generator=g, device=DEV).to(bf) for _ in "kv")
+        valid1 = torch.zeros((1, SS), dtype=torch.bool, device=DEV)
+        valid1[0, 11:T1] = True
+        rows = valid1[:, :T1]
+        for kv_major, k_all, v_all, valid_all in (
+                (False, k1, v1, valid1[:, :T1]),
+                (True, kc1, vc1, valid1)):
+            args = (q1, k_all, v_all, valid_all, zero)
+            out = flash.flash_attention(*args, scale=scale, kv_major=kv_major)
+            ref = flash.flash_attention_ref(*args, scale=scale, kv_major=kv_major)
+            flash_err = max(flash_err, check_close(
+                f"flash B=1 T={T1} kv_major={kv_major}", out, ref, rows))
     valid = torch.zeros((B8, S8), dtype=torch.bool, device=DEV)
     for b, p in enumerate((0, 17, 40, 95)):
         valid[b, p:T] = True
@@ -135,7 +181,23 @@ def phase_kernels() -> dict:
         q, kc[i % L8], vc[i % L8], valid, 0, scale=scale, kv_major=True))
     flash_plain_ms = time_ms(lambda i: flash.flash_attention_ref(
         q, kc[i % L8], vc[i % L8], valid, 0, scale=scale, kv_major=True))
-    log(f"  flash B={B8} T={T} S={S8}: kernel {flash_ms:.4f} ms, plain {flash_plain_ms:.4f} ms")
+    # the same function in one call: causal and left-pad mask as one boolean mask
+    causal = torch.arange(S8, device=DEV)[None, :] <= torch.arange(T, device=DEV)[:, None]
+    sdpa_mask = (causal[None] & valid[:, None, :])[:, None]  # (B, 1, T, S)
+    qt = q.transpose(1, 2)
+    flash_lib_ms = library_ms(lambda i: F.scaled_dot_product_attention(
+        qt, kc[i % L8], vc[i % L8], attn_mask=sdpa_mask, scale=scale, enable_gqa=True))
+    # bound: the keys each row needs (valid, before its last query) read once,
+    # q read and the output written once; 4 * hd operations per (query, key) pair
+    pairs = float((sdpa_mask[:, 0] & valid[:, :T, None]).sum())  # real queries only
+    keys = float(valid[:, :T].sum())
+    flash_bound = bound(2 * keys * KV8 * HD8 * 2 + 2 * q.numel() * 2 + valid.numel(),
+                        4 * HD8 * H8 * pairs, bf)
+    log(f"  flash B={B8} T={T} S={S8}: kernel {flash_ms:.4f} ms")
+    log(f"  flash B={B8} T={T} S={S8}: plain {flash_plain_ms:.4f} ms")
+    log(f"  flash B={B8} T={T} S={S8}: sdpa {fmt_ms(flash_lib_ms)}")
+    log(f"  flash B={B8} T={T} S={S8}: bound {flash_bound['bound_ms']:.5f} ms "
+        f"({flash_bound['bound_by']})")
 
     # decode: one token per row over the same cache; ragged attend lengths
     qd = torch.randn((B8, H8, HD8), generator=g, device=DEV).to(bf)
@@ -152,13 +214,64 @@ def phase_kernels() -> dict:
             qd, kc, vc, valid, i % L8, scale=scale, attend_len=a))
         decode_plain_ms[a] = time_ms(lambda i: decode_attn.decode_attention_ref(
             qd, kc, vc, valid, i % L8, scale=scale, attend_len=a))
-        log(f"  decode B={B8} attend={a}: kernel {decode_ms[a]:.4f} ms, "
-            f"plain {decode_plain_ms[a]:.4f} ms")
+        log(f"  decode B={B8} attend={a}: kernel {decode_ms[a]:.4f} ms")
+        log(f"  decode B={B8} attend={a}: plain {decode_plain_ms[a]:.4f} ms")
+    qs = qd[:, :, None]  # (B, H, 1, hd)
+    dmask = valid[:, None, None, :256]
+    decode_lib_ms = library_ms(lambda i: F.scaled_dot_product_attention(
+        qs, kc[i % L8, :, :, :256], vc[i % L8, :, :, :256], attn_mask=dmask, scale=scale,
+        enable_gqa=True))
+    decode_bd = decode_bound(qd, valid, 256, KV8, HD8 * 2)
+    log(f"  decode B={B8} attend=256: sdpa {fmt_ms(decode_lib_ms)}")
+    log(f"  decode B={B8} attend=256: bound {decode_bd['bound_ms']:.5f} ms "
+        f"({decode_bd['bound_by']})")
     torch.cuda.synchronize()
     return {
-        "flash": dict(max_abs_err=flash_err, ms=flash_ms, plain_ms=flash_plain_ms),
-        "decode": dict(max_abs_err=decode_err, ms=decode_ms[256], plain_ms=decode_plain_ms[256]),
+        "flash": dict(max_abs_err=flash_err, ms=flash_ms, plain_ms=flash_plain_ms,
+                      library_ms=flash_lib_ms, **flash_bound),
+        "decode": dict(max_abs_err=decode_err, ms=decode_ms[256], plain_ms=decode_plain_ms[256],
+                       library_ms=decode_lib_ms, **decode_bd),
     }
+
+
+def phase_kernels_server() -> dict:
+    """The four decode kernels at the server's 8B shapes
+    (``tools/kernel_inputs.decode_inputs``): B=16 rows, KV=8, H=32, hd=128,
+    capacity 1024, attend 256, 512 and 1024; int8 values and scales from the
+    port's cache quantizer; a shuffled page table with P=128 whose rows
+    leave 0-3 tail pages unallocated (on the poisoned trash page 0, masked
+    by kv_valid). The linear bf16 kernel's numbers come back as
+    ``decode_b16``."""
+    scale = HD8 ** -0.5
+    q, valid, kernels = decode_inputs(BS, seed=1)
+    numbers = {}
+    for name, (kernel, plain, args, row_bytes, extra) in kernels.items():
+        err, ms, plain_ms = 0.0, {}, {}
+        for a in (256, 512, 1024):
+            for li in (0, L8 - 1):
+                out = kernel(*args(li), scale=scale, attend_len=a)
+                ref = plain(*args(li), scale=scale, attend_len=a)
+                if not bool(torch.isfinite(out).all()):
+                    raise AssertionError(f"{name}: non-finite output")
+                err = max(err, check_close(f"{name} B={BS} attend={a} layer={li}", out, ref))
+            ms[a] = time_ms(lambda i: kernel(*args(i % L8), scale=scale, attend_len=a))
+            plain_ms[a] = time_ms(lambda i: plain(*args(i % L8), scale=scale, attend_len=a))
+            log(f"  {name} B={BS} attend={a}: kernel {ms[a]:.4f} ms")
+            log(f"  {name} B={BS} attend={a}: plain {plain_ms[a]:.4f} ms")
+        bd = decode_bound(q, valid, 256, KV8, row_bytes, extra)
+        log(f"  {name} B={BS} attend=256: bound {bd['bound_ms']:.5f} ms ({bd['bound_by']})")
+        numbers[name] = dict(max_abs_err=err, ms=ms[256], plain_ms=plain_ms[256],
+                             library_ms=None, **bd)
+    # the linear bf16 kernel has one call that computes the same function
+    kc, vc = kernels["decode"][2](0)[1:3]
+    dmask = valid[:, None, None, :256]
+    numbers["decode"]["library_ms"] = library_ms(lambda i: F.scaled_dot_product_attention(
+        q[:, :, None], kc[i % L8, :, :, :256], vc[i % L8, :, :, :256], attn_mask=dmask,
+        scale=scale, enable_gqa=True))
+    log(f"  decode B={BS} attend=256: sdpa {fmt_ms(numbers['decode']['library_ms'])}")
+    numbers["decode_b16"] = numbers.pop("decode")
+    torch.cuda.synchronize()
+    return numbers
 
 
 def phase_small_reference() -> None:
@@ -211,7 +324,80 @@ def phase_small_reference() -> None:
     log(f"  small f32 greedy generate (B=2, continuation, 24 frames): card grid == CPU grid")
 
 
-def phase_main_path() -> dict:
+SMALL_CFG = DelayConfig(language_config=tiny_qwen3(
+    hidden_size=256, intermediate_size=512, num_attention_heads=4, num_key_value_heads=2,
+    head_dim=128), n_vq=4)
+
+
+def phase_small_server() -> None:
+    """A 2-slot server of the small f32 model (head dim 128, so the kernels
+    dispatch) with the same weights on the card and on the CPU: 4 greedy
+    continuation requests, two admitted mid-flight. The page pool is the
+    default 60% of the linear footprint, so pages are recycled."""
+    cfg = SMALL_CFG
+    cpu_backend = demo_backend(cfg, seed=2, dtype=torch.float32, device="cpu")
+    cpu_params, proc = cpu_backend.engine.params, cpu_backend.processor
+    gpu_params = copy.deepcopy(cpu_params).to(DEV)
+    rng = np.random.default_rng(3)
+    grids = []
+    for i in range(4):
+        codes = rng.integers(0, 1024, size=(6, cfg.n_vq))
+        conv = [proc.build_user_message(text=f"server request {i}"),
+                proc.build_assistant_message([codes])]
+        grids.append(proc([conv], mode="continuation")["input_ids"][0])
+
+    def serve(params, dev, **mode):
+        srv = DelayBatchServer(params, cfg, slots=2, cache_len=256, out_capacity=64,
+                               prompt_bucket=32, dtype=torch.float32, page_size=64,
+                               sampling=make_sampling(text_temperature=0.0,
+                                                      audio_temperature=0.0, device=dev),
+                               **mode)
+        rids = [srv.submit(g, max_new_tokens=24) for g in grids]
+        done = {c.request_id: c for c in srv.run(max_steps=1000)}
+        if sorted(done) != sorted(rids):
+            raise AssertionError(f"small server {mode}: requests {rids}, completed {sorted(done)}")
+        return [(done[r].start_length, done[r].tokens) for r in rids], srv.total_preemptions
+
+    def same(a, b) -> bool:
+        return all(la == lb and np.array_equal(ga, gb) for (la, ga), (lb, gb) in zip(a, b))
+
+    results = {}
+    for name, mode in (("linear", {}), ("paged", dict(paged=True)),
+                       ("linear int8", dict(kv_quant=True)),
+                       ("paged int8", dict(paged=True, kv_quant=True))):
+        results[name] = serve(gpu_params, DEV, **mode)
+    for name in ("linear", "paged"):
+        cpu = serve(cpu_params, "cpu", **({"paged": True} if name == "paged" else {}))
+        if not same(results[name][0], cpu[0]):
+            raise AssertionError(f"small f32 server, {name}: card grids differ from CPU grids")
+        log(f"  small f32 server ({name}, 2 slots, 4 greedy requests): card grids == CPU grids")
+    for lin, pag in (("linear", "paged"), ("linear int8", "paged int8")):
+        if not same(results[lin][0], results[pag][0]):
+            raise AssertionError(f"small server on the card: {pag} grids differ from {lin}")
+        log(f"  small server on the card: {pag} grids == {lin} grids "
+            f"({results[pag][1]} preemptions)")
+
+
+COUNTERS = {  # kernel name -> (module, attribute) of its launch count
+    "flash": (flash, "LAUNCHES"),
+    "decode": (decode_attn, "LAUNCHES"),
+    "decode_q8": (decode_attn, "LAUNCHES_Q8"),
+    "paged": (paged_attn, "LAUNCHES"),
+    "paged_q8": (paged_attn, "LAUNCHES_Q8"),
+}
+
+
+def reset_counts() -> None:
+    for mod, attr in COUNTERS.values():
+        setattr(mod, attr, 0)
+
+
+def read_counts() -> dict:
+    torch.cuda.synchronize()
+    return {name: getattr(mod, attr) for name, (mod, attr) in COUNTERS.items()}
+
+
+def phase_main_path():
     cfg = delay_8b()
     t0 = time.perf_counter()
     backend = demo_backend(cfg, codec_1p6b(), seed=0, dtype=torch.bfloat16, device=DEV)
@@ -236,8 +422,7 @@ def phase_main_path() -> dict:
 
     engine.generate = recorded_generate
     torch.cuda.reset_peak_memory_stats()
-    flash.LAUNCHES = 0
-    decode_attn.LAUNCHES = 0
+    reset_counts()
 
     for i, (text, seed) in enumerate((("Hello from the port on a GPU.", 1),
                                       ("The quick brown fox jumps over the lazy dog.", 2),
@@ -265,7 +450,7 @@ def phase_main_path() -> dict:
     log(f"  generate B=4 greedy: prompt {c['prompt']} tokens, {c['frames']} frames/row, "
         f"{c['wall_s']:.2f} s ({(c['frames'] - 1) / c['wall_s']:.1f} decode steps/s)")
     torch.cuda.synchronize()
-    counts = {"flash": flash.LAUNCHES, "decode": decode_attn.LAUNCHES}
+    counts = read_counts()
 
     L = cfg.language_config.num_hidden_layers
     prefills = len(calls)
@@ -276,6 +461,85 @@ def phase_main_path() -> dict:
     log(f"  launches: flash {counts['flash']} for {prefills} prefills (>= {L} each), "
         f"decode {counts['decode']} for {steps} decode steps (>= {L} each)")
     log(f"  peak device memory {torch.cuda.max_memory_allocated() / 2**30:.2f} GiB")
+    return counts, engine.params
+
+
+SERVER_MODES = (  # name, DelayBatchServer options, the decode kernel it runs
+    ("linear bf16", {}, "decode"),
+    ("linear int8", dict(kv_quant=True), "decode_q8"),
+    ("paged bf16", dict(paged=True), "paged"),
+    ("paged int8", dict(paged=True, kv_quant=True), "paged_q8"),
+)
+
+
+def server_traffic(cfg, n: int = 24, seed: int = 0):
+    """The JAX benchmark's batch-server load (``bench.py:684-696``): random
+    prompt grids of 48-96 rows ending in the gen-slot token, budgets drawn
+    from 48-96 frames."""
+    rng = np.random.default_rng(seed)
+    prompts = []
+    for _ in range(n):
+        T = int(rng.integers(48, 96))
+        grid = rng.integers(0, 1000, (T, cfg.channels))
+        grid[:, 1:] = rng.integers(0, 1024, (T, cfg.n_vq))
+        grid[-1, 0] = cfg.audio_assistant_gen_slot_token_id
+        prompts.append(grid)
+    return prompts, [int(x) for x in rng.integers(48, 96, n)]
+
+
+def phase_server(params) -> dict:
+    """``DelayBatchServer(slots=16, cache_len=1024, out_capacity=128,
+    prompt_bucket=32, page_size=128)`` over phase 4's 8B weights, one cache
+    mode at a time: 24 requests into 16 slots, sampled at text and audio
+    temperature 1.7, audio top-p 0.8."""
+    cfg = delay_8b()
+    L = cfg.language_config.num_hidden_layers
+    prompts, budgets = server_traffic(cfg)
+    counts = {}
+    for name, mode, kernel in SERVER_MODES:
+        server = DelayBatchServer(
+            params, cfg, slots=BS, cache_len=SS, out_capacity=128, prompt_bucket=32,
+            page_size=PS, dtype=torch.bfloat16,
+            sampling=make_sampling(text_temperature=1.7, audio_temperature=1.7,
+                                   audio_top_p=0.8, device=DEV), **mode)
+        t = time.perf_counter()
+        server.warmup(prompt_lens=(64, 96), attend_upto=256)
+        warm_s = time.perf_counter() - t
+        server.total_steps, server.util_sum, server.total_preemptions = 0, 0.0, 0
+        torch.cuda.reset_peak_memory_stats()
+        reset_counts()
+        t = time.perf_counter()
+        rids = {server.submit(g, max_new_tokens=n): n for g, n in zip(prompts, budgets)}
+        done = server.run()
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t
+        mode_counts = read_counts()
+        if sorted(c.request_id for c in done) != sorted(rids):
+            raise AssertionError(f"server {name}: {len(done)} of {len(rids)} requests completed")
+        for c in done:
+            if (c.tokens.ndim != 2 or c.tokens.shape[1] != cfg.channels
+                    or c.tokens.shape[0] != c.start_length + c.steps or c.tokens.min() < 0
+                    or not 0 < c.steps <= rids[c.request_id]):
+                raise AssertionError(f"server {name}: malformed grid {c.tokens.shape}, "
+                                     f"{c.steps} steps for budget {rids[c.request_id]}")
+        steps, admissions = server.total_steps, len(rids) + server.total_preemptions
+        if mode_counts[kernel] < L * steps or mode_counts["flash"] < L * admissions:
+            raise AssertionError(f"server {name}: launch counts {mode_counts} below {L} x "
+                                 f"{steps} steps ({kernel}) / {L} x {admissions} prefills (flash)")
+        frames = sum(min(c.steps, rids[c.request_id]) for c in done)
+        kv_bytes = sum(t.numel() * t.element_size() for t in server.state.cache if t.ndim > 2)
+        log(f"  server {name}: {len(done)} requests, {steps} steps, {frames} frames in "
+            f"{wall:.2f} s = {frames / wall:.1f} frames/s ({wall / steps * 1e3:.1f} ms/step), "
+            f"mean utilization {server.util_sum / steps:.3f}, "
+            f"{server.total_preemptions} preemptions, KV cache {kv_bytes / 2**30:.3f} GiB, "
+            f"peak device memory {torch.cuda.max_memory_allocated() / 2**30:.2f} GiB "
+            f"(warmup {warm_s:.2f} s)")
+        log(f"  server {name}: launches {kernel} {mode_counts[kernel]} (>= {L} x {steps}), "
+            f"flash {mode_counts['flash']} (>= {L} x {admissions})")
+        counts[name] = mode_counts
+        del server, done
+        gc.collect()
+        torch.cuda.empty_cache()
     return counts
 
 
@@ -294,25 +558,54 @@ def main() -> None:
     t0 = time.perf_counter()
     lib = _build.build()
     flash._entry()
-    decode_attn._entry()
+    for entry in ("mosstts_decode_attention", "mosstts_decode_attention_q8",
+                  "mosstts_paged_decode_attention", "mosstts_paged_decode_attention_q8"):
+        decode_attn._entry(entry)
     log(f"  {lib.relative_to(Path(__file__).resolve().parent)} in "
         f"{time.perf_counter() - t0:.2f} s")
 
     log("phase 3: kernels vs plain (bf16, main-path shapes) and a small f32 reference")
     numbers = phase_kernels()
+    numbers.update(phase_kernels_server())
+    # decode's line keeps its B=4 times (PR 1's shape) and the worse error of both shapes
+    numbers["decode"]["max_abs_err"] = max(numbers["decode"]["max_abs_err"],
+                                           numbers.pop("decode_b16")["max_abs_err"])
     phase_small_reference()
+    log("phase 3b: small f32 continuous-batching server, card vs CPU and paged vs linear")
+    phase_small_server()
 
-    log("phase 4: main path at MOSS-TTS 8B width")
-    counts = phase_main_path()
+    log("phase 4: solo path at MOSS-TTS 8B width")
+    solo_counts, params = phase_main_path()
+    gc.collect()
+    torch.cuda.empty_cache()
 
+    log("phase 5: continuous batching at MOSS-TTS 8B width")
+    server_counts = phase_server(params)
+
+    launches = {name: solo_counts[name] + sum(c[name] for c in server_counts.values())
+                for name in COUNTERS}
+    if not all(launches.values()):
+        raise AssertionError(f"a kernel was never launched on the main paths: {launches}")
     kernels = [
         dict(name="flash_attention", route="cuda", source="mosstts_tpu_torch/csrc/flash_attn.cu",
-             replaces="mosstts_tpu/ops/pallas/flash.py:83", launches=counts["flash"],
+             replaces="mosstts_tpu/ops/pallas/flash.py:83", launches=launches["flash"],
              **numbers["flash"]),
         dict(name="decode_attention", route="cuda",
              source="mosstts_tpu_torch/csrc/decode_attn.cu",
-             replaces="mosstts_tpu/ops/pallas/decode_attn.py:189", launches=counts["decode"],
+             replaces="mosstts_tpu/ops/pallas/decode_attn.py:189", launches=launches["decode"],
              **numbers["decode"]),
+        dict(name="decode_attention_q8", route="cuda",
+             source="mosstts_tpu_torch/csrc/decode_attn.cu",
+             replaces="mosstts_tpu/ops/pallas/decode_attn.py:250",
+             launches=launches["decode_q8"], **numbers["decode_q8"]),
+        dict(name="paged_decode_attention", route="cuda",
+             source="mosstts_tpu_torch/csrc/paged_attn.cu",
+             replaces="mosstts_tpu/ops/pallas/paged_attn.py:180", launches=launches["paged"],
+             **numbers["paged"]),
+        dict(name="paged_decode_attention_q8", route="cuda",
+             source="mosstts_tpu_torch/csrc/paged_attn.cu",
+             replaces="mosstts_tpu/ops/pallas/paged_attn.py:243",
+             launches=launches["paged_q8"], **numbers["paged_q8"]),
     ]
     print(json.dumps({"kernels": kernels}))
     print(card_line())

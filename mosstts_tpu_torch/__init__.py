@@ -2,10 +2,11 @@
 
 Each module ``mosstts_tpu_torch/<path>.py`` ports ``mosstts_tpu/<path>.py``
 and names the JAX function it ports. The package imports ``torch`` and
-never ``jax``; the JAX-free modules of ``mosstts_tpu`` (configs, processors,
-tokenizer, delay pattern, audio I/O) are reused as they are. The TPU
-kernels' counterparts are hand-written CUDA kernels in ``csrc/``, built on
-the first CUDA launch by ``ops/kernels/_build.py``.
+nothing of ``jax`` or ``mosstts_tpu``: it keeps its own copies of the JAX
+package's JAX-free modules (configs, processor, tokenizer, delay pattern,
+audio I/O). The TPU kernels' counterparts are hand-written CUDA kernels in
+``csrc/``, built on the first CUDA launch by ``ops/kernels/_build.py``.
+Entry points run on the card unless the caller passes ``device="cpu"``.
 """
 
 __version__ = "0.1.0"

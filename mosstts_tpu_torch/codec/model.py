@@ -136,7 +136,7 @@ class MossAudioTokenizer:
 
     @classmethod
     def random_init(cls, seed: int = 0, config: Optional[CodecConfig] = None,
-                    dtype=torch.float32, device="cpu") -> "MossAudioTokenizer":
+                    dtype=torch.float32, device="cuda") -> "MossAudioTokenizer":
         """Random weights drawn directly on ``device`` from ``seed``."""
         config = config or CodecConfig()
         gen = torch.Generator(device=device).manual_seed(seed)

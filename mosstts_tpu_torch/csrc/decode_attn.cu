@@ -1,246 +1,30 @@
-// Single-token decode attention over one layer of the layer-stacked KV cache
-// (L, B, KV, S, hd), bf16 or f32, f32 inside.
+// Single-token decode attention over one layer of the layer-stacked linear KV
+// cache (L, B, KV, S, hd): the bf16/f32 cache, and the int8 cache with f32
+// (L, B, KV, S) K and V scales. f32 inside.
 //
 // Replaces: mosstts_tpu/ops/pallas/decode_attn.py::decode_attention
-// (_decode_kernel).
+// (_decode_kernel) and ::decode_attention_q8 (_decode_kernel_q8).
 //
-// What bounds it on the H100: bytes streamed from the cache. Each step reads
-// attend_len * hd K and V values per (row, KV head) and does only ~2 flops
-// per value read, far below the card's ~295 flops/byte balance point. At the
-// main path's batch 1-4 there are only B*KV (8-32) (row, KV head) pairs, so
-// the walk over the slots must be split to keep enough loads in flight.
-//
-// Design (split-KV, two passes):
-// 1. decode_partial_kernel: one block per (KV head, batch row, chunk of
-//    CHUNK slots) takes the G query heads that share that KV head, so each
-//    cache row is read once for all G of them. The layer is addressed as
-//    base + layer * stride0: no slice and no cast of the cache. Each of the
-//    NW warps takes SPW consecutive slots and issues all their loads before
-//    any math; lane i holds elements i, i+32, ... of the head dim, so a slot
-//    is a coalesced row read and a score is a warp-shuffle sum. Warps keep
-//    an f32 online softmax per query head and merge through shared memory;
-//    the block writes (max, denominator, accumulator) per query head.
-// 2. decode_merge_kernel: one block per (KV head, batch row) rescales the
-//    chunks' partials to a common max and writes the normalised output.
-// Causality rides kv_valid alone, as in the JAX kernel; an invalid slot
-// scores -1e30, so a row with no valid slot averages its slots as the
-// reference does. Slots at or past attend_len are skipped: attend_len need
-// not be a multiple of anything. The TPU kernel's block-diagonal all-heads
-// dot and its 256-slot tiles were MXU choices and are not carried over.
-#include "common.cuh"
+// Bound on the H100: the cache bytes streamed, hd * attend_len K and V values
+// per (row, KV head): 2 bytes each in bf16, 1 byte plus one 4-byte scale per
+// 128 values in int8. Design: the split-KV kernel of decode_kernel.cuh,
+// whose header says how the loads are issued and the scales folded.
+#include "decode_kernel.cuh"
 
-namespace mosstts {
-namespace {
-
-constexpr int NW = 4;             // warps per block
-constexpr int SPW = 8;            // slots per warp
-constexpr int CHUNK = NW * SPW;   // slots per block
-// Query heads per KV head the kernel takes. Every config of the repo has
-// G <= 4 (8B: 32/8; 1.7B: 16/8; codec 12/4); raise it when one needs more.
-constexpr int MAX_GROUP = 4;
-
-template <typename T, int HD, int MAXG>
-__global__ void __launch_bounds__(NW * 32) decode_partial_kernel(
-    const T* __restrict__ q, const T* __restrict__ kc, const T* __restrict__ vc,
-    const uint8_t* __restrict__ kv_valid, float* __restrict__ part,
-    int layer, int G, int A,
-    long long q_sb, long long q_sh,
-    long long c_sl, long long c_sb, long long c_sh, long long c_ss,
-    long long valid_sb, float scale) {
-    constexpr int EPL = HD / 32;  // head-dim elements per lane
-    __shared__ float s_m[NW][MAXG];
-    __shared__ float s_l[NW][MAXG];
-    __shared__ float s_acc[NW][MAXG][HD];
-
-    const int kvh = blockIdx.x, b = blockIdx.y, chunk = blockIdx.z;
-    const int KV = gridDim.x, NS = gridDim.z;
-    const int warp = threadIdx.x >> 5;
-    const int lane = threadIdx.x & 31;
-
-    float qr[MAXG][EPL];
-#pragma unroll
-    for (int g = 0; g < MAXG; ++g)
-#pragma unroll
-        for (int e = 0; e < EPL; ++e)
-            qr[g][e] = g < G ? to_f(q[b * q_sb + (kvh * G + g) * q_sh + lane + 32 * e]) * scale
-                             : 0.f;
-
-    const long long base = layer * c_sl + b * c_sb + kvh * c_sh;
-    const T* kb = kc + base;
-    const T* vb = vc + base;
-    const uint8_t* vrow = kv_valid + b * valid_sb;
-    const int s0 = chunk * CHUNK + warp * SPW;
-
-    // all loads of the warp's slots first (slot 0 stands in past the end)
-    float kx[SPW][EPL], vx[SPW][EPL];
-    bool ok[SPW];
-#pragma unroll
-    for (int j = 0; j < SPW; ++j) {
-        const int s = s0 + j < A ? s0 + j : 0;
-        ok[j] = vrow[s] != 0;
-#pragma unroll
-        for (int e = 0; e < EPL; ++e) {
-            kx[j][e] = to_f(kb[s * c_ss + lane + 32 * e]);
-            vx[j][e] = to_f(vb[s * c_ss + lane + 32 * e]);
-        }
-    }
-
-    float m[MAXG], l[MAXG], acc[MAXG][EPL];
-#pragma unroll
-    for (int g = 0; g < MAXG; ++g) {
-        m[g] = kNegInf;
-        l[g] = 0.f;
-#pragma unroll
-        for (int e = 0; e < EPL; ++e) acc[g][e] = 0.f;
-    }
-#pragma unroll
-    for (int j = 0; j < SPW; ++j) {
-        if (s0 + j >= A) break;  // uniform across the warp
-#pragma unroll
-        for (int g = 0; g < MAXG; ++g) {
-            if (g < G) {
-                float part_dot = 0.f;
-#pragma unroll
-                for (int e = 0; e < EPL; ++e) part_dot += qr[g][e] * kx[j][e];
-                part_dot = warp_sum(part_dot);
-                const float sc = ok[j] ? part_dot : kNegInf;
-                const float m_new = fmaxf(m[g], sc);
-                const float alpha = expf(m[g] - m_new);
-                const float p = expf(sc - m_new);
-                l[g] = l[g] * alpha + p;
-#pragma unroll
-                for (int e = 0; e < EPL; ++e) acc[g][e] = acc[g][e] * alpha + p * vx[j][e];
-                m[g] = m_new;
-            }
-        }
-    }
-
-#pragma unroll
-    for (int g = 0; g < MAXG; ++g) {
-        if (g < G) {
-            if (lane == 0) {
-                s_m[warp][g] = m[g];
-                s_l[warp][g] = l[g];
-            }
-#pragma unroll
-            for (int e = 0; e < EPL; ++e) s_acc[warp][g][lane + 32 * e] = acc[g][e];
-        }
-    }
-    __syncthreads();
-
-    // partial record per query head: [max, denominator, acc[HD]]
-    float* out = part + (((long long)b * KV + kvh) * NS + chunk) * G * (HD + 2);
-    for (int i = threadIdx.x; i < G * HD; i += NW * 32) {
-        const int g = i / HD, d = i % HD;
-        float mx = kNegInf;
-#pragma unroll
-        for (int w = 0; w < NW; ++w) mx = fmaxf(mx, s_m[w][g]);
-        float den = 0.f, num = 0.f;
-#pragma unroll
-        for (int w = 0; w < NW; ++w) {
-            const float c = expf(s_m[w][g] - mx);
-            den += s_l[w][g] * c;
-            num += s_acc[w][g][d] * c;
-        }
-        out[g * (HD + 2) + 2 + d] = num;
-        if (d == 0) {
-            out[g * (HD + 2)] = mx;
-            out[g * (HD + 2) + 1] = den;
-        }
-    }
-}
-
-template <typename T, int HD>
-__global__ void __launch_bounds__(128) decode_merge_kernel(
-    const float* __restrict__ part, T* __restrict__ out, int G, int NS,
-    long long o_sb, long long o_sh) {
-    const int kvh = blockIdx.x, b = blockIdx.y, KV = gridDim.x;
-    const float* p = part + ((long long)b * KV + kvh) * NS * G * (HD + 2);
-    for (int i = threadIdx.x; i < G * HD; i += blockDim.x) {
-        const int g = i / HD, d = i % HD;
-        float mx = kNegInf;
-        for (int c = 0; c < NS; ++c) mx = fmaxf(mx, p[(c * G + g) * (HD + 2)]);
-        float den = 0.f, num = 0.f;
-        for (int c = 0; c < NS; ++c) {
-            const float* r = p + (c * G + g) * (HD + 2);
-            const float w = expf(r[0] - mx);
-            den += r[1] * w;
-            num += r[2 + d] * w;
-        }
-        out[b * o_sb + (kvh * G + g) * o_sh + d] = from_f<T>(num / fmaxf(den, 1e-30f));
-    }
-}
-
-template <typename T, int HD, int MAXG>
-int launch_decode(const void* q, const void* kc, const void* vc, const uint8_t* valid,
-                  void* out, float* part, int layer, int B, int H, int KV, int A,
-                  long long q_sb, long long q_sh, long long c_sl, long long c_sb,
-                  long long c_sh, long long c_ss, long long valid_sb, long long o_sb,
-                  long long o_sh, float scale, cudaStream_t stream) {
-    const int G = H / KV;
-    const int NS = (A + CHUNK - 1) / CHUNK;
-    decode_partial_kernel<T, HD, MAXG><<<dim3(KV, B, NS), NW * 32, 0, stream>>>(
-        static_cast<const T*>(q), static_cast<const T*>(kc), static_cast<const T*>(vc),
-        valid, part, layer, G, A, q_sb, q_sh, c_sl, c_sb, c_sh, c_ss, valid_sb, scale);
-    cudaError_t err = cudaGetLastError();
-    if (err != cudaSuccess) return (int)err;
-    decode_merge_kernel<T, HD><<<dim3(KV, B), 128, 0, stream>>>(
-        part, static_cast<T*>(out), G, NS, o_sb, o_sh);
-    return (int)cudaGetLastError();
-}
-
-template <typename T>
-int dispatch_hd(int hd, int G, const void* q, const void* kc, const void* vc,
-                const uint8_t* valid, void* out, float* part, int layer, int B, int H, int KV,
-                int A, long long q_sb, long long q_sh, long long c_sl, long long c_sb,
-                long long c_sh, long long c_ss, long long valid_sb, long long o_sb,
-                long long o_sh, float scale, cudaStream_t stream) {
-    if (G > MAX_GROUP) return (int)cudaErrorInvalidValue;
-#define MOSSTTS_DECODE_CASE(HD_)                                                          \
-    case HD_:                                                                             \
-        return launch_decode<T, HD_, MAX_GROUP>(q, kc, vc, valid, out, part, layer, B, H,  \
-                                                KV, A, q_sb, q_sh, c_sl, c_sb, c_sh, c_ss, \
-                                                valid_sb, o_sb, o_sh, scale, stream);
-    switch (hd) {
-        MOSSTTS_DECODE_CASE(64)
-        MOSSTTS_DECODE_CASE(128)
-        MOSSTTS_DECODE_CASE(256)
-        default:
-            return (int)cudaErrorInvalidValue;
-    }
-#undef MOSSTTS_DECODE_CASE
-}
-
-}  // namespace
-}  // namespace mosstts
-
-// Slots per block of the first pass: the wrapper sizes the f32 scratch as
+// Slots per block of the first pass: the wrappers size the f32 scratch as
 // B * KV * ceil(attend_len / chunk) * G * (hd + 2).
-extern "C" int mosstts_decode_chunk_slots() { return mosstts::CHUNK; }
+extern "C" int mosstts_decode_chunk_slots() { return mosstts::decode::CHUNK; }
 
-// C entry point, bound with ctypes (ops/kernels/decode_attn.py). Strides are
-// in elements; k_cache and v_cache share one layout whose head dim is
-// contiguous. ``scratch`` is the f32 buffer for the first pass's partials.
-// Returns the cudaGetLastError() after the launches.
-extern "C" int mosstts_decode_attention(
-    const void* q, const void* k_cache, const void* v_cache, const void* kv_valid,
-    void* out, void* scratch, int layer, int B, int H, int KV, int attend_len, int hd,
-    long long q_sb, long long q_sh,
-    long long c_sl, long long c_sb, long long c_sh, long long c_ss,
-    long long valid_sb, long long o_sb, long long o_sh,
-    float scale, int dtype, void* stream) {
-    using namespace mosstts;
-    const uint8_t* valid = static_cast<const uint8_t*>(kv_valid);
-    float* part = static_cast<float*>(scratch);
-    cudaStream_t st = static_cast<cudaStream_t>(stream);
-    const int G = H / KV;
-    if (dtype == kBF16)
-        return dispatch_hd<__nv_bfloat16>(hd, G, q, k_cache, v_cache, valid, out, part, layer,
-                                          B, H, KV, attend_len, q_sb, q_sh, c_sl, c_sb, c_sh,
-                                          c_ss, valid_sb, o_sb, o_sh, scale, st);
-    if (dtype == kF32)
-        return dispatch_hd<float>(hd, G, q, k_cache, v_cache, valid, out, part, layer, B, H, KV,
-                                  attend_len, q_sb, q_sh, c_sl, c_sb, c_sh, c_ss, valid_sb,
-                                  o_sb, o_sh, scale, st);
-    return (int)cudaErrorInvalidValue;
+// C entry points, bound with ctypes (ops/kernels/decode_attn.py). ``args``
+// holds pointers and strides (in elements; the head dim contiguous);
+// q_dtype is 0 for bf16, 1 for f32. Each returns the cudaGetLastError()
+// after its two launches.
+extern "C" int mosstts_decode_attention(const mosstts::decode::Args* args, int B, int hd,
+                                        int q_dtype, void* stream) {
+    return mosstts::decode::dispatch<false, false>(args, B, hd, q_dtype, stream);
+}
+
+extern "C" int mosstts_decode_attention_q8(const mosstts::decode::Args* args, int B, int hd,
+                                           int q_dtype, void* stream) {
+    return mosstts::decode::dispatch<true, false>(args, B, hd, q_dtype, stream);
 }

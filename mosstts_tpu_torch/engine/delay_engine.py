@@ -41,23 +41,25 @@ def attend_bucket(needed: int, base: int, cap: int) -> int:
 
 class DelayEngine:
     """Ports ``mosstts_tpu.engine.delay_engine.DelayEngine`` (solo engine,
-    bf16 or f32 linear KV cache). ``params`` is a ``DelayParams`` module on
-    ``device``."""
+    linear KV cache in ``dtype``, or int8 with per-slot scales when
+    ``kv_quant``). ``params`` is a ``DelayParams`` module on ``device``.
+    ``quantize()`` (int8 weights) is not ported yet."""
 
     def __init__(self, params: DelayParams, config: DelayConfig, *, dtype=torch.bfloat16,
                  cache_bucket: int = 256, top_k_text: int = 50, top_k_audio: int = 25,
-                 device=None):
+                 kv_quant: bool = False, device=None):
         self.params = params
         self.config = config
         self.dtype = dtype
         self.cache_bucket = cache_bucket
         self.top_k_text = top_k_text
         self.top_k_audio = top_k_audio
+        self.kv_quant = kv_quant
         self.device = torch.device(device) if device is not None else params.text_head.device
 
     @classmethod
     def random_init(cls, seed: int = 0, config: Optional[DelayConfig] = None,
-                    dtype=torch.bfloat16, device="cpu", **kw) -> "DelayEngine":
+                    dtype=torch.bfloat16, device="cuda", **kw) -> "DelayEngine":
         """Random weights drawn directly on ``device`` from ``seed``."""
         config = config or DelayConfig()
         gen = torch.Generator(device=device).manual_seed(seed)
@@ -109,6 +111,7 @@ class DelayEngine:
             self.params, cfg, ids_dev, mask_dev, max_new_tokens=max_new_tokens,
             cache_len=cache_len, rng=row_generators(seed, B, dev), sampling=sampling,
             top_k_text=self.top_k_text, top_k_audio=self.top_k_audio, dtype=self.dtype,
+            kv_quant=self.kv_quant,
         )
         steps = 1
         while steps < max_new_tokens:

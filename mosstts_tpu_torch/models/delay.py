@@ -17,15 +17,15 @@ buffer are dropped, as JAX's ``mode="drop"`` does, by masking. The cache,
 """
 from __future__ import annotations
 
-from typing import List, NamedTuple, Optional
+from typing import Any, List, NamedTuple, Optional
 
 import torch
 from torch import nn
 
 from ..core.config import DelayConfig
-from ..nn.qwen3 import (KVCache, Qwen3Params, empty_param, fill_qwen3_params_, init_kv_cache,
-                        qwen3_forward)
-from ..ops.basic import dense
+from ..nn.qwen3 import (Qwen3Params, empty_param, fill_qwen3_params_, init_kv_cache,
+                        init_quant_kv_cache, qwen3_forward)
+from ..ops.basic import dense, put_drop_
 from ..ops.sampling import (
     align_rows,
     apply_repetition_penalty_seen,
@@ -96,7 +96,7 @@ def delay_forward(
     *,
     positions: torch.Tensor,
     kv_valid: torch.Tensor,
-    cache: Optional[KVCache] = None,
+    cache=None,
     cache_offset=0,
     attend_len: Optional[int] = None,
     logits_len: Optional[int] = None,
@@ -160,7 +160,7 @@ class DelayGenState(NamedTuple):
     """Ports ``mosstts_tpu.models.delay.DelayGenState``; ``rng`` holds one
     ``torch.Generator`` per row."""
 
-    cache: KVCache
+    cache: Any  # KVCache | QuantKVCache | PagedKVCache | QuantPagedKVCache
     kv_valid: torch.Tensor  # (B, S) bool
     cur_ids: torch.Tensor  # (B, 1, C) token to feed next forward
     pos: torch.Tensor  # (B,) int32 cache slot where cur_ids will be written
@@ -180,10 +180,7 @@ def _set_rows_(buf: torch.Tensor, col: torch.Tensor, val: torch.Tensor) -> None:
     past the end (JAX ``.at[rows, col].set(val, mode="drop")``)."""
     B, n = buf.shape[:2]
     rows = torch.arange(B, device=buf.device)
-    keep = col < n
-    idx = col.clamp(max=n - 1).long()
-    keep = keep.reshape((B,) + (1,) * (val.ndim - 1))
-    buf[rows, idx] = torch.where(keep, val.to(buf.dtype), buf[rows, idx])
+    put_drop_(buf, (rows, col.clamp(max=n - 1).long()), val, col < n)
 
 
 def delay_prefill(
@@ -199,17 +196,21 @@ def delay_prefill(
     top_k_text: int = 50,
     top_k_audio: int = 25,
     dtype=torch.bfloat16,
+    kv_quant: bool = False,
 ) -> DelayGenState:
     """Ports ``mosstts_tpu.models.delay.delay_prefill``: run the prompt into
-    a fresh linear cache, then sample the first frame from its last
-    position. ``rng`` is one generator per row."""
+    a fresh linear cache (int8 with per-slot scales when ``kv_quant``; the
+    prompt then attends its own k/v and only the cache write is quantized),
+    then sample the first frame from its last position. ``rng`` is one
+    generator per row."""
     B, T, C = input_ids.shape
     n_vq, Va = cfg.n_vq, cfg.audio_emb_vocab
     dev = input_ids.device
     if len(rng) != B:
         raise ValueError(f"need one generator per row: {len(rng)} for batch {B}")
 
-    cache = init_kv_cache(cfg.language_config, B, cache_len, dtype=dtype, device=dev)
+    cache = (init_quant_kv_cache(cfg.language_config, B, cache_len, device=dev) if kv_quant
+             else init_kv_cache(cfg.language_config, B, cache_len, dtype=dtype, device=dev))
     kv_valid = torch.zeros((B, cache_len), dtype=torch.bool, device=dev)
     kv_valid[:, :T] = attention_mask
     positions = torch.arange(T, dtype=torch.int32, device=dev)[None].expand(B, T)
@@ -371,15 +372,14 @@ def delay_decode_step(
 ) -> DelayGenState:
     """Ports ``mosstts_tpu.models.delay.delay_decode_step``: forward the
     pending frame, then run the state machine once. ``uniform_slots`` says
-    every row's cache cursor is equal (the solo engine); per-row cursors are
-    not ported yet."""
-    if not uniform_slots:
-        raise NotImplementedError("per-row cache cursors are not ported yet; "
-                                  "pass uniform_slots=True")
+    every row's cache cursor is equal (the solo engine: one slice write at
+    ``pos[0]``); by default each row writes at its own cursor ``pos[b]``, as
+    the continuous-batching server needs."""
     positions = state.pos[:, None]
     text_logits, audio_logits, cache = delay_forward(
         params, cfg, state.cur_ids, positions=positions, kv_valid=state.kv_valid,
-        cache=state.cache, cache_offset=state.pos[0], attend_len=attend_len,
+        cache=state.cache, cache_offset=state.pos[0] if uniform_slots else state.pos,
+        attend_len=attend_len,
     )
     state = state._replace(cache=cache, pos=state.pos + 1)
     return _delay_sample_and_update(state, cfg, sampling, top_k_text, top_k_audio,

@@ -61,3 +61,14 @@ def apply_rope(x: torch.Tensor, cos: torch.Tensor, sin: torch.Tensor) -> torch.T
     sin = sin[:, :, None, :].float()
     xf = x.float()
     return (xf * cos + rotate_half(xf) * sin).to(x.dtype)
+
+
+def put_drop_(buf: torch.Tensor, index: tuple, val: torch.Tensor, keep: torch.Tensor) -> None:
+    """``buf[index] = val`` in place where ``keep`` and no write elsewhere,
+    as JAX's ``.at[index].set(val, mode="drop")``. Every entry of ``index``
+    is in range: a dropped one points at a stand-in element and writes back
+    its own value (one gather, one select, one scatter, no host sync). A
+    kept and a dropped entry must not share an element."""
+    old = buf[index]
+    keep = keep.reshape(keep.shape + (1,) * (old.ndim - keep.ndim))
+    buf[index] = torch.where(keep, val.to(buf.dtype), old)

@@ -1,8 +1,9 @@
 """Build and load the hand-written CUDA kernels of ``mosstts_tpu_torch``.
 
-Every ``*.cu`` file under ``mosstts_tpu_torch/csrc/`` is compiled by ``nvcc``
-for Hopper (``sm_90a``) into one shared library with a plain C interface,
-loaded with ``ctypes``. Nothing here runs at import: ``ctypes`` is imported
+Every ``*.cu`` file under ``mosstts_tpu_torch/csrc/`` is compiled by its own
+``nvcc`` process for Hopper (``sm_90a``), all started together, and the
+objects are linked into one shared library with a plain C interface, loaded
+with ``ctypes``. Nothing here runs at import: ``ctypes`` is imported
 and ``nvcc`` is called on the first CUDA launch, so the package imports on a
 machine with no CUDA toolkit.
 
@@ -24,7 +25,7 @@ BUILD_ROOT = _PKG_DIR.parent / "build"
 LIB_NAME = "libmosstts_kernels.so"
 NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a",
-    "-std=c++17", "-O3", "-shared", "-Xcompiler", "-fPIC",
+    "-std=c++17", "-O3", "-Xcompiler", "-fPIC",
 )
 
 _lib = None
@@ -59,13 +60,29 @@ def build() -> Path:
     if path.exists():
         return path
     path.parent.mkdir(parents=True, exist_ok=True)
-    tmp = path.with_name(f"{LIB_NAME}.{os.getpid()}.tmp")
-    cu = [str(f) for f in _sources() if f.suffix == ".cu"]
-    cmd = [_nvcc(), *NVCC_FLAGS, "-o", str(tmp), *cu]
+    nvcc, pid = _nvcc(), os.getpid()
+    objs, procs = [], []
+    for src in (f for f in _sources() if f.suffix == ".cu"):
+        obj = path.with_name(f"{src.stem}.{pid}.o")  # nvcc reads the type off the suffix
+        cmd = [nvcc, *NVCC_FLAGS, "-c", "-o", str(obj), str(src)]
+        procs.append((cmd, subprocess.Popen(cmd, stdout=subprocess.PIPE,
+                                            stderr=subprocess.STDOUT, text=True)))
+        objs.append(str(obj))
+    failed = []
+    for cmd, proc in procs:
+        out, _ = proc.communicate()
+        if proc.returncode != 0:
+            failed.append(f"nvcc failed ({proc.returncode}): {' '.join(cmd)}\n{out}")
+    if failed:
+        raise RuntimeError("\n".join(failed))
+    tmp = path.with_name(f"tmp.{pid}.{LIB_NAME}")
+    cmd = [nvcc, "-shared", "-o", str(tmp), *objs]
     proc = subprocess.run(cmd, capture_output=True, text=True)
     if proc.returncode != 0:
         raise RuntimeError(
-            f"nvcc failed ({proc.returncode}): {' '.join(cmd)}\n{proc.stdout}\n{proc.stderr}")
+            f"nvcc link failed ({proc.returncode}): {' '.join(cmd)}\n{proc.stdout}\n{proc.stderr}")
+    for obj in objs:
+        os.remove(obj)
     os.replace(tmp, path)  # atomic: a concurrent build never sees half a file
     return path
 

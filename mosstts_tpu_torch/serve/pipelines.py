@@ -1,14 +1,12 @@
 """The MOSS-TTS serving pipeline on the port.
 
 Ports ``mosstts_tpu/serve/pipelines.py``: ``DelayBackend``,
-``_generate_and_decode`` and ``synthesize``. The processor
-(``mosstts_tpu.processing.delay_processor.DelayProcessor``) and tokenizer
-are the JAX package's own, which import no JAX; the engine and the codec
-(its ``audio_tokenizer``) are the port's. Each call returns (sample_rate,
-waveform, status). ``demo_backend`` builds the whole stack from random
-weights, the counterpart of the JAX package's ``serve.backend`` demo mode.
-The shared batching pool and reference audio given as a file path (which
-needs the codec's encoder) are not ported yet.
+``_generate_and_decode`` and ``synthesize``. The processor, the tokenizer,
+the engine and the codec (its ``audio_tokenizer``) are the port's own. Each
+call returns (sample_rate, waveform, status). ``demo_backend`` builds the
+whole stack from random weights, the counterpart of the JAX package's
+``serve.backend`` demo mode. The shared batching pool and reference audio
+given as a file path (which needs the codec's encoder) are not ported yet.
 """
 from __future__ import annotations
 
@@ -19,12 +17,11 @@ from typing import Optional, Tuple
 import numpy as np
 import torch
 
-from mosstts_tpu.processing.delay_processor import DelayProcessor
-from mosstts_tpu.processing.tokenizer import ByteFallbackTokenizer
-
 from ..codec.model import MossAudioTokenizer
 from ..core.config import CodecConfig, DelayConfig
 from ..engine.delay_engine import DelayEngine
+from ..processing.delay_processor import DelayProcessor
+from ..processing.tokenizer import ByteFallbackTokenizer
 
 # Recommended sampling defaults per app (the JAX package's pipelines.DEFAULTS)
 DEFAULTS = {
@@ -51,7 +48,7 @@ def demo_backend(
     *,
     seed: int = 0,
     dtype=torch.bfloat16,
-    device="cpu",
+    device="cuda",
     **engine_kw,
 ) -> DelayBackend:
     """A demo ``DelayBackend`` with random weights drawn on ``device`` from

@@ -24,7 +24,6 @@ from __future__ import annotations
 
 import argparse
 import json
-import subprocess
 import time
 from pathlib import Path
 
@@ -35,6 +34,7 @@ from ..core.config import codec_1p6b, delay_8b
 from ..models import delay as td
 from ..ops.sampling import row_generators
 from ..serve.pipelines import demo_backend
+from .kernel_inputs import card_line
 
 WINDOW = 4  # decode steps inside the profiler window
 
@@ -117,8 +117,7 @@ def main(argv=None) -> None:
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
     torch.backends.cuda.matmul.allow_bf16_reduced_precision_reduction = False
-    card = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
-                          capture_output=True, text=True, check=True, timeout=60).stdout.strip()
+    card = card_line()
     print(card, flush=True)
     if args.trace_dir is not None:
         args.trace_dir.mkdir(parents=True, exist_ok=True)

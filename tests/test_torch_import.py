@@ -1,7 +1,9 @@
-"""Every module of ``mosstts_tpu_torch`` imports with ``jax`` and ``triton``
-blocked, and importing touches neither CUDA nor the kernel build: the port
-must run on a machine with no JAX, and the CPU tests must import it with no
-CUDA toolkit. (``tests/test_import_hermetic.py`` covers ``mosstts_tpu``.)
+"""Every module of ``mosstts_tpu_torch`` imports with ``jax``, ``triton``
+and the JAX package ``mosstts_tpu`` blocked, and importing touches neither
+CUDA nor the kernel build: the port must run on a machine with no JAX, keeps
+its own copies of what it needs from the JAX package, and the CPU tests must
+import it with no CUDA toolkit. (``tests/test_import_hermetic.py`` covers
+``mosstts_tpu``.) The port's entry points default to the card.
 """
 import ast
 import subprocess
@@ -12,6 +14,7 @@ CODE = r"""
 import importlib, pkgutil, sys
 sys.modules["jax"] = None      # any import of jax (direct or indirect) raises
 sys.modules["triton"] = None
+sys.modules["mosstts_tpu"] = None  # nor of the JAX package, even its JAX-free modules
 import torch
 import mosstts_tpu_torch
 bad = []
@@ -22,7 +25,8 @@ for name in names:
     except Exception as e:
         bad.append(f"{name}: {type(e).__name__}: {e}")
 from mosstts_tpu_torch.ops.kernels import _build
-leaked = sorted(m for m in sys.modules if m.split(".")[0] in ("jax", "jaxlib", "triton")
+leaked = sorted(m for m in sys.modules
+                if m.split(".")[0] in ("jax", "jaxlib", "triton", "mosstts_tpu")
                 and sys.modules[m] is not None)
 print("MODULES", len(names))
 print("BAD", bad)
@@ -37,9 +41,11 @@ SMOKE = r"""
 import sys
 sys.modules["jax"] = None
 sys.modules["triton"] = None
+sys.modules["mosstts_tpu"] = None
 import torch
 import chip_smoke
-leaked = sorted(m for m in sys.modules if m.split(".")[0] in ("jax", "jaxlib", "triton")
+leaked = sorted(m for m in sys.modules
+                if m.split(".")[0] in ("jax", "jaxlib", "triton", "mosstts_tpu")
                 and sys.modules[m] is not None)
 print("LEAKED", leaked)
 sys.exit(1 if leaked or torch.cuda.is_initialized() else 0)
@@ -62,7 +68,7 @@ def test_port_imports_without_jax_triton_or_cuda():
 
 def test_chip_smoke_imports_without_jax():
     """The card machine has no JAX: the smoke script's imports must not
-    reach it, and importing the script runs nothing."""
+    reach it or the JAX package, and importing the script runs nothing."""
     proc = _run(SMOKE)
     assert proc.returncode == 0, proc.stdout + proc.stderr
 
@@ -89,3 +95,19 @@ def test_profile_tool_refuses_to_run_without_a_gpu(monkeypatch):
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
     with pytest.raises(RuntimeError, match="profiles a GPU"):
         profile_step.main(["--batch", "1"])
+
+
+def test_entry_points_default_to_the_card():
+    """Nothing runs on the CPU unless the caller asks: the port's entry points
+    default to ``device="cuda"``, and ``DelayBatchServer`` has no device of
+    its own (it runs where its params live)."""
+    import inspect
+
+    from mosstts_tpu_torch.codec.model import MossAudioTokenizer
+    from mosstts_tpu_torch.engine.batch_server import DelayBatchServer
+    from mosstts_tpu_torch.engine.delay_engine import DelayEngine
+    from mosstts_tpu_torch.serve.pipelines import demo_backend
+
+    for fn in (DelayEngine.random_init, demo_backend, MossAudioTokenizer.random_init):
+        assert inspect.signature(fn).parameters["device"].default == "cuda", fn.__qualname__
+    assert "device" not in inspect.signature(DelayBatchServer).parameters

@@ -23,10 +23,10 @@ from mosstts_tpu_torch.utils.convert import load_tree_
 
 TOL = dict(rtol=1e-4, atol=1e-4)
 
-# Prefill: head_dim 16 runs the plain attention (outside the flash kernel's
-# head dims), head_dim 64 takes the flash dispatch. Decode steps take the
-# decode dispatch at every head dim (on the card an unsupported shape raises
-# in the wrapper). On CPU tensors the wrappers run their plain versions.
+# Prefill takes the flash dispatch and decode steps the decode dispatch at
+# every head dim (on the card a shape a kernel does not take, such as head
+# dim 16, raises in its wrapper: no silent plain path). On CPU tensors the
+# wrappers run their plain versions.
 CONFIGS = {
     "hd16": tiny_qwen3(),
     "hd64": tiny_qwen3(hidden_size=128, intermediate_size=192, num_attention_heads=4,
@@ -99,7 +99,7 @@ def test_prefill_and_decode_steps_match_jax(name, count_plain_calls):
         np.testing.assert_allclose(th.numpy(), np.asarray(jh), **TOL)
     np.testing.assert_allclose(tcache.k.numpy()[:, :, :, :T0 + 4][:, 0],
                                np.asarray(jcache.k)[:, :, :, :T0 + 4][:, 0], **TOL)
-    assert count_plain_calls == {"flash": L if name == "hd64" else 0, "decode": 4 * L}
+    assert count_plain_calls == {"flash": L, "decode": 4 * L}
 
 
 def test_codec_ring_window_chunks_match_jax():

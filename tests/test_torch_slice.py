@@ -93,8 +93,8 @@ def test_synthesize_is_finite_and_deterministic_per_seed(stacks):
 def test_demo_backend_builds_the_stack_and_synthesizes():
     """``demo_backend`` draws the engine and the codec from one seed: the
     same seed gives the same weights, and the stack synthesizes audio."""
-    a = demo_backend(CFG, CODEC_CFG, seed=5, dtype=torch.float32, cache_bucket=64)
-    b = demo_backend(CFG, CODEC_CFG, seed=5, dtype=torch.float32, cache_bucket=64)
+    kw = dict(seed=5, dtype=torch.float32, device="cpu", cache_bucket=64)
+    a, b = demo_backend(CFG, CODEC_CFG, **kw), demo_backend(CFG, CODEC_CFG, **kw)
     assert a.demo and a.engine.cache_bucket == 64 and a.processor.audio_tokenizer is not None
     for (name, pa), (_, pb) in zip(a.engine.params.named_parameters(),
                                    b.engine.params.named_parameters()):
