@@ -28,9 +28,22 @@ Phases, one or more lines each; any failure raises and exits non-zero:
    16-slot ``DelayBatchServer`` serves 24 sampled requests (8 admitted
    mid-flight) in each cache mode: linear bf16, linear int8, paged bf16,
    paged int8.
-The kernels' launch counts are set to 0 just before phase 4 and before each
-mode of phase 5 and read just after, and must show every prefill and every
-decode step went through the kernels.
+6. int8 weights at the same width: phase 4's engine keeps one batch-4
+   prefill's logits in bf16, is quantized in place (``engine.quantize()``),
+   and its int8 logits for the same prefill must agree with the same int8
+   model computed by the plain versions on the card, and stay correlated
+   with the bf16 logits (``phase_int8`` says why not as closely as the
+   2-layer check of phase 3); then phase 4's solo requests and phase 5's
+   server in the linear bf16 and the paged int8 KV modes run on the int8
+   weights, every matmul through the W8A16 kernel.
+The kernels' launch counts are set to 0 just before phases 4 and 6 and each
+server mode and read just after, and must show every prefill and every
+decode step went through the kernels. Phase 3 adds the int8-weight GEMMs
+(W8A16 at the 8B decode and prefill shapes, W8A8 and int4 at their tools'
+shapes, each tool's walk driven once) and ``decode_attention_q8t`` (bf16
+and f32 scales), and a small int8-weight model, card against CPU, and its
+int8 against its bf16 weights on the card and on the CPU
+(``tests/test_quant.py``'s thresholds, at the rows with a clear argmax).
 
 Then one JSON line with the kernels' numbers, the nvidia-smi line, and the
 result line ``{"ok": true, "device": {...}}``. Without a CUDA device the
@@ -38,10 +51,11 @@ script raises before printing any result.
 """
 from __future__ import annotations
 
+import contextlib
 import copy
+import dataclasses
 import gc
 import json
-import statistics
 import sys
 import time
 from pathlib import Path
@@ -56,11 +70,14 @@ from mosstts_tpu_torch.core.config import DelayConfig, codec_1p6b, delay_8b, tin
 from mosstts_tpu_torch.engine.batch_server import DelayBatchServer  # noqa: E402
 from mosstts_tpu_torch.engine.delay_engine import DelayEngine  # noqa: E402
 from mosstts_tpu_torch.models.delay import make_sampling  # noqa: E402
+from mosstts_tpu_torch.models.delay import delay_forward  # noqa: E402
 from mosstts_tpu_torch.nn import qwen3  # noqa: E402
-from mosstts_tpu_torch.ops.kernels import _build, decode_attn, flash, paged_attn  # noqa: E402
+from mosstts_tpu_torch.ops.kernels import _build, decode_attn, flash, paged_attn, w8_gemm  # noqa: E402
+from mosstts_tpu_torch.ops.quant import is_quantized  # noqa: E402
 from mosstts_tpu_torch.serve.pipelines import demo_backend, synthesize  # noqa: E402
+from mosstts_tpu_torch.tools import probe_int4, tune_mm8  # noqa: E402
 from mosstts_tpu_torch.tools.kernel_inputs import (  # noqa: E402
-    bound, card_line, decode_bound, decode_inputs)
+    bound, card_line, decode_bound, decode_inputs, gemm_bound, time_ms)
 
 DEV = "cuda"
 L8, B8, KV8, S8, HD8, H8 = 36, 4, 8, 512, 128, 32  # 8B layers / heads; batch 4, cache 512
@@ -77,35 +94,6 @@ def log(msg: str) -> None:
     print(msg, flush=True)
 
 
-def time_ms(fn, n: int = 36, reps: int = 7) -> float:
-    """Device time per call: ``n`` calls (call i gets i, so callers can
-    rotate layers and keep L2 cold) captured in one CUDA graph, the median
-    over ``reps`` replays timed with CUDA events. Launched one by one from
-    Python, a call of a few microseconds would time the host's enqueue."""
-    side = torch.cuda.Stream()
-    side.wait_stream(torch.cuda.current_stream())
-    with torch.cuda.stream(side):
-        for i in range(3):
-            fn(i)
-    torch.cuda.current_stream().wait_stream(side)
-    graph = torch.cuda.CUDAGraph()
-    with torch.cuda.graph(graph):
-        for i in range(n):
-            fn(i)
-    graph.replay()
-    torch.cuda.synchronize()
-    out = []
-    for _ in range(reps):
-        start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
-        start.record()
-        graph.replay()
-        end.record()
-        end.synchronize()
-        out.append(start.elapsed_time(end) / n)
-    del graph
-    return statistics.median(out)
-
-
 def check_close(name: str, out: torch.Tensor, ref: torch.Tensor, rows=None) -> float:
     err = (out.float() - ref.float()).abs()
     bound = REL_TOL * ref.float().abs() + ABS_TOL
@@ -118,11 +106,11 @@ def check_close(name: str, out: torch.Tensor, ref: torch.Tensor, rows=None) -> f
     return worst
 
 
-def library_ms(fn) -> float | None:
+def library_ms(fn, n: int = 36) -> float | None:
     """Device time of the one PyTorch call that computes the same function,
     or None (with the reason logged) where this PyTorch build refuses it."""
     try:
-        return time_ms(fn)
+        return time_ms(fn, n=n)
     except RuntimeError as e:
         log(f"  (library call refused: {str(e).splitlines()[0]})")
         return None
@@ -378,13 +366,281 @@ def phase_small_server() -> None:
             f"({results[pag][1]} preemptions)")
 
 
+# Tolerance, GEMM kernel vs plain: both sum exact products in float32, in
+# another order (the difference stays far under 1e-4 of the sum of the terms'
+# magnitudes, ``absref``), and a bf16 output may round one ulp (2^-7) apart.
+# Relative to the result alone would fail where a sum cancels to near zero.
+GEMM_TOL = 1e-4
+
+
+def check_gemm(name: str, out, ref, absref) -> float:
+    err = (out.float() - ref.float()).abs()
+    ulp = 2.0 ** -7 if out.dtype == torch.bfloat16 else 0.0
+    worst = float(err.max())
+    if not bool((err <= ulp * ref.float().abs() + GEMM_TOL * absref + 1e-6).all()):
+        raise AssertionError(f"{name}: kernel disagrees with plain version, max abs err {worst}")
+    log(f"  {name}: max_abs_err={worst:.3e} (tol {ulp:g}*|ref|+{GEMM_TOL:g}*sum|terms|+1e-6)")
+    return worst
+
+
+def library_agrees(name: str, x, w, w_lib) -> None:
+    """Log how far ``torch._weight_int8pack_mm`` on the library's layout
+    ``w_lib`` lies from the plain W8A16 version on ``w``: the same int8
+    values, but the library rounds the scales and its output to bf16, so
+    this is a reading of the yardstick, not a check of a kernel."""
+    got = torch._weight_int8pack_mm(x, *w_lib).float()
+    ref = w8_gemm.w8a16_gemm_ref(x, *w, torch.float32).reshape(got.shape)
+    rel = float((got - ref).abs().max() / ref.abs().max())
+    log(f"  {name}: torch._weight_int8pack_mm vs plain W8A16, max abs difference {rel:.2e} "
+        f"of the largest output (its scales and output in bf16)")
+
+
+GEMM_8B = (  # name, K, N, stacked count (0: one (K, N) per layer), output dtype
+    ("wq", 4096, 4096, 0, torch.bfloat16),
+    ("wk", 4096, 1024, 0, torch.bfloat16),
+    ("w_gate", 4096, 12288, 0, torch.bfloat16),
+    ("w_down", 12288, 4096, 0, torch.bfloat16),
+    ("text_head", 4096, 151936, 0, torch.bfloat16),
+    ("audio_heads", 4096, 1025, 32, torch.float32),
+)
+
+
+def phase_kernels_gemm() -> dict:
+    """The int8-weight GEMMs. W8A16 at the 8B model's decode (M = 1, 16) and
+    prefill (M = 96, 640) shapes over random int8 layer stacks (36 layers of
+    each backbone weight, so call i reads layer i % 36 cold from device
+    memory, as a decode step does), the text head and the 32-head audio stack
+    (f32 out); beside each, PyTorch's own int8 weight-only GEMM
+    ``torch._weight_int8pack_mm`` on the same int8 values (the yardstick:
+    its CUDA op takes the weights as (N, K), transposed once outside the
+    timing, and the scales and the output in x's dtype, bf16), and the bf16
+    ``torch.matmul`` of the same shape, what the bf16 path pays. W8A16 with
+    unit scales, W8A8 and int4 at their tools' shapes
+    (``tools/probe_int4.py``, ``tools/tune_mm8.py``), with
+    ``torch._weight_int8pack_mm`` and ``torch._int_mm`` as yardsticks;
+    each tool's walk is then driven once with the counts at 0, and those
+    are their launches. ``decode_attention_q8t`` runs one call per layer of
+    an 8B step at the server's B=16 with bf16 scales, for its launches (its
+    kernel checks are in ``phase_kernels_server``)."""
+    g = torch.Generator(device=DEV).manual_seed(5)
+    bf = torch.bfloat16
+    numbers, err16 = {}, 0.0
+    for name, K, N, count, out_dtype in GEMM_8B:
+        L = 1 if name.endswith("head") or count else L8
+        shape = ((count,) if count else (L,)) + (K, N)
+        q = torch.empty(shape, dtype=torch.int8, device=DEV).random_(-127, 128, generator=g)
+        sc = torch.rand(shape[:-2] + (N,), generator=g, device=DEV) * 0.019 + 0.001
+        # the bf16 weights of the same shape; enough layers to leave L2 cold
+        nb = 1 if count or L == 1 else min(L8, max(2, -(-200_000_000 // (K * N * 2))))
+        wb = torch.randn((nb, count or 1, K, N) if count else (nb, K, N), generator=g,
+                         device=DEV).to(bf)
+        # the library's layout: (N, K) int8 (the audio stack as one (count * N, K)
+        # weight, so one call), bf16 scales
+        qt = (q.permute(0, 2, 1).reshape(count * N, K) if count else q.transpose(1, 2)).contiguous()
+        sb = sc.reshape(-1).to(bf)
+        if count:  # one call over the whole stack
+            pick, lib_pick = (lambda i: (q, sc)), (lambda i: (qt, sb))
+        else:
+            pick = (lambda i, q=q, sc=sc, L=L: (q[i % L], sc[i % L]))
+            lib_pick = (lambda i, L=L: (qt[i % L], sb.view(L, N)[i % L]))
+        Ms = (1, 16) + ((96, 640) if name in ("wq", "wk", "w_gate", "w_down") else ())
+        for M in Ms:
+            x = torch.randn((M, K), generator=g, device=DEV).to(bf)
+            for li in ((0, L - 1) if L > 1 else (0,)):
+                qi, si = pick(li)
+                out = w8_gemm.w8a16_gemm(x, qi, si, out_dtype)
+                ref = w8_gemm.w8a16_gemm_ref(x, qi, si, out_dtype)
+                absref = w8_gemm.w8a16_gemm_ref(x.abs(), qi.abs(), si, torch.float32)
+                err16 = max(err16, check_gemm(f"w8a16 {name} M={M} layer={li}", out, ref, absref))
+                del out, ref, absref
+            n = 36 if qi.numel() < 2e8 else 8
+            ms = time_ms(lambda i: w8_gemm.w8a16_gemm(x, *pick(i), out_dtype), n=n)
+            plain_ms = time_ms(lambda i: w8_gemm.w8a16_gemm_ref(x, *pick(i), out_dtype), n=n)
+            if count:
+                bf16_ms = time_ms(lambda i: torch.bmm(x.expand(count, M, K), wb[0],
+                                                      out_dtype=torch.float32), n=n)
+            else:
+                bf16_ms = time_ms(lambda i: torch.matmul(x, wb[i % nb]), n=n)
+            lib_ms = library_ms(lambda i: torch._weight_int8pack_mm(x, *lib_pick(i)),
+                                n=n if M <= 16 else 8)
+            bd = gemm_bound(M, K, N, count=count or 1,
+                            out_bytes=4 if out_dtype == torch.float32 else 2)
+            log(f"  w8a16 {name} M={M} K={K} N={N}{f' x{count}' if count else ''}: kernel "
+                f"{ms:.4f} ms, plain {plain_ms:.4f} ms, torch._weight_int8pack_mm "
+                f"{fmt_ms(lib_ms)}, bf16 matmul (what the bf16 path pays) {bf16_ms:.4f} ms, "
+                f"bound {bd['bound_ms']:.5f} ms ({bd['bound_by']}), "
+                f"{(count or 1) * K * N / ms / 1e6:.0f} GB/s of int8 weights")
+            if lib_ms is not None and M == 16:
+                library_agrees(f"w8a16 {name} M={M}", x, pick(0), lib_pick(0))
+            if name == "w_gate" and M == 16:
+                numbers["w8a16"] = dict(ms=ms, plain_ms=plain_ms, library_ms=lib_ms, **bd)
+        del q, sc, wb, qt, sb
+        torch.cuda.empty_cache()
+    numbers["w8a16"]["max_abs_err"] = err16
+
+    # W8A8 at tools/tune_mm8.py's defaults: B=128, 16 layers of (4096, 12288)
+    x, w8, scale = tune_mm8.make_inputs(128, 16, 4096, 12288)
+    err = 0.0
+    for li in (0, 15):
+        out = w8_gemm.w8a8_gemm(x, w8[li], scale[li])
+        ref = w8_gemm.w8a8_gemm_ref(x, w8[li], scale[li])
+        x8, xs = w8_gemm.quant_rows(x)
+        absref = w8_gemm.w8a16_gemm_ref(x8.abs().to(bf), w8[li].abs(), scale[li],
+                                        torch.float32) * xs
+        err = max(err, check_gemm(f"w8a8 B=128 layer={li}", out, ref, absref))
+    ms = time_ms(lambda i: w8_gemm.w8a8_gemm(x, w8[i % 16], scale[i % 16]))
+    plain_ms = time_ms(lambda i: w8_gemm.w8a8_gemm_ref(x, w8[i % 16], scale[i % 16]), n=8)
+    x8 = w8_gemm.quant_rows(x)[0]
+    lib_ms = library_ms(lambda i: torch._int_mm(x8, w8[i % 16]))
+    bd = gemm_bound(128, 4096, 12288, out_bytes=4, ops_dtype=torch.int8)
+    log(f"  w8a8 B=128 D=4096 O=12288: kernel {ms:.4f} ms, plain {plain_ms:.4f} ms, "
+        f"torch._int_mm {fmt_ms(lib_ms)}, bound {bd['bound_ms']:.5f} ms ({bd['bound_by']})")
+    numbers["w8a8"] = dict(max_abs_err=err, ms=ms, plain_ms=plain_ms, library_ms=lib_ms, **bd)
+    reset_counts()
+    walk = tune_mm8.mm8_w8a8(x, w8, scale)
+    launches = read_counts()
+    rel = tune_mm8.rel_err(walk, tune_mm8.xla_ref(x, w8, scale))
+    log(f"  tools/tune_mm8 mm8_w8a8 walk (16 layers): {launches['w8a8']} launches; "
+        f"max rel difference from the plain W8A16 walk {rel:.2e} (not a check: the tool's "
+        f"tanh chain amplifies any rounding difference from layer to layer)")
+    numbers["w8a8"]["launches"] = launches["w8a8"]
+    del x, w8, scale, x8
+    torch.cuda.empty_cache()
+
+    # tools/probe_int4.py's shapes: B=64, D=4096, O=12288, 16 layers. Its
+    # mm8_pallas is W8A16 with unit scales and f32 output
+    x, w8, packed = probe_int4.make_inputs()
+    ones = torch.ones(12288, device=DEV)
+    w8t = w8.transpose(1, 2).contiguous()
+    ms = time_ms(lambda i: w8_gemm.w8a16_gemm(x, w8[i % 16], ones, torch.float32))
+    lib_ms = library_ms(lambda i: torch._weight_int8pack_mm(x, w8t[i % 16], ones.to(bf)))
+    bd = gemm_bound(64, 4096, 12288, scale=False, out_bytes=4)
+    log(f"  w8a16 unit scales (mm8_pallas) B=64 D=4096 O=12288: kernel {ms:.4f} ms, "
+        f"torch._weight_int8pack_mm {fmt_ms(lib_ms)}, bound {bd['bound_ms']:.5f} ms "
+        f"({bd['bound_by']})")
+    del w8, w8t
+    err = 0.0
+    for li in (0, 15):
+        out = w8_gemm.int4_gemm(x, packed[li])
+        ref = w8_gemm.int4_gemm_ref(x, packed[li])
+        lo, hi = w8_gemm.unpack_int4(packed[li])
+        xa = x.float().abs()
+        absref = xa[:, :2048] @ lo.float().abs() + xa[:, 2048:] @ hi.float().abs()
+        err = max(err, check_gemm(f"int4 B=64 layer={li}", out, ref, absref))
+    ms = time_ms(lambda i: w8_gemm.int4_gemm(x, packed[i % 16]))
+    plain_ms = time_ms(lambda i: w8_gemm.int4_gemm_ref(x, packed[i % 16]), n=8)
+    bd = gemm_bound(64, 4096, 12288, w_bytes=0.5, scale=False, out_bytes=4)
+    log(f"  int4 B=64 D=4096 O=12288: kernel {ms:.4f} ms, plain {plain_ms:.4f} ms, "
+        f"bound {bd['bound_ms']:.5f} ms ({bd['bound_by']})")
+    numbers["int4"] = dict(max_abs_err=err, ms=ms, plain_ms=plain_ms, library_ms=None, **bd)
+    reset_counts()
+    walk = probe_int4.walk_p4(x, packed)
+    launches = read_counts()
+    rel = tune_mm8.rel_err(walk, probe_int4.walk_plain4(x, packed))
+    if not rel < 1e-5:
+        raise AssertionError(f"tools/probe_int4 int4 walk disagrees with plain: {rel}")
+    log(f"  tools/probe_int4 walk_p4 (16 layers): {launches['int4']} launches, "
+        f"max rel err vs plain {rel:.2e}")
+    numbers["int4"]["launches"] = launches["int4"]
+    del x, packed
+    torch.cuda.empty_cache()
+
+    # decode_attention_q8t: one call per layer of an 8B step, bf16 scales
+    q, valid, kernels = decode_inputs(BS, seed=2)
+    _, _, args, _, _ = kernels["decode_q8t_bf16"]
+    reset_counts()
+    for li in range(L8):
+        decode_attn.decode_attention_q8t(*args(li), scale=HD8 ** -0.5, attend_len=256)
+    numbers["q8t_launches"] = read_counts()["decode_q8t"]
+    log(f"  decode_attention_q8t, one call per layer at B={BS}, attend 256: "
+        f"{numbers['q8t_launches']} launches")
+    del q, valid, kernels
+    torch.cuda.empty_cache()
+    return numbers
+
+
+def phase_small_int8() -> None:
+    """The small model (head dim 128) in bf16 with int8 weights, prefill
+    logits on the card (the W8A16 kernel, flash) against the same model on
+    the CPU (plain versions). Tolerance: both round to bf16 at the same
+    points but sum in other orders, so values may differ by a few bf16 ulps
+    that the layers carry on; on the CPU the same model with f32 against
+    bf16 activations differs by 0.84% of the largest logit, correlation
+    0.99997. Allow 2% of the largest logit and correlation >= 0.9999.
+
+    Then int8 against bf16 weights, on the card and on the CPU, with the
+    thresholds of ``tests/test_quant.py`` (argmax agreement > 0.95,
+    correlation > 0.999), the agreement counted at the rows with a clear
+    argmax (``logit_agreement``): with 152k random logits per row many rows
+    are near-ties, and which of them flip depends on the summation order
+    (all rows, text: 0.9494 on an NVIDIA H100 and 0.9448 on the CPU of the
+    same machine, for the same model and inputs). All rows are logged."""
+    cfg = SMALL_CFG
+    cpu = demo_backend(cfg, seed=4, dtype=torch.bfloat16, device="cpu").engine
+    cpu_bf16 = copy.deepcopy(cpu.params)
+    bf16_params = copy.deepcopy(cpu.params).to(DEV)
+    cpu.quantize()
+    gpu_params = copy.deepcopy(cpu.params).to(DEV)
+    if not is_quantized(gpu_params.backbone.layers.wq) or gpu_params.text_head.device.type != "cuda":
+        raise AssertionError("small int8 model: weights did not move to the card quantized")
+    rng = np.random.default_rng(0)
+    B, T, S = 8, 60, 64  # ~420 real positions, so one argmax flip moves agreement 0.24%
+    ids = torch.tensor(rng.integers(0, 1000, (B, T, cfg.channels)))
+    ids[..., 1:] = torch.tensor(rng.integers(0, 1024, (B, T, cfg.n_vq)))
+    valid = torch.zeros((B, S), dtype=torch.bool)
+    for b, pad in enumerate(rng.integers(0, 16, B)):
+        valid[b, pad:T] = True
+    pos = torch.arange(T, dtype=torch.int32)[None].expand(B, T)
+    outs = {}
+    launches = w8_gemm.LAUNCHES_W8A16
+    for key, dev, params in (("cpu", "cpu", cpu.params), ("card", DEV, gpu_params),
+                             ("card bf16", DEV, bf16_params), ("cpu bf16", "cpu", cpu_bf16)):
+        cache = qwen3.init_kv_cache(cfg.language_config, B, S, dtype=torch.bfloat16, device=dev)
+        t, a, _ = delay_forward(params, cfg, ids.to(dev), positions=pos.to(dev),
+                                kv_valid=valid.to(dev), cache=cache, cache_offset=0)
+        outs[key] = (t.cpu(), a[..., :-1].cpu())
+    if w8_gemm.LAUNCHES_W8A16 - launches < 7 * cfg.language_config.num_hidden_layers + 2:
+        raise AssertionError("small int8 model: the card's forward did not go through W8A16")
+    rows = valid[:, :T]
+    # the JAX package's own check of int8 weights (tests/test_quant.py:36-41),
+    # int8 against bf16 weights of this 2-layer model; argmax agreement
+    # counted at the clear rows (``logit_agreement``), all rows logged
+    for where, i8, b16 in (("card", "card", "card bf16"), ("CPU", "cpu", "cpu bf16")):
+        stats = [logit_agreement(outs[i8][i][rows], outs[b16][i][rows]) for i in (0, 1)]
+        if not (min(st[1] for st in stats) > 0.95 and stats[0][2] > 0.999):
+            raise AssertionError(f"small model, int8 vs bf16 weights on the {where}: (agreement, "
+                                 f"at clear rows, correlation) text {stats[0]}, audio {stats[1]}")
+        log(f"  small model, int8 vs bf16 weights on the {where}: argmax agreement at all rows "
+            f"text {stats[0][0]:.4f}, audio {stats[1][0]:.4f}; at clear rows {stats[0][1]:.4f}, "
+            f"{stats[1][1]:.4f} (> 0.95); correlation text {stats[0][2]:.6f} (> 0.999), audio "
+            f"{stats[1][2]:.6f}")
+    for i, what in ((0, "text"), (1, "audio")):
+        got, ref = outs["card"][i][rows], outs["cpu"][i][rows]
+        err, top = float((got - ref).abs().max()), float(ref.abs().max())
+        corr = float(np.corrcoef(got.flatten().numpy(), ref.flatten().numpy())[0, 1])
+        if not (err <= 0.02 * top and corr >= 0.9999):
+            raise AssertionError(f"small int8 model {what} logits, card vs CPU: max abs err "
+                                 f"{err} of {top}, correlation {corr}")
+        log(f"  small int8-weight bf16 model, {what} logits card (kernels) vs CPU (plain): "
+            f"max_abs_err={err:.3e} of max {top:.3f} (tol 2%), correlation {corr:.6f} "
+            f"(tol 0.9999)")
+
+
 COUNTERS = {  # kernel name -> (module, attribute) of its launch count
     "flash": (flash, "LAUNCHES"),
     "decode": (decode_attn, "LAUNCHES"),
     "decode_q8": (decode_attn, "LAUNCHES_Q8"),
     "paged": (paged_attn, "LAUNCHES"),
     "paged_q8": (paged_attn, "LAUNCHES_Q8"),
+    "decode_q8t": (decode_attn, "LAUNCHES_Q8T"),
+    "w8a16": (w8_gemm, "LAUNCHES_W8A16"),
+    "w8a8": (w8_gemm, "LAUNCHES_W8A8"),
+    "int4": (w8_gemm, "LAUNCHES_INT4"),
 }
+# kernels no serving path runs, as in the JAX package: their launches come
+# from phase 3's drive of the path that does run them (a tool's walk, or
+# decode_attention_q8t once per layer)
+OFF_PATH = ("decode_q8t", "w8a8", "int4")
 
 
 def reset_counts() -> None:
@@ -397,15 +653,12 @@ def read_counts() -> dict:
     return {name: getattr(mod, attr) for name, (mod, attr) in COUNTERS.items()}
 
 
-def phase_main_path():
-    cfg = delay_8b()
-    t0 = time.perf_counter()
-    backend = demo_backend(cfg, codec_1p6b(), seed=0, dtype=torch.bfloat16, device=DEV)
+def drive_solo(backend, label: str):
+    """Three ``synthesize`` requests and one greedy batch-4 ``generate`` on
+    ``backend`` at 8B width, with the launch counts set to 0 just before and
+    read just after. Returns (counts, prefills, decode steps)."""
+    cfg = backend.engine.config
     engine, proc = backend.engine, backend.processor
-    torch.cuda.synchronize()
-    log(f"  init on card: delay_8b bf16 + codec_1p6b f32 in {time.perf_counter() - t0:.2f} s, "
-        f"{torch.cuda.memory_allocated() / 2**30:.2f} GiB")
-
     calls = []
     generate = engine.generate
 
@@ -430,38 +683,56 @@ def phase_main_path():
         t = time.perf_counter()
         sr, wav, _ = synthesize(backend, text, max_new_tokens=112, seed=seed)
         if not (wav.ndim == 1 and wav.size > 0 and np.isfinite(wav).all()):
-            raise AssertionError(f"synthesize #{i}: bad waveform {wav.shape}")
+            raise AssertionError(f"{label} synthesize #{i}: bad waveform {wav.shape}")
         c = calls[-1]
-        log(f"  synthesize #{i}: prompt {c['prompt']} tokens, {c['frames']} frames, "
+        log(f"  {label} synthesize #{i}: prompt {c['prompt']} tokens, {c['frames']} frames, "
             f"wave {wav.size / sr:.2f} s at {sr} Hz, request {time.perf_counter() - t:.2f} s, "
-            f"generate {c['wall_s']:.2f} s ({(c['frames'] - 1) / c['wall_s']:.1f} decode steps/s)")
+            f"generate {c['wall_s']:.2f} s ({(c['frames'] - 1) / c['wall_s']:.1f} decode steps/s, "
+            f"{c['wall_s'] / max(c['frames'] - 1, 1) * 1e3:.1f} ms/step)")
 
+    batch = four_prompts(proc)
+    out = engine.generate(batch["input_ids"], batch["attention_mask"], max_new_tokens=96,
+                          text_temperature=0.0, audio_temperature=0.0)
+    for start, grid in out:
+        if grid.shape != (start + calls[-1]["frames"], cfg.channels) or grid.min() < 0:
+            raise AssertionError(f"{label}: bad grid {grid.shape}")
+    c = calls[-1]
+    log(f"  {label} generate B=4 greedy: prompt {c['prompt']} tokens, {c['frames']} frames/row, "
+        f"{c['wall_s']:.2f} s ({(c['frames'] - 1) / c['wall_s']:.1f} decode steps/s, "
+        f"{c['wall_s'] / max(c['frames'] - 1, 1) * 1e3:.1f} ms/step)")
+    torch.cuda.synchronize()
+    counts = read_counts()
+    del engine.generate  # back to the class's method
+    prefills = len(calls)
+    steps = sum(c["frames"] - 1 for c in calls)
+    L = cfg.language_config.num_hidden_layers
+    if counts["flash"] < L * prefills or counts["decode"] < L * steps:
+        raise AssertionError(f"{label}: launch counts {counts} below {L} x {prefills} prefills / "
+                             f"{L} x {steps} decode steps")
+    log(f"  {label} launches: flash {counts['flash']} for {prefills} prefills (>= {L} each), "
+        f"decode {counts['decode']} for {steps} decode steps (>= {L} each)")
+    log(f"  {label} peak device memory {torch.cuda.max_memory_allocated() / 2**30:.2f} GiB")
+    return counts, prefills, steps
+
+
+def four_prompts(proc):
     prompts = ["Hi.", "A longer second prompt for the batch.", "Third.",
                "The fourth and longest prompt of this batch of four requests."]
     batch = proc([[proc.build_user_message(text=p)] for p in prompts], mode="generation")
     if batch["attention_mask"].all():
         raise AssertionError("expected left-padded prompts")
-    out = engine.generate(batch["input_ids"], batch["attention_mask"], max_new_tokens=96,
-                          text_temperature=0.0, audio_temperature=0.0)
-    for start, grid in out:
-        if grid.shape != (start + calls[-1]["frames"], cfg.channels) or grid.min() < 0:
-            raise AssertionError(f"bad grid {grid.shape}")
-    c = calls[-1]
-    log(f"  generate B=4 greedy: prompt {c['prompt']} tokens, {c['frames']} frames/row, "
-        f"{c['wall_s']:.2f} s ({(c['frames'] - 1) / c['wall_s']:.1f} decode steps/s)")
-    torch.cuda.synchronize()
-    counts = read_counts()
+    return batch
 
-    L = cfg.language_config.num_hidden_layers
-    prefills = len(calls)
-    steps = sum(c["frames"] - 1 for c in calls)
-    if counts["flash"] < L * prefills or counts["decode"] < L * steps:
-        raise AssertionError(f"launch counts {counts} below {L} x {prefills} prefills / "
-                             f"{L} x {steps} decode steps")
-    log(f"  launches: flash {counts['flash']} for {prefills} prefills (>= {L} each), "
-        f"decode {counts['decode']} for {steps} decode steps (>= {L} each)")
-    log(f"  peak device memory {torch.cuda.max_memory_allocated() / 2**30:.2f} GiB")
-    return counts, engine.params
+
+def phase_main_path():
+    cfg = delay_8b()
+    t0 = time.perf_counter()
+    backend = demo_backend(cfg, codec_1p6b(), seed=0, dtype=torch.bfloat16, device=DEV)
+    torch.cuda.synchronize()
+    log(f"  init on card: delay_8b bf16 + codec_1p6b f32 in {time.perf_counter() - t0:.2f} s, "
+        f"{torch.cuda.memory_allocated() / 2**30:.2f} GiB")
+    counts, _, _ = drive_solo(backend, "bf16")
+    return counts, backend
 
 
 SERVER_MODES = (  # name, DelayBatchServer options, the decode kernel it runs
@@ -487,16 +758,19 @@ def server_traffic(cfg, n: int = 24, seed: int = 0):
     return prompts, [int(x) for x in rng.integers(48, 96, n)]
 
 
-def phase_server(params) -> dict:
+def phase_server(params, modes=SERVER_MODES, label: str = "", w8_per_pass: int = 0) -> dict:
     """``DelayBatchServer(slots=16, cache_len=1024, out_capacity=128,
     prompt_bucket=32, page_size=128)`` over phase 4's 8B weights, one cache
     mode at a time: 24 requests into 16 slots, sampled at text and audio
-    temperature 1.7, audio top-p 0.8."""
+    temperature 1.7, audio top-p 0.8. With ``w8_per_pass`` (int8 weights)
+    every prefill and decode step must also launch the W8A16 kernel at
+    least that many times."""
     cfg = delay_8b()
     L = cfg.language_config.num_hidden_layers
     prompts, budgets = server_traffic(cfg)
     counts = {}
-    for name, mode, kernel in SERVER_MODES:
+    for name, mode, kernel in modes:
+        name = f"{label}{name}"
         server = DelayBatchServer(
             params, cfg, slots=BS, cache_len=SS, out_capacity=128, prompt_bucket=32,
             page_size=PS, dtype=torch.bfloat16,
@@ -523,9 +797,11 @@ def phase_server(params) -> dict:
                 raise AssertionError(f"server {name}: malformed grid {c.tokens.shape}, "
                                      f"{c.steps} steps for budget {rids[c.request_id]}")
         steps, admissions = server.total_steps, len(rids) + server.total_preemptions
-        if mode_counts[kernel] < L * steps or mode_counts["flash"] < L * admissions:
+        if (mode_counts[kernel] < L * steps or mode_counts["flash"] < L * admissions
+                or mode_counts["w8a16"] < w8_per_pass * (steps + admissions)):
             raise AssertionError(f"server {name}: launch counts {mode_counts} below {L} x "
-                                 f"{steps} steps ({kernel}) / {L} x {admissions} prefills (flash)")
+                                 f"{steps} steps ({kernel}) / {L} x {admissions} prefills (flash)"
+                                 f" / {w8_per_pass} x {steps + admissions} passes (w8a16)")
         frames = sum(min(c.steps, rids[c.request_id]) for c in done)
         kv_bytes = sum(t.numel() * t.element_size() for t in server.state.cache if t.ndim > 2)
         log(f"  server {name}: {len(done)} requests, {steps} steps, {frames} frames in "
@@ -535,12 +811,145 @@ def phase_server(params) -> dict:
             f"peak device memory {torch.cuda.max_memory_allocated() / 2**30:.2f} GiB "
             f"(warmup {warm_s:.2f} s)")
         log(f"  server {name}: launches {kernel} {mode_counts[kernel]} (>= {L} x {steps}), "
-            f"flash {mode_counts['flash']} (>= {L} x {admissions})")
+            f"flash {mode_counts['flash']} (>= {L} x {admissions})"
+            + (f", w8a16 {mode_counts['w8a16']} (>= {w8_per_pass} x {steps + admissions})"
+               if w8_per_pass else ""))
         counts[name] = mode_counts
         del server, done
         gc.collect()
         torch.cuda.empty_cache()
     return counts
+
+
+def param_bytes(params) -> int:
+    return sum(p.numel() * p.element_size() for p in params.parameters())
+
+
+@contextlib.contextmanager
+def plain_w8a16():
+    """Within: every int8 dense layer and head computes through the W8A16
+    kernel's plain version, on the card (the reference for phase 6)."""
+    kernel = w8_gemm.w8a16_gemm
+    w8_gemm.w8a16_gemm = w8_gemm.w8a16_gemm_ref
+    try:
+        yield
+    finally:
+        w8_gemm.w8a16_gemm = kernel
+
+
+CLEAR = 0.1  # a clear argmax: top-1 above top-2 by this share of the row's logit std
+
+
+def logit_agreement(got, ref):
+    """(argmax agreement at all rows, at the rows where ``ref``'s argmax is
+    clear, correlation) of two (..., V) logit tensors. With random weights
+    many rows are near-ties that any rounding decides (the top two of 1025
+    or 152k Gaussian logits lie ~0.2-0.3 std apart on average); a clear row
+    has its top two ``CLEAR`` std apart."""
+    got, ref = got.float(), ref.float()
+    same = got.argmax(-1) == ref.argmax(-1)
+    top2 = ref.topk(2, dim=-1).values
+    clear = (top2[..., 0] - top2[..., 1]) > CLEAR * ref.std(dim=-1)
+    corr = float(torch.corrcoef(torch.stack([got.flatten(), ref.flatten()]))[0, 1])
+    return float(same.float().mean()), float(same[clear].float().mean()), corr
+
+
+def phase_int8(backend):
+    """Phase 6 on phase 4's engine: the bf16 logits of one batch-4 prefill,
+    ``engine.quantize()`` in place, and the int8 logits of the same prefill
+    (kernels) held against the same int8 model through the plain versions
+    and against the bf16 logits; then the solo requests and the server in
+    two KV modes on the int8 weights. Every prefill and decode step runs 7
+    W8A16 launches per layer plus one for the text head and one for the 32
+    audio heads.
+
+    The logit checks run at full width over the first 2 of the 36 layers
+    (the depth of the JAX package's own check, ``tests/test_quant.py``):
+    int8 against bf16 weights with its thresholds (argmax agreement > 0.95
+    at all rows, as there, and at the rows with a clear argmax,
+    ``logit_agreement``; correlation > 0.999), kernels against plain versions within argmax
+    agreement > 0.99 there, correlation > 0.9999: summing in another order
+    alone moves 2-layer logits by ~1e-5 of correlation at width 1024 on the
+    CPU, more at 4096 (the first run here measured 0.99996, NVIDIA H100).
+    Over all 36 layers of random
+    weights a difference grows from layer to layer, whatever its source:
+    the first runs of this phase measured, on an NVIDIA H100, int8 against
+    bf16 argmax agreement 0.497 (text) / 0.844 (audio), correlation 0.9964,
+    and the kernels against the plain versions (a bf16 rounding apart here
+    and there) 0.848 / 0.940, correlation 0.99973. Those are logged, with
+    only a text correlation > 0.99 required."""
+    engine, proc = backend.engine, backend.processor
+    cfg = engine.config
+    per_pass = 7 * cfg.language_config.num_hidden_layers + 2
+    cut = dataclasses.replace(cfg, language_config=dataclasses.replace(
+        cfg.language_config, num_hidden_layers=2))
+    batch = four_prompts(proc)
+    ids = torch.as_tensor(batch["input_ids"], device=DEV)
+    mask = torch.as_tensor(batch["attention_mask"], device=DEV)
+    B, T, _ = ids.shape
+
+    def prefill_logits(c):  # the model of config c: the first c's layers of the 36
+        cache = qwen3.init_kv_cache(c.language_config, B, 256, dtype=torch.bfloat16, device=DEV)
+        valid = torch.zeros((B, 256), dtype=torch.bool, device=DEV)
+        valid[:, :T] = mask
+        pos = torch.arange(T, dtype=torch.int32, device=DEV)[None].expand(B, T)
+        t, a, _ = delay_forward(engine.params, c, ids, positions=pos, kv_valid=valid,
+                                cache=cache, cache_offset=0)
+        return t[mask], a[mask][..., :-1]  # real positions; the masked pad column dropped
+
+    bf16 = {d: prefill_logits(c) for d, c in ((2, cut), (36, cfg))}
+    bf16_bytes = param_bytes(engine.params)
+    t0 = time.perf_counter()
+    engine.quantize()
+    torch.cuda.synchronize()
+    quant_s = time.perf_counter() - t0
+    gc.collect()
+    torch.cuda.empty_cache()
+    int8_bytes = param_bytes(engine.params)
+    log(f"  engine.quantize() in {quant_s:.2f} s: Delay parameters {bf16_bytes / 1e9:.2f} GB "
+        f"(bf16) -> {int8_bytes / 1e9:.2f} GB (int8 matmul weights), "
+        f"{torch.cuda.memory_allocated() / 2**30:.2f} GiB allocated")
+    reset_counts()
+    kern = {d: prefill_logits(c) for d, c in ((2, cut), (36, cfg))}
+    if read_counts()["w8a16"] < per_pass:
+        raise AssertionError("int8 prefill did not go through the W8A16 kernel")
+    with plain_w8a16():
+        plain = {d: prefill_logits(c) for d, c in ((2, cut), (36, cfg))}
+    n = int(mask.sum())
+    for d in (2, 36):
+        rows = {}
+        for what, got, ref in (("int8 kernels vs plain versions", kern[d], plain[d]),
+                               ("int8 (kernels) vs bf16", kern[d], bf16[d]),
+                               ("int8 (plain versions) vs bf16", plain[d], bf16[d])):
+            rows[what] = [logit_agreement(got[i], ref[i]) for i in (0, 1)]
+            (at, ct, rt), (aa, ca, ra) = rows[what]
+            log(f"  {what}, prefill logits over {d} layers (B={B}, T={T}, {n} positions): "
+                f"argmax agreement text {at:.4f}, audio {aa:.4f}; at clear rows {ct:.4f}, "
+                f"{ca:.4f}; correlation text {rt:.7f}, audio {ra:.7f}")
+        k, b = rows["int8 kernels vs plain versions"], rows["int8 (kernels) vs bf16"]
+        if d == 2 and not (min(k[0][1], k[1][1]) > 0.99 and k[0][2] > 0.9999):
+            raise AssertionError(f"2 layers, int8 kernels vs plain versions: {rows}")
+        if d == 2 and not (min(b[0][0], b[1][0], b[0][1], b[1][1]) > 0.95 and b[0][2] > 0.999):
+            raise AssertionError(f"2 layers, int8 vs bf16 weights: {rows}")
+        if not min(r[0][2] for r in rows.values()) > 0.99:
+            raise AssertionError(f"{d} layers: a text correlation under 0.99: {rows}")
+    log("  checked: 2 layers, kernels vs plain argmax at clear rows > 0.99, correlation > "
+        "0.9999; int8 vs bf16 argmax at all and at clear rows > 0.95, correlation > 0.999; "
+        "36 layers, text correlation > 0.99")
+    del bf16, kern, plain
+    torch.cuda.empty_cache()
+
+    counts, prefills, steps = drive_solo(backend, "int8")
+    if counts["w8a16"] < per_pass * (prefills + steps):
+        raise AssertionError(f"int8 solo: {counts['w8a16']} W8A16 launches below {per_pass} x "
+                             f"({prefills} prefills + {steps} decode steps)")
+    log(f"  int8 launches: w8a16 {counts['w8a16']} (>= {per_pass} x ({prefills} prefills + "
+        f"{steps} decode steps))")
+    gc.collect()
+    torch.cuda.empty_cache()
+    server_counts = phase_server(engine.params, modes=(SERVER_MODES[0], SERVER_MODES[3]),
+                                 label="int8 weights, ", w8_per_pass=per_pass)
+    return counts, server_counts
 
 
 def main() -> None:
@@ -561,6 +970,10 @@ def main() -> None:
     for entry in ("mosstts_decode_attention", "mosstts_decode_attention_q8",
                   "mosstts_paged_decode_attention", "mosstts_paged_decode_attention_q8"):
         decode_attn._entry(entry)
+    decode_attn._entry("mosstts_decode_attention_q8t", 1)
+    w8_gemm._entry("mosstts_w8a16_gemm")
+    w8_gemm._entry("mosstts_int4_gemm")
+    w8_gemm._entry("mosstts_w8a8_gemm", 2)
     log(f"  {lib.relative_to(Path(__file__).resolve().parent)} in "
         f"{time.perf_counter() - t0:.2f} s")
 
@@ -570,22 +983,37 @@ def main() -> None:
     # decode's line keeps its B=4 times (PR 1's shape) and the worse error of both shapes
     numbers["decode"]["max_abs_err"] = max(numbers["decode"]["max_abs_err"],
                                            numbers.pop("decode_b16")["max_abs_err"])
+    # decode_attention_q8t's line: the bf16-scale times, the worse error of both scale types
+    numbers["decode_q8t"] = numbers.pop("decode_q8t_bf16")
+    numbers["decode_q8t"]["max_abs_err"] = max(numbers["decode_q8t"]["max_abs_err"],
+                                               numbers.pop("decode_q8t_f32")["max_abs_err"])
+    numbers.update(phase_kernels_gemm())
     phase_small_reference()
+    phase_small_int8()
     log("phase 3b: small f32 continuous-batching server, card vs CPU and paged vs linear")
     phase_small_server()
 
     log("phase 4: solo path at MOSS-TTS 8B width")
-    solo_counts, params = phase_main_path()
+    solo_counts, backend = phase_main_path()
     gc.collect()
     torch.cuda.empty_cache()
 
     log("phase 5: continuous batching at MOSS-TTS 8B width")
-    server_counts = phase_server(params)
+    server_counts = phase_server(backend.engine.params)
+    gc.collect()
+    torch.cuda.empty_cache()
 
-    launches = {name: solo_counts[name] + sum(c[name] for c in server_counts.values())
-                for name in COUNTERS}
-    if not all(launches.values()):
+    log("phase 6: int8 weights at MOSS-TTS 8B width")
+    int8_counts, int8_server_counts = phase_int8(backend)
+
+    runs = [solo_counts, int8_counts, *server_counts.values(), *int8_server_counts.values()]
+    launches = {name: sum(c[name] for c in runs) for name in COUNTERS}
+    if not all(launches[name] for name in COUNTERS if name not in OFF_PATH):
         raise AssertionError(f"a kernel was never launched on the main paths: {launches}")
+    launches.update(decode_q8t=numbers.pop("q8t_launches"), w8a8=numbers["w8a8"].pop("launches"),
+                    int4=numbers["int4"].pop("launches"))
+    if not all(launches[name] for name in OFF_PATH):
+        raise AssertionError(f"an off-path kernel was never launched on its path: {launches}")
     kernels = [
         dict(name="flash_attention", route="cuda", source="mosstts_tpu_torch/csrc/flash_attn.cu",
              replaces="mosstts_tpu/ops/pallas/flash.py:83", launches=launches["flash"],
@@ -606,6 +1034,16 @@ def main() -> None:
              source="mosstts_tpu_torch/csrc/paged_attn.cu",
              replaces="mosstts_tpu/ops/pallas/paged_attn.py:243",
              launches=launches["paged_q8"], **numbers["paged_q8"]),
+        dict(name="decode_attention_q8t", route="cuda",
+             source="mosstts_tpu_torch/csrc/decode_attn.cu",
+             replaces="mosstts_tpu/ops/pallas/decode_attn.py:414",
+             launches=launches["decode_q8t"], **numbers["decode_q8t"]),
+        dict(name="w8a16_gemm", route="cuda", source="mosstts_tpu_torch/csrc/w8_gemm.cu",
+             replaces="tools/tune_mm8.py:165", launches=launches["w8a16"], **numbers["w8a16"]),
+        dict(name="w8a8_gemm", route="cuda", source="mosstts_tpu_torch/csrc/w8_gemm.cu",
+             replaces="tools/tune_mm8.py:85", launches=launches["w8a8"], **numbers["w8a8"]),
+        dict(name="int4_gemm", route="cuda", source="mosstts_tpu_torch/csrc/w8_gemm.cu",
+             replaces="tools/probe_int4.py:102", launches=launches["int4"], **numbers["int4"]),
     ]
     print(json.dumps({"kernels": kernels}))
     print(card_line())

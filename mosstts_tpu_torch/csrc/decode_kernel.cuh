@@ -1,7 +1,8 @@
-// Split-KV single-token decode attention, shared by the four decode kernels
+// Split-KV single-token decode attention, shared by the five decode kernels
 // of mosstts_tpu_torch: one template over the query type (bf16 or f32), the
-// cache's value type (the query type, or int8 with one f32 scale per slot and
-// KV head) and the cache's addressing (the layer-stacked linear cache
+// cache's value type (the query type, or int8 with one scale per slot and KV
+// head, the scales f32 or, for decode_attention_q8t, bf16) and the cache's
+// addressing (the layer-stacked linear cache
 // (L, B, KV, S, hd), or a page pool (L, NP, KV, P, hd) read through a (B, MP)
 // int32 page table). decode_attn.cu instantiates the linear forms,
 // paged_attn.cu the paged ones; each has its own C entry point.
@@ -63,8 +64,8 @@ struct Args {
     const void* q;          // (B, H, hd)
     const void* k;          // values: (L, B, KV, S, hd) or (L, NP, KV, P, hd)
     const void* v;
-    const float* k_scale;   // int8 caches: (L, B|NP, KV, S|P) f32; else null
-    const float* v_scale;
+    const void* k_scale;    // int8 caches: (L, B|NP, KV, S|P) f32 or bf16; else null
+    const void* v_scale;
     const uint8_t* valid;   // (B, >= attend_len) bool, logical slots
     const int32_t* table;   // paged: (B, MP) int32; else null
     float* part;            // scratch: B * KV * chunks * G * (hd + 2) f32
@@ -100,7 +101,7 @@ __device__ __forceinline__ void load_row(const T* __restrict__ p, float (&out)[N
     for (int e = 0; e < N; ++e) out[e] = to_f(t[e]);
 }
 
-template <typename TQ, typename TC, int HD, bool PAGED>
+template <typename TQ, typename TC, typename TS, int HD, bool PAGED>
 __global__ void __launch_bounds__(NW * 32) partial_kernel(const Args a) {
     constexpr int EPL = HD / 32;  // head-dim elements per lane
     constexpr bool SCALED = std::is_same<TC, int8_t>::value;
@@ -149,8 +150,8 @@ __global__ void __launch_bounds__(NW * 32) partial_kernel(const Args a) {
         load_row<TC, EPL>(kc + row + lane * EPL, kx[j]);
         load_row<TC, EPL>(vc + row + lane * EPL, vx[j]);
         if constexpr (SCALED) {
-            ksc[j] = a.k_scale[srow];
-            vsc[j] = a.v_scale[srow];
+            ksc[j] = to_f(static_cast<const TS*>(a.k_scale)[srow]);
+            vsc[j] = to_f(static_cast<const TS*>(a.v_scale)[srow]);
         } else {
             ksc[j] = 1.f;
             vsc[j] = 1.f;
@@ -250,39 +251,41 @@ __global__ void __launch_bounds__(MAX_GROUP * HD) merge_kernel(const Args a, int
     out[b * a.o_sb + (kvh * G + g) * a.o_sh + d] = from_f<TQ>(num / fmaxf(den, 1e-30f));
 }
 
-template <typename TQ, typename TC, int HD, bool PAGED>
+template <typename TQ, typename TC, typename TS, int HD, bool PAGED>
 int launch(const Args& a, int B, cudaStream_t stream) {
     const int NS = (a.attend_len + CHUNK - 1) / CHUNK;
-    partial_kernel<TQ, TC, HD, PAGED><<<dim3(a.KV, B, NS), NW * 32, 0, stream>>>(a);
+    partial_kernel<TQ, TC, TS, HD, PAGED><<<dim3(a.KV, B, NS), NW * 32, 0, stream>>>(a);
     cudaError_t err = cudaGetLastError();
     if (err != cudaSuccess) return (int)err;
     merge_kernel<TQ, HD><<<dim3(a.KV, B), (a.H / a.KV) * HD, 0, stream>>>(a, NS);
     return (int)cudaGetLastError();
 }
 
-// Dispatch on the head dim; the query type TQ and the cache's value type TC
-// (TQ itself, or int8_t) are fixed by the caller.
-template <typename TQ, typename TC, bool PAGED>
+// Dispatch on the head dim; the query type TQ, the cache's value type TC
+// (TQ itself, or int8_t) and the scale type TS are fixed by the caller.
+template <typename TQ, typename TC, typename TS, bool PAGED>
 int dispatch_hd(const Args& a, int B, int hd, cudaStream_t stream) {
     if (a.KV <= 0 || a.H % a.KV != 0 || a.H / a.KV > MAX_GROUP) return (int)cudaErrorInvalidValue;
     switch (hd) {
-        case 64: return launch<TQ, TC, 64, PAGED>(a, B, stream);
-        case 128: return launch<TQ, TC, 128, PAGED>(a, B, stream);
-        case 256: return launch<TQ, TC, 256, PAGED>(a, B, stream);
+        case 64: return launch<TQ, TC, TS, 64, PAGED>(a, B, stream);
+        case 128: return launch<TQ, TC, TS, 128, PAGED>(a, B, stream);
+        case 256: return launch<TQ, TC, TS, 256, PAGED>(a, B, stream);
         default: return (int)cudaErrorInvalidValue;
     }
 }
 
-// q_dtype is kBF16 or kF32. With QUANT the cache holds int8 values and f32
-// scales; otherwise values of the query type.
-template <bool QUANT, bool PAGED>
+// q_dtype is kBF16 or kF32. With QUANT the cache holds int8 values and
+// scales of type TS (f32, or bf16 for decode_attention_q8t); otherwise
+// values of the query type.
+template <bool QUANT, bool PAGED, typename TS = float>
 int dispatch(const Args* a, int B, int hd, int q_dtype, void* stream) {
     cudaStream_t st = static_cast<cudaStream_t>(stream);
     if (q_dtype == kBF16)
-        return dispatch_hd<__nv_bfloat16, std::conditional_t<QUANT, int8_t, __nv_bfloat16>,
+        return dispatch_hd<__nv_bfloat16, std::conditional_t<QUANT, int8_t, __nv_bfloat16>, TS,
                            PAGED>(*a, B, hd, st);
     if (q_dtype == kF32)
-        return dispatch_hd<float, std::conditional_t<QUANT, int8_t, float>, PAGED>(*a, B, hd, st);
+        return dispatch_hd<float, std::conditional_t<QUANT, int8_t, float>, TS, PAGED>(*a, B, hd,
+                                                                                       st);
     return (int)cudaErrorInvalidValue;
 }
 

@@ -28,7 +28,8 @@ PyTorch's, not JAX's threefry bits, so cross-framework parity holds for
 greedy requests. A preempted request resumes with its own sampling
 overrides and seed (the JAX server requeues it without them, so it resumes
 at the server's defaults). ``run_events``, ``run_drain`` and ``mesh=`` are
-not ported.
+not ported. The server serves whatever params it is given, int8 weights
+(``DelayEngine.quantize``) included, in all four cache modes.
 """
 from __future__ import annotations
 

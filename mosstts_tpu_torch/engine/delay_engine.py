@@ -2,7 +2,7 @@
 MOSS-TTSD, MOSS-VoiceGenerator, MOSS-SoundEffect).
 
 Ports ``mosstts_tpu/engine/delay_engine.py``: ``attend_bucket``,
-``DelayEngine`` with ``random_init`` and ``generate``. Each decode step runs
+``DelayEngine`` with ``random_init``, ``quantize`` and ``generate``. Each decode step runs
 eagerly, and the host polls the stop flags every ``poll_every`` steps. The
 JAX package's ``on_device`` loop is one ``lax.while_loop`` program; here
 ``on_device=True`` runs the same eager loop (a CUDA graph of the step is
@@ -23,6 +23,7 @@ from ..models.delay import (
     init_delay_params,
     make_sampling,
 )
+from ..ops.quant import quantize_tree_
 from ..ops.sampling import row_generators
 
 
@@ -42,8 +43,8 @@ def attend_bucket(needed: int, base: int, cap: int) -> int:
 class DelayEngine:
     """Ports ``mosstts_tpu.engine.delay_engine.DelayEngine`` (solo engine,
     linear KV cache in ``dtype``, or int8 with per-slot scales when
-    ``kv_quant``). ``params`` is a ``DelayParams`` module on ``device``.
-    ``quantize()`` (int8 weights) is not ported yet."""
+    ``kv_quant``). ``params`` is a ``DelayParams`` module on ``device``,
+    float or, after ``quantize()``, with int8 matmul weights."""
 
     def __init__(self, params: DelayParams, config: DelayConfig, *, dtype=torch.bfloat16,
                  cache_bucket: int = 256, top_k_text: int = 50, top_k_audio: int = 25,
@@ -65,6 +66,20 @@ class DelayEngine:
         gen = torch.Generator(device=device).manual_seed(seed)
         params = init_delay_params(config, generator=gen, dtype=dtype, device=device)
         return cls(params, config, dtype=dtype, device=device, **kw)
+
+    def quantize(self, mode: str = "int8", kv_cache: bool = False) -> "DelayEngine":
+        """Ports ``mosstts_tpu.engine.delay_engine.DelayEngine.quantize``:
+        weight-only int8 serving. Every matmul weight of ``params`` becomes a
+        ``QuantWeight`` in place (``ops.quant.quantize_tree_``; the float
+        tensors are freed, so the model never holds both); embeddings and
+        norms keep their dtype. ``kv_cache=True`` also switches later
+        prefills to the int8 KV cache. Returns ``self``."""
+        if mode != "int8":
+            raise ValueError(f"unknown quantization mode: {mode}")
+        quantize_tree_(self.params)
+        if kv_cache:
+            self.kv_quant = True
+        return self
 
     @torch.no_grad()
     def generate(

@@ -7,7 +7,9 @@ Ports ``mosstts_tpu/models/delay.py``: ``init_delay_params``,
 ``_sample_text_full``, ``_delay_sample_and_update`` and
 ``delay_decode_step``. The 32 audio tables and 33 heads stay stacked
 (``(n_vq, Va, D)`` and ``(n_vq, D, Va)``) so the embedding sum and the head
-projection are one gather and one batched product.
+projection are one gather and one batched product. The heads may be int8
+``QuantWeight``s (``ops/quant.py``, ``DelayEngine.quantize``): the text head
+goes through ``dense``, the audio stack through one W8A16 launch.
 
 State updates follow the JAX package's order: ``kv_valid[pos]`` is set by
 the sampler, before the next forward writes K/V at ``pos``; ``pos``
@@ -26,6 +28,8 @@ from ..core.config import DelayConfig
 from ..nn.qwen3 import (Qwen3Params, empty_param, fill_qwen3_params_, init_kv_cache,
                         init_quant_kv_cache, qwen3_forward)
 from ..ops.basic import dense, put_drop_
+from ..ops.kernels import w8_gemm
+from ..ops.quant import is_quantized
 from ..ops.sampling import (
     align_rows,
     apply_repetition_penalty_seen,
@@ -76,17 +80,28 @@ def delay_embed(params: DelayParams, cfg: DelayConfig, ids: torch.Tensor) -> tor
     return emb + audio.to(emb.dtype).sum(dim=-2)
 
 
-def _audio_head_logits(hidden: torch.Tensor, heads: torch.Tensor) -> torch.Tensor:
+def _audio_head_logits(hidden: torch.Tensor, heads) -> torch.Tensor:
     """Ports ``mosstts_tpu.models.delay._audio_head_logits``: (B, T, D) x
-    (n, D, V) -> (B, T, n, V) float32. The product rounds to the weight dtype
-    before the cast, so bf16 weights give bf16-rounded logits (JAX keeps the
-    float32 accumulator); float32 weights are exact. The rows go in as one
-    (B*T, D) matrix against the (n, D, V) stack, a batched product that
-    reads the heads in place; a 4-D broadcast ``matmul`` or
-    ``einsum("btd,ndv->btnv")`` would first copy the heads (269 MB at 8B)."""
+    (n, D, V) -> (B, T, n, V), the float32 accumulator as it is (no rounding
+    to the weight dtype). The rows go in as one (B*T, D) matrix against the
+    (n, D, V) stack, read in place: no float copy of the heads (269 MB in
+    bf16 at 8B) on the card and no per-head loop.
+
+    * int8 ``QuantWeight`` heads: ``(x @ q[n]) * scale[n]``, one W8A16
+      launch over the whole stack with f32 output.
+    * bf16 heads on the card: one batched product with a float32 output
+      (``torch.bmm(..., out_dtype=torch.float32)``).
+    * float32 heads, and bf16 heads on the CPU: the product in float32."""
+    if is_quantized(heads):
+        return w8_gemm.w8a16_gemm(hidden.contiguous(), heads.q, heads.scale, torch.float32)
     B, T, D = hidden.shape
-    logits = torch.matmul(hidden.reshape(B * T, D), heads)  # (n, B*T, V)
-    return logits.float().permute(1, 0, 2).reshape(B, T, heads.shape[0], heads.shape[2])
+    n, V = heads.shape[0], heads.shape[2]
+    x = hidden.reshape(B * T, D)
+    if x.device.type == "cuda" and heads.dtype != torch.float32:
+        logits = torch.bmm(x.expand(n, B * T, D), heads, out_dtype=torch.float32)
+    else:
+        logits = torch.matmul(x.float(), heads.float())  # (n, B*T, V)
+    return logits.permute(1, 0, 2).reshape(B, T, n, V)
 
 
 def delay_forward(

@@ -22,6 +22,10 @@ these are the only routes: a shape a kernel does not take raises in its
 wrapper. The wrappers run their plain versions on CPU tensors. The codec's
 ring cache and the no-cache pass stay on the plain attention, as in JAX.
 
+The stacked matmul weights may be int8 ``QuantWeight``s (``ops/quant.py``):
+``lay.wq[li]`` is then a view of layer ``li``'s values and scales, which
+``dense`` hands to the W8A16 kernel at that layer's offset, with no copy.
+
 The caches are written in place (slice, ``index_copy_`` or indexed store
 into the preallocated buffers): no copy of a cache per step. The quantize
 and scatter of a cache write are plain PyTorch, as in JAX.

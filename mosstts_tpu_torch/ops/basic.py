@@ -3,13 +3,16 @@
 Ports ``mosstts_tpu/ops/basic.py``. Rounding happens at the same points as
 in the JAX package: RMSNorm reduces in float32 and casts back; ``dense``
 accumulates in float32 and rounds once to the input dtype (a same-dtype
-``torch.matmul`` does exactly that); RoPE rotates in float32. Weights keep
-the JAX (in, out) layout.
+``torch.matmul`` does exactly that, and so does the W8A16 kernel for an int8
+weight); RoPE rotates in float32. Weights keep the JAX (in, out) layout.
 """
 from __future__ import annotations
 
 import torch
 import torch.nn.functional as F
+
+from .kernels import w8_gemm
+from .quant import is_quantized
 
 
 def rms_norm(x: torch.Tensor, weight: torch.Tensor, eps: float = 1e-6) -> torch.Tensor:
@@ -19,11 +22,18 @@ def rms_norm(x: torch.Tensor, weight: torch.Tensor, eps: float = 1e-6) -> torch.
     return (weight.float() * (xf * torch.rsqrt(var + eps))).to(x.dtype)
 
 
-def dense(x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
-    """Ports ``mosstts_tpu.ops.basic.dense`` (no bias, no int8 weight):
-    ``x @ w`` with w laid out (in, out), float32 accumulation, output in x's
-    dtype."""
-    return torch.matmul(x, w)
+def dense(x: torch.Tensor, w) -> torch.Tensor:
+    """Ports ``mosstts_tpu.ops.basic.dense`` (no bias): ``x @ w`` with w
+    laid out (in, out), float32 accumulation, output in x's dtype. ``w`` may
+    be an int8 ``QuantWeight``/``QuantView`` (``ops/quant.py``):
+    ``(x @ q) * scale`` in float32, rounded once, through the W8A16 kernel
+    on CUDA tensors (bf16 activations only, as the JAX package serves int8
+    weights; other dtypes raise there) and its plain version on the CPU."""
+    if not is_quantized(w):
+        return torch.matmul(x, w)
+    if x.device.type == "cuda" and x.dtype != torch.bfloat16:
+        raise TypeError(f"dense: int8 weights take bf16 activations on the card, got {x.dtype}")
+    return w8_gemm.w8a16_gemm(x.contiguous(), w.q, w.scale, x.dtype)
 
 
 def swiglu(x, w_gate, w_up, w_down) -> torch.Tensor:

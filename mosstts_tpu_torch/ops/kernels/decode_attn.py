@@ -8,7 +8,12 @@ Ports ``mosstts_tpu/ops/pallas/decode_attn.py``:
 * ``decode_attention_q8``: the same over an int8 cache with one f32 scale
   per (layer, row, KV head, slot), K's folded into the score and V's into
   the probability (the plain version dequantizes to f32 first, as the JAX
-  package's non-kernel path does, ``nn/qwen3.py:476-481``).
+  package's non-kernel path does, ``nn/qwen3.py:476-481``);
+* ``decode_attention_q8t``: ``decode_attention_q8`` with the scales in bf16
+  or f32. The JAX kernel reads them pre-tiled (``pack_kv_scales``,
+  ``pack_valid``) to get around a Mosaic lane-concat limit; the port keeps
+  the (L, B, KV, S) scale layout, so it has neither. Nothing on the serving
+  path calls it, as in the JAX package.
 
 Causality rides ``kv_valid`` alone (a slot is valid iff it holds a token at
 a position <= the current one; the Delay state machine keeps that
@@ -38,6 +43,7 @@ _DTYPE_CODES = {torch.bfloat16: 0, torch.float32: 1}
 
 LAUNCHES = 0  # decode_attention kernel launches since the count was last set to 0
 LAUNCHES_Q8 = 0  # decode_attention_q8 kernel launches
+LAUNCHES_Q8T = 0  # decode_attention_q8t kernel launches
 
 
 def supports(head_dim: int, num_heads: int, num_kv_heads: int) -> bool:
@@ -76,6 +82,14 @@ def decode_attention_q8_ref(q, k_cache, k_scale, v_cache, v_scale, kv_valid, lay
     return attend_rows(q, k, v, kv_valid[:, :a], scale)
 
 
+def decode_attention_q8t_ref(q, k_cache, k_scale, v_cache, v_scale, kv_valid, layer: int, *,
+                             scale: float, attend_len: int):
+    """Plain version of ``decode_attention_q8t``: the scales (bf16 or f32)
+    widened to f32, then ``decode_attention_q8_ref``."""
+    return decode_attention_q8_ref(q, k_cache, k_scale.float(), v_cache, v_scale.float(),
+                                   kv_valid, layer, scale=scale, attend_len=attend_len)
+
+
 class DecodeArgs(ctypes.Structure):
     """``mosstts::decode::Args`` of ``csrc/decode_kernel.cuh``, field for
     field: pointers, then ints, then strides in elements, then the scale."""
@@ -92,10 +106,11 @@ class DecodeArgs(ctypes.Structure):
 
 
 def check_common(name: str, q, k, v, kv_valid, layer: int, attend_len: int, capacity: int,
-                 value_dtype: torch.dtype, scales=()) -> None:
+                 value_dtype: torch.dtype, scales=(), scale_dtypes=(torch.float32,)) -> None:
     """The checks every decode wrapper makes before it passes pointers:
-    dtypes, head dims, group size, layouts the vector loads take, the layer,
-    ``attend_len`` against the logical ``capacity``, and devices."""
+    dtypes, head dims, group size, layouts the vector loads take, the
+    scales' dtype (one of ``scale_dtypes``, both alike) and layout, the
+    layer, ``attend_len`` against the logical ``capacity``, and devices."""
     B, H, hd = q.shape
     L, _, KV, _, hdc = k.shape
     if q.dtype not in _DTYPE_CODES or k.dtype != value_dtype or v.dtype != value_dtype:
@@ -114,8 +129,10 @@ def check_common(name: str, q, k, v, kv_valid, layer: int, attend_len: int, capa
         raise ValueError(f"{name}: k/v must share one layout with a contiguous head dim and "
                          f"rows aligned to {align} bytes, and q's head dim must be contiguous")
     for s in scales:
-        if s.dtype != torch.float32 or s.shape != k.shape[:4] or s.stride() != scales[0].stride():
-            raise ValueError(f"{name}: scales must be f32 {tuple(k.shape[:4])}, one layout")
+        if (s.dtype not in scale_dtypes or s.dtype != scales[0].dtype
+                or s.shape != k.shape[:4] or s.stride() != scales[0].stride()):
+            raise ValueError(f"{name}: scales must be {tuple(k.shape[:4])} of one dtype in "
+                             f"{scale_dtypes}, one layout")
     if not 0 <= layer < L or not 1 <= attend_len <= capacity:
         raise ValueError(f"{name}: layer {layer} of {L}, attend_len {attend_len} of {capacity}")
     if (kv_valid.dtype != torch.bool or kv_valid.shape[0] != B
@@ -128,9 +145,11 @@ def check_common(name: str, q, k, v, kv_valid, layer: int, attend_len: int, capa
 
 
 def launch(entry: str, q, k, v, kv_valid, layer: int, attend_len: int, scale: float, *,
-           k_scale=None, v_scale=None, table: Optional[torch.Tensor] = None) -> torch.Tensor:
+           k_scale=None, v_scale=None, table: Optional[torch.Tensor] = None,
+           extra: tuple = ()) -> torch.Tensor:
     """Fill ``DecodeArgs`` from checked tensors, allocate the output and the
-    scratch, and launch the C entry point ``entry`` on the current stream."""
+    scratch, and launch the C entry point ``entry`` on the current stream;
+    ``extra`` ints go after the query dtype code."""
     B, H, hd = q.shape
     KV = k.shape[2]
     out = torch.empty((B, H, hd), dtype=q.dtype, device=q.device)
@@ -153,8 +172,8 @@ def launch(entry: str, q, k, v, kv_valid, layer: int, attend_len: int, scale: fl
         valid_sb=kv_valid.stride(0), table_sb=table.stride(0) if table is not None else 0,
         o_sb=out.stride(0), o_sh=out.stride(1), scale=float(scale),
     )
-    rc = _entry(entry)(ctypes.byref(a), B, hd, _DTYPE_CODES[q.dtype],
-                       torch.cuda.current_stream(q.device).cuda_stream)
+    rc = _entry(entry, len(extra))(ctypes.byref(a), B, hd, _DTYPE_CODES[q.dtype], *extra,
+                                   torch.cuda.current_stream(q.device).cuda_stream)
     if rc != 0:
         raise RuntimeError(f"{entry} kernel launch failed: cudaError {rc}")
     return out
@@ -220,13 +239,47 @@ def decode_attention_q8(
     return out
 
 
+def decode_attention_q8t(
+    q: torch.Tensor,  # (B, H, hd) bf16 or f32
+    k_cache: torch.Tensor,  # (L, B, KV, S, hd) int8
+    k_scale: torch.Tensor,  # (L, B, KV, S) bf16 or f32
+    v_cache: torch.Tensor,  # (L, B, KV, S, hd) int8
+    v_scale: torch.Tensor,  # (L, B, KV, S), k_scale's dtype
+    kv_valid: torch.Tensor,  # (B, >= attend_len) bool
+    layer: int,
+    *,
+    scale: float,
+    attend_len: int,
+) -> torch.Tensor:
+    """Returns (B, H, hd) in q's dtype. Ports
+    ``mosstts_tpu.ops.pallas.decode_attn.decode_attention_q8t`` with the
+    scales in the untiled (L, B, KV, S) layout."""
+    if not _on_cuda("decode_attention_q8t", q):
+        return decode_attention_q8t_ref(q, k_cache, k_scale, v_cache, v_scale, kv_valid, layer,
+                                        scale=scale, attend_len=attend_len)
+    check_common("decode_attention_q8t", q, k_cache, v_cache, kv_valid, layer, attend_len,
+                 k_cache.shape[3], torch.int8, scales=(k_scale, v_scale),
+                 scale_dtypes=tuple(_DTYPE_CODES))
+    if k_cache.shape[1] != q.shape[0]:
+        raise ValueError(f"decode_attention_q8t: cache batch {k_cache.shape[1]} "
+                         f"!= q batch {q.shape[0]}")
+    out = launch("mosstts_decode_attention_q8t", q, k_cache, v_cache, kv_valid, layer,
+                 attend_len, scale, k_scale=k_scale, v_scale=v_scale,
+                 extra=(_DTYPE_CODES[k_scale.dtype],))
+    global LAUNCHES_Q8T
+    LAUNCHES_Q8T += 1
+    return out
+
+
 @functools.cache
-def _entry(name: str):
-    """The C entry point ``name``: (args*, B, hd, q dtype code, stream)."""
+def _entry(name: str, n_extra: int = 0):
+    """The C entry point ``name``: (args*, B, hd, q dtype code, ``n_extra``
+    more ints, stream)."""
     from . import _build
 
     i = ctypes.c_int
-    return _build.kernel(name, [ctypes.POINTER(DecodeArgs), i, i, i, ctypes.c_void_p])
+    return _build.kernel(name, [ctypes.POINTER(DecodeArgs), i, i, i] + [i] * n_extra
+                         + [ctypes.c_void_p])
 
 
 @functools.cache

@@ -1,10 +1,10 @@
-"""Where the time of the four decode-attention kernels goes, on one NVIDIA GPU.
+"""Where the time of the decode-attention kernels goes, on one NVIDIA GPU.
 
     python3 -m mosstts_tpu_torch.tools.profile_decode [--batch 4 16] [--attend 256 1024]
 
 For each batch size and attend length, makes the inputs of
 ``tools/kernel_inputs.decode_inputs`` (the 8B backbone's cache shape, linear
-and paged, bf16 and int8), then runs each kernel ``--calls`` times under
+and paged, bf16 and int8, the int8 cache with f32 and bf16 scales), then runs each kernel ``--calls`` times under
 ``torch.profiler`` (layer i % 36 on call i) and prints the device time per
 call of each of its two passes (split-KV partials, then the merge) beside
 the call's bound from ``kernel_inputs.decode_bound``. The card's

@@ -1,10 +1,11 @@
 """Where the time of the 8B Delay decode step goes, on one NVIDIA GPU.
 
-    python3 -m mosstts_tpu_torch.tools.profile_step [--batch 1 4] [--trace-dir DIR]
+    python3 -m mosstts_tpu_torch.tools.profile_step [--batch 1 4] [--int8] [--trace-dir DIR]
 
 Builds ``delay_8b()`` (random bf16 weights made on the card) and the
 ``codec_1p6b()`` codec with ``serve.pipelines.demo_backend``, then for each
-batch size:
+batch size (and, with ``--int8``, for each batch size again after
+``engine.quantize()``, in the same process):
 
 - prefill of a ``--prompt``-token prompt into a ``--cache``-slot cache, the
   first one of the process (cold) and a second one (warm), host clock;
@@ -13,7 +14,10 @@ batch size:
 - a ``torch.profiler`` window of 4 more steps: device time per step (the sum
   of the kernels' self device time), kernels launched per step, the idle
   share (1 - device time / step wall time) and the top kernels by device
-  time.
+  time;
+- a ``cProfile`` window of 4 more steps: the Python functions with the most
+  host time of their own per step (cProfile slows the host; these say where
+  the host time goes, not how much there is).
 
 Then the codec's decode of 100 frames (8 s of audio) at batch 1, host
 clock. The card's ``nvidia-smi`` line comes first and one JSON object of
@@ -23,7 +27,9 @@ versions only within one run.
 from __future__ import annotations
 
 import argparse
+import cProfile
 import json
+import pstats
 import time
 from pathlib import Path
 
@@ -86,6 +92,14 @@ def profile_batch(engine, B: int, args, trace_dir) -> dict:
         for _ in range(WINDOW):
             st = step(st)
         torch.cuda.synchronize()
+    host = cProfile.Profile()
+    host.enable()
+    for _ in range(WINDOW):
+        st = step(st)
+    torch.cuda.synchronize()
+    host.disable()
+    stats = pstats.Stats(host).stats  # (file, line, name) -> (cc, nc, tottime, cumtime, callers)
+    host_top = sorted(stats.items(), key=lambda kv: -kv[1][2])[:args.top]
     evts = [e for e in prof.key_averages() if e.device_type == torch.autograd.DeviceType.CUDA]
     device_ms = sum(e.self_device_time_total for e in evts) / WINDOW / 1e3
     kernels = sum(e.count for e in evts) / WINDOW
@@ -98,6 +112,8 @@ def profile_batch(engine, B: int, args, trace_dir) -> dict:
         idle_share=1.0 - device_ms / (wall * 1e3),
         top=[dict(ms_per_step=e.self_device_time_total / WINDOW / 1e3,
                   calls_per_step=e.count / WINDOW, name=e.key[:100]) for e in top],
+        host_top=[dict(ms_per_step=v[2] / WINDOW * 1e3, calls_per_step=v[1] / WINDOW,
+                       name=f"{Path(k[0]).name}:{k[1]}:{k[2]}") for k, v in host_top],
     )
 
 
@@ -109,6 +125,8 @@ def main(argv=None) -> None:
     ap.add_argument("--attend", type=int, default=256, help="cache slots a step attends")
     ap.add_argument("--steps", type=int, default=16, help="timed decode steps")
     ap.add_argument("--top", type=int, default=12, help="kernels listed per batch")
+    ap.add_argument("--int8", action="store_true",
+                    help="profile again after engine.quantize() (int8 weights)")
     ap.add_argument("--trace-dir", type=Path, default=None,
                     help="write a chrome trace of each profiler window here")
     args = ap.parse_args(argv)
@@ -125,15 +143,23 @@ def main(argv=None) -> None:
     backend = demo_backend(delay_8b(), codec_1p6b(), seed=0, dtype=torch.bfloat16,
                            device="cuda")
     res = dict(card=card, args={k: str(v) for k, v in vars(args).items()}, batches=[])
-    for B in args.batch:
-        r = profile_batch(backend.engine, B, args, args.trace_dir)
-        res["batches"].append(r)
-        print(f"B={B}: prefill T={args.prompt} cold {r['prefill_cold_ms']:.1f} ms, warm "
-              f"{r['prefill_warm_ms']:.1f} ms; decode step wall {r['step_wall_ms']:.2f} ms, "
-              f"device {r['step_device_ms']:.2f} ms, {r['kernels_per_step']:.0f} kernels, "
-              f"idle share {r['idle_share']:.3f}", flush=True)
-        for t in r["top"]:
-            print(f"   {t['ms_per_step']:8.3f} ms/step  x{t['calls_per_step']:6.0f}  {t['name']}")
+    for weights in ("bf16", "int8") if args.int8 else ("bf16",):
+        if weights == "int8":
+            backend.engine.quantize()
+            torch.cuda.empty_cache()
+        for B in args.batch:
+            r = dict(weights=weights, **profile_batch(backend.engine, B, args, args.trace_dir))
+            res["batches"].append(r)
+            print(f"{weights} B={B}: prefill T={args.prompt} cold {r['prefill_cold_ms']:.1f} ms, "
+                  f"warm {r['prefill_warm_ms']:.1f} ms; decode step wall "
+                  f"{r['step_wall_ms']:.2f} ms, device {r['step_device_ms']:.2f} ms, "
+                  f"{r['kernels_per_step']:.0f} kernels, idle share {r['idle_share']:.3f}",
+                  flush=True)
+            for t in r["top"]:
+                print(f"   {t['ms_per_step']:8.3f} ms/step  x{t['calls_per_step']:6.0f}  {t['name']}")
+            print("   host, own time under cProfile:")
+            for t in r["host_top"]:
+                print(f"   {t['ms_per_step']:8.3f} ms/step  x{t['calls_per_step']:6.0f}  {t['name']}")
 
     codec = backend.processor.audio_tokenizer
     codes = np.random.default_rng(1).integers(0, 1024, size=(32, 1, 100))

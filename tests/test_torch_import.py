@@ -29,6 +29,7 @@ leaked = sorted(m for m in sys.modules
                 if m.split(".")[0] in ("jax", "jaxlib", "triton", "mosstts_tpu")
                 and sys.modules[m] is not None)
 print("MODULES", len(names))
+print("NAMES", ",".join(names))
 print("BAD", bad)
 print("LEAKED", leaked)
 print("CUDA_INIT", torch.cuda.is_initialized())
@@ -64,6 +65,11 @@ def test_port_imports_without_jax_triton_or_cuda():
     assert proc.returncode == 0, proc.stdout + proc.stderr
     n_modules = int(proc.stdout.split("MODULES ")[1].split()[0])
     assert n_modules >= 20  # the walk really found the package
+    names = set(proc.stdout.split("NAMES ")[1].split()[0].split(","))
+    # the int8-weight slice: quantization, the GEMM wrappers, the two tools
+    assert {"mosstts_tpu_torch.ops.quant", "mosstts_tpu_torch.ops.kernels.w8_gemm",
+            "mosstts_tpu_torch.tools.tune_mm8", "mosstts_tpu_torch.tools.probe_int4",
+            "mosstts_tpu_torch.tools.bf16_path"} <= names
 
 
 def test_chip_smoke_imports_without_jax():
@@ -95,6 +101,33 @@ def test_profile_tool_refuses_to_run_without_a_gpu(monkeypatch):
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
     with pytest.raises(RuntimeError, match="profiles a GPU"):
         profile_step.main(["--batch", "1"])
+
+
+def test_gemm_tools_refuse_to_run_without_a_gpu(monkeypatch):
+    """The ported ``tools/tune_mm8.py`` and ``tools/probe_int4.py`` time the
+    card; without one they raise before making any input."""
+    import pytest
+    import torch
+
+    from mosstts_tpu_torch.tools import probe_int4, tune_mm8
+
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    for tool in (tune_mm8, probe_int4):
+        with pytest.raises(RuntimeError, match="times a GPU"):
+            tool.main([])
+
+
+def test_bf16_path_tool_refuses_to_run_without_a_gpu(monkeypatch):
+    """``tools/bf16_path.py`` times a checkout's bf16 path on the card;
+    without one it raises before building anything."""
+    import pytest
+    import torch
+
+    from mosstts_tpu_torch.tools import bf16_path
+
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    with pytest.raises(RuntimeError, match="times a GPU"):
+        bf16_path.main(["--root", str(REPO)])
 
 
 def test_entry_points_default_to_the_card():

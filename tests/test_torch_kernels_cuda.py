@@ -1,7 +1,8 @@
 """The CUDA kernels of ``mosstts_tpu_torch`` against their plain PyTorch
 versions, on the card. They skip without one: a CUDA kernel has no CPU mode
 (the plain versions are held against the JAX package by
-tests/test_torch_ops.py and tests/test_torch_kvcache.py).
+tests/test_torch_ops.py, tests/test_torch_kvcache.py and
+tests/test_torch_gemm.py).
 
 This file imports no JAX, so it runs on the machine with the card, which has
 none; tests/conftest.py imports JAX, so skip it there:
@@ -18,7 +19,7 @@ import pytest
 import torch
 
 from mosstts_tpu_torch.nn.qwen3 import _quantize_kv_block
-from mosstts_tpu_torch.ops.kernels import decode_attn, flash, paged_attn
+from mosstts_tpu_torch.ops.kernels import decode_attn, flash, paged_attn, w8_gemm
 
 ULP = {torch.bfloat16: 2.0 ** -7, torch.float32: 2.0 ** -23}
 
@@ -246,3 +247,179 @@ def test_cpu_tensors_take_the_plain_versions():
         qd, pool, pscale, pool, pscale, table, valid, 2, scale=0.125, attend_len=8),
         rtol=0, atol=0)
     assert (decode_attn.LAUNCHES_Q8, paged_attn.LAUNCHES, paged_attn.LAUNCHES_Q8) == counts
+
+
+# ---------------------- int8-weight GEMMs (csrc/w8_gemm.cu) ----------------------
+
+def _gemm_close(out, ref, absref, dtype):
+    """Kernel vs plain for the GEMMs: both sum exact products in float32 in
+    another order (within 1e-4 of the sum of the terms' magnitudes,
+    ``absref``), and a bf16 output may round one ulp apart. Relative to the
+    result alone would be wrong where the sum cancels to near zero."""
+    err = (out.float() - ref.float()).abs()
+    ulp = ULP[dtype] if dtype == torch.bfloat16 else 0.0
+    bound = ulp * ref.float().abs() + 1e-4 * absref + 1e-6
+    assert bool((err <= bound).all()), float(err.max())
+
+
+def _int8(rng, *shape):
+    return torch.tensor(rng.integers(-127, 128, size=shape).astype(np.int8)).cuda()
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("out_dtype", [torch.bfloat16, torch.float32])
+@pytest.mark.parametrize("M,K,N,count", [(1, 256, 512, 1), (16, 4096, 1024, 1), (5, 512, 1025, 4),
+                                         (40, 192, 96, 1), (640, 1024, 384, 1),
+                                         (16, 4096, 12288, 1), (4, 4096, 1025, 32)])
+def test_w8a16_kernel_matches_plain(out_dtype, M, K, N, count):
+    """Decode (M <= 16, split K) and prefill (M > 16) tiles, ragged N (the
+    1025-wide audio heads, byte loads), a stack of heads, and the 8B
+    ``w_gate`` and audio-stack shapes."""
+    _need_card()
+    rng = np.random.default_rng(M + N)
+    x = torch.tensor(rng.normal(size=(M, K)).astype(np.float32)).cuda().to(torch.bfloat16)
+    q = _int8(rng, *((count, K, N) if count > 1 else (K, N)))
+    s = torch.tensor(rng.uniform(1e-3, 2e-2, size=q.shape[:-2] + (N,)).astype(np.float32)).cuda()
+    launches = w8_gemm.LAUNCHES_W8A16
+    out = w8_gemm.w8a16_gemm(x, q, s, out_dtype)
+    ref = w8_gemm.w8a16_gemm_ref(x, q, s, out_dtype)
+    absref = w8_gemm.w8a16_gemm_ref(x.abs(), q.abs(), s, torch.float32)
+    torch.cuda.synchronize()
+    assert w8_gemm.LAUNCHES_W8A16 == launches + 1
+    assert out.shape == ref.shape and out.dtype == out_dtype
+    _gemm_close(out, ref, absref, out_dtype)
+
+
+@pytest.mark.cuda
+def test_w8a16_reads_a_layer_of_the_stack_in_place():
+    _need_card()
+    rng = np.random.default_rng(2)
+    x = torch.tensor(rng.normal(size=(3, 256)).astype(np.float32)).cuda().to(torch.bfloat16)
+    q = _int8(rng, 4, 256, 128)
+    s = torch.tensor(rng.uniform(1e-3, 2e-2, size=(4, 128)).astype(np.float32)).cuda()
+    for li in (0, 3):
+        out = w8_gemm.w8a16_gemm(x, q[li], s[li])
+        ref = w8_gemm.w8a16_gemm_ref(x, q[li], s[li], torch.bfloat16)
+        absref = w8_gemm.w8a16_gemm_ref(x.abs(), q[li].abs(), s[li], torch.float32)
+        _gemm_close(out, ref, absref, torch.bfloat16)
+
+
+@pytest.mark.cuda
+def test_w8a16_leading_dims_and_shared_split_k_scratch():
+    """A contiguous x (..., K) goes in as its rows (a strided one raises).
+    Split-K launches on one stream share one scratch, inside a CUDA graph
+    too: two products captured back to back replay to their eager results."""
+    _need_card()
+    rng = np.random.default_rng(4)
+    x = torch.tensor(rng.normal(size=(2, 3, 4096)).astype(np.float32)).cuda().to(torch.bfloat16)
+    q = _int8(rng, 2, 4096, 1024)
+    s = torch.tensor(rng.uniform(1e-3, 2e-2, size=(2, 1024)).astype(np.float32)).cuda()
+    with pytest.raises(ValueError, match="contiguous"):
+        w8_gemm.w8a16_gemm(x[:, 1:], q[0], s[0])
+    eager = [w8_gemm.w8a16_gemm(x, q[i], s[i]) for i in (0, 1)]  # M = 6: split K
+    for i in (0, 1):
+        assert eager[i].shape == (2, 3, 1024)
+        _gemm_close(eager[i], w8_gemm.w8a16_gemm_ref(x, q[i], s[i], torch.bfloat16),
+                    w8_gemm.w8a16_gemm_ref(x.abs(), q[i].abs(), s[i], torch.float32),
+                    torch.bfloat16)
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        for i in (0, 1):
+            w8_gemm.w8a16_gemm(x, q[i], s[i])
+    torch.cuda.current_stream().wait_stream(side)
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        got = [w8_gemm.w8a16_gemm(x, q[i], s[i]) for i in (0, 1)]
+    graph.replay()
+    torch.cuda.synchronize()
+    for a, b in zip(got, eager):
+        assert torch.equal(a, b)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("M,K,N", [(8, 256, 512), (1, 512, 1024), (128, 4096, 12288)])
+def test_w8a8_kernel_matches_plain(M, K, N):
+    _need_card()
+    rng = np.random.default_rng(K)
+    x = torch.tensor(rng.normal(size=(M, K)).astype(np.float32)).cuda().to(torch.bfloat16)
+    q = _int8(rng, K, N)
+    s = torch.tensor(rng.uniform(1e-3, 2e-2, size=(N,)).astype(np.float32)).cuda()
+    launches = w8_gemm.LAUNCHES_W8A8
+    out = w8_gemm.w8a8_gemm(x, q, s)
+    ref = w8_gemm.w8a8_gemm_ref(x, q, s)
+    x8, xs = w8_gemm.quant_rows(x)
+    absref = w8_gemm.w8a16_gemm_ref(x8.abs().to(torch.bfloat16), q.abs(), s, torch.float32) * xs
+    torch.cuda.synchronize()
+    assert w8_gemm.LAUNCHES_W8A8 == launches + 1
+    _gemm_close(out, ref, absref, torch.float32)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("M,D,N", [(4, 64, 24 * 16), (16, 512, 1000), (64, 4096, 12288)])
+def test_int4_kernel_matches_plain(M, D, N):
+    _need_card()
+    rng = np.random.default_rng(D)
+    x = torch.tensor(rng.normal(size=(M, D)).astype(np.float32)).cuda().to(torch.bfloat16)
+    packed = torch.tensor(rng.integers(-128, 128, size=(D // 2, N)).astype(np.int8)).cuda()
+    launches = w8_gemm.LAUNCHES_INT4
+    out = w8_gemm.int4_gemm(x, packed)
+    ref = w8_gemm.int4_gemm_ref(x, packed)
+    lo, hi = w8_gemm.unpack_int4(packed)
+    xa = x.float().abs()
+    absref = xa[:, :D // 2] @ lo.float().abs() + xa[:, D // 2:] @ hi.float().abs()
+    torch.cuda.synchronize()
+    assert w8_gemm.LAUNCHES_INT4 == launches + 1
+    _gemm_close(out, ref, absref, torch.float32)
+
+
+@pytest.mark.cuda
+def test_int8_dense_and_heads_on_the_card():
+    """``dense`` on an int8 weight with bf16 activations is one W8A16 launch;
+    with f32 activations it raises. The stacked audio heads are one launch
+    for all of them, with f32 logits."""
+    _need_card()
+    from mosstts_tpu_torch.models.delay import _audio_head_logits
+    from mosstts_tpu_torch.ops.basic import dense
+    from mosstts_tpu_torch.ops.quant import quantize_weight
+
+    rng = np.random.default_rng(3)
+    w = quantize_weight(torch.tensor(rng.normal(size=(2, 128, 256)).astype(np.float32)).cuda())
+    x = torch.tensor(rng.normal(size=(2, 3, 128)).astype(np.float32)).cuda()
+    launches = w8_gemm.LAUNCHES_W8A16
+    y = dense(x.to(torch.bfloat16), w[1])
+    assert y.shape == (2, 3, 256) and y.dtype == torch.bfloat16
+    assert w8_gemm.LAUNCHES_W8A16 == launches + 1
+    with pytest.raises(TypeError, match="bf16 activations"):
+        dense(x, w[1])
+    heads = quantize_weight(torch.tensor(rng.normal(size=(32, 128, 1025)).astype(np.float32)).cuda())
+    launches = w8_gemm.LAUNCHES_W8A16
+    logits = _audio_head_logits(x.to(torch.bfloat16), heads)
+    torch.cuda.synchronize()
+    assert w8_gemm.LAUNCHES_W8A16 == launches + 1
+    assert logits.shape == (2, 3, 32, 1025) and logits.dtype == torch.float32
+    ref = w8_gemm.w8a16_gemm_ref(x.reshape(6, 128).to(torch.bfloat16), heads.q, heads.scale,
+                                 torch.float32).reshape(2, 3, 32, 1025)
+    absref = w8_gemm.w8a16_gemm_ref(x.reshape(6, 128).abs().to(torch.bfloat16), heads.q.abs(),
+                                    heads.scale, torch.float32).reshape(2, 3, 32, 1025)
+    _gemm_close(logits, ref, absref, torch.float32)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("sdt", [torch.bfloat16, torch.float32])
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
+@pytest.mark.parametrize("attend", [37, 256, 512])
+def test_decode_q8t_kernel_matches_plain(sdt, dtype, attend):
+    _need_card()
+    rng = np.random.default_rng(attend)
+    g = lambda *shape: torch.tensor(rng.normal(size=shape).astype(np.float32)).cuda()
+    q = g(4, 32, 128).to(dtype)
+    (kq, ks), (vq, vs) = _q8(g(3, 4, 8, 512, 128)), _q8(g(3, 4, 8, 512, 128))
+    valid = torch.tensor(rng.random((4, 512)) < 0.7).cuda()
+    args = (q, kq, ks.to(sdt), vq, vs.to(sdt), valid, 2)
+    launches = decode_attn.LAUNCHES_Q8T
+    out = decode_attn.decode_attention_q8t(*args, scale=128 ** -0.5, attend_len=attend)
+    ref = decode_attn.decode_attention_q8t_ref(*args, scale=128 ** -0.5, attend_len=attend)
+    torch.cuda.synchronize()
+    assert decode_attn.LAUNCHES_Q8T == launches + 1
+    _assert_close(out, ref, dtype)
