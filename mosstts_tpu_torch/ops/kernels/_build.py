@@ -9,12 +9,15 @@ machine with no CUDA toolkit.
 
 The library lands in ``build/kernels-<hash>/`` at the repository root, the
 hash covering the sources and the flags, so a second process reuses it and a
-changed source rebuilds.
+changed source rebuilds. ``ptxas`` reports each kernel's registers, shared
+memory and spills (``-Xptxas -v``) into ``ptxas.log`` beside it;
+``ptxas_report`` reads them back.
 """
 from __future__ import annotations
 
 import hashlib
 import os
+import re
 import shutil
 import subprocess
 from pathlib import Path
@@ -25,8 +28,9 @@ BUILD_ROOT = _PKG_DIR.parent / "build"
 LIB_NAME = "libmosstts_kernels.so"
 NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a",
-    "-std=c++17", "-O3", "-Xcompiler", "-fPIC",
+    "-std=c++17", "-O3", "-Xcompiler", "-fPIC", "-Xptxas", "-v",
 )
+PTXAS_LOG = "ptxas.log"
 
 _lib = None
 
@@ -68,13 +72,15 @@ def build() -> Path:
         procs.append((cmd, subprocess.Popen(cmd, stdout=subprocess.PIPE,
                                             stderr=subprocess.STDOUT, text=True)))
         objs.append(str(obj))
-    failed = []
+    failed, logs = [], []
     for cmd, proc in procs:
         out, _ = proc.communicate()
         if proc.returncode != 0:
             failed.append(f"nvcc failed ({proc.returncode}): {' '.join(cmd)}\n{out}")
+        logs.append(f"== {Path(cmd[-1]).name}\n{out}")
     if failed:
         raise RuntimeError("\n".join(failed))
+    path.with_name(PTXAS_LOG).write_text("".join(logs))
     tmp = path.with_name(f"tmp.{pid}.{LIB_NAME}")
     cmd = [nvcc, "-shared", "-o", str(tmp), *objs]
     proc = subprocess.run(cmd, capture_output=True, text=True)
@@ -85,6 +91,30 @@ def build() -> Path:
         os.remove(obj)
     os.replace(tmp, path)  # atomic: a concurrent build never sees half a file
     return path
+
+
+def ptxas_report() -> list[dict]:
+    """Per kernel of the built library: its mangled ``name``, ``registers``,
+    static ``smem`` bytes (dynamic shared memory is set at launch),
+    ``stack``, ``spill_stores`` and ``spill_loads`` bytes, as ``ptxas -v``
+    printed them at the build."""
+    log = library_path().with_name(PTXAS_LOG)
+    rows, cur = [], None
+    for line in log.read_text().splitlines() if log.exists() else ():
+        m = re.search(r"Compiling entry function '([^']+)'", line)
+        if m:
+            cur = dict(name=m.group(1))
+            rows.append(cur)
+        elif cur is not None and (m := re.search(
+                r"(\d+) bytes stack frame, (\d+) bytes spill stores, (\d+) bytes spill loads",
+                line)):
+            cur.update(stack=int(m.group(1)), spill_stores=int(m.group(2)),
+                       spill_loads=int(m.group(3)))
+        elif cur is not None and (m := re.search(r"Used (\d+) registers", line)):
+            cur["registers"] = int(m.group(1))
+            sm = re.search(r"(\d+) bytes smem", line)
+            cur["smem"] = int(sm.group(1)) if sm else 0
+    return rows
 
 
 def kernel(name: str, argtypes: list):

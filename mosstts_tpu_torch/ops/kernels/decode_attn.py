@@ -23,9 +23,12 @@ any value in [1, S].
 
 Each wrapper runs its plain version for CPU tensors and its kernel for CUDA
 tensors; it never falls back from one to the other, and it raises on a
-shape the kernel does not take. A kernel is two launches (split-KV
-partials, then a merge) counted as one in the wrapper's ``LAUNCHES``.
-``DecodeArgs`` and ``launch`` are shared with ``paged_attn.py``.
+shape the kernel does not take. A kernel call is one launch: the blocks of
+each (row, KV head) form a thread-block cluster that merges its split-KV
+partial results in distributed shared memory, so the wrapper allocates
+only the output. ``decode_plan`` picks the cluster size and the slots per
+block. ``DecodeArgs``, ``decode_plan`` and ``launch`` are shared with
+``paged_attn.py``.
 """
 from __future__ import annotations
 
@@ -39,6 +42,10 @@ from ..attention import NEG_INF
 
 SUPPORTED_HEAD_DIMS = (64, 128, 256)
 MAX_GROUP = 4  # query heads per KV head the kernels take (csrc MAX_GROUP)
+# csrc/decode_kernel.cuh: K bytes of one tile of its shared-memory ring,
+# blocks per cluster (the portable maximum)
+STAGE_BYTES, MAX_CLUSTER = 8192, 8
+TARGET_BLOCKS = 2 * 132  # about two blocks per SM of an H100
 _DTYPE_CODES = {torch.bfloat16: 0, torch.float32: 1}
 
 LAUNCHES = 0  # decode_attention kernel launches since the count was last set to 0
@@ -90,14 +97,40 @@ def decode_attention_q8t_ref(q, k_cache, k_scale, v_cache, v_scale, kv_valid, la
                                    kv_valid, layer, scale=scale, attend_len=attend_len)
 
 
+def tile_slots(head_dim: int, value_bytes: int) -> int:
+    """Slots of one tile of the kernel's ring: K rows of ``head_dim`` values
+    of ``value_bytes`` each filling ``STAGE_BYTES``."""
+    return STAGE_BYTES // (head_dim * value_bytes)
+
+
+@functools.lru_cache(maxsize=256)
+def decode_plan(batch: int, kv_heads: int, attend_len: int, head_dim: int,
+                value_bytes: int) -> tuple[int, int]:
+    """(cluster, chunk): the blocks per (row, KV head) and the logical slots
+    each walks, rank r taking [r * chunk, min((r + 1) * chunk, attend_len)).
+
+    A block walks its slots in tiles of ``tile_slots`` slots. The cluster
+    is the largest power of two, up to 8 blocks, that keeps the grid near
+    ``TARGET_BLOCKS`` and gives each block a tile (on an H100, 2, 3, 4 and
+    8 measured: 3 and wider clusters at batch 16 are slower; PERF.md §6);
+    chunk is then a whole number of tiles, and the cluster shrinks so that
+    no rank is left without a slot."""
+    step = tile_slots(head_dim, value_bytes)
+    want = min(MAX_CLUSTER, -(-TARGET_BLOCKS // (batch * kv_heads)), -(-attend_len // step))
+    cluster = 1 << (max(1, want).bit_length() - 1)
+    chunk = -(-attend_len // (cluster * step)) * step
+    return -(-attend_len // chunk), chunk
+
+
 class DecodeArgs(ctypes.Structure):
     """``mosstts::decode::Args`` of ``csrc/decode_kernel.cuh``, field for
     field: pointers, then ints, then strides in elements, then the scale."""
 
     _fields_ = (
         [(n, ctypes.c_void_p) for n in ("q", "k", "v", "k_scale", "v_scale", "valid", "table",
-                                        "part", "out")]
-        + [(n, ctypes.c_int) for n in ("layer", "H", "KV", "attend_len", "page_size")]
+                                        "out")]
+        + [(n, ctypes.c_int) for n in ("layer", "H", "KV", "attend_len", "page_size", "chunk",
+                                       "cluster")]
         + [(n, ctypes.c_longlong) for n in ("q_sb", "q_sh", "c_sl", "c_sb", "c_sh", "c_ss",
                                             "s_sl", "s_sb", "s_sh", "s_ss", "valid_sb",
                                             "table_sb", "o_sb", "o_sh")]
@@ -121,13 +154,12 @@ def check_common(name: str, q, k, v, kv_valid, layer: int, attend_len: int, capa
     if hdc != hd or v.shape != k.shape:
         raise ValueError(f"{name}: shapes q {tuple(q.shape)} k {tuple(k.shape)} "
                          f"v {tuple(v.shape)}")
-    epl = hd // 32  # elements each lane loads as one vector
-    align = min(epl * k.element_size(), 16)
+    per16 = 16 // k.element_size()  # values in one 16-byte load
     if (k.stride() != v.stride() or k.stride(4) != 1 or q.stride(2) != 1
-            or any(s % epl for s in k.stride()[:4])
-            or k.data_ptr() % align or v.data_ptr() % align):
+            or any(s % per16 for s in k.stride()[:4])
+            or k.data_ptr() % 16 or v.data_ptr() % 16):
         raise ValueError(f"{name}: k/v must share one layout with a contiguous head dim and "
-                         f"rows aligned to {align} bytes, and q's head dim must be contiguous")
+                         "rows aligned to 16 bytes, and q's head dim must be contiguous")
     for s in scales:
         if (s.dtype not in scale_dtypes or s.dtype != scales[0].dtype
                 or s.shape != k.shape[:4] or s.stride() != scales[0].stride()):
@@ -147,25 +179,22 @@ def check_common(name: str, q, k, v, kv_valid, layer: int, attend_len: int, capa
 def launch(entry: str, q, k, v, kv_valid, layer: int, attend_len: int, scale: float, *,
            k_scale=None, v_scale=None, table: Optional[torch.Tensor] = None,
            extra: tuple = ()) -> torch.Tensor:
-    """Fill ``DecodeArgs`` from checked tensors, allocate the output and the
-    scratch, and launch the C entry point ``entry`` on the current stream;
-    ``extra`` ints go after the query dtype code."""
+    """Fill ``DecodeArgs`` from checked tensors, allocate the output, and
+    launch the C entry point ``entry`` on the current stream; ``extra`` ints
+    go after the query dtype code."""
     B, H, hd = q.shape
     KV = k.shape[2]
     out = torch.empty((B, H, hd), dtype=q.dtype, device=q.device)
-    n_chunks = -(-attend_len // _chunk_slots())
-    # per (row, KV head, chunk, query head): running max, denominator, acc[hd]
-    part = torch.empty(B * KV * n_chunks * (H // KV) * (hd + 2), dtype=torch.float32,
-                       device=q.device)
+    cluster, chunk = decode_plan(B, KV, int(attend_len), hd, k.element_size())
     sc = k_scale.stride() if k_scale is not None else (0, 0, 0, 0)
     a = DecodeArgs(
         q=q.data_ptr(), k=k.data_ptr(), v=v.data_ptr(),
         k_scale=k_scale.data_ptr() if k_scale is not None else None,
         v_scale=v_scale.data_ptr() if v_scale is not None else None,
         valid=kv_valid.data_ptr(), table=table.data_ptr() if table is not None else None,
-        part=part.data_ptr(), out=out.data_ptr(),
+        out=out.data_ptr(),
         layer=int(layer), H=H, KV=KV, attend_len=int(attend_len),
-        page_size=k.shape[3] if table is not None else 0,
+        page_size=k.shape[3] if table is not None else 0, chunk=chunk, cluster=cluster,
         q_sb=q.stride(0), q_sh=q.stride(1),
         c_sl=k.stride(0), c_sb=k.stride(1), c_sh=k.stride(2), c_ss=k.stride(3),
         s_sl=sc[0], s_sb=sc[1], s_sh=sc[2], s_ss=sc[3],
@@ -280,11 +309,3 @@ def _entry(name: str, n_extra: int = 0):
     i = ctypes.c_int
     return _build.kernel(name, [ctypes.POINTER(DecodeArgs), i, i, i] + [i] * n_extra
                          + [ctypes.c_void_p])
-
-
-@functools.cache
-def _chunk_slots() -> int:
-    """Slots per block of the kernels' first pass."""
-    from . import _build
-
-    return _build.kernel("mosstts_decode_chunk_slots", [])()

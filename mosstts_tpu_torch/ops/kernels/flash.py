@@ -8,7 +8,10 @@ sliding window. The TPU tile sizes (``block_t``/``block_s``) are not part of
 the port.
 
 ``flash_attention`` runs ``flash_attention_ref`` for CPU tensors and the
-kernel for CUDA tensors; it never falls back from one to the other.
+kernel for CUDA tensors; it never falls back from one to the other. bf16
+inputs take the tensor-core body of the kernel (K/V copied 16 bytes at a
+time, so their rows, and q's, must start at 16-byte boundaries), f32 inputs
+its CUDA-core body.
 
 Rows whose query sees no unmasked key (left-pad positions) are garbage by
 design in both versions; the kernel averages the keys it visited, the plain
@@ -91,6 +94,10 @@ def flash_attention(
     for t in (k, v, kv_valid):
         if t.device != q.device:
             raise ValueError("flash_attention: tensors on different devices")
+    if q.dtype == torch.bfloat16 and any(
+            t.data_ptr() % 16 or any(st % 8 for st in t.stride()[:3]) for t in (q, k, v)):
+        raise ValueError("flash_attention: bf16 q/k/v rows must start at 16-byte boundaries "
+                         "(base pointers and strides in multiples of 8 elements)")
     if isinstance(q_start, torch.Tensor):
         if (q_start.dtype != torch.int32 or q_start.numel() != 1
                 or q_start.device != q.device):

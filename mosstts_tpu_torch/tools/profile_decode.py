@@ -6,9 +6,10 @@ For each batch size and attend length, makes the inputs of
 ``tools/kernel_inputs.decode_inputs`` (the 8B backbone's cache shape, linear
 and paged, bf16 and int8, the int8 cache with f32 and bf16 scales), then runs each kernel ``--calls`` times under
 ``torch.profiler`` (layer i % 36 on call i) and prints the device time per
-call of each of its two passes (split-KV partials, then the merge) beside
-the call's bound from ``kernel_inputs.decode_bound``. The card's
-``nvidia-smi`` line comes first and one JSON object of the numbers last.
+call of each device kernel it ran (one: the clustered split-KV kernel,
+``decode_kernel``) and the device kernels per call, beside the call's bound
+from ``kernel_inputs.decode_bound``. The card's ``nvidia-smi`` line comes
+first and one JSON object of the numbers last.
 """
 from __future__ import annotations
 
@@ -31,12 +32,13 @@ def profile_kernel(fn, args, attend: int, calls: int) -> dict:
         for a in inputs:
             fn(*a, scale=HD ** -0.5, attend_len=attend)
         torch.cuda.synchronize()
-    passes = {}
+    passes, n_kernels = {}, 0
     for e in prof.key_averages():
         if e.device_type == torch.autograd.DeviceType.CUDA and e.self_device_time_total > 0:
-            name = "partial" if "partial_kernel" in e.key else \
-                "merge" if "merge_kernel" in e.key else e.key[:40]
+            name = "decode_kernel" if "decode_kernel" in e.key else e.key[:40]
             passes[name] = passes.get(name, 0.0) + e.self_device_time_total / calls / 1e3
+            n_kernels += e.count
+    passes["kernels_per_call"] = n_kernels / calls
     return passes
 
 
@@ -60,7 +62,8 @@ def main(argv=None) -> None:
                 row = dict(kernel=name, batch=B, attend=attend, **bd, **passes)
                 res["rows"].append(row)
                 print(f"{name} B={B} attend={attend}: " + ", ".join(
-                    f"{k} {v * 1e3:.2f} us" for k, v in passes.items())
+                    f"{k} {v:g}" if k == "kernels_per_call" else f"{k} {v * 1e3:.2f} us"
+                    for k, v in passes.items())
                     + f"; bound {bd['bound_ms'] * 1e3:.2f} us ({bd['bound_by']})", flush=True)
         del q, valid, kernels
         torch.cuda.empty_cache()

@@ -13,8 +13,9 @@ batch size (and, with ``--int8``, for each batch size again after
   steps, attending ``--attend`` slots, host clock;
 - a ``torch.profiler`` window of 4 more steps: device time per step (the sum
   of the kernels' self device time), kernels launched per step, the idle
-  share (1 - device time / step wall time) and the top kernels by device
-  time;
+  share (1 - device time / step wall time), the top kernels by device
+  time, and the decode attention's device kernels per step and their time
+  (one ``decode_kernel`` launch per layer);
 - a ``cProfile`` window of 4 more steps: the Python functions with the most
   host time of their own per step (cProfile slows the host; these say where
   the host time goes, not how much there is).
@@ -104,12 +105,16 @@ def profile_batch(engine, B: int, args, trace_dir) -> dict:
     device_ms = sum(e.self_device_time_total for e in evts) / WINDOW / 1e3
     kernels = sum(e.count for e in evts) / WINDOW
     top = sorted(evts, key=lambda e: -e.self_device_time_total)[:args.top]
+    attn = [e for e in evts if "decode_kernel" in e.key]
     if trace_dir is not None:
         prof.export_chrome_trace(str(trace_dir / f"decode_step_b{B}.json"))
     return dict(
         batch=B, prefill_cold_ms=cold * 1e3, prefill_warm_ms=warm * 1e3,
         step_wall_ms=wall * 1e3, step_device_ms=device_ms, kernels_per_step=kernels,
         idle_share=1.0 - device_ms / (wall * 1e3),
+        decode_attention=dict(kernels_per_step=sum(e.count for e in attn) / WINDOW,
+                              ms_per_step=sum(e.self_device_time_total for e in attn)
+                              / WINDOW / 1e3),
         top=[dict(ms_per_step=e.self_device_time_total / WINDOW / 1e3,
                   calls_per_step=e.count / WINDOW, name=e.key[:100]) for e in top],
         host_top=[dict(ms_per_step=v[2] / WINDOW * 1e3, calls_per_step=v[1] / WINDOW,
@@ -155,6 +160,9 @@ def main(argv=None) -> None:
                   f"{r['step_wall_ms']:.2f} ms, device {r['step_device_ms']:.2f} ms, "
                   f"{r['kernels_per_step']:.0f} kernels, idle share {r['idle_share']:.3f}",
                   flush=True)
+            da = r["decode_attention"]
+            print(f"   decode attention: {da['kernels_per_step']:.0f} device kernels per step "
+                  f"(one per layer), {da['ms_per_step']:.3f} ms/step", flush=True)
             for t in r["top"]:
                 print(f"   {t['ms_per_step']:8.3f} ms/step  x{t['calls_per_step']:6.0f}  {t['name']}")
             print("   host, own time under cProfile:")

@@ -130,6 +130,19 @@ def test_bf16_path_tool_refuses_to_run_without_a_gpu(monkeypatch):
         bf16_path.main(["--root", str(REPO)])
 
 
+def test_kernel_times_tool_refuses_to_run_without_a_gpu(monkeypatch):
+    """``tools/kernel_times.py`` times a checkout's kernels on the card;
+    without one it raises before importing that checkout."""
+    import pytest
+    import torch
+
+    from mosstts_tpu_torch.tools import kernel_times
+
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    with pytest.raises(RuntimeError, match="times a GPU"):
+        kernel_times.main(["--root", str(REPO)])
+
+
 def test_entry_points_default_to_the_card():
     """Nothing runs on the CPU unless the caller asks: the port's entry points
     default to ``device="cuda"``, and ``DelayBatchServer`` has no device of

@@ -423,3 +423,161 @@ def test_decode_q8t_kernel_matches_plain(sdt, dtype, attend):
     torch.cuda.synchronize()
     assert decode_attn.LAUNCHES_Q8T == launches + 1
     _assert_close(out, ref, dtype)
+
+
+# ------------- the redesigned attention kernels at their edges -------------
+
+def _bf16(rng, *shape):
+    return torch.tensor(rng.normal(size=shape).astype(np.float32)).cuda().to(torch.bfloat16)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("kv_major", [False, True])
+@pytest.mark.parametrize("T", [1, 15, 16, 17, 63, 64, 65, 160, 480])
+def test_flash_tensor_core_tile_edges(T, kv_major):
+    """bf16 flash (the tensor-core body) at the edges of its 64-row query
+    tile (16 rows of each of G=4 heads) and its 64-slot K/V tile: S is not a
+    multiple of 64, q_start is 37 (a host int for even T, a device int32 for
+    odd T), rows are left-padded; k/v are the prompt's own (B, S, KV, hd) or
+    kv-major over 1024 cache slots."""
+    _need_card()
+    rng = np.random.default_rng(T)
+    B, H, KV, hd, q_start = 2, 8, 2, 128, 37
+    S = 1024 if kv_major else q_start + T
+    q = _bf16(rng, B, T, H, hd)
+    k, v = (_bf16(rng, B, KV, S, hd) if kv_major else _bf16(rng, B, S, KV, hd) for _ in "kv")
+    valid = torch.zeros((B, S), dtype=torch.bool, device="cuda")
+    for b, pad in enumerate((0, 5)):
+        valid[b, pad:q_start + T] = True
+    qs = q_start if T % 2 == 0 else torch.tensor([q_start], dtype=torch.int32, device="cuda")
+    kw = dict(scale=hd ** -0.5, kv_major=kv_major)
+    launches = flash.LAUNCHES
+    out = flash.flash_attention(q, k, v, valid, qs, **kw)
+    ref = flash.flash_attention_ref(q, k, v, valid, q_start, **kw)
+    torch.cuda.synchronize()
+    assert flash.LAUNCHES == launches + 1
+    _assert_close(out, ref, torch.bfloat16, rows=valid[:, q_start:q_start + T])
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
+@pytest.mark.parametrize("hd,H,KV,window", [(64, 8, 2, None), (64, 12, 4, 20), (128, 32, 8, 50),
+                                            (128, 12, 4, None), (256, 8, 2, None),
+                                            (256, 4, 2, 33)])
+def test_flash_head_dims_groups_and_windows(dtype, hd, H, KV, window):
+    """Every head dim in both bodies (bf16: tensor cores; f32: CUDA cores),
+    G = 4 and G = 3 (a 64-row tile then splits a query's heads), sliding
+    windows (the bf16 walk starts at the first tile any row sees), kv-major
+    over 300 slots, T = 97, q_start 111 on the device."""
+    _need_card()
+    rng = np.random.default_rng(hd + H)
+    B, T, S, q_start = 2, 97, 300, 111
+    g = lambda *shape: torch.tensor(rng.normal(size=shape).astype(np.float32)).cuda().to(dtype)
+    q, k, v = g(B, T, H, hd), g(B, KV, S, hd), g(B, KV, S, hd)
+    valid = torch.zeros((B, S), dtype=torch.bool, device="cuda")
+    valid[0, 3:q_start + T] = True
+    valid[1, 60:q_start + T] = True
+    qs = torch.tensor([q_start], dtype=torch.int32, device="cuda")
+    kw = dict(scale=hd ** -0.5, window=window, kv_major=True)
+    out = flash.flash_attention(q, k, v, valid, qs, **kw)
+    ref = flash.flash_attention_ref(q, k, v, valid, q_start, **kw)
+    torch.cuda.synchronize()
+    _assert_close(out, ref, dtype, rows=valid[:, q_start:q_start + T])
+
+
+def _page_size(attend):
+    """The largest page of at most 128 slots that divides ``attend``."""
+    return next(p for p in (128, 64, 32, 16, 8, 4, 2, 1) if attend % p == 0)
+
+
+_DECODE_CASE = {}
+
+
+def _decode_case(B, P):
+    """bf16 (L=2, B, KV=8, 1024, hd=128) caches, their int8 form, and both
+    laid into a shuffled pool of P-slot pages in which odd rows leave every
+    other logical page on the poisoned trash page 0 (kv_valid masks those
+    slots). Cached: the edge tests share one case per (B, P)."""
+    key = (B, P)
+    if key not in _DECODE_CASE:
+        _DECODE_CASE.clear()
+        rng = np.random.default_rng(B * 1000 + P)
+        S, mp = 1024, 1024 // P
+        kc, vc = _bf16(rng, 2, B, 8, S, 128), _bf16(rng, 2, B, 8, S, 128)
+        valid = torch.tensor(rng.random((B, S)) < 0.7).cuda()
+        valid[:, 0] = True
+        perm = rng.permutation(np.arange(1, 1 + B * mp)).reshape(B, mp)
+        for b in range(1, B, 2):
+            perm[b, 1::2] = 0
+            valid[b].view(mp, P)[1::2] = False
+        table = torch.tensor(perm, dtype=torch.int32, device="cuda")
+        (kq, ks), (vq, vs) = _q8(kc), _q8(vc)
+        pool = lambda x, fill: paged_attn.scatter_pages(x, table, 1 + B * mp, fill)
+        q = _bf16(rng, B, 32, 128)
+        _DECODE_CASE[key] = dict(
+            decode=(decode_attn.decode_attention, decode_attn.decode_attention_ref,
+                    (q, kc, vc, valid, 1)),
+            decode_q8=(decode_attn.decode_attention_q8, decode_attn.decode_attention_q8_ref,
+                       (q, kq, ks, vq, vs, valid, 1)),
+            decode_q8t=(decode_attn.decode_attention_q8t, decode_attn.decode_attention_q8t_ref,
+                        (q, kq, ks.to(torch.bfloat16), vq, vs.to(torch.bfloat16), valid, 1)),
+            paged=(paged_attn.paged_decode_attention, paged_attn.paged_decode_attention_ref,
+                   (q, pool(kc, 1e4), pool(vc, 1e4), table, valid, 1)),
+            paged_q8=(paged_attn.paged_decode_attention_q8,
+                      paged_attn.paged_decode_attention_q8_ref,
+                      (q, pool(kq, 127), pool(ks, 1e4), pool(vq, 127), pool(vs, 1e4), table,
+                       valid, 1)),
+        )
+    return _DECODE_CASE[key]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("variant", ["decode", "decode_q8", "decode_q8t", "paged", "paged_q8"])
+@pytest.mark.parametrize("B", [1, 4, 16])
+@pytest.mark.parametrize("attend", [1, 31, 32, 33, 255, 257, 1024])
+def test_decode_kernels_at_cluster_edges(variant, B, attend):
+    """The five decode kernels (one clustered launch each) at ragged attend
+    lengths: one slot, a chunk short of, at and past a 32-slot block step,
+    clusters of 1-8 blocks whose last rank is partly empty, the whole cache;
+    batch 1 (8 clusters), 4 and 16; paged at the largest page size dividing
+    attend_len, with attended pages on the poisoned trash page."""
+    _need_card()
+    kernel, plain, args = _decode_case(B, _page_size(attend))[variant]
+    out = kernel(*args, scale=128 ** -0.5, attend_len=attend)
+    ref = plain(*args, scale=128 ** -0.5, attend_len=attend)
+    torch.cuda.synchronize()
+    assert bool(torch.isfinite(out).all())
+    _assert_close(out, ref, torch.bfloat16)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("variant", ["decode", "decode_q8", "decode_q8t", "paged", "paged_q8",
+                                     "flash"])
+def test_attention_kernels_repeat_bit_for_bit(variant):
+    """The same inputs twice give bit-equal outputs (the cluster merge reads
+    its ranks in a fixed order; nothing is atomic), eagerly and replayed
+    from a CUDA graph."""
+    _need_card()
+    if variant == "flash":
+        rng = np.random.default_rng(9)
+        q, k, v = _bf16(rng, 4, 160, 32, 128), _bf16(rng, 4, 8, 512, 128), _bf16(rng, 4, 8, 512, 128)
+        valid = torch.ones((4, 512), dtype=torch.bool, device="cuda")
+        valid[1, :17] = False
+        fn = lambda: flash.flash_attention(q, k, v, valid, 0, scale=128 ** -0.5, kv_major=True)
+    else:
+        kernel, _, args = _decode_case(16, 128)[variant]
+        fn = lambda: kernel(*args, scale=128 ** -0.5, attend_len=1024)
+    first, second = fn(), fn()
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        fn()
+    torch.cuda.current_stream().wait_stream(side)
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        replayed = fn()
+    graph.replay()
+    graph.replay()
+    torch.cuda.synchronize()
+    assert torch.equal(first, second)
+    assert torch.equal(first, replayed)
