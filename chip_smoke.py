@@ -33,18 +33,21 @@ Phases, one or more lines each; any failure raises and exits non-zero:
    mid-flight) in each cache mode: linear bf16, linear int8, paged bf16,
    paged int8.
 6. int8 weights at the same width: phase 4's engine keeps one batch-4
-   prefill's logits in bf16, is quantized in place (``engine.quantize()``),
-   and its int8 logits for the same prefill must agree with the same int8
+   prefill's logits in bf16, is quantized in place (``engine.quantize()``;
+   the audio stack at a 16-byte row pitch), a short greedy int8
+   ``generate`` under ``torch.profiler`` shows one device kernel per W8A16
+   call, and its int8 logits for the same prefill must agree with the same int8
    model computed by the plain versions on the card, and stay correlated
    with the bf16 logits (``phase_int8`` says why not as closely as the
    2-layer check of phase 3); then phase 4's solo requests and phase 5's
    server in the linear bf16 and the paged int8 KV modes run on the int8
-   weights, every matmul through the W8A16 kernel.
+   weights, every matmul through the W8A16 kernel, none on byte loads.
 The kernels' launch counts are set to 0 just before phases 4 and 6 and each
 server mode and read just after, and must show every prefill and every
 decode step went through the kernels. Phase 3 adds the int8-weight GEMMs
-(W8A16 at the 8B decode and prefill shapes, W8A8 and int4 at their tools'
-shapes, each tool's walk driven once) and ``decode_attention_q8t`` (bf16
+(W8A16 at the 8B decode and prefill shapes, each shape's times in the
+kernels line; W8A8 and int4 at their tools' shapes, each tool's walk driven
+once) and ``decode_attention_q8t`` (bf16
 and f32 scales), and a small int8-weight model, card against CPU, and its
 int8 against its bf16 weights on the card and on the CPU
 (``tests/test_quant.py``'s thresholds, at the rows with a clear argmax).
@@ -77,11 +80,11 @@ from mosstts_tpu_torch.models.delay import make_sampling  # noqa: E402
 from mosstts_tpu_torch.models.delay import delay_forward  # noqa: E402
 from mosstts_tpu_torch.nn import qwen3  # noqa: E402
 from mosstts_tpu_torch.ops.kernels import _build, decode_attn, flash, paged_attn, w8_gemm  # noqa: E402
-from mosstts_tpu_torch.ops.quant import is_quantized  # noqa: E402
+from mosstts_tpu_torch.ops.quant import is_quantized, pitched  # noqa: E402
 from mosstts_tpu_torch.serve.pipelines import demo_backend, synthesize  # noqa: E402
 from mosstts_tpu_torch.tools import probe_int4, tune_mm8  # noqa: E402
 from mosstts_tpu_torch.tools.kernel_inputs import (  # noqa: E402
-    bound, card_line, decode_bound, decode_inputs, gemm_bound, time_ms)
+    GEMM_8B, bound, card_line, decode_bound, decode_inputs, gemm_bound, time_ms)
 
 DEV = "cuda"
 L8, B8, KV8, S8, HD8, H8 = 36, 4, 8, 512, 128, 32  # 8B layers / heads; batch 4, cache 512
@@ -462,16 +465,6 @@ def library_agrees(name: str, x, w, w_lib) -> None:
         f"of the largest output (its scales and output in bf16)")
 
 
-GEMM_8B = (  # name, K, N, stacked count (0: one (K, N) per layer), output dtype
-    ("wq", 4096, 4096, 0, torch.bfloat16),
-    ("wk", 4096, 1024, 0, torch.bfloat16),
-    ("w_gate", 4096, 12288, 0, torch.bfloat16),
-    ("w_down", 12288, 4096, 0, torch.bfloat16),
-    ("text_head", 4096, 151936, 0, torch.bfloat16),
-    ("audio_heads", 4096, 1025, 32, torch.float32),
-)
-
-
 def phase_kernels_gemm() -> dict:
     """The int8-weight GEMMs. W8A16 at the 8B model's decode (M = 1, 16) and
     prefill (M = 96, 640) shapes over random int8 layer stacks (36 layers of
@@ -491,7 +484,8 @@ def phase_kernels_gemm() -> dict:
     kernel checks are in ``phase_kernels_server``)."""
     g = torch.Generator(device=DEV).manual_seed(5)
     bf = torch.bfloat16
-    numbers, err16 = {}, 0.0
+    numbers, err16, shapes = {}, 0.0, []
+    w8_gemm.LAUNCHES_W8A16_BYTES = 0
     for name, K, N, count, out_dtype in GEMM_8B:
         L = 1 if name.endswith("head") or count else L8
         shape = ((count,) if count else (L,)) + (K, N)
@@ -505,7 +499,8 @@ def phase_kernels_gemm() -> dict:
         # weight, so one call), bf16 scales
         qt = (q.permute(0, 2, 1).reshape(count * N, K) if count else q.transpose(1, 2)).contiguous()
         sb = sc.reshape(-1).to(bf)
-        if count:  # one call over the whole stack
+        if count:  # one call over the whole stack, in QuantWeight's layout (16-byte row pitch)
+            q = pitched(q)
             pick, lib_pick = (lambda i: (q, sc)), (lambda i: (qt, sb))
         else:
             pick = (lambda i, q=q, sc=sc, L=L: (q[i % L], sc[i % L]))
@@ -539,11 +534,16 @@ def phase_kernels_gemm() -> dict:
                 f"{(count or 1) * K * N / ms / 1e6:.0f} GB/s of int8 weights")
             if lib_ms is not None and M == 16:
                 library_agrees(f"w8a16 {name} M={M}", x, pick(0), lib_pick(0))
+            shapes.append(dict(shape=f"{name} M={M}", ms=ms, plain_ms=plain_ms, library_ms=lib_ms,
+                               bf16_matmul_ms=bf16_ms, **bd))
             if name == "w_gate" and M == 16:
                 numbers["w8a16"] = dict(ms=ms, plain_ms=plain_ms, library_ms=lib_ms, **bd)
         del q, sc, wb, qt, sb
         torch.cuda.empty_cache()
-    numbers["w8a16"]["max_abs_err"] = err16
+    if w8_gemm.LAUNCHES_W8A16_BYTES:
+        raise AssertionError(f"W8A16 took byte loads {w8_gemm.LAUNCHES_W8A16_BYTES} times at the "
+                             "8B shapes (the audio stack at a 16-byte row pitch included)")
+    numbers["w8a16"].update(max_abs_err=err16, shapes=shapes)
 
     # W8A8 at tools/tune_mm8.py's defaults: B=128, 16 layers of (4096, 12288)
     x, w8, scale = tune_mm8.make_inputs(128, 16, 4096, 12288)
@@ -976,6 +976,11 @@ def phase_int8(backend):
     log(f"  engine.quantize() in {quant_s:.2f} s: Delay parameters {bf16_bytes / 1e9:.2f} GB "
         f"(bf16) -> {int8_bytes / 1e9:.2f} GB (int8 matmul weights), "
         f"{torch.cuda.memory_allocated() / 2**30:.2f} GiB allocated")
+    if engine.params.audio_heads.q.stride(-2) % 16:
+        raise AssertionError(f"the int8 audio stack is not at a 16-byte row pitch "
+                             f"{engine.params.audio_heads.q.stride()}")
+    w8_gemm.LAUNCHES_W8A16_BYTES = 0
+    w8a16_one_kernel(engine, proc)
     reset_counts()
     kern = {d: prefill_logits(c) for d, c in ((2, cut), (36, cfg))}
     if read_counts()["w8a16"] < per_pass:
@@ -1016,7 +1021,36 @@ def phase_int8(backend):
     torch.cuda.empty_cache()
     server_counts = phase_server(engine.params, modes=(SERVER_MODES[0], SERVER_MODES[3]),
                                  label="int8 weights, ", w8_per_pass=per_pass)
+    if w8_gemm.LAUNCHES_W8A16_BYTES:
+        raise AssertionError(f"{w8_gemm.LAUNCHES_W8A16_BYTES} W8A16 launches on the int8 serving "
+                             "paths took byte loads")
+    log("  every W8A16 launch of phase 6 read its weights with 16-byte loads (the audio stack "
+        f"at row pitch {engine.params.audio_heads.q.stride(-2)} bytes)")
     return counts, server_counts
+
+
+def w8a16_one_kernel(engine, proc) -> None:
+    """A short greedy int8 ``generate`` (prefill and 3 decode steps) under
+    ``torch.profiler``: the device kernels of ``csrc/w8_gemm.cu`` equal the
+    W8A16 launches counted, all of them the one-launch ``a16_kernel`` (the
+    split-K sum stays inside it: no reduce pass)."""
+    from torch.profiler import ProfilerActivity, profile
+
+    batch = four_prompts(proc)
+    before = w8_gemm.LAUNCHES_W8A16
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        engine.generate(batch["input_ids"], batch["attention_mask"], max_new_tokens=4,
+                        text_temperature=0.0, audio_temperature=0.0)
+        torch.cuda.synchronize()
+    launches = w8_gemm.LAUNCHES_W8A16 - before
+    evts = [e for e in prof.key_averages()
+            if e.device_type == torch.autograd.DeviceType.CUDA and "mosstts::w8::" in e.key]
+    kernels = sum(e.count for e in evts)
+    if kernels != launches or not launches or any("a16_kernel" not in e.key for e in evts):
+        raise AssertionError(f"int8 generate: {launches} W8A16 launches, device kernels "
+                             f"{[(e.key[:80], e.count) for e in evts]}")
+    log(f"  int8 generate (prefill + 3 steps) under torch.profiler: {launches} W8A16 launches, "
+        f"{kernels} device kernels of w8_gemm.cu, all a16_kernel (no split-K reduce pass)")
 
 
 def main() -> None:
@@ -1043,10 +1077,11 @@ def main() -> None:
     w8_gemm._entry("mosstts_w8a8_gemm", 2)
     log(f"  {lib.relative_to(Path(__file__).resolve().parent)} in "
         f"{time.perf_counter() - t0:.2f} s")
-    # ptxas -v of the two redesigned kernels' instantiations (static shared
-    # memory only: flash sets its K/V ring's dynamic size at launch)
+    # ptxas -v of the redesigned kernels' instantiations (static shared
+    # memory only: flash, decode and W8A16 set their rings' dynamic size at
+    # launch)
     for r in _build.ptxas_report():
-        if "flash_tc_kernel" in r["name"] or "decode_kernel" in r["name"]:
+        if any(k in r["name"] for k in ("flash_tc_kernel", "decode_kernel", "a16_kernel")):
             log(f"  ptxas: {r['name'][:160]}: {r.get('registers')} registers, {r.get('smem')} B "
                 f"static smem, {r.get('stack')} B stack, spill stores {r.get('spill_stores')} B, "
                 f"loads {r.get('spill_loads')} B")

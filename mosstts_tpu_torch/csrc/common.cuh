@@ -36,6 +36,10 @@ __device__ __forceinline__ void cp_async16(uint32_t dst, const void* src, bool p
     const int n = pred ? 16 : 0;
     asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(dst), "l"(src), "r"(n));
 }
+// 16 bytes global -> shared, asynchronously, unconditionally
+__device__ __forceinline__ void cp_async16(uint32_t dst, const void* src) {
+    asm volatile("cp.async.cg.shared.global [%0], [%1], 16;\n" ::"r"(dst), "l"(src));
+}
 __device__ __forceinline__ void cp_async_commit() { asm volatile("cp.async.commit_group;\n" ::); }
 // wait until at most N committed groups are still in flight
 template <int N> __device__ __forceinline__ void cp_async_wait() {

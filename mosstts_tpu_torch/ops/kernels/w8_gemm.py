@@ -7,7 +7,9 @@ PyTorch versions.
   ``tools/tune_mm8.py::mm8``/``mm8_omajor`` and
   ``tools/probe_int4.py::mm8_pallas``; the serving path's int8 ``dense`` and
   heads (``mosstts_tpu/ops/basic.py:28-35``,
-  ``mosstts_tpu/models/delay.py:56-61``) compute it.
+  ``mosstts_tpu/models/delay.py:56-61``) compute it. One device kernel per
+  call: ``w8a16_plan`` picks its tile variant and its split of K over a
+  thread-block cluster whose blocks sum their partials inside the launch.
 * ``w8a8_gemm``: per-row int8 activations (``quant_rows``), an
   int32-accumulated product, ``f32(acc) * x_scale * w_scale``. Ports
   ``tools/tune_mm8.py::mm8_w8a8``.
@@ -17,24 +19,34 @@ PyTorch versions.
 
 Each wrapper runs its plain version for CPU tensors and its kernel for CUDA
 tensors, never falling back from one to the other; it raises on what the
-kernel does not take and counts its launches (a split-K call is two device
-launches, counted as one). The plain versions compute each product exactly
-(float32, or float64 for the int8 x int8 sum, which float32 cannot hold
-exactly) and apply the scales in the kernels' order.
+kernel does not take and counts its launches (a split-K W8A8 or int4 call
+is two device launches, counted as one). The plain versions compute each
+product exactly (float32, or float64 for the int8 x int8 sum, which float32
+cannot hold exactly) and apply the scales in the kernels' order.
 """
 from __future__ import annotations
 
 import ctypes
 import functools
-from typing import Optional
+from typing import NamedTuple, Optional
 
 import torch
 
-BN, BK = 128, 64  # csrc/w8_gemm.cu: output columns per block, weight rows per k tile
+BN, BK = 128, 64  # csrc/w8_gemm.cu tile_kernel (W8A8, int4): columns per block, k tile rows
 MAX_SPLITS = 16
 _OUT_F32 = {torch.bfloat16: 0, torch.float32: 1}
 
+# csrc/w8_gemm.cu a16::V0-V5, the W8A16 kernel's instantiations: (MT 16-row
+# tiles, BN columns, its consumer warps across the row tiles (WM), the
+# 32-column groups (WN) and the k16 steps of a stage (WK), STAGES ring tiles,
+# NP producer warps, MINB blocks an SM at least (its register budget))
+A16_VARIANTS = ((1, 64, 1, 1, 8, 5, 2, 3), (1, 128, 1, 2, 4, 6, 2, 3), (2, 128, 1, 4, 2, 4, 2, 2),
+                (4, 128, 1, 4, 2, 4, 2, 2), (8, 128, 2, 4, 1, 3, 2, 2), (6, 128, 2, 4, 1, 3, 2, 2))
+A16_STAGE_W = 8192  # weight bytes per ring tile: BK = A16_STAGE_W // BN rows
+MAX_CLUSTER = 8  # blocks per cluster (the split of K): the portable cluster size
+
 LAUNCHES_W8A16 = 0  # w8a16_gemm kernel launches since the count was last set to 0
+LAUNCHES_W8A16_BYTES = 0  # of those, launches on byte-loaded (not 16-byte aligned) weight rows
 LAUNCHES_W8A8 = 0  # w8a8_gemm kernel launches
 LAUNCHES_INT4 = 0  # int4_gemm kernel launches
 
@@ -107,7 +119,8 @@ class GemmArgs(ctypes.Structure):
         [(n, ctypes.c_void_p) for n in ("x", "w", "w_scale", "x_scale", "out", "part")]
         + [(n, ctypes.c_int) for n in ("M", "K", "N", "count", "x_hi", "splits", "k_per_split",
                                        "out_f32")]
-        + [(n, ctypes.c_longlong) for n in ("ldx", "w_sh", "ldo")]
+        + [(n, ctypes.c_longlong) for n in ("ldx", "w_sh", "ldo", "ldw")]
+        + [(n, ctypes.c_int) for n in ("variant", "vec")]
     )
 
 
@@ -126,14 +139,19 @@ def split_k(M: int, K: int, n_blocks: int, sm_count: int):
     return -(-K // per), per
 
 
-def _check_weight(name: str, x, q, scale, x_dtype) -> None:
+def _check_weight(name: str, x, q, scale, x_dtype, pitched: bool = False) -> None:
     """Raise on what the kernel does not take. The common case is one
-    expression: the serving path calls this 254 times per 8B decode step."""
+    expression: the serving path calls this 254 times per 8B decode step.
+    With ``pitched`` (W8A16) q's rows may lie further apart than N (a
+    stack kept at a 16-byte row pitch, ``ops/quant.py``); else q is
+    contiguous."""
     nd, qd, dev = x.dim(), q.dim(), x.get_device()
     if (x.dtype == x_dtype and q.dtype == torch.int8 and x.stride(-1) == 1
             and (nd == 2 and x.stride(0) % 8 == 0 or nd > 2 and x.is_contiguous())
             and x.shape[-1] % 8 == 0 and x.data_ptr() % 16 == 0
-            and qd in (2, 3) and q.is_contiguous() and q.get_device() == dev
+            and qd in (2, 3) and q.get_device() == dev
+            and (q.is_contiguous() or pitched and q.stride(-1) == 1
+                 and q.stride(-2) >= q.shape[-1])
             and (scale is None or (scale.dtype == torch.float32 and scale.is_contiguous()
                                    and scale.get_device() == dev and scale.dim() == qd - 1
                                    and scale.shape[-1] == q.shape[-1]
@@ -141,9 +159,12 @@ def _check_weight(name: str, x, q, scale, x_dtype) -> None:
         return
     if x.dtype != x_dtype or q.dtype != torch.int8:
         raise TypeError(f"{name}: x {x.dtype} must be {x_dtype}, q {q.dtype} int8")
-    if nd < 2 or nd > 2 and not x.is_contiguous() or qd not in (2, 3) or not q.is_contiguous():
-        raise ValueError(f"{name}: x (M, K) or contiguous (..., K) and contiguous q (K, N) or "
-                         f"(count, K, N); got {tuple(x.shape)} and {tuple(q.shape)}")
+    q_ok = q.is_contiguous() or pitched and q.stride(-1) == 1 and q.stride(-2) >= q.shape[-1]
+    if nd < 2 or nd > 2 and not x.is_contiguous() or qd not in (2, 3) or not q_ok:
+        raise ValueError(f"{name}: x (M, K) or contiguous (..., K) and q (K, N) or "
+                         f"(count, K, N), " + ("its rows contiguous and at least N apart"
+                                               if pitched else "contiguous")
+                         + f"; got {tuple(x.shape)} and {tuple(q.shape)} {q.stride()}")
     if scale is not None and (scale.dtype != torch.float32 or not scale.is_contiguous()
                               or tuple(scale.shape) != tuple(q.shape[:-2]) + (q.shape[-1],)):
         raise ValueError(f"{name}: scale must be contiguous f32 {tuple(q.shape[:-2]) + (q.shape[-1],)}")
@@ -153,8 +174,95 @@ def _check_weight(name: str, x, q, scale, x_dtype) -> None:
     raise ValueError(f"{name}: tensors on different devices")
 
 
-_PLANS: dict = {}  # launch shape -> (GemmArgs bytes with its shape fields, out shape, split-K size)
-_SCRATCH: dict = {}  # (device index, stream) -> split-K scratch buffers, kept for the process
+def a16_columns(N: int, count: int, bn: int):
+    """(tiles per weight, tail blocks) of a W8A16 launch (``a16::
+    column_blocks``): a remainder of 1-16 columns after N's full tiles is
+    packed, bn / 16 weights' remainders to a tail block; a larger one is a
+    narrow last tile."""
+    rem = N % bn
+    if rem and rem <= 16:
+        return N // bn, -(-count // (bn // 16))
+    return -(-N // bn), 0
+
+
+class W8A16Plan(NamedTuple):
+    variant: int  # index into A16_VARIANTS
+    mt: int  # 16-row tiles of a block
+    bn: int  # columns of a block
+    bk: int  # weight rows per ring tile
+    tiles: int  # column tiles per weight
+    tail_blocks: int  # blocks of packed remainder columns
+    row_tiles: int  # blocks along M
+    splits: int  # blocks per cluster: split r takes k tiles [r * k_tiles / splits, ...)
+    k_tiles: int  # ring tiles of K
+
+
+def w8a16_plan(M: int, K: int, N: int, count: int, sm_count: int, *,
+               variant: Optional[int] = None, splits: Optional[int] = None) -> W8A16Plan:
+    """The W8A16 launch of one shape, from the sweeps of
+    ``tools/w8a16_plans.py`` on an H100 (PERF.md §6).
+
+    * K is split over s blocks of a cluster, s a power of two up to
+      ``MAX_CLUSTER`` (clusters of 3, 5, 6 or 7 measured slower), each a
+      whole number of ring tiles and none empty (their tile counts differ
+      by at most one).
+    * Decode (M <= 16, one 16-row tile): 64-column tiles unless 128-column
+      ones already give every SM a block (the text head, the audio stack).
+      A block streams its share of the weights at a rate bound by its
+      warps, not by memory, so idle SMs cost more than the split's merge: s
+      gives at least ~one block per SM, the least such s whose blocks fill
+      their last round of SMs to 90% (192 blocks on 132 SMs leave 60 SMs a
+      second block, the rest idle), else the one that fills it best.
+    * Prefill: the tensor cores bound it. M <= 128 is one row tile of 16 *
+      MT rows, MT = 2, 4, 6 or 8 the least that covers M (the weights
+      streamed once); a longer M takes 64-, 96- or 128-row tiles. The tile
+      and s minimise rounds x tile rows x K rows per block x (1 + (s - 1) /
+      10), a round being as many blocks as the card holds at once (two an
+      SM by the register budget) and the last factor the merge's and x's
+      cost per split; a tie goes to the larger tile.
+
+    ``variant`` and ``splits`` (at most the k tiles) override the choice
+    (``tools/w8a16_plans.py`` times the alternatives)."""
+    def shape(v):
+        mt, bn = A16_VARIANTS[v][:2]
+        bk = A16_STAGE_W // bn
+        tiles, tail = a16_columns(N, count, bn)
+        return mt, bn, bk, tiles, tail, -(-M // (16 * mt)), -(-K // bk)
+
+    sizes = (1, 2, 4, 8)
+    if variant is None and M <= 16:
+        variant = 0 if count * -(-N // 128) < sm_count else 1
+    if variant is None or splits is None and M > 16:
+        candidates = ([variant] if variant is not None else
+                      [{2: 2, 4: 3, 6: 5, 8: 4}[next(t for t in (2, 4, 6, 8) if 16 * t >= M)]]
+                      if M <= 128 else [3, 5, 4])
+        best = None
+        for v in candidates:
+            mt, _, _, tiles, tail, rows, k_tiles = shape(v)
+            blocks = (count * tiles + tail) * rows
+            for s in (splits,) if splits is not None else sizes:
+                if s > max(1, min(MAX_CLUSTER, k_tiles)):
+                    continue
+                rounds = -(-blocks * s // (2 * sm_count))
+                cost = rounds * mt * -(-k_tiles // s) * (1 + (s - 1) / 10)
+                if best is None or cost < best[0] or cost == best[0] and mt > best[3]:
+                    best = (cost, v, s, mt)
+        variant, splits = best[1], best[2]
+    mt, bn, bk, tiles, tail, row_tiles, k_tiles = shape(variant)
+    if splits is None:  # decode
+        blocks = count * tiles + tail
+        want = 0.9 * sm_count
+        fit = [s for s in sizes if s <= max(1, min(MAX_CLUSTER, k_tiles))]
+        fit = [s for s in fit if blocks * s >= want] or fit[-1:]
+        fill = [blocks * s / sm_count / -(-blocks * s // sm_count) for s in fit]
+        splits = next((s for s, f in zip(fit, fill) if f >= 0.9), fit[fill.index(max(fill))])
+    return W8A16Plan(variant, mt, bn, bk, tiles, tail, row_tiles, min(splits, k_tiles), k_tiles)
+
+
+# W8A8/int4: launch shape -> (GemmArgs bytes with its shape fields, out shape, split-K size);
+# (device index, stream) -> split-K scratch buffers, kept for the process
+_PLANS: dict = {}
+_SCRATCH: dict = {}
 
 
 def _plan(x_shape: torch.Size, K: int, N: int, count: int, stacked: bool, x_hi: int, ldx: int,
@@ -222,21 +330,67 @@ def _on_cuda(name: str, x: torch.Tensor) -> bool:
     return x.device.type == "cuda"
 
 
+_A16_PLANS: dict = {}  # launch shape -> (GemmArgs bytes with its fields, out shape, tail bytes)
+
+
+def _a16_plan(x_shape: torch.Size, K: int, N: int, count: int, stacked: bool, ldx: int,
+              ldw: int, w_sh: int, out_dtype, index: int):
+    """``w8a16_plan`` and the argument fields of one launch shape, worked
+    out once, with the output shape and the bytes the last weight row's
+    16-byte loads read past its N columns (rounding N up to 16)."""
+    key = (x_shape, K, N, count, stacked, ldx, ldw, w_sh, out_dtype, index)
+    plan = _A16_PLANS.get(key)
+    if plan is None:
+        if len(_A16_PLANS) > 4096:  # prompt lengths vary; keep the cache small
+            _A16_PLANS.clear()
+        M = x_shape.numel() // x_shape[-1]
+        p = w8a16_plan(M, K, N, count, _sm_count(index))
+        vec = int(ldw % 16 == 0 and w_sh % 16 == 0)
+        a = GemmArgs(M=M, K=K, N=N, count=count, splits=p.splits, out_f32=_OUT_F32[out_dtype],
+                     ldx=ldx, w_sh=w_sh, ldo=count * N, ldw=ldw, variant=p.variant, vec=vec)
+        plan = _A16_PLANS[key] = (bytes(a), x_shape[:-1] + ((count, N) if stacked else (N,)),
+                                  vec and -N % 16)
+    return plan
+
+
 def w8a16_gemm(x: torch.Tensor, q: torch.Tensor, scale: torch.Tensor,
                out_dtype: torch.dtype = torch.bfloat16) -> torch.Tensor:
     """x (M, K), or contiguous (..., K), bf16; q (K, N) or (count, K, N)
-    int8, contiguous (a layer or head of a stack is read in place); scale
-    (N,)/(count, N) f32. Returns (..., N) or (..., count, N) in
-    ``out_dtype`` (bf16 or f32)."""
+    int8 whose rows are contiguous and ``ldw = q.stride(-2) >= N`` bytes
+    apart (a layer or head of a stack is read in place); scale (N,)/(count,
+    N) f32. Returns (..., N) or (..., count, N) in ``out_dtype`` (bf16 or
+    f32). Rows whose pitch, weight stride and address are multiples of 16
+    bytes take 16-byte loads; others (an unpadded N % 16 != 0 stack) take
+    the same kernel with byte loads, counted in ``LAUNCHES_W8A16_BYTES``."""
     if not _on_cuda("w8a16_gemm", x):
         return w8a16_gemm_ref(x, q, scale, out_dtype)
-    _check_weight("w8a16_gemm", x, q, scale, torch.bfloat16)
-    if out_dtype not in _OUT_F32 or x.shape[-1] != q.shape[-2]:
+    _check_weight("w8a16_gemm", x, q, scale, torch.bfloat16, pitched=True)
+    K = x.shape[-1]
+    if out_dtype not in _OUT_F32 or K != q.shape[-2]:
         raise ValueError(f"w8a16_gemm: out_dtype {out_dtype}, x {tuple(x.shape)}, "
                          f"q {tuple(q.shape)}")
-    out = _launch("mosstts_w8a16_gemm", x, q, scale, out_dtype, K=x.shape[-1])
-    global LAUNCHES_W8A16
+    index = x.device.index
+    stacked = q.ndim == 3
+    N = q.shape[-1]
+    args, out_shape, over = _a16_plan(x.shape, K, N, q.shape[0] if stacked else 1, stacked,
+                                      x.stride(0) if x.dim() == 2 else K, q.stride(-2),
+                                      q.stride(0) if stacked else 0, out_dtype, index)
+    a = GemmArgs.from_buffer_copy(args)
+    a.x = x.data_ptr()
+    a.w = q.data_ptr()
+    if a.vec and (a.w % 16 or over and (q.storage_offset() + over + sum(
+            (n - 1) * st for n, st in zip(q.shape, q.stride())) >= q.untyped_storage().nbytes())):
+        a.vec = 0  # a misaligned view, or the last row's padding lies past the storage
+    a.w_scale = scale.data_ptr()
+    out = torch.empty(out_shape, dtype=out_dtype, device=x.device)
+    a.out = out.data_ptr()
+    stream = torch._C._cuda_getCurrentRawStream(index)
+    rc = _entry("mosstts_w8a16_gemm")(ctypes.byref(a), stream)
+    if rc != 0:
+        raise RuntimeError(f"mosstts_w8a16_gemm kernel launch failed: cudaError {rc}")
+    global LAUNCHES_W8A16, LAUNCHES_W8A16_BYTES
     LAUNCHES_W8A16 += 1
+    LAUNCHES_W8A16_BYTES += not a.vec
     return out
 
 

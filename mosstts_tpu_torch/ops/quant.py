@@ -17,6 +17,14 @@ appears as ``wq.q`` and ``wq.scale`` in ``named_parameters()``, the names
 that ``utils.convert`` gives a JAX ``QuantWeight`` leaf. Indexing a stacked
 weight gives a ``QuantView`` of one layer or head: ``q[i]`` and ``scale[i]``
 together (JAX's ``take_weight`` keeps the same pairing), views with no copy.
+
+A weight whose ``out`` is not a multiple of 16 (the 1025-wide Delay audio
+heads) keeps ``q`` as the (..., in, out) view of a buffer whose rows are
+padded to the next multiple of 16 bytes, so the W8A16 kernel reads its rows
+with 16-byte loads (+1.5% of the heads' bytes at 8B). Names, shapes and
+values are unchanged (``state_dict``, ``named_parameters``, the bridge);
+the pad is restored after a move, a copy or an unpickle (``.to()`` and
+``deepcopy`` would otherwise make ``q`` contiguous).
 """
 from __future__ import annotations
 
@@ -67,9 +75,26 @@ class QuantView(_QuantShape):
         self.scale = scale
 
 
+ROW_PITCH = 16  # bytes: q's rows lie a multiple of this apart (the W8A16 kernel's loads)
+
+
+def pitched(q: torch.Tensor) -> torch.Tensor:
+    """``q`` (..., in, out) itself if its rows are contiguous and a multiple
+    of ``ROW_PITCH`` bytes apart, else a copy of it in a buffer whose rows
+    are padded (with zeros) to the next multiple, as the (..., in, out)
+    view of that buffer."""
+    if q.stride(-1) == 1 and all(st % ROW_PITCH == 0 for st in q.stride()[:-1]):
+        return q
+    n = q.shape[-1]
+    buf = torch.zeros(q.shape[:-1] + (n + -n % ROW_PITCH,), dtype=q.dtype, device=q.device)
+    buf[..., :n].copy_(q)
+    return buf[..., :n]
+
+
 class QuantWeight(_QuantShape, nn.Module):
     """Ports ``mosstts_tpu.ops.quant.QuantWeight``: int8 ``q`` (..., in, out)
-    and f32 per-output-channel ``scale`` (..., out) as module parameters."""
+    and f32 per-output-channel ``scale`` (..., out) as module parameters;
+    ``q``'s rows at a ``ROW_PITCH`` multiple (``pitched``)."""
 
     def __init__(self, q: torch.Tensor, scale: torch.Tensor):
         super().__init__()
@@ -78,9 +103,28 @@ class QuantWeight(_QuantShape, nn.Module):
         if tuple(scale.shape) != tuple(q.shape[:-2]) + (q.shape[-1],):
             raise ValueError(f"QuantWeight: scale {tuple(scale.shape)} does not match "
                              f"q {tuple(q.shape)}")
-        self.q = nn.Parameter(q, requires_grad=False)
+        self.q = nn.Parameter(pitched(q), requires_grad=False)
         self.scale = nn.Parameter(scale, requires_grad=False)
         self._views: dict = {}
+
+    def _repitch(self) -> None:
+        q = self._parameters["q"]
+        p = pitched(q.data)
+        if p is not q.data:
+            self._parameters["q"] = nn.Parameter(p, requires_grad=False)
+
+    def _apply(self, fn, recurse=True):
+        """A move or cast (``.to()``) copies a padded ``q`` contiguous: pad
+        it again."""
+        super()._apply(fn, recurse)
+        self._repitch()
+        return self
+
+    def __setstate__(self, state):
+        """``deepcopy`` and unpickling copy a padded ``q`` contiguous: pad
+        it again."""
+        super().__setstate__(state)
+        self._repitch()
 
     def __getitem__(self, i) -> QuantView:
         """``q[i]`` and ``scale[i]`` as a ``QuantView``. Integer indices are

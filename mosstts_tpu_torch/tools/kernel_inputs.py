@@ -29,6 +29,15 @@ L, KV, H, HD, S, P = 36, 8, 32, 128, 1024, 128  # 8B layers and heads; capacity,
 HBM_BYTES_PER_S = 3.35e12
 PEAK_OPS_PER_S = {torch.bfloat16: 989e12, torch.float32: 67e12, torch.int8: 1979e12}
 POISON = 1e4  # the trash page's values and scales (int8 values: 127)
+# the 8B model's int8 products: name, K, N, stacked count (0: one (K, N) per layer), out dtype
+GEMM_8B = (
+    ("wq", 4096, 4096, 0, torch.bfloat16),  # and wo
+    ("wk", 4096, 1024, 0, torch.bfloat16),  # and wv
+    ("w_gate", 4096, 12288, 0, torch.bfloat16),  # and w_up
+    ("w_down", 12288, 4096, 0, torch.bfloat16),
+    ("text_head", 4096, 151936, 0, torch.bfloat16),
+    ("audio_heads", 4096, 1025, 32, torch.float32),
+)
 
 
 def card_line() -> str:

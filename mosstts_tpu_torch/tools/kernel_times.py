@@ -1,16 +1,29 @@
-"""The attention and decode kernels' device times of ``chip_smoke.py``
-phase 3 for the ``mosstts_tpu_torch`` of any checkout, so that two commits
-can be compared on one NVIDIA GPU.
+"""The kernels' device times of ``chip_smoke.py`` phase 3 for the
+``mosstts_tpu_torch`` of any checkout, so that two commits can be compared
+on one NVIDIA GPU.
 
-    python3 mosstts_tpu_torch/tools/kernel_times.py --root DIR
+    python3 mosstts_tpu_torch/tools/kernel_times.py --root DIR [--only attention|gemm]
 
 Run it as a file, as ``tools/bf16_path.py``: it imports ``chip_smoke`` and
 the port from ``--root`` (a checkout, e.g. an archive of another commit
-unpacked under the git-ignored ``build/``) and runs that tree's
-``phase_kernels`` and ``phase_kernels_server``: each kernel against its
-plain version, then its device time per call from CUDA-graph replays. One
-JSON line last: µs per call by kernel, and by shape where the tree reports
-shapes. Compare two trees only within one call, in the order A B B A.
+unpacked under the git-ignored ``build/``).
+
+* attention: that tree's ``phase_kernels`` and ``phase_kernels_server``:
+  each kernel against its plain version, then its device time per call from
+  CUDA-graph replays.
+* gemm: the tree's own ``w8a16_gemm(x, q, scale, out_dtype)`` (the same
+  signature in every tree since it was written) at every ``GEMM_8B`` shape
+  of its ``chip_smoke.py``, at M = 1 and 16 and, for the backbone weights,
+  96 and 640: (K, N) int8 layers of a 36-layer stack, call i reading layer
+  i % 36 (cold in L2, as a decode step finds them), the text head, and the
+  32-head audio stack in the layout the tree's ``QuantWeight`` keeps it;
+  and the tree's ``w8a8_gemm`` and ``int4_gemm`` at their tools' shapes
+  (``tools/tune_mm8.py``, ``tools/probe_int4.py``), timed first, before
+  the W8A16 shapes' allocations can differ between the trees. Inputs from
+  one seed, the same in every tree.
+
+One JSON line last: µs per call by kernel and shape. Compare two trees only
+within one call, in the order A B B A.
 """
 from __future__ import annotations
 
@@ -20,11 +33,57 @@ import os
 import sys
 from pathlib import Path
 
+L8 = 36  # 8B layers: a backbone weight's stack
+
+
+def gemm_times(torch) -> dict:
+    """µs per call of the imported tree's W8A16 at every 8B shape, and of
+    its W8A8 and int4 at their tools' shapes."""
+    import chip_smoke
+    from mosstts_tpu_torch.ops import quant
+    from mosstts_tpu_torch.ops.kernels import w8_gemm
+    from mosstts_tpu_torch.tools import probe_int4, tune_mm8
+    from mosstts_tpu_torch.tools.kernel_inputs import time_ms
+
+    dev, res = "cuda", {}
+    # the tools' GEMMs first, while both trees' processes have allocated the same
+    x, w8, scale = tune_mm8.make_inputs(128, 16, 4096, 12288)
+    res["w8a8 B=128"] = round(time_ms(lambda i: w8_gemm.w8a8_gemm(x, w8[i % 16],
+                                                                   scale[i % 16])) * 1e3, 2)
+    del x, w8, scale
+    x, _, packed = probe_int4.make_inputs()
+    res["int4 B=64"] = round(time_ms(lambda i: w8_gemm.int4_gemm(x, packed[i % 16])) * 1e3, 2)
+    del x, packed
+    torch.cuda.empty_cache()
+    g = torch.Generator(device=dev).manual_seed(5)
+    for name, K, N, count, out_dtype in chip_smoke.GEMM_8B:
+        L = 1 if count or name.endswith("head") else L8
+        shape = ((count,) if count else (L,)) + (K, N)
+        q = torch.empty(shape, dtype=torch.int8, device=dev).random_(-127, 128, generator=g)
+        sc = torch.rand(shape[:-2] + (N,), generator=g, device=dev) * 0.019 + 0.001
+        if count:  # the serving layout of the stack
+            w = quant.QuantWeight(q, sc)
+            pick = (lambda i, w=w: (w.q, w.scale))
+        else:
+            pick = (lambda i, q=q, sc=sc, L=L: (q[i % L], sc[i % L]))
+        for M in (1, 16) + ((96, 640) if L > 1 else ()):
+            x = torch.randn((M, K), generator=g, device=dev).to(torch.bfloat16)
+            n = 36 if K * N * (count or 1) < 2e8 else 8
+            ms = time_ms(lambda i: w8_gemm.w8a16_gemm(x, *pick(i), out_dtype), n=n)
+            res[f"w8a16 {name} M={M}"] = round(ms * 1e3, 2)
+            print(f"w8a16 {name} M={M}: {ms * 1e3:.2f} µs", flush=True)
+        del q, sc, pick
+        torch.cuda.empty_cache()
+    return res
+
 
 def main(argv=None) -> dict:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--root", type=Path, required=True, help="the checkout to measure")
-    root = ap.parse_args(argv).root.resolve()
+    ap.add_argument("--only", choices=("attention", "gemm"), default=None,
+                    help="time only these kernels (default: both)")
+    args = ap.parse_args(argv)
+    root = args.root.resolve()
 
     import torch
 
@@ -35,14 +94,17 @@ def main(argv=None) -> dict:
     import chip_smoke
 
     torch.backends.cuda.matmul.allow_tf32 = False
-    numbers = chip_smoke.phase_kernels()
-    numbers.update(chip_smoke.phase_kernels_server())
     res = {"root": str(root), "card": chip_smoke.card_line()}
-    for name, n in numbers.items():
-        if isinstance(n, dict) and "ms" in n:
-            res[name] = round(n["ms"] * 1e3, 2)
-            for sh in n.get("shapes", ()):
-                res[f"{name} {sh['shape']}"] = round(sh["ms"] * 1e3, 2)
+    if args.only != "gemm":
+        numbers = chip_smoke.phase_kernels()
+        numbers.update(chip_smoke.phase_kernels_server())
+        for name, n in numbers.items():
+            if isinstance(n, dict) and "ms" in n:
+                res[name] = round(n["ms"] * 1e3, 2)
+                for sh in n.get("shapes", ()):
+                    res[f"{name} {sh['shape']}"] = round(sh["ms"] * 1e3, 2)
+    if args.only != "attention":
+        res.update(gemm_times(torch))
     print(json.dumps(res), flush=True)
     return res
 

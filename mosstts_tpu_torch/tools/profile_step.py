@@ -15,7 +15,9 @@ batch size (and, with ``--int8``, for each batch size again after
   of the kernels' self device time), kernels launched per step, the idle
   share (1 - device time / step wall time), the top kernels by device
   time, and the decode attention's device kernels per step and their time
-  (one ``decode_kernel`` launch per layer);
+  (one ``decode_kernel`` launch per layer), and the device kernels and
+  time of ``csrc/w8_gemm.cu`` per step (int8 weights: one per W8A16
+  call);
 - a ``cProfile`` window of 4 more steps: the Python functions with the most
   host time of their own per step (cProfile slows the host; these say where
   the host time goes, not how much there is).
@@ -106,6 +108,7 @@ def profile_batch(engine, B: int, args, trace_dir) -> dict:
     kernels = sum(e.count for e in evts) / WINDOW
     top = sorted(evts, key=lambda e: -e.self_device_time_total)[:args.top]
     attn = [e for e in evts if "decode_kernel" in e.key]
+    w8 = [e for e in evts if "mosstts::w8::" in e.key]
     if trace_dir is not None:
         prof.export_chrome_trace(str(trace_dir / f"decode_step_b{B}.json"))
     return dict(
@@ -115,6 +118,8 @@ def profile_batch(engine, B: int, args, trace_dir) -> dict:
         decode_attention=dict(kernels_per_step=sum(e.count for e in attn) / WINDOW,
                               ms_per_step=sum(e.self_device_time_total for e in attn)
                               / WINDOW / 1e3),
+        w8_gemm=dict(kernels_per_step=sum(e.count for e in w8) / WINDOW,
+                     ms_per_step=sum(e.self_device_time_total for e in w8) / WINDOW / 1e3),
         top=[dict(ms_per_step=e.self_device_time_total / WINDOW / 1e3,
                   calls_per_step=e.count / WINDOW, name=e.key[:100]) for e in top],
         host_top=[dict(ms_per_step=v[2] / WINDOW * 1e3, calls_per_step=v[1] / WINDOW,
@@ -163,6 +168,10 @@ def main(argv=None) -> None:
             da = r["decode_attention"]
             print(f"   decode attention: {da['kernels_per_step']:.0f} device kernels per step "
                   f"(one per layer), {da['ms_per_step']:.3f} ms/step", flush=True)
+            if weights == "int8":
+                w8 = r["w8_gemm"]
+                print(f"   csrc/w8_gemm.cu: {w8['kernels_per_step']:.0f} device kernels per step "
+                      f"(one per W8A16 call), {w8['ms_per_step']:.3f} ms/step", flush=True)
             for t in r["top"]:
                 print(f"   {t['ms_per_step']:8.3f} ms/step  x{t['calls_per_step']:6.0f}  {t['name']}")
             print("   host, own time under cProfile:")

@@ -273,8 +273,8 @@ def _int8(rng, *shape):
                                          (16, 4096, 12288, 1), (4, 4096, 1025, 32)])
 def test_w8a16_kernel_matches_plain(out_dtype, M, K, N, count):
     """Decode (M <= 16, split K) and prefill (M > 16) tiles, ragged N (the
-    1025-wide audio heads, byte loads), a stack of heads, and the 8B
-    ``w_gate`` and audio-stack shapes."""
+    1025-wide audio heads unpadded, byte loads), a stack of heads, and the
+    8B ``w_gate`` and audio-stack shapes."""
     _need_card()
     rng = np.random.default_rng(M + N)
     x = torch.tensor(rng.normal(size=(M, K)).astype(np.float32)).cuda().to(torch.bfloat16)
@@ -307,8 +307,9 @@ def test_w8a16_reads_a_layer_of_the_stack_in_place():
 @pytest.mark.cuda
 def test_w8a16_leading_dims_and_shared_split_k_scratch():
     """A contiguous x (..., K) goes in as its rows (a strided one raises).
-    Split-K launches on one stream share one scratch, inside a CUDA graph
-    too: two products captured back to back replay to their eager results."""
+    Split-K launches keep their partials in the cluster's shared memory (no
+    scratch): two products captured back to back in a CUDA graph replay to
+    their eager results."""
     _need_card()
     rng = np.random.default_rng(4)
     x = torch.tensor(rng.normal(size=(2, 3, 4096)).astype(np.float32)).cuda().to(torch.bfloat16)
@@ -335,6 +336,96 @@ def test_w8a16_leading_dims_and_shared_split_k_scratch():
     torch.cuda.synchronize()
     for a, b in zip(got, eager):
         assert torch.equal(a, b)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("M", [1, 5, 16, 17, 64, 96, 128, 640])
+@pytest.mark.parametrize("N,padded", [(1024, False), (1025, True), (1025, False), (4096, False)])
+def test_w8a16_stack_repeats_bit_for_bit(M, N, padded):
+    """A stack of 32 weights at every row tile (M = 1-640), N a multiple of
+    16, 1025 at a 16-byte row pitch (``QuantWeight``'s layout: 16-byte
+    loads and the packed remainder columns) and 1025 unpadded (byte loads,
+    counted in ``LAUNCHES_W8A16_BYTES``): the plain version's result, one
+    launch per call, and the same bits in two eager calls and a CUDA-graph
+    replay."""
+    _need_card()
+    from mosstts_tpu_torch.ops.quant import pitched
+
+    rng = np.random.default_rng(M * 7 + N + padded)
+    K, count = 512, 32
+    x = torch.tensor(rng.normal(size=(M, K)).astype(np.float32)).cuda().to(torch.bfloat16)
+    q = _int8(rng, count, K, N)
+    if padded:
+        q = pitched(q)
+        assert q.stride(-2) == 1040 and not q.is_contiguous()
+    s = torch.tensor(rng.uniform(1e-3, 2e-2, size=(count, N)).astype(np.float32)).cuda()
+    launches, byte_launches = w8_gemm.LAUNCHES_W8A16, w8_gemm.LAUNCHES_W8A16_BYTES
+    first = w8_gemm.w8a16_gemm(x, q, s, torch.float32)
+    assert w8_gemm.LAUNCHES_W8A16 == launches + 1
+    assert w8_gemm.LAUNCHES_W8A16_BYTES == byte_launches + (N % 16 != 0 and not padded)
+    second = w8_gemm.w8a16_gemm(x, q, s, torch.float32)
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        w8_gemm.w8a16_gemm(x, q, s, torch.float32)
+    torch.cuda.current_stream().wait_stream(side)
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        replayed = w8_gemm.w8a16_gemm(x, q, s, torch.float32)
+    graph.replay()
+    torch.cuda.synchronize()
+    _gemm_close(first, w8_gemm.w8a16_gemm_ref(x, q, s, torch.float32),
+                w8_gemm.w8a16_gemm_ref(x.abs(), q.abs(), s, torch.float32), torch.float32)
+    assert torch.equal(first, second) and torch.equal(first, replayed)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("M,K,N,count", [(1, 4096, 1024, 1), (16, 4096, 12288, 1),
+                                         (16, 4096, 1025, 32), (96, 4096, 4096, 1),
+                                         (640, 1024, 4096, 1)])
+def test_w8a16_is_one_device_kernel_per_call(M, K, N, count):
+    """Split K is summed inside the launch: one device kernel per call,
+    no reduce pass (``torch.profiler``'s device events)."""
+    _need_card()
+    from torch.profiler import ProfilerActivity, profile
+
+    from mosstts_tpu_torch.ops.quant import quantize_weight
+
+    rng = np.random.default_rng(M + N)
+    x = torch.tensor(rng.normal(size=(M, K)).astype(np.float32)).cuda().to(torch.bfloat16)
+    w = quantize_weight(torch.tensor(rng.normal(size=((count,) if count > 1 else ()) + (K, N))
+                                     .astype(np.float32)).cuda())
+    w8_gemm.w8a16_gemm(x, w.q, w.scale)  # plan cached, library loaded
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        for _ in range(3):
+            w8_gemm.w8a16_gemm(x, w.q, w.scale)
+        torch.cuda.synchronize()
+    kernels = [e for e in prof.key_averages() if e.device_type == torch.autograd.DeviceType.CUDA
+               and "mosstts" in e.key]
+    assert sum(e.count for e in kernels) == 3, [(e.key, e.count) for e in kernels]
+    assert all("a16_kernel" in e.key for e in kernels)
+
+
+@pytest.mark.cuda
+def test_w8a16_unaligned_rows_take_the_byte_path():
+    """Rows whose pitch or address is not a multiple of 16 bytes take the
+    byte-loaded form of the kernel (the wrapper's documented rule) and agree
+    with the plain version; an aligned view of the same buffer takes 16-byte
+    loads."""
+    _need_card()
+    rng = np.random.default_rng(13)
+    x = torch.tensor(rng.normal(size=(4, 256)).astype(np.float32)).cuda().to(torch.bfloat16)
+    buf = _int8(rng, 256, 224)  # rows 224 bytes apart
+    s = torch.tensor(rng.uniform(1e-3, 2e-2, size=(192,)).astype(np.float32)).cuda()
+    for q, byte_path in ((buf[:, 8:], True), (buf[:, 1:193], True), (buf[:, 16:], False)):
+        q = q[:, :192]
+        before = w8_gemm.LAUNCHES_W8A16_BYTES
+        out = w8_gemm.w8a16_gemm(x, q, s)
+        torch.cuda.synchronize()
+        assert w8_gemm.LAUNCHES_W8A16_BYTES == before + byte_path
+        _gemm_close(out, w8_gemm.w8a16_gemm_ref(x, q, s, torch.bfloat16),
+                    w8_gemm.w8a16_gemm_ref(x.abs(), q.abs(), s, torch.float32), torch.bfloat16)
 
 
 @pytest.mark.cuda
