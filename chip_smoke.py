@@ -7,7 +7,9 @@ Run from the repository root with no arguments:
 
 Phases, one or more lines each; any failure raises and exits non-zero:
 
-1. device: the card's name and power limit; TF32 off.
+1. device: the card's name and power limit; TF32 off (the bf16 products at
+   PyTorch's defaults: ``ops.basic.dense`` does not read the
+   reduced-precision reduction flag).
 2. build: nvcc builds the CUDA kernels from ``mosstts_tpu_torch/csrc``, one
    process per source, all started together; ``ptxas -v``'s registers,
    shared memory and spills of the flash and decode kernels.
@@ -42,9 +44,24 @@ Phases, one or more lines each; any failure raises and exits non-zero:
    2-layer check of phase 3); then phase 4's solo requests and phase 5's
    server in the linear bf16 and the paged int8 KV modes run on the int8
    weights, every matmul through the W8A16 kernel, none on byte loads.
-The kernels' launch counts are set to 0 just before phases 4 and 6 and each
-server mode and read just after, and must show every prefill and every
-decode step went through the kernels. Phase 3 adds the int8-weight GEMMs
+7. CUDA graphs against eager decode steps at the same width, in two parts:
+   7a on phase 4's bf16 weights (before phase 6 quantizes them), 7b on the
+   int8 weights after phase 6. Each part: ``generate`` at B = 1 and 4 with
+   ``on_device`` False and True, greedy and sampled with the seeds s1, s2,
+   s1, on the engine (graph replays) and on an eager engine over the same
+   weights (``graphs=False``): every grid equal bit for bit, s1's grid twice;
+   then ``tools/profile_step``'s decode step eager against graph at B = 1
+   and 16 (step wall, device time, kernels, idle share, peak memory). 7b
+   also serves phase 5's 24 requests in the linear bf16 and the paged int8
+   KV modes (a 20-page pool that forces preemptions) with graph and with
+   eager steps: the completions must be equal.
+Phases 4-6 run the package's default, every decode step a CUDA-graph
+replay (``engine/step_graph.py``); prefills stay eager. The kernels' launch
+counts are set to 0 just before phases 4 and 6 and each server mode and
+read just after, and must show every prefill and every decode step went
+through the kernels; a graph's launches count once per replay
+(``ops/kernels/launches.py``), and the decode kernels and W8A16 must have
+run inside replayed graphs. Phase 3 adds the int8-weight GEMMs
 (W8A16 at the 8B decode and prefill shapes, each shape's times in the
 kernels line; W8A8 and int4 at their tools' shapes, each tool's walk driven
 once) and ``decode_attention_q8t`` (bf16
@@ -66,6 +83,7 @@ import json
 import sys
 import time
 from pathlib import Path
+from types import SimpleNamespace
 
 import numpy as np
 import torch
@@ -80,9 +98,10 @@ from mosstts_tpu_torch.models.delay import make_sampling  # noqa: E402
 from mosstts_tpu_torch.models.delay import delay_forward  # noqa: E402
 from mosstts_tpu_torch.nn import qwen3  # noqa: E402
 from mosstts_tpu_torch.ops.kernels import _build, decode_attn, flash, paged_attn, w8_gemm  # noqa: E402
+from mosstts_tpu_torch.ops.kernels import launches as kernel_launches  # noqa: E402
 from mosstts_tpu_torch.ops.quant import is_quantized, pitched  # noqa: E402
 from mosstts_tpu_torch.serve.pipelines import demo_backend, synthesize  # noqa: E402
-from mosstts_tpu_torch.tools import probe_int4, tune_mm8  # noqa: E402
+from mosstts_tpu_torch.tools import probe_int4, profile_step, tune_mm8  # noqa: E402
 from mosstts_tpu_torch.tools.kernel_inputs import (  # noqa: E402
     GEMM_8B, bound, card_line, decode_bound, decode_inputs, gemm_bound, time_ms)
 
@@ -693,31 +712,33 @@ def phase_small_int8() -> None:
             f"(tol 0.9999)")
 
 
-COUNTERS = {  # kernel name -> (module, attribute) of its launch count
-    "flash": (flash, "LAUNCHES"),
-    "decode": (decode_attn, "LAUNCHES"),
-    "decode_q8": (decode_attn, "LAUNCHES_Q8"),
-    "paged": (paged_attn, "LAUNCHES"),
-    "paged_q8": (paged_attn, "LAUNCHES_Q8"),
-    "decode_q8t": (decode_attn, "LAUNCHES_Q8T"),
-    "w8a16": (w8_gemm, "LAUNCHES_W8A16"),
-    "w8a8": (w8_gemm, "LAUNCHES_W8A8"),
-    "int4": (w8_gemm, "LAUNCHES_INT4"),
-}
+# kernel name -> (module, attribute) of its launch count (the byte-load count
+# of W8A16 is a share of its launches, not a kernel)
+COUNTERS = {k: v for k, v in kernel_launches.COUNTERS.items() if k != "w8a16_bytes"}
 # kernels no serving path runs, as in the JAX package: their launches come
 # from phase 3's drive of the path that does run them (a tool's walk, or
 # decode_attention_q8t once per layer)
 OFF_PATH = ("decode_q8t", "w8a8", "int4")
 
 
+# kernels the decode steps launch inside replayed CUDA graphs (flash stays in
+# the eager prefill)
+IN_GRAPHS = ("decode", "decode_q8", "paged", "paged_q8", "w8a16")
+
+
 def reset_counts() -> None:
-    for mod, attr in COUNTERS.values():
-        setattr(mod, attr, 0)
+    """Every wrapper's count and every count of launches inside replayed
+    graphs to 0."""
+    kernel_launches.reset()
 
 
 def read_counts() -> dict:
+    """Each kernel's launches since ``reset_counts``, and under ``"graphs"``
+    how many of them ran inside replayed CUDA graphs."""
     torch.cuda.synchronize()
-    return {name: getattr(mod, attr) for name, (mod, attr) in COUNTERS.items()}
+    counts = {name: getattr(mod, attr) for name, (mod, attr) in COUNTERS.items()}
+    counts["graphs"] = {name: kernel_launches.IN_GRAPHS[name] for name in COUNTERS}
+    return counts
 
 
 def drive_solo(backend, label: str):
@@ -1033,12 +1054,12 @@ def w8a16_one_kernel(engine, proc) -> None:
     """A short greedy int8 ``generate`` (prefill and 3 decode steps) under
     ``torch.profiler``: the device kernels of ``csrc/w8_gemm.cu`` equal the
     W8A16 launches counted, all of them the one-launch ``a16_kernel`` (the
-    split-K sum stays inside it: no reduce pass)."""
-    from torch.profiler import ProfilerActivity, profile
-
+    split-K sum stays inside it: no reduce pass). The session is
+    ``profile_step.device_profile``'s, whose opening burst of throwaway
+    kernels takes the records a session can lose."""
     batch = four_prompts(proc)
     before = w8_gemm.LAUNCHES_W8A16
-    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+    with profile_step.device_profile() as prof:
         engine.generate(batch["input_ids"], batch["attention_mask"], max_new_tokens=4,
                         text_temperature=0.0, audio_temperature=0.0)
         torch.cuda.synchronize()
@@ -1053,13 +1074,162 @@ def w8a16_one_kernel(engine, proc) -> None:
         f"{kernels} device kernels of w8_gemm.cu, all a16_kernel (no split-K reduce pass)")
 
 
+SOLO_NEW = 48  # new frames of each generate in phase 7
+SEEDS = (1, 2, 1)  # s1, s2, s1: the third sampled call must repeat the first
+
+
+def same_grids(a, b) -> bool:
+    return len(a) == len(b) and all(sa == sb and np.array_equal(ga, gb)
+                                    for (sa, ga), (sb, gb) in zip(a, b))
+
+
+def solo_graphs_vs_eager(engine, proc, label: str) -> None:
+    """``generate`` at B = 1 and 4, ``on_device`` False and True, greedy and
+    sampled with the seeds s1, s2, s1, on ``engine`` (its decode steps CUDA
+    graph replays) and on an eager engine over the same weights: every grid
+    equal bit for bit, the third sampled call equal to the first, the
+    second different. Logs both engines' decode steps per second."""
+    eager = DelayEngine(engine.params, engine.config, dtype=engine.dtype,
+                        cache_bucket=engine.cache_bucket, graphs=False)
+    batches = ((1, proc([[proc.build_user_message(text="One row through the graphs.")]],
+                        mode="generation")), (4, four_prompts(proc)))
+    calls = [("greedy", dict(text_temperature=0.0, audio_temperature=0.0))] + [
+        (f"seed {s}", dict(seed=s, text_temperature=1.5, audio_temperature=1.7)) for s in SEEDS]
+    torch.cuda.reset_peak_memory_stats()
+    for B, batch in batches:
+        for on_device in (False, True):
+            sampled, walls = [], {"graph": 0.0, "eager": 0.0}
+            steps = 0
+            for what, kw in calls:
+                out = {}
+                for name, eng in (("graph", engine), ("eager", eager)):
+                    torch.cuda.synchronize()
+                    t = time.perf_counter()
+                    out[name] = eng.generate(batch["input_ids"], batch["attention_mask"],
+                                             max_new_tokens=SOLO_NEW, on_device=on_device, **kw)
+                    torch.cuda.synchronize()
+                    walls[name] += time.perf_counter() - t
+                if not same_grids(out["graph"], out["eager"]):
+                    raise AssertionError(f"{label} B={B} on_device={on_device} {what}: graph "
+                                         "steps gave other tokens than eager steps")
+                steps += out["graph"][0][1].shape[0] - out["graph"][0][0] - 1
+                if what != "greedy":
+                    sampled.append(out["graph"])
+            if not same_grids(sampled[0], sampled[2]) or same_grids(sampled[0], sampled[1]):
+                raise AssertionError(f"{label} B={B} on_device={on_device}: seeds s1, s2, s1 "
+                                     "did not give s1's grid twice and s2's apart")
+            log(f"  {label} generate B={B} on_device={on_device}: greedy and seeds s1, s2, s1, "
+                f"graph grids == eager grids, s1 repeats; {steps} decode steps, graph "
+                f"{steps / walls['graph']:.1f} steps/s, eager {steps / walls['eager']:.1f} "
+                f"steps/s (prefill included)")
+    log(f"  {label} peak device memory {torch.cuda.max_memory_allocated() / 2**30:.2f} GiB with "
+        f"both engines' static states and graphs held; graphs held: "
+        f"{sum(len(st.keys) for st in engine._steps.values())}")
+    del eager
+    engine_memory(engine, label)
+
+
+def engine_memory(engine, label: str) -> None:
+    """What ``engine`` holds besides its weights after a phase: its one
+    static decode state (the KV cache and the other buffers) and its graphs'
+    memory pool, read as the device memory allocated and reserved that
+    dropping them frees. Raises if it holds more than one state."""
+    if len(engine._steps) > 1:
+        raise AssertionError(f"{label}: the engine holds {len(engine._steps)} decode states")
+    ((key, steps),) = engine._steps.items()
+    kv = sum(t.nbytes for t in steps.state.cache)
+    state = kv + sum(t.nbytes for t in steps.state[1:] if isinstance(t, torch.Tensor))
+    gc.collect()
+    torch.cuda.empty_cache()
+    held = torch.cuda.memory_allocated(), torch.cuda.memory_reserved()
+    graphs = len(steps.keys)
+    engine._steps.clear()
+    del steps
+    gc.collect()
+    torch.cuda.empty_cache()
+    freed = [(a - b) / 2**30 for a, b in zip(held, (torch.cuda.memory_allocated(),
+                                                    torch.cuda.memory_reserved()))]
+    log(f"  {label} engine memory after the phase: one decode state (B, cache_len, kv_quant) = "
+        f"{key}, KV cache {kv / 2**30:.3f} GiB, state {state / 2**30:.3f} GiB, {graphs} graphs; "
+        f"dropping it frees {freed[0]:.3f} GiB allocated, {freed[1]:.3f} GiB reserved")
+
+
+def server_graphs_vs_eager(params, label: str) -> None:
+    """Phase 5's 24 requests in the linear bf16 and the paged int8 KV modes,
+    served with CUDA-graph steps and with eager steps: the completions must
+    be equal. 8 requests are admitted mid-flight, and the paged pool of 20
+    pages (a slot needs 2 at the end of most requests) forces preemptions."""
+    cfg = delay_8b()
+    prompts, budgets = server_traffic(cfg)
+    for name, mode in (("linear bf16", {}),
+                       ("paged int8", dict(paged=True, kv_quant=True, num_pages=21))):
+        res = {}
+        for graphs in (True, False):
+            server = DelayBatchServer(
+                params, cfg, slots=BS, cache_len=SS, out_capacity=128, prompt_bucket=32,
+                page_size=PS, dtype=torch.bfloat16, graphs=graphs,
+                sampling=make_sampling(text_temperature=1.7, audio_temperature=1.7,
+                                       audio_top_p=0.8, device=DEV), **mode)
+            server.warmup(prompt_lens=(64, 96), attend_upto=256)
+            server.total_steps, server.total_preemptions = 0, 0
+            torch.cuda.synchronize()
+            t = time.perf_counter()
+            for g, n in zip(prompts, budgets):
+                server.submit(g, max_new_tokens=n)
+            done = sorted(server.run(), key=lambda c: c.request_id)
+            torch.cuda.synchronize()
+            res[graphs] = (done, server.total_steps, server.total_preemptions,
+                           time.perf_counter() - t)
+            del server
+            gc.collect()
+            torch.cuda.empty_cache()
+        (got, steps, pre, wall), (ref, steps_e, pre_e, wall_e) = res[True], res[False]
+        if len(got) != len(prompts) or [c.request_id for c in got] != [c.request_id for c in ref]:
+            raise AssertionError(f"{label} server {name}: {len(got)} / {len(ref)} completions")
+        for a, b in zip(got, ref):
+            if a.steps != b.steps or not np.array_equal(a.tokens, b.tokens):
+                raise AssertionError(f"{label} server {name}: request {a.request_id} differs "
+                                     "between graph and eager steps")
+        if (steps, pre) != (steps_e, pre_e) or (mode.get("paged") and not pre):
+            raise AssertionError(f"{label} server {name}: steps {steps}/{steps_e}, "
+                                 f"preemptions {pre}/{pre_e}")
+        frames = sum(c.steps for c in got)
+        log(f"  {label} server {name}: 24 requests (8 mid-flight), {pre} preemptions, {steps} "
+            f"steps; graph completions == eager completions; graph {frames / wall:.1f} "
+            f"frames/s ({wall / steps * 1e3:.2f} ms/step), eager {frames / wall_e:.1f} frames/s "
+            f"({wall_e / steps * 1e3:.2f} ms/step)")
+
+
+def step_times(engine, label: str) -> list:
+    """``tools/profile_step``'s decode step, eager against CUDA graph, at
+    B = 1 and 16 (prompt 200, cache 512, attend 256): step wall (host
+    clock), device time and kernels per step (``torch.profiler``), idle
+    share, peak device memory."""
+    args = SimpleNamespace(prompt=200, cache=512, attend=256, steps=16, top=4)
+    rows = []
+    for B in (1, 16):
+        for graphs in (False, True):
+            r = profile_step.profile_batch(engine, B, args, None, graphs)
+            rows.append(dict(weights=label, **{k: r[k] for k in (
+                "batch", "steps", "step_wall_ms", "step_device_ms", "kernels_per_step",
+                "idle_share", "peak_gib")}))
+            log(f"  {label} decode step B={B} {r['steps']}: wall {r['step_wall_ms']:.3f} ms, "
+                f"device {r['step_device_ms']:.3f} ms, {r['kernels_per_step']:.0f} device "
+                f"kernels, idle share {r['idle_share']:.3f}, peak {r['peak_gib']:.2f} GiB")
+            if graphs and r["step_device_ms"] <= 0:
+                raise AssertionError(f"{label} B={B}: the profiler saw no device time in "
+                                     "graph steps")
+    gc.collect()
+    torch.cuda.empty_cache()
+    return rows
+
+
 def main() -> None:
     log("phase 1: device")
     if not torch.cuda.is_available():
         raise RuntimeError("torch.cuda.is_available() is false: this script runs on an NVIDIA GPU")
     torch.backends.cuda.matmul.allow_tf32 = False  # full f32 products, as the JAX package
     torch.backends.cudnn.allow_tf32 = False
-    torch.backends.cuda.matmul.allow_bf16_reduced_precision_reduction = False
     name = torch.cuda.get_device_name(0)
     log(f"  {name}; nvidia-smi: {card_line()}; torch {torch.__version__} "
         f"cuda {torch.version.cuda}; TF32 off")
@@ -1116,13 +1286,33 @@ def main() -> None:
     gc.collect()
     torch.cuda.empty_cache()
 
+    log("phase 7a: CUDA-graph decode steps against eager steps, bf16 weights, 8B width")
+    reset_counts()
+    solo_graphs_vs_eager(backend.engine, backend.processor, "bf16")
+    times = step_times(backend.engine, "bf16")
+    log(f"  launches inside replayed graphs: {read_counts()['graphs']}")
+
     log("phase 6: int8 weights at MOSS-TTS 8B width")
     int8_counts, int8_server_counts = phase_int8(backend)
+
+    log("phase 7b: CUDA-graph decode steps against eager steps, int8 weights, 8B width")
+    reset_counts()
+    solo_graphs_vs_eager(backend.engine, backend.processor, "int8")
+    server_graphs_vs_eager(backend.engine.params, "int8 weights,")
+    times += step_times(backend.engine, "int8")
+    log(f"  launches inside replayed graphs: {read_counts()['graphs']}")
+    log("  step times: " + json.dumps(times))
 
     runs = [solo_counts, int8_counts, *server_counts.values(), *int8_server_counts.values()]
     launches = {name: sum(c[name] for c in runs) for name in COUNTERS}
     if not all(launches[name] for name in COUNTERS if name not in OFF_PATH):
         raise AssertionError(f"a kernel was never launched on the main paths: {launches}")
+    in_graphs = {name: sum(c["graphs"][name] for c in runs) for name in COUNTERS}
+    if not all(in_graphs[name] for name in IN_GRAPHS) or in_graphs["flash"]:
+        raise AssertionError(f"the main paths' decode steps did not run their kernels inside "
+                             f"replayed CUDA graphs: {in_graphs}")
+    log(f"main paths (phases 4-6): launches {launches}; of them inside replayed CUDA graphs "
+        f"{in_graphs}")
     launches.update(decode_q8t=numbers.pop("q8t_launches"), w8a8=numbers["w8a8"].pop("launches"),
                     int4=numbers["int4"].pop("launches"))
     if not all(launches[name] for name in OFF_PATH):

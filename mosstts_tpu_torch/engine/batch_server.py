@@ -16,9 +16,18 @@ sized for the expected load. The allocator runs off the host mirrors of
 ``pos`` with no device sync; pool exhaustion triggers recompute preemption
 (the slot's prompt plus what it generated is requeued at the front).
 
-Differences from the JAX server, by design: each decode step is an eager
-PyTorch call (no jit, so nothing to compile and no program cache); the
-splice copies lanes and pages into the running state in place; the
+``self.state`` is one set of static buffers for the server's whole life,
+and the decode steps advance it in place (``engine/step_graph.DecodeSteps``):
+on the card each step is the replay of a CUDA graph of the step, one per
+attend bucket (the JAX server's ``_step_fn``), and a block of k steps is k
+replays (its ``_block_fn``, one ``fori_loop`` program); ``graphs=False``
+runs them eagerly, to compare, and the CPU always does. Prefills stay
+eager. The per-slot sampling controls are static (slots,) buffers that an
+admission rewrites.
+
+Differences from the JAX server, by design: the splice copies lanes and
+pages into the running state in place, and reseeds the slot's generator in
+place (the graphs draw from the same generator objects); the
 pipelined ``run`` snapshots the stop flags with a non-blocking copy to
 pinned host memory plus a CUDA event, enqueued before the next block, and
 waits on that event only after the block is enqueued. A request's seed
@@ -47,13 +56,13 @@ from ..models.delay import (
     DelayGenState,
     DelayParams,
     DelaySampling,
-    delay_decode_step,
     delay_prefill,
     make_sampling,
 )
 from ..nn.qwen3 import init_kv_cache, init_paged_kv_cache, init_quant_kv_cache
 from ..ops.sampling import row_generators
 from .delay_engine import attend_bucket
+from .step_graph import DecodeSteps
 
 
 @dataclass
@@ -79,33 +88,32 @@ _ROW_FIELDS = ("kv_valid", "cur_ids", "pos", "step", "is_stopping", "is_audio",
 
 
 @torch.no_grad()
-def _splice_fields(big: DelayGenState, small: DelayGenState, r: int) -> DelayGenState:
+def _splice_fields(big: DelayGenState, small: DelayGenState, r: int) -> None:
     """Copy the batch-1 state ``small``'s per-row fields into row ``r`` of
-    ``big`` in place; the row's generator becomes ``small``'s."""
+    ``big`` in place. Row ``r``'s generator takes the seed and offset of
+    ``small``'s, in place (a CUDA graph of the step holds the object)."""
     for name in _ROW_FIELDS:
         getattr(big, name)[r].copy_(getattr(small, name)[0])
     for name in ("out", "out_valid"):
         dst, src = getattr(big, name)[r], getattr(small, name)[0]
         dst.zero_()
         dst[: src.shape[0]].copy_(src)
-    rng = list(big.rng)
-    rng[r] = small.rng[0]
-    return big._replace(rng=rng)
+    big.rng[r].set_state(small.rng[0].get_state())
 
 
 @torch.no_grad()
-def _insert_row(big: DelayGenState, small: DelayGenState, row: int) -> DelayGenState:
+def _insert_row(big: DelayGenState, small: DelayGenState, row: int) -> None:
     """Splice a batch-1 prefilled state into slot ``row`` of the running
     batch: every per-row field and the slot's cache lane (each cache field
     has the batch on axis 1), in place."""
     for bf, sf in zip(big.cache, small.cache):
         bf[:, row].copy_(sf[:, 0])
-    return _splice_fields(big, small, row)
+    _splice_fields(big, small, row)
 
 
 @torch.no_grad()
 def _insert_row_paged(big: DelayGenState, small: DelayGenState, row: int,
-                      pages: List[int], n0: int) -> DelayGenState:
+                      pages: List[int], n0: int) -> None:
     """Paged splice: copy the batch-1 linear prefill cache's first ``n0``
     pages of slots into the freshly allocated pool ``pages`` and point slot
     ``row``'s table at them (the rest of the row at the trash page 0). Pool
@@ -120,7 +128,7 @@ def _insert_row_paged(big: DelayGenState, small: DelayGenState, row: int,
         pb[:, idx] = blk.to(pb.dtype)
     pool.table[row].zero_()
     pool.table[row, :n0] = idx.to(torch.int32)
-    return _splice_fields(big, small, row)
+    _splice_fields(big, small, row)
 
 
 def _request_seed(seed: Optional[int], request_id: int) -> int:
@@ -132,7 +140,10 @@ def _request_seed(seed: Optional[int], request_id: int) -> int:
 
 class DelayBatchServer:
     """Ports ``mosstts_tpu.engine.batch_server.DelayBatchServer``. The server
-    runs where ``params`` live (the card, or the CPU for tests)."""
+    runs where ``params`` live (the card, or the CPU for tests). ``graphs``
+    (on the card): replay each decode step as a CUDA graph; False runs the
+    steps eagerly, to compare. The graphs read ``params`` where they are:
+    build a new server after quantizing them."""
 
     def __init__(
         self,
@@ -152,6 +163,7 @@ class DelayBatchServer:
         paged: bool = False,
         page_size: int = 128,
         num_pages: Optional[int] = None,
+        graphs: bool = True,
     ):
         self.params = params
         self.config = config
@@ -199,8 +211,8 @@ class DelayBatchServer:
         self._step_host = np.full(self.slots, self.out_capacity, np.int64)
 
         # Per-slot sampling: host arrays hold the transformed knobs of each
-        # slot's request; the (slots,) device tensors are rebuilt only when
-        # an admission changes a slot.
+        # slot's request; the static (slots,) device tensors are rewritten
+        # from them only when an admission changes a slot.
         d = self.sampling
 
         def _f(x):
@@ -219,7 +231,12 @@ class DelayBatchServer:
             k: np.full(self.slots, v, np.bool_ if isinstance(v, bool) else np.float32)
             for k, v in self._samp_default.items()
         }
-        self._batch_sampling: Optional[DelaySampling] = None
+        dev = self.device
+        self._samp_dev = DelaySampling(
+            audio_rp_cross_batch=torch.as_tensor(bool(d.audio_rp_cross_batch), device=dev),
+            **{k: torch.as_tensor(v, device=dev) for k, v in self._samp_host.items()})
+        self._samp_stale = False
+        self._steps = DecodeSteps(params, config, self.state, self._samp_dev, graphs=graphs)
 
     # ------------------------------------------------------------------
     def _empty_state(self) -> DelayGenState:
@@ -273,7 +290,7 @@ class DelayBatchServer:
         h = self._samp_host
         for k, v in self._request_sampling_values(overrides).items():
             h[k][slot] = v
-        self._batch_sampling = None  # device tensors are stale
+        self._samp_stale = True
 
     def _slot_sampling(self, slot: int) -> DelaySampling:
         """Scalar DelaySampling for this slot (the admission prefill)."""
@@ -290,13 +307,13 @@ class DelayBatchServer:
             device=self.device,
         )
 
-    def _batch_sampling_dev(self) -> DelaySampling:
-        if self._batch_sampling is None:
-            h = {k: torch.as_tensor(v, device=self.device) for k, v in self._samp_host.items()}
-            self._batch_sampling = DelaySampling(
-                audio_rp_cross_batch=torch.as_tensor(self.sampling.audio_rp_cross_batch,
-                                                     device=self.device), **h)
-        return self._batch_sampling
+    def _sync_sampling(self) -> None:
+        """Rewrite the static per-slot sampling tensors from the host arrays
+        if an admission changed them."""
+        if self._samp_stale:
+            for k, v in self._samp_host.items():
+                getattr(self._samp_dev, k).copy_(torch.from_numpy(v))
+            self._samp_stale = False
 
     # ---- host page allocator (driven by the pos mirrors: no syncs) ----
     def _grow_pages(self, slot: int, upto_slot: int) -> bool:
@@ -323,12 +340,12 @@ class DelayBatchServer:
 
     # ---- decode ----------------------------------------------------------
     def _decode_steps(self, attend: int, k: int) -> None:
-        """``k`` decode steps of the whole batch at attend bucket ``attend``."""
-        samp = self._batch_sampling_dev()
+        """``k`` decode steps of the whole batch at attend bucket ``attend``,
+        in place: on the card ``k`` replays of that bucket's graph."""
+        self._sync_sampling()
         for _ in range(k):
-            self.state = delay_decode_step(
-                self.params, self.config, self.state, samp, top_k_text=self.top_k_text,
-                top_k_audio=self.top_k_audio, attend_len=attend)
+            self._steps.step(attend_len=attend, uniform_slots=False,
+                             top_k_text=self.top_k_text, top_k_audio=self.top_k_audio)
 
     def _dispatch_block(self, k: int) -> int:
         """Admit queued requests into free slots, then run ``k`` decode
@@ -439,6 +456,8 @@ class DelayBatchServer:
         ids[0, Tb - T:] = req.input_ids
         mask = np.zeros((1, Tb), bool)
         mask[0, Tb - T:] = True
+        # the prefill draws from its own generator, seeded as the request
+        # asks; the splice hands its seed and offset to the slot's
         gen = torch.Generator(device=self.device)
         gen.manual_seed(_request_seed(req.seed, req.request_id))
         self._set_slot_sampling(slot, req.sampling or {})
@@ -449,9 +468,9 @@ class DelayBatchServer:
             top_k_text=self.top_k_text, top_k_audio=self.top_k_audio, dtype=self.dtype,
             kv_quant=self.kv_quant)
         if self.paged:
-            self.state = _insert_row_paged(self.state, small, slot, pages, n0)
+            _insert_row_paged(self.state, small, slot, pages, n0)
         else:
-            self.state = _insert_row(self.state, small, slot)
+            _insert_row(self.state, small, slot)
         self._active[slot] = req
         # mirror the spliced cursors (delay_prefill sets pos=Tb, step=0)
         self._pos_host[slot] = Tb
@@ -629,7 +648,8 @@ class DelayBatchServer:
         dummy requests of each prompt length in ``prompt_lens`` through
         submit/run (the kernel build, prefill and splice), then a decode step
         on the idle state at every attend bucket up to ``attend_upto``
-        (default: the full cache). Idle rows' cache writes are masked and
+        (default: the full cache), which on the card captures the bucket's
+        graph (one eager step, then the capture). Idle rows' cache writes are masked and
         their out writes drop, and an admission overwrites every per-row
         field, so the extra steps cannot leak into later requests."""
         if self._active or self._queue:

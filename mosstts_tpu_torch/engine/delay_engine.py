@@ -2,29 +2,40 @@
 MOSS-TTSD, MOSS-VoiceGenerator, MOSS-SoundEffect).
 
 Ports ``mosstts_tpu/engine/delay_engine.py``: ``attend_bucket``,
-``DelayEngine`` with ``random_init``, ``quantize`` and ``generate``. Each decode step runs
-eagerly, and the host polls the stop flags every ``poll_every`` steps. The
-JAX package's ``on_device`` loop is one ``lax.while_loop`` program; here
-``on_device=True`` runs the same eager loop (a CUDA graph of the step is
-later work).
+``DelayEngine`` with ``random_init``, ``quantize`` and ``generate``. The
+prefill runs eagerly; the decode steps run over one static decode state
+(``engine/step_graph.DecodeSteps``) into whose cache each call prefills, in
+place. The engine keeps the state of its last ``(batch, cache_len,
+kv_quant)`` only: a call at another key frees it, graphs included, before
+it makes its own, so the engine holds at most one KV cache. On the card
+every decode step is the replay of a CUDA graph of the step, one per
+attend bucket, the JAX engine's compiled step program (``_get_step``). ``on_device=False`` polls
+the stop flags every ``poll_every`` steps; ``on_device=True`` runs JAX's
+segment loop over ``delay_generate_on_device``, whose replays read the stop
+flags one step behind the device (JAX: one ``lax.while_loop`` program per
+segment). ``graphs=False`` runs the same steps eagerly on the card, to
+compare; the CPU always runs them eagerly.
 """
 from __future__ import annotations
 
-from typing import List, Optional, Tuple
+from typing import Dict, List, Optional, Tuple
 
 import numpy as np
 import torch
 
 from ..core.config import DelayConfig
 from ..models.delay import (
+    DelayGenState,
     DelayParams,
-    delay_decode_step,
+    delay_generate_on_device,
     delay_prefill,
     init_delay_params,
     make_sampling,
 )
+from ..nn.qwen3 import init_kv_cache, init_quant_kv_cache
 from ..ops.quant import quantize_tree_
-from ..ops.sampling import row_generators
+from ..ops.sampling import reseed_generators_, row_generators
+from .step_graph import DecodeSteps, copy_state_
 
 
 def _round_up(x: int, m: int) -> int:
@@ -44,11 +55,13 @@ class DelayEngine:
     """Ports ``mosstts_tpu.engine.delay_engine.DelayEngine`` (solo engine,
     linear KV cache in ``dtype``, or int8 with per-slot scales when
     ``kv_quant``). ``params`` is a ``DelayParams`` module on ``device``,
-    float or, after ``quantize()``, with int8 matmul weights."""
+    float or, after ``quantize()``, with int8 matmul weights. ``graphs``
+    (on the card): replay each decode step as a CUDA graph; False runs the
+    steps eagerly, to compare."""
 
     def __init__(self, params: DelayParams, config: DelayConfig, *, dtype=torch.bfloat16,
                  cache_bucket: int = 256, top_k_text: int = 50, top_k_audio: int = 25,
-                 kv_quant: bool = False, device=None):
+                 kv_quant: bool = False, device=None, graphs: bool = True):
         self.params = params
         self.config = config
         self.dtype = dtype
@@ -57,6 +70,10 @@ class DelayEngine:
         self.top_k_audio = top_k_audio
         self.kv_quant = kv_quant
         self.device = torch.device(device) if device is not None else params.text_head.device
+        self.graphs = graphs
+        # (B, cache_len, kv_quant) -> the static decode state and its graphs,
+        # for the last key only
+        self._steps: Dict[tuple, DecodeSteps] = {}
 
     @classmethod
     def random_init(cls, seed: int = 0, config: Optional[DelayConfig] = None,
@@ -73,13 +90,47 @@ class DelayEngine:
         ``QuantWeight`` in place (``ops.quant.quantize_tree_``; the float
         tensors are freed, so the model never holds both); embeddings and
         norms keep their dtype. ``kv_cache=True`` also switches later
-        prefills to the int8 KV cache. Returns ``self``."""
+        prefills to the int8 KV cache. Every decode graph and static buffer
+        is dropped, as JAX drops its compiled programs: the graphs read the
+        float weights' addresses. Returns ``self``."""
         if mode != "int8":
             raise ValueError(f"unknown quantization mode: {mode}")
+        self._steps.clear()
         quantize_tree_(self.params)
         if kv_cache:
             self.kv_quant = True
         return self
+
+    def _decode_steps(self, B: int, cache_len: int) -> DecodeSteps:
+        """The static decode state of batch ``B`` at ``cache_len`` (its
+        ``out`` holds ``cache_len`` steps, more than any ``max_new_tokens``
+        at that cache length) and the graphs over it, made at first use
+        after the previous key's are freed."""
+        key = (B, cache_len, self.kv_quant)
+        steps = self._steps.get(key)
+        if steps is None:
+            self._steps.clear()  # the old cache, buffers and graphs go first
+            cfg, dev = self.config, self.device
+            lc, C = cfg.language_config, cfg.channels
+
+            def zeros(shape, dtype):
+                return torch.zeros(shape, dtype=dtype, device=dev)
+
+            state = DelayGenState(
+                cache=(init_quant_kv_cache(lc, B, cache_len, device=dev) if self.kv_quant else
+                       init_kv_cache(lc, B, cache_len, dtype=self.dtype, device=dev)),
+                kv_valid=zeros((B, cache_len), torch.bool),
+                cur_ids=zeros((B, 1, C), torch.int64),
+                pos=zeros((B,), torch.int32), step=zeros((B,), torch.int32),
+                rng=row_generators(0, B, dev),
+                is_stopping=zeros((B,), torch.bool), is_audio=zeros((B,), torch.bool),
+                audio_lengths=zeros((B,), torch.int32), delayed=zeros((B,), torch.int32),
+                seen=zeros((B, cfg.n_vq, cfg.audio_emb_vocab), torch.bool),
+                out=zeros((B, cache_len, C), torch.int32),
+                out_valid=zeros((B, cache_len), torch.bool))
+            steps = self._steps[key] = DecodeSteps(
+                self.params, cfg, state, make_sampling(device=dev), graphs=self.graphs)
+        return steps
 
     @torch.no_grad()
     def generate(
@@ -122,22 +173,34 @@ class DelayEngine:
         ids_dev = torch.as_tensor(input_ids, device=dev)
         mask_dev = torch.as_tensor(np.asarray(attention_mask, bool), device=dev)
 
-        state = delay_prefill(
+        runner = self._decode_steps(B, cache_len)
+        state, samp = runner.state, runner.sampling
+        for static, value in zip(samp, sampling):
+            static.copy_(value)
+        reseed_generators_(state.rng, seed)
+        copy_state_(state, delay_prefill(
             self.params, cfg, ids_dev, mask_dev, max_new_tokens=max_new_tokens,
-            cache_len=cache_len, rng=row_generators(seed, B, dev), sampling=sampling,
-            top_k_text=self.top_k_text, top_k_audio=self.top_k_audio, dtype=self.dtype,
-            kv_quant=self.kv_quant,
-        )
+            cache_len=cache_len, rng=state.rng, sampling=samp, top_k_text=self.top_k_text,
+            top_k_audio=self.top_k_audio, dtype=self.dtype, kv_quant=self.kv_quant,
+            cache=state.cache))
+        kw = dict(top_k_text=self.top_k_text, top_k_audio=self.top_k_audio, uniform_slots=True)
         steps = 1
-        while steps < max_new_tokens:
-            attend = attend_bucket(T + steps + 1, self.cache_bucket, cache_len)
-            state = delay_decode_step(
-                self.params, cfg, state, sampling, top_k_text=self.top_k_text,
-                top_k_audio=self.top_k_audio, attend_len=attend, uniform_slots=True,
-            )
-            steps += 1
-            if steps % poll_every == 0 and bool(state.is_stopping.all()):
-                break
+        if on_device:
+            # JAX's segments (delay_engine.py:221-233): each attends one bucket
+            while steps < max_new_tokens:
+                attend = attend_bucket(T + steps + 2, self.cache_bucket, cache_len)
+                seg_end = min(attend - T - 1, max_new_tokens)
+                _, steps = delay_generate_on_device(runner, max_new_tokens=seg_end,
+                                                    attend_len=attend, **kw)
+                if bool(state.is_stopping.all()):
+                    break
+        else:
+            while steps < max_new_tokens:
+                runner.step(attend_len=attend_bucket(T + steps + 1, self.cache_bucket, cache_len),
+                            **kw)
+                steps += 1
+                if steps % poll_every == 0 and bool(state.is_stopping.all()):
+                    break
 
         out = state.out[:, :steps].cpu().numpy().astype(np.int64)  # (B, steps, C)
         full = np.concatenate([input_ids, out], axis=1)

@@ -4,8 +4,8 @@ Ports ``mosstts_tpu/models/delay.py``: ``init_delay_params``,
 ``delay_embed``, ``_audio_head_logits``, ``delay_forward`` (no
 ``hidden_out_layers``, no pipeline), ``DelaySampling``/``make_sampling``,
 ``DelayGenState``, ``delay_prefill``, ``_text_preds``,
-``_sample_text_full``, ``_delay_sample_and_update`` and
-``delay_decode_step``. The 32 audio tables and 33 heads stay stacked
+``_sample_text_full``, ``_delay_sample_and_update``,
+``delay_decode_step`` and ``delay_generate_on_device``. The 32 audio tables and 33 heads stay stacked
 (``(n_vq, Va, D)`` and ``(n_vq, D, Va)``) so the embedding sum and the head
 projection are one gather and one batched product. The heads may be int8
 ``QuantWeight``s (``ops/quant.py``, ``DelayEngine.quantize``): the text head
@@ -19,7 +19,7 @@ buffer are dropped, as JAX's ``mode="drop"`` does, by masking. The cache,
 """
 from __future__ import annotations
 
-from typing import Any, List, NamedTuple, Optional
+from typing import Any, List, NamedTuple, Optional, Tuple
 
 import torch
 from torch import nn
@@ -212,20 +212,32 @@ def delay_prefill(
     top_k_audio: int = 25,
     dtype=torch.bfloat16,
     kv_quant: bool = False,
+    cache=None,
 ) -> DelayGenState:
     """Ports ``mosstts_tpu.models.delay.delay_prefill``: run the prompt into
     a fresh linear cache (int8 with per-slot scales when ``kv_quant``; the
     prompt then attends its own k/v and only the cache write is quantized),
     then sample the first frame from its last position. ``rng`` is one
-    generator per row."""
+    generator per row. ``cache``, a linear cache of that kind with
+    ``cache_len`` slots, is zeroed and written in place instead of a new
+    one (the engine's static decode state)."""
     B, T, C = input_ids.shape
     n_vq, Va = cfg.n_vq, cfg.audio_emb_vocab
     dev = input_ids.device
     if len(rng) != B:
         raise ValueError(f"need one generator per row: {len(rng)} for batch {B}")
 
-    cache = (init_quant_kv_cache(cfg.language_config, B, cache_len, device=dev) if kv_quant
-             else init_kv_cache(cfg.language_config, B, cache_len, dtype=dtype, device=dev))
+    if cache is None:
+        cache = (init_quant_kv_cache(cfg.language_config, B, cache_len, device=dev) if kv_quant
+                 else init_kv_cache(cfg.language_config, B, cache_len, dtype=dtype, device=dev))
+    else:
+        if cache.k.shape[1] != B or cache.max_len != cache_len or (
+                len(cache) == 4) != kv_quant:
+            raise ValueError("delay_prefill: the cache given is not a "
+                             f"{'int8 ' if kv_quant else ''}cache of {B} rows and "
+                             f"{cache_len} slots")
+        for buf in cache:
+            buf.zero_()
     kv_valid = torch.zeros((B, cache_len), dtype=torch.bool, device=dev)
     kv_valid[:, :T] = attention_mask
     positions = torch.arange(T, dtype=torch.int32, device=dev)[None].expand(B, T)
@@ -399,3 +411,48 @@ def delay_decode_step(
     state = state._replace(cache=cache, pos=state.pos + 1)
     return _delay_sample_and_update(state, cfg, sampling, top_k_text, top_k_audio,
                                     text_logits[:, -1], audio_logits[:, -1])
+
+
+def delay_generate_on_device(
+    steps, *, max_new_tokens: int, top_k_text: int = 50, top_k_audio: int = 25,
+    attend_len: Optional[int] = None, uniform_slots: bool = False,
+) -> Tuple[DelayGenState, int]:
+    """Ports ``mosstts_tpu.models.delay.delay_generate_on_device``: decode
+    until ``min(step) >= max_new_tokens`` or every row stops. ``steps`` is
+    an ``engine.step_graph.DecodeSteps``: the parameters, config, sampling
+    and the state, which advances in place, are its own. Returns
+    ``(state, n)``, ``n`` being the largest row step count when the
+    condition first held (what the JAX engine reads back,
+    ``int(state.step.max())``).
+
+    On the CPU the condition is checked after every (eager) step, so the
+    state is the one JAX's ``lax.while_loop`` returns. On the card each step
+    is a replay of a CUDA graph, and each replay's stop flags are copied to
+    pinned host memory behind it and read one step later, so the device
+    never waits for the host: the loop may run one step past the first step
+    at which every row had stopped. ``n`` is that first step's count, and
+    the frames past it are not part of the result; the one extra step
+    writes only at ``n`` and beyond."""
+    state = steps.state
+    cuda = state.pos.device.type == "cuda"
+    kw = dict(top_k_text=top_k_text, top_k_audio=top_k_audio, attend_len=attend_len,
+              uniform_slots=uniform_slots)
+    lo, hi = int(state.step.min()), int(state.step.max())
+    n = 0 if bool(state.is_stopping.all()) else max(0, max_new_tokens - lo)
+    lag = 1 if cuda else 0
+    flags = torch.empty((max(n, 1),) + state.is_stopping.shape, dtype=torch.bool,
+                        pin_memory=cuda)
+    events = []
+    for i in range(n):
+        steps.step(**kw)
+        flags[i].copy_(state.is_stopping, non_blocking=cuda)
+        if cuda:
+            events.append(torch.cuda.Event())
+            events[-1].record()
+        j = i - lag
+        if j >= 0:
+            if cuda:
+                events[j].synchronize()
+            if bool(flags[j].all()):
+                return state, hi + j + 1
+    return state, hi + n

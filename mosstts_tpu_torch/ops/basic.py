@@ -4,7 +4,13 @@ Ports ``mosstts_tpu/ops/basic.py``. Rounding happens at the same points as
 in the JAX package: RMSNorm reduces in float32 and casts back; ``dense``
 accumulates in float32 and rounds once to the input dtype (a same-dtype
 ``torch.matmul`` does exactly that, and so does the W8A16 kernel for an int8
-weight); RoPE rotates in float32. Weights keep the JAX (in, out) layout.
+weight); RoPE rotates in float32. PyTorch lets cuBLAS reduce bf16 split-K
+partial sums in bf16 by default
+(``torch.backends.cuda.matmul.allow_bf16_reduced_precision_reduction``);
+on an NVIDIA H100 that changed no bit of any 8B product, decode or prefill
+(``tools/bf16_dense.py``), so the package leaves the flag as it is, and
+``tests/test_torch_graphs_cuda.py`` holds ``dense`` to the same bits either
+way. Weights keep the JAX (in, out) layout.
 """
 from __future__ import annotations
 

@@ -7,9 +7,13 @@ with ``ctypes``. Nothing here runs at import: ``ctypes`` is imported
 and ``nvcc`` is called on the first CUDA launch, so the package imports on a
 machine with no CUDA toolkit.
 
-The library lands in ``build/kernels-<hash>/`` at the repository root, the
-hash covering the sources and the flags, so a second process reuses it and a
-changed source rebuilds. ``ptxas`` reports each kernel's registers, shared
+The library lands in ``<build root>/kernels-<hash>/``, the hash covering the
+sources and the flags, so a second process reuses it and a changed source
+rebuilds. The build root (``build_root``) is ``$MOSSTTS_TORCH_BUILD_DIR``
+when set, else ``build/`` at the root of the checkout the package lies in,
+else (an installed package, whose wheel carries ``csrc/``) a per-user cache
+directory, ``$XDG_CACHE_HOME/mosstts_tpu_torch`` or
+``~/.cache/mosstts_tpu_torch``. ``ptxas`` reports each kernel's registers, shared
 memory and spills (``-Xptxas -v``) into ``ptxas.log`` beside it;
 ``ptxas_report`` reads them back.
 """
@@ -24,7 +28,7 @@ from pathlib import Path
 
 _PKG_DIR = Path(__file__).resolve().parents[2]
 SRC_DIR = _PKG_DIR / "csrc"
-BUILD_ROOT = _PKG_DIR.parent / "build"
+BUILD_ENV = "MOSSTTS_TORCH_BUILD_DIR"
 LIB_NAME = "libmosstts_kernels.so"
 NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a",
@@ -49,24 +53,40 @@ def _nvcc() -> str:
         "the CUDA kernels cannot be built")
 
 
+def build_root() -> Path:
+    """Where the kernel libraries are built (the module docstring says how
+    it is chosen)."""
+    if os.environ.get(BUILD_ENV):
+        return Path(os.environ[BUILD_ENV])
+    if (_PKG_DIR.parent / "pyproject.toml").is_file():  # a checkout
+        return _PKG_DIR.parent / "build"
+    cache = os.environ.get("XDG_CACHE_HOME") or os.path.join(os.path.expanduser("~"), ".cache")
+    return Path(cache) / "mosstts_tpu_torch"
+
+
 def library_path() -> Path:
     h = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
     for f in _sources():
         h.update(f.name.encode())
         h.update(f.read_bytes())
-    return BUILD_ROOT / f"kernels-{h.hexdigest()[:16]}" / LIB_NAME
+    return build_root() / f"kernels-{h.hexdigest()[:16]}" / LIB_NAME
 
 
 def build() -> Path:
     """Compile the kernels unless a library built from the same sources and
-    flags exists; return its path."""
+    flags exists; return its path. Raises if ``SRC_DIR`` holds no ``.cu``
+    source (an installation without the package's ``csrc/`` data)."""
+    cu = [f for f in _sources() if f.suffix == ".cu"]
+    if not cu:
+        raise RuntimeError(f"no CUDA sources (*.cu) under {SRC_DIR}: the package was installed "
+                           "without its csrc/ files, so its kernels cannot be built")
     path = library_path()
     if path.exists():
         return path
     path.parent.mkdir(parents=True, exist_ok=True)
     nvcc, pid = _nvcc(), os.getpid()
     objs, procs = [], []
-    for src in (f for f in _sources() if f.suffix == ".cu"):
+    for src in cu:
         obj = path.with_name(f"{src.stem}.{pid}.o")  # nvcc reads the type off the suffix
         cmd = [nvcc, *NVCC_FLAGS, "-c", "-o", str(obj), str(src)]
         procs.append((cmd, subprocess.Popen(cmd, stdout=subprocess.PIPE,

@@ -1,0 +1,57 @@
+"""The kernel wrappers' launch counts, read and advanced together.
+
+Each wrapper adds one to its module's count where its code launches the
+kernel. Under CUDA-graph capture that code runs once per graph, not once per
+replay, so ``engine/step_graph.py`` records what a capture added
+(``since``), takes it back (``restore``) and adds it again at every replay
+(``add_replay``), to the wrapper's count and to ``IN_GRAPHS``. The counts
+then say how many times each kernel ran on the device, and ``IN_GRAPHS`` how
+many of those runs were inside replayed graphs.
+"""
+from __future__ import annotations
+
+from . import decode_attn, flash, paged_attn, w8_gemm
+
+COUNTERS = {  # name -> (module, attribute) of a wrapper's launch count
+    "flash": (flash, "LAUNCHES"),
+    "decode": (decode_attn, "LAUNCHES"),
+    "decode_q8": (decode_attn, "LAUNCHES_Q8"),
+    "decode_q8t": (decode_attn, "LAUNCHES_Q8T"),
+    "paged": (paged_attn, "LAUNCHES"),
+    "paged_q8": (paged_attn, "LAUNCHES_Q8"),
+    "w8a16": (w8_gemm, "LAUNCHES_W8A16"),
+    "w8a16_bytes": (w8_gemm, "LAUNCHES_W8A16_BYTES"),
+    "w8a8": (w8_gemm, "LAUNCHES_W8A8"),
+    "int4": (w8_gemm, "LAUNCHES_INT4"),
+}
+IN_GRAPHS = dict.fromkeys(COUNTERS, 0)  # launches inside replayed CUDA graphs
+
+
+def read() -> dict:
+    return {name: getattr(mod, attr) for name, (mod, attr) in COUNTERS.items()}
+
+
+def reset() -> None:
+    """Set every wrapper's count and ``IN_GRAPHS`` to 0."""
+    for name, (mod, attr) in COUNTERS.items():
+        setattr(mod, attr, 0)
+        IN_GRAPHS[name] = 0
+
+
+def since(before: dict) -> dict:
+    """The counts that grew since ``before`` (a ``read()``), by how much."""
+    return {k: v - before[k] for k, v in read().items() if v != before[k]}
+
+
+def restore(before: dict) -> None:
+    for name, (mod, attr) in COUNTERS.items():
+        setattr(mod, attr, before[name])
+
+
+def add_replay(captured: dict) -> None:
+    """One replay of a graph whose capture launched ``captured`` (a
+    ``since()``)."""
+    for name, n in captured.items():
+        mod, attr = COUNTERS[name]
+        setattr(mod, attr, getattr(mod, attr) + n)
+        IN_GRAPHS[name] += n

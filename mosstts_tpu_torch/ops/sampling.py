@@ -7,6 +7,10 @@ Gumbel-max categorical from one ``torch.Generator`` per batch row, seeded
 from (seed, row), so row b's stream depends on its own seed only
 (``sampling.py:29-55`` in the JAX package keeps one key per row for the
 same reason). Top-k is exact ``torch.topk``, as the JAX CPU path is.
+
+The step path makes no host-to-device copy, so a CUDA graph can capture
+it (``engine/step_graph.py``): a control given as a Python number becomes
+a device fill, and registered generators draw inside the graph.
 """
 from __future__ import annotations
 
@@ -19,14 +23,30 @@ import torch.nn.functional as F
 NEG_INF = -1e30
 
 
+def _row_seed(seed: int, row: int) -> int:
+    return int(np.random.SeedSequence((seed, row)).generate_state(1, np.uint64)[0])
+
+
 def row_generators(seed: int, batch: int, device) -> list:
     """One generator per batch row on ``device``, seeded from (seed, row)."""
-    gens = []
-    for row in range(batch):
-        g = torch.Generator(device=device)
-        g.manual_seed(int(np.random.SeedSequence((seed, row)).generate_state(1, np.uint64)[0]))
-        gens.append(g)
-    return gens
+    return reseed_generators_([torch.Generator(device=device) for _ in range(batch)], seed)
+
+
+def reseed_generators_(gens: Sequence[torch.Generator], seed: int) -> list:
+    """Reseed the generators ``gens`` in place with ``row_generators``'
+    (seed, row) seeds, so they draw what new ones would. A CUDA graph that
+    registered them draws from the new seeds at its next replay."""
+    for row, g in enumerate(gens):
+        g.manual_seed(_row_seed(seed, row))
+    return list(gens)
+
+
+def _on(x, dtype: torch.dtype, device) -> torch.Tensor:
+    """A sampling control on ``device`` in ``dtype``: a tensor as it is (cast
+    if needed), a Python number as a device fill (no host copy)."""
+    if isinstance(x, torch.Tensor):
+        return x.to(device=device, dtype=dtype)
+    return torch.full((), x, dtype=dtype, device=device)
 
 
 def align_rows(x: torch.Tensor, ndim: int) -> torch.Tensor:
@@ -45,18 +65,15 @@ def apply_top_p(logits: torch.Tensor, p) -> torch.Tensor:
     sorted_logits = torch.sort(logits, dim=-1, descending=True).values
     probs = torch.softmax(sorted_logits, dim=-1)
     cum = torch.cumsum(probs, dim=-1)
-    p = torch.as_tensor(p, dtype=torch.float32, device=logits.device)
-    keep = (cum - probs) < align_rows(p, cum.ndim)
-    inf = torch.tensor(float("inf"), dtype=sorted_logits.dtype, device=logits.device)
-    thresh = torch.where(keep, sorted_logits, inf).amin(dim=-1, keepdim=True)
+    keep = (cum - probs) < align_rows(_on(p, torch.float32, logits.device), cum.ndim)
+    thresh = sorted_logits.masked_fill(~keep, float("inf")).amin(dim=-1, keepdim=True)
     return torch.where(logits < thresh, NEG_INF, logits)
 
 
 def apply_repetition_penalty_seen(logits: torch.Tensor, seen: torch.Tensor,
                                   penalty) -> torch.Tensor:
     """Ports ``mosstts_tpu.ops.sampling.apply_repetition_penalty_seen``."""
-    penalty = align_rows(torch.as_tensor(penalty, dtype=logits.dtype, device=logits.device),
-                         logits.ndim)
+    penalty = align_rows(_on(penalty, logits.dtype, logits.device), logits.ndim)
     penalized = torch.where(logits > 0, logits / penalty, logits * penalty)
     return torch.where(seen, penalized, logits)
 
@@ -91,8 +108,7 @@ def topk_topp_filter(logits: torch.Tensor, top_k: int, top_p):
     vals, idx = torch.topk(logits, min(top_k, logits.shape[-1]), dim=-1)
     probs = torch.softmax(vals.float(), dim=-1)
     cum = torch.cumsum(probs, dim=-1)
-    p = torch.as_tensor(top_p, dtype=torch.float32, device=logits.device)
-    keep = (cum - probs) < align_rows(p, cum.ndim)
+    keep = (cum - probs) < align_rows(_on(top_p, torch.float32, logits.device), cum.ndim)
     return torch.where(keep, vals, NEG_INF), idx
 
 
@@ -115,7 +131,7 @@ def sample_topk_topp(
         sampled = torch.gather(idx, -1, choice[..., None])[..., 0].to(torch.int32)
     else:
         sampled = _categorical(gens, apply_top_p(logits, top_p)).to(torch.int32)
-    do_sample = torch.as_tensor(do_sample, device=logits.device)
+    do_sample = _on(do_sample, torch.bool, logits.device)
     return torch.where(align_rows(do_sample, sampled.ndim), sampled, greedy)
 
 

@@ -93,7 +93,6 @@ def main(argv=None) -> dict:
 
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
-    torch.backends.cuda.matmul.allow_bf16_reduced_precision_reduction = False
     label = args.label or root.name
     res = dict(label=label, root=str(root), card=card_line())
     print(f"[{label}] {res['card']}", flush=True)

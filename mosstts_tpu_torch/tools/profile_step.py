@@ -1,6 +1,7 @@
 """Where the time of the 8B Delay decode step goes, on one NVIDIA GPU.
 
-    python3 -m mosstts_tpu_torch.tools.profile_step [--batch 1 4] [--int8] [--trace-dir DIR]
+    python3 -m mosstts_tpu_torch.tools.profile_step [--batch 1 4] [--int8] [--graph]
+        [--trace-dir DIR]
 
 Builds ``delay_8b()`` (random bf16 weights made on the card) and the
 ``codec_1p6b()`` codec with ``serve.pipelines.demo_backend``, then for each
@@ -10,9 +11,13 @@ batch size (and, with ``--int8``, for each batch size again after
 - prefill of a ``--prompt``-token prompt into a ``--cache``-slot cache, the
   first one of the process (cold) and a second one (warm), host clock;
 - the mean wall time of ``--steps`` greedy decode steps after 3 warm-up
-  steps, attending ``--attend`` slots, host clock;
+  steps, attending ``--attend`` slots, host clock: eager steps, and with
+  ``--graph`` then CUDA-graph steps on a second prefill of the same prompt
+  (``engine/step_graph.DecodeSteps``, as the engine and the server run
+  them; the first warm-up step captures the graph), each with the rows
+  below;
 - a ``torch.profiler`` window of 4 more steps: device time per step (the sum
-  of the kernels' self device time), kernels launched per step, the idle
+  of the kernels' self device time), device kernels per step, the idle
   share (1 - device time / step wall time), the top kernels by device
   time, and the decode attention's device kernels per step and their time
   (one ``decode_kernel`` launch per layer), and the device kernels and
@@ -24,12 +29,15 @@ batch size (and, with ``--int8``, for each batch size again after
 
 Then the codec's decode of 100 frames (8 s of audio) at batch 1, host
 clock. The card's ``nvidia-smi`` line comes first and one JSON object of
-the numbers last. Host-clock numbers move with the machine; compare two
-versions only within one run.
+the numbers last, and the peak device memory of each batch's run. Host-clock
+numbers move with the machine; compare two versions only within one run.
+The bf16 products run at PyTorch's default flags (``ops.basic.dense`` does
+not depend on the reduced-precision reduction flag).
 """
 from __future__ import annotations
 
 import argparse
+import contextlib
 import cProfile
 import json
 import pstats
@@ -40,12 +48,14 @@ import numpy as np
 import torch
 
 from ..core.config import codec_1p6b, delay_8b
+from ..engine.step_graph import DecodeSteps
 from ..models import delay as td
 from ..ops.sampling import row_generators
 from ..serve.pipelines import demo_backend
 from .kernel_inputs import card_line
 
 WINDOW = 4  # decode steps inside the profiler window
+BURST = 64  # throwaway kernels that open a profiler window
 
 
 def _wall(fn):
@@ -56,9 +66,33 @@ def _wall(fn):
     return out, time.perf_counter() - t
 
 
-def profile_batch(engine, B: int, args, trace_dir) -> dict:
+@contextlib.contextmanager
+def device_profile(cpu: bool = False):
+    """``torch.profiler.profile`` of the device's activity (and the host's,
+    with ``cpu``), opened by ``BURST`` throwaway ``spin_kernel`` launches
+    (``torch.cuda._sleep(0)``; ``device_events`` leaves them out): a
+    session can lose the records of the first kernels launched in it, 4
+    and more once much work has run in the process
+    (``tools/profiler_sessions.py``)."""
     from torch.profiler import ProfilerActivity, profile
 
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU] * cpu + [ProfilerActivity.CUDA]) as prof:
+        for _ in range(BURST):
+            torch.cuda._sleep(0)
+        torch.cuda.synchronize()
+        yield prof
+        torch.cuda.synchronize()
+
+
+def device_events(prof) -> list:
+    """The device events of a ``device_profile`` session, its opening burst
+    left out (``key_averages``)."""
+    return [e for e in prof.key_averages()
+            if e.device_type == torch.autograd.DeviceType.CUDA and "spin_kernel" not in e.key]
+
+
+def profile_batch(engine, B: int, args, trace_dir, graphs: bool = False) -> dict:
     cfg, dev = engine.config, engine.device
     rng = np.random.default_rng(0)
     ids = torch.tensor(rng.integers(1000, 1200, size=(B, args.prompt, cfg.channels)),
@@ -73,46 +107,48 @@ def profile_batch(engine, B: int, args, trace_dir) -> dict:
                                 cache_len=args.cache, rng=row_generators(0, B, dev),
                                 sampling=samp, dtype=engine.dtype)
 
+    torch.cuda.reset_peak_memory_stats()
     _, cold = _wall(prefill)
     st, warm = _wall(prefill)
+    runner = DecodeSteps(engine.params, cfg, st, samp, graphs=graphs)
 
-    def step(st):
-        return td.delay_decode_step(engine.params, cfg, st, samp, attend_len=args.attend,
-                                    uniform_slots=True)
+    def step():
+        runner.step(attend_len=args.attend, uniform_slots=True, top_k_text=engine.top_k_text,
+                    top_k_audio=engine.top_k_audio)
 
     for _ in range(3):
-        st = step(st)
+        step()
 
     def steps():
-        s = st
         for _ in range(args.steps):
-            s = step(s)
-        return s
+            step()
 
-    st, wall = _wall(steps)
+    _, wall = _wall(steps)
     wall /= args.steps
-    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+    with device_profile(cpu=True) as prof:
         for _ in range(WINDOW):
-            st = step(st)
+            step()
         torch.cuda.synchronize()
     host = cProfile.Profile()
     host.enable()
     for _ in range(WINDOW):
-        st = step(st)
+        step()
     torch.cuda.synchronize()
     host.disable()
     stats = pstats.Stats(host).stats  # (file, line, name) -> (cc, nc, tottime, cumtime, callers)
     host_top = sorted(stats.items(), key=lambda kv: -kv[1][2])[:args.top]
-    evts = [e for e in prof.key_averages() if e.device_type == torch.autograd.DeviceType.CUDA]
+    evts = device_events(prof)
     device_ms = sum(e.self_device_time_total for e in evts) / WINDOW / 1e3
     kernels = sum(e.count for e in evts) / WINDOW
     top = sorted(evts, key=lambda e: -e.self_device_time_total)[:args.top]
     attn = [e for e in evts if "decode_kernel" in e.key]
     w8 = [e for e in evts if "mosstts::w8::" in e.key]
     if trace_dir is not None:
-        prof.export_chrome_trace(str(trace_dir / f"decode_step_b{B}.json"))
+        name = f"decode_step_b{B}{'_graph' if graphs else ''}.json"
+        prof.export_chrome_trace(str(trace_dir / name))
     return dict(
-        batch=B, prefill_cold_ms=cold * 1e3, prefill_warm_ms=warm * 1e3,
+        batch=B, steps="graph" if graphs else "eager",
+        peak_gib=torch.cuda.max_memory_allocated() / 2**30, prefill_cold_ms=cold * 1e3, prefill_warm_ms=warm * 1e3,
         step_wall_ms=wall * 1e3, step_device_ms=device_ms, kernels_per_step=kernels,
         idle_share=1.0 - device_ms / (wall * 1e3),
         decode_attention=dict(kernels_per_step=sum(e.count for e in attn) / WINDOW,
@@ -137,6 +173,8 @@ def main(argv=None) -> None:
     ap.add_argument("--top", type=int, default=12, help="kernels listed per batch")
     ap.add_argument("--int8", action="store_true",
                     help="profile again after engine.quantize() (int8 weights)")
+    ap.add_argument("--graph", action="store_true",
+                    help="after the eager steps, profile CUDA-graph steps the same way")
     ap.add_argument("--trace-dir", type=Path, default=None,
                     help="write a chrome trace of each profiler window here")
     args = ap.parse_args(argv)
@@ -144,7 +182,6 @@ def main(argv=None) -> None:
         raise RuntimeError("torch.cuda.is_available() is false: this tool profiles a GPU")
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
-    torch.backends.cuda.matmul.allow_bf16_reduced_precision_reduction = False
     card = card_line()
     print(card, flush=True)
     if args.trace_dir is not None:
@@ -157,14 +194,15 @@ def main(argv=None) -> None:
         if weights == "int8":
             backend.engine.quantize()
             torch.cuda.empty_cache()
-        for B in args.batch:
-            r = dict(weights=weights, **profile_batch(backend.engine, B, args, args.trace_dir))
+        for B, graphs in ((B, g) for B in args.batch for g in (False, True)[:1 + args.graph]):
+            r = dict(weights=weights, **profile_batch(backend.engine, B, args, args.trace_dir,
+                                                      graphs))
             res["batches"].append(r)
-            print(f"{weights} B={B}: prefill T={args.prompt} cold {r['prefill_cold_ms']:.1f} ms, "
-                  f"warm {r['prefill_warm_ms']:.1f} ms; decode step wall "
-                  f"{r['step_wall_ms']:.2f} ms, device {r['step_device_ms']:.2f} ms, "
-                  f"{r['kernels_per_step']:.0f} kernels, idle share {r['idle_share']:.3f}",
-                  flush=True)
+            print(f"{weights} B={B} {r['steps']} steps: prefill T={args.prompt} cold "
+                  f"{r['prefill_cold_ms']:.1f} ms, warm {r['prefill_warm_ms']:.1f} ms; decode step "
+                  f"wall {r['step_wall_ms']:.3f} ms, device {r['step_device_ms']:.3f} ms, "
+                  f"{r['kernels_per_step']:.0f} kernels, idle share {r['idle_share']:.3f}; "
+                  f"peak {r['peak_gib']:.2f} GiB", flush=True)
             da = r["decode_attention"]
             print(f"   decode attention: {da['kernels_per_step']:.0f} device kernels per step "
                   f"(one per layer), {da['ms_per_step']:.3f} ms/step", flush=True)

@@ -1,0 +1,295 @@
+"""The decode steps as CUDA graphs against the same steps run eagerly, on the
+card; they skip without one (CUDA graphs have no CPU mode; the CPU half,
+``tests/test_torch_graph_step.py``, holds the eager steps against JAX).
+
+A small bf16 model (2 layers, width 256, 4 query and 2 KV heads of 64,
+n_vq=4; the kernels take it as they take the 8B model) decodes the same
+prompts twice, with ``graphs=True`` and ``graphs=False``: the solo engine in
+both ``on_device`` modes, greedy and sampled with the seeds s1, s2, s1, on
+bf16 and then int8 weights, and the continuous-batching server in all four
+cache modes with seeded sampled requests, mid-flight admissions and (paged)
+preemption. Token grids must be equal bit for bit: a graph replays the
+eager step's kernels on the same inputs and draws from the same generator
+states. Each graph's captured kernel launches, counted once per replay,
+must match ``ops.kernels.launches.IN_GRAPHS``. Weights that stop every
+row early hold ``on_device=True``'s late read of the stop flags against
+the polling ``on_device=False``. A ``device_profile`` session must see
+the first kernels launched in it. bf16 ``dense`` must not depend on cuBLAS's
+reduced-precision flag.
+
+This file imports no JAX, so it runs on the machine with the card:
+
+    python3 -m pytest --noconftest tests/test_torch_graphs_cuda.py -q
+"""
+import numpy as np
+import pytest
+import torch
+
+from mosstts_tpu_torch.core.config import DelayConfig, tiny_qwen3
+from mosstts_tpu_torch.engine.batch_server import DelayBatchServer
+from mosstts_tpu_torch.engine.delay_engine import DelayEngine
+from mosstts_tpu_torch.models.delay import make_sampling
+from mosstts_tpu_torch.ops.basic import dense
+from mosstts_tpu_torch.ops.kernels import launches
+
+CFG = DelayConfig(language_config=tiny_qwen3(hidden_size=256, intermediate_size=512,
+                                             num_attention_heads=4, num_key_value_heads=2,
+                                             head_dim=64), n_vq=4)
+L = CFG.language_config.num_hidden_layers
+SEEDS = (11, 12, 11)
+
+
+def _need_card():
+    if not torch.cuda.is_available():
+        pytest.skip("needs an NVIDIA GPU: CUDA graphs and the kernels have no CPU mode")
+
+
+def _grids(n, seed, lo=40, hi=70):
+    """Random prompt grids ending in the gen-slot token (audio starts at
+    once), as the server's load in ``chip_smoke.py``."""
+    rng = np.random.default_rng(seed)
+    out = []
+    for _ in range(n):
+        g = rng.integers(0, 1000, (int(rng.integers(lo, hi)), CFG.channels))
+        g[:, 1:] = rng.integers(0, 1024, g[:, 1:].shape)
+        g[-1, 0] = CFG.audio_assistant_gen_slot_token_id
+        out.append(g)
+    return out
+
+
+def _left_padded(grids):
+    T = max(len(g) for g in grids)
+    ids = np.full((len(grids), T, CFG.channels), CFG.audio_pad_code, np.int64)
+    ids[..., 0] = CFG.pad_token_id
+    mask = np.zeros((len(grids), T), bool)
+    for b, g in enumerate(grids):
+        ids[b, T - len(g):], mask[b, T - len(g):] = g, True
+    return ids, mask
+
+
+@pytest.fixture(scope="module")
+def engines():
+    _need_card()
+    torch.backends.cuda.matmul.allow_tf32 = False
+    graph = DelayEngine.random_init(seed=0, config=CFG, dtype=torch.bfloat16, device="cuda",
+                                    cache_bucket=64)
+    eager = DelayEngine(graph.params, CFG, dtype=torch.bfloat16, cache_bucket=64, graphs=False)
+    return graph, eager
+
+
+def _generate_both(graph, eager, batch, **kw):
+    a = graph.generate(*batch, **kw)
+    b = eager.generate(*batch, **kw)
+    for (sa, ga), (sb, gb) in zip(a, b):
+        assert sa == sb
+        np.testing.assert_array_equal(ga, gb)
+    return a
+
+
+def _solo_cases(graph, eager, kv_quant=False):
+    graph.kv_quant = eager.kv_quant = kv_quant
+    for B in (1, 4):
+        batch = _left_padded(_grids(B, seed=B))
+        for on_device in (False, True):
+            kw = dict(max_new_tokens=90, on_device=on_device)  # crosses the 64-slot bucket
+            _generate_both(graph, eager, batch, text_temperature=0.0, audio_temperature=0.0,
+                           **kw)
+            runs = [_generate_both(graph, eager, batch, seed=s, text_temperature=1.5,
+                                   audio_temperature=1.7, **kw) for s in SEEDS]
+            for (_, g1), (_, g3) in zip(runs[0], runs[2]):
+                np.testing.assert_array_equal(g1, g3)  # s1 again: the reseed took effect
+            assert any(not np.array_equal(g1, g2) for (_, g1), (_, g2) in zip(runs[0], runs[1]))
+
+
+@pytest.mark.cuda
+def test_engine_graphs_match_eager_bf16_then_int8(engines):
+    graph, eager = engines
+    launches.reset()
+    _solo_cases(graph, eager)
+    _solo_cases(graph, eager, kv_quant=True)
+    counts = dict(launches.IN_GRAPHS)
+    assert counts["decode"] > 0 and counts["decode_q8"] > 0, counts
+    assert counts["decode"] % L == 0 and counts["decode_q8"] % L == 0
+    graph.quantize()
+    eager = DelayEngine(graph.params, CFG, dtype=torch.bfloat16, cache_bucket=64, graphs=False)
+    launches.reset()
+    _solo_cases(graph, eager)
+    w8 = launches.IN_GRAPHS["w8a16"]
+    assert w8 > 0 and w8 % (7 * L + 2) == 0 and launches.IN_GRAPHS["w8a16_bytes"] == 0
+
+
+@pytest.mark.cuda
+def test_replayed_launches_match_the_captures(engines):
+    """Decode steps replayed k times at one attend bucket: each kernel's
+    count inside graphs grows by its launches per step times k (one decode
+    attention per layer), and its total count by the same."""
+    graph, _ = engines
+    graph.kv_quant = False
+    batch = _left_padded(_grids(2, seed=5))
+    graph.generate(*batch, max_new_tokens=8, text_temperature=0.0, audio_temperature=0.0)
+    (steps,) = [s for k, s in graph._steps.items() if k[0] == 2 and not k[2]]
+    key = steps.keys[0]
+    captured = steps._captured[key][1]
+    assert captured.get("decode") == L
+    before, inside = launches.read(), dict(launches.IN_GRAPHS)
+    k = 7
+    for _ in range(k):
+        steps.step(attend_len=key[0], uniform_slots=key[1], top_k_text=key[2],
+                   top_k_audio=key[3])
+    torch.cuda.synchronize()
+    for name, n in captured.items():
+        assert launches.read()[name] - before[name] == k * n
+        assert launches.IN_GRAPHS[name] - inside[name] == k * n
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("weights", ["bf16", "int8"])
+def test_early_stop_on_device_matches_polling(weights):
+    """Weights that make every row emit ``<|im_end|>`` as soon as the state
+    machine allows it (as ``stopper`` in ``tests/test_torch_graph_step.py``):
+    ``on_device=True``, whose replays read the stop flags one step late,
+    returns the frames of the polling ``on_device=False`` up to its own
+    count, and that count is the last row's ``<|im_end|>`` frame + 1."""
+    _need_card()
+    engine = DelayEngine.random_init(seed=3, config=CFG, dtype=torch.bfloat16, device="cuda",
+                                     cache_bucket=64)
+    p = engine.params
+    with torch.no_grad():
+        p.backbone.embed[:, 0] = 50.0
+        p.audio_emb[..., 0] = 0.0
+        p.text_head[0, :] = 0.0
+        p.text_head[0, CFG.im_end_token_id] = 200.0
+    if weights == "int8":
+        engine.quantize()
+    batch = _left_padded(_grids(4, seed=21))
+    for kw in (dict(text_temperature=0.0, audio_temperature=0.0),
+               dict(seed=11, text_temperature=1.5, audio_temperature=1.7)):
+        dev = engine.generate(*batch, max_new_tokens=90, on_device=True, **kw)
+        host = engine.generate(*batch, max_new_tokens=90, on_device=False, **kw)
+        frames = dev[0][1].shape[0] - dev[0][0]
+        assert frames < 90  # every row stopped early
+        ends = [int(np.nonzero(g[s:, 0] == CFG.im_end_token_id)[0][0]) for s, g in dev]
+        assert max(ends) + 1 == frames
+        assert host[0][1].shape[0] - host[0][0] >= frames
+        for (sa, ga), (sb, gb) in zip(dev, host):
+            assert sa == sb
+            np.testing.assert_array_equal(ga[:sa + frames], gb[:sb + frames])
+
+
+@pytest.mark.cuda
+def test_device_profile_sees_the_first_kernel():
+    """Every ``profile_step.device_profile`` session sees every kernel
+    launched in it, the first ones included: a plain ``torch.profiler``
+    session that follows much work in the process can lose the records of
+    its first kernels (``tools/profiler_sessions.py``)."""
+    _need_card()
+    from mosstts_tpu_torch.ops.kernels import w8_gemm
+    from mosstts_tpu_torch.ops.quant import quantize_weight
+    from mosstts_tpu_torch.tools.profile_step import device_profile
+
+    g = torch.Generator(device="cuda").manual_seed(0)
+    x = torch.randn((16, 1024), generator=g, device="cuda").bfloat16()
+    w = quantize_weight(torch.randn((1024, 4096), generator=g, device="cuda"))
+    w8_gemm.w8a16_gemm(x, w.q, w.scale)
+    torch.cuda.synchronize()
+    seen = []
+    for _ in range(6):
+        with device_profile() as prof:
+            x.neg()
+            for _ in range(3):
+                w8_gemm.w8a16_gemm(x, w.q, w.scale)
+            torch.cuda.synchronize()
+        keys = {e.key: e.count for e in prof.key_averages()
+                if e.device_type == torch.autograd.DeviceType.CUDA}
+        seen.append((sum(c for k, c in keys.items() if "neg_kernel" in k),
+                     sum(c for k, c in keys.items() if "a16_kernel" in k)))
+    assert seen == [(1, 3)] * 6, seen
+
+
+SERVER_MODES = [dict(), dict(kv_quant=True), dict(paged=True), dict(paged=True, kv_quant=True)]
+
+
+def _serve(params, graphs, mode, grids, budgets):
+    srv = DelayBatchServer(params, CFG, slots=4, cache_len=512, out_capacity=96,
+                           prompt_bucket=32, page_size=64, dtype=torch.bfloat16, graphs=graphs,
+                           num_pages=9 if mode.get("paged") else None,
+                           sampling=make_sampling(text_temperature=1.5, audio_temperature=1.7,
+                                                  audio_top_p=0.8, device="cuda"), **mode)
+    srv.warmup(prompt_lens=(64,), attend_upto=256)
+    for i, (g, n) in enumerate(zip(grids, budgets)):
+        srv.submit(g, max_new_tokens=n, seed=100 + i,
+                   sampling=dict(text_temperature=0.0, audio_temperature=0.0) if i % 3 == 0
+                   else None)
+    done = sorted(srv.run(), key=lambda c: c.request_id)
+    return done, srv.total_preemptions
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("mode", SERVER_MODES, ids=["linear", "linear-q8", "paged", "paged-q8"])
+def test_server_graphs_match_eager(mode):
+    """10 requests into 4 slots (6 admitted mid-flight), a third greedy and
+    the rest sampled with their own seeds; in paged mode a pool of 8
+    pages forces preemptions. Completions equal the eager server's."""
+    _need_card()
+    params = DelayEngine.random_init(seed=1, config=CFG, dtype=torch.bfloat16,
+                                     device="cuda").params
+    grids = _grids(10, seed=7)
+    budgets = [int(x) for x in np.random.default_rng(8).integers(50, 90, 10)]
+    launches.reset()
+    got, pre = _serve(params, True, mode, grids, budgets)
+    kernel = ("paged" if mode.get("paged") else "decode") + ("_q8" if mode.get("kv_quant") else "")
+    assert launches.IN_GRAPHS[kernel] > 0 and launches.IN_GRAPHS[kernel] % L == 0
+    ref, pre_ref = _serve(params, False, mode, grids, budgets)
+    assert pre == pre_ref and (pre > 0) == bool(mode.get("paged"))
+    assert [c.request_id for c in got] == [c.request_id for c in ref]
+    for a, b in zip(got, ref):
+        assert (a.start_length, a.steps) == (b.start_length, b.steps)
+        np.testing.assert_array_equal(a.tokens, b.tokens)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("mode", [SERVER_MODES[0], SERVER_MODES[3]], ids=["linear", "paged-q8"])
+def test_server_graphs_match_eager_int8_weights(mode):
+    _need_card()
+    engine = DelayEngine.random_init(seed=2, config=CFG, dtype=torch.bfloat16, device="cuda")
+    engine.quantize()
+    grids = _grids(6, seed=9)
+    budgets = [60] * 6
+    launches.reset()
+    got, _ = _serve(engine.params, True, mode, grids, budgets)
+    assert launches.IN_GRAPHS["w8a16"] > 0 and launches.IN_GRAPHS["w8a16_bytes"] == 0
+    ref, _ = _serve(engine.params, False, mode, grids, budgets)
+    for a, b in zip(got, ref):
+        np.testing.assert_array_equal(a.tokens, b.tokens)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("M", [1, 16, 48])
+@pytest.mark.parametrize("K,N", [(4096, 1024), (12288, 4096), (4096, 12288)])
+def test_bf16_dense_ignores_the_reduced_precision_flag(M, K, N):
+    """bf16 ``dense`` gives the same bits whatever
+    ``allow_bf16_reduced_precision_reduction`` says, and agrees with the
+    float32 product of the same bf16 inputs within one rounding to bf16 (two
+    ulps at the product's magnitude) plus the worst-case error of a float32
+    sum of K terms in another order (K * 2^-24 of the sum of the terms'
+    magnitudes)."""
+    _need_card()
+    g = torch.Generator(device="cuda").manual_seed(M + K + N)
+    x = torch.randn((2, M, K), generator=g, device="cuda").bfloat16()
+    w = (torch.randn((K, N), generator=g, device="cuda") * 0.02).bfloat16()
+    flags = torch.backends.cuda.matmul
+    saved = flags.allow_bf16_reduced_precision_reduction
+    try:
+        outs = []
+        for allow in (True, False):
+            flags.allow_bf16_reduced_precision_reduction = allow
+            outs.append(dense(x, w))
+    finally:
+        flags.allow_bf16_reduced_precision_reduction = saved
+    assert outs[0].dtype == torch.bfloat16 and outs[0].shape == (2, M, N)
+    assert torch.equal(outs[0], outs[1])
+    ref = x.float() @ w.float()
+    absref = x.float().abs() @ w.float().abs()
+    err = (outs[0].float() - ref).abs()
+    assert bool((err <= 2 * 2.0 ** -7 * ref.abs() + K * 2.0 ** -24 * absref).all()), \
+        float(err.max())
