@@ -12,7 +12,9 @@ Phases, one or more lines each; any failure raises and exits non-zero:
    reduced-precision reduction flag).
 2. build: nvcc builds the CUDA kernels from ``mosstts_tpu_torch/csrc``, one
    process per source, all started together; ``ptxas -v``'s registers,
-   shared memory and spills of the flash and decode kernels.
+   shared memory and spills of the flash and decode kernels and of every
+   instantiation of the int8-weight GEMM (``ring_kernel``: W8A16, W8A8,
+   INT4) and W8A8's row quantization.
 3. kernels: each kernel against its plain PyTorch version at the main
    paths' shapes (max error within tolerance; device time per call, from
    CUDA-graph replays so that host launch cost is left out; the plain
@@ -63,8 +65,9 @@ through the kernels; a graph's launches count once per replay
 (``ops/kernels/launches.py``), and the decode kernels and W8A16 must have
 run inside replayed graphs. Phase 3 adds the int8-weight GEMMs
 (W8A16 at the 8B decode and prefill shapes, each shape's times in the
-kernels line; W8A8 and int4 at their tools' shapes, each tool's walk driven
-once) and ``decode_attention_q8t`` (bf16
+kernels line; W8A8 and int4 at their tools' shapes, with ``torch._int_mm``
+and ``torch._weight_int4pack_mm`` as their yardsticks, each tool's walk
+driven once) and ``decode_attention_q8t`` (bf16
 and f32 scales), and a small int8-weight model, card against CPU, and its
 int8 against its bf16 weights on the card and on the CPU
 (``tests/test_quant.py``'s thresholds, at the rows with a clear argmax).
@@ -80,6 +83,7 @@ import copy
 import dataclasses
 import gc
 import json
+import re
 import sys
 import time
 from pathlib import Path
@@ -104,6 +108,7 @@ from mosstts_tpu_torch.serve.pipelines import demo_backend, synthesize  # noqa: 
 from mosstts_tpu_torch.tools import probe_int4, profile_step, tune_mm8  # noqa: E402
 from mosstts_tpu_torch.tools.kernel_inputs import (  # noqa: E402
     GEMM_8B, bound, card_line, decode_bound, decode_inputs, gemm_bound, time_ms)
+from mosstts_tpu_torch.tools.kernel_times import int4_library  # noqa: E402
 
 DEV = "cuda"
 L8, B8, KV8, S8, HD8, H8 = 36, 4, 8, 512, 128, 32  # 8B layers / heads; batch 4, cache 512
@@ -496,7 +501,9 @@ def phase_kernels_gemm() -> dict:
     ``torch.matmul`` of the same shape, what the bf16 path pays. W8A16 with
     unit scales, W8A8 and int4 at their tools' shapes
     (``tools/probe_int4.py``, ``tools/tune_mm8.py``), with
-    ``torch._weight_int8pack_mm`` and ``torch._int_mm`` as yardsticks;
+    ``torch._weight_int8pack_mm``, ``torch._int_mm`` and
+    ``torch._weight_int4pack_mm`` (``kernel_times.int4_library``, checked
+    against int4's plain version first) as yardsticks;
     each tool's walk is then driven once with the counts at 0, and those
     are their launches. ``decode_attention_q8t`` runs one call per layer of
     an 8B step at the server's B=16 with bf16 scales, for its launches (its
@@ -615,10 +622,15 @@ def phase_kernels_gemm() -> dict:
         err = max(err, check_gemm(f"int4 B=64 layer={li}", out, ref, absref))
     ms = time_ms(lambda i: w8_gemm.int4_gemm(x, packed[i % 16]))
     plain_ms = time_ms(lambda i: w8_gemm.int4_gemm_ref(x, packed[i % 16]), n=8)
+    lib, note = int4_library(x, packed)
+    log(f"  int4 B=64 torch._weight_int4pack_mm (groups of 128, scale 1, zero 0): {note}")
+    lib_ms = library_ms(lib) if lib is not None else None
+    del lib
     bd = gemm_bound(64, 4096, 12288, w_bytes=0.5, scale=False, out_bytes=4)
     log(f"  int4 B=64 D=4096 O=12288: kernel {ms:.4f} ms, plain {plain_ms:.4f} ms, "
-        f"bound {bd['bound_ms']:.5f} ms ({bd['bound_by']})")
-    numbers["int4"] = dict(max_abs_err=err, ms=ms, plain_ms=plain_ms, library_ms=None, **bd)
+        f"torch._weight_int4pack_mm {fmt_ms(lib_ms)}, bound {bd['bound_ms']:.5f} ms "
+        f"({bd['bound_by']})")
+    numbers["int4"] = dict(max_abs_err=err, ms=ms, plain_ms=plain_ms, library_ms=lib_ms, **bd)
     reset_counts()
     walk = probe_int4.walk_p4(x, packed)
     launches = read_counts()
@@ -1053,7 +1065,7 @@ def phase_int8(backend):
 def w8a16_one_kernel(engine, proc) -> None:
     """A short greedy int8 ``generate`` (prefill and 3 decode steps) under
     ``torch.profiler``: the device kernels of ``csrc/w8_gemm.cu`` equal the
-    W8A16 launches counted, all of them the one-launch ``a16_kernel`` (the
+    W8A16 launches counted, all of them the one-launch ``ring_kernel`` (the
     split-K sum stays inside it: no reduce pass). The session is
     ``profile_step.device_profile``'s, whose opening burst of throwaway
     kernels takes the records a session can lose."""
@@ -1067,11 +1079,11 @@ def w8a16_one_kernel(engine, proc) -> None:
     evts = [e for e in prof.key_averages()
             if e.device_type == torch.autograd.DeviceType.CUDA and "mosstts::w8::" in e.key]
     kernels = sum(e.count for e in evts)
-    if kernels != launches or not launches or any("a16_kernel" not in e.key for e in evts):
+    if kernels != launches or not launches or any("ring_kernel" not in e.key for e in evts):
         raise AssertionError(f"int8 generate: {launches} W8A16 launches, device kernels "
                              f"{[(e.key[:80], e.count) for e in evts]}")
     log(f"  int8 generate (prefill + 3 steps) under torch.profiler: {launches} W8A16 launches, "
-        f"{kernels} device kernels of w8_gemm.cu, all a16_kernel (no split-K reduce pass)")
+        f"{kernels} device kernels of w8_gemm.cu, all ring_kernel (no split-K reduce pass)")
 
 
 SOLO_NEW = 48  # new frames of each generate in phase 7
@@ -1224,6 +1236,16 @@ def step_times(engine, label: str) -> list:
     return rows
 
 
+def kernel_label(name: str) -> str:
+    """A ptxas entry's name, ``ring_kernel``'s instantiations spelled out:
+    ring_kernel<mode, MT, BN, WM, WN, WK, STAGES, NP, MINB, vec>."""
+    if "ring_kernel" not in name:
+        return name[:160]
+    ints, vec = re.findall(r"Li(\d+)E", name), re.findall(r"Lb(\d)E", name)
+    mode = ("W8A16", "W8A8", "INT4")[int(ints[0])]
+    return f"ring_kernel<{mode}, {', '.join(ints[1:])}, vec={''.join(vec)}>"
+
+
 def main() -> None:
     log("phase 1: device")
     if not torch.cuda.is_available():
@@ -1251,8 +1273,10 @@ def main() -> None:
     # memory only: flash, decode and W8A16 set their rings' dynamic size at
     # launch)
     for r in _build.ptxas_report():
-        if any(k in r["name"] for k in ("flash_tc_kernel", "decode_kernel", "a16_kernel")):
-            log(f"  ptxas: {r['name'][:160]}: {r.get('registers')} registers, {r.get('smem')} B "
+        if any(k in r["name"] for k in ("flash_tc_kernel", "decode_kernel", "ring_kernel",
+                                         "quant_rows_kernel")):
+            log(f"  ptxas: {kernel_label(r['name'])}: {r.get('registers')} registers, "
+                f"{r.get('smem')} B "
                 f"static smem, {r.get('stack')} B stack, spill stores {r.get('spill_stores')} B, "
                 f"loads {r.get('spill_loads')} B")
 

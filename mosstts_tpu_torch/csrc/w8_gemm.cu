@@ -1,4 +1,4 @@
-// Int8-weight GEMMs on the tensor cores:
+// Int8-weight GEMMs on the tensor cores, three modes of one kernel:
 //
 //   W8A16  out[m, h*N + n] = (sum_k x[m, k] * q[h, k, n]) * w_scale[h, n]
 //          x bf16, q int8 (converted to bf16 exactly, |q| <= 127), f32
@@ -24,40 +24,73 @@
 // (mosstts_tpu/ops/basic.py::dense, models/delay.py::_audio_head_logits on a
 // QuantWeight) compute the W8A16 function; XLA left them to its int8 dot.
 //
-// What bounds W8A16 on the H100: at decode (M = 1-16 rows, 254 launches per
-// 8B step) the weight bytes, ~1 flop per byte read against the card's ~295
-// flops/byte balance; at prefill (M in the hundreds) the tensor cores. But
-// turning int8 into bf16 fragments costs instructions on every weight byte,
+// What bounds them on the H100: at decode (M = 1-16 rows, 254 W8A16
+// launches per 8B step) the weight bytes, ~1 flop per byte read against the
+// card's ~295 flops/byte balance; at prefill (M in the hundreds) the tensor
+// cores. W8A8 at the tool's B=128 reads its 50 MB of weights at ~256 int8
+// ops a byte, under the card's ~590 int8 ops/byte, so bytes bound it; int4
+// at B=64 does 256 bf16 flops per packed byte, near the bf16 balance. But
+// turning weights into fragments costs instructions on every weight byte,
 // so a block that streams alone is bound by its warps' latency, not by
-// memory (tools/w8a16_plans.py and PERF.md §6 have the measurements). Its
-// design (a16_kernel below):
-// - Warp-specialized: one producer warp streams the weight tiles (8 KB:
-//   BK rows x BN = 64 or 128 bytes) and the x tile (BM rows x BK, bf16) of
-//   each stage global -> shared with 16-byte cp.async copies into a ring of
-//   STAGES (3-6) slots; each slot's "full" mbarrier completes when its copies
-//   land (cp.async.mbarrier.arrive), its "empty" mbarrier when every
-//   consumer warp is done with it. Eight consumer warps do only math, with
-//   no block-wide barrier in the loop, so one warp's waits overlap the
-//   others' work and up to STAGES - 1 tiles of a block are in flight. Rows
-//   are padded by 16 bytes so the fragment reads below hit distinct banks.
+// memory; W8A8 and INT4 at the tools' shapes take as long with their
+// weights warm in L2 as cold, bound by the consumers' work per stage and
+// the output epilogue (tools/w8a16_plans.py and PERF.md §6 have the
+// measurements). The design (ring_kernel below):
+// - Warp-specialized: producer warps stream the weight tiles (8 KB:
+//   BK rows x BN = 64 or 128 bytes) and the x tile (BM rows x BK: bf16,
+//   int8, or INT4's two bf16 tiles, columns k and x_hi + k) of each stage
+//   global -> shared into a ring of STAGES (3-12) slots; each slot's "full"
+//   mbarrier completes when its copies land, its "empty" mbarrier when
+//   every consumer warp is done with it. Eight consumer warps do only math,
+//   with no block-wide barrier in the loop, so one warp's waits overlap the
+//   others' work and up to STAGES - 1 tiles of a block are in flight.
+//   W8A16 copies with 16-byte cp.async (cp.async.mbarrier.arrive) into rows
+//   padded by 16 bytes, so the fragment reads below hit distinct banks.
+//   W8A8 and INT4 copy a whole tile with one tensor copy (the tensor memory
+//   accelerator, cp.async.bulk.tensor, on the full barrier's transaction
+//   bytes; tensor maps made per launch, make_maps) into dense rows under
+//   the 128B/64B swizzle (swz), which keeps the same reads conflict-free,
+//   instead of the 1024-1536 16-byte copies two warps issue a stage
+//   (measured faster, PERF.md §6). Their partial stages (K's tail),
+//   packed remainder blocks and byte-loaded rows keep cp.async, into the
+//   same swizzled layout.
 // - B fragments from word loads: a tile's columns may be permuted if the
-//   epilogue maps them back, so each thread reads 4 adjacent columns of each
-//   of the 4 rows its fragments take (k 2t, 2t+1, 2t+8, 2t+9) with four
-//   32-bit shared loads and uses the 4 columns as its column in 4 n8 tiles;
-//   x comes in with ldmatrix. int8 -> bf16 takes a byte permute, two LOP3s
-//   and one bf16x2 subtraction per pair of values: q = (128 + (b & 0x7f)) -
-//   (128 + (b & 0x80)), exact, no I2F.
+//   epilogue maps them back (logical column n of n8 tile j is tile column
+//   4n + j of its 32-column group), so each thread reads 4 adjacent columns
+//   of each k row its fragments take with one 32-bit shared load and uses
+//   them as its column in 4 n8 tiles; x comes in with ldmatrix (for int8 x
+//   the b16 ldmatrix without .trans gives exactly m16n8k32's row-major s8
+//   A layout).
+//   * W8A16 (k 2t, 2t+1, 2t+8, 2t+9): int8 -> bf16 takes a byte permute,
+//     two LOP3s and one bf16x2 subtraction per pair of values: q = (128 +
+//     (b & 0x7f)) - (128 + (b & 0x80)), exact, no I2F.
+//   * W8A8 (k 4t .. 4t+3 and 16 + 4t .. 16 + 4t+3): the 4x4 byte block of
+//     4 words is transposed into the four n8 tiles' s8 registers with 8
+//     byte permutes, no conversion at all. Rows 4t lie 4 rows apart, which
+//     would put t and t + 2 on the same banks, so weight row k is stored at
+//     a8_row(k) (the 5-D tensor map lays it there): a thread's rows become
+//     W8A16's (2t, 2t+1, 2t+8, 2t+9), conflict-free.
+//   * INT4 (as W8A16; each packed row feeds the lo and the hi k16 product):
+//     a byte permute places byte j of two rows in a bf16x2's low bytes; a
+//     LOP3 puts each nibble, XOR 8, in the mantissa of a bf16 128 (0x4300 |
+//     (n ^ 8)), and one bf16x2 subtraction of 136 gives the signed value
+//     exactly (the high nibble after a shift). No I2F, no F2F.
+//   Why not wgmma: int8 wgmma takes both operands K-major, and the (K, N)
+//   weights are N-major; the JAX tools' layout stays the public layout, so
+//   a K-major repack is not done.
 // - The split-K sum inside the launch: the `splits` (<= 8) blocks of one
 //   column tile form a thread-block cluster (cudaLaunchKernelEx, grid
-//   (splits, column blocks, row tiles)); each block leaves its f32 tile in
-//   its own shared memory and, after cluster.sync(), rank r reads every
-//   rank's tile through distributed shared memory in rank order for its
-//   share of the outputs, scales and rounds once. No second launch, no
-//   scratch, no atomics: a call repeats bit for bit and replays in a graph.
-// - M <= 128 is one row tile (16 * MT rows, MT = 1, 2, 4 or 8), so a
+//   (splits, column blocks, row tiles)); each block leaves its tile (f32, or
+//   int32 for W8A8) in its own shared memory and, after cluster.sync(),
+//   rank r reads every rank's tile through distributed shared memory in
+//   rank order for its share of the outputs, scales and rounds once (W8A8
+//   and INT4 4 adjacent outputs a thread: 16-byte reads and stores). No
+//   second launch, no scratch, no atomics: a call repeats bit for bit and
+//   replays in a graph (W8A8's int32 sum is exact in any order).
+// - M <= 128 is one row tile (16 * MT rows, MT = 1, 2, 4, 6 or 8), so a
 //   prefill of up to 128 rows streams the weights once. The consumer warps
 //   split a stage's k steps (their partials summed in warp order at the end)
-//   and its column groups, and at MT = 8 its row tiles.
+//   and its column groups, and W8A16's and W8A8's at MT >= 4 its row tiles.
 // - A stack whose N leaves a remainder of 1-16 columns after its full
 //   column tiles (the 1025-wide audio heads) packs the remainders of CH
 //   heads into one extra block (one 16-byte chunk per head and row), so no
@@ -65,16 +98,15 @@
 // - Rows that are not 16-byte aligned (an unpadded N % 16 != 0 stack, as
 //   the JAX layout passes it) take the same kernel with the producer's byte
 //   loads (vec = 0): right, not fast.
-// The launch plan (variant, splits) is chosen in Python
-// for each shape (ops/kernels/w8_gemm.py w8a16_plan) and checked here.
-//
-// W8A8 and INT4 (tools only, no serving path) keep the first design's tile
-// loop below (tile_kernel, split_reduce_kernel): 16-byte weight loads staged
-// in registers one tile ahead, a double-buffered padded tile, split K
-// summed by a second launch over a scratch buffer.
+// The launch plan (variant, splits) is chosen in Python for each mode and
+// shape (ops/kernels/w8_gemm.py gemm_plan) and checked here. W8A8's row
+// quantization stays a launch of its own before the product: every block
+// needs the whole row's absmax before its first k tile.
 // The TPU kernels' (td, to) VMEM tiles and their sequential-grid f32
 // accumulator are MXU/VMEM choices and are not carried over.
 #include <cooperative_groups.h>
+#include <cuda.h>  // CUtensorMap and its enums (types only: the driver is reached at run time)
+#include <cudaTypedefs.h>
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <stdint.h>
@@ -92,26 +124,19 @@ enum Mode { W8A16 = 0, W8A8 = 1, INT4 = 2 };
 // field. Strides in elements.
 struct Args {
     const void* x;          // (M, >= K) rows: bf16 (W8A16, INT4) or int8 (W8A8)
-    const int8_t* w;        // (count, K, N) int8, rows ldw (W8A16) or N apart, weights w_sh apart
+    const int8_t* w;        // (count, K, N) int8, rows ldw bytes apart, weights w_sh apart
     const float* w_scale;   // (count, N) f32, or null (INT4)
     const float* x_scale;   // (M,) f32 (W8A8), else null
     void* out;              // (M, count * N) rows ldo apart, bf16 or f32
-    void* part;             // W8A8/INT4 split-K partials: splits x M x count*N, f32 or int32
     int M, K, N, count;
     int x_hi;               // INT4: column of x where its second half starts; else 0
-    int splits, k_per_split;  // W8A8/INT4: K rows per split, a multiple of the k tile
+    int splits;             // blocks per cluster: the split of K
     int out_f32;            // 1: f32 output; 0: bf16
     long long ldx, w_sh, ldo;
-    long long ldw;          // W8A16: bytes between weight rows (>= N)
-    int variant;            // W8A16: the a16 instantiation (w8a16_plan)
-    int vec;                // W8A16: 1 16-byte weight loads, 0 byte loads
+    long long ldw;          // bytes between weight rows (>= N)
+    int variant;            // the mode's instantiation (gemm_plan)
+    int vec;                // 1 16-byte weight loads, 0 byte loads
 };
-
-__device__ __forceinline__ float finish(float v, const Args& a, int row, long long c) {
-    if (a.x_scale) v *= a.x_scale[row];
-    if (a.w_scale) v *= a.w_scale[c];
-    return v;
-}
 
 __device__ __forceinline__ void store_out(const Args& a, int row, long long c, float v) {
     const long long o = row * a.ldo + c;
@@ -131,53 +156,94 @@ __device__ __forceinline__ void mma_bf16(float (&d)[4], const uint32_t (&a)[4], 
         : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
 }
 
-// ============================== W8A16 ==============================
-namespace a16 {
+// D = A(16x32 s8, row) * B(32x8 s8, col) + D, s32
+__device__ __forceinline__ void mma_s8(int (&d)[4], const uint32_t (&a)[4], uint32_t b0,
+                                       uint32_t b1) {
+    asm volatile(
+        "mma.sync.aligned.m16n8k32.row.col.s32.s8.s8.s32 "
+        "{%0,%1,%2,%3}, {%4,%5,%6,%7}, {%8,%9}, {%0,%1,%2,%3};\n"
+        : "+r"(d[0]), "+r"(d[1]), "+r"(d[2]), "+r"(d[3])
+        : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
+}
+
+// ============================== the ring kernel ==============================
+namespace ring {
 
 namespace cg = cooperative_groups;
 
 constexpr int STAGE_W = 8192;  // weight bytes per ring stage
 constexpr int MAX_SPLITS = 8;  // blocks per cluster: the portable cluster size
 
-// One instantiation: MT 16-row tiles, BN columns, STAGES ring tiles, NP
-// producer warps and WM x WN x WK consumer warps: WM across the row tiles,
-// WN across the 32-column groups, WK across the k16 steps of a stage (their
-// partial sums added in warp order at the end); MINB blocks an SM at least
-// (the register budget).
-template <int MT_, int BN_, int WM_, int WN_, int WK_, int STAGES_, int NP_, int MINB_>
+// One instantiation: its MODE, MT 16-row tiles, BN columns, STAGES ring
+// tiles, NP producer warps and WM x WN x WK consumer warps: WM across the
+// row tiles, WN across the 32-column groups, WK across the mma k steps of a
+// stage (their partial sums added in warp order at the end); MINB blocks an
+// SM at least (the register budget).
+template <int MODE_, int MT_, int BN_, int WM_, int WN_, int WK_, int STAGES_, int NP_,
+          int MINB_>
 struct Cfg {
+    static constexpr int MODE = MODE_;
     static constexpr int MT = MT_, BM = 16 * MT_, BN = BN_, STAGES = STAGES_;
     static constexpr int WM = WM_, WN = WN_, WK = WK_, NC = WM_ * WN_ * WK_, NP = NP_;
     static constexpr int MINB = MINB_;
     static constexpr int THREADS = 32 * (NC + NP_);  // the consumers, then the producers
     static constexpr int BK = STAGE_W / BN_;    // weight rows per stage
     static constexpr int CH = BN_ / 16;         // 16-byte chunks per weight row
-    static constexpr int ROWP = BN_ + 16;       // shared bytes per weight row (conflict-free reads)
+    // W8A8, INT4: whole tiles by the tensor memory accelerator into dense,
+    // swizzled rows (swz); W8A16: cp.async into rows padded by 16 bytes
+    static constexpr bool TMA = MODE_ != W8A16;
+    static constexpr int ROWP = TMA ? BN_ : BN_ + 16;  // shared bytes per weight row
     static constexpr int MTW = MT_ / WM_;       // row tiles per consumer warp
     static constexpr int CGW = BN_ / 32 / WN_;  // column groups per consumer warp
-    static constexpr int KSW = BK / 16 / WK_;   // k16 steps per consumer warp per stage
-    static constexpr int XP = BK + 8;           // bf16 per shared x row (conflict-free ldmatrix)
-    static constexpr int XCR = BK / 8;          // 16-byte x chunks per row and stage
+    static constexpr int KS = MODE_ == W8A8 ? 32 : 16;  // k rows per mma step
+    static constexpr int KSW = BK / KS / WK_;   // mma steps per consumer warp per stage
+    static constexpr int NX = MODE_ == INT4 ? 2 : 1;    // x tiles per stage (INT4: lo, hi)
+    static constexpr int XE = MODE_ == W8A8 ? 1 : 2;    // bytes per x element
+    static constexpr int XP = TMA ? BK : BK + 16 / XE;  // x elements per shared row
+    static constexpr int XRB = XP * XE;         // bytes per shared x row
+    static constexpr int XCE = 16 / XE;         // x elements per 16-byte chunk
+    static constexpr int XCR = BK / XCE;        // 16-byte x chunks per row and stage
+    static constexpr int X_BYTES = BM * XP * XE;
     static constexpr int W_BYTES = BK * ROWP;
-    static constexpr int STAGE = W_BYTES + BM * XP * 2;
+    static constexpr int STAGE = W_BYTES + NX * X_BYTES;
     static constexpr int RING = STAGES * STAGE;
-    static constexpr int PP = BN + 1;           // floats per shared partial row
+    // words per shared partial row: W8A8 and INT4 read 4 at once (16-byte aligned)
+    static constexpr int PP = TMA ? BN + 4 : BN + 1;
     static constexpr int PART = WK * BM * PP * 4;
-    static constexpr int SMEM = RING > PART ? RING : PART;
+    // TMA's swizzled tiles start at 1 KB boundaries: room to align the base
+    static constexpr int SMEM = (RING > PART ? RING : PART) + (TMA ? 1024 : 0);
     static constexpr int PR = 32 * NP_ / CH;    // weight rows one producer pass covers
     static constexpr int PJ = BK / PR;          // weight chunks per producer lane and stage
-    static_assert(MT_ % WM_ == 0 && (BN_ / 32) % WN_ == 0 && (BK / 16) % WK_ == 0 &&
+    static_assert(MT_ % WM_ == 0 && (BN_ / 32) % WN_ == 0 && (BK / KS) % WK_ == 0 &&
                   STAGE % 16 == 0, "tile");
+    static_assert(!TMA || (BN_ == 128 && (XRB == 64 || XRB == 128) && STAGE % 1024 == 0 &&
+                           X_BYTES % 1024 == 0), "tma");
 };
 
-// The instantiations, indexed by Args::variant (ops/kernels/w8_gemm.py
-// A16_VARIANTS mirrors them).
-using V0 = Cfg<1, 64, 1, 1, 8, 5, 2, 3>;   // decode, narrow N: more column blocks
-using V1 = Cfg<1, 128, 1, 2, 4, 6, 2, 3>;  // decode
-using V2 = Cfg<2, 128, 1, 4, 2, 4, 2, 2>;  // M <= 32
-using V3 = Cfg<4, 128, 1, 4, 2, 4, 2, 2>;  // M <= 64
-using V4 = Cfg<8, 128, 2, 4, 1, 3, 2, 2>;  // M > 96: 128-row tiles
-using V5 = Cfg<6, 128, 2, 4, 1, 3, 2, 2>;  // M <= 96 (the server's admission prefill)
+// The instantiations of each mode, indexed by Args::variant
+// (ops/kernels/w8_gemm.py VARIANTS mirrors them).
+// W8A16
+using V0 = Cfg<W8A16, 1, 64, 1, 1, 8, 5, 2, 3>;   // decode, narrow N: more column blocks
+using V1 = Cfg<W8A16, 1, 128, 1, 2, 4, 6, 2, 3>;  // decode
+using V2 = Cfg<W8A16, 2, 128, 1, 4, 2, 4, 2, 2>;  // M <= 32
+using V3 = Cfg<W8A16, 4, 128, 1, 4, 2, 4, 2, 2>;  // M <= 64
+using V4 = Cfg<W8A16, 8, 128, 2, 4, 1, 3, 2, 2>;  // M > 96: 128-row tiles
+using V5 = Cfg<W8A16, 6, 128, 2, 4, 1, 3, 2, 2>;  // M <= 96 (the server's admission prefill)
+// W8A8: an int8 x tile, two k32 steps a stage. INT4: two bf16 x tiles, four
+// packed k16 rows a stage, each two products. Their prefill tiles at the
+// tools' shapes (W8A8 B=128, INT4 B=64) are one block an SM with a deep ring
+// (12 and 8 stages, MINB 1, the split of K 1): faster there than two
+// blocks an SM or any split (tools/w8a16_plans.py --mode, PERF.md §6).
+// INT4's 64-row tile gives each warp all four row tiles, so a B fragment
+// is converted once for 4 row tiles, not twice for 2.
+using Q0 = Cfg<W8A8, 1, 128, 1, 4, 2, 6, 2, 3>;    // decode
+using Q1 = Cfg<W8A8, 2, 128, 1, 4, 2, 5, 2, 2>;    // M <= 32
+using Q2 = Cfg<W8A8, 4, 128, 2, 4, 1, 5, 2, 2>;    // M <= 64
+using Q3 = Cfg<W8A8, 8, 128, 2, 4, 1, 12, 2, 1>;   // M <= 128 (the tool's B=128) and beyond
+using I0 = Cfg<INT4, 1, 128, 1, 4, 2, 5, 2, 3>;    // decode
+using I1 = Cfg<INT4, 2, 128, 1, 4, 2, 4, 2, 2>;    // M <= 32
+using I2 = Cfg<INT4, 4, 128, 1, 4, 2, 8, 2, 1>;    // M <= 64 (the tool's B=64)
+using I3 = Cfg<INT4, 8, 128, 2, 4, 1, 5, 2, 1>;    // M <= 128 and beyond
 
 // bf16x2 of byte j of u (low half) and byte j of v (high half), exact: a
 // byte b = q (two's complement) gives the bf16 128 + (b & 0x7f) and the
@@ -188,6 +254,41 @@ __device__ __forceinline__ uint32_t bf16_pair(uint32_t u, uint32_t v, int j) {
     const __nv_bfloat162 d = __hsub2(*reinterpret_cast<__nv_bfloat162*>(&lo),
                                      *reinterpret_cast<__nv_bfloat162*>(&hi));
     return *reinterpret_cast<const uint32_t*>(&d);
+}
+
+// The signed nibbles (low: lo, high: hi) of byte j of u and byte j of v as
+// bf16x2 pairs, exact: nibble n XOR 8 in the mantissa of the bf16 128
+// (0x4300 | (n ^ 8) = 128 + (n ^ 8)), minus 136, is n's two's-complement value
+__device__ __forceinline__ void nibble_pairs(uint32_t u, uint32_t v, int j, uint32_t& lo,
+                                             uint32_t& hi) {
+    const uint32_t p = __byte_perm(u, v, j | ((4 + j) << 8));  // byte j of u, of v at 0, 16
+    uint32_t l = (p & 0x000f000fu) ^ 0x43084308u, h = ((p >> 4) & 0x000f000fu) ^ 0x43084308u;
+    const uint32_t m = 0x43084308u;  // bf16x2 (136, 136)
+    const __nv_bfloat162 dl = __hsub2(*reinterpret_cast<__nv_bfloat162*>(&l),
+                                      *reinterpret_cast<const __nv_bfloat162*>(&m));
+    const __nv_bfloat162 dh = __hsub2(*reinterpret_cast<__nv_bfloat162*>(&h),
+                                      *reinterpret_cast<const __nv_bfloat162*>(&m));
+    lo = *reinterpret_cast<const uint32_t*>(&dl);
+    hi = *reinterpret_cast<const uint32_t*>(&dh);
+}
+
+// The 4x4 byte transpose: w[r] holds byte c = row r, column c; afterwards
+// w[c] holds byte r = row r, column c (8 byte permutes)
+__device__ __forceinline__ void transpose4(uint32_t (&w)[4]) {
+    const uint32_t a = __byte_perm(w[0], w[1], 0x5140), b = __byte_perm(w[2], w[3], 0x5140);
+    const uint32_t c = __byte_perm(w[0], w[1], 0x7362), d = __byte_perm(w[2], w[3], 0x7362);
+    w[0] = __byte_perm(a, b, 0x5410);
+    w[1] = __byte_perm(a, b, 0x7632);
+    w[2] = __byte_perm(c, d, 0x5410);
+    w[3] = __byte_perm(c, d, 0x7632);
+}
+
+// W8A8's shared row of weight row k of a stage: within each 16 rows, k =
+// 4 t + r lies at row 2 t + (r & 1) + 8 (r >> 1), so the four rows a thread
+// reads for its s8 fragment (k 4 t .. 4 t + 3) are W8A16's 2 t, 2 t + 1,
+// 2 t + 8, 2 t + 9, on distinct banks across t
+__device__ __forceinline__ int a8_row(int k) {
+    return (k & ~15) | (((k >> 2) & 3) << 1) | (k & 1) | (((k >> 1) & 1) << 3);
 }
 
 __device__ __forceinline__ void ldmatrix_x4(uint32_t (&r)[4], uint32_t addr) {
@@ -209,6 +310,45 @@ __device__ __forceinline__ void mbar_arrive(uint32_t bar) {
 __device__ __forceinline__ void mbar_arrive_cp_async(uint32_t bar) {
     asm volatile("cp.async.mbarrier.arrive.noinc.shared::cta.b64 [%0];\n" ::"r"(bar) : "memory");
 }
+// arrive, raising the phase's expected transaction bytes by `bytes`
+__device__ __forceinline__ void mbar_arrive_expect_tx(uint32_t bar, uint32_t bytes) {
+    asm volatile("mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;\n" ::"r"(bar), "r"(bytes)
+                 : "memory");
+}
+
+// The W8A8 and INT4 tensor maps: the weights' and x's (ring::make_maps)
+struct alignas(64) Maps {
+    CUtensorMap w, x;
+};
+
+// One tile global -> shared by the tensor memory accelerator, completing
+// on bar's transaction bytes; columns and rows past the tensor read as 0
+__device__ __forceinline__ void tma_load_2d(uint32_t dst, const CUtensorMap* map, int c0, int c1,
+                                            uint32_t bar) {
+    asm volatile(
+        "cp.async.bulk.tensor.2d.shared::cluster.global.tile.mbarrier::complete_tx::bytes"
+        " [%0], [%1, {%2, %3}], [%4];\n" ::"r"(dst),
+        "l"(reinterpret_cast<uint64_t>(map)), "r"(c0), "r"(c1), "r"(bar)
+        : "memory");
+}
+// the same through W8A8's 5-D weight map, at (c0, 0, 0, 0, c4)
+__device__ __forceinline__ void tma_load_5d(uint32_t dst, const CUtensorMap* map, int c0, int c4,
+                                            uint32_t bar) {
+    asm volatile(
+        "cp.async.bulk.tensor.5d.shared::cluster.global.tile.mbarrier::complete_tx::bytes"
+        " [%0], [%1, {%2, %3, %3, %3, %4}], [%5];\n" ::"r"(dst),
+        "l"(reinterpret_cast<uint64_t>(map)), "r"(c0), "r"(0), "r"(c4), "r"(bar)
+        : "memory");
+}
+
+// Byte offset of 16-byte chunk `chunk` of row `row` of a tile of RB-byte
+// rows as the tensor memory accelerator's 128B (RB = 128) or 64B (RB = 64)
+// swizzle lays it out: the chunk index XOR bits 7.. of the row's offset.
+// The fragment reads below then hit distinct banks, as the padded rows do.
+template <int RB> __device__ __forceinline__ int swz(int row, int chunk) {
+    return row * RB + ((chunk ^ ((row * RB >> 7) & (RB / 16 - 1))) << 4);
+}
+
 __device__ __forceinline__ void mbar_wait(uint32_t bar, uint32_t parity) {
     asm volatile(
         "{\n"
@@ -222,8 +362,12 @@ __device__ __forceinline__ void mbar_wait(uint32_t bar, uint32_t parity) {
 }
 
 template <class C, bool VEC>
-__global__ void __launch_bounds__(C::THREADS, C::MINB) a16_kernel(const Args a) {
-    extern __shared__ __align__(16) unsigned char smem[];
+__global__ void __launch_bounds__(C::THREADS, C::MINB)
+    ring_kernel(const Args a, const __grid_constant__ Maps maps) {
+    using Acc = std::conditional_t<C::MODE == W8A8, int, float>;
+    extern __shared__ __align__(16) unsigned char smem_raw[];
+    unsigned char* smem = smem_raw;
+    if constexpr (C::TMA) smem += (1024 - (smem_u32(smem_raw) & 1023)) & 1023;
     __shared__ __align__(8) uint64_t bars[2 * C::STAGES];  // full[s], then empty[s]
     const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31;
     const int split = blockIdx.x, splits = gridDim.x;
@@ -259,6 +403,9 @@ __global__ void __launch_bounds__(C::THREADS, C::MINB) a16_kernel(const Args a) 
             mbar_init(full0 + 8 * s, 32 * C::NP);  // every producer lane
             mbar_init(empty0 + 8 * s, C::NC);  // one arrival per consumer warp
         }
+        // the tensor copies complete on these barriers: make their
+        // initialization visible to the async proxy
+        if constexpr (C::TMA) asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
     }
     __syncthreads();
 
@@ -269,7 +416,7 @@ __global__ void __launch_bounds__(C::THREADS, C::MINB) a16_kernel(const Args a) 
         // are copied: the rows past M keep whatever the slot held, and an
         // mma output row depends on its own A row alone, so they reach only
         // output rows past M, which are never stored. Columns past k_end
-        // read as zeros (their weights are finite int8, never NaN).
+        // read as zeros (their weights are finite, never NaN).
         const int pl = tid - 32 * C::NC, cc = pl % C::CH, r0 = pl / C::CH;
         const int8_t* wsrc;
         int wlim;
@@ -281,27 +428,64 @@ __global__ void __launch_bounds__(C::THREADS, C::MINB) a16_kernel(const Args a) 
             wsrc = a.w + head * a.w_sh + n0 + cc * 16;
             wlim = max(0, min(16, width - cc * 16));
         }
+        // shared offset of chunk cc of producer row j from that of row r0:
+        // W8A8 permutes the rows (a8_row), W8A8 and INT4 swizzle the chunks
+        // as the tensor memory accelerator does (swz)
+        auto woff = [&](int j) -> int {
+            const int row = r0 + j * C::PR;
+            if constexpr (C::TMA)
+                return swz<C::ROWP>(C::MODE == W8A8 ? a8_row(row) : row, cc) -
+                       (r0 * C::ROWP + cc * 16);
+            else
+                return j * C::PR * C::ROWP;
+        };
         const long long rstep = C::PR * a.ldw;
         const int8_t* wrow = wsrc + (k_begin + r0) * a.ldw;
-        const __nv_bfloat16* xg = static_cast<const __nv_bfloat16*>(a.x) + m0 * a.ldx;
+        const __nv_bfloat16* xgb = static_cast<const __nv_bfloat16*>(a.x) + m0 * a.ldx;
+        const unsigned char* xg =
+            static_cast<const unsigned char*>(a.x) + m0 * a.ldx * C::XE;
         for (int t = 0; t < n_tiles; ++t) {
             const int slot = t % C::STAGES, k0 = k_begin + t * C::BK, left = k_end - k0;
             if (t >= C::STAGES) mbar_wait(empty0 + 8 * slot, (t / C::STAGES - 1) & 1);
             unsigned char* sw = smem + slot * C::STAGE;
-            const uint32_t dst = smem_u32(sw + r0 * C::ROWP + cc * 16);
+            if constexpr (C::TMA && VEC) {
+                if (!tail && left >= C::BK) {
+                    // a whole stage of a full column tile: one tensor copy of
+                    // the weights (W8A8's 5-D map lays row k at a8_row(k)),
+                    // one of each x tile, on the full barrier's transaction
+                    // bytes; the other producer lanes arrive plainly
+                    const uint32_t full = full0 + 8 * slot, dw = smem_u32(sw);
+                    if (pl == 0) {
+                        mbar_arrive_expect_tx(full, C::STAGE);
+                        if constexpr (C::MODE == W8A8)
+                            tma_load_5d(dw, &maps.w, n0, (head * a.K + k0) >> 4, full);
+                        else
+                            tma_load_2d(dw, &maps.w, n0, head * a.K + k0, full);
+#pragma unroll
+                        for (int h = 0; h < C::NX; ++h)
+                            tma_load_2d(dw + C::W_BYTES + h * C::X_BYTES, &maps.x,
+                                        k0 + h * a.x_hi, m0, full);
+                    } else {
+                        mbar_arrive(full);
+                    }
+                    wrow += C::BK * a.ldw;
+                    continue;
+                }
+            }
+            unsigned char* wdst = sw + r0 * C::ROWP + cc * 16;
+            const uint32_t dst = smem_u32(wdst);
             const int8_t* src = wrow;
             if (VEC && left >= C::BK) {  // the whole stage lies in the split: no predicates
                 if (wlim > 0) {
 #pragma unroll
-                    for (int j = 0; j < C::PJ; ++j, src += rstep)
-                        cp_async16(dst + j * C::PR * C::ROWP, src);
+                    for (int j = 0; j < C::PJ; ++j, src += rstep) cp_async16(dst + woff(j), src);
                 }
             } else {
 #pragma unroll
                 for (int j = 0; j < C::PJ; ++j, src += rstep) {
                     const bool in = r0 + j * C::PR < left;
                     if constexpr (VEC) {
-                        if (wlim > 0) cp_async16(dst + j * C::PR * C::ROWP, in ? src : wsrc, in);
+                        if (wlim > 0) cp_async16(dst + woff(j), in ? src : wsrc, in);
                     } else {
                         uint32_t word[4] = {0u, 0u, 0u, 0u};
                         if (in) {
@@ -312,22 +496,43 @@ __global__ void __launch_bounds__(C::THREADS, C::MINB) a16_kernel(const Args a) 
                                         static_cast<uint32_t>(static_cast<uint8_t>(src[b]))
                                         << (8 * (b & 3));
                         }
-                        *reinterpret_cast<uint4*>(sw + (r0 + j * C::PR) * C::ROWP + cc * 16) =
+                        *reinterpret_cast<uint4*>(
+                            C::TMA ? wdst + woff(j) : sw + (r0 + j * C::PR) * C::ROWP + cc * 16) =
                             make_uint4(word[0], word[1], word[2], word[3]);
                     }
                 }
             }
             wrow += C::BK * a.ldw;
-            __nv_bfloat16* sx = reinterpret_cast<__nv_bfloat16*>(sw + C::W_BYTES);
-            for (int i = pl; i < rows * C::XCR; i += 32 * C::NP) {
-                const int r = i / C::XCR, c8 = i % C::XCR;
-                const bool in = c8 * 8 < left;
-                const __nv_bfloat16* xs = xg + r * a.ldx + k0 + c8 * 8;
-                if constexpr (VEC) {
-                    cp_async16(smem_u32(sx + r * C::XP + c8 * 8), in ? xs : xg, in);
-                } else {
-                    *reinterpret_cast<uint4*>(sx + r * C::XP + c8 * 8) =
-                        in ? *reinterpret_cast<const uint4*>(xs) : make_uint4(0u, 0u, 0u, 0u);
+            if constexpr (C::MODE == W8A16) {
+                __nv_bfloat16* sx = reinterpret_cast<__nv_bfloat16*>(sw + C::W_BYTES);
+                for (int i = pl; i < rows * C::XCR; i += 32 * C::NP) {
+                    const int r = i / C::XCR, c8 = i % C::XCR;
+                    const bool in = c8 * 8 < left;
+                    const __nv_bfloat16* xs = xgb + r * a.ldx + k0 + c8 * 8;
+                    if constexpr (VEC) {
+                        cp_async16(smem_u32(sx + r * C::XP + c8 * 8), in ? xs : xgb, in);
+                    } else {
+                        *reinterpret_cast<uint4*>(sx + r * C::XP + c8 * 8) =
+                            in ? *reinterpret_cast<const uint4*>(xs) : make_uint4(0u, 0u, 0u, 0u);
+                    }
+                }
+            } else {  // W8A8 (int8 x), INT4 (columns k and x_hi + k), swizzled
+                unsigned char* sx = sw + C::W_BYTES;
+                for (int i = pl; i < rows * C::XCR; i += 32 * C::NP) {
+                    const int r = i / C::XCR, c = i % C::XCR;
+                    const bool in = c * C::XCE < left;
+                    const unsigned char* xs = xg + (r * a.ldx + k0 + c * C::XCE) * C::XE;
+#pragma unroll
+                    for (int h = 0; h < C::NX; ++h) {
+                        const unsigned char* hs = xs + h * a.x_hi * C::XE;
+                        unsigned char* hd = sx + h * C::X_BYTES + swz<C::XRB>(r, c);
+                        if constexpr (VEC) {
+                            cp_async16(smem_u32(hd), in ? hs : xg, in);
+                        } else {
+                            *reinterpret_cast<uint4*>(hd) = in ? *reinterpret_cast<const uint4*>(hs)
+                                                               : make_uint4(0u, 0u, 0u, 0u);
+                        }
+                    }
                 }
             }
             if constexpr (VEC)
@@ -338,11 +543,11 @@ __global__ void __launch_bounds__(C::THREADS, C::MINB) a16_kernel(const Args a) 
     }
 
     // Consumers: warp (wm, wn, wk) takes row tiles wm * MTW .., column
-    // groups wn, wn + WN, .. and k16 steps wk * KSW .. of every stage.
+    // groups wn, wn + WN, .. and mma k steps wk * KSW .. of every stage.
     const int group = lane >> 2, tig = lane & 3;
     const int wm = warp % C::WM, wn = (warp / C::WM) % C::WN, wk = warp / (C::WM * C::WN);
     const int ncg = (width + 31) / 32;  // column groups holding a real column
-    float acc[C::MTW][C::CGW][4][4];
+    Acc acc[C::MTW][C::CGW][4][4];
 #pragma unroll
     for (int mt = 0; mt < C::MTW; ++mt)
 #pragma unroll
@@ -350,7 +555,7 @@ __global__ void __launch_bounds__(C::THREADS, C::MINB) a16_kernel(const Args a) 
 #pragma unroll
             for (int j = 0; j < 4; ++j)
 #pragma unroll
-                for (int e = 0; e < 4; ++e) acc[mt][gi][j][e] = 0.f;
+                for (int e = 0; e < 4; ++e) acc[mt][gi][j][e] = 0;
     if (warp < C::NC) {
         for (int t = 0; t < n_tiles; ++t) {
             const int slot = t % C::STAGES;
@@ -359,31 +564,111 @@ __global__ void __launch_bounds__(C::THREADS, C::MINB) a16_kernel(const Args a) 
             const uint32_t sx = smem_u32(sw + C::W_BYTES);
 #pragma unroll
             for (int ks = 0; ks < C::KSW; ++ks) {
-                const int s = wk * C::KSW + ks;  // k16 step of the stage
-                // A: rows mt * 16 + (lane & 15), k 8 * (lane >> 4) .. + 7 of the step
-                uint32_t af[C::MTW][4];
+                const int s = wk * C::KSW + ks;  // mma k step of the stage
+                // A: rows mt * 16 + (lane & 15), the 16 bytes from byte 16 *
+                // (lane >> 4) of the step's k (bf16 k 8 (lane >> 4) .. + 7;
+                // int8 k 16 (lane >> 4) .. + 15)
+                auto load_a = [&](uint32_t(&r)[4], int h, int mt) {
+                    const int row = (wm * C::MTW + mt) * 16 + (lane & 15);
+                    if constexpr (C::TMA)  // a k step is 32 bytes: chunks 2 s, 2 s + 1
+                        ldmatrix_x4(r, sx + h * C::X_BYTES + swz<C::XRB>(row, 2 * s + (lane >> 4)));
+                    else
+                        ldmatrix_x4(r, sx + h * C::X_BYTES +
+                                           (row * C::XP + s * C::KS + (lane >> 4) * (16 / C::XE)) *
+                                               C::XE);
+                };
+                // W8A16, W8A8: every row tile's A first (INT4 loads its two
+                // halves per row tile below, after its B fragments)
+                uint32_t af[C::MODE == INT4 ? 1 : C::MTW][4];
+                if constexpr (C::MODE != INT4) {
 #pragma unroll
-                for (int mt = 0; mt < C::MTW; ++mt)
-                    ldmatrix_x4(af[mt], sx + (((wm * C::MTW + mt) * 16 + (lane & 15)) * C::XP +
-                                              s * 16 + (lane >> 4) * 8) * 2);
-                // B: this thread's 4 columns (one word) of the 4 rows its
-                // fragments take: k 2 tig, 2 tig + 1, 2 tig + 8, 2 tig + 9
-                const unsigned char* wrow = sw + (s * 16 + 2 * tig) * C::ROWP + group * 4;
+                    for (int mt = 0; mt < C::MTW; ++mt) load_a(af[mt], 0, mt);
+                }
+                if constexpr (C::MODE == W8A8) {
+                    // B: this thread's 4 columns (one word) of k 4 tig .. + 3
+                    // and 16 + 4 tig .. + 3, at shared rows a8_row(k)
+                    const unsigned char* wb = sw + (group & 3) * 4;
 #pragma unroll
-                for (int gi = 0; gi < C::CGW; ++gi) {
-                    const int g = wn + gi * C::WN;
-                    if (g < ncg) {
-                        const unsigned char* p = wrow + g * 32;
-                        const uint32_t w0 = *reinterpret_cast<const uint32_t*>(p);
-                        const uint32_t w1 = *reinterpret_cast<const uint32_t*>(p + C::ROWP);
-                        const uint32_t w2 = *reinterpret_cast<const uint32_t*>(p + 8 * C::ROWP);
-                        const uint32_t w3 = *reinterpret_cast<const uint32_t*>(p + 9 * C::ROWP);
+                    for (int gi = 0; gi < C::CGW; ++gi) {
+                        const int g = wn + gi * C::WN;
+                        if (g < ncg) {
+                            const int chunk = 2 * g + (group >> 2);
+                            uint32_t b0[4], b1[4];
 #pragma unroll
-                        for (int j = 0; j < 4; ++j) {
-                            const uint32_t b0 = bf16_pair(w0, w1, j), b1 = bf16_pair(w2, w3, j);
+                            for (int r = 0; r < 4; ++r) {
+                                const int row = s * 32 + 2 * tig + (r & 1) + 8 * (r >> 1);
+                                b0[r] = *reinterpret_cast<const uint32_t*>(
+                                    wb + swz<C::ROWP>(row, chunk));
+                                b1[r] = *reinterpret_cast<const uint32_t*>(
+                                    wb + swz<C::ROWP>(row + 16, chunk));
+                            }
+                            transpose4(b0);
+                            transpose4(b1);
 #pragma unroll
-                            for (int mt = 0; mt < C::MTW; ++mt)
-                                mma_bf16(acc[mt][gi][j], af[mt], b0, b1);
+                            for (int j = 0; j < 4; ++j)
+#pragma unroll
+                                for (int mt = 0; mt < C::MTW; ++mt)
+                                    mma_s8(acc[mt][gi][j], af[mt], b0[j], b1[j]);
+                        }
+                    }
+                } else {
+                    // B: this thread's 4 columns (one word) of the 4 rows its
+                    // fragments take: k 2 tig, 2 tig + 1, 2 tig + 8, 2 tig + 9
+                    const unsigned char* wrow = sw + (s * 16 + 2 * tig) * C::ROWP + group * 4;
+#pragma unroll
+                    for (int gi = 0; gi < C::CGW; ++gi) {
+                        const int g = wn + gi * C::WN;
+                        if (g < ncg) {
+                            uint32_t w0, w1, w2, w3;
+                            if constexpr (C::TMA) {  // INT4
+                                const unsigned char* wb = sw + (group & 3) * 4;
+                                const int row = s * 16 + 2 * tig, chunk = 2 * g + (group >> 2);
+                                w0 = *reinterpret_cast<const uint32_t*>(wb + swz<C::ROWP>(row, chunk));
+                                w1 = *reinterpret_cast<const uint32_t*>(
+                                    wb + swz<C::ROWP>(row + 1, chunk));
+                                w2 = *reinterpret_cast<const uint32_t*>(
+                                    wb + swz<C::ROWP>(row + 8, chunk));
+                                w3 = *reinterpret_cast<const uint32_t*>(
+                                    wb + swz<C::ROWP>(row + 9, chunk));
+                            } else {
+                                const unsigned char* p = wrow + g * 32;
+                                w0 = *reinterpret_cast<const uint32_t*>(p);
+                                w1 = *reinterpret_cast<const uint32_t*>(p + C::ROWP);
+                                w2 = *reinterpret_cast<const uint32_t*>(p + 8 * C::ROWP);
+                                w3 = *reinterpret_cast<const uint32_t*>(p + 9 * C::ROWP);
+                            }
+                            if constexpr (C::MODE == W8A16) {
+#pragma unroll
+                                for (int j = 0; j < 4; ++j) {
+                                    const uint32_t b0 = bf16_pair(w0, w1, j),
+                                                   b1 = bf16_pair(w2, w3, j);
+#pragma unroll
+                                    for (int mt = 0; mt < C::MTW; ++mt)
+                                        mma_bf16(acc[mt][gi][j], af[mt], b0, b1);
+                                }
+                            } else {
+                                // INT4: the four n8 tiles' fragments converted
+                                // once, then per row tile its x halves: the
+                                // low nibbles times x's first half, the high
+                                // ones times its second
+                                uint32_t bl[4][2], bh[4][2];
+#pragma unroll
+                                for (int j = 0; j < 4; ++j) {
+                                    nibble_pairs(w0, w1, j, bl[j][0], bh[j][0]);
+                                    nibble_pairs(w2, w3, j, bl[j][1], bh[j][1]);
+                                }
+#pragma unroll
+                                for (int mt = 0; mt < C::MTW; ++mt) {
+                                    uint32_t lo[4], hi[4];
+                                    load_a(lo, 0, mt);
+                                    load_a(hi, 1, mt);
+#pragma unroll
+                                    for (int j = 0; j < 4; ++j) {
+                                        mma_bf16(acc[mt][gi][j], lo, bl[j][0], bl[j][1]);
+                                        mma_bf16(acc[mt][gi][j], hi, bh[j][0], bh[j][1]);
+                                    }
+                                }
+                            }
                         }
                     }
                 }
@@ -394,11 +679,11 @@ __global__ void __launch_bounds__(C::THREADS, C::MINB) a16_kernel(const Args a) 
     }
     __syncthreads();  // every stage consumed: the ring is free
 
-    // The block's f32 tile into shared memory: consumer warp (wm, wn, wk)'s
+    // The block's tile into shared memory: consumer warp (wm, wn, wk)'s
     // partial at part[wk]. n8 tile j takes the thread's column 4 group + j
     // of its 32-column group as its column `group`, so C fragment row group
     // (+8), column 2 tig (+1) of tile j is tile column 32 g + 4 (2 tig (+1)) + j.
-    float* part = reinterpret_cast<float*>(smem);
+    Acc* part = reinterpret_cast<Acc*>(smem);
     if (warp < C::NC) {
 #pragma unroll
         for (int mt = 0; mt < C::MTW; ++mt)
@@ -420,7 +705,7 @@ __global__ void __launch_bounds__(C::THREADS, C::MINB) a16_kernel(const Args a) 
         __syncthreads();
         for (int i = tid; i < rows * width; i += C::THREADS) {
             const int o = (i / width) * C::PP + i % width;
-            float v = part[o];
+            Acc v = part[o];
 #pragma unroll
             for (int w = 1; w < C::WK; ++w) v += part[w * C::BM * C::PP + o];
             part[o] = v;
@@ -432,6 +717,55 @@ __global__ void __launch_bounds__(C::THREADS, C::MINB) a16_kernel(const Args a) 
     else
         __syncthreads();
 
+    // W8A8, INT4 (f32 out): rank `split` takes quads of 4 adjacent outputs
+    // split * THREADS + tid, stepping over the cluster, with 16-byte reads of
+    // each rank's tile and of the scales and 16-byte stores (where the quads
+    // are aligned: N % 4 == 0, no packed remainders)
+    if constexpr (C::TMA) {
+        if (!tail && a.N % 4 == 0 && a.ldo % 4 == 0) {
+            using V = std::conditional_t<C::MODE == W8A8, int4, float4>;
+            const int wq = (width + 3) / 4;  // quads per row (a last partial quad: N % 4 == 0)
+            for (int i = split * C::THREADS + tid; i < rows * wq; i += splits * C::THREADS) {
+                const int row = i / wq, t = 4 * (i % wq);
+                const long long c = (long long)head * a.N + n0 + t;
+                V v = *reinterpret_cast<const V*>(part + row * C::PP + t);
+                if (splits > 1) {
+                    cg::cluster_group cluster = cg::this_cluster();
+                    V rv[MAX_SPLITS];
+#pragma unroll
+                    for (int r = 0; r < MAX_SPLITS; ++r)
+                        if (r < splits)
+                            rv[r] = *reinterpret_cast<const V*>(
+                                cluster.map_shared_rank(part, r) + row * C::PP + t);
+                    v = rv[0];  // ranks summed in rank order (the f32 sum from 0, as W8A16's)
+                    if constexpr (C::MODE == INT4) v = make_float4(0.f + v.x, 0.f + v.y, 0.f + v.z,
+                                                                   0.f + v.w);
+#pragma unroll
+                    for (int r = 1; r < MAX_SPLITS; ++r)
+                        if (r < splits) {
+                            v.x += rv[r].x;
+                            v.y += rv[r].y;
+                            v.z += rv[r].z;
+                            v.w += rv[r].w;
+                        }
+                }
+                float4 o;
+                if constexpr (C::MODE == W8A8) {
+                    const float xs = a.x_scale[m0 + row];
+                    const float4 ws = *reinterpret_cast<const float4*>(a.w_scale + c);
+                    o = make_float4(static_cast<float>(v.x) * xs * ws.x,
+                                    static_cast<float>(v.y) * xs * ws.y,
+                                    static_cast<float>(v.z) * xs * ws.z,
+                                    static_cast<float>(v.w) * xs * ws.w);
+                } else {
+                    o = v;
+                }
+                *reinterpret_cast<float4*>(static_cast<float*>(a.out) + (m0 + row) * a.ldo + c) = o;
+            }
+            if (splits > 1) cg::this_cluster().sync();  // peers may still be reading this tile
+            return;
+        }
+    }
     // rank `split` takes outputs split * THREADS + tid, stepping over the
     // cluster: the ranks' tiles summed in rank order, scaled, rounded once
     for (int i = split * C::THREADS + tid; i < rows * width; i += splits * C::THREADS) {
@@ -443,21 +777,26 @@ __global__ void __launch_bounds__(C::THREADS, C::MINB) a16_kernel(const Args a) 
         } else {
             c = (long long)head * a.N + n0 + t;
         }
-        float v = part[row * C::PP + t];
+        Acc v = part[row * C::PP + t];
         if (splits > 1) {
             // every rank's value requested before the first is added (the
             // remote loads overlap), then summed in rank order
             cg::cluster_group cluster = cg::this_cluster();
-            float rv[MAX_SPLITS];
+            Acc rv[MAX_SPLITS];
 #pragma unroll
             for (int r = 0; r < MAX_SPLITS; ++r)
-                rv[r] = r < splits ? cluster.map_shared_rank(part, r)[row * C::PP + t] : 0.f;
-            v = 0.f;
+                rv[r] = r < splits ? cluster.map_shared_rank(part, r)[row * C::PP + t] : Acc(0);
+            v = 0;
 #pragma unroll
             for (int r = 0; r < MAX_SPLITS; ++r)
                 if (r < splits) v += rv[r];
         }
-        store_out(a, m0 + row, c, v * a.w_scale[c]);
+        if constexpr (C::MODE == W8A16)
+            store_out(a, m0 + row, c, v * a.w_scale[c]);
+        else if constexpr (C::MODE == W8A8)
+            store_out(a, m0 + row, c, static_cast<float>(v) * a.x_scale[m0 + row] * a.w_scale[c]);
+        else
+            store_out(a, m0 + row, c, v);
     }
     if (splits > 1) cg::this_cluster().sync();  // peers may still be reading this block's tile
 }
@@ -471,18 +810,78 @@ template <class C> long long column_blocks(const Args& a) {
     return (long long)a.count * ((a.N + C::BN - 1) / C::BN);
 }
 
+// cuTensorMapEncodeTiled, reached through the runtime (no link to the driver
+// library), or null where the driver lacks it
+inline PFN_cuTensorMapEncodeTiled_v12000 encode_fn() {
+    static PFN_cuTensorMapEncodeTiled_v12000 fn = nullptr;
+    if (fn == nullptr) {
+        void* p = nullptr;
+        cudaDriverEntryPointQueryResult q;
+        if (cudaGetDriverEntryPoint("cuTensorMapEncodeTiled", &p, cudaEnableDefault, &q) ==
+                cudaSuccess &&
+            q == cudaDriverEntryPointSuccess)
+            fn = reinterpret_cast<PFN_cuTensorMapEncodeTiled_v12000>(p);
+    }
+    return fn;
+}
+
+// The tensor maps of a W8A8 or INT4 launch whose weights take 16-byte loads:
+// - the weights: a stack of `count` (K, N) int8 weights is count * K rows of
+//   N bytes, ldw apart; a box is one stage, BK rows x 128 columns, swizzled
+//   128B. W8A8 reads them as 5-D, (N, r0, t, r1, b) for row k = 16 b + 4 t +
+//   2 r1 + r0, strides (ldw, 4 ldw, 2 ldw, 16 ldw), so the box lays row k at
+//   shared row 16 b + 8 r1 + 2 t + r0 = a8_row(k).
+// - x: M rows of K int8 (W8A8, swizzled 64B) or of x_hi + K bf16 (INT4,
+//   swizzled 128B), ldx elements apart; a box is BM rows x BK columns.
+template <class C> cudaError_t make_maps(const Args& a, Maps& m) {
+    PFN_cuTensorMapEncodeTiled_v12000 enc = encode_fn();
+    if (enc == nullptr) return cudaErrorNotSupported;
+    const cuuint64_t rows = (cuuint64_t)a.count * a.K, ldw = a.ldw;
+    const cuuint32_t ones[5] = {1, 1, 1, 1, 1};
+    CUresult r;
+    if constexpr (C::MODE == W8A8) {
+        const cuuint64_t dims[5] = {(cuuint64_t)a.N, 2, 4, 2, rows / 16};
+        const cuuint64_t strides[4] = {ldw, 4 * ldw, 2 * ldw, 16 * ldw};
+        const cuuint32_t box[5] = {(cuuint32_t)C::BN, 2, 4, 2, (cuuint32_t)C::BK / 16};
+        r = enc(&m.w, CU_TENSOR_MAP_DATA_TYPE_UINT8, 5, const_cast<int8_t*>(a.w), dims, strides,
+                box, ones, CU_TENSOR_MAP_INTERLEAVE_NONE, CU_TENSOR_MAP_SWIZZLE_128B,
+                CU_TENSOR_MAP_L2_PROMOTION_L2_256B, CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE);
+    } else {
+        const cuuint64_t dims[2] = {(cuuint64_t)a.N, rows};
+        const cuuint64_t strides[1] = {ldw};
+        const cuuint32_t box[2] = {(cuuint32_t)C::BN, (cuuint32_t)C::BK};
+        r = enc(&m.w, CU_TENSOR_MAP_DATA_TYPE_UINT8, 2, const_cast<int8_t*>(a.w), dims, strides,
+                box, ones, CU_TENSOR_MAP_INTERLEAVE_NONE, CU_TENSOR_MAP_SWIZZLE_128B,
+                CU_TENSOR_MAP_L2_PROMOTION_L2_256B, CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE);
+    }
+    if (r != CUDA_SUCCESS) return cudaErrorInvalidValue;
+    const cuuint64_t xdims[2] = {(cuuint64_t)(a.x_hi + a.K), (cuuint64_t)a.M};
+    const cuuint64_t xstrides[1] = {(cuuint64_t)a.ldx * C::XE};
+    const cuuint32_t xbox[2] = {(cuuint32_t)C::BK, (cuuint32_t)C::BM};
+    r = enc(&m.x, C::MODE == W8A8 ? CU_TENSOR_MAP_DATA_TYPE_UINT8 : CU_TENSOR_MAP_DATA_TYPE_BFLOAT16,
+            2, const_cast<void*>(a.x), xdims, xstrides, xbox, ones, CU_TENSOR_MAP_INTERLEAVE_NONE,
+            C::XRB == 64 ? CU_TENSOR_MAP_SWIZZLE_64B : CU_TENSOR_MAP_SWIZZLE_128B,
+            CU_TENSOR_MAP_L2_PROMOTION_L2_256B, CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE);
+    return r == CUDA_SUCCESS ? cudaSuccess : cudaErrorInvalidValue;
+}
+
 template <class C, bool VEC>
 int launch(const Args& a, cudaStream_t st) {
-    // no split without a k tile: a drift between this file and w8a16_plan
+    // no split without a k tile: a drift between this file and gemm_plan
     // is refused, not run
     if (a.splits < 1 || a.splits > MAX_SPLITS || a.splits > (a.K + C::BK - 1) / C::BK)
         return (int)cudaErrorInvalidValue;
     const long long ny = column_blocks<C>(a), nz = (a.M + C::BM - 1) / C::BM;
     if (ny > 65535 || nz > 65535) return (int)cudaErrorInvalidValue;
-    auto kern = a16_kernel<C, VEC>;
+    auto kern = ring_kernel<C, VEC>;
     static unsigned smem_set = 0;  // devices whose limit this instantiation raised
     cudaError_t err = set_smem_limit_once(kern, C::SMEM, smem_set);
     if (err != cudaSuccess) return (int)err;
+    Maps maps = {};
+    if constexpr (C::TMA && VEC) {
+        err = make_maps<C>(a, maps);
+        if (err != cudaSuccess) return (int)err;
+    }
     cudaLaunchConfig_t cfg = {};
     cfg.gridDim = dim3(a.splits, static_cast<unsigned>(ny), static_cast<unsigned>(nz));
     cfg.blockDim = dim3(C::THREADS);
@@ -495,7 +894,7 @@ int launch(const Args& a, cudaStream_t st) {
     attr[0].val.clusterDim.z = 1;
     cfg.attrs = attr;
     cfg.numAttrs = a.splits > 1 ? 1 : 0;
-    err = cudaLaunchKernelEx(&cfg, kern, a);
+    err = cudaLaunchKernelEx(&cfg, kern, a, maps);
     if (err != cudaSuccess) return (int)err;
     return (int)cudaGetLastError();
 }
@@ -504,13 +903,23 @@ template <class C> int launch_vec(const Args& a, cudaStream_t st) {
     return a.vec ? launch<C, true>(a, st) : launch<C, false>(a, st);
 }
 
-int run(const Args* a, void* stream) {
-    if (a->M <= 0 || a->K <= 0 || a->N <= 0 || a->count <= 0 || a->K % 8 != 0 ||
-        a->ldx % 8 != 0 || reinterpret_cast<uintptr_t>(a->x) % 16 != 0 || a->ldw < a->N ||
-        a->w_scale == nullptr || a->x_scale != nullptr ||
-        (a->vec && (a->ldw % 16 != 0 || a->w_sh % 16 != 0 ||
-                    reinterpret_cast<uintptr_t>(a->w) % 16 != 0)))
-        return (int)cudaErrorInvalidValue;
+// Host checks the Python wrapper also makes; a call that breaks them is
+// refused rather than read out of bounds.
+template <int MODE> bool args_ok(const Args* a) {
+    const int xe = MODE == W8A8 ? 1 : 2;  // bytes per x element
+    return a->M > 0 && a->K > 0 && a->N > 0 && a->count > 0 && (a->K * xe) % 16 == 0 &&
+           (a->ldx * xe) % 16 == 0 && reinterpret_cast<uintptr_t>(a->x) % 16 == 0 &&
+           a->ldw >= a->N && (a->w_scale != nullptr) == (MODE != INT4) &&
+           (a->x_scale != nullptr) == (MODE == W8A8) &&
+           (MODE == INT4 ? a->x_hi >= a->K && a->x_hi % 8 == 0 : a->x_hi == 0) &&
+           // W8A8, INT4: a stack's weights are count * K contiguous rows
+           (MODE == W8A16 || a->count == 1 || a->w_sh == (long long)a->K * a->ldw) &&
+           (!a->vec || (a->ldw % 16 == 0 && a->w_sh % 16 == 0 &&
+                        reinterpret_cast<uintptr_t>(a->w) % 16 == 0));
+}
+
+int run_w8a16(const Args* a, void* stream) {
+    if (!args_ok<W8A16>(a)) return (int)cudaErrorInvalidValue;
     cudaStream_t st = static_cast<cudaStream_t>(stream);
     switch (a->variant) {
         case 0: return launch_vec<V0>(*a, st);
@@ -523,289 +932,49 @@ int run(const Args* a, void* stream) {
     }
 }
 
-}  // namespace a16
-
-// ======================= W8A8 and INT4: the first tile loop =======================
-constexpr int BN = 128;          // output columns per block
-constexpr int BK = 64;           // weight rows per k tile
-constexpr int NWARP = 4;
-constexpr int THREADS = NWARP * 32;
-constexpr int W_LD = BN + 16;    // bytes per shared weight row
-constexpr int XB_LD = BK + 8;    // bf16 per shared activation row
-constexpr int X8_LD = BK + 16;   // bytes per shared int8 activation row
-
-__device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
-    __nv_bfloat162 v = __floats2bfloat162_rn(lo, hi);  // .x (low half) = lo
-    return *reinterpret_cast<uint32_t*>(&v);
-}
-
-__device__ __forceinline__ float nib_lo(int8_t p) {  // sign-extended low nibble
-    return static_cast<float>(((p & 15) ^ 8) - 8);
-}
-
-__device__ __forceinline__ float nib_hi(int8_t p) {  // sign-extended high nibble
-    return static_cast<float>((((p >> 4) & 15) ^ 8) - 8);
-}
-
-__device__ __forceinline__ uint32_t pack_s8(int8_t b0, int8_t b1, int8_t b2, int8_t b3) {
-    return static_cast<uint32_t>(static_cast<uint8_t>(b0))
-           | (static_cast<uint32_t>(static_cast<uint8_t>(b1)) << 8)
-           | (static_cast<uint32_t>(static_cast<uint8_t>(b2)) << 16)
-           | (static_cast<uint32_t>(static_cast<uint8_t>(b3)) << 24);
-}
-
-// D = A(16x32 s8, row) * B(32x8 s8, col) + D, s32
-__device__ __forceinline__ void mma_s8(int (&d)[4], const uint32_t (&a)[4], uint32_t b0,
-                                       uint32_t b1) {
-    asm volatile(
-        "mma.sync.aligned.m16n8k32.row.col.s32.s8.s8.s32 "
-        "{%0,%1,%2,%3}, {%4,%5,%6,%7}, {%8,%9}, {%0,%1,%2,%3};\n"
-        : "+r"(d[0]), "+r"(d[1]), "+r"(d[2]), "+r"(d[3])
-        : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
-}
-
-template <int MODE, int MT>
-struct Tile {
-    static constexpr int BM = 16 * MT;
-    static constexpr bool A8 = MODE == W8A8;
-    static constexpr int NX = MODE == INT4 ? 2 : 1;  // activation tiles per k tile
-    static constexpr int X_BYTES = A8 ? BM * X8_LD : BM * XB_LD * 2;
-    static constexpr int W_BYTES = BK * W_LD;
-    static constexpr int STAGE = W_BYTES + NX * X_BYTES;
-    static constexpr int SMEM = 2 * STAGE;
-    // 16-byte activation chunks per tile and per thread
-    static constexpr int X_CHUNKS = A8 ? BM * BK / 16 : BM * BK / 8;
-    static constexpr int X_PER_THREAD = (X_CHUNKS + THREADS - 1) / THREADS;
-    static constexpr int X_ROW_CHUNKS = A8 ? BK / 16 : BK / 8;
-};
-
-template <int MODE, int MT, int VEC>
-__global__ void __launch_bounds__(THREADS) tile_kernel(const Args a) {
-    using T = Tile<MODE, MT>;
-    using Acc = std::conditional_t<T::A8, int, float>;
-    extern __shared__ __align__(16) unsigned char smem[];
-
-    const int nblk = (a.N + BN - 1) / BN;
-    const int head = blockIdx.x / nblk;
-    const int n0 = (blockIdx.x % nblk) * BN;
-    const int split = blockIdx.y;
-    const int m0 = blockIdx.z * T::BM;
-    const int k_begin = split * a.k_per_split;
-    const int k_end = min(a.K, k_begin + a.k_per_split);
-    const int n_tiles = (k_end - k_begin + BK - 1) / BK;
-    const int8_t* w = a.w + head * a.w_sh;
-    const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31;
-    const int group = lane >> 2, tig = lane & 3;
-
-    // registers holding the next tile on its way to shared memory
-    uint4 wreg[4];        // VEC == 16: 4 chunks of 16 bytes
-    uint32_t wbyte[16];   // VEC == 1: 16 words of 4 bytes
-    uint4 xreg[T::NX][T::X_PER_THREAD];
-
-    auto load_tile = [&](int k0) {
-        if constexpr (VEC == 16) {
-#pragma unroll
-            for (int j = 0; j < 4; ++j) {
-                const int i = tid + THREADS * j, r = i >> 3, c = (i & 7) * 16;
-                wreg[j] = make_uint4(0, 0, 0, 0);
-                if (k0 + r < k_end && n0 + c < a.N)
-                    wreg[j] = *reinterpret_cast<const uint4*>(
-                        w + (long long)(k0 + r) * a.N + n0 + c);
-            }
-        } else {
-#pragma unroll
-            for (int j = 0; j < 16; ++j) {
-                const int i = tid + THREADS * j, r = i >> 5, c = (i & 31) * 4;
-                int8_t b[4] = {0, 0, 0, 0};
-                if (k0 + r < k_end) {
-                    const int8_t* src = w + (long long)(k0 + r) * a.N + n0 + c;
-#pragma unroll
-                    for (int e = 0; e < 4; ++e)
-                        if (n0 + c + e < a.N) b[e] = src[e];
-                }
-                wbyte[j] = pack_s8(b[0], b[1], b[2], b[3]);
-            }
-        }
-#pragma unroll
-        for (int h = 0; h < T::NX; ++h)
-#pragma unroll
-            for (int j = 0; j < T::X_PER_THREAD; ++j) {
-                const int i = tid + THREADS * j;
-                const int r = i / T::X_ROW_CHUNKS, cc = i % T::X_ROW_CHUNKS;
-                xreg[h][j] = make_uint4(0, 0, 0, 0);
-                if (i < T::X_CHUNKS && m0 + r < a.M) {
-                    if constexpr (T::A8) {
-                        const int k = k0 + cc * 16;
-                        if (k < k_end)
-                            xreg[h][j] = *reinterpret_cast<const uint4*>(
-                                static_cast<const int8_t*>(a.x) + (m0 + r) * a.ldx + k);
-                    } else {
-                        const int k = k0 + cc * 8;
-                        if (k < k_end)
-                            xreg[h][j] = *reinterpret_cast<const uint4*>(
-                                static_cast<const __nv_bfloat16*>(a.x) + (m0 + r) * a.ldx +
-                                (h ? a.x_hi : 0) + k);
-                    }
-                }
-            }
-    };
-
-    auto store_tile = [&](unsigned char* st) {
-        if constexpr (VEC == 16) {
-#pragma unroll
-            for (int j = 0; j < 4; ++j) {
-                const int i = tid + THREADS * j, r = i >> 3, c = (i & 7) * 16;
-                *reinterpret_cast<uint4*>(st + r * W_LD + c) = wreg[j];
-            }
-        } else {
-#pragma unroll
-            for (int j = 0; j < 16; ++j) {
-                const int i = tid + THREADS * j, r = i >> 5, c = (i & 31) * 4;
-                *reinterpret_cast<uint32_t*>(st + r * W_LD + c) = wbyte[j];
-            }
-        }
-#pragma unroll
-        for (int h = 0; h < T::NX; ++h) {
-            unsigned char* sx = st + T::W_BYTES + h * T::X_BYTES;
-#pragma unroll
-            for (int j = 0; j < T::X_PER_THREAD; ++j) {
-                const int i = tid + THREADS * j;
-                if (i >= T::X_CHUNKS) continue;
-                const int r = i / T::X_ROW_CHUNKS, cc = i % T::X_ROW_CHUNKS;
-                if constexpr (T::A8)
-                    *reinterpret_cast<uint4*>(sx + r * X8_LD + cc * 16) = xreg[h][j];
-                else
-                    *reinterpret_cast<uint4*>(sx + (r * XB_LD + cc * 8) * 2) = xreg[h][j];
-            }
-        }
-    };
-
-    Acc acc[MT][4][4];
-#pragma unroll
-    for (int mt = 0; mt < MT; ++mt)
-#pragma unroll
-        for (int nt = 0; nt < 4; ++nt)
-#pragma unroll
-            for (int r = 0; r < 4; ++r) acc[mt][nt][r] = 0;
-
-    if (n_tiles > 0) load_tile(k_begin);
-    for (int t = 0; t < n_tiles; ++t) {
-        unsigned char* st = smem + (t & 1) * T::STAGE;
-        store_tile(st);
-        __syncthreads();
-        if (t + 1 < n_tiles) load_tile(k_begin + (t + 1) * BK);
-
-        const int8_t* sw = reinterpret_cast<const int8_t*>(st);
-        if constexpr (T::A8) {
-            const unsigned char* sx = st + T::W_BYTES;
-#pragma unroll
-            for (int kk = 0; kk < BK; kk += 32) {
-                uint32_t af[MT][4];
-#pragma unroll
-                for (int mt = 0; mt < MT; ++mt) {
-                    const unsigned char* p = sx + (mt * 16 + group) * X8_LD + kk + tig * 4;
-                    af[mt][0] = *reinterpret_cast<const uint32_t*>(p);
-                    af[mt][1] = *reinterpret_cast<const uint32_t*>(p + 8 * X8_LD);
-                    af[mt][2] = *reinterpret_cast<const uint32_t*>(p + 16);
-                    af[mt][3] = *reinterpret_cast<const uint32_t*>(p + 8 * X8_LD + 16);
-                }
-#pragma unroll
-                for (int nt = 0; nt < 4; ++nt) {
-                    const int8_t* p = sw + (kk + tig * 4) * W_LD + warp * 32 + nt * 8 + group;
-                    const uint32_t b0 = pack_s8(p[0], p[W_LD], p[2 * W_LD], p[3 * W_LD]);
-                    const uint32_t b1 =
-                        pack_s8(p[16 * W_LD], p[17 * W_LD], p[18 * W_LD], p[19 * W_LD]);
-#pragma unroll
-                    for (int mt = 0; mt < MT; ++mt) mma_s8(acc[mt][nt], af[mt], b0, b1);
-                }
-            }
-        } else {
-#pragma unroll
-            for (int kk = 0; kk < BK; kk += 16) {
-                uint32_t af[T::NX][MT][4];
-#pragma unroll
-                for (int h = 0; h < T::NX; ++h)
-#pragma unroll
-                    for (int mt = 0; mt < MT; ++mt) {
-                        const __nv_bfloat16* p =
-                            reinterpret_cast<const __nv_bfloat16*>(st + T::W_BYTES +
-                                                                   h * T::X_BYTES) +
-                            (mt * 16 + group) * XB_LD + kk + tig * 2;
-                        af[h][mt][0] = *reinterpret_cast<const uint32_t*>(p);
-                        af[h][mt][1] = *reinterpret_cast<const uint32_t*>(p + 8 * XB_LD);
-                        af[h][mt][2] = *reinterpret_cast<const uint32_t*>(p + 8);
-                        af[h][mt][3] = *reinterpret_cast<const uint32_t*>(p + 8 * XB_LD + 8);
-                    }
-#pragma unroll
-                for (int nt = 0; nt < 4; ++nt) {
-                    const int8_t* p = sw + (kk + tig * 2) * W_LD + warp * 32 + nt * 8 + group;
-                    const int8_t w0 = p[0], w1 = p[W_LD], w2 = p[8 * W_LD], w3 = p[9 * W_LD];
-                    const uint32_t l0 = pack_bf16(nib_lo(w0), nib_lo(w1));
-                    const uint32_t l1 = pack_bf16(nib_lo(w2), nib_lo(w3));
-                    const uint32_t h0 = pack_bf16(nib_hi(w0), nib_hi(w1));
-                    const uint32_t h1 = pack_bf16(nib_hi(w2), nib_hi(w3));
-#pragma unroll
-                    for (int mt = 0; mt < MT; ++mt) {
-                        mma_bf16(acc[mt][nt], af[0][mt], l0, l1);
-                        mma_bf16(acc[mt][nt], af[1][mt], h0, h1);
-                    }
-                }
-            }
-        }
+int run_w8a8(const Args* a, void* stream) {
+    if (!args_ok<W8A8>(a)) return (int)cudaErrorInvalidValue;
+    cudaStream_t st = static_cast<cudaStream_t>(stream);
+    switch (a->variant) {
+        case 0: return launch_vec<Q0>(*a, st);
+        case 1: return launch_vec<Q1>(*a, st);
+        case 2: return launch_vec<Q2>(*a, st);
+        case 3: return launch_vec<Q3>(*a, st);
+        default: return (int)cudaErrorInvalidValue;
     }
-
-    // C fragment: rows group and group + 8, columns tig * 2 and + 1
-    const long long NC = (long long)a.count * a.N;
-#pragma unroll
-    for (int mt = 0; mt < MT; ++mt)
-#pragma unroll
-        for (int nt = 0; nt < 4; ++nt)
-#pragma unroll
-            for (int r = 0; r < 4; ++r) {
-                const int row = m0 + mt * 16 + group + (r >= 2 ? 8 : 0);
-                const int col = n0 + warp * 32 + nt * 8 + tig * 2 + (r & 1);
-                if (row >= a.M || col >= a.N) continue;
-                const long long c = (long long)head * a.N + col;
-                if (a.splits == 1) {
-                    store_out(a, row, c, finish(static_cast<float>(acc[mt][nt][r]), a, row, c));
-                } else {
-                    const long long o = ((long long)split * a.M + row) * NC + c;
-                    static_cast<Acc*>(a.part)[o] = acc[mt][nt][r];
-                }
-            }
 }
 
-// Sum of the splits' partials, in split order, then the scale epilogue.
-template <bool I32>
-__global__ void __launch_bounds__(256) split_reduce_kernel(const Args a) {
-    const long long NC = (long long)a.count * a.N;
-    const long long idx = (long long)blockIdx.x * blockDim.x + threadIdx.x;
-    if (idx >= a.M * NC) return;
-    const int row = static_cast<int>(idx / NC);
-    const long long c = idx % NC;
-    float v;
-    if constexpr (I32) {
-        int s = 0;
-        for (int sp = 0; sp < a.splits; ++sp)
-            s += static_cast<const int*>(a.part)[((long long)sp * a.M + row) * NC + c];
-        v = static_cast<float>(s);
-    } else {
-        float s = 0.f;
-        for (int sp = 0; sp < a.splits; ++sp)
-            s += static_cast<const float*>(a.part)[((long long)sp * a.M + row) * NC + c];
-        v = s;
+int run_int4(const Args* a, void* stream) {
+    if (!args_ok<INT4>(a)) return (int)cudaErrorInvalidValue;
+    cudaStream_t st = static_cast<cudaStream_t>(stream);
+    switch (a->variant) {
+        case 0: return launch_vec<I0>(*a, st);
+        case 1: return launch_vec<I1>(*a, st);
+        case 2: return launch_vec<I2>(*a, st);
+        case 3: return launch_vec<I3>(*a, st);
+        default: return (int)cudaErrorInvalidValue;
     }
-    store_out(a, row, c, finish(v, a, row, c));
 }
 
-// W8A8's activation pass: one block per row.
+}  // namespace ring
+
+// W8A8's activation pass: one block per row, 16-byte loads (8 bf16) a
+// thread, 8-byte stores of the int8 row
 __global__ void __launch_bounds__(256) quant_rows_kernel(const __nv_bfloat16* x, long long ldx,
                                                          int K, int8_t* x8, float* xs) {
     __shared__ float s_max[8];
-    const int row = blockIdx.x;
-    const __nv_bfloat16* xr = x + row * ldx;
+    const int row = blockIdx.x, n8 = K / 8;
+    const uint4* xr = reinterpret_cast<const uint4*>(x + row * ldx);
     float m = 0.f;
-    for (int k = threadIdx.x; k < K; k += blockDim.x) m = fmaxf(m, fabsf(__bfloat162float(xr[k])));
+    for (int c = threadIdx.x; c < n8; c += blockDim.x) {
+        const uint4 u = xr[c];
+        const __nv_bfloat162* h = reinterpret_cast<const __nv_bfloat162*>(&u);
+#pragma unroll
+        for (int e = 0; e < 4; ++e) {
+            const float2 f = __bfloat1622float2(h[e]);
+            m = fmaxf(m, fmaxf(fabsf(f.x), fabsf(f.y)));
+        }
+    }
 #pragma unroll
     for (int o = 16; o > 0; o >>= 1) m = fmaxf(m, __shfl_xor_sync(0xffffffffu, m, o));
     if ((threadIdx.x & 31) == 0) s_max[threadIdx.x >> 5] = m;
@@ -814,47 +983,23 @@ __global__ void __launch_bounds__(256) quant_rows_kernel(const __nv_bfloat16* x,
 #pragma unroll
     for (int w = 0; w < 8; ++w) m = fmaxf(m, s_max[w]);
     const float s = fmaxf(m, 1e-8f) / 127.0f;
-    for (int k = threadIdx.x; k < K; k += blockDim.x) {
-        const float v = rintf(__bfloat162float(xr[k]) / s);  // half to even
-        x8[(long long)row * K + k] = static_cast<int8_t>(fminf(fmaxf(v, -127.f), 127.f));
+    uint2* out = reinterpret_cast<uint2*>(x8 + (long long)row * K);
+    for (int c = threadIdx.x; c < n8; c += blockDim.x) {
+        const uint4 u = xr[c];
+        const __nv_bfloat162* h = reinterpret_cast<const __nv_bfloat162*>(&u);
+        uint32_t w[2] = {0u, 0u};
+#pragma unroll
+        for (int e = 0; e < 4; ++e) {
+            const float2 f = __bfloat1622float2(h[e]);
+            // true divisions, rounded half to even, clipped
+            const int q0 = static_cast<int>(fminf(fmaxf(rintf(f.x / s), -127.f), 127.f));
+            const int q1 = static_cast<int>(fminf(fmaxf(rintf(f.y / s), -127.f), 127.f));
+            w[e >> 1] |= ((static_cast<uint32_t>(q0) & 0xffu) |
+                          ((static_cast<uint32_t>(q1) & 0xffu) << 8)) << (16 * (e & 1));
+        }
+        out[c] = make_uint2(w[0], w[1]);
     }
     if (threadIdx.x == 0) xs[row] = s;
-}
-
-template <int MODE, int MT, int VEC>
-int launch_mt(const Args& a, cudaStream_t st) {
-    using T = Tile<MODE, MT>;
-    auto kern = tile_kernel<MODE, MT, VEC>;
-    if constexpr (T::SMEM > 48 * 1024) {
-        static unsigned smem_set = 0;  // devices whose limit this instantiation raised
-        cudaError_t e = set_smem_limit_once(kern, T::SMEM, smem_set);
-        if (e != cudaSuccess) return (int)e;
-    }
-    const int nblk = (a.N + BN - 1) / BN;
-    const dim3 grid(a.count * nblk, a.splits, (a.M + T::BM - 1) / T::BM);
-    kern<<<grid, THREADS, T::SMEM, st>>>(a);
-    cudaError_t err = cudaGetLastError();
-    if (err != cudaSuccess || a.splits == 1) return (int)err;
-    const long long total = (long long)a.M * a.count * a.N;
-    split_reduce_kernel<MODE == W8A8><<<(unsigned)((total + 255) / 256), 256, 0, st>>>(a);
-    return (int)cudaGetLastError();
-}
-
-// Host checks the Python wrapper also makes; a call that breaks them is
-// refused rather than read out of bounds.
-template <int MODE>
-int run(const Args* a, void* stream) {
-    if (a->M <= 0 || a->K <= 0 || a->N <= 0 || a->count <= 0 || a->splits <= 0 ||
-        a->k_per_split % BK != 0 || (long long)a->splits * a->k_per_split < a->K ||
-        a->K % (MODE == W8A8 ? 16 : 8) != 0 || a->ldx % (MODE == W8A8 ? 16 : 8) != 0 ||
-        reinterpret_cast<uintptr_t>(a->x) % 16 != 0 || (a->splits > 1 && a->part == nullptr))
-        return (int)cudaErrorInvalidValue;
-    cudaStream_t st = static_cast<cudaStream_t>(stream);
-    const bool vec16 = a->N % 16 == 0 && a->w_sh % 16 == 0 &&
-                       reinterpret_cast<uintptr_t>(a->w) % 16 == 0;
-    if (a->M > 16)
-        return vec16 ? launch_mt<MODE, 4, 16>(*a, st) : launch_mt<MODE, 4, 1>(*a, st);
-    return vec16 ? launch_mt<MODE, 1, 16>(*a, st) : launch_mt<MODE, 1, 1>(*a, st);
 }
 
 }  // namespace w8
@@ -863,23 +1008,26 @@ int run(const Args* a, void* stream) {
 // C entry points, bound with ctypes (ops/kernels/w8_gemm.py). Each returns
 // the cudaGetLastError() after its launches.
 extern "C" int mosstts_w8a16_gemm(const mosstts::w8::Args* args, void* stream) {
-    return mosstts::w8::a16::run(args, stream);
+    return mosstts::w8::ring::run_w8a16(args, stream);
 }
 
 extern "C" int mosstts_int4_gemm(const mosstts::w8::Args* args, void* stream) {
-    return mosstts::w8::run<mosstts::w8::INT4>(args, stream);
+    return mosstts::w8::ring::run_int4(args, stream);
 }
 
-// W8A8: ``x_bf16`` (M, K) rows ldx_bf16 apart are quantized into args->x
-// (int8 (M, K), contiguous) and args->x_scale (M,), then multiplied.
+// W8A8: ``x_bf16`` (M, K) rows ldx_bf16 apart (16-byte aligned) are
+// quantized into args->x (int8 (M, K), contiguous) and args->x_scale (M,),
+// then multiplied: two launches.
 extern "C" int mosstts_w8a8_gemm(const mosstts::w8::Args* args, const void* x_bf16,
                                  long long ldx_bf16, void* stream) {
-    if (args->M <= 0 || args->K <= 0 || args->ldx != args->K || args->x_scale == nullptr)
+    if (args->M <= 0 || args->K <= 0 || args->K % 16 != 0 || args->ldx != args->K ||
+        args->x_scale == nullptr || ldx_bf16 % 8 != 0 ||
+        reinterpret_cast<uintptr_t>(x_bf16) % 16 != 0)
         return (int)cudaErrorInvalidValue;
     mosstts::w8::quant_rows_kernel<<<args->M, 256, 0, static_cast<cudaStream_t>(stream)>>>(
         static_cast<const __nv_bfloat16*>(x_bf16), ldx_bf16, args->K,
         static_cast<int8_t*>(const_cast<void*>(args->x)), const_cast<float*>(args->x_scale));
     cudaError_t err = cudaGetLastError();
     if (err != cudaSuccess) return (int)err;
-    return mosstts::w8::run<mosstts::w8::W8A8>(args, stream);
+    return mosstts::w8::ring::run_w8a8(args, stream);
 }

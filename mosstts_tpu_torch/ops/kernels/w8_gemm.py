@@ -7,9 +7,7 @@ PyTorch versions.
   ``tools/tune_mm8.py::mm8``/``mm8_omajor`` and
   ``tools/probe_int4.py::mm8_pallas``; the serving path's int8 ``dense`` and
   heads (``mosstts_tpu/ops/basic.py:28-35``,
-  ``mosstts_tpu/models/delay.py:56-61``) compute it. One device kernel per
-  call: ``w8a16_plan`` picks its tile variant and its split of K over a
-  thread-block cluster whose blocks sum their partials inside the launch.
+  ``mosstts_tpu/models/delay.py:56-61``) compute it.
 * ``w8a8_gemm``: per-row int8 activations (``quant_rows``), an
   int32-accumulated product, ``f32(acc) * x_scale * w_scale``. Ports
   ``tools/tune_mm8.py::mm8_w8a8``.
@@ -17,10 +15,14 @@ PyTorch versions.
   high nibble W[d + D/2]) times x's two halves, f32 out, no scale. Ports
   ``tools/probe_int4.py::mm4_pallas``.
 
+All three are modes of one kernel (``csrc/w8_gemm.cu`` ``ring_kernel``):
+one device kernel per product, whose tile variant and split of K over a
+thread-block cluster (the blocks sum their partials inside the launch)
+``gemm_plan`` picks; W8A8 first quantizes x's rows in a launch of its own.
 Each wrapper runs its plain version for CPU tensors and its kernel for CUDA
 tensors, never falling back from one to the other; it raises on what the
-kernel does not take and counts its launches (a split-K W8A8 or int4 call
-is two device launches, counted as one). The plain versions compute each
+kernel does not take and counts its calls (a W8A8 call, two device
+kernels, counts one). The plain versions compute each
 product exactly (float32, or float64 for the int8 x int8 sum, which float32
 cannot hold exactly) and apply the scales in the kernels' order.
 """
@@ -32,17 +34,22 @@ from typing import NamedTuple, Optional
 
 import torch
 
-BN, BK = 128, 64  # csrc/w8_gemm.cu tile_kernel (W8A8, int4): columns per block, k tile rows
-MAX_SPLITS = 16
 _OUT_F32 = {torch.bfloat16: 0, torch.float32: 1}
 
-# csrc/w8_gemm.cu a16::V0-V5, the W8A16 kernel's instantiations: (MT 16-row
-# tiles, BN columns, its consumer warps across the row tiles (WM), the
-# 32-column groups (WN) and the k16 steps of a stage (WK), STAGES ring tiles,
-# NP producer warps, MINB blocks an SM at least (its register budget))
+W8A16, W8A8, INT4 = 0, 1, 2  # csrc/w8_gemm.cu Mode
+# csrc/w8_gemm.cu ring::V0-V5, Q0-Q3, I0-I3, each mode's instantiations of
+# the kernel: (MT 16-row tiles, BN columns, its consumer warps across the
+# row tiles (WM), the 32-column groups (WN) and the mma k steps of a stage
+# (WK: k16 steps, k32 for W8A8), STAGES ring tiles, NP producer warps, MINB
+# blocks an SM at least (its register budget))
 A16_VARIANTS = ((1, 64, 1, 1, 8, 5, 2, 3), (1, 128, 1, 2, 4, 6, 2, 3), (2, 128, 1, 4, 2, 4, 2, 2),
                 (4, 128, 1, 4, 2, 4, 2, 2), (8, 128, 2, 4, 1, 3, 2, 2), (6, 128, 2, 4, 1, 3, 2, 2))
-A16_STAGE_W = 8192  # weight bytes per ring tile: BK = A16_STAGE_W // BN rows
+A8_VARIANTS = ((1, 128, 1, 4, 2, 6, 2, 3), (2, 128, 1, 4, 2, 5, 2, 2), (4, 128, 2, 4, 1, 5, 2, 2),
+               (8, 128, 2, 4, 1, 12, 2, 1))
+I4_VARIANTS = ((1, 128, 1, 4, 2, 5, 2, 3), (2, 128, 1, 4, 2, 4, 2, 2), (4, 128, 1, 4, 2, 8, 2, 1),
+               (8, 128, 2, 4, 1, 5, 2, 1))
+VARIANTS = {W8A16: A16_VARIANTS, W8A8: A8_VARIANTS, INT4: I4_VARIANTS}
+STAGE_W = 8192  # weight bytes per ring tile: BK = STAGE_W // BN rows
 MAX_CLUSTER = 8  # blocks per cluster (the split of K): the portable cluster size
 
 LAUNCHES_W8A16 = 0  # w8a16_gemm kernel launches since the count was last set to 0
@@ -116,9 +123,8 @@ class GemmArgs(ctypes.Structure):
     """``mosstts::w8::Args`` of ``csrc/w8_gemm.cu``, field for field."""
 
     _fields_ = (
-        [(n, ctypes.c_void_p) for n in ("x", "w", "w_scale", "x_scale", "out", "part")]
-        + [(n, ctypes.c_int) for n in ("M", "K", "N", "count", "x_hi", "splits", "k_per_split",
-                                       "out_f32")]
+        [(n, ctypes.c_void_p) for n in ("x", "w", "w_scale", "x_scale", "out")]
+        + [(n, ctypes.c_int) for n in ("M", "K", "N", "count", "x_hi", "splits", "out_f32")]
         + [(n, ctypes.c_longlong) for n in ("ldx", "w_sh", "ldo", "ldw")]
         + [(n, ctypes.c_int) for n in ("variant", "vec")]
     )
@@ -127,16 +133,6 @@ class GemmArgs(ctypes.Structure):
 @functools.cache
 def _sm_count(index: int) -> int:
     return torch.cuda.get_device_properties(index).multi_processor_count
-
-
-def split_k(M: int, K: int, n_blocks: int, sm_count: int):
-    """(splits, K rows per split): split K until about two waves of blocks
-    cover the SMs, at most ``MAX_SPLITS`` ways and two k tiles per split."""
-    k_tiles = -(-K // BK)
-    want = -(-2 * sm_count // n_blocks)
-    splits = max(1, min(want, MAX_SPLITS, k_tiles // 2))
-    per = -(-k_tiles // splits) * BK
-    return -(-K // per), per
 
 
 def _check_weight(name: str, x, q, scale, x_dtype, pitched: bool = False) -> None:
@@ -175,7 +171,7 @@ def _check_weight(name: str, x, q, scale, x_dtype, pitched: bool = False) -> Non
 
 
 def a16_columns(N: int, count: int, bn: int):
-    """(tiles per weight, tail blocks) of a W8A16 launch (``a16::
+    """(tiles per weight, tail blocks) of a launch (``ring::
     column_blocks``): a remainder of 1-16 columns after N's full tiles is
     packed, bn / 16 weights' remainders to a tail block; a larger one is a
     narrow last tile."""
@@ -185,8 +181,8 @@ def a16_columns(N: int, count: int, bn: int):
     return -(-N // bn), 0
 
 
-class W8A16Plan(NamedTuple):
-    variant: int  # index into A16_VARIANTS
+class GemmPlan(NamedTuple):
+    variant: int  # index into the mode's VARIANTS
     mt: int  # 16-row tiles of a block
     bn: int  # columns of a block
     bk: int  # weight rows per ring tile
@@ -197,45 +193,60 @@ class W8A16Plan(NamedTuple):
     k_tiles: int  # ring tiles of K
 
 
-def w8a16_plan(M: int, K: int, N: int, count: int, sm_count: int, *,
-               variant: Optional[int] = None, splits: Optional[int] = None) -> W8A16Plan:
-    """The W8A16 launch of one shape, from the sweeps of
-    ``tools/w8a16_plans.py`` on an H100 (PERF.md §6).
+def gemm_plan(M: int, K: int, N: int, count: int, sm_count: int, *, mode: int = W8A16,
+              variant: Optional[int] = None, splits: Optional[int] = None) -> GemmPlan:
+    """The launch of one mode and shape (K: weight rows, packed rows for
+    INT4), from the sweeps of ``tools/w8a16_plans.py`` on an H100 (PERF.md
+    §6). Each mode has its own instantiations (``VARIANTS[mode]``) over the
+    same 8 KB weight stage; they differ in their x tiles (bf16, int8, INT4's
+    two bf16 halves) and so in their ring depth and register budget.
 
     * K is split over s blocks of a cluster, s a power of two up to
       ``MAX_CLUSTER`` (clusters of 3, 5, 6 or 7 measured slower), each a
       whole number of ring tiles and none empty (their tile counts differ
       by at most one).
-    * Decode (M <= 16, one 16-row tile): 64-column tiles unless 128-column
-      ones already give every SM a block (the text head, the audio stack).
-      A block streams its share of the weights at a rate bound by its
-      warps, not by memory, so idle SMs cost more than the split's merge: s
-      gives at least ~one block per SM, the least such s whose blocks fill
-      their last round of SMs to 90% (192 blocks on 132 SMs leave 60 SMs a
-      second block, the rest idle), else the one that fills it best.
+    * Decode (M <= 16, one 16-row tile): 64-column tiles (where the mode
+      has them) unless 128-column ones already give every SM a block (the
+      text head, the audio stack). A block streams its share of the weights
+      at a rate bound by its warps, not by memory, so idle SMs cost more
+      than the split's merge: s gives at least ~one block per SM, the least
+      such s whose blocks fill their last round of SMs to 90% (192 blocks on
+      132 SMs leave 60 SMs a second block, the rest idle), else the one
+      that fills it best.
     * Prefill: the tensor cores bound it. M <= 128 is one row tile of 16 *
-      MT rows, MT = 2, 4, 6 or 8 the least that covers M (the weights
-      streamed once); a longer M takes 64-, 96- or 128-row tiles. The tile
-      and s minimise rounds x tile rows x K rows per block x (1 + (s - 1) /
-      10), a round being as many blocks as the card holds at once (two an
-      SM by the register budget) and the last factor the merge's and x's
-      cost per split; a tie goes to the larger tile.
+      MT rows, MT the least of the mode's (2, 4, 6, 8) that covers M (the
+      weights streamed once); a longer M takes 64-, 96- or 128-row tiles.
+      The tile and s minimise rounds x tile rows x K rows per block x (1 +
+      c (s - 1)), a round being as many blocks as the card holds at once
+      (MINB an SM by the register budget) and the last factor the merge's
+      and x's cost per split: c = 0.1 for W8A16, 0.35 for W8A8 and INT4,
+      whose 128- and 64-row tiles hold one block an SM and a deep ring (at
+      the tools' shapes a split of 2 cost them 21-27%, of 4 49-68%); a tie
+      goes to the larger tile.
 
     ``variant`` and ``splits`` (at most the k tiles) override the choice
     (``tools/w8a16_plans.py`` times the alternatives)."""
+    table = VARIANTS[mode]
+    merge = 0.1 if mode == W8A16 else 0.35
+
     def shape(v):
-        mt, bn = A16_VARIANTS[v][:2]
-        bk = A16_STAGE_W // bn
+        mt, bn = table[v][:2]
+        bk = STAGE_W // bn
         tiles, tail = a16_columns(N, count, bn)
         return mt, bn, bk, tiles, tail, -(-M // (16 * mt)), -(-K // bk)
 
     sizes = (1, 2, 4, 8)
     if variant is None and M <= 16:
-        variant = 0 if count * -(-N // 128) < sm_count else 1
+        decode = {table[v][1]: v for v in range(len(table)) if table[v][0] == 1}
+        variant = decode.get(64) if 64 in decode and count * -(-N // 128) < sm_count else decode[128]
     if variant is None or splits is None and M > 16:
-        candidates = ([variant] if variant is not None else
-                      [{2: 2, 4: 3, 6: 5, 8: 4}[next(t for t in (2, 4, 6, 8) if 16 * t >= M)]]
-                      if M <= 128 else [3, 5, 4])
+        if variant is not None:
+            candidates = [variant]
+        elif M <= 128:
+            mt = min(t[0] for t in table if 1 < t[0] and 16 * t[0] >= M)
+            candidates = [next(v for v, t in enumerate(table) if t[0] == mt)]
+        else:
+            candidates = [v for v, t in enumerate(table) if t[0] in (4, 6, 8)]
         best = None
         for v in candidates:
             mt, _, _, tiles, tail, rows, k_tiles = shape(v)
@@ -243,8 +254,8 @@ def w8a16_plan(M: int, K: int, N: int, count: int, sm_count: int, *,
             for s in (splits,) if splits is not None else sizes:
                 if s > max(1, min(MAX_CLUSTER, k_tiles)):
                     continue
-                rounds = -(-blocks * s // (2 * sm_count))
-                cost = rounds * mt * -(-k_tiles // s) * (1 + (s - 1) / 10)
+                rounds = -(-blocks * s // (table[v][7] * sm_count))
+                cost = rounds * mt * -(-k_tiles // s) * (1 + merge * (s - 1))
                 if best is None or cost < best[0] or cost == best[0] and mt > best[3]:
                     best = (cost, v, s, mt)
         variant, splits = best[1], best[2]
@@ -256,72 +267,7 @@ def w8a16_plan(M: int, K: int, N: int, count: int, sm_count: int, *,
         fit = [s for s in fit if blocks * s >= want] or fit[-1:]
         fill = [blocks * s / sm_count / -(-blocks * s // sm_count) for s in fit]
         splits = next((s for s, f in zip(fit, fill) if f >= 0.9), fit[fill.index(max(fill))])
-    return W8A16Plan(variant, mt, bn, bk, tiles, tail, row_tiles, min(splits, k_tiles), k_tiles)
-
-
-# W8A8/int4: launch shape -> (GemmArgs bytes with its shape fields, out shape, split-K size);
-# (device index, stream) -> split-K scratch buffers, kept for the process
-_PLANS: dict = {}
-_SCRATCH: dict = {}
-
-
-def _plan(x_shape: torch.Size, K: int, N: int, count: int, stacked: bool, x_hi: int, ldx: int,
-          w_sh: int, out_dtype, index: int):
-    """The split, the argument fields and the output shape of one launch
-    shape, worked out once. x (..., K) gives M = the product of its leading
-    dimensions rows."""
-    key = (x_shape, K, N, count, stacked, x_hi, ldx, w_sh, out_dtype, index)
-    plan = _PLANS.get(key)
-    if plan is None:
-        if len(_PLANS) > 4096:  # prompt lengths vary; keep the cache small
-            _PLANS.clear()
-        M = x_shape.numel() // x_shape[-1]
-        n_blocks = count * -(-N // BN) * -(-M // (16 if M <= 16 else 64))
-        splits, per = split_k(M, K, n_blocks, _sm_count(index))
-        a = GemmArgs(M=M, K=K, N=N, count=count, x_hi=x_hi, splits=splits, k_per_split=per,
-                     out_f32=_OUT_F32[out_dtype], ldx=ldx, w_sh=w_sh, ldo=count * N)
-        plan = _PLANS[key] = (bytes(a), x_shape[:-1] + ((count, N) if stacked else (N,)),
-                              splits * M * count * N if splits > 1 else 0)
-    return plan
-
-
-def _scratch(index: int, stream: int, n: int) -> int:
-    """Address of a split-K scratch of at least ``n`` floats (or int32s) for
-    launches on ``stream``. They run in order, so one buffer serves them
-    all; a larger need adds a buffer and keeps the old one, which a CUDA
-    graph captured earlier may still read."""
-    bufs = _SCRATCH.setdefault((index, stream), [])
-    if not bufs or bufs[-1].numel() < n:
-        size = max(n, 2 * bufs[-1].numel()) if bufs else n
-        bufs.append(torch.empty(size, dtype=torch.float32, device=torch.device("cuda", index)))
-    return bufs[-1].data_ptr()
-
-
-def _launch(entry: str, x, q, scale, out_dtype, *, K: int, x_hi: int = 0, x_scale=None,
-            x_ptr=None, extra: tuple = ()) -> torch.Tensor:
-    """Allocate the output, fill ``GemmArgs`` from the shape's cached plan
-    and launch the C entry point ``entry`` on the current stream. Kept lean:
-    the serving path calls it 254 times per 8B decode step."""
-    index = x.device.index
-    stacked = q.ndim == 3
-    N = q.shape[-1]
-    args, out_shape, n_part = _plan(x.shape, K, N, q.shape[0] if stacked else 1, stacked,
-                                    x_hi, K if x_ptr is not None else
-                                    x.stride(0) if x.dim() == 2 else x.shape[-1],
-                                    q.shape[-2] * N, out_dtype, index)
-    stream = torch._C._cuda_getCurrentRawStream(index)
-    out = torch.empty(out_shape, dtype=out_dtype, device=x.device)
-    a = GemmArgs.from_buffer_copy(args)
-    a.x = x_ptr if x_ptr is not None else x.data_ptr()
-    a.w = q.data_ptr()
-    a.w_scale = scale.data_ptr() if scale is not None else None
-    a.x_scale = x_scale.data_ptr() if x_scale is not None else None
-    a.out = out.data_ptr()
-    a.part = _scratch(index, stream, n_part) if n_part else None
-    rc = _entry(entry, len(extra))(ctypes.byref(a), *extra, stream)
-    if rc != 0:
-        raise RuntimeError(f"{entry} kernel launch failed: cudaError {rc}")
-    return out
+    return GemmPlan(variant, mt, bn, bk, tiles, tail, row_tiles, min(splits, k_tiles), k_tiles)
 
 
 def _on_cuda(name: str, x: torch.Tensor) -> bool:
@@ -330,27 +276,57 @@ def _on_cuda(name: str, x: torch.Tensor) -> bool:
     return x.device.type == "cuda"
 
 
-_A16_PLANS: dict = {}  # launch shape -> (GemmArgs bytes with its fields, out shape, tail bytes)
+_PLANS: dict = {}  # launch shape -> (GemmArgs bytes with its fields, out shape, tail bytes)
 
 
-def _a16_plan(x_shape: torch.Size, K: int, N: int, count: int, stacked: bool, ldx: int,
-              ldw: int, w_sh: int, out_dtype, index: int):
-    """``w8a16_plan`` and the argument fields of one launch shape, worked
+def _plan(mode: int, x_shape: torch.Size, K: int, N: int, count: int, stacked: bool, ldx: int,
+          ldw: int, w_sh: int, x_hi: int, out_dtype, index: int):
+    """``gemm_plan`` and the argument fields of one launch shape, worked
     out once, with the output shape and the bytes the last weight row's
     16-byte loads read past its N columns (rounding N up to 16)."""
-    key = (x_shape, K, N, count, stacked, ldx, ldw, w_sh, out_dtype, index)
-    plan = _A16_PLANS.get(key)
+    key = (mode, x_shape, K, N, count, stacked, ldx, ldw, w_sh, x_hi, out_dtype, index)
+    plan = _PLANS.get(key)
     if plan is None:
-        if len(_A16_PLANS) > 4096:  # prompt lengths vary; keep the cache small
-            _A16_PLANS.clear()
+        if len(_PLANS) > 4096:  # prompt lengths vary; keep the cache small
+            _PLANS.clear()
         M = x_shape.numel() // x_shape[-1]
-        p = w8a16_plan(M, K, N, count, _sm_count(index))
+        p = gemm_plan(M, K, N, count, _sm_count(index), mode=mode)
         vec = int(ldw % 16 == 0 and w_sh % 16 == 0)
-        a = GemmArgs(M=M, K=K, N=N, count=count, splits=p.splits, out_f32=_OUT_F32[out_dtype],
-                     ldx=ldx, w_sh=w_sh, ldo=count * N, ldw=ldw, variant=p.variant, vec=vec)
-        plan = _A16_PLANS[key] = (bytes(a), x_shape[:-1] + ((count, N) if stacked else (N,)),
-                                  vec and -N % 16)
+        a = GemmArgs(M=M, K=K, N=N, count=count, x_hi=x_hi, splits=p.splits,
+                     out_f32=_OUT_F32[out_dtype], ldx=ldx, w_sh=w_sh, ldo=count * N, ldw=ldw,
+                     variant=p.variant, vec=vec)
+        plan = _PLANS[key] = (bytes(a), x_shape[:-1] + ((count, N) if stacked else (N,)),
+                              vec and -N % 16)
     return plan
+
+
+def _launch(mode: int, entry: str, x, q, scale, out_dtype, *, K: int, ldx: int, x_hi: int = 0,
+            x_ptr=None, x_scale=None, extra: tuple = ()):
+    """Fill ``GemmArgs`` from the shape's cached plan, allocate the output
+    and launch the C entry point ``entry`` on the current stream; returns
+    the output and whether the weights took 16-byte loads. Kept lean: the
+    serving path calls it 254 times per 8B decode step."""
+    index = x.device.index
+    stacked = q.ndim == 3
+    N = q.shape[-1]
+    args, out_shape, over = _plan(mode, x.shape, K, N, q.shape[0] if stacked else 1, stacked, ldx,
+                                  q.stride(-2), q.stride(0) if stacked else 0, x_hi, out_dtype,
+                                  index)
+    a = GemmArgs.from_buffer_copy(args)
+    a.x = x.data_ptr() if x_ptr is None else x_ptr
+    a.w = q.data_ptr()
+    if a.vec and (a.w % 16 or over and (q.storage_offset() + over + sum(
+            (n - 1) * st for n, st in zip(q.shape, q.stride())) >= q.untyped_storage().nbytes())):
+        a.vec = 0  # a misaligned view, or the last row's padding lies past the storage
+    a.w_scale = scale.data_ptr() if scale is not None else None
+    a.x_scale = x_scale.data_ptr() if x_scale is not None else None
+    out = torch.empty(out_shape, dtype=out_dtype, device=x.device)
+    a.out = out.data_ptr()
+    stream = torch._C._cuda_getCurrentRawStream(index)
+    rc = _entry(entry, len(extra))(ctypes.byref(a), *extra, stream)
+    if rc != 0:
+        raise RuntimeError(f"{entry} kernel launch failed: cudaError {rc}")
+    return out, a.vec
 
 
 def w8a16_gemm(x: torch.Tensor, q: torch.Tensor, scale: torch.Tensor,
@@ -369,34 +345,19 @@ def w8a16_gemm(x: torch.Tensor, q: torch.Tensor, scale: torch.Tensor,
     if out_dtype not in _OUT_F32 or K != q.shape[-2]:
         raise ValueError(f"w8a16_gemm: out_dtype {out_dtype}, x {tuple(x.shape)}, "
                          f"q {tuple(q.shape)}")
-    index = x.device.index
-    stacked = q.ndim == 3
-    N = q.shape[-1]
-    args, out_shape, over = _a16_plan(x.shape, K, N, q.shape[0] if stacked else 1, stacked,
-                                      x.stride(0) if x.dim() == 2 else K, q.stride(-2),
-                                      q.stride(0) if stacked else 0, out_dtype, index)
-    a = GemmArgs.from_buffer_copy(args)
-    a.x = x.data_ptr()
-    a.w = q.data_ptr()
-    if a.vec and (a.w % 16 or over and (q.storage_offset() + over + sum(
-            (n - 1) * st for n, st in zip(q.shape, q.stride())) >= q.untyped_storage().nbytes())):
-        a.vec = 0  # a misaligned view, or the last row's padding lies past the storage
-    a.w_scale = scale.data_ptr()
-    out = torch.empty(out_shape, dtype=out_dtype, device=x.device)
-    a.out = out.data_ptr()
-    stream = torch._C._cuda_getCurrentRawStream(index)
-    rc = _entry("mosstts_w8a16_gemm")(ctypes.byref(a), stream)
-    if rc != 0:
-        raise RuntimeError(f"mosstts_w8a16_gemm kernel launch failed: cudaError {rc}")
+    out, vec = _launch(W8A16, "mosstts_w8a16_gemm", x, q, scale, out_dtype, K=K,
+                       ldx=x.stride(0) if x.dim() == 2 else K)
     global LAUNCHES_W8A16, LAUNCHES_W8A16_BYTES
     LAUNCHES_W8A16 += 1
-    LAUNCHES_W8A16_BYTES += not a.vec
+    LAUNCHES_W8A16_BYTES += not vec
     return out
 
 
 def w8a8_gemm(x: torch.Tensor, q: torch.Tensor, scale: torch.Tensor) -> torch.Tensor:
-    """x (M, K) bf16, quantized per row inside; q and scale as for
-    ``w8a16_gemm``; K a multiple of 16. Returns f32 (M, N)/(M, count, N)."""
+    """x (M, K) bf16, quantized per row inside; q (K, N) or (count, K, N)
+    contiguous int8 and scale (N,)/(count, N) f32; K a multiple of 16.
+    Returns f32 (M, N)/(M, count, N). Two device kernels: the row
+    quantization, then the product."""
     if not _on_cuda("w8a8_gemm", x):
         return w8a8_gemm_ref(x, q, scale)
     _check_weight("w8a8_gemm", x, q, scale, torch.bfloat16)
@@ -405,24 +366,26 @@ def w8a8_gemm(x: torch.Tensor, q: torch.Tensor, scale: torch.Tensor) -> torch.Te
         raise ValueError(f"w8a8_gemm: K {K} must match q {tuple(q.shape)} and be a multiple of 16")
     x8 = torch.empty((M, K), dtype=torch.int8, device=x.device)
     xs = torch.empty((M,), dtype=torch.float32, device=x.device)
-    out = _launch("mosstts_w8a8_gemm", x, q, scale, torch.float32, K=K, x_scale=xs,
-                  x_ptr=x8.data_ptr(), extra=(x.data_ptr(), x.stride(0)))
+    out, _ = _launch(W8A8, "mosstts_w8a8_gemm", x, q, scale, torch.float32, K=K, ldx=K,
+                     x_ptr=x8.data_ptr(), x_scale=xs, extra=(x.data_ptr(), x.stride(0)))
     global LAUNCHES_W8A8
     LAUNCHES_W8A8 += 1
     return out
 
 
 def int4_gemm(x: torch.Tensor, packed: torch.Tensor) -> torch.Tensor:
-    """x (M, D) bf16; packed (D/2, N) or (count, D/2, N) int8. Returns f32
-    (M, N)/(M, count, N)."""
-    if not _on_cuda("int4_gemm", x):
-        return int4_gemm_ref(x, packed)
+    """x (M, D) bf16; packed (D/2, N) or (count, D/2, N) contiguous int8.
+    Returns f32 (M, N)/(M, count, N). One device kernel."""
+    if not _on_cuda("int4_gemm", x):  # a stack's products as the kernel lays them out
+        return _unstack(int4_gemm_ref(x, packed[None] if packed.ndim == 2 else packed)
+                        .transpose(0, 1), packed)
     _check_weight("int4_gemm", x, packed, None, torch.bfloat16)
     h = packed.shape[-2]
     if x.dim() != 2 or x.shape[1] != 2 * h or h % 8:
         raise ValueError(f"int4_gemm: x {tuple(x.shape)} must be (M, 2 * {h}), "
                          f"{h} a multiple of 8")
-    out = _launch("mosstts_int4_gemm", x, packed, None, torch.float32, K=h, x_hi=h)
+    out, _ = _launch(INT4, "mosstts_int4_gemm", x, packed, None, torch.float32, K=h,
+                     ldx=x.stride(0), x_hi=h)
     global LAUNCHES_INT4
     LAUNCHES_INT4 += 1
     return out

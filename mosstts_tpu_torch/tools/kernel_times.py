@@ -19,21 +19,64 @@ unpacked under the git-ignored ``build/``).
   32-head audio stack in the layout the tree's ``QuantWeight`` keeps it;
   and the tree's ``w8a8_gemm`` and ``int4_gemm`` at their tools' shapes
   (``tools/tune_mm8.py``, ``tools/probe_int4.py``), timed first, before
-  the W8A16 shapes' allocations can differ between the trees. Inputs from
-  one seed, the same in every tree.
+  the W8A16 shapes' allocations can differ between the trees, with int4's
+  yardstick ``torch._weight_int4pack_mm`` (``int4_library``) beside it.
+  Inputs from one seed, the same in every tree.
 
-One JSON line last: µs per call by kernel and shape. Compare two trees only
-within one call, in the order A B B A.
+One JSON line last: µs per call by kernel and shape, and a digest of each
+W8A16 shape's output bits (layer 0). Compare two trees only within one
+call, in the order A B B A.
 """
 from __future__ import annotations
 
 import argparse
+import hashlib
 import json
 import os
 import sys
 from pathlib import Path
 
 L8 = 36  # 8B layers: a backbone weight's stack
+
+
+def int4_library(x, packed):
+    """``torch._weight_int4pack_mm`` (tinygemm) on the int4 product of
+    ``x`` (M, D) bf16 and each packed layer of ``packed`` (L, D/2, N), the
+    yardstick of ``int4_gemm``: (call i -> layer i % L, a note), or (None,
+    the reason) where this PyTorch build refuses the op. Its weights are
+    the signed nibbles (``unpack_int4``: rows D/2 of lo over hi) as uint4
+    ``s + 8``, (N, D/2) bytes with even k in the high nibble, packed by
+    ``torch._convert_weight_to_int4pack`` outside the timing; groups of 128
+    with scale 1 and zero 0 (tinygemm takes ``(q - 8) * scale + zero``), so
+    it computes the same function, rounded to bf16. Its layer 0 is held
+    against ``int4_gemm_ref`` first (as a bf16 result of f32 sums); a wrong
+    result raises."""
+    import torch
+    from mosstts_tpu_torch.ops.kernels import w8_gemm
+
+    L, h, N = packed.shape
+    try:
+        layers = []
+        for p in packed:
+            lo, hi = w8_gemm.unpack_int4(p)
+            u = (torch.cat([lo, hi]).to(torch.int32) + 8).t()  # (N, D) in 0..15
+            w = ((u[:, ::2] << 4) | u[:, 1::2]).to(torch.uint8).contiguous()
+            layers.append(torch._convert_weight_to_int4pack(w, 8))
+        sz = torch.zeros((2 * h // 128, N, 2), dtype=torch.bfloat16, device=x.device)
+        sz[..., 0] = 1
+        fn = (lambda i: torch._weight_int4pack_mm(x, layers[i % L], 128, sz))
+        got = fn(0).float()
+    except RuntimeError as e:
+        return None, f"refused: {str(e).splitlines()[0]}"
+    ref = w8_gemm.int4_gemm_ref(x, packed[0])
+    lo, hi = w8_gemm.unpack_int4(packed[0])
+    xa = x.float().abs()
+    absref = xa[:, :h] @ lo.float().abs() + xa[:, h:] @ hi.float().abs()
+    err = (got - ref).abs()
+    if not bool((err <= 2.0 ** -7 * ref.abs() + 1e-4 * absref + 1e-6).all()):
+        raise AssertionError(f"torch._weight_int4pack_mm disagrees with int4_gemm_ref: max abs "
+                             f"err {float(err.max())}")
+    return fn, f"agrees with int4_gemm_ref (max abs err {float(err.max()):.3e}, bf16 output)"
 
 
 def gemm_times(torch) -> dict:
@@ -53,7 +96,11 @@ def gemm_times(torch) -> dict:
     del x, w8, scale
     x, _, packed = probe_int4.make_inputs()
     res["int4 B=64"] = round(time_ms(lambda i: w8_gemm.int4_gemm(x, packed[i % 16])) * 1e3, 2)
-    del x, packed
+    lib, note = int4_library(x, packed)
+    print(f"int4 B=64 torch._weight_int4pack_mm: {note}", flush=True)
+    res["int4 B=64 torch._weight_int4pack_mm"] = (round(time_ms(lib) * 1e3, 2) if lib is not None
+                                                  else None)
+    del x, packed, lib
     torch.cuda.empty_cache()
     g = torch.Generator(device=dev).manual_seed(5)
     for name, K, N, count, out_dtype in chip_smoke.GEMM_8B:
@@ -71,6 +118,11 @@ def gemm_times(torch) -> dict:
             n = 36 if K * N * (count or 1) < 2e8 else 8
             ms = time_ms(lambda i: w8_gemm.w8a16_gemm(x, *pick(i), out_dtype), n=n)
             res[f"w8a16 {name} M={M}"] = round(ms * 1e3, 2)
+            # the output's bits (layer 0), to hold two trees' kernels bit for bit
+            out = w8_gemm.w8a16_gemm(x, *pick(0), out_dtype)
+            res[f"w8a16 {name} M={M} bits"] = hashlib.sha256(
+                out.view(torch.int16 if out.dtype == torch.bfloat16 else torch.int32)
+                .cpu().numpy().tobytes()).hexdigest()[:16]
             print(f"w8a16 {name} M={M}: {ms * 1e3:.2f} µs", flush=True)
         del q, sc, pick
         torch.cuda.empty_cache()

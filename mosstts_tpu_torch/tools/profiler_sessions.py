@@ -39,7 +39,7 @@ CASES = ("none", "card_tests")
 KINDS = ("plain", "burst16", "burst64")  # burstN: N throwaway spin kernels open the window
 # the kernels a session launches, in order, and the letters that name them
 ORDER = "nwewgws"
-NAMES = (("n", "neg_kernel"), ("w", "a16_kernel"), ("e", "exp_kernel"),
+NAMES = (("n", "neg_kernel"), ("w", "ring_kernel"), ("e", "exp_kernel"),
          ("g", "sigmoid_kernel"), ("s", "sqrt_kernel"))
 
 

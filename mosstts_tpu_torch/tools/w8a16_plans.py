@@ -1,19 +1,25 @@
-"""The W8A16 kernel's device time at the 8B shapes under each launch plan it
+"""The int8-weight GEMM kernel's device time under each launch plan it
 could take, on one NVIDIA GPU.
 
     python3 -m mosstts_tpu_torch.tools.w8a16_plans [--shapes wq wk ...] [--M 1 16]
+    python3 -m mosstts_tpu_torch.tools.w8a16_plans --mode w8a8 [--M 128]
+    python3 -m mosstts_tpu_torch.tools.w8a16_plans --mode int4 [--M 64]
 
-For each ``kernel_inputs.GEMM_8B`` shape and row count M: the plan
-``w8a16_plan`` picks, then each decode instantiation (M <= 16) or each
-prefill one (M > 16) at every split of K over 1-8 blocks of a
-cluster (whole k tiles, none empty; splits that reach the same plan are
-timed once). Device ms per call from CUDA-graph replays
-(``kernel_inputs.time_ms``) on the smoke's inputs: a 36-layer int8 stack
-read one layer per call (cold in L2; ``--warm``: layer 0 every call) for
-the backbone weights, the text head, the 32-head audio stack at
-``QuantWeight``'s 16-byte row pitch; beside each its blocks and its
-difference from the plain version (a reading, not a check). The card's
-``nvidia-smi`` line first, one JSON object last.
+For each shape and row count M: the plan ``gemm_plan`` picks, then each
+of the mode's decode instantiations (M <= 16) or each prefill one (M > 16)
+at every split of K over 1-8 blocks of a cluster (whole k tiles, none
+empty; splits that reach the same plan are timed once). Device ms per call
+from CUDA-graph replays (``kernel_inputs.time_ms``). W8A16 (the default)
+on the smoke's inputs at the 8B shapes (``kernel_inputs.GEMM_8B``): a
+36-layer int8 stack read one layer per call (cold in L2; ``--warm``:
+layer 0 every call) for the backbone weights, the text head, the 32-head
+audio stack at ``QuantWeight``'s 16-byte row pitch. W8A8 and int4 on their
+tools' inputs (``tools/tune_mm8.py``: 16 layers of (4096, 12288), B=128;
+``tools/probe_int4.py``: 16 packed layers of (2048, 12288), B=64), call i
+reading layer i % 16 (``--warm``: layer 0); W8A8's time includes its row
+quantization. Beside each plan its blocks and its difference from the
+plain version (a reading, not a check). The card's ``nvidia-smi`` line
+first, one JSON object last.
 """
 from __future__ import annotations
 
@@ -28,23 +34,29 @@ from ..ops.kernels import w8_gemm
 from .kernel_inputs import GEMM_8B, card_line, time_ms
 
 L8 = 36
+MODES = {"w8a16": w8_gemm.W8A16, "w8a8": w8_gemm.W8A8, "int4": w8_gemm.INT4}
 
 
-def main(argv=None) -> dict:
-    ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
-    ap.add_argument("--shapes", nargs="+", default=[g[0] for g in GEMM_8B])
-    ap.add_argument("--M", type=int, nargs="+", default=[1, 16])
-    ap.add_argument("--warm", action="store_true",
-                    help="every call reads layer 0 (warm in L2 where it fits): memory or instructions?")
-    args = ap.parse_args(argv)
-    if not torch.cuda.is_available():
-        raise RuntimeError("torch.cuda.is_available() is false: this tool times a GPU")
-    card = card_line()
-    print(card, flush=True)
-    sm = torch.cuda.get_device_properties(0).multi_processor_count
-    real = w8_gemm.w8a16_plan
-    g = torch.Generator(device="cuda").manual_seed(5)
-    res = dict(card=card, rows=[])
+def _products(mode: int, args, g):
+    """(name, K, N, count, M list, call(x, i), plain(x), x of M) per shape."""
+    if mode != w8_gemm.W8A16:
+        from . import probe_int4, tune_mm8
+
+        if mode == w8_gemm.W8A8:
+            x0, w8, scale = tune_mm8.make_inputs(128, 16, 4096, 12288)
+            layer = (lambda i: 0) if args.warm else (lambda i: i % 16)
+            yield ("w8a8", 4096, 12288, 1, args.M or [128],
+                   lambda x, i: w8_gemm.w8a8_gemm(x, w8[layer(i)], scale[layer(i)]),
+                   lambda x: w8_gemm.w8a8_gemm_ref(x, w8[0], scale[0]),
+                   lambda M: torch.randn((M, 4096), generator=g, device="cuda").to(torch.bfloat16))
+        else:
+            _, _, packed = probe_int4.make_inputs()
+            layer = (lambda i: 0) if args.warm else (lambda i: i % 16)
+            yield ("int4", 2048, 12288, 1, args.M or [64],
+                   lambda x, i: w8_gemm.int4_gemm(x, packed[layer(i)]),
+                   lambda x: w8_gemm.int4_gemm_ref(x, packed[0]),
+                   lambda M: torch.randn((M, 4096), generator=g, device="cuda").to(torch.bfloat16))
+        return
     for name, K, N, count, out_dtype in GEMM_8B:
         if name not in args.shapes:
             continue
@@ -58,40 +70,66 @@ def main(argv=None) -> dict:
         else:
             layer = (lambda i: 0) if args.warm else (lambda i, L=L: i % L)
             pick = (lambda i, q=q, sc=sc, layer=layer: (q[layer(i)], sc[layer(i)]))
-        for M in args.M:
-            x = torch.randn((M, K), generator=g, device="cuda").to(torch.bfloat16)
-            chosen = real(M, K, N, count or 1, sm)
-            ref = w8_gemm.w8a16_gemm_ref(x, *pick(0), torch.float32)
-            variants = [v for v, spec in enumerate(w8_gemm.A16_VARIANTS)
+        yield (name, K, N, count or 1, args.M or [1, 16],
+               lambda x, i, pick=pick, od=out_dtype: w8_gemm.w8a16_gemm(x, *pick(i), od),
+               lambda x, pick=pick: w8_gemm.w8a16_gemm_ref(x, *pick(0), torch.float32),
+               lambda M, K=K: torch.randn((M, K), generator=g, device="cuda").to(torch.bfloat16))
+        del q, sc, pick
+        torch.cuda.empty_cache()
+
+
+def main(argv=None) -> dict:
+    ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
+    ap.add_argument("--mode", choices=tuple(MODES), default="w8a16")
+    ap.add_argument("--shapes", nargs="+", default=[g[0] for g in GEMM_8B],
+                    help="W8A16: the GEMM_8B products to time")
+    ap.add_argument("--M", type=int, nargs="+", default=None,
+                    help="row counts (default: W8A16 1 16, W8A8 128, int4 64)")
+    ap.add_argument("--warm", action="store_true",
+                    help="every call reads layer 0 (warm in L2 where it fits): memory or instructions?")
+    args = ap.parse_args(argv)
+    if not torch.cuda.is_available():
+        raise RuntimeError("torch.cuda.is_available() is false: this tool times a GPU")
+    card = card_line()
+    print(card, flush=True)
+    sm = torch.cuda.get_device_properties(0).multi_processor_count
+    mode = MODES[args.mode]
+    real = w8_gemm.gemm_plan
+    g = torch.Generator(device="cuda").manual_seed(5)
+    res = dict(card=card, mode=args.mode, warm=args.warm, rows=[])
+    for name, K, N, count, Ms, call, plain, make_x in _products(mode, args, g):
+        for M in Ms:
+            x = make_x(M)
+            chosen = real(M, K, N, count, sm, mode=mode)
+            ref = plain(x).float()
+            variants = [v for v, spec in enumerate(w8_gemm.VARIANTS[mode])
                         if (spec[0] == 1) == (chosen.mt == 1)]
             seen = set()
             for v in variants:
                 for s in range(1, w8_gemm.MAX_CLUSTER + 1):
-                    plan = real(M, K, N, count or 1, sm, variant=v, splits=s)
+                    plan = real(M, K, N, count, sm, mode=mode, variant=v, splits=s)
                     if plan in seen:
                         continue
                     seen.add(plan)
-                    w8_gemm.w8a16_plan = functools.partial(real, variant=v, splits=s)
-                    w8_gemm._A16_PLANS.clear()
+                    w8_gemm.gemm_plan = functools.partial(real, variant=v, splits=s)
+                    w8_gemm._PLANS.clear()
                     try:
-                        out = w8_gemm.w8a16_gemm(x, *pick(0), torch.float32)
+                        out = call(x, 0).float()
                         err = float((out - ref).abs().max() / ref.abs().max())
-                        n = 36 if K * N * (count or 1) < 2e8 else 8
-                        ms = time_ms(lambda i: w8_gemm.w8a16_gemm(x, *pick(i), out_dtype), n=n)
+                        n = 36 if K * N * count < 2e8 else 8
+                        ms = time_ms(lambda i: call(x, i), n=n)
                     finally:
-                        w8_gemm.w8a16_plan = real
-                        w8_gemm._A16_PLANS.clear()
-                    blocks = (plan.tiles * (count or 1) + plan.tail_blocks) * plan.row_tiles
-                    row = dict(shape=f"{name} M={M}", variant=v, bn=plan.bn, splits=plan.splits,
-                               blocks=blocks * plan.splits, ms=ms, rel_err=err,
-                               chosen=plan == chosen)
+                        w8_gemm.gemm_plan = real
+                        w8_gemm._PLANS.clear()
+                    blocks = (plan.tiles * count + plan.tail_blocks) * plan.row_tiles
+                    row = dict(shape=f"{name} M={M}", variant=v, bn=plan.bn, mt=plan.mt,
+                               splits=plan.splits, blocks=blocks * plan.splits, ms=ms,
+                               rel_err=err, chosen=plan == chosen)
                     res["rows"].append(row)
-                    print(f"{name} M={M} variant {v} (BN {plan.bn}) splits {plan.splits}: "
-                          f"{row['blocks']} blocks, {ms * 1e3:.2f} µs, max abs error "
-                          f"{err:.1e} of the largest output"
+                    print(f"{name} M={M} variant {v} (MT {plan.mt}, BN {plan.bn}) splits "
+                          f"{plan.splits}: {row['blocks']} blocks, {ms * 1e3:.2f} µs, max abs "
+                          f"error {err:.1e} of the largest output"
                           f"{'  <- plan' if row['chosen'] else ''}", flush=True)
-        del q, sc, pick
-        torch.cuda.empty_cache()
     print(json.dumps(res), flush=True)
     return res
 

@@ -200,8 +200,20 @@ def test_cpu_gemm_wrappers_take_the_plain_versions():
     packed = q[0, :16]  # x's 32 columns are two halves of 16
     torch.testing.assert_close(w8_gemm.int4_gemm(x, packed), w8_gemm.int4_gemm_ref(x, packed),
                                rtol=0, atol=0)
+    # a stack of int4 weights comes out (M, count, N), as the kernel lays it out
+    stack = q[:, :16]
+    got = w8_gemm.int4_gemm(x, stack)
+    assert got.shape == (3, 2, 16)
+    for i in (0, 1):
+        torch.testing.assert_close(got[:, i], w8_gemm.int4_gemm_ref(x, stack[i]), rtol=0, atol=0)
     assert (w8_gemm.LAUNCHES_W8A16, w8_gemm.LAUNCHES_W8A8, w8_gemm.LAUNCHES_INT4) == counts
-    # split-K sizing: enough blocks for two waves, at most 16 ways, whole k tiles
-    assert w8_gemm.split_k(16, 4096, 96, 132) == (3, 1408)
-    assert w8_gemm.split_k(1, 4096, 8, 132) == (16, 256)
-    assert w8_gemm.split_k(640, 4096, 960, 132) == (1, 4096)
+    # the split of K (``gemm_plan``, a cluster of at most MAX_CLUSTER blocks
+    # summed inside the launch): the tools' W8A8 B=128 and int4 B=64 are one
+    # row tile (the weights streamed once) and no split (their measured
+    # best, PERF.md §6); decode splits K for the idle SMs
+    plan = w8_gemm.gemm_plan
+    for mode, M, K in ((w8_gemm.W8A8, 128, 4096), (w8_gemm.INT4, 64, 2048)):
+        p = plan(M, K, 12288, 1, 132, mode=mode)
+        assert (p.row_tiles, p.mt, p.splits) == (1, M // 16, 1)
+    assert plan(1, 4096, 1024, 1, 132, mode=w8_gemm.W8A8).splits == w8_gemm.MAX_CLUSTER
+    assert plan(640, 4096, 12288, 1, 132, mode=w8_gemm.INT4).splits == 1

@@ -202,7 +202,7 @@ def test_device_profile_sees_the_first_kernel():
         keys = {e.key: e.count for e in prof.key_averages()
                 if e.device_type == torch.autograd.DeviceType.CUDA}
         seen.append((sum(c for k, c in keys.items() if "neg_kernel" in k),
-                     sum(c for k, c in keys.items() if "a16_kernel" in k)))
+                     sum(c for k, c in keys.items() if "ring_kernel" in k)))
     assert seen == [(1, 3)] * 6, seen
 
 

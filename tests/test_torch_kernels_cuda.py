@@ -408,7 +408,40 @@ def test_w8a16_is_one_device_kernel_per_call(M, K, N, count):
     assert sum(e.count for e in kernels) == 3, (
         [(e.key[:80], e.count) for e in device],
         [(e.key, e.count) for e in events if "Launch" in e.key])
-    assert all("a16_kernel" in e.key for e in kernels)
+    assert all("ring_kernel" in e.key for e in kernels)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("mode,M", [("w8a8", 16), ("w8a8", 128), ("int4", 1), ("int4", 64)])
+def test_w8a8_and_int4_are_one_gemm_kernel_per_call(mode, M):
+    """The split of K is summed inside the launch: a W8A8 call is its row
+    quantization and one ``ring_kernel``, an int4 call one ``ring_kernel``,
+    no reduce pass, in a ``profile_step.device_profile`` session (as the
+    W8A16 test above)."""
+    _need_card()
+    from mosstts_tpu_torch.tools.profile_step import device_profile
+
+    rng = np.random.default_rng(M)
+    x = torch.tensor(rng.normal(size=(M, 4096)).astype(np.float32)).cuda().to(torch.bfloat16)
+    if mode == "w8a8":
+        q = _int8(rng, 4096, 4096)
+        s = torch.tensor(rng.uniform(1e-3, 2e-2, size=(4096,)).astype(np.float32)).cuda()
+        call = (lambda: w8_gemm.w8a8_gemm(x, q, s))
+    else:
+        q = _int8(rng, 2048, 4096)
+        call = (lambda: w8_gemm.int4_gemm(x, q))
+    call()  # plan cached, library loaded
+    torch.cuda.synchronize()
+    with device_profile(cpu=True) as prof:
+        for _ in range(3):
+            call()
+        torch.cuda.synchronize()
+    kernels = {e.key: e.count for e in prof.key_averages()
+               if e.device_type == torch.autograd.DeviceType.CUDA and "mosstts" in e.key}
+    ring = sum(c for k, c in kernels.items() if "ring_kernel" in k)
+    quant = sum(c for k, c in kernels.items() if "quant_rows_kernel" in k)
+    rows_pass = mode == "w8a8"
+    assert (ring, quant, sum(kernels.values())) == (3, 3 * rows_pass, 3 + 3 * rows_pass), kernels
 
 
 @pytest.mark.cuda
@@ -432,40 +465,138 @@ def test_w8a16_unaligned_rows_take_the_byte_path():
                     w8_gemm.w8a16_gemm_ref(x.abs(), q.abs(), s, torch.float32), torch.bfloat16)
 
 
+def _graph_kernels(fn):
+    """(kernel nodes, all nodes) of a CUDA graph that captures one ``fn()``
+    (warmed up on a side stream first): the device kernels one call
+    launches, read off the graph (the driver's ``cuGraphGetNodes``), not
+    from a profiler session, whose records can be lost (PERF.md §6)."""
+    import ctypes
+
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        fn()
+    torch.cuda.current_stream().wait_stream(side)
+    graph = torch.cuda.CUDAGraph(keep_graph=True)
+    with torch.cuda.graph(graph):
+        fn()
+    cuda = ctypes.CDLL("libcuda.so.1")
+    g, n = ctypes.c_void_p(graph.raw_cuda_graph()), ctypes.c_size_t(0)
+    assert cuda.cuGraphGetNodes(g, None, ctypes.byref(n)) == 0
+    nodes = (ctypes.c_void_p * n.value)()
+    assert cuda.cuGraphGetNodes(g, nodes, ctypes.byref(n)) == 0
+    kinds = []
+    for node in nodes:
+        kind = ctypes.c_int(-1)
+        assert cuda.cuGraphNodeGetType(ctypes.c_void_p(node), ctypes.byref(kind)) == 0
+        kinds.append(kind.value)
+    return kinds.count(0), len(kinds)  # CU_GRAPH_NODE_TYPE_KERNEL = 0
+
+
+GEMM_TOOL_SHAPES = [(1, 512, 1024, 1), (8, 256, 512, 1), (16, 4096, 1024, 1), (96, 1024, 1000, 1),
+                    (128, 4096, 12288, 1), (200, 512, 384, 1), (16, 512, 1000, 3),
+                    (40, 256, 512, 4)]
+
+
 @pytest.mark.cuda
-@pytest.mark.parametrize("M,K,N", [(8, 256, 512), (1, 512, 1024), (128, 4096, 12288)])
-def test_w8a8_kernel_matches_plain(M, K, N):
+@pytest.mark.parametrize("M,K,N,count", GEMM_TOOL_SHAPES)
+def test_w8a8_kernel_matches_plain(M, K, N, count):
+    """Decode, one row tile up to 128 rows (the tool's B=128 at its (4096,
+    12288)) and several beyond, a stack of weights, an N that is no
+    multiple of the column tile or of 16 (byte loads): the plain version's
+    result from two device kernels (a captured call's graph holds two
+    kernel nodes), the row quantization and one product."""
     _need_card()
-    rng = np.random.default_rng(K)
+    rng = np.random.default_rng(K + M + count)
     x = torch.tensor(rng.normal(size=(M, K)).astype(np.float32)).cuda().to(torch.bfloat16)
-    q = _int8(rng, K, N)
-    s = torch.tensor(rng.uniform(1e-3, 2e-2, size=(N,)).astype(np.float32)).cuda()
+    q = _int8(rng, *((count, K, N) if count > 1 else (K, N)))
+    s = torch.tensor(rng.uniform(1e-3, 2e-2, size=q.shape[:-2] + (N,)).astype(np.float32)).cuda()
     launches = w8_gemm.LAUNCHES_W8A8
     out = w8_gemm.w8a8_gemm(x, q, s)
+    assert w8_gemm.LAUNCHES_W8A8 == launches + 1
+    assert _graph_kernels(lambda: w8_gemm.w8a8_gemm(x, q, s)) == (2, 2)
     ref = w8_gemm.w8a8_gemm_ref(x, q, s)
     x8, xs = w8_gemm.quant_rows(x)
-    absref = w8_gemm.w8a16_gemm_ref(x8.abs().to(torch.bfloat16), q.abs(), s, torch.float32) * xs
+    qa = q.abs() if count > 1 else q.abs()[None]
+    absref = torch.stack([w8_gemm.w8a16_gemm_ref(x8.abs().to(torch.bfloat16), qa[i],
+                                                 s.reshape(-1, N)[i], torch.float32) * xs
+                          for i in range(count)], 1).reshape(ref.shape)
     torch.cuda.synchronize()
-    assert w8_gemm.LAUNCHES_W8A8 == launches + 1
+    assert out.shape == ref.shape
+    _gemm_close(out, ref, absref, torch.float32)
+
+
+def _int4_ref(x, packed):
+    """The plain int4 product of each weight of a stack, (M, count, N)."""
+    stack = packed if packed.dim() == 3 else packed[None]
+    D = x.shape[1]
+    lo, hi = w8_gemm.unpack_int4(stack)
+    xa = x.float().abs()
+    ref = torch.stack([w8_gemm.int4_gemm_ref(x, p) for p in stack], 1)
+    absref = torch.stack([xa[:, :D // 2] @ lo[i].float().abs() + xa[:, D // 2:] @ hi[i].float().abs()
+                          for i in range(len(stack))], 1)
+    return (ref, absref) if packed.dim() == 3 else (ref[:, 0], absref[:, 0])
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("M,D,N,count", [(4, 64, 384, 1)] + [(M, 2 * K, N, c) for M, K, N, c
+                                                             in GEMM_TOOL_SHAPES if M != 128]
+                         + [(64, 4096, 12288, 1), (128, 1024, 512, 1)])
+def test_int4_kernel_matches_plain(M, D, N, count):
+    """As the W8A8 test, and the tool's B=64 at (2048, 12288) packed: one
+    device kernel (one kernel node in a captured call's graph)."""
+    _need_card()
+    rng = np.random.default_rng(D + M + count)
+    x = torch.tensor(rng.normal(size=(M, D)).astype(np.float32)).cuda().to(torch.bfloat16)
+    packed = torch.tensor(rng.integers(-128, 128, size=((count,) if count > 1 else ()) + (D // 2, N))
+                          .astype(np.int8)).cuda()
+    launches = w8_gemm.LAUNCHES_INT4
+    out = w8_gemm.int4_gemm(x, packed)
+    assert w8_gemm.LAUNCHES_INT4 == launches + 1
+    assert _graph_kernels(lambda: w8_gemm.int4_gemm(x, packed)) == (1, 1)
+    ref, absref = _int4_ref(x, packed)
+    torch.cuda.synchronize()
+    assert out.shape == ref.shape
     _gemm_close(out, ref, absref, torch.float32)
 
 
 @pytest.mark.cuda
-@pytest.mark.parametrize("M,D,N", [(4, 64, 24 * 16), (16, 512, 1000), (64, 4096, 12288)])
-def test_int4_kernel_matches_plain(M, D, N):
+@pytest.mark.parametrize("M", [16, 128])
+def test_w8a8_and_int4_replay_in_a_graph(M):
+    """Two different products of each mode, split K (the clusters' partials
+    in shared memory, no scratch) and not, captured back to back in one
+    CUDA graph: each replays to its eager result bit for bit, twice."""
     _need_card()
-    rng = np.random.default_rng(D)
-    x = torch.tensor(rng.normal(size=(M, D)).astype(np.float32)).cuda().to(torch.bfloat16)
-    packed = torch.tensor(rng.integers(-128, 128, size=(D // 2, N)).astype(np.int8)).cuda()
-    launches = w8_gemm.LAUNCHES_INT4
-    out = w8_gemm.int4_gemm(x, packed)
-    ref = w8_gemm.int4_gemm_ref(x, packed)
-    lo, hi = w8_gemm.unpack_int4(packed)
-    xa = x.float().abs()
-    absref = xa[:, :D // 2] @ lo.float().abs() + xa[:, D // 2:] @ hi.float().abs()
-    torch.cuda.synchronize()
-    assert w8_gemm.LAUNCHES_INT4 == launches + 1
-    _gemm_close(out, ref, absref, torch.float32)
+    rng = np.random.default_rng(M)
+    x = torch.tensor(rng.normal(size=(M, 4096)).astype(np.float32)).cuda().to(torch.bfloat16)
+    q = [_int8(rng, 2048 * (i + 1), 1024 * (2 - i)) for i in (0, 1)]
+    s = [torch.tensor(rng.uniform(1e-3, 2e-2, size=(1024 * (2 - i),)).astype(np.float32)).cuda()
+         for i in (0, 1)]
+    xs = [x[:, :2048], x]
+    calls = [lambda: w8_gemm.w8a8_gemm(xs[0], q[0], s[0]),
+             lambda: w8_gemm.w8a8_gemm(xs[1], q[1], s[1]),
+             lambda: w8_gemm.int4_gemm(xs[1], q[0]),
+             lambda: w8_gemm.int4_gemm(xs[0], q[1][:1024])]
+    splits = [w8_gemm.gemm_plan(M, 2048 * (i + 1), 1024 * (2 - i), 1, 132, mode=w8_gemm.W8A8)
+              .splits for i in (0, 1)]
+    assert max(splits) > 1
+    eager = [f() for f in calls]
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        for f in calls:
+            f()
+    torch.cuda.current_stream().wait_stream(side)
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        got = [f() for f in calls]
+    for _ in range(2):
+        for g in got:
+            g.zero_()
+        graph.replay()
+        torch.cuda.synchronize()
+        for a, b in zip(got, eager):
+            assert torch.equal(a, b)
 
 
 @pytest.mark.cuda
