@@ -57,9 +57,30 @@ Phases, one or more lines each; any failure raises and exits non-zero:
    also serves phase 5's 24 requests in the linear bf16 and the paged int8
    KV modes (a 20-page pool that forces preemptions) with graph and with
    eager steps: the completions must be equal.
-Phases 4-6 run the package's default, every decode step a CUDA-graph
+8. voice cloning and the serving front end at the same width, after 7b, on
+   the int8 weights: 8a encodes a 4 s wave (a seeded sine sweep plus noise,
+   written with ``write_wav``) with the ``codec_1p6b()`` codec: with the
+   first 2 of its 22 encoder layers (full width) the card's codes against
+   the CPU's on the same weights, and at all 22 layers 1 s chunks against
+   one shot on the card; a frame may differ only where the first differing
+   level's two entries tie within 1e-4 relative; the encode time per
+   second of audio. 8b serves 7 requests at once through the port's
+   ``ThreadingHTTPServer`` in this process with ``--pool-slots 16``
+   (linear bf16 KV): four ``/tts`` Clone requests with that wave (audio
+   greedy), one two-speaker ``/ttsd``, one ``/voice_gen`` and one
+   ``/sound_effect``, 96-128 new frames each: every response a WAV of the
+   samples its grid decodes to, each request's seconds, ``/metrics``' TTFA
+   and RTF; flash, the decode kernel and W8A16 ran, the last two inside
+   replayed graphs. 8c sends the four Clone prompts, greedy in text and
+   audio, through that pool at once and through ``engine.generate`` alone:
+   at 8B width the two batch sizes round differently (B=16 against B=1
+   reductions and GEMM plans, the pool's prompt bucket), so the grids part
+   after a few frames; the first frame must agree and the first differing
+   frame is logged. 8d holds the same prompts equal bit for bit, pool
+   against solo, on a small float32 model with the same 33 channels.
+Phases 4-6 and 8 run the package's default, every decode step a CUDA-graph
 replay (``engine/step_graph.py``); prefills stay eager. The kernels' launch
-counts are set to 0 just before phases 4 and 6 and each server mode and
+counts are set to 0 just before phases 4, 6, 8b and each server mode and
 read just after, and must show every prefill and every decode step went
 through the kernels; a graph's launches count once per replay
 (``ops/kernels/launches.py``), and the decode kernels and W8A16 must have
@@ -82,9 +103,11 @@ import contextlib
 import copy
 import dataclasses
 import gc
+import io
 import json
 import re
 import sys
+import tempfile
 import time
 from pathlib import Path
 from types import SimpleNamespace
@@ -109,6 +132,8 @@ from mosstts_tpu_torch.tools import probe_int4, profile_step, tune_mm8  # noqa: 
 from mosstts_tpu_torch.tools.kernel_inputs import (  # noqa: E402
     GEMM_8B, bound, card_line, decode_bound, decode_inputs, gemm_bound, time_ms)
 from mosstts_tpu_torch.tools.kernel_times import int4_library  # noqa: E402
+from mosstts_tpu_torch.tools.pool_vs_solo import first_divergence  # noqa: E402
+from mosstts_tpu_torch.utils.audio import read_wav, write_wav  # noqa: E402
 
 DEV = "cuda"
 L8, B8, KV8, S8, HD8, H8 = 36, 4, 8, 512, 128, 32  # 8B layers / heads; batch 4, cache 512
@@ -1236,6 +1261,329 @@ def step_times(engine, label: str) -> list:
     return rows
 
 
+# ------------------------------------------------------------------ phase 8
+PHASE8_NEW = 112  # new frames of each front-end request (96-128)
+NEAR_TIE = 1e-4  # relative gap of two squared RVQ distances that counts as a tie
+CLONE_TEXTS = ("The first cloned voice reads this sentence.",
+               "A second request in the same voice, a little longer than the first one.",
+               "Third.",
+               "The fourth clone request speaks the last line of this test.")
+
+
+def sweep_wav(seconds: float, seed: int, sr: int = 24000) -> np.ndarray:
+    """A reference voice from ``seed``: a 120-520 Hz sine sweep plus noise."""
+    t = np.arange(int(sr * seconds)) / sr
+    freq = 120.0 + 400.0 * t / seconds
+    noise = np.random.default_rng(seed).standard_normal(t.size)
+    return (0.3 * np.sin(2 * np.pi * np.cumsum(freq) / sr) + 0.05 * noise).astype(np.float32)
+
+
+@contextlib.contextmanager
+def rvq_inputs():
+    """Within: every latent block the codec's encoder hands to ``rvq_encode``
+    is kept (on the CPU, float32) in the yielded list."""
+    from mosstts_tpu_torch.codec import model as codec_model
+
+    seen, real = [], codec_model.rvq_encode
+
+    def kept(params, lat, nq):
+        seen.append(lat.detach().float().cpu())
+        return real(params, lat, nq)
+
+    codec_model.rvq_encode = kept
+    try:
+        yield seen
+    finally:
+        codec_model.rvq_encode = real
+
+
+def code_mismatches(label: str, got, ref, lat, books) -> int:
+    """Frames whose codes differ between ``got`` and ``ref`` (NQ, B, T). At
+    the first level where a frame differs, the two chosen entries' squared
+    distances from ``ref``'s residual (float64, from the latents ``lat`` (B,
+    T, D) that ``ref`` was encoded from) must tie within ``NEAR_TIE``
+    relative; the later levels follow from that one."""
+    got, ref = np.asarray(got), np.asarray(ref)
+    if got.shape != ref.shape:
+        raise AssertionError(f"{label}: code shapes {got.shape} and {ref.shape}")
+    books = books.double()
+    frames = np.argwhere((got != ref).any(axis=0))
+    worst = 0.0
+    for b, t in frames:
+        lvl = int(np.nonzero(got[:, b, t] != ref[:, b, t])[0][0])
+        r = lat[b, t].double() - sum(books[j][int(ref[j, b, t])] for j in range(lvl))
+        d = ((r[None] - books[lvl]) ** 2).sum(-1)
+        da, db = float(d[int(ref[lvl, b, t])]), float(d[int(got[lvl, b, t])])
+        gap = abs(da - db) / max(da, db, 1e-30)
+        worst = max(worst, gap)
+        if gap > NEAR_TIE:
+            raise AssertionError(f"{label}: frame {t} of row {b} differs from level {lvl} on, "
+                                 f"squared distances {da} and {db} (gap {gap:.3e} relative, "
+                                 f"a tie is under {NEAR_TIE})")
+    log(f"  {label}: {len(frames)} of {ref.shape[1] * ref.shape[2]} frames differ"
+        + (f", each first at a near tie (largest gap {worst:.2e} relative)" if len(frames) else ""))
+    return len(frames)
+
+
+def cpu_encoder_copy(params, cfg):
+    """The encode half of ``params`` for config ``cfg`` (its first
+    ``cfg.num_encoder_layers`` layers) as a float32 CodecParams on the CPU."""
+    from mosstts_tpu_torch.codec.model import CodecParams
+
+    card = dict(params.named_parameters())
+    cpu = CodecParams(cfg)
+    with torch.no_grad():
+        for name, dst in cpu.named_parameters():
+            src = card[name]
+            dst.copy_(src[: dst.shape[0]] if src.shape != dst.shape else src)
+    return cpu
+
+
+def phase_codec_encode(codec, wav: np.ndarray) -> dict:
+    """Phase 8a: ``codec_1p6b()`` encode of a 4 s wave on the card. With the
+    first 2 of 22 encoder layers (full width), the card's codes against the
+    CPU's on the same weights; at all 22 layers, chunked against one-shot
+    on the card, and the encode time per second of audio."""
+    from mosstts_tpu_torch.codec.model import MossAudioTokenizer
+
+    cfg = codec.config
+    seconds = wav.size / cfg.sampling_rate
+    cut = dataclasses.replace(cfg, num_encoder_layers=2, num_decoder_layers=1)
+    with rvq_inputs() as lat_cpu:
+        cpu_codes = MossAudioTokenizer(cpu_encoder_copy(codec.params, cut), cut).encode(wav)
+    card_codes = MossAudioTokenizer(codec.params, cut).encode(wav)
+    n_q, T = cfg.n_q, int(np.ceil(wav.size / cfg.hop))
+    if card_codes.audio_codes.shape != (n_q, 1, T):
+        raise AssertionError(f"encode: codes {card_codes.audio_codes.shape}, want {(n_q, 1, T)}")
+    np.testing.assert_array_equal(card_codes.audio_codes_lengths, [T])
+    books = codec.params.rvq.codebooks.detach().cpu()
+    out = {"frames": T, "levels": n_q}
+    out["card_vs_cpu"] = code_mismatches(
+        "encode, 2 of 22 layers, card vs CPU", card_codes.audio_codes, cpu_codes.audio_codes,
+        lat_cpu[0][:, :T], books)
+
+    with rvq_inputs() as lat_card:
+        one = codec.encode(wav)
+    torch.cuda.synchronize()
+    chunked = codec.encode(wav, chunk_duration=1.0)  # chunks of 12 frames, the last padded
+    out["chunked_vs_oneshot"] = code_mismatches(
+        "encode, 22 layers on the card, 1 s chunks vs one-shot", chunked.audio_codes,
+        one.audio_codes, lat_card[0][:, :T], books)
+    walls = []
+    for _ in range(3):
+        torch.cuda.synchronize()
+        t = time.perf_counter()
+        codec.encode(wav)
+        walls.append(time.perf_counter() - t)
+    out["encode_ms_per_audio_s"] = sorted(walls)[1] * 1e3 / seconds
+    log(f"  encode of {seconds:.1f} s ({T} frames x {n_q} levels), codec_1p6b f32, 22 layers: "
+        f"{sorted(walls)[1] * 1e3:.2f} ms (median of 3) = {out['encode_ms_per_audio_s']:.2f} ms "
+        f"per second of audio")
+    return out
+
+
+def expected_samples(proc, start: int, grid: np.ndarray) -> int:
+    """The wave length ``processor.decode`` gives for this generated grid:
+    its de-delayed non-pad segments at one hop a frame, less the
+    continuation-prefix trim (``DelayProcessor._parse_audio``)."""
+    codes = grid[:, 1:]
+    if codes.shape[0] < codes.shape[1]:
+        return 0
+    codes = proc.apply_de_delay_pattern(codes)
+    idx = np.nonzero(~(codes == proc.config.audio_pad_code).all(axis=1))[0]
+    if not len(idx):
+        return 0
+    hop = proc.audio_tokenizer.config.hop
+    lens = [len(s) * hop for s in np.split(idx, np.nonzero(np.diff(idx) != 1)[0] + 1)]
+    if start > 0:
+        ratio = max(0.0, min(start / (lens[0] // hop), 1.0))
+        if ratio >= 1.0:
+            lens = lens[1:]
+        elif ratio > 0.0:
+            lens[0] -= int(lens[0] * ratio)
+    return sum(lens)
+
+
+def post(url: str, body: dict, timeout: float = 600):
+    import urllib.request
+
+    req = urllib.request.Request(url, data=json.dumps(body).encode(), method="POST",
+                                 headers={"Content-Type": "application/json"})
+    return urllib.request.urlopen(req, timeout=timeout)
+
+
+def phase_front_end(backend, wav_path: str):
+    """Phase 8b: the port's HTTP server in this process, ``--pool-slots 16``
+    (linear bf16 KV) over the 8B backend, serving at once four ``/tts``
+    Clone requests with the wave (audio greedy), one two-speaker ``/ttsd``,
+    one ``/voice_gen`` and one ``/sound_effect``, each bounded to 96-128 new
+    frames (top-k 25 for all, the pool's width, so all go through the pool).
+    Every response must be a WAV of the length its grid decodes to; flash,
+    the decode kernel and W8A16 must have run, the decode kernel and W8A16
+    inside replayed graphs. Returns (launch counts, the pool, the Clone
+    requests' pool calls)."""
+    import base64
+    import threading
+    import urllib.request
+    import wave
+    from http.server import ThreadingHTTPServer
+
+    from mosstts_tpu_torch.serve import http_server as hs
+    from mosstts_tpu_torch.serve.pool import DelayServingPool
+
+    cfg, proc = backend.engine.config, backend.processor
+    L = cfg.language_config.num_hidden_layers
+    ref = base64.b64encode(Path(wav_path).read_bytes()).decode()
+    bodies = [("/tts", dict(text=text, mode="Clone", reference_b64=ref, temperature=0.0,
+                            max_new_tokens=PHASE8_NEW, seed=i))
+              for i, text in enumerate(CLONE_TEXTS)]
+    bodies += [("/ttsd", dict(dialogue="[S1]Good morning, how did you sleep? [S2]Very well, "
+                                       "thank you. [S1]Then let us begin.",
+                              max_new_tokens=PHASE8_NEW, top_k=25, seed=5)),
+               ("/voice_gen", dict(text="A voice designed from an instruction.",
+                                   instruction="a warm, low, slow voice",
+                                   max_new_tokens=PHASE8_NEW, top_k=25, seed=6)),
+               ("/sound_effect", dict(ambient="rain on a tin roof", seconds=2.0, top_k=25,
+                                      seed=7))]
+
+    calls, real_generate = [], DelayServingPool.generate
+
+    def recorded(self, input_ids, attention_mask=None, **kw):
+        out = real_generate(self, input_ids, attention_mask, **kw)
+        calls.append(dict(ids=input_ids, mask=attention_mask, kw=kw, out=out))
+        return out
+
+    DelayServingPool.generate = recorded
+    hs._STATE.update(args=SimpleNamespace(model_path=None, codec_path=None, device=DEV,
+                                          dtype="bfloat16", pool_slots=16),
+                     backend=backend, pool=None, last_metrics=None)
+    srv = ThreadingHTTPServer(("127.0.0.1", 0), hs.Handler)
+    url = f"http://127.0.0.1:{srv.server_address[1]}"
+    serve = threading.Thread(target=srv.serve_forever, daemon=True)
+    serve.start()
+    results, errors = {}, []
+
+    def fetch(i, route, body):
+        try:
+            t = time.perf_counter()
+            with post(url + route, body) as r:
+                data, status = r.read(), r.headers["X-Status"]
+            results[i] = (route, time.perf_counter() - t, status, data)
+        except Exception as e:  # surfaced below
+            errors.append((route, e))
+
+    try:
+        reset_counts()
+        t0 = time.perf_counter()
+        clients = [threading.Thread(target=fetch, args=(i, route, body))
+                   for i, (route, body) in enumerate(bodies)]
+        for c in clients:
+            c.start()
+        for c in clients:
+            c.join(timeout=900)
+        wall = time.perf_counter() - t0
+        counts = read_counts()
+        if errors or any(c.is_alive() for c in clients):
+            raise AssertionError(f"front end: failed requests {errors}")
+        with urllib.request.urlopen(url + "/metrics", timeout=60) as r:
+            metrics = json.loads(r.read())
+    finally:
+        srv.shutdown()
+        srv.server_close()
+        serve.join(timeout=60)
+        DelayServingPool.generate = real_generate
+        pool = hs._STATE["pool"]
+        hs._STATE.update(backend=None, pool=None)
+        backend.pool = None
+
+    got = []
+    for i in sorted(results):
+        route, secs, status, data = results[i]
+        with wave.open(io.BytesIO(data)) as w:
+            if (w.getnchannels(), w.getsampwidth(), w.getframerate()) != (1, 2, 24000):
+                raise AssertionError(f"{route}: not a 24 kHz mono 16-bit WAV")
+            got.append(w.getnframes())
+        log(f"  {route}: {secs:.2f} s, {got[-1] / 24000:.2f} s of audio; {status}")
+    want = sorted(expected_samples(proc, c["out"][0][0], c["out"][0][1]) for c in calls)
+    if len(calls) != len(bodies) or sorted(got) != want or not all(want):
+        raise AssertionError(f"front end: {len(calls)} pool calls for {len(bodies)} requests; "
+                             f"WAV samples {sorted(got)}, grids decode to {want}")
+    server = pool.server
+    steps, admissions = server.total_steps, len(bodies) + server.total_preemptions
+    frames = sum(c["out"][0][1].shape[0] - c["out"][0][0] for c in calls)
+    log(f"  {len(bodies)} requests in {wall:.2f} s through the 16-slot pool: {steps} server steps, "
+        f"{frames} frames; every WAV has the samples its grid decodes to; /metrics (last "
+        f"request): TTFA {metrics.get('ttfa_s')} s, RTF {metrics.get('rtf_x')}x, "
+        f"audio {metrics.get('audio_s')} s")
+    g = counts["graphs"]
+    if (counts["flash"] < L * admissions or counts["decode"] < L * steps or not g["decode"]
+            or not g["w8a16"] or g["flash"]):
+        raise AssertionError(f"front end: launch counts {counts} for {admissions} admissions and "
+                             f"{steps} steps")
+    log(f"  launches: flash {counts['flash']} (>= {L} x {admissions}), decode {counts['decode']} "
+        f"(>= {L} x {steps}; {g['decode']} inside replayed graphs), w8a16 {counts['w8a16']} "
+        f"({g['w8a16']} inside replayed graphs)")
+    clones = [c for c in calls if c["kw"]["audio_temperature"] == 0.0]
+    if len(clones) != len(CLONE_TEXTS):
+        raise AssertionError(f"front end: {len(clones)} greedy Clone calls reached the pool")
+    return counts, pool, clones
+
+
+def pool_vs_solo(pool, engine, clones, label: str, exact: bool) -> None:
+    """The Clone requests' prompts, greedy in text and audio, through
+    ``pool`` at once and through ``engine.generate`` one by one. ``exact``:
+    the grids must be equal; else the pool's first frame (its admission
+    prefill's) must be the engine's, and the first divergence is logged."""
+    import threading
+
+    greedy = dict(text_temperature=0.0, audio_temperature=0.0, max_new_tokens=PHASE8_NEW)
+    pooled, errors = {}, []
+
+    def call(i, c):
+        try:
+            pooled[i] = pool.generate(c["ids"], c["mask"], timeout=900, **greedy)[0]
+        except Exception as e:  # surfaced below
+            errors.append(e)
+
+    threads = [threading.Thread(target=call, args=(i, c)) for i, c in enumerate(clones)]
+    for t in threads:
+        t.start()
+    for t in threads:
+        t.join(timeout=900)
+    if errors or len(pooled) != len(clones):
+        raise AssertionError(f"{label}: pool requests failed: {errors}")
+    firsts = []
+    for i, c in enumerate(clones):
+        solo = engine.generate(c["ids"], c["mask"], **greedy)[0]
+        first = first_divergence(pooled[i], solo)
+        firsts.append(first)
+        if pooled[i][0] != solo[0] or first == 0 or (exact and first is not None):
+            raise AssertionError(f"{label}: Clone request {i}: pool start {pooled[i][0]}, solo "
+                                 f"{solo[0]}; first differing frame {first}")
+    frames = [p[1].shape[0] - p[0] for p in pooled.values()]
+    log(f"  {label}: {len(clones)} greedy Clone prompts at once through the pool against "
+        f"engine.generate alone: first differing frame per request {firsts} of {frames} "
+        + ("(equal)" if exact else "(the first frame equal in each)"))
+
+
+def phase_small_front_end(clones) -> None:
+    """Phase 8d: the same Clone prompts, greedy, through a 4-slot pool and the
+    solo engine of a small float32 model with the same 33 channels (width 256,
+    2 layers): the grids must be equal bit for bit."""
+    from mosstts_tpu_torch.serve.pool import DelayServingPool
+
+    cfg = DelayConfig(language_config=tiny_qwen3(hidden_size=256, intermediate_size=512,
+                                                 num_attention_heads=4, num_key_value_heads=2,
+                                                 head_dim=64), n_vq=32)
+    engine = DelayEngine.random_init(seed=3, config=cfg, dtype=torch.float32, device=DEV)
+    pool = DelayServingPool(engine.params, cfg, slots=4, cache_len=1024, out_capacity=256,
+                            dtype=torch.float32)
+    try:
+        pool_vs_solo(pool, engine, clones, "small f32 model", exact=True)
+    finally:
+        pool.close()
+
+
 def kernel_label(name: str) -> str:
     """A ptxas entry's name, ``ring_kernel``'s instantiations spelled out:
     ring_kernel<mode, MT, BN, WM, WN, WK, STAGES, NP, MINB, vec>."""
@@ -1326,8 +1674,32 @@ def main() -> None:
     times += step_times(backend.engine, "int8")
     log(f"  launches inside replayed graphs: {read_counts()['graphs']}")
     log("  step times: " + json.dumps(times))
+    gc.collect()
+    torch.cuda.empty_cache()
 
-    runs = [solo_counts, int8_counts, *server_counts.values(), *int8_server_counts.values()]
+    log("phase 8: voice cloning and the serving front end at MOSS-TTS 8B width (int8 weights)")
+    with tempfile.TemporaryDirectory() as tmp:
+        wav_path = str(Path(tmp) / "reference.wav")
+        write_wav(wav_path, sweep_wav(4.0, seed=8), 24000)
+        log("phase 8a: codec encode at codec_1p6b width")
+        encode_numbers = phase_codec_encode(backend.processor.audio_tokenizer,
+                                            read_wav(wav_path)[0][0])
+        log("phase 8b: HTTP front end, 16-slot pool, 7 concurrent requests")
+        front_counts, pool, clones = phase_front_end(backend, wav_path)
+    log("phase 8c: the Clone prompts, greedy, pool against the solo engine at 8B width")
+    try:
+        pool_vs_solo(pool, backend.engine, clones, "8B int8", exact=False)
+    finally:
+        pool.close()
+        del pool
+        gc.collect()
+        torch.cuda.empty_cache()
+    log("phase 8d: the same prompts, pool against the solo engine, small f32 model")
+    phase_small_front_end(clones)
+    log("  phase 8 numbers: " + json.dumps(encode_numbers))
+
+    runs = [solo_counts, int8_counts, *server_counts.values(), *int8_server_counts.values(),
+            front_counts]
     launches = {name: sum(c[name] for c in runs) for name in COUNTERS}
     if not all(launches[name] for name in COUNTERS if name not in OFF_PATH):
         raise AssertionError(f"a kernel was never launched on the main paths: {launches}")
@@ -1335,7 +1707,7 @@ def main() -> None:
     if not all(in_graphs[name] for name in IN_GRAPHS) or in_graphs["flash"]:
         raise AssertionError(f"the main paths' decode steps did not run their kernels inside "
                              f"replayed CUDA graphs: {in_graphs}")
-    log(f"main paths (phases 4-6): launches {launches}; of them inside replayed CUDA graphs "
+    log(f"main paths (phases 4-6, 8): launches {launches}; of them inside replayed CUDA graphs "
         f"{in_graphs}")
     launches.update(decode_q8t=numbers.pop("q8t_launches"), w8a8=numbers["w8a8"].pop("launches"),
                     int4=numbers["int4"].pop("launches"))

@@ -1,18 +1,25 @@
-"""MOSS-Audio-Tokenizer equivalent: the decode path of the audio codec.
+"""MOSS-Audio-Tokenizer equivalent: the audio codec.
 
-Ports ``mosstts_tpu/codec/model.py``: ``init_codec_params``,
-``overlap_add``, ``_decode_chunk`` and ``MossAudioTokenizer`` with
-``random_init`` and ``decode`` (same signature, ``DecodeOutput`` of numpy
-arrays), so ``DelayProcessor.decode_audio_codes`` consumes it unchanged.
-Decode path: RVQ sum -> linear -> causal transformer (sliding window,
-chunked) -> RMSNorm -> linear frame head -> overlap-add -> 24 kHz wave.
-Encode, ``streaming()`` and ``from_pretrained`` are not ported yet.
+Ports ``mosstts_tpu/codec/model.py``: ``init_codec_params``, ``overlap_add``,
+``_encode_chunk``, ``_decode_chunk``, ``CodecStreamSession`` and
+``MossAudioTokenizer`` with ``random_init``, ``encode``, ``batch_encode``,
+``decode`` and ``streaming()`` (same signatures; ``EncodeOutput`` and
+``DecodeOutput`` of numpy arrays), so ``DelayProcessor`` consumes it
+unchanged. Encode: 1920-sample frames -> linear -> causal transformer
+(sliding window, chunked) -> linear -> residual VQ. Decode: RVQ sum ->
+linear -> causal transformer -> RMSNorm -> linear frame head -> overlap-add
+-> 24 kHz wave. Both run in chunks that carry a window of K/V, so chunked
+output equals one-shot output, and inside ``streaming()`` a 2-D ``decode``
+call continues the previous call's stream. ``from_pretrained`` and
+``save_pretrained`` are not ported yet (checkpoints, ROADMAP A.7).
 """
 from __future__ import annotations
 
+import contextlib
 import math
+import threading
 from dataclasses import dataclass
-from typing import Optional
+from typing import Optional, Sequence
 
 import numpy as np
 import torch
@@ -21,8 +28,17 @@ from torch import nn
 from ..core.config import CodecConfig, Qwen3Config
 from ..nn.qwen3 import Qwen3Params, empty_param, fill_qwen3_params_
 from ..ops.basic import dense, rms_norm
-from .rvq import RVQParams, fill_rvq_params_, rvq_decode
+from .rvq import RVQParams, fill_rvq_params_, rvq_decode, rvq_encode
 from .transformer import init_stream_state, run_chunk
+
+
+@dataclass
+class EncodeOutput:
+    audio_codes: np.ndarray  # (NQ, B, T)
+    audio_codes_lengths: np.ndarray  # (B,)
+
+    def __getitem__(self, key):
+        return getattr(self, key)
 
 
 @dataclass
@@ -93,6 +109,17 @@ def overlap_add(frames: torch.Tensor, prev_tail: torch.Tensor, hop: int, ov: int
     return heads.reshape(B, c * hop), tails[:, -1, :]
 
 
+def _encode_chunk(params: CodecParams, cfg: CodecConfig, state, frames: torch.Tensor,
+                  valid_len: int, num_quantizers: int):
+    """Ports ``mosstts_tpu.codec.model._encode_chunk``: frames (B, c, hop) ->
+    codes (NQ, B, c), new StreamState."""
+    x = dense(frames, params.enc_in)
+    h, state = run_chunk(params.encoder, _txf_cfg(cfg, cfg.num_encoder_layers), state, x,
+                         valid_len)
+    codes, _ = rvq_encode(params.rvq, dense(h, params.enc_out), num_quantizers)
+    return codes, state
+
+
 def _decode_chunk(params: CodecParams, cfg: CodecConfig, state, codes: torch.Tensor,
                   valid_len: int):
     """Ports ``mosstts_tpu.codec.model._decode_chunk``: codes (NQ, B, c) ->
@@ -111,12 +138,41 @@ def _decode_chunk(params: CodecParams, cfg: CodecConfig, state, codes: torch.Ten
     return wav, (txf_state, new_tail)
 
 
+class CodecStreamSession:
+    """Ports ``mosstts_tpu.codec.model.CodecStreamSession``: the decoder
+    state that the ``streaming()`` context carries across ``decode`` calls
+    (K/V window, positions and overlap tail), so chunk boundaries are
+    seamless."""
+
+    def __init__(self, codec: "MossAudioTokenizer", batch_size: int):
+        self.codec = codec
+        self.batch_size = batch_size
+        self.state = None  # (StreamState, overlap tail)
+
+    def reset(self):
+        self.state = None
+
+
 class MossAudioTokenizer:
-    """Ports ``mosstts_tpu.codec.model.MossAudioTokenizer`` (decode only)."""
+    """Ports ``mosstts_tpu.codec.model.MossAudioTokenizer``. It runs where
+    its params live. One codec may serve many threads at once: encode and
+    decode keep no state on the object, and the active ``streaming()``
+    session is the calling thread's own."""
+
+    DEFAULT_CHUNK_FRAMES = 100  # 8 s at 12.5 Hz
 
     def __init__(self, params: CodecParams, config: Optional[CodecConfig] = None):
         self.config = config or CodecConfig()
         self.params = params
+        self._stream_tls = threading.local()
+
+    @property
+    def _stream(self) -> Optional[CodecStreamSession]:
+        return getattr(self._stream_tls, "value", None)
+
+    @_stream.setter
+    def _stream(self, sess: Optional[CodecStreamSession]):
+        self._stream_tls.value = sess
 
     @property
     def codebook_size(self) -> int:
@@ -142,14 +198,91 @@ class MossAudioTokenizer:
         gen = torch.Generator(device=device).manual_seed(seed)
         return cls(init_codec_params(config, generator=gen, dtype=dtype, device=device), config)
 
-    def _decode_array(self, codes: np.ndarray, chunk_frames: int) -> np.ndarray:
-        """codes (NQ, B, T) -> wave (B, T*hop) float numpy."""
+    # ------------------------------- encode --------------------------------
+    @torch.no_grad()
+    def _encode_array(self, wav: np.ndarray, num_quantizers: int,
+                      chunk_frames: Optional[int] = None) -> np.ndarray:
+        """wav (B, L) -> codes (NQ, B, T_frames) int64 numpy. The last chunk
+        is zero-padded and runs with its count of real frames."""
+        cfg, dev = self.config, self.device
+        hop = cfg.hop
+        B, L = wav.shape
+        T = math.ceil(L / hop) if L else 0
+        if T == 0:
+            return np.zeros((num_quantizers, B, 0), np.int64)
+        frames = torch.zeros((B, T * hop), dtype=torch.float32, device=dev)
+        frames[:, :L] = torch.as_tensor(np.asarray(wav, np.float32), device=dev)
+        frames = frames.to(self.params.enc_in.dtype).reshape(B, T, hop)
+
+        cf = chunk_frames or self.DEFAULT_CHUNK_FRAMES
+        state = init_stream_state(_txf_cfg(cfg, cfg.num_encoder_layers), B, cfg.causal_context,
+                                  dtype=self.params.enc_in.dtype, device=dev)
+        outs = []
+        for start in range(0, T, cf):
+            chunk = frames[:, start:start + cf]
+            vlen = chunk.shape[1]
+            if vlen < cf:
+                chunk = torch.nn.functional.pad(chunk, (0, 0, 0, cf - vlen))
+            codes, state = _encode_chunk(self.params, cfg, state, chunk, vlen, num_quantizers)
+            outs.append(codes[:, :, :vlen])
+        return torch.cat(outs, dim=2).cpu().numpy().astype(np.int64)
+
+    def batch_encode(self, wav_list: Sequence, num_quantizers: Optional[int] = None
+                     ) -> EncodeOutput:
+        """Ports ``MossAudioTokenizer.batch_encode``: waves of any lengths ->
+        codes (NQ, B, T_max) and each wave's frame count."""
+        nq = int(num_quantizers or self.config.n_q)
+        wavs = [np.asarray(w, np.float32).reshape(-1) for w in wav_list]
+        lengths = np.array([math.ceil(len(w) / self.config.hop) for w in wavs], np.int64)
+        batch = np.zeros((len(wavs), max((len(w) for w in wavs), default=0)), np.float32)
+        for i, w in enumerate(wavs):
+            batch[i, : len(w)] = w
+        return EncodeOutput(audio_codes=self._encode_array(batch, nq),
+                            audio_codes_lengths=lengths)
+
+    def encode(self, input_values, padding_mask=None, num_quantizers: Optional[int] = None,
+               return_dict: bool = True, chunk_duration: Optional[float] = None, **kw):
+        """Ports ``MossAudioTokenizer.encode``: input_values (B, 1, L), (B, L)
+        or (L,); ``padding_mask`` (B, L) gives each row's real samples;
+        ``chunk_duration`` (seconds) sets the encoder's chunk."""
+        nq = int(num_quantizers or self.config.n_q)
+        arr = np.asarray(input_values, np.float32)
+        if arr.ndim == 3:  # (B, 1, L)
+            arr = arr[:, 0, :]
+        elif arr.ndim == 1:
+            arr = arr[None]
+        if padding_mask is not None:
+            samples = np.asarray(padding_mask, bool).sum(axis=-1)
+        else:
+            samples = np.full(arr.shape[0], arr.shape[1])
+        lengths = np.ceil(samples / self.config.hop).astype(np.int64)
+        cf = None
+        if chunk_duration:
+            cf = max(1, int(round(float(chunk_duration) * self.config.frame_rate)))
+        out = EncodeOutput(audio_codes=self._encode_array(arr, nq, chunk_frames=cf),
+                           audio_codes_lengths=lengths)
+        if return_dict:
+            return out
+        return {"audio_codes": out.audio_codes, "audio_codes_lengths": out.audio_codes_lengths}
+
+    # ------------------------------- decode --------------------------------
+    def _init_decode_state(self, B: int):
+        """Ports ``MossAudioTokenizer._init_decode_state``: an empty K/V
+        window and a zero overlap tail."""
+        cfg, dev, dt = self.config, self.device, self.params.dec_in.dtype
+        return (init_stream_state(_txf_cfg(cfg, cfg.num_decoder_layers), B, cfg.causal_context,
+                                  dtype=dt, device=dev),
+                torch.zeros((B, cfg.overlap), dtype=dt, device=dev))
+
+    @torch.no_grad()
+    def _decode_array(self, codes: np.ndarray, chunk_frames: int, state=None,
+                      keep_state: bool = False):
+        """codes (NQ, B, T) -> wave (B, T*hop) float numpy [, final state],
+        continuing from ``state`` when given."""
         cfg, dev = self.config, self.device
         NQ, B, T = codes.shape
-        dt = self.params.dec_in.dtype
-        state = (init_stream_state(_txf_cfg(cfg, cfg.num_decoder_layers), B,
-                                   cfg.causal_context, dtype=dt, device=dev),
-                 torch.zeros((B, cfg.overlap), dtype=dt, device=dev))
+        if state is None:
+            state = self._init_decode_state(B)
         codes_dev = torch.as_tensor(codes, device=dev)
         outs = []
         for start in range(0, T, chunk_frames):
@@ -159,16 +292,16 @@ class MossAudioTokenizer:
                 chunk = torch.nn.functional.pad(chunk, (0, chunk_frames - vlen))
             wav_chunk, state = _decode_chunk(self.params, cfg, state, chunk, vlen)
             outs.append(wav_chunk[:, : vlen * cfg.hop])
-        if not outs:
-            return np.zeros((B, 0), np.float32)
-        return torch.cat(outs, dim=1).float().cpu().numpy()
+        wav = (torch.cat(outs, dim=1).float().cpu().numpy() if outs
+               else np.zeros((B, 0), np.float32))
+        return (wav, state) if keep_state else wav
 
-    @torch.no_grad()
     def decode(self, audio_codes, padding_mask=None, return_dict: bool = True,
                chunk_duration: Optional[float] = 8, **kw):
         """Ports ``MossAudioTokenizer.decode``: audio_codes (NQ, B, T), or
         (NQ, T) for one stream -> ``DecodeOutput`` (audio (B, 1, L) numpy,
-        audio_lengths (B,))."""
+        audio_lengths (B,)); a (NQ, T) call returns ``{"audio": [wave]}``
+        and, inside ``streaming()``, continues the previous call's stream."""
         codes = np.asarray(audio_codes, np.int64)
         squeeze = codes.ndim == 2
         if squeeze:
@@ -178,7 +311,14 @@ class MossAudioTokenizer:
             cf = max(T, 1)
         else:
             cf = max(1, int(round(float(chunk_duration) * self.config.frame_rate)))
-        wav = self._decode_array(codes, cf)
+
+        sess = self._stream
+        if sess is not None and squeeze:
+            if sess.state is None:
+                sess.state = self._init_decode_state(B)
+            wav, sess.state = self._decode_array(codes, cf, state=sess.state, keep_state=True)
+        else:
+            wav = self._decode_array(codes, cf)
 
         if padding_mask is not None:
             frame_lengths = np.asarray(padding_mask, bool).sum(axis=-1)
@@ -191,3 +331,14 @@ class MossAudioTokenizer:
         if return_dict:
             return out
         return {"audio": out.audio, "audio_lengths": out.audio_lengths}
+
+    @contextlib.contextmanager
+    def streaming(self, batch_size: int = 1):
+        """Ports ``MossAudioTokenizer.streaming``: within, successive 2-D
+        ``decode`` calls of this thread continue one causal stream."""
+        prev = self._stream
+        self._stream = CodecStreamSession(self, batch_size)
+        try:
+            yield self._stream
+        finally:
+            self._stream = prev

@@ -18,6 +18,7 @@ compare; the CPU always runs them eagerly.
 """
 from __future__ import annotations
 
+import threading
 from typing import Dict, List, Optional, Tuple
 
 import numpy as np
@@ -74,6 +75,10 @@ class DelayEngine:
         # (B, cache_len, kv_quant) -> the static decode state and its graphs,
         # for the last key only
         self._steps: Dict[tuple, DecodeSteps] = {}
+        # one call at a time: the calls share the static decode state (the
+        # JAX engine's calls share nothing; concurrent HTTP handlers call one
+        # engine)
+        self._lock = threading.Lock()
 
     @classmethod
     def random_init(cls, seed: int = 0, config: Optional[DelayConfig] = None,
@@ -95,10 +100,11 @@ class DelayEngine:
         float weights' addresses. Returns ``self``."""
         if mode != "int8":
             raise ValueError(f"unknown quantization mode: {mode}")
-        self._steps.clear()
-        quantize_tree_(self.params)
-        if kv_cache:
-            self.kv_quant = True
+        with self._lock:
+            self._steps.clear()
+            quantize_tree_(self.params)
+            if kv_cache:
+                self.kv_quant = True
         return self
 
     def _decode_steps(self, B: int, cache_len: int) -> DecodeSteps:
@@ -152,62 +158,65 @@ class DelayEngine:
         poll_every: int = 8,
     ) -> List[Tuple[int, np.ndarray]]:
         """Batched synthesis; returns per-sample (start_length, token grid)
-        as the JAX engine does, so ``processor.decode`` consumes it."""
-        cfg, dev = self.config, self.device
-        input_ids = np.asarray(input_ids, np.int64)
-        B, T, C = input_ids.shape
-        if C != cfg.channels:
-            raise ValueError(f"input_ids must have {cfg.channels} channels, got {C}")
-        if attention_mask is None:
-            attention_mask = np.ones((B, T), bool)
+        as the JAX engine does, so ``processor.decode`` consumes it. Calls
+        from several threads run one after another."""
+        with self._lock:
+            cfg, dev = self.config, self.device
+            input_ids = np.asarray(input_ids, np.int64)
+            B, T, C = input_ids.shape
+            if C != cfg.channels:
+                raise ValueError(f"input_ids must have {cfg.channels} channels, got {C}")
+            if attention_mask is None:
+                attention_mask = np.ones((B, T), bool)
 
-        self.top_k_text = text_top_k
-        self.top_k_audio = audio_top_k
-        sampling = make_sampling(
-            text_temperature=text_temperature, text_top_p=text_top_p,
-            audio_temperature=audio_temperature, audio_top_p=audio_top_p,
-            audio_repetition_penalty=audio_repetition_penalty,
-            audio_rp_cross_batch=audio_rp_cross_batch, device=dev,
-        )
-        cache_len = _round_up(T + max_new_tokens + 1, self.cache_bucket)
-        ids_dev = torch.as_tensor(input_ids, device=dev)
-        mask_dev = torch.as_tensor(np.asarray(attention_mask, bool), device=dev)
+            self.top_k_text = text_top_k
+            self.top_k_audio = audio_top_k
+            sampling = make_sampling(
+                text_temperature=text_temperature, text_top_p=text_top_p,
+                audio_temperature=audio_temperature, audio_top_p=audio_top_p,
+                audio_repetition_penalty=audio_repetition_penalty,
+                audio_rp_cross_batch=audio_rp_cross_batch, device=dev,
+            )
+            cache_len = _round_up(T + max_new_tokens + 1, self.cache_bucket)
+            ids_dev = torch.as_tensor(input_ids, device=dev)
+            mask_dev = torch.as_tensor(np.asarray(attention_mask, bool), device=dev)
 
-        runner = self._decode_steps(B, cache_len)
-        state, samp = runner.state, runner.sampling
-        for static, value in zip(samp, sampling):
-            static.copy_(value)
-        reseed_generators_(state.rng, seed)
-        copy_state_(state, delay_prefill(
-            self.params, cfg, ids_dev, mask_dev, max_new_tokens=max_new_tokens,
-            cache_len=cache_len, rng=state.rng, sampling=samp, top_k_text=self.top_k_text,
-            top_k_audio=self.top_k_audio, dtype=self.dtype, kv_quant=self.kv_quant,
-            cache=state.cache))
-        kw = dict(top_k_text=self.top_k_text, top_k_audio=self.top_k_audio, uniform_slots=True)
-        steps = 1
-        if on_device:
-            # JAX's segments (delay_engine.py:221-233): each attends one bucket
-            while steps < max_new_tokens:
-                attend = attend_bucket(T + steps + 2, self.cache_bucket, cache_len)
-                seg_end = min(attend - T - 1, max_new_tokens)
-                _, steps = delay_generate_on_device(runner, max_new_tokens=seg_end,
-                                                    attend_len=attend, **kw)
-                if bool(state.is_stopping.all()):
-                    break
-        else:
-            while steps < max_new_tokens:
-                runner.step(attend_len=attend_bucket(T + steps + 1, self.cache_bucket, cache_len),
-                            **kw)
-                steps += 1
-                if steps % poll_every == 0 and bool(state.is_stopping.all()):
-                    break
+            runner = self._decode_steps(B, cache_len)
+            state, samp = runner.state, runner.sampling
+            for static, value in zip(samp, sampling):
+                static.copy_(value)
+            reseed_generators_(state.rng, seed)
+            copy_state_(state, delay_prefill(
+                self.params, cfg, ids_dev, mask_dev, max_new_tokens=max_new_tokens,
+                cache_len=cache_len, rng=state.rng, sampling=samp, top_k_text=self.top_k_text,
+                top_k_audio=self.top_k_audio, dtype=self.dtype, kv_quant=self.kv_quant,
+                cache=state.cache))
+            kw = dict(top_k_text=self.top_k_text, top_k_audio=self.top_k_audio,
+                      uniform_slots=True)
+            steps = 1
+            if on_device:
+                # JAX's segments (delay_engine.py:221-233): each attends one bucket
+                while steps < max_new_tokens:
+                    attend = attend_bucket(T + steps + 2, self.cache_bucket, cache_len)
+                    seg_end = min(attend - T - 1, max_new_tokens)
+                    _, steps = delay_generate_on_device(runner, max_new_tokens=seg_end,
+                                                        attend_len=attend, **kw)
+                    if bool(state.is_stopping.all()):
+                        break
+            else:
+                while steps < max_new_tokens:
+                    attend = attend_bucket(T + steps + 1, self.cache_bucket, cache_len)
+                    runner.step(attend_len=attend, **kw)
+                    steps += 1
+                    if steps % poll_every == 0 and bool(state.is_stopping.all()):
+                        break
 
-        out = state.out[:, :steps].cpu().numpy().astype(np.int64)  # (B, steps, C)
-        full = np.concatenate([input_ids, out], axis=1)
-        # slice from the last <|im_start|> + 3 (reference generate :518-524)
-        results: List[Tuple[int, np.ndarray]] = []
-        for b in range(B):
-            matches = np.nonzero(input_ids[b, :, 0] == cfg.im_start_token_id)[0]
-            start_idx = int(matches[-1]) + 3 if len(matches) else 0
-            results.append((T - start_idx, full[b, start_idx:]))
-        return results
+            out = state.out[:, :steps].cpu().numpy().astype(np.int64)  # (B, steps, C)
+            full = np.concatenate([input_ids, out], axis=1)
+            # slice from the last <|im_start|> + 3 (reference generate :518-524)
+            results: List[Tuple[int, np.ndarray]] = []
+            for b in range(B):
+                matches = np.nonzero(input_ids[b, :, 0] == cfg.im_start_token_id)[0]
+                start_idx = int(matches[-1]) + 3 if len(matches) else 0
+                results.append((T - start_idx, full[b, start_idx:]))
+            return results

@@ -35,9 +35,20 @@ weights (``quantize()`` replaces them, so an owner drops its
 ``DecodeSteps`` then), the state and sampling buffers, and the paged table.
 ``step()`` raises if the parameters' text head is no longer the one it was
 built with.
+
+Captures may happen while other threads use the card: the serving pool's
+decode thread captures a new attend bucket while HTTP handler threads run
+the codec or a solo engine. So a capture runs in CUDA's thread-local capture
+mode, in which only the capturing thread is barred from calls a capture
+forbids, and captures are serialised process-wide (``_CAPTURE_LOCK``):
+``torch.cuda.graph`` synchronises the device and empties the allocator's
+cache before it begins, which would break a capture under way in another
+thread. Other threads must not synchronise the whole device while a
+capture may run; a stream's or an event's synchronisation is fine.
 """
 from __future__ import annotations
 
+import threading
 from typing import Optional
 
 import torch
@@ -45,6 +56,9 @@ import torch
 from ..core.config import DelayConfig
 from ..models.delay import DelayGenState, DelayParams, DelaySampling, delay_decode_step
 from ..ops.kernels import launches
+
+# one capture at a time in the process (see the module docstring)
+_CAPTURE_LOCK = threading.Lock()
 
 # the DelayGenState fields delay_decode_step returns as new tensors
 STEP_FIELDS = ("cur_ids", "pos", "step", "is_stopping", "is_audio", "audio_lengths",
@@ -115,13 +129,15 @@ class DecodeSteps:
         graph = torch.cuda.CUDAGraph()
         for gen in self.state.rng:
             graph.register_generator_state(gen)
-        before = launches.read()
-        try:
-            with torch.cuda.graph(graph, pool=self.pool, stream=stream):
-                self._eager(key)
-        finally:
-            captured = launches.since(before)
-            launches.restore(before)
+        with _CAPTURE_LOCK:
+            before = launches.read()
+            try:
+                with torch.cuda.graph(graph, pool=self.pool, stream=stream,
+                                      capture_error_mode="thread_local"):
+                    self._eager(key)
+            finally:
+                captured = launches.since(before)
+                launches.restore(before)
         self._captured[key] = (graph, captured)
 
     def _eager(self, key) -> None:

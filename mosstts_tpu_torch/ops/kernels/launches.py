@@ -6,7 +6,10 @@ replay, so ``engine/step_graph.py`` records what a capture added
 (``since``), takes it back (``restore``) and adds it again at every replay
 (``add_replay``), to the wrapper's count and to ``IN_GRAPHS``. The counts
 then say how many times each kernel ran on the device, and ``IN_GRAPHS`` how
-many of those runs were inside replayed graphs.
+many of those runs were inside replayed graphs. They are exact while one
+thread at a time launches the counted kernels (a server's decode thread, a
+solo engine): a capture takes back whatever the counts gained meanwhile,
+another thread's launches included.
 """
 from __future__ import annotations
 

@@ -4,8 +4,9 @@ polyphase resampler and loudness normalisation.
 The port's own copy of ``mosstts_tpu/utils/audio.py``, which
 ``processing/delay_processor.py`` needs. The JAX package's optional C++
 helpers (``mosstts_tpu/utils/native.py``) are not carried over: resampling
-goes to scipy (linear interpolation without it) and loudness normalisation
-is the numpy formula those helpers implement.
+goes to scipy (linear interpolation without it), and loudness normalisation
+computes in numpy what the C helper computes (float64 mean square, one
+float32 gain).
 """
 from __future__ import annotations
 
@@ -81,13 +82,17 @@ def loudness_normalize(
     wav: np.ndarray, target_dbfs: float = -20.0, gain_range=(-3.0, 3.0)
 ) -> np.ndarray:
     """Match reference loudness normalization (processing_moss_tts.py:735-748):
-    RMS-dBFS toward target, gain clamped to +/-3 dB."""
+    RMS-dBFS toward target, gain clamped to +/-3 dB. The mean square is
+    taken in float64 and the gain rounded once to float32, as the JAX
+    package's C helper (``native/audio_kernels.cpp`` ``loudness_gain``)
+    does."""
     wav = np.asarray(wav, np.float32)
     if wav.size == 0:
         return wav
-    current = 10.0 * np.log10(float(np.mean(wav**2)) + 1e-9)
+    w64 = wav.astype(np.float64)
+    current = 10.0 * np.log10(float(np.mean(w64 * w64)) + 1e-9)
     gain = float(np.clip(target_dbfs - current, gain_range[0], gain_range[1]))
-    return wav * (10.0 ** (gain / 20.0))
+    return wav * np.float32(10.0 ** (gain / 20.0))
 
 
 def to_mono(wav: np.ndarray) -> np.ndarray:

@@ -1,0 +1,175 @@
+"""The port's HTTP front end on the CPU: the demo backend (random weights,
+bf16 engine, f32 codec) behind a ``ThreadingHTTPServer`` on port 0 with a 2-slot
+serving pool. ``/tts`` with a base64 reference wave, ``/ttsd``,
+``/sound_effect`` and ``/voice_gen`` return WAV bytes; ``/healthz``,
+``/metrics`` and the player page answer; ``/stream`` answers 501 (the
+Realtime family is not ported) and an unknown route 404. Every request has
+its own timeout.
+"""
+import base64
+import io
+import json
+import threading
+import urllib.error
+import urllib.request
+import wave
+from http.server import ThreadingHTTPServer
+
+import numpy as np
+import pytest
+
+from mosstts_tpu_torch.serve import http_server as hs
+from mosstts_tpu_torch.utils.audio import write_wav
+
+WAIT = 300  # seconds per request
+HOP = 1920  # samples per 12.5 Hz frame at 24 kHz
+
+
+class Args:
+    model_path = None
+    codec_path = None
+    device = "cpu"
+    pool_slots = 2
+
+
+@pytest.fixture(scope="module")
+def server():
+    old = hs._STATE["args"], hs._STATE["pool"], hs._STATE["last_metrics"]
+    hs._STATE["args"], hs._STATE["pool"], hs._STATE["last_metrics"] = Args(), None, None
+    srv = ThreadingHTTPServer(("127.0.0.1", 0), hs.Handler)
+    t = threading.Thread(target=srv.serve_forever, daemon=True)
+    t.start()
+    try:
+        yield f"http://127.0.0.1:{srv.server_address[1]}"
+    finally:
+        srv.shutdown()
+        srv.server_close()
+        t.join(timeout=WAIT)
+        if hs._STATE["pool"] is not None:
+            hs._STATE["pool"].close()
+        hs._STATE["args"], hs._STATE["pool"], hs._STATE["last_metrics"] = old
+
+
+def _post(url, body):
+    req = urllib.request.Request(url, data=json.dumps(body).encode(), method="POST",
+                                 headers={"Content-Type": "application/json"})
+    return urllib.request.urlopen(req, timeout=WAIT)
+
+
+def _wav(resp):
+    assert resp.headers["Content-Type"] == "audio/wav"
+    assert resp.headers["X-Status"].startswith("Done")
+    with wave.open(io.BytesIO(resp.read())) as w:
+        assert (w.getnchannels(), w.getsampwidth(), w.getframerate()) == (1, 2, 24000)
+        pcm = np.frombuffer(w.readframes(w.getnframes()), "<i2")
+    assert pcm.size > 0 and pcm.size % HOP == 0
+    return pcm
+
+
+def _reference_b64(tmp_path):
+    t = np.arange(24000) / 24000
+    rng = np.random.default_rng(0)
+    path = tmp_path / "ref.wav"
+    write_wav(path, (0.3 * np.sin(2 * np.pi * 220 * t) + 0.05 * rng.standard_normal(t.size))
+              .astype(np.float32), 24000)
+    return base64.b64encode(path.read_bytes()).decode()
+
+
+def test_healthz(server):
+    with urllib.request.urlopen(server + "/healthz", timeout=WAIT) as r:
+        assert json.loads(r.read()) == {"ok": True}
+
+
+def test_tts_clone_with_reference_b64_through_the_pool(server, tmp_path):
+    """Two concurrent Clone requests share the pool; then /metrics reports
+    the last one."""
+    body = {"text": "clone this voice", "mode": "Clone", "reference_b64": _reference_b64(tmp_path),
+            "max_new_tokens": 48, "seed": 1}
+    out, errors = {}, []
+
+    def fetch(i):
+        try:
+            with _post(server + "/tts", dict(body, seed=i)) as r:
+                out[i] = _wav(r)
+        except Exception as e:  # surfaced below
+            errors.append(e)
+
+    threads = [threading.Thread(target=fetch, args=(i,)) for i in range(2)]
+    for t in threads:
+        t.start()
+    for t in threads:
+        t.join(timeout=WAIT)
+    assert not any(t.is_alive() for t in threads) and not errors, errors
+    assert hs._STATE["pool"] is not None and hs._STATE["pool"].server.total_steps > 0
+    with urllib.request.urlopen(server + "/metrics", timeout=WAIT) as r:
+        m = json.loads(r.read())
+    assert m["audio_s"] > 0 and m["ttfa_s"] is not None and m["rtf_x"] > 0
+
+
+def test_ttsd_sound_effect_and_voice_gen(server):
+    with _post(server + "/ttsd", {"dialogue": "[S1]Hello there. [S2]Hi!",
+                                  "max_new_tokens": 48}) as r:
+        _wav(r)
+    with _post(server + "/sound_effect", {"ambient": "rain on a tin roof", "seconds": 1.0}) as r:
+        _wav(r)
+    with _post(server + "/voice_gen", {"text": "hello", "instruction": "a calm voice",
+                                       "max_new_tokens": 48}) as r:
+        _wav(r)
+
+
+def test_tts_error_answers_400(server):
+    """Too few frames for the 32-level delay pattern to yield audio: the
+    pipeline raises and the server answers 400 with the error."""
+    with pytest.raises(urllib.error.HTTPError) as e:
+        _post(server + "/tts", {"text": "hi", "max_new_tokens": 6})
+    assert e.value.code == 400 and "error" in json.loads(e.value.read())
+
+
+def test_stream_501_and_unknown_route_404(server):
+    with pytest.raises(urllib.error.HTTPError) as e:
+        _post(server + "/stream", {"text": "hello"})
+    assert e.value.code == 501 and "ROADMAP A.8" in json.loads(e.value.read())["error"]
+    with pytest.raises(urllib.error.HTTPError) as e:
+        _post(server + "/nope", {})
+    assert e.value.code == 404
+    with pytest.raises(urllib.error.HTTPError) as e:
+        urllib.request.urlopen(server + "/nope", timeout=WAIT)
+    assert e.value.code == 404
+
+
+def test_player_page(server):
+    for path in ("/player", "/"):
+        with urllib.request.urlopen(server + path, timeout=WAIT) as r:
+            assert r.headers.get("Content-Type", "").startswith("text/html")
+            html = r.read().decode()
+        assert "AudioContext" in html and "/metrics" in html
+
+
+def test_checkpoints_and_other_families_raise():
+    from mosstts_tpu_torch.serve import backend
+
+    with pytest.raises(NotImplementedError, match="A.7"):
+        backend.load_delay_backend("/some/checkpoint", device="cpu")
+    with pytest.raises(NotImplementedError, match="A.7"):
+        backend.load_codec("/some/codec", device="cpu")
+    with pytest.raises(NotImplementedError, match="A.9"):
+        backend.load_local_backend()
+    with pytest.raises(NotImplementedError, match="A.8"):
+        backend.load_realtime_backend()
+
+
+def test_cli_clone_from_a_wave_file(tmp_path):
+    """``cli tts --mode Clone --reference x.wav`` writes a wave; ``realtime``
+    exits naming its ROADMAP item."""
+    from mosstts_tpu_torch.serve import cli
+
+    ref = tmp_path / "ref.wav"
+    ref.write_bytes(base64.b64decode(_reference_b64(tmp_path)))
+    out = tmp_path / "out.wav"
+    cli.main(["tts", "--text", "clone me", "--mode", "Clone", "--reference", str(ref),
+              "--device", "cpu", "--max-new-tokens", "48",
+              "--output", str(out)])
+    with wave.open(str(out)) as w:
+        assert w.getframerate() == 24000 and w.getnframes() > 0
+    with pytest.raises(SystemExit, match="A.8"):
+        cli.main(["realtime", "--text", "hi", "--device", "cpu"])

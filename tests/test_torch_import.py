@@ -70,6 +70,10 @@ def test_port_imports_without_jax_triton_or_cuda():
     assert {"mosstts_tpu_torch.ops.quant", "mosstts_tpu_torch.ops.kernels.w8_gemm",
             "mosstts_tpu_torch.tools.tune_mm8", "mosstts_tpu_torch.tools.probe_int4",
             "mosstts_tpu_torch.tools.bf16_path"} <= names
+    # the serving front end: pool, backend, HTTP server, CLI and their helpers
+    assert {f"mosstts_tpu_torch.{m}" for m in (
+        "serve.pool", "serve.backend", "serve.http_server", "serve.cli", "serve.web_player",
+        "serve.text_norm", "engine.metrics", "utils.native")} <= names
 
 
 def test_chip_smoke_imports_without_jax():
