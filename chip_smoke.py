@@ -78,13 +78,29 @@ Phases, one or more lines each; any failure raises and exits non-zero:
    after a few frames; the first frame must agree and the first differing
    frame is logged. 8d holds the same prompts equal bit for bit, pool
    against solo, on a small float32 model with the same 33 channels.
-Phases 4-6 and 8 run the package's default, every decode step a CUDA-graph
-replay (``engine/step_graph.py``); prefills stay eager. The kernels' launch
-counts are set to 0 just before phases 4, 6, 8b and each server mode and
-read just after, and must show every prefill and every decode step went
-through the kernels; a graph's launches count once per replay
-(``ops/kernels/launches.py``), and the decode kernels and W8A16 must have
-run inside replayed graphs. Phase 3 adds the int8-weight GEMMs
+9. prefill graphs and the event and drain loops at the same width, on the
+   int8 weights: 9a the engine's prefills at B=1 T=200 and B=4, greedy
+   and seeds s1, s2, s1 (also in 7a on the bf16 weights), and a 16-slot
+   server's admissions at buckets 64 and 96 (seeded, sampled), graph
+   against eager: every field of the state, the cache and the generators'
+   seeds and offsets equal, and the completions after the splice; the
+   warm admission of a 200-row prompt and the warm time to the first frame
+   at B=1 T=200, graph against eager (median of 9, host clock and device
+   time), and the static admission state's bytes. 9b serves phase 5's 24
+   requests through ``run``, ``run_events`` and ``run_drain`` (linear bf16
+   KV) and ``run``, ``run_events`` (paged int8 KV): frames/s, ms per step,
+   dispatches, host waits per request, and the first frame that differs
+   from ``run``'s (the first must agree). 9c runs the JAX tests' loads on
+   the small f32 model: ``run_events`` and ``run_drain`` equal ``run`` on
+   the card bit for bit, and the greedy grids equal the CPU's.
+Phases 4-6, 8 and 9 run the package's default: every decode step a
+CUDA-graph replay, and every prefill one from its key's second use (or a
+server's ``warmup``) on (``engine/step_graph.py``). The kernels' launch
+counts are set to 0 just before phases 4, 6, 8b, each server mode and each
+loop of 9b and read just after, and must show every prefill and every
+decode step went through the kernels; a graph's launches count once per
+replay (``ops/kernels/launches.py``), and flash, the decode kernels and
+W8A16 must have run inside replayed graphs. Phase 3 adds the int8-weight GEMMs
 (W8A16 at the 8B decode and prefill shapes, each shape's times in the
 kernels line; W8A8 and int4 at their tools' shapes, with ``torch._int_mm``
 and ``torch._weight_int4pack_mm`` as their yardsticks, each tool's walk
@@ -129,6 +145,9 @@ from mosstts_tpu_torch.ops.kernels import launches as kernel_launches  # noqa: E
 from mosstts_tpu_torch.ops.quant import is_quantized, pitched  # noqa: E402
 from mosstts_tpu_torch.serve.pipelines import demo_backend, synthesize  # noqa: E402
 from mosstts_tpu_torch.tools import probe_int4, profile_step, tune_mm8  # noqa: E402
+# warm admissions and first frames timed each way (the median is kept)
+from mosstts_tpu_torch.tools.admission_path import N as TIMED_N  # noqa: E402
+from mosstts_tpu_torch.tools.admission_path import prompt_grid, timed  # noqa: E402
 from mosstts_tpu_torch.tools.kernel_inputs import (  # noqa: E402
     GEMM_8B, bound, card_line, decode_bound, decode_inputs, gemm_bound, time_ms)
 from mosstts_tpu_torch.tools.kernel_times import int4_library  # noqa: E402
@@ -758,9 +777,9 @@ COUNTERS = {k: v for k, v in kernel_launches.COUNTERS.items() if k != "w8a16_byt
 OFF_PATH = ("decode_q8t", "w8a8", "int4")
 
 
-# kernels the decode steps launch inside replayed CUDA graphs (flash stays in
-# the eager prefill)
-IN_GRAPHS = ("decode", "decode_q8", "paged", "paged_q8", "w8a16")
+# kernels the main paths launch inside replayed CUDA graphs (flash in the
+# prefill graphs from a key's second use on, the others in the decode steps')
+IN_GRAPHS = ("flash", "decode", "decode_q8", "paged", "paged_q8", "w8a16")
 
 
 def reset_counts() -> None:
@@ -1517,10 +1536,11 @@ def phase_front_end(backend, wav_path: str):
         f"audio {metrics.get('audio_s')} s")
     g = counts["graphs"]
     if (counts["flash"] < L * admissions or counts["decode"] < L * steps or not g["decode"]
-            or not g["w8a16"] or g["flash"]):
+            or not g["w8a16"]):
         raise AssertionError(f"front end: launch counts {counts} for {admissions} admissions and "
                              f"{steps} steps")
-    log(f"  launches: flash {counts['flash']} (>= {L} x {admissions}), decode {counts['decode']} "
+    log(f"  launches: flash {counts['flash']} (>= {L} x {admissions}; {g['flash']} inside replayed "
+        f"prefill graphs), decode {counts['decode']} "
         f"(>= {L} x {steps}; {g['decode']} inside replayed graphs), w8a16 {counts['w8a16']} "
         f"({g['w8a16']} inside replayed graphs)")
     clones = [c for c in calls if c["kw"]["audio_temperature"] == 0.0]
@@ -1582,6 +1602,260 @@ def phase_small_front_end(clones) -> None:
         pool_vs_solo(pool, engine, clones, "small f32 model", exact=True)
     finally:
         pool.close()
+
+
+# ------------------------------------------------------------------ phase 9
+HOT = dict(text_temperature=1.7, audio_temperature=1.7, audio_top_p=0.8)  # phase 5's sampling
+
+
+def same_state(a, b) -> bool:
+    """Every tensor of two ``DelayGenState``s (their caches' too) equal bit
+    for bit on the card, and their generators' seeds and offsets equal."""
+    ta = list(a.cache) + [t for t in a[1:] if isinstance(t, torch.Tensor)]
+    tb = list(b.cache) + [t for t in b[1:] if isinstance(t, torch.Tensor)]
+    return (all(torch.equal(x, y) for x, y in zip(ta, tb))
+            and all(torch.equal(x.get_state(), y.get_state()) for x, y in zip(a.rng, b.rng)))
+
+
+def prefill_graphs_vs_eager(engine, proc, label: str) -> None:
+    """9a, the engine: prefills (``max_new_tokens=1``, no decode step) at
+    B=1 T=200 and at B=4 (phase 4's prompts), greedy and seeds s1, s2, s1,
+    on ``engine`` (the first use of a key eager, the second its capture and
+    first replay, then replays) and on an eager engine over the same
+    weights: every field of the static state, the cache and the rows'
+    generators equal bit for bit after each. Then the time to the first
+    frame at B=1 T=200, warm (prefill and one decode step), both ways."""
+    eager = DelayEngine(engine.params, engine.config, dtype=engine.dtype,
+                        cache_bucket=engine.cache_bucket, graphs=False)
+    cfg = engine.config
+    one = prompt_grid(cfg, 200, seed=9)[None]
+    batches = ((1, one, np.ones((1, 200), bool)),
+               (4, *(lambda b: (b["input_ids"], b["attention_mask"]))(four_prompts(proc))))
+    calls = [dict(text_temperature=0.0, audio_temperature=0.0)] + [
+        dict(seed=s, text_temperature=1.5, audio_temperature=1.7) for s in SEEDS]
+    for B, ids, mask in batches:
+        for i, kw in enumerate(calls):
+            out = [e.generate(ids, mask, max_new_tokens=1, **kw) for e in (engine, eager)]
+            states = [next(iter(e._steps.values())).state for e in (engine, eager)]
+            if not same_grids(*out) or not same_state(*states):
+                raise AssertionError(f"{label} prefill B={B} call {i}: the graph prefill's state "
+                                     "differs from the eager prefill's")
+        (prefills,) = engine._prefills.values()
+        log(f"  {label} engine prefill B={B} T={ids.shape[1]}: greedy and seeds s1, s2, s1, the "
+            f"state after each (cache, fields, generators) graph == eager; graphs held "
+            f"{len(prefills.keys)}")
+    ttff = {}
+    for name, e in (("graph", engine), ("eager", eager)):
+        ttff[name] = timed(lambda e=e: e.generate(one, max_new_tokens=2, text_temperature=0.0,
+                                                  audio_temperature=0.0))
+    log(f"  {label} time to the first frame, B=1 T=200 (prefill + one step), warm, median of "
+        f"{TIMED_N}: graph {ttff['graph'][0]:.2f} ms wall / {ttff['graph'][1]:.2f} ms device, "
+        f"eager {ttff['eager'][0]:.2f} ms wall / {ttff['eager'][1]:.2f} ms device")
+    del eager
+    gc.collect()
+    torch.cuda.empty_cache()
+
+
+def admission_graphs_vs_eager(params) -> None:
+    """9a, the server: two 16-slot servers over the same weights, one with
+    graphs and one eager, warmed up at the prompt buckets of phase 5's load
+    (64 and 96) and of a 200-row prompt (224). Seeded sampled requests of
+    60 and 90 rows are admitted into both (through the buckets' prefill
+    graphs on the first): the batch-1 admission state (its generator's seed
+    and offset too) and the running state are equal after each admission,
+    and so are the completions after the splice. Then a 200-row prompt's
+    admission (prefill and splice), warm, both ways, and the bytes of the
+    static batch-1 state."""
+    cfg = delay_8b()
+    servers = {}
+    for name, graphs in (("graph", True), ("eager", False)):
+        srv = DelayBatchServer(params, cfg, slots=BS, cache_len=SS, out_capacity=128,
+                               prompt_bucket=32, dtype=torch.bfloat16, graphs=graphs,
+                               sampling=make_sampling(**HOT, device=DEV))
+        srv.warmup(prompt_lens=(64, 96, 200), attend_upto=256)
+        servers[name] = srv
+    g, e = servers["graph"], servers["eager"]
+    if sorted(k[0] for k in g._prefills.keys) != [64, 96, 224]:
+        raise AssertionError(f"warmup captured prefill graphs {g._prefills.keys}")
+    for slot, (T, seed) in enumerate(((60, 31), (90, 32), (60, 33), (90, 34))):
+        grid = prompt_grid(cfg, T, seed)
+        for srv in (g, e):
+            srv.submit(grid, max_new_tokens=48, seed=seed)
+            srv._admit(slot, srv._queue.pop(0))
+        if not same_state(g._small, e._small) or not same_state(g.state, e.state):
+            raise AssertionError(f"admission of {T} rows into slot {slot}: graph != eager")
+    done = [sorted(s.run(), key=lambda c: c.request_id) for s in (g, e)]
+    if [(c.steps, c.tokens.tobytes()) for c in done[0]] != \
+            [(c.steps, c.tokens.tobytes()) for c in done[1]]:
+        raise AssertionError("the completions after graph admissions differ from eager ones")
+    log(f"  admissions at buckets 64 and 96, seeded sampled: the batch-1 state, the generator's "
+        f"seed and offset and the running state graph == eager after each; the {len(done[0])} "
+        f"completions equal")
+    grid = prompt_grid(cfg, 200, 35)
+    walls = {}
+    for name, srv in servers.items():
+        def admit(srv=srv):  # as serving admits: from the queue into a free slot
+            srv.submit(grid, max_new_tokens=48, seed=35)
+            srv._admit(0, srv._queue.pop(0))
+
+        admit()  # warm
+        walls[name] = timed(admit)
+        srv._active.clear()
+    small = g._small
+    kv = sum(t.nbytes for t in small.cache)
+    rest = sum(t.nbytes for t in small[1:] if isinstance(t, torch.Tensor))
+    log(f"  admission of a 200-row prompt (bucket 224: prefill + splice), warm, median of "
+        f"{TIMED_N}: graph {walls['graph'][0]:.2f} ms wall / {walls['graph'][1]:.2f} ms device, "
+        f"eager {walls['eager'][0]:.2f} ms wall / {walls['eager'][1]:.2f} ms device")
+    log(f"  static batch-1 admission state (cache_len {SS}, bf16 KV): KV cache {kv / 1e6:.1f} MB "
+        f"+ {rest / 1e6:.3f} MB of other fields")
+    del servers, g, e
+    gc.collect()
+    torch.cuda.empty_cache()
+
+
+@contextlib.contextmanager
+def host_waits():
+    """Count the host's waits for the card: reads of a CUDA tensor to the
+    host (``.cpu()``) and event synchronisations. Yields a one-item list."""
+    n = [0]
+    cpu, sync = torch.Tensor.cpu, torch.cuda.Event.synchronize
+
+    def counted_cpu(self, *a, **k):
+        n[0] += self.is_cuda
+        return cpu(self, *a, **k)
+
+    def counted_sync(self):
+        n[0] += 1
+        return sync(self)
+
+    torch.Tensor.cpu, torch.cuda.Event.synchronize = counted_cpu, counted_sync
+    try:
+        yield n
+    finally:
+        torch.Tensor.cpu, torch.cuda.Event.synchronize = cpu, sync
+
+
+LOOP_MODES = (("linear bf16", {}, ("run", "run_events", "run_drain")),
+              ("paged int8", dict(paged=True, kv_quant=True), ("run", "run_events")))
+
+
+def loops_vs_run(params) -> list:
+    """9b: phase 5's 24 requests on ``DelayBatchServer(slots=16,
+    cache_len=1024, out_capacity=128, prompt_bucket=32)`` over the int8
+    weights, through ``run``, ``run_events`` and (linear) ``run_drain``:
+    useful frames/s, ms per server step, dispatches and host waits per
+    request, and each completion's first frame that differs from ``run``'s
+    (rows admitted at other times attend other buckets and round otherwise
+    at 8B, so only the first frame must be equal). The launch counts are
+    set to 0 just before each loop and read just after; returns them."""
+    cfg = delay_8b()
+    L = cfg.language_config.num_hidden_layers
+    prompts, budgets = server_traffic(cfg)
+    runs = []
+    for name, mode, loops in LOOP_MODES:
+        ref = None
+        for loop in loops:
+            server = DelayBatchServer(params, cfg, slots=BS, cache_len=SS, out_capacity=128,
+                                      prompt_bucket=32, page_size=PS, dtype=torch.bfloat16,
+                                      sampling=make_sampling(**HOT, device=DEV), **mode)
+            server.warmup(prompt_lens=(64, 96), attend_upto=256)
+            server.total_steps, server.total_preemptions, server.total_dispatches = 0, 0, 0
+            reset_counts()
+            with host_waits() as waits:
+                t = time.perf_counter()
+                rids = {server.submit(g, max_new_tokens=n): n for g, n in zip(prompts, budgets)}
+                done = sorted(getattr(server, loop)(), key=lambda c: c.request_id)
+                torch.cuda.synchronize()
+                wall = time.perf_counter() - t
+            counts = read_counts()
+            kernel = "paged_q8" if mode else "decode"
+            steps, admissions = server.total_steps, len(rids) + server.total_preemptions
+            if [c.request_id for c in done] != sorted(rids) or any(
+                    c.tokens.shape != (c.start_length + c.steps, cfg.channels)
+                    or not 0 < c.steps <= rids[c.request_id] for c in done):
+                raise AssertionError(f"{name} {loop}: malformed completions")
+            if (counts[kernel] < L * steps or counts["flash"] < L * admissions
+                    or not counts["graphs"][kernel] or not counts["graphs"]["flash"]
+                    or not counts["graphs"]["w8a16"]):
+                raise AssertionError(f"{name} {loop}: launch counts {counts}")
+            runs.append(counts)
+            firsts = None
+            if ref is None:
+                ref = done
+            else:
+                firsts = [first_divergence((a.start_length, a.tokens), (b.start_length, b.tokens))
+                          for a, b in zip(done, ref)]
+                if 0 in firsts:
+                    raise AssertionError(f"{name} {loop}: a first frame differs from run()'s")
+            frames = sum(c.steps for c in done)
+            log(f"  {name} {loop}: {frames} frames in {wall:.2f} s = {frames / wall:.1f} "
+                f"frames/s, {steps} steps ({wall / steps * 1e3:.2f} ms/step), "
+                f"{server.total_dispatches} dispatches, {waits[0] / len(rids):.1f} host waits "
+                f"per request, {server.total_preemptions} preemptions; launches {kernel} "
+                f"{counts[kernel]} ({counts['graphs'][kernel]} in graphs), flash "
+                f"{counts['flash']} ({counts['graphs']['flash']} in graphs)"
+                + ("" if firsts is None else f"; first differing frame against run(): {firsts}"))
+            del server, done
+            gc.collect()
+            torch.cuda.empty_cache()
+    return runs
+
+
+def phase_small_loops() -> None:
+    """9c: the same loops on the small f32 model on the card, with the JAX
+    tests' load (``tests/test_batch_server.py:284-370``): five continuation
+    requests with budgets 24, 9, 17, 31, 12 into 2 slots, greedy through
+    ``run`` and ``run_events`` (linear and paged), and the drain test's
+    prompts with its sampling overrides and seeds through ``run`` and
+    ``run_drain``: equal to ``run()`` on the card bit for bit, and the
+    greedy grids equal to the CPU's ``run()``."""
+    cfg = SMALL_CFG
+    cpu_backend = demo_backend(cfg, seed=2, dtype=torch.float32, device="cpu")
+    cpu_params, proc = cpu_backend.engine.params, cpu_backend.processor
+    gpu_params = copy.deepcopy(cpu_params).to(DEV)
+    budgets = [24, 9, 17, 31, 12]
+    overrides = [None, {"audio_temperature": 0.9, "audio_top_p": 0.8}, None,
+                 {"text_temperature": 0.7}, None]
+    seeds = [None, 7, None, 11, None]
+
+    def grid(text, seed):
+        codes = np.random.default_rng(seed).integers(0, 1024, (6, cfg.n_vq))
+        conv = [proc.build_user_message(text=text), proc.build_assistant_message([codes])]
+        return proc([conv], mode="continuation")["input_ids"][0]
+
+    def serve(params, dev, loop, grids, cache_len, sampled=False, **mode):
+        srv = DelayBatchServer(params, cfg, slots=2, cache_len=cache_len, out_capacity=64,
+                               prompt_bucket=32, page_size=64, dtype=torch.float32,
+                               sampling=make_sampling(text_temperature=0.0,
+                                                      audio_temperature=0.0, device=dev),
+                               **mode)
+        rids = [srv.submit(g, max_new_tokens=n, sampling=o if sampled else None,
+                           seed=s if sampled else None)
+                for g, n, o, s in zip(grids, budgets, overrides, seeds)]
+        done = {c.request_id: c for c in getattr(srv, loop)(max_steps=800)}
+        if sorted(done) != rids:
+            raise AssertionError(f"small {loop} {mode}: {sorted(done)} of {rids}")
+        return [(done[r].start_length, done[r].steps, done[r].tokens.tobytes()) for r in rids]
+
+    events = [grid(f"event wave {i}", 80 + i) for i in range(5)]
+    drain = [grid(f"drain wave {i}" + " pad" * (6 * (i % 2)), 90 + i) for i in range(5)]
+    for name, mode in (("linear", {}), ("paged", dict(paged=True))):
+        ref = serve(gpu_params, DEV, "run", events, 256, **mode)
+        if serve(gpu_params, DEV, "run_events", events, 256, **mode) != ref:
+            raise AssertionError(f"small f32 {name}: run_events differs from run on the card")
+        if serve(cpu_params, "cpu", "run", events, 256, **mode) != ref:
+            raise AssertionError(f"small f32 {name}: the card's grids differ from the CPU's")
+        log(f"  small f32 server ({name}), 5 greedy requests, budgets {budgets}: run_events == "
+            f"run on the card == run on the CPU")
+    ref = serve(gpu_params, DEV, "run", drain, 512, sampled=True)
+    if serve(gpu_params, DEV, "run_drain", drain, 512, sampled=True) != ref:
+        raise AssertionError("small f32: run_drain with overrides and seeds differs from run")
+    greedy = serve(gpu_params, DEV, "run_drain", drain, 512)
+    if greedy != serve(cpu_params, "cpu", "run", drain, 512):
+        raise AssertionError("small f32: the card's greedy run_drain differs from the CPU's run")
+    log("  small f32 server (linear), the drain test's 5 requests: run_drain == run on the card "
+        "with its overrides and seeds; greedy run_drain on the card == run on the CPU")
 
 
 def kernel_label(name: str) -> str:
@@ -1661,6 +1935,7 @@ def main() -> None:
     log("phase 7a: CUDA-graph decode steps against eager steps, bf16 weights, 8B width")
     reset_counts()
     solo_graphs_vs_eager(backend.engine, backend.processor, "bf16")
+    prefill_graphs_vs_eager(backend.engine, backend.processor, "bf16")
     times = step_times(backend.engine, "bf16")
     log(f"  launches inside replayed graphs: {read_counts()['graphs']}")
 
@@ -1698,16 +1973,25 @@ def main() -> None:
     phase_small_front_end(clones)
     log("  phase 8 numbers: " + json.dumps(encode_numbers))
 
+    log("phase 9: prefill graphs, run_events and run_drain at MOSS-TTS 8B width (int8 weights)")
+    log("phase 9a: prefill graphs against eager prefills")
+    prefill_graphs_vs_eager(backend.engine, backend.processor, "int8")
+    admission_graphs_vs_eager(backend.engine.params)
+    log("phase 9b: run_events and run_drain against run, 16 slots, phase 5's 24 requests")
+    loop_counts = loops_vs_run(backend.engine.params)
+    log("phase 9c: the same loops on the small f32 model, card against card and CPU")
+    phase_small_loops()
+
     runs = [solo_counts, int8_counts, *server_counts.values(), *int8_server_counts.values(),
-            front_counts]
+            front_counts, *loop_counts]
     launches = {name: sum(c[name] for c in runs) for name in COUNTERS}
     if not all(launches[name] for name in COUNTERS if name not in OFF_PATH):
         raise AssertionError(f"a kernel was never launched on the main paths: {launches}")
     in_graphs = {name: sum(c["graphs"][name] for c in runs) for name in COUNTERS}
-    if not all(in_graphs[name] for name in IN_GRAPHS) or in_graphs["flash"]:
-        raise AssertionError(f"the main paths' decode steps did not run their kernels inside "
-                             f"replayed CUDA graphs: {in_graphs}")
-    log(f"main paths (phases 4-6, 8): launches {launches}; of them inside replayed CUDA graphs "
+    if not all(in_graphs[name] for name in IN_GRAPHS):
+        raise AssertionError(f"the main paths' prefills and decode steps did not run their "
+                             f"kernels inside replayed CUDA graphs: {in_graphs}")
+    log(f"main paths (phases 4-6, 8, 9b): launches {launches}; of them inside replayed CUDA graphs "
         f"{in_graphs}")
     launches.update(decode_q8t=numbers.pop("q8t_launches"), w8a8=numbers["w8a8"].pop("launches"),
                     int4=numbers["int4"].pop("launches"))

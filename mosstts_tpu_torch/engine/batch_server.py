@@ -2,12 +2,13 @@
 
 Ports ``mosstts_tpu/engine/batch_server.py``: ``DelayBatchServer`` with
 ``submit``, ``step``, ``step_block``, ``run`` (pipelined and sequential),
-``warmup`` and ``utilization``. A fixed pool of batch slots decodes in
-lock-step; whenever a slot finishes its utterance a queued request is
-prefilled at batch 1 and spliced into that slot mid-flight, so the card
-never drains. Each slot has its own cache cursor (``pos``), step counter,
-delay-pattern counters, repetition-penalty mask, sampling knobs and
-``torch.Generator``, all advanced by the one decode step.
+``run_events``, ``run_drain``, ``warmup``, ``utilization`` and
+``total_dispatches``. A fixed pool of batch slots decodes in lock-step;
+whenever a slot finishes its utterance a queued request is prefilled at
+batch 1 and spliced into that slot mid-flight, so the card never drains.
+Each slot has its own cache cursor (``pos``), step counter, delay-pattern
+counters, repetition-penalty mask, sampling knobs and ``torch.Generator``,
+all advanced by the one decode step.
 
 Four cache modes: the linear cache in ``dtype`` or in int8 (``kv_quant``),
 each also over a shared page pool (``paged``): slots borrow fixed-size pages
@@ -20,24 +21,47 @@ sized for the expected load. The allocator runs off the host mirrors of
 and the decode steps advance it in place (``engine/step_graph.DecodeSteps``):
 on the card each step is the replay of a CUDA graph of the step, one per
 attend bucket (the JAX server's ``_step_fn``), and a block of k steps is k
-replays (its ``_block_fn``, one ``fori_loop`` program); ``graphs=False``
-runs them eagerly, to compare, and the CPU always does. Prefills stay
-eager. The per-slot sampling controls are static (slots,) buffers that an
-admission rewrites.
+replays (its ``_block_fn``, one ``fori_loop`` program). An admission
+prefills into a second static state of batch 1, a linear cache of
+``cache_len`` slots kept for the server's life, through
+``step_graph.Prefills``: on the card one CUDA graph per prompt bucket (the
+JAX server's ``_prefill_fn``), captured at the bucket's second admission or
+in ``warmup()`` and kept for the server's life (at most ``cache_len /
+prompt_bucket`` graphs, as JAX keeps a program per bucket), drawing from
+one static prefill generator that each admission reseeds
+(``_request_seed``); the splice then copies that state's row, and its
+generator's seed and offset, into the slot. ``graphs=False`` runs
+prefills and steps eagerly, to compare, and the CPU always does. The
+per-slot sampling controls are static (slots,) buffers that an admission
+rewrites.
+
+``run_events`` (JAX ``_event_fn``) decodes until a scheduling event
+through ``models.delay.delay_decode_until_event``, which on the card
+replays the step graphs and reads the watched stop flags one replay late.
+``run_drain`` (JAX ``_drain_fn``) stages the whole queue on the device once
+and runs JAX's scheduler: one admission per step while a slot is free,
+from the staged prompt rows through the prefill graphs, decode until an
+event otherwise, completions written on the device into per-request result
+rows read back once. JAX runs that loop as one device program; here the
+admission decision and the reseeding of the slot's generator stay on the
+host, since a device cannot reseed a ``torch.Generator`` and the port's
+draws come from per-row generators, not from keys held in the state.
 
 Differences from the JAX server, by design: the splice copies lanes and
 pages into the running state in place, and reseeds the slot's generator in
 place (the graphs draw from the same generator objects); the
 pipelined ``run`` snapshots the stop flags with a non-blocking copy to
 pinned host memory plus a CUDA event, enqueued before the next block, and
-waits on that event only after the block is enqueued. A request's seed
-goes through the same integer hash as in JAX into the slot's generator, so
-a seeded request reproduces whatever slot it lands in; the draws are
-PyTorch's, not JAX's threefry bits, so cross-framework parity holds for
-greedy requests. A preempted request resumes with its own sampling
-overrides and seed (the JAX server requeues it without them, so it resumes
-at the server's defaults). ``run_events``, ``run_drain`` and ``mesh=`` are
-not ported. The server serves whatever params it is given, int8 weights
+waits on that event only after the block is enqueued; on the card
+``run_events`` and ``run_drain`` see a watched row's EOS one step late (so
+its completion holds one frame more than JAX's, as ``run``'s lagged polls
+do). A request's seed goes through the same integer hash as in JAX into
+the slot's generator, so a seeded request reproduces whatever slot it
+lands in; the draws are PyTorch's, not JAX's threefry bits, so
+cross-framework parity holds for greedy requests. A preempted request
+resumes with its own sampling overrides and seed (the JAX server requeues
+it without them, so it resumes at the server's defaults). ``mesh=`` is not
+ported. The server serves whatever params it is given, int8 weights
 (``DelayEngine.quantize``) included, in all four cache modes.
 """
 from __future__ import annotations
@@ -45,7 +69,7 @@ from __future__ import annotations
 import itertools
 import logging
 from dataclasses import dataclass
-from typing import Dict, List, Optional
+from typing import Dict, List, Optional, Tuple
 
 import numpy as np
 import torch
@@ -56,13 +80,13 @@ from ..models.delay import (
     DelayGenState,
     DelayParams,
     DelaySampling,
-    delay_prefill,
+    delay_decode_until_event,
     make_sampling,
 )
 from ..nn.qwen3 import init_kv_cache, init_paged_kv_cache, init_quant_kv_cache
 from ..ops.sampling import row_generators
 from .delay_engine import attend_bucket
-from .step_graph import DecodeSteps
+from .step_graph import DecodeSteps, Prefills, host_tensor, zero_state
 
 
 @dataclass
@@ -113,15 +137,16 @@ def _insert_row(big: DelayGenState, small: DelayGenState, row: int) -> None:
 
 @torch.no_grad()
 def _insert_row_paged(big: DelayGenState, small: DelayGenState, row: int,
-                      pages: List[int], n0: int) -> None:
-    """Paged splice: copy the batch-1 linear prefill cache's first ``n0``
-    pages of slots into the freshly allocated pool ``pages`` and point slot
+                      pages: List[int]) -> None:
+    """Paged splice: copy the batch-1 linear prefill cache's first
+    ``len(pages)`` pages of slots into the pool ``pages`` and point slot
     ``row``'s table at them (the rest of the row at the trash page 0). Pool
     buffers pair with the small cache's fieldwise (k, v[, k_scale,
     v_scale]); the table is the pool's last field."""
     pool = big.cache
-    psz = pool.page_size
-    idx = torch.as_tensor(pages, dtype=torch.long, device=pool.table.device)
+    psz, n0 = pool.page_size, len(pages)
+    dev = pool.table.device
+    idx = host_tensor(np.asarray(pages, np.int64), dev).to(dev, non_blocking=True)
     for pb, sb in zip(pool[:-1], small.cache):
         blk = sb[:, 0, :, : n0 * psz]  # (L, KV, n0*P[, hd])
         blk = blk.reshape(blk.shape[:2] + (n0, psz) + blk.shape[3:]).transpose(1, 2)
@@ -206,6 +231,8 @@ class DelayBatchServer:
         self.total_steps = 0
         self.util_sum = 0.0  # sum over steps of active/slots (mean = /total_steps)
         self.total_preemptions = 0
+        self.total_dispatches = 0  # decode programs run: a step, a block, an event block,
+        # a drain segment (the JAX server's count of device programs)
         # host mirrors of state.pos / state.step
         self._pos_host = np.zeros(self.slots, np.int64)
         self._step_host = np.full(self.slots, self.out_capacity, np.int64)
@@ -237,6 +264,13 @@ class DelayBatchServer:
             **{k: torch.as_tensor(v, device=dev) for k, v in self._samp_host.items()})
         self._samp_stale = False
         self._steps = DecodeSteps(params, config, self.state, self._samp_dev, graphs=graphs)
+        # the admissions' static batch-1 state (a linear cache of cache_len
+        # slots), sampling and generator, and the prefill graphs over them
+        self._small = zero_state(config, 1, cache_len, 1, dtype=dtype, kv_quant=kv_quant,
+                                 rng=[torch.Generator(device=dev)], device=dev)
+        self._prefill_samp = make_sampling(
+            audio_rp_cross_batch=bool(d.audio_rp_cross_batch), device=dev)
+        self._prefills = Prefills(self._steps, self._small, self._prefill_samp)
 
     # ------------------------------------------------------------------
     def _empty_state(self) -> DelayGenState:
@@ -292,27 +326,12 @@ class DelayBatchServer:
             h[k][slot] = v
         self._samp_stale = True
 
-    def _slot_sampling(self, slot: int) -> DelaySampling:
-        """Scalar DelaySampling for this slot (the admission prefill)."""
-        h = self._samp_host
-        return make_sampling(
-            text_temperature=(float(h["text_temperature"][slot])
-                              if h["text_do_sample"][slot] else 0.0),
-            text_top_p=float(h["text_top_p"][slot]),
-            audio_temperature=(float(h["audio_temperature"][slot])
-                               if h["audio_do_sample"][slot] else 0.0),
-            audio_top_p=float(h["audio_top_p"][slot]),
-            audio_repetition_penalty=float(h["audio_repetition_penalty"][slot]),
-            audio_rp_cross_batch=bool(self.sampling.audio_rp_cross_batch),
-            device=self.device,
-        )
-
     def _sync_sampling(self) -> None:
         """Rewrite the static per-slot sampling tensors from the host arrays
         if an admission changed them."""
         if self._samp_stale:
             for k, v in self._samp_host.items():
-                getattr(self._samp_dev, k).copy_(torch.from_numpy(v))
+                getattr(self._samp_dev, k).copy_(host_tensor(v, self.device), non_blocking=True)
             self._samp_stale = False
 
     # ---- host page allocator (driven by the pos mirrors: no syncs) ----
@@ -382,6 +401,7 @@ class DelayBatchServer:
         attend = attend_bucket(max_pos + k + 1, 256, self.cache_len)
         self._decode_steps(attend, k)
         self.total_steps += k
+        self.total_dispatches += 1
         self.util_sum += k * (len(self._active) / self.slots)
         self._pos_host += k
         self._step_host += k
@@ -445,6 +465,7 @@ class DelayBatchServer:
     def _admit(self, slot: int, req: _Request) -> bool:
         T = req.input_ids.shape[0]
         Tb = ((T + self.prompt_bucket - 1) // self.prompt_bucket) * self.prompt_bucket
+        pages = None
         if self.paged:
             n0 = -(-Tb // self.page_size)
             if len(self._free_pages) < n0:
@@ -456,26 +477,30 @@ class DelayBatchServer:
         ids[0, Tb - T:] = req.input_ids
         mask = np.zeros((1, Tb), bool)
         mask[0, Tb - T:] = True
-        # the prefill draws from its own generator, seeded as the request
-        # asks; the splice hands its seed and offset to the slot's
-        gen = torch.Generator(device=self.device)
-        gen.manual_seed(_request_seed(req.seed, req.request_id))
         self._set_slot_sampling(slot, req.sampling or {})
-        small = delay_prefill(
-            self.params, self.config, torch.as_tensor(ids, device=self.device),
-            torch.as_tensor(mask, device=self.device), max_new_tokens=self.out_capacity,
-            cache_len=self.cache_len, rng=[gen], sampling=self._slot_sampling(slot),
-            top_k_text=self.top_k_text, top_k_audio=self.top_k_audio, dtype=self.dtype,
-            kv_quant=self.kv_quant)
-        if self.paged:
-            _insert_row_paged(self.state, small, slot, pages, n0)
-        else:
-            _insert_row(self.state, small, slot)
+        for k, v in self._samp_host.items():
+            getattr(self._prefill_samp, k).fill_(v[slot].item())
+        self._prefill_into(slot, host_tensor(ids, self.device), host_tensor(mask, self.device),
+                           _request_seed(req.seed, req.request_id), pages)
         self._active[slot] = req
+        return True
+
+    def _prefill_into(self, slot: int, ids, mask, seed: int, pages=None) -> None:
+        """Prefill the batch-1 prompt ``ids``/``mask`` (its bucket's length)
+        into the static admission state, drawing from the prefill generator
+        seeded with ``seed``, with the prefill sampling as it stands, and
+        splice it into ``slot`` (paged: into ``pages``). The splice hands
+        the generator's seed and offset to the slot's."""
+        self._small.rng[0].manual_seed(seed)
+        self._prefills.run(ids, mask, top_k_text=self.top_k_text, top_k_audio=self.top_k_audio)
+        Tb = ids.shape[1]
+        if self.paged:
+            _insert_row_paged(self.state, self._small, slot, pages)
+        else:
+            _insert_row(self.state, self._small, slot)
         # mirror the spliced cursors (delay_prefill sets pos=Tb, step=0)
         self._pos_host[slot] = Tb
         self._step_host[slot] = 0
-        return True
 
     def _fill_free_slots(self) -> None:
         if not self._queue:
@@ -515,6 +540,7 @@ class DelayBatchServer:
         max_pos = int(self._pos_host[active].max())
         self._decode_steps(attend_bucket(max_pos + 2, 256, self.cache_len), 1)
         self.total_steps += 1
+        self.total_dispatches += 1
         self.util_sum += len(self._active) / self.slots
         self._pos_host += 1
         self._step_host += 1
@@ -643,15 +669,232 @@ class DelayBatchServer:
                            {s: r.request_id for s, r in self._active.items()})
         return out
 
+    # ---- event-driven dispatch -------------------------------------------
+    def _dispatch_event(self, max_k: int) -> Tuple[int, Optional[np.ndarray]]:
+        """Admit queued requests, then decode until a scheduling event (JAX
+        ``_dispatch_event``). Returns ``(steps executed, stop flags | None)``:
+        the flags are read after the block, and no admission happens in
+        between, so they map onto the current occupants."""
+        self._fill_free_slots()
+        attempts = 0
+        while True:  # recompute the geometry whenever the occupancy changes
+            if not self._active:
+                return 0, None
+            active = sorted(self._active)
+            max_pos = int(self._pos_host[active].max())
+            # one graph per attend bucket: cap the block at the bucket's end
+            attend = attend_bucket(max_pos + 2, 256, self.cache_len)
+            k_bucket = attend - max_pos - 1
+            budget = np.full(self.slots, 1 << 30, np.int64)
+            for s, req in self._active.items():
+                budget[s] = req.max_new_tokens - self._step_host[s]
+            k_cap = int(min(max_k, k_bucket, int(budget[active].min())))
+            if k_cap <= 0:
+                return 0, None
+            if not self.paged:
+                break
+            # _dispatch_block's growth rule: every slot still active after
+            # the grow pass covers the whole block
+            for slot in active:
+                if not self._grow_pages(slot, int(self._pos_host[slot]) + k_cap - 1):
+                    self._preempt(slot)
+            if self._active:
+                break
+            attempts += 1
+            if attempts > self.slots + 2:
+                return 0, None
+            # total preemption: the pool is free again; re-admit and
+            # recompute (a preempt-merged prompt may pass the old max_pos)
+            self._fill_free_slots()
+        # watch only the current occupants: a preempted row's stale flag or
+        # budget must not end the block
+        watch = np.zeros(self.slots, bool)
+        watch[sorted(self._active)] = True
+        self._sync_sampling()
+        _, did = delay_decode_until_event(
+            self._steps, watch, budget, k_cap, top_k_text=self.top_k_text,
+            top_k_audio=self.top_k_audio, attend_len=attend)
+        flags = self.state.is_stopping.cpu().numpy()
+        self.total_steps += did
+        self.total_dispatches += 1
+        self.util_sum += did * (len(self._active) / self.slots)
+        self._pos_host += did
+        self._step_host += did
+        return did, flags
+
+    def run_events(self, max_steps: int = 100000) -> List[CompletedRequest]:
+        """Drain the queue and the active slots with event-driven dispatch
+        (JAX ``run_events``): each block decodes until a slot needs the
+        scheduler (EOS or budget), so a stretch with no completions costs
+        one dispatch. Completions in finish order; on the CPU the token
+        streams equal ``run()``'s, on the card an EOS is seen one step
+        late (see the module docstring)."""
+        out: List[CompletedRequest] = []
+        steps = 0
+        while True:
+            if self._active:
+                # budget completions are host-knowable: free those slots
+                # before dispatching so the block admits into them
+                out.extend(self._collect(stopped=np.zeros(self.slots, bool)))
+            if not (self._active or self._queue):
+                break
+            did, flags = self._dispatch_event(max_steps - steps)
+            steps += did
+            got = self._collect(stopped=flags) if flags is not None else []
+            out.extend(got)
+            if did == 0 and not got:
+                # no progress is possible (max_steps used up, or a paged
+                # admission failed): surface what is left in the queue
+                if self._queue:
+                    logging.getLogger(__name__).warning(
+                        "run_events() stopping with %d undrained request(s) still queued "
+                        "(ids %s)", len(self._queue), [r.request_id for r in self._queue])
+                break
+        return out
+
+    # ---- the drain scheduler -------------------------------------------------
+    @torch.no_grad()
+    def run_drain(self, max_steps: int = 100000) -> List[CompletedRequest]:
+        """Drain the queue with JAX's drain scheduler (``_drain_fn``,
+        ``run_drain``): the queue is staged on the device once (left-padded
+        prompts (nqcap, t_max, C) with nqcap rounded up to 16, masks and
+        sampling rows), then each step admits the next request into the
+        first free slot while one is free (a replay of its bucket's
+        prefill graph from its staged row, then one decode step), and
+        otherwise decodes until an event (``delay_decode_until_event``).
+        A segment keeps one attend bucket until an active row reaches it
+        (one dispatch each, as JAX's program per bucket). Completions are
+        written on the device into result rows (the trash row nqcap takes
+        the rest) read back once. Returns the completions in queue order,
+        each request with its prompt bucket, ``min(max_new_tokens,
+        out_capacity)`` budget, sampling overrides and seed, ``steps =
+        min(step, budget)``. Linear cache and an idle server only;
+        ``util_sum`` is not updated. The admission decisions and the
+        reseeding of the slots' generators stay on the host (see the module
+        docstring)."""
+        if self.paged:
+            raise ValueError("run_drain requires the linear cache; use run()/run_events for "
+                             "paged serving")
+        if self._active:
+            raise ValueError("run_drain requires an idle pool")
+        reqs = list(self._queue)
+        self._queue.clear()
+        if not reqs:
+            return []
+        cfg, dev = self.config, self.device
+        C, NQ, pb = cfg.channels, len(reqs), self.prompt_bucket
+        nqcap = -(-NQ // 16) * 16
+        buckets = [-(-r.input_ids.shape[0] // pb) * pb for r in reqs]
+        t_max = max(buckets)
+        prompts = np.full((nqcap, t_max, C), cfg.audio_pad_code, np.int64)
+        prompts[..., 0] = cfg.pad_token_id
+        masks = np.zeros((nqcap, t_max), bool)
+        budgets = np.zeros(nqcap, np.int64)
+        vals = {k: np.zeros(nqcap, v.dtype) for k, v in self._samp_host.items()}
+        for idx, r in enumerate(reqs):
+            T = r.input_ids.shape[0]
+            prompts[idx, t_max - T:] = r.input_ids
+            masks[idx, t_max - T:] = True
+            budgets[idx] = min(r.max_new_tokens, self.out_capacity)
+            for k, v in self._request_sampling_values(r.sampling).items():
+                vals[k][idx] = v
+        prompts_d = host_tensor(prompts, dev).to(dev, non_blocking=True)
+        masks_d = host_tensor(masks, dev).to(dev, non_blocking=True)
+        samp_d = {k: host_tensor(v, dev).to(dev, non_blocking=True) for k, v in vals.items()}
+        results = torch.zeros((nqcap + 1, self.out_capacity, C), dtype=torch.int32, device=dev)
+        self._sync_sampling()
+
+        active = np.zeros(self.slots, bool)
+        slot_rid = np.zeros(self.slots, np.int64)
+        budget = np.full(self.slots, 1 << 30, np.int64)
+        rsteps = np.zeros(NQ, np.int64)
+        kw = dict(top_k_text=self.top_k_text, top_k_audio=self.top_k_audio)
+
+        def admit(slot: int, idx: int) -> None:
+            tb = buckets[idx]
+            for k, v in samp_d.items():
+                getattr(self._prefill_samp, k).copy_(v[idx])
+                getattr(self._samp_dev, k)[slot].copy_(v[idx])
+                self._samp_host[k][slot] = vals[k][idx]
+            r = reqs[idx]
+            self._prefill_into(slot, prompts_d[idx:idx + 1, t_max - tb:],
+                               masks_d[idx:idx + 1, t_max - tb:],
+                               _request_seed(r.seed, r.request_id))
+            active[slot], slot_rid[slot], budget[slot] = True, idx, budgets[idx]
+
+        # JAX's drain holds a budget against the device's step count, the
+        # frames so far, one more than the host mirror's decode steps (the
+        # prefill samples the first frame)
+        def collect() -> None:
+            flags = self.state.is_stopping.cpu().numpy()
+            frames = self._step_host + 1
+            stopped = active & (flags | (frames >= budget))
+            if stopped.any():
+                rows = np.where(stopped, slot_rid, nqcap)  # the trash row nqcap
+                results[host_tensor(rows, dev).to(dev, non_blocking=True)] = self.state.out
+                for slot in np.nonzero(stopped)[0]:
+                    rsteps[slot_rid[slot]] = min(frames[slot], budget[slot])
+                active[stopped] = False
+
+        qi = i = 0
+        pos_floor = t_max  # any admission lands at its bucket, <= t_max
+        while True:
+            attend = attend_bucket(pos_floor + 2, 256, self.cache_len)
+            self.total_dispatches += 1
+            i0 = i
+            while (qi < NQ or active.any()) and i < max_steps:
+                if active.any() and self._pos_host[active].max() >= attend:
+                    break  # the segment's attend bucket is used up
+                if qi < NQ and not active.all():
+                    admit(int(np.argmin(active)), qi)
+                    qi += 1
+                    self._decode_steps(attend, 1)
+                    did = 1
+                else:
+                    k = min(max_steps - i, attend - int(self._pos_host[active].max()))
+                    _, did = delay_decode_until_event(
+                        self._steps, active, budget - self._step_host - 1, k,
+                        attend_len=attend, **kw)
+                i += did
+                self._pos_host += did
+                self._step_host += did
+                collect()
+            done = qi >= NQ and not active.any()
+            stuck = i == i0 and attend >= self.cache_len
+            if done or i >= max_steps or stuck:
+                if not done:
+                    logging.getLogger(__name__).warning(
+                        "run_drain() stopped with work remaining (steps=%d, stuck=%s)", i, stuck)
+                break
+            pos_floor = max(int(self._pos_host[active].max()) if active.any() else 0,
+                            t_max if qi < NQ else 0)
+        self.total_steps += i
+        # per-step occupancy is not tracked: util_sum is not updated, as in JAX
+        self._pos_host[:] = self.state.pos.cpu().numpy()
+        self._step_host[:] = 1 << 30
+        res = results[:NQ].cpu().numpy()
+        out: List[CompletedRequest] = []
+        for idx, req in enumerate(reqs):
+            n = int(rsteps[idx])
+            full = np.concatenate([req.input_ids, res[idx, :n].astype(np.int64)], axis=0)
+            start_idx = req.input_ids.shape[0] - req.start_length
+            out.append(CompletedRequest(request_id=req.request_id,
+                                        start_length=req.start_length,
+                                        tokens=full[start_idx:], steps=n))
+        return out
+
     def warmup(self, *, prompt_lens=(64,), attend_upto: Optional[int] = None) -> None:
         """Run every path the serving loop can hit once before live traffic:
         dummy requests of each prompt length in ``prompt_lens`` through
-        submit/run (the kernel build, prefill and splice), then a decode step
-        on the idle state at every attend bucket up to ``attend_upto``
-        (default: the full cache), which on the card captures the bucket's
-        graph (one eager step, then the capture). Idle rows' cache writes are masked and
-        their out writes drop, and an admission overwrites every per-row
-        field, so the extra steps cannot leak into later requests."""
+        submit/run (the kernel build, an eager prefill and the splice), on
+        the card the capture of each of their buckets' prefill graphs, then
+        a decode step on the idle state at every attend bucket up to
+        ``attend_upto`` (default: the full cache), which on the card
+        captures the bucket's graph (one eager step, then the capture).
+        ``run_events`` and ``run_drain`` replay the same graphs. Idle rows'
+        cache writes are masked and their out writes drop, and an admission
+        overwrites every per-row field, so the extra steps cannot leak into
+        later requests."""
         if self._active or self._queue:
             raise RuntimeError("warmup on a busy server")
         cfg = self.config
@@ -661,6 +904,9 @@ class DelayBatchServer:
             g[-1, 0] = cfg.audio_assistant_gen_slot_token_id
             self.submit(g, max_new_tokens=2)
         self.run()
+        for Tb in sorted({-(-int(T) // self.prompt_bucket) * self.prompt_bucket
+                          for T in prompt_lens}):
+            self._prefills.capture(Tb, top_k_text=self.top_k_text, top_k_audio=self.top_k_audio)
         upto = min(attend_upto or self.cache_len, self.cache_len)
         pos = 2
         while True:

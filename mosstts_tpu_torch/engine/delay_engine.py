@@ -2,19 +2,23 @@
 MOSS-TTSD, MOSS-VoiceGenerator, MOSS-SoundEffect).
 
 Ports ``mosstts_tpu/engine/delay_engine.py``: ``attend_bucket``,
-``DelayEngine`` with ``random_init``, ``quantize`` and ``generate``. The
-prefill runs eagerly; the decode steps run over one static decode state
-(``engine/step_graph.DecodeSteps``) into whose cache each call prefills, in
-place. The engine keeps the state of its last ``(batch, cache_len,
-kv_quant)`` only: a call at another key frees it, graphs included, before
-it makes its own, so the engine holds at most one KV cache. On the card
-every decode step is the replay of a CUDA graph of the step, one per
-attend bucket, the JAX engine's compiled step program (``_get_step``). ``on_device=False`` polls
-the stop flags every ``poll_every`` steps; ``on_device=True`` runs JAX's
-segment loop over ``delay_generate_on_device``, whose replays read the stop
-flags one step behind the device (JAX: one ``lax.while_loop`` program per
-segment). ``graphs=False`` runs the same steps eagerly on the card, to
-compare; the CPU always runs them eagerly.
+``DelayEngine`` with ``random_init``, ``quantize``, ``generate`` and
+``hidden_out_layers``. The engine keeps one static decode state, with its
+decode steps (``engine/step_graph.DecodeSteps``) and prefills
+(``step_graph.Prefills``), for its last ``(batch, cache_len, kv_quant)``
+only: a call at another key frees it, graphs included, before it makes its
+own, so the engine holds at most one KV cache. Each call prefills into that
+state in place. On the card the prefill is the replay of a CUDA graph of
+``delay_prefill`` per ``(T, top_k_text, top_k_audio, hidden_out_layers)``,
+captured at the key's second use (the first runs eagerly; the JAX engine's
+``_get_prefill``), so it pays only where a caller repeats a prompt length;
+the graphs of the ``PREFILL_GRAPHS`` most recent keys are kept. Every
+decode step is the replay of a CUDA graph of the step, one per attend
+bucket (its ``_get_step``). ``on_device=False`` polls the stop flags every
+``poll_every`` steps; ``on_device=True`` runs JAX's segment loop over
+``delay_generate_on_device``, whose replays read the stop flags one step
+behind the device (JAX: one ``lax.while_loop`` program per segment). ``graphs=False`` runs the same prefills and steps
+eagerly on the card, to compare; the CPU always runs them eagerly.
 """
 from __future__ import annotations
 
@@ -25,18 +29,16 @@ import numpy as np
 import torch
 
 from ..core.config import DelayConfig
-from ..models.delay import (
-    DelayGenState,
-    DelayParams,
-    delay_generate_on_device,
-    delay_prefill,
-    init_delay_params,
-    make_sampling,
-)
-from ..nn.qwen3 import init_kv_cache, init_quant_kv_cache
+from ..models.delay import DelayParams, delay_generate_on_device, init_delay_params, make_sampling
 from ..ops.quant import quantize_tree_
 from ..ops.sampling import reseed_generators_, row_generators
-from .step_graph import DecodeSteps, copy_state_
+from .step_graph import DecodeSteps, Prefills, host_tensor, zero_state
+
+# prefill graphs kept per decode state. The key holds the prompt's exact
+# length, which callers need not repeat, so the set of keys has no bound of
+# its own (a server's prompt buckets do); a graph holds its launches' nodes
+# and its prompt buffers, so the engine keeps the most recent keys only
+PREFILL_GRAPHS = 8
 
 
 def _round_up(x: int, m: int) -> int:
@@ -56,25 +58,30 @@ class DelayEngine:
     """Ports ``mosstts_tpu.engine.delay_engine.DelayEngine`` (solo engine,
     linear KV cache in ``dtype``, or int8 with per-slot scales when
     ``kv_quant``). ``params`` is a ``DelayParams`` module on ``device``,
-    float or, after ``quantize()``, with int8 matmul weights. ``graphs``
-    (on the card): replay each decode step as a CUDA graph; False runs the
-    steps eagerly, to compare."""
+    float or, after ``quantize()``, with int8 matmul weights.
+    ``hidden_out_layers`` (1 + n_vq indices into the backbone's hidden
+    states) sources each head from its own layer. ``graphs`` (on the card):
+    replay each prefill and decode step as a CUDA graph; False runs them
+    eagerly, to compare."""
 
     def __init__(self, params: DelayParams, config: DelayConfig, *, dtype=torch.bfloat16,
                  cache_bucket: int = 256, top_k_text: int = 50, top_k_audio: int = 25,
-                 kv_quant: bool = False, device=None, graphs: bool = True):
+                 hidden_out_layers: Optional[tuple] = None, kv_quant: bool = False,
+                 device=None, graphs: bool = True):
         self.params = params
         self.config = config
         self.dtype = dtype
         self.cache_bucket = cache_bucket
         self.top_k_text = top_k_text
         self.top_k_audio = top_k_audio
+        self.hidden_out_layers = tuple(hidden_out_layers) if hidden_out_layers else None
         self.kv_quant = kv_quant
         self.device = torch.device(device) if device is not None else params.text_head.device
         self.graphs = graphs
-        # (B, cache_len, kv_quant) -> the static decode state and its graphs,
-        # for the last key only
+        # (B, cache_len, kv_quant) -> the static decode state's steps and its
+        # prefills, and their graphs, for the last key only
         self._steps: Dict[tuple, DecodeSteps] = {}
+        self._prefills: Dict[tuple, Prefills] = {}
         # one call at a time: the calls share the static decode state (the
         # JAX engine's calls share nothing; concurrent HTTP handlers call one
         # engine)
@@ -95,48 +102,37 @@ class DelayEngine:
         ``QuantWeight`` in place (``ops.quant.quantize_tree_``; the float
         tensors are freed, so the model never holds both); embeddings and
         norms keep their dtype. ``kv_cache=True`` also switches later
-        prefills to the int8 KV cache. Every decode graph and static buffer
-        is dropped, as JAX drops its compiled programs: the graphs read the
-        float weights' addresses. Returns ``self``."""
+        prefills to the int8 KV cache. Every prefill and decode graph and
+        static buffer is dropped, as JAX drops its compiled programs: the
+        graphs read the float weights' addresses. Returns ``self``."""
         if mode != "int8":
             raise ValueError(f"unknown quantization mode: {mode}")
         with self._lock:
             self._steps.clear()
+            self._prefills.clear()
             quantize_tree_(self.params)
             if kv_cache:
                 self.kv_quant = True
         return self
 
-    def _decode_steps(self, B: int, cache_len: int) -> DecodeSteps:
+    def _decode_steps(self, B: int, cache_len: int) -> Tuple[DecodeSteps, Prefills]:
         """The static decode state of batch ``B`` at ``cache_len`` (its
         ``out`` holds ``cache_len`` steps, more than any ``max_new_tokens``
-        at that cache length) and the graphs over it, made at first use
-        after the previous key's are freed."""
+        at that cache length), its decode steps and prefills, made at first
+        use after the previous key's are freed."""
         key = (B, cache_len, self.kv_quant)
         steps = self._steps.get(key)
         if steps is None:
             self._steps.clear()  # the old cache, buffers and graphs go first
-            cfg, dev = self.config, self.device
-            lc, C = cfg.language_config, cfg.channels
-
-            def zeros(shape, dtype):
-                return torch.zeros(shape, dtype=dtype, device=dev)
-
-            state = DelayGenState(
-                cache=(init_quant_kv_cache(lc, B, cache_len, device=dev) if self.kv_quant else
-                       init_kv_cache(lc, B, cache_len, dtype=self.dtype, device=dev)),
-                kv_valid=zeros((B, cache_len), torch.bool),
-                cur_ids=zeros((B, 1, C), torch.int64),
-                pos=zeros((B,), torch.int32), step=zeros((B,), torch.int32),
-                rng=row_generators(0, B, dev),
-                is_stopping=zeros((B,), torch.bool), is_audio=zeros((B,), torch.bool),
-                audio_lengths=zeros((B,), torch.int32), delayed=zeros((B,), torch.int32),
-                seen=zeros((B, cfg.n_vq, cfg.audio_emb_vocab), torch.bool),
-                out=zeros((B, cache_len, C), torch.int32),
-                out_valid=zeros((B, cache_len), torch.bool))
+            self._prefills.clear()
+            dev = self.device
+            state = zero_state(self.config, B, cache_len, cache_len, dtype=self.dtype,
+                               kv_quant=self.kv_quant, rng=row_generators(0, B, dev), device=dev)
             steps = self._steps[key] = DecodeSteps(
-                self.params, cfg, state, make_sampling(device=dev), graphs=self.graphs)
-        return steps
+                self.params, self.config, state, make_sampling(device=dev), graphs=self.graphs)
+            self._prefills[key] = Prefills(steps, state, steps.sampling,
+                                           max_graphs=PREFILL_GRAPHS)
+        return steps, self._prefills[key]
 
     @torch.no_grad()
     def generate(
@@ -178,21 +174,16 @@ class DelayEngine:
                 audio_rp_cross_batch=audio_rp_cross_batch, device=dev,
             )
             cache_len = _round_up(T + max_new_tokens + 1, self.cache_bucket)
-            ids_dev = torch.as_tensor(input_ids, device=dev)
-            mask_dev = torch.as_tensor(np.asarray(attention_mask, bool), device=dev)
 
-            runner = self._decode_steps(B, cache_len)
+            runner, prefills = self._decode_steps(B, cache_len)
             state, samp = runner.state, runner.sampling
             for static, value in zip(samp, sampling):
                 static.copy_(value)
             reseed_generators_(state.rng, seed)
-            copy_state_(state, delay_prefill(
-                self.params, cfg, ids_dev, mask_dev, max_new_tokens=max_new_tokens,
-                cache_len=cache_len, rng=state.rng, sampling=samp, top_k_text=self.top_k_text,
-                top_k_audio=self.top_k_audio, dtype=self.dtype, kv_quant=self.kv_quant,
-                cache=state.cache))
             kw = dict(top_k_text=self.top_k_text, top_k_audio=self.top_k_audio,
-                      uniform_slots=True)
+                      hidden_out_layers=self.hidden_out_layers)
+            prefills.run(host_tensor(input_ids, dev), host_tensor(attention_mask, dev), **kw)
+            kw["uniform_slots"] = True
             steps = 1
             if on_device:
                 # JAX's segments (delay_engine.py:221-233): each attends one bucket

@@ -1,60 +1,86 @@
-"""Delay decode steps over static buffers, replayed as CUDA graphs on the card.
+"""Delay decode steps and prefills over static buffers, replayed as CUDA
+graphs on the card.
 
-The port's counterpart of the JAX package's compiled step programs:
-``jax.jit`` of ``delay_decode_step`` with the state donated
-(``mosstts_tpu/engine/delay_engine.py:125``, ``batch_server.py:398``).
+The port's counterpart of the JAX package's compiled step and prefill
+programs: ``jax.jit`` of ``delay_decode_step`` with the state donated
+(``mosstts_tpu/engine/delay_engine.py:125``, ``batch_server.py:398``) and of
+``delay_prefill`` (``delay_engine.py:110``, ``batch_server.py:262``).
 
 ``DecodeSteps`` owns one ``DelayGenState`` and one ``DelaySampling`` whose
 tensors never move, and advances the state in place, one decode step per
 ``step()``. On the card a step is the replay of a CUDA graph of one
 ``delay_decode_step``, one graph per ``(attend_len, uniform_slots,
-top_k_text, top_k_audio)``. The graph ends by copying every field the step
-replaces (``STEP_FIELDS``) back into its buffer, as a donated JAX buffer is
-reused; the cache, ``kv_valid``, ``out`` and ``out_valid`` are written in
-place by the step itself. A block of k steps (JAX's ``_block_fn``, a
-``fori_loop`` program) is k replays of the one-step graph.
+top_k_text, top_k_audio, hidden_out_layers)``. The graph ends by copying
+every field the step replaces (``STEP_FIELDS``) back into its buffer, as a
+donated JAX buffer is reused; the cache, ``kv_valid``, ``out`` and
+``out_valid`` are written in place by the step itself. A block of k steps
+(JAX's ``_block_fn``, a ``fori_loop`` program) is k replays of the one-step
+graph.
 
-The first step at a key runs eagerly on the capture stream: it is a real
-step, and it builds the kernels, sets their shared-memory limits and makes
-cuBLAS's handle and workspace, none of which a capture may do. Then the
-graph is captured (a capture runs nothing) and every later step at that key
-replays it. The rows' generators are registered with each graph, so a
-replay draws from their current seed and offset exactly as an eager step
-would, and ``ops.sampling.reseed_generators_`` between replays takes effect
-at the next one. All graphs of one ``DecodeSteps`` share one memory pool:
-nothing a capture allocates is read after its graph ends, so they may
-replay in any order, one at a time. A failed capture or replay raises; nothing falls back
-to eager steps.
+``Prefills`` prefills prompts into a static state (the engine's decode
+state, or the server's batch-1 admission state) with its static sampling:
+one CUDA graph of ``delay_prefill`` and ``copy_state_`` per ``(T,
+top_k_text, top_k_audio, hidden_out_layers)``, the prompt's exact length
+(no padding to a bucket: a padded prompt rounds differently), over static
+prompt and mask buffers of that length. A key's first prefill runs
+eagerly; the second captures the graph and replays it, and so does every
+later one (``capture()`` captures ahead, for a server's ``warmup()``). So
+a prompt length seen once costs what an eager prefill costs, and the graphs
+pay only where lengths repeat: the server's prompt buckets (at most
+``cache_len / prompt_bucket`` of them, so it keeps every graph, as JAX's
+compile cache keeps every program), or an engine's repeated exact lengths
+(the engine keeps ``max_graphs``, the least recently used dropped first).
+``counts`` tells how the runs went: eager, captured, or replayed.
 
-With ``graphs=False``, and always for CPU tensors, each step runs eagerly
-and copies its fields back the same way, so the two paths share everything
-but how the step's kernels are issued.
+The first step at a key, and a key's first prefill, run eagerly on the
+capture stream: they are real work, and they build the kernels, set their
+shared-memory limits and make cuBLAS's handle and workspace, none of which
+a capture may do. Then the graph is captured (a capture runs nothing) and
+later calls at that key replay it. The state's generators are registered
+with each graph, so a replay draws from their current seed and offset
+exactly as eager work would, and ``ops.sampling.reseed_generators_`` (or a
+``manual_seed``) between replays takes effect at the next one; a replay
+advances a generator's offset as the eager work does. A ``Prefills``
+shares its ``DecodeSteps``' capture stream and memory pool: nothing a
+capture allocates is read after its graph ends, so the graphs may replay in
+any order, one at a time. A failed capture or replay raises; nothing falls
+back to eager work. The launch counts a capture made are taken back and
+added per replay (``ops/kernels/launches.py``).
+
+With ``graphs=False``, and always for CPU tensors, each step and prefill
+runs eagerly and copies its fields back the same way, so the two paths
+share everything but how the kernels are issued.
 
 Every tensor a graph reads must outlive it at the same address: the
 weights (``quantize()`` replaces them, so an owner drops its
-``DecodeSteps`` then), the state and sampling buffers, and the paged table.
-``step()`` raises if the parameters' text head is no longer the one it was
-built with.
+``DecodeSteps`` and ``Prefills`` then), the state, prompt and sampling
+buffers, and the paged table. ``step()`` and ``run()`` raise if the
+parameters' text head is no longer the one they were built with.
 
 Captures may happen while other threads use the card: the serving pool's
-decode thread captures a new attend bucket while HTTP handler threads run
-the codec or a solo engine. So a capture runs in CUDA's thread-local capture
-mode, in which only the capturing thread is barred from calls a capture
-forbids, and captures are serialised process-wide (``_CAPTURE_LOCK``):
-``torch.cuda.graph`` synchronises the device and empties the allocator's
-cache before it begins, which would break a capture under way in another
-thread. Other threads must not synchronise the whole device while a
-capture may run; a stream's or an event's synchronisation is fine.
+decode thread captures a new attend bucket or prompt length while HTTP
+handler threads run the codec or a solo engine. So a capture runs in CUDA's
+thread-local capture mode, in which only the capturing thread is barred
+from calls a capture forbids, and captures are serialised process-wide
+(``_CAPTURE_LOCK``): ``torch.cuda.graph`` synchronises the device and
+empties the allocator's cache before it begins, which would break a
+capture under way in another thread. Other threads must not synchronise
+the whole device while a capture may run; a stream's or an event's
+synchronisation is fine.
 """
 from __future__ import annotations
 
 import threading
-from typing import Optional
+from collections import OrderedDict
+from typing import Callable, Optional
 
+import numpy as np
 import torch
 
 from ..core.config import DelayConfig
-from ..models.delay import DelayGenState, DelayParams, DelaySampling, delay_decode_step
+from ..models.delay import (DelayGenState, DelayParams, DelaySampling, delay_decode_step,
+                            delay_prefill)
+from ..nn.qwen3 import init_kv_cache, init_quant_kv_cache
 from ..ops.kernels import launches
 
 # one capture at a time in the process (see the module docstring)
@@ -63,6 +89,36 @@ _CAPTURE_LOCK = threading.Lock()
 # the DelayGenState fields delay_decode_step returns as new tensors
 STEP_FIELDS = ("cur_ids", "pos", "step", "is_stopping", "is_audio", "audio_lengths",
                "delayed", "seen")
+
+
+def host_tensor(x, device) -> torch.Tensor:
+    """``x`` (an array) as a CPU tensor to copy to ``device``: pinned for a
+    CUDA device, so the copy waits neither for the device nor the host."""
+    t = torch.as_tensor(np.asarray(x))
+    return t.pin_memory() if torch.device(device).type == "cuda" else t
+
+
+def zero_state(cfg: DelayConfig, B: int, cache_len: int, out_len: int, *, dtype,
+               kv_quant: bool, rng, device) -> DelayGenState:
+    """A static state of ``B`` rows, zeros everywhere: a linear KV cache of
+    ``cache_len`` slots in ``dtype`` (int8 with scales when ``kv_quant``)
+    and ``out_len`` output steps, drawing from the generators ``rng``."""
+    lc, C = cfg.language_config, cfg.channels
+
+    def zeros(shape, dt):
+        return torch.zeros(shape, dtype=dt, device=device)
+
+    return DelayGenState(
+        cache=(init_quant_kv_cache(lc, B, cache_len, device=device) if kv_quant else
+               init_kv_cache(lc, B, cache_len, dtype=dtype, device=device)),
+        kv_valid=zeros((B, cache_len), torch.bool),
+        cur_ids=zeros((B, 1, C), torch.int64),
+        pos=zeros((B,), torch.int32), step=zeros((B,), torch.int32), rng=list(rng),
+        is_stopping=zeros((B,), torch.bool), is_audio=zeros((B,), torch.bool),
+        audio_lengths=zeros((B,), torch.int32), delayed=zeros((B,), torch.int32),
+        seen=zeros((B, cfg.n_vq, cfg.audio_emb_vocab), torch.bool),
+        out=zeros((B, out_len, C), torch.int32),
+        out_valid=zeros((B, out_len), torch.bool))
 
 
 def copy_state_(dst: DelayGenState, src: DelayGenState) -> None:
@@ -102,48 +158,163 @@ class DecodeSteps:
         """The keys captured so far."""
         return tuple(self._captured)
 
-    @torch.no_grad()
-    def step(self, *, attend_len: Optional[int], uniform_slots: bool, top_k_text: int,
-             top_k_audio: int) -> None:
-        """One decode step of the whole batch, in place."""
+    def check_params(self) -> None:
         if self.params.text_head is not self._head:
             raise RuntimeError("the parameters were replaced since these decode steps were "
                                "built (quantize()?): build new ones")
-        key = (attend_len, uniform_slots, top_k_text, top_k_audio)
+
+    def warm(self, fn: Callable[[], None]) -> None:
+        """Run ``fn`` eagerly: on the capture stream when graphs are on (the
+        warm-up of a key, whose kernels and cuBLAS workspace the capture
+        then finds made), else where the caller runs."""
+        if not self.graphs:
+            fn()
+            return
+        if self._stream is None:
+            self._stream = torch.cuda.Stream(self.state.pos.device)
+            self.pool = torch.cuda.graph_pool_handle()
+        self._stream.wait_stream(torch.cuda.current_stream())
+        with torch.cuda.stream(self._stream):
+            fn()
+        torch.cuda.current_stream().wait_stream(self._stream)
+
+    def capture(self, fn: Callable[[], None], generators) -> tuple:
+        """Capture ``fn`` (warmed up by ``warm``) into a graph in this
+        object's pool, with ``generators`` registered. Returns the graph and
+        the launches its capture counted, which are taken back from the
+        counts (a replay adds them)."""
+        graph = torch.cuda.CUDAGraph()
+        for gen in generators:
+            graph.register_generator_state(gen)
+        with _CAPTURE_LOCK:
+            before = launches.read()
+            try:
+                with torch.cuda.graph(graph, pool=self.pool, stream=self._stream,
+                                      capture_error_mode="thread_local"):
+                    fn()
+            finally:
+                captured = launches.since(before)
+                launches.restore(before)
+        return graph, captured
+
+    @torch.no_grad()
+    def step(self, *, attend_len: Optional[int], uniform_slots: bool, top_k_text: int,
+             top_k_audio: int, hidden_out_layers: Optional[tuple] = None) -> None:
+        """One decode step of the whole batch, in place."""
+        self.check_params()
+        key = (attend_len, uniform_slots, top_k_text, top_k_audio,
+               None if hidden_out_layers is None else tuple(hidden_out_layers))
         entry = self._captured.get(key)
         if entry is not None:
             entry[0].replay()
             launches.add_replay(entry[1])
             return
-        if not self.graphs:
-            self._eager(key)
-            return
-        if self._stream is None:
-            self._stream = torch.cuda.Stream(self.state.pos.device)
-            self.pool = torch.cuda.graph_pool_handle()
-        stream = self._stream
-        stream.wait_stream(torch.cuda.current_stream())
-        with torch.cuda.stream(stream):
-            self._eager(key)  # the warm-up, a real step
-        torch.cuda.current_stream().wait_stream(stream)
-        graph = torch.cuda.CUDAGraph()
-        for gen in self.state.rng:
-            graph.register_generator_state(gen)
-        with _CAPTURE_LOCK:
-            before = launches.read()
-            try:
-                with torch.cuda.graph(graph, pool=self.pool, stream=stream,
-                                      capture_error_mode="thread_local"):
-                    self._eager(key)
-            finally:
-                captured = launches.since(before)
-                launches.restore(before)
-        self._captured[key] = (graph, captured)
+        self.warm(lambda: self._eager(key))  # a real step
+        if self.graphs:
+            self._captured[key] = self.capture(lambda: self._eager(key), self.state.rng)
 
     def _eager(self, key) -> None:
-        attend_len, uniform_slots, top_k_text, top_k_audio = key
+        attend_len, uniform_slots, top_k_text, top_k_audio, hol = key
         new = delay_decode_step(self.params, self.cfg, self.state, self.sampling,
                                 top_k_text=top_k_text, top_k_audio=top_k_audio,
-                                attend_len=attend_len, uniform_slots=uniform_slots)
+                                attend_len=attend_len, uniform_slots=uniform_slots,
+                                hidden_out_layers=hol)
         for name in STEP_FIELDS:
             getattr(self.state, name).copy_(getattr(new, name))
+
+
+class _Prompt:
+    """A prefill key's static prompt and mask buffers and, once captured,
+    its graph."""
+
+    def __init__(self, B: int, T: int, C: int, device):
+        self.ids = torch.zeros((B, T, C), dtype=torch.int64, device=device)
+        self.mask = torch.zeros((B, T), dtype=torch.bool, device=device)
+        self.warm = False  # a first prefill ran at this key
+        self.graph = None
+        self.launches = None
+
+
+class Prefills:
+    """Prefills of ``steps.params`` into the static ``state`` (whose cache
+    has the capacity of every prefill) with the static ``sampling``,
+    through CUDA graphs when ``steps`` replays them; the graphs share
+    ``steps``' capture stream and memory pool (see the module docstring)."""
+
+    def __init__(self, steps: DecodeSteps, state: DelayGenState, sampling: DelaySampling,
+                 *, max_graphs: Optional[int] = None):
+        self.steps, self.state, self.sampling = steps, state, sampling
+        self.max_graphs = max_graphs  # None: every key is kept
+        self._prompts: "OrderedDict[tuple, _Prompt]" = OrderedDict()
+        # runs of run(): eager (a key's first use, or graphs off), capture (the
+        # key's graph captured, then replayed), replay (a graph captured before)
+        self.counts = dict(eager=0, capture=0, replay=0)
+
+    @property
+    def keys(self):
+        """The keys captured and kept."""
+        return tuple(k for k, p in self._prompts.items() if p.graph is not None)
+
+    def _prompt(self, T: int, top_k_text: int, top_k_audio: int, hidden_out_layers):
+        key = (T, top_k_text, top_k_audio,
+               None if hidden_out_layers is None else tuple(hidden_out_layers))
+        prompt = self._prompts.pop(key, None)
+        if prompt is None:
+            st = self.state
+            prompt = _Prompt(st.pos.shape[0], T, st.cur_ids.shape[-1], st.pos.device)
+        self._prompts[key] = prompt  # the most recently used last
+        while self.max_graphs is not None and len(self._prompts) > self.max_graphs:
+            _, old = self._prompts.popitem(last=False)
+            if old.graph is not None:  # let a replay under way end before its graph goes
+                torch.cuda.current_stream().synchronize()
+        return key, prompt
+
+    @torch.no_grad()
+    def run(self, ids: torch.Tensor, mask: torch.Tensor, *, top_k_text: int,
+            top_k_audio: int, hidden_out_layers=None) -> DelayGenState:
+        """Prefill ``ids`` (B, T, C) with ``mask`` (B, T), on the host
+        (pinned, for a copy that does not wait) or on the device, into the
+        static state, which it returns."""
+        self.steps.check_params()
+        key, prompt = self._prompt(ids.shape[1], top_k_text, top_k_audio, hidden_out_layers)
+        prompt.ids.copy_(ids, non_blocking=True)
+        prompt.mask.copy_(mask, non_blocking=True)
+        if prompt.graph is None and prompt.warm and self.steps.graphs:
+            self._capture(key, prompt)
+            self.counts["capture"] += 1
+        elif prompt.graph is not None:
+            self.counts["replay"] += 1
+        if prompt.graph is not None:
+            prompt.graph.replay()
+            launches.add_replay(prompt.launches)
+        else:
+            self.steps.warm(lambda: self._eager(key, prompt))
+            prompt.warm = True
+            self.counts["eager"] += 1
+        return self.state
+
+    @torch.no_grad()
+    def capture(self, T: int, *, top_k_text: int, top_k_audio: int,
+                hidden_out_layers=None) -> None:
+        """Capture the graph of prompts of length ``T`` ahead of use (after
+        an eager prefill of whatever the key's buffers hold, if none ran)."""
+        key, prompt = self._prompt(T, top_k_text, top_k_audio, hidden_out_layers)
+        if prompt.graph is not None or not self.steps.graphs:
+            return
+        if not prompt.warm:
+            self.steps.warm(lambda: self._eager(key, prompt))
+            prompt.warm = True
+        self._capture(key, prompt)
+
+    def _capture(self, key, prompt: _Prompt) -> None:
+        prompt.graph, prompt.launches = self.steps.capture(
+            lambda: self._eager(key, prompt), self.state.rng)
+
+    def _eager(self, key, prompt: _Prompt) -> None:
+        _, top_k_text, top_k_audio, hol = key
+        st, steps = self.state, self.steps
+        copy_state_(st, delay_prefill(
+            steps.params, steps.cfg, prompt.ids, prompt.mask, max_new_tokens=1,
+            cache_len=st.kv_valid.shape[1], rng=st.rng, sampling=self.sampling,
+            top_k_text=top_k_text, top_k_audio=top_k_audio, kv_quant=len(st.cache) == 4,
+            cache=st.cache, hidden_out_layers=hol))

@@ -1,11 +1,12 @@
 """MossTTSDelay: the multi-head RVQ transformer with delay-pattern decoding.
 
 Ports ``mosstts_tpu/models/delay.py``: ``init_delay_params``,
-``delay_embed``, ``_audio_head_logits``, ``delay_forward`` (no
-``hidden_out_layers``, no pipeline), ``DelaySampling``/``make_sampling``,
-``DelayGenState``, ``delay_prefill``, ``_text_preds``,
-``_sample_text_full``, ``_delay_sample_and_update``,
-``delay_decode_step`` and ``delay_generate_on_device``. The 32 audio tables and 33 heads stay stacked
+``delay_embed``, ``_audio_head_logits``, ``delay_forward`` (with
+``hidden_out_layers``; no pipeline, no ``text_lazy``),
+``DelaySampling``/``make_sampling``, ``DelayGenState``, ``delay_prefill``,
+``_text_preds``, ``_sample_text_full``, ``_delay_sample_and_update``,
+``delay_decode_step``, ``delay_decode_until_event`` and
+``delay_generate_on_device``. The 32 audio tables and 33 heads stay stacked
 (``(n_vq, Va, D)`` and ``(n_vq, D, Va)``) so the embedding sum and the head
 projection are one gather and one batched product. The heads may be int8
 ``QuantWeight``s (``ops/quant.py``, ``DelayEngine.quantize``): the text head
@@ -19,8 +20,9 @@ buffer are dropped, as JAX's ``mode="drop"`` does, by masking. The cache,
 """
 from __future__ import annotations
 
-from typing import Any, List, NamedTuple, Optional, Tuple
+from typing import Any, Callable, List, NamedTuple, Optional, Sequence, Tuple
 
+import numpy as np
 import torch
 from torch import nn
 
@@ -104,6 +106,24 @@ def _audio_head_logits(hidden: torch.Tensor, heads) -> torch.Tensor:
     return logits.permute(1, 0, 2).reshape(B, T, n, V)
 
 
+def _per_head_logits(hs: torch.Tensor, heads) -> torch.Tensor:
+    """The ``hidden_out_layers`` audio heads (JAX ``delay_forward``'s
+    ``nbtd,ndv->btnv`` einsum): each head n reads its own source hidden
+    state, (n, B, T, D) x (n, D, V) -> (B, T, n, V) in float32. An int8
+    stack computes ``(x @ q[n].astype(x.dtype)) * scale[n]``, as JAX does,
+    outside any kernel (a bf16 copy of the int8 values per call)."""
+    n, B, T, D = hs.shape
+    x = hs.reshape(n, B * T, D)
+    w = heads.q if is_quantized(heads) else heads
+    if x.device.type == "cuda" and x.dtype != torch.float32:
+        logits = torch.bmm(x, w.to(x.dtype), out_dtype=torch.float32)
+    else:
+        logits = torch.matmul(x.float(), w.float())
+    if is_quantized(heads):
+        logits = logits * heads.scale[:, None]
+    return logits.reshape(n, B, T, -1).permute(1, 2, 0, 3)
+
+
 def delay_forward(
     params: DelayParams,
     cfg: DelayConfig,
@@ -114,22 +134,38 @@ def delay_forward(
     cache=None,
     cache_offset=0,
     attend_len: Optional[int] = None,
+    hidden_out_layers: Optional[Sequence[int]] = None,
     logits_len: Optional[int] = None,
 ):
     """Ports ``mosstts_tpu.models.delay.delay_forward``. Returns
     (text_logits (B, T, V) f32, audio_logits (B, T, n_vq, Va) f32, cache);
     the last audio vocab column (the pad code) is masked to NEG_INF.
-    ``logits_len`` keeps only the last positions for the heads."""
+    ``logits_len`` keeps only the last positions for the heads.
+    ``hidden_out_layers`` (1 + n_vq indices into HF's hidden states: 0 the
+    embeddings, -1 the final-normed last layer) sources the text head
+    (entry 0) and each audio head from its own backbone layer."""
     embeds = delay_embed(params, cfg, ids)
-    hidden, cache = qwen3_forward(
-        params.backbone, cfg.language_config, embeds,
-        positions=positions, kv_valid=kv_valid, cache=cache, cache_offset=cache_offset,
-        attend_len=attend_len,
-    )
-    if logits_len is not None:
-        hidden = hidden[:, -logits_len:]
-    text_logits = dense(hidden, params.text_head).float()
-    audio_logits = _audio_head_logits(hidden, params.audio_heads)
+    lc = cfg.language_config
+    kw = dict(positions=positions, kv_valid=kv_valid, cache=cache, cache_offset=cache_offset,
+              attend_len=attend_len)
+    if hidden_out_layers is None:
+        hidden, cache = qwen3_forward(params.backbone, lc, embeds, **kw)
+        if logits_len is not None:
+            hidden = hidden[:, -logits_len:]
+        text_logits = dense(hidden, params.text_head).float()
+        audio_logits = _audio_head_logits(hidden, params.audio_heads)
+    else:
+        if len(hidden_out_layers) != 1 + cfg.n_vq:
+            raise ValueError("hidden_out_layers must have 1 + n_vq entries")
+        n_hs = lc.num_hidden_layers + 1
+        idxs = [int(i) % n_hs for i in hidden_out_layers]
+        _, (cache, states) = qwen3_forward(params.backbone, lc, embeds,
+                                           output_hidden_states=True, **kw)
+        if logits_len is not None:
+            states = [h[:, -logits_len:] for h in states]
+        text_logits = dense(states[idxs[0]], params.text_head).float()
+        audio_logits = _per_head_logits(torch.stack([states[i] for i in idxs[1:]]),
+                                        params.audio_heads)
     audio_logits[..., -1] = NEG_INF
     return text_logits, audio_logits, cache
 
@@ -213,6 +249,7 @@ def delay_prefill(
     dtype=torch.bfloat16,
     kv_quant: bool = False,
     cache=None,
+    hidden_out_layers: Optional[Sequence[int]] = None,
 ) -> DelayGenState:
     """Ports ``mosstts_tpu.models.delay.delay_prefill``: run the prompt into
     a fresh linear cache (int8 with per-slot scales when ``kv_quant``; the
@@ -244,7 +281,7 @@ def delay_prefill(
 
     text_logits, audio_logits, cache = delay_forward(
         params, cfg, input_ids, positions=positions, kv_valid=kv_valid,
-        cache=cache, cache_offset=0, logits_len=1,
+        cache=cache, cache_offset=0, hidden_out_layers=hidden_out_layers, logits_len=1,
     )
 
     # continuation init (reference generate :431-436)
@@ -396,6 +433,7 @@ def delay_decode_step(
     *, top_k_text: int = 50, top_k_audio: int = 25,
     attend_len: Optional[int] = None,
     uniform_slots: bool = False,
+    hidden_out_layers: Optional[Sequence[int]] = None,
 ) -> DelayGenState:
     """Ports ``mosstts_tpu.models.delay.delay_decode_step``: forward the
     pending frame, then run the state machine once. ``uniform_slots`` says
@@ -406,16 +444,90 @@ def delay_decode_step(
     text_logits, audio_logits, cache = delay_forward(
         params, cfg, state.cur_ids, positions=positions, kv_valid=state.kv_valid,
         cache=state.cache, cache_offset=state.pos[0] if uniform_slots else state.pos,
-        attend_len=attend_len,
+        attend_len=attend_len, hidden_out_layers=hidden_out_layers,
     )
     state = state._replace(cache=cache, pos=state.pos + 1)
     return _delay_sample_and_update(state, cfg, sampling, top_k_text, top_k_audio,
                                     text_logits[:, -1], audio_logits[:, -1])
 
 
+def _lagged_steps(steps, n: int, stop: Callable[[torch.Tensor], bool], kw: dict,
+                  lag: Optional[int] = None) -> Tuple[int, Optional[int]]:
+    """Up to ``n`` steps of ``steps`` (an ``engine.step_graph.DecodeSteps``)
+    until ``stop``, given a copy of the stop flags on the host, holds for a
+    state. Returns ``(executed, at)``: the steps run and the number of steps
+    after which ``stop`` first held (None if it did not within ``n``).
+
+    On the CPU the flags are read before the first step and after each one
+    (JAX's ``lax.while_loop`` condition), so ``executed == at`` when the
+    loop stops. On the card every step is a graph replay, and each state's
+    flags (the entry state's too) are copied to pinned host memory behind
+    it, with an event, and read after the next replay has been enqueued, so
+    the device never waits for the host: the loop runs one step past the
+    state at which ``stop`` first held (``executed == at + 1``) unless that
+    state is the last, and never past ``n``. ``lag`` (1 on the card, 0 on
+    the CPU by default) lets a CPU test run the card's schedule."""
+    state = steps.state
+    cuda = state.pos.device.type == "cuda"
+    lag = (1 if cuda else 0) if lag is None else lag
+    flags = torch.empty((n + 1,) + state.is_stopping.shape, dtype=torch.bool, pin_memory=cuda)
+    events = []
+
+    def snap(i):
+        flags[i].copy_(state.is_stopping, non_blocking=cuda)
+        if cuda:
+            events.append(torch.cuda.Event())
+            events[-1].record()
+
+    snap(0)
+    for i in range(n + 1):  # i steps have run
+        j = i - lag  # the state whose flags are read now
+        if j >= 0:
+            if cuda:
+                events[j].synchronize()
+            if stop(flags[j]):
+                return i, j
+        if i == n:
+            break
+        steps.step(**kw)
+        snap(i + 1)
+    return n, None
+
+
+def delay_decode_until_event(
+    steps, watch, budget_left, max_steps: int, *, top_k_text: int = 50,
+    top_k_audio: int = 25, attend_len: Optional[int] = None, uniform_slots: bool = False,
+    hidden_out_layers: Optional[Sequence[int]] = None,
+) -> Tuple[DelayGenState, int]:
+    """Ports ``mosstts_tpu.models.delay.delay_decode_until_event``: decode
+    until a scheduling event, a watched row that stopped (EOS) or used up
+    its budget, or ``max_steps`` steps. ``steps`` is an
+    ``engine.step_graph.DecodeSteps`` whose state advances in place;
+    ``watch`` (B,) bool and ``budget_left`` (B,) int are host arrays.
+    Returns ``(state, executed)``, the steps actually run, which the
+    caller's host mirrors of ``pos`` and ``step`` advance by.
+
+    The host knows the budget and step caps exactly, so the loop runs at
+    most ``min(max_steps, budget_left[watch])`` steps and never passes
+    them. Only a watched row's stop flag is read from the device: on the
+    CPU after every step, so state and count equal JAX's ``lax.while_loop``;
+    on the card one replay late (``_lagged_steps``), so a stop is seen one
+    step after it (the count says so), as JAX's own ``run()`` overshoots
+    with its poll windows."""
+    watch = np.asarray(watch, bool)
+    budget_left = np.asarray(budget_left, np.int64)
+    n = int(min([max_steps] + list(budget_left[watch])))
+    watched = torch.from_numpy(watch)
+    kw = dict(top_k_text=top_k_text, top_k_audio=top_k_audio, attend_len=attend_len,
+              uniform_slots=uniform_slots, hidden_out_layers=hidden_out_layers)
+    executed, _ = _lagged_steps(steps, max(n, 0), lambda f: bool((f & watched).any()), kw)
+    return steps.state, executed
+
+
 def delay_generate_on_device(
     steps, *, max_new_tokens: int, top_k_text: int = 50, top_k_audio: int = 25,
     attend_len: Optional[int] = None, uniform_slots: bool = False,
+    hidden_out_layers: Optional[Sequence[int]] = None,
 ) -> Tuple[DelayGenState, int]:
     """Ports ``mosstts_tpu.models.delay.delay_generate_on_device``: decode
     until ``min(step) >= max_new_tokens`` or every row stops. ``steps`` is
@@ -425,34 +537,17 @@ def delay_generate_on_device(
     condition first held (what the JAX engine reads back,
     ``int(state.step.max())``).
 
-    On the CPU the condition is checked after every (eager) step, so the
-    state is the one JAX's ``lax.while_loop`` returns. On the card each step
-    is a replay of a CUDA graph, and each replay's stop flags are copied to
-    pinned host memory behind it and read one step later, so the device
-    never waits for the host: the loop may run one step past the first step
-    at which every row had stopped. ``n`` is that first step's count, and
-    the frames past it are not part of the result; the one extra step
-    writes only at ``n`` and beyond."""
+    The steps run through ``_lagged_steps``: on the CPU the condition is
+    checked after every (eager) step, so the state is the one JAX's
+    ``lax.while_loop`` returns; on the card the stop flags are read one
+    replay late, so the loop may run one step past the first step at which
+    every row had stopped. ``n`` is that first step's count, and the frames
+    past it are not part of the result; the one extra step writes only at
+    ``n`` and beyond."""
     state = steps.state
-    cuda = state.pos.device.type == "cuda"
     kw = dict(top_k_text=top_k_text, top_k_audio=top_k_audio, attend_len=attend_len,
-              uniform_slots=uniform_slots)
+              uniform_slots=uniform_slots, hidden_out_layers=hidden_out_layers)
     lo, hi = int(state.step.min()), int(state.step.max())
     n = 0 if bool(state.is_stopping.all()) else max(0, max_new_tokens - lo)
-    lag = 1 if cuda else 0
-    flags = torch.empty((max(n, 1),) + state.is_stopping.shape, dtype=torch.bool,
-                        pin_memory=cuda)
-    events = []
-    for i in range(n):
-        steps.step(**kw)
-        flags[i].copy_(state.is_stopping, non_blocking=cuda)
-        if cuda:
-            events.append(torch.cuda.Event())
-            events[-1].record()
-        j = i - lag
-        if j >= 0:
-            if cuda:
-                events[j].synchronize()
-            if bool(flags[j].all()):
-                return state, hi + j + 1
-    return state, hi + n
+    executed, at = _lagged_steps(steps, n, lambda f: bool(f.all()), kw)
+    return state, hi + (executed if at is None else at)

@@ -29,7 +29,8 @@ The stacked matmul weights may be int8 ``QuantWeight``s (``ops/quant.py``):
 The caches are written in place (slice, ``index_copy_`` or indexed store
 into the preallocated buffers): no copy of a cache per step. The quantize
 and scatter of a cache write are plain PyTorch, as in JAX.
-``output_hidden_states``, ``remat``, ``use_rope=False`` and
+``output_hidden_states`` returns the per-layer hidden states (the Delay
+model's ``hidden_out_layers``). ``remat``, ``use_rope=False`` and
 ``final_norm=False`` are not ported yet.
 """
 from __future__ import annotations
@@ -283,9 +284,14 @@ def qwen3_forward(
     kv_positions: Optional[torch.Tensor] = None,
     attn_window: Optional[int] = None,
     attend_len: Optional[int] = None,
+    output_hidden_states: bool = False,
 ):
     """Ports ``mosstts_tpu.nn.qwen3.qwen3_forward``. Returns
-    (hidden (B, T, D), cache or None); the cache is updated in place.
+    (hidden (B, T, D), cache or None); the cache is updated in place. With
+    ``output_hidden_states`` the second item is ``(cache, hidden_states)``,
+    the L + 1 hidden states in HF's layout as a list: the embeddings, the
+    output of layers 1 .. L-1, and the final-normed output of layer L (JAX
+    stacks the same into one (L + 1, B, T, D) array).
 
     ``kv_positions`` gives the cache slots' absolute positions (ring and
     sliding-window caches); by default slot == position. ``attend_len``
@@ -356,6 +362,7 @@ def qwen3_forward(
 
     lay = params.layers
     hidden = inputs_embeds
+    states = [inputs_embeds] if output_hidden_states else None
     for li in range(cfg.num_hidden_layers):
         x = rms_norm(hidden, lay.ln1[li], eps)
         q = rms_norm(dense(x, lay.wq[li]).reshape(B, T, H, hd), lay.q_norm[li], eps)
@@ -389,5 +396,10 @@ def qwen3_forward(
         hidden = hidden + dense(attn, lay.wo[li])
         x = rms_norm(hidden, lay.ln2[li], eps)
         hidden = hidden + swiglu(x, lay.w_gate[li], lay.w_up[li], lay.w_down[li])
+        if output_hidden_states:
+            states.append(hidden)
 
-    return rms_norm(hidden, params.final_norm, eps), cache
+    hidden = rms_norm(hidden, params.final_norm, eps)
+    if output_hidden_states:
+        return hidden, (cache, states[:-1] + [hidden])
+    return hidden, cache

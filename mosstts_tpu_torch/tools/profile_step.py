@@ -1,18 +1,20 @@
 """Where the time of the 8B Delay decode step goes, on one NVIDIA GPU.
 
     python3 -m mosstts_tpu_torch.tools.profile_step [--batch 1 4] [--int8] [--graph]
-        [--trace-dir DIR]
+        [--hidden-out-layers] [--trace-dir DIR]
 
 Builds ``delay_8b()`` (random bf16 weights made on the card) and the
 ``codec_1p6b()`` codec with ``serve.pipelines.demo_backend``, then for each
 batch size (and, with ``--int8``, for each batch size again after
 ``engine.quantize()``, in the same process):
 
-- prefill of a ``--prompt``-token prompt into a ``--cache``-slot cache, the
-  first one of the process (cold) and a second one (warm), host clock;
+- prefill of a ``--prompt``-token prompt into a ``--cache``-slot static
+  state through ``engine/step_graph.Prefills``, as the engine runs it: the
+  first one at that prompt length (cold, eager) and the third (warm: with
+  ``--graph`` a replay of the graph the second captured), host clock;
 - the mean wall time of ``--steps`` greedy decode steps after 3 warm-up
   steps, attending ``--attend`` slots, host clock: eager steps, and with
-  ``--graph`` then CUDA-graph steps on a second prefill of the same prompt
+  ``--graph`` then CUDA-graph steps over a state of their own
   (``engine/step_graph.DecodeSteps``, as the engine and the server run
   them; the first warm-up step captures the graph), each with the rows
   below;
@@ -26,6 +28,12 @@ batch size (and, with ``--int8``, for each batch size again after
 - a ``cProfile`` window of 4 more steps: the Python functions with the most
   host time of their own per step (cProfile slows the host; these say where
   the host time goes, not how much there is).
+
+With ``--hidden-out-layers`` each of these runs is made twice, with the
+default heads and with ``hidden_out_layers = [-1] * C`` (every head
+sourced from the last layer through ``output_hidden_states``: the same
+logits, through the per-head product of JAX's ``delay_forward``, which
+with int8 heads makes a bf16 copy of the audio heads per call).
 
 Then the codec's decode of 100 frames (8 s of audio) at batch 1, host
 clock. The card's ``nvidia-smi`` line comes first and one JSON object of
@@ -48,7 +56,7 @@ import numpy as np
 import torch
 
 from ..core.config import codec_1p6b, delay_8b
-from ..engine.step_graph import DecodeSteps
+from ..engine.step_graph import DecodeSteps, Prefills, zero_state
 from ..models import delay as td
 from ..ops.sampling import row_generators
 from ..serve.pipelines import demo_backend
@@ -92,7 +100,7 @@ def device_events(prof) -> list:
             if e.device_type == torch.autograd.DeviceType.CUDA and "spin_kernel" not in e.key]
 
 
-def profile_batch(engine, B: int, args, trace_dir, graphs: bool = False) -> dict:
+def profile_batch(engine, B: int, args, trace_dir, graphs: bool = False, hol=None) -> dict:
     cfg, dev = engine.config, engine.device
     rng = np.random.default_rng(0)
     ids = torch.tensor(rng.integers(1000, 1200, size=(B, args.prompt, cfg.channels)),
@@ -101,20 +109,23 @@ def profile_batch(engine, B: int, args, trace_dir, graphs: bool = False) -> dict
     ids[:, -1, 0] = cfg.audio_start_token_id
     mask = torch.ones((B, args.prompt), dtype=torch.bool, device=dev)
     samp = td.make_sampling(text_temperature=0.0, audio_temperature=0.0, device=dev)
+    torch.cuda.reset_peak_memory_stats()
+    st = zero_state(cfg, B, args.cache, args.cache, dtype=engine.dtype, kv_quant=False,
+                    rng=row_generators(0, B, dev), device=dev)
+    runner = DecodeSteps(engine.params, cfg, st, samp, graphs=graphs)
+    prefills = Prefills(runner, st, samp)
 
     def prefill():
-        return td.delay_prefill(engine.params, cfg, ids, mask, max_new_tokens=args.steps + 16,
-                                cache_len=args.cache, rng=row_generators(0, B, dev),
-                                sampling=samp, dtype=engine.dtype)
+        prefills.run(ids, mask, top_k_text=engine.top_k_text, top_k_audio=engine.top_k_audio,
+                     hidden_out_layers=hol)
 
-    torch.cuda.reset_peak_memory_stats()
     _, cold = _wall(prefill)
-    st, warm = _wall(prefill)
-    runner = DecodeSteps(engine.params, cfg, st, samp, graphs=graphs)
+    _wall(prefill)  # with graphs: the capture, then its first replay
+    _, warm = _wall(prefill)
 
     def step():
         runner.step(attend_len=args.attend, uniform_slots=True, top_k_text=engine.top_k_text,
-                    top_k_audio=engine.top_k_audio)
+                    top_k_audio=engine.top_k_audio, hidden_out_layers=hol)
 
     for _ in range(3):
         step()
@@ -144,10 +155,11 @@ def profile_batch(engine, B: int, args, trace_dir, graphs: bool = False) -> dict
     attn = [e for e in evts if "decode_kernel" in e.key]
     w8 = [e for e in evts if "mosstts::w8::" in e.key]
     if trace_dir is not None:
-        name = f"decode_step_b{B}{'_graph' if graphs else ''}.json"
+        name = f"decode_step_b{B}{'_graph' if graphs else ''}{'_hol' if hol else ''}.json"
         prof.export_chrome_trace(str(trace_dir / name))
     return dict(
         batch=B, steps="graph" if graphs else "eager",
+        heads="default" if hol is None else "hidden_out_layers",
         peak_gib=torch.cuda.max_memory_allocated() / 2**30, prefill_cold_ms=cold * 1e3, prefill_warm_ms=warm * 1e3,
         step_wall_ms=wall * 1e3, step_device_ms=device_ms, kernels_per_step=kernels,
         idle_share=1.0 - device_ms / (wall * 1e3),
@@ -175,6 +187,8 @@ def main(argv=None) -> None:
                     help="profile again after engine.quantize() (int8 weights)")
     ap.add_argument("--graph", action="store_true",
                     help="after the eager steps, profile CUDA-graph steps the same way")
+    ap.add_argument("--hidden-out-layers", action="store_true",
+                    help="profile each run again with hidden_out_layers = [-1] * C")
     ap.add_argument("--trace-dir", type=Path, default=None,
                     help="write a chrome trace of each profiler window here")
     args = ap.parse_args(argv)
@@ -194,11 +208,13 @@ def main(argv=None) -> None:
         if weights == "int8":
             backend.engine.quantize()
             torch.cuda.empty_cache()
-        for B, graphs in ((B, g) for B in args.batch for g in (False, True)[:1 + args.graph]):
+        hols = (None, (-1,) * backend.engine.config.channels)[:1 + args.hidden_out_layers]
+        for B, graphs, hol in ((B, g, h) for B in args.batch
+                               for g in (False, True)[:1 + args.graph] for h in hols):
             r = dict(weights=weights, **profile_batch(backend.engine, B, args, args.trace_dir,
-                                                      graphs))
+                                                      graphs, hol))
             res["batches"].append(r)
-            print(f"{weights} B={B} {r['steps']} steps: prefill T={args.prompt} cold "
+            print(f"{weights} B={B} {r['steps']} steps, {r['heads']} heads: prefill T={args.prompt} cold "
                   f"{r['prefill_cold_ms']:.1f} ms, warm {r['prefill_warm_ms']:.1f} ms; decode step "
                   f"wall {r['step_wall_ms']:.3f} ms, device {r['step_device_ms']:.3f} ms, "
                   f"{r['kernels_per_step']:.0f} kernels, idle share {r['idle_share']:.3f}; "

@@ -122,6 +122,37 @@ def test_generate_on_device_matches_jax(engines, proc, mode):
         _assert_grids_equal(tdev, thost)
 
 
+def test_late_flag_reads_return_the_first_stop(proc, monkeypatch):
+    """The card's schedule (each state's stop flags read one replay late,
+    ``_lagged_steps(lag=1)``, run here on the CPU) returns the step count of
+    the CPU's schedule (JAX's ``while_loop``) for every segment length,
+    including a segment whose last state is the first at which every row
+    had stopped (counted one too many before the loop was shared)."""
+    je = JaxEngine.random_init(seed=0, config=CFG, dtype=jnp.float32, cache_bucket=BUCKET)
+    params = load_tree_(td.DelayParams(CFG), jax.device_get(_stopper(je.params)))
+    batch = _batch(proc, "continuation")
+    ids, mask = torch.tensor(batch["input_ids"]), torch.tensor(batch["attention_mask"])
+    samp = td.make_sampling(**GREEDY)
+    cache_len = -(-(ids.shape[1] + 40) // 64) * 64
+    shared = td._lagged_steps
+    stops = set()
+    for max_new in range(2, 16):
+        counts = []
+        for lag in (0, 1):
+            state = td.delay_prefill(params, CFG, ids, mask, max_new_tokens=max_new,
+                                     cache_len=cache_len, rng=ts.row_generators(0, 2, "cpu"),
+                                     sampling=samp, dtype=torch.float32)
+            monkeypatch.setattr(td, "_lagged_steps",
+                                lambda *a, lag=lag, **k: shared(*a, lag=lag, **k))
+            _, n = td.delay_generate_on_device(DecodeSteps(params, CFG, state, samp),
+                                               max_new_tokens=max_new, attend_len=cache_len,
+                                               uniform_slots=True)
+            counts.append(n)
+        assert counts[0] == counts[1], f"max_new_tokens={max_new}: {counts}"
+        stops.add(counts[0] < max_new)
+    assert stops == {False, True}  # segments that end before and after the stop
+
+
 def _prefilled(je, te, proc, max_new):
     """JAX's and the port's states after a greedy prefill of the
     continuation batch into a cache of the next multiple of 64 slots."""

@@ -15,12 +15,22 @@ must match ``ops.kernels.launches.IN_GRAPHS``. Weights that stop every
 row early hold ``on_device=True``'s late read of the stop flags against
 the polling ``on_device=False``. A ``device_profile`` session must see
 the first kernels launched in it. bf16 ``dense`` must not depend on cuBLAS's
-reduced-precision flag.
+reduced-precision flag. Prefill graphs (the engine's, first use eager,
+second captured, then replayed; the server's admissions through the
+bucket graphs ``warmup`` captures) leave every field of the static state,
+the cache and the generators' seeds and offsets equal to eager prefills';
+``run_events`` and ``run_drain`` serve ``run()``'s completions (a request
+stopped at ``<|im_end|>`` up to that frame: the loops see a stop at other
+steps). An engine with ``hidden_out_layers`` (float and int8 heads) gives
+the eager engine's grids through its graphs, and the CPU port's greedy
+grids on a float32 model.
 
 This file imports no JAX, so it runs on the machine with the card:
 
     python3 -m pytest --noconftest tests/test_torch_graphs_cuda.py -q
 """
+import copy
+
 import numpy as np
 import pytest
 import torch
@@ -31,6 +41,7 @@ from mosstts_tpu_torch.engine.delay_engine import DelayEngine
 from mosstts_tpu_torch.models.delay import make_sampling
 from mosstts_tpu_torch.ops.basic import dense
 from mosstts_tpu_torch.ops.kernels import launches
+from mosstts_tpu_torch.ops.quant import quantize_weight
 
 CFG = DelayConfig(language_config=tiny_qwen3(hidden_size=256, intermediate_size=512,
                                              num_attention_heads=4, num_key_value_heads=2,
@@ -293,3 +304,185 @@ def test_bf16_dense_ignores_the_reduced_precision_flag(M, K, N):
     err = (outs[0].float() - ref).abs()
     assert bool((err <= 2 * 2.0 ** -7 * ref.abs() + K * 2.0 ** -24 * absref).all()), \
         float(err.max())
+
+
+def _state_on_host(state):
+    """Every tensor of a ``DelayGenState`` (the cache's too) on the host, and
+    each generator's state (seed and offset)."""
+    tensors = [t.cpu() for t in state.cache] + [t.cpu() for t in state[1:]
+                                                if isinstance(t, torch.Tensor)]
+    return tensors, [g.get_state() for g in state.rng]
+
+
+def _assert_same_state(a, b):
+    (ta, ga), (tb, gb) = _state_on_host(a), _state_on_host(b)
+    for x, y in zip(ta + ga, tb + gb):
+        assert torch.equal(x, y)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("kv_quant", [False, True], ids=["bf16-kv", "int8-kv"])
+def test_prefill_graphs_match_eager(kv_quant):
+    """The engine's prefill at B = 1 and 3, greedy and seeded sampled: the
+    first use of a key runs eagerly, the second captures and replays, the
+    third replays; each leaves every field of the static state, its cache
+    and its generators' seeds and offsets equal to the eager engine's.
+    Flash runs once per layer of each prefill, inside the replayed graph
+    from the second on."""
+    _need_card()
+    torch.backends.cuda.matmul.allow_tf32 = False
+    graph = DelayEngine.random_init(seed=6, config=CFG, dtype=torch.bfloat16, device="cuda",
+                                    cache_bucket=64, kv_quant=kv_quant)
+    eager = DelayEngine(graph.params, CFG, dtype=torch.bfloat16, cache_bucket=64,
+                        kv_quant=kv_quant, graphs=False)
+    calls = [dict(text_temperature=0.0, audio_temperature=0.0)] + [
+        dict(seed=s, text_temperature=1.5, audio_temperature=1.7) for s in SEEDS]
+    for B in (1, 3):
+        batch = _left_padded(_grids(B, seed=30 + B))
+        for i, kw in enumerate(calls):
+            launches.reset()
+            _generate_both(graph, eager, batch, max_new_tokens=1, **kw)  # the prefill alone
+            torch.cuda.synchronize()
+            assert launches.IN_GRAPHS["flash"] == (L if i else 0)
+            assert launches.read()["flash"] == 2 * L  # the eager engine's too
+            (prefills,) = graph._prefills.values()
+            assert len(prefills.keys) == (1 if i else 0)
+            _assert_same_state(*[next(iter(e._steps.values())).state for e in (graph, eager)])
+
+
+@pytest.mark.cuda
+def test_admission_prefill_graphs_match_eager():
+    """The server's admissions through the prefill graph of their bucket
+    (captured by ``warmup``) against eager admissions: the static batch-1
+    state, its generator's seed and offset after the replay, and the slot's
+    row and generator after the splice are equal; so are the sampled,
+    seeded completions after the splice."""
+    _need_card()
+    params = DelayEngine.random_init(seed=5, config=CFG, dtype=torch.bfloat16,
+                                     device="cuda").params
+    grids = _grids(3, seed=12, lo=33, hi=64)  # one prompt bucket, 64
+    servers = []
+    for graphs in (True, False):
+        srv = DelayBatchServer(params, CFG, slots=3, cache_len=512, out_capacity=64,
+                               prompt_bucket=32, dtype=torch.bfloat16, graphs=graphs,
+                               sampling=make_sampling(text_temperature=1.5,
+                                                      audio_temperature=1.7, device="cuda"))
+        srv.warmup(prompt_lens=(64,), attend_upto=256)
+        assert [k[0] for k in srv._prefills.keys] == ([64] if graphs else [])
+        servers.append(srv)
+    for slot, g in enumerate(grids):
+        launches.reset()
+        for srv in servers:
+            srv.submit(g, max_new_tokens=40, seed=20 + slot)
+            assert srv._admit(slot, srv._queue.pop(0))
+        torch.cuda.synchronize()
+        assert launches.IN_GRAPHS["flash"] == L
+        _assert_same_state(servers[0]._small, servers[1]._small)
+        _assert_same_state(servers[0].state, servers[1].state)
+    done = [sorted(srv.run(), key=lambda c: c.request_id) for srv in servers]
+    for a, b in zip(*done):
+        assert a.steps == b.steps
+        np.testing.assert_array_equal(a.tokens, b.tokens)
+
+
+def _same_completions(got, ref):
+    """Equal completions; a request that stopped at ``<|im_end|>`` may hold
+    frames past it that differ in number (the loops see a stop at other
+    times), so it is held equal up to that frame."""
+    assert [c.request_id for c in got] == [c.request_id for c in ref]
+    for a, b in zip(got, ref):
+        ends = [np.nonzero(c.tokens[c.start_length:, 0] == CFG.im_end_token_id)[0]
+                for c in (a, b)]
+        if not len(ends[0]) and not len(ends[1]):
+            assert a.steps == b.steps
+            np.testing.assert_array_equal(a.tokens, b.tokens)
+            continue
+        assert len(ends[0]) and len(ends[1]) and ends[0][0] == ends[1][0]
+        n = a.start_length + ends[0][0] + 1
+        np.testing.assert_array_equal(a.tokens[:n], b.tokens[:n])
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("mode", [SERVER_MODES[0], SERVER_MODES[3]], ids=["linear", "paged-q8"])
+def test_events_and_drain_match_run(mode):
+    """``run_events`` and (linear) ``run_drain`` against ``run()`` on the
+    card, graph replays throughout: 10 requests into 4 slots with mixed
+    budgets, a third greedy and the rest sampled with their own seeds and
+    overrides; the loops' decode steps run inside replayed graphs."""
+    _need_card()
+    params = DelayEngine.random_init(seed=1, config=CFG, dtype=torch.bfloat16,
+                                     device="cuda").params
+    grids = _grids(10, seed=7)
+    budgets = [int(x) for x in np.random.default_rng(8).integers(20, 60, 10)]
+    runs = ["run", "run_events"] + ([] if mode.get("paged") else ["run_drain"])
+    out = {}
+    for run in runs:
+        srv = DelayBatchServer(params, CFG, slots=4, cache_len=512, out_capacity=96,
+                               prompt_bucket=32, page_size=64, dtype=torch.bfloat16,
+                               sampling=make_sampling(text_temperature=1.5,
+                                                      audio_temperature=1.7, device="cuda"),
+                               **mode)
+        srv.warmup(prompt_lens=(64,), attend_upto=256)
+        srv.total_steps = 0  # the warm-up's own steps are not this loop's
+        for i, (g, n) in enumerate(zip(grids, budgets)):
+            srv.submit(g, max_new_tokens=n, seed=100 + i,
+                       sampling=dict(text_temperature=0.0, audio_temperature=0.0) if i % 3 == 0
+                       else dict(audio_top_p=0.7))
+        launches.reset()
+        out[run] = sorted(getattr(srv, run)(), key=lambda c: c.request_id)
+        torch.cuda.synchronize()
+        kernel = ("paged" if mode.get("paged") else "decode") + (
+            "_q8" if mode.get("kv_quant") else "")
+        assert launches.IN_GRAPHS[kernel] >= L * srv.total_steps
+        assert not srv._active and not srv._queue
+    for run in runs[1:]:
+        _same_completions(out[run], out["run"])
+
+
+HOL = (1, -1, 0, 2, -2)  # hidden_out_layers: the text head from layer 1, the audio heads mixed
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("heads", ["float", "int8"])
+def test_hidden_out_layers_graphs_match_eager_and_cpu(heads):
+    """An engine with ``hidden_out_layers``: on the small bf16 model the graph
+    engine's grids equal the eager engine's bit for bit (B = 1 and 4, both
+    ``on_device`` modes, greedy and seeds s1, s2, s1), with float heads or
+    int8 weights (``quantize()``: the int8 audio heads' per-head product),
+    and its decode and prefill graphs are keyed on the layers. On the small
+    float32 model the card's greedy grids equal the CPU port's, with float
+    audio heads or int8 ones (only the heads quantized: W8A16 takes bf16
+    activations, the per-head product any)."""
+    _need_card()
+    torch.backends.cuda.matmul.allow_tf32 = False
+    graph = DelayEngine.random_init(seed=4, config=CFG, dtype=torch.bfloat16, device="cuda",
+                                    cache_bucket=64, hidden_out_layers=HOL)
+    if heads == "int8":
+        graph.quantize()
+    eager = DelayEngine(graph.params, CFG, dtype=torch.bfloat16, cache_bucket=64,
+                        hidden_out_layers=HOL, graphs=False)
+    launches.reset()
+    _solo_cases(graph, eager)
+    ((steps, prefills),) = zip(graph._steps.values(), graph._prefills.values())
+    assert steps.keys and all(k[-1] == HOL for k in steps.keys)
+    assert prefills.keys and all(k[-1] == HOL for k in prefills.keys)
+    assert launches.IN_GRAPHS["decode"] > 0 and launches.IN_GRAPHS["flash"] > 0
+    if heads == "int8":
+        assert launches.IN_GRAPHS["w8a16"] > 0
+
+    cpu = DelayEngine.random_init(seed=5, config=CFG, dtype=torch.float32, device="cpu",
+                                  cache_bucket=64, hidden_out_layers=HOL)
+    if heads == "int8":
+        w = cpu.params.audio_heads
+        delattr(cpu.params, "audio_heads")
+        cpu.params.audio_heads = quantize_weight(w)
+    card = DelayEngine(copy.deepcopy(cpu.params).to("cuda"), CFG, dtype=torch.float32,
+                       device="cuda", cache_bucket=64, hidden_out_layers=HOL)
+    batch = _left_padded(_grids(2, seed=44))
+    kw = dict(max_new_tokens=24, text_temperature=0.0, audio_temperature=0.0)
+    ref = cpu.generate(*batch, **kw)
+    for on_device in (False, True):
+        got = card.generate(*batch, on_device=on_device, **kw)
+        for (la, ga), (lb, gb) in zip(ref, got):
+            assert la == lb
+            np.testing.assert_array_equal(gb, ga)

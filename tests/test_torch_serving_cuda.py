@@ -6,16 +6,19 @@ Four callers submit greedy requests to a 4-slot ``DelayServingPool`` of a
 small float32 model (2 layers, width 256, n_vq=4) at once, while two other
 threads run the codec's encode and decode on the card in a loop, as the
 HTTP handlers do. The pool's decode thread captures the CUDA graph of each
-attend bucket (256, then 512) when the batch first reaches it; every
-capture is held open for a while so that codec work certainly runs inside
-it (``engine/step_graph.py``: thread-local capture mode, one capture at a
+attend bucket (256, then 512) when the batch first reaches it, and the
+prefill graph of each prompt bucket at its second admission (the four
+prompts fall in two buckets, so one at least); every capture is held open
+for a while so that codec work certainly runs inside it
+(``engine/step_graph.py``: thread-local capture mode, one capture at a
 time). Then:
 - every codec iteration gives the bits of that thread's first one;
 - each caller's grid equals the same request through ``DelayEngine.generate``
   alone (float32 with TF32 off: the two batch sizes round alike here; at 8B
   width in bf16 they do not, see ``chip_smoke.py`` phase 8);
 - the decode kernel ran inside replayed graphs and flash once per layer of
-  each admission.
+  each admission, inside replayed prefill graphs from a bucket's second
+  admission on.
 
 This file imports no JAX, so it runs on the machine with the card:
 
@@ -147,16 +150,22 @@ def test_pool_captures_while_handlers_run_the_codec(card, monkeypatch):
     assert not errors, errors
     assert not any(w.is_alive() for w in workers)
 
-    # the pool captured attend 256 and 512, and codec work ran inside each capture
+    # the pool captured attend 256 and 512 and the prefill of each prompt
+    # bucket admitted twice, and codec work ran inside each capture
     assert sorted(k[0] for k in pool.server._steps.keys) == [256, 512]
-    assert len(captures) == 2
+    per_bucket = np.bincount([-(-len(g) // 32) for g in grids])
+    prefill_keys = pool.server._prefills.keys
+    assert sorted(k[0] // 32 for k in prefill_keys) == list(np.nonzero(per_bucket >= 2)[0])
+    assert prefill_keys and len(captures) == 2 + len(prefill_keys)
     for t0, t1 in captures:
         assert any(s < t1 and e > t0 for s, e in codec_ops), (t0, t1)
 
-    # every decode step replayed a graph; flash ran for every admission
+    # every decode step replayed a graph; flash ran for every admission, in a
+    # replayed prefill graph from each bucket's second admission on
     steps = pool.server.total_steps
     assert counts["decode"] >= L * steps and in_graphs["decode"] >= L * (steps - 2)
-    assert counts["flash"] >= L * 4 and in_graphs["flash"] == 0
+    assert counts["flash"] == L * 4
+    assert in_graphs["flash"] == L * int(np.maximum(per_bucket - 1, 0).sum())
 
     for i, g in enumerate(grids):
         solo = engine.generate(g[None], max_new_tokens=NEW, **GREEDY)[0]
