@@ -1,5 +1,5 @@
 #!/usr/bin/env python3
-"""Drive the PyTorch port's Delay TTS paths once on one NVIDIA GPU.
+"""Drive the PyTorch port's Delay and Realtime TTS paths once on one NVIDIA GPU.
 
 Run from the repository root with no arguments:
 
@@ -93,11 +93,39 @@ Phases, one or more lines each; any failure raises and exits non-zero:
    from ``run``'s (the first must agree). 9c runs the JAX tests' loads on
    the small f32 model: ``run_events`` and ``run_drain`` equal ``run`` on
    the card bit for bit, and the greedy grids equal the CPU's.
-Phases 4-6, 8 and 9 run the package's default: every decode step a
+10. the Realtime family at MOSS-TTS-Realtime 1.7B width (``RealtimeConfig()``:
+   the 28-layer Qwen3-1.7B backbone, the 4-layer depth transformer, 16
+   codebooks; random bf16 weights made on the card, after the 8B model is
+   released). First flash (GQA group 2: a second turn at q_start 208 over
+   the first turn's cache with a left-pad hole between the turns, and a
+   batch-8 admission), decode (the depth transformer's 16-slot cache at
+   attend 16, B = 1 and 8; the backbone's at B = 8) and W8A16 (the 1.7B
+   matrices and one head of the stacked local heads, M = 1 and 8) against
+   their plain versions, with their times, SDPA's or
+   ``torch._weight_int8pack_mm``'s, and bounds. 10a: ``RealtimeEngine`` on
+   ``bench.py``'s load (4-row turn grids, 160 text tokens, 64 frames) at
+   B = 1 and 8: greedy frames through the frame graphs equal an eager
+   engine's bit for bit, seeds s1, s2, s1 give equal, different, equal
+   frames (s1 eager equal too), a second turn on each kept cache equal;
+   ms per frame (wall and device), realtime multiple, time to the first
+   frame; then ``quantize()`` (parameter bytes before and after) and all
+   again on int8 weights. 10b: a ``RealtimeBatchServer`` (8 slots, cache
+   1024, prompt bucket 16, poll every 8, temperature 0.8) on the int8
+   weights, warmed up, serves ``bench.py``'s 24 conversations through
+   ``run`` and ``run_events``: useful frames/s, ms per step, host waits per
+   conversation; on a small float32 model a 2-slot server's greedy streams
+   equal the solo engine's, card and CPU. 10c: a ``RealtimeStreamingSession``
+   and ``AudioStreamDecoder`` on the ``codec_1p6b()`` codec, fed by
+   ``RealtimeTextStreamBridge`` from word deltas (time to the first wave
+   chunk, the wave's length against its frames), then three concurrent
+   pooled ``POST /stream`` requests to the HTTP server in this process
+   (``--rt-pool-slots 4``): status, headers, TTFA, samples.
+Phases 4-6, 8, 9 and 10 run the package's default: every decode step a
 CUDA-graph replay, and every prefill one from its key's second use (or a
 server's ``warmup``) on (``engine/step_graph.py``). The kernels' launch
 counts are set to 0 just before phases 4, 6, 8b, each server mode and each
-loop of 9b and read just after, and must show every prefill and every
+loop of 9b, each engine batch, server loop and the concurrent streams of 10
+and read just after, and must show every prefill and every
 decode step went through the kernels; a graph's launches count once per
 replay (``ops/kernels/launches.py``), and flash, the decode kernels and
 W8A16 must have run inside replayed graphs. Phase 3 adds the int8-weight GEMMs
@@ -134,15 +162,25 @@ import torch.nn.functional as F
 
 sys.path.insert(0, str(Path(__file__).resolve().parent))
 
-from mosstts_tpu_torch.core.config import DelayConfig, codec_1p6b, delay_8b, tiny_qwen3  # noqa: E402
+from mosstts_tpu_torch.codec.model import MossAudioTokenizer  # noqa: E402
+from mosstts_tpu_torch.core.config import (  # noqa: E402
+    DelayConfig, RealtimeConfig, RealtimeLocalConfig, codec_1p6b, delay_8b, tiny_qwen3)
 from mosstts_tpu_torch.engine.batch_server import DelayBatchServer  # noqa: E402
 from mosstts_tpu_torch.engine.delay_engine import DelayEngine  # noqa: E402
+from mosstts_tpu_torch.engine.realtime_batch_server import RealtimeBatchServer  # noqa: E402
+from mosstts_tpu_torch.engine.realtime_engine import RealtimeEngine  # noqa: E402
+from mosstts_tpu_torch.engine.streaming import (  # noqa: E402
+    AudioStreamDecoder, RealtimeStreamingSession, RealtimeTextStreamBridge)
 from mosstts_tpu_torch.models.delay import make_sampling  # noqa: E402
 from mosstts_tpu_torch.models.delay import delay_forward  # noqa: E402
+from mosstts_tpu_torch.models.realtime import init_realtime_params, make_rt_sampling  # noqa: E402
 from mosstts_tpu_torch.nn import qwen3  # noqa: E402
 from mosstts_tpu_torch.ops.kernels import _build, decode_attn, flash, paged_attn, w8_gemm  # noqa: E402
 from mosstts_tpu_torch.ops.kernels import launches as kernel_launches  # noqa: E402
 from mosstts_tpu_torch.ops.quant import is_quantized, pitched  # noqa: E402
+from mosstts_tpu_torch.processing.realtime_processor import RealtimeProcessor  # noqa: E402
+from mosstts_tpu_torch.processing.tokenizer import ByteFallbackTokenizer  # noqa: E402
+from mosstts_tpu_torch.serve import http_server  # noqa: E402
 from mosstts_tpu_torch.serve.pipelines import demo_backend, synthesize  # noqa: E402
 from mosstts_tpu_torch.tools import probe_int4, profile_step, tune_mm8  # noqa: E402
 # warm admissions and first frames timed each way (the median is kept)
@@ -205,7 +243,9 @@ def flash_shape(label: str, q, k, v, valid, q_start, *, kv_major: bool, rows, n_
     picks call i's k/v (rotating cache layers keeps L2 cold, as a prefill
     over a cache finds it); without it every call reads ``k``, ``v``."""
     pick = layer or (lambda i: (k, v))
-    scale = HD8 ** -0.5
+    H, hd = q.shape[2:]
+    KV = pick(0)[0].shape[1 if kv_major else 2]
+    scale = hd ** -0.5
     qs_int = int(q_start)
     err = 0.0
     for li in sorted({0, n_layers - 1}):
@@ -234,8 +274,8 @@ def flash_shape(label: str, q, k, v, valid, q_start, *, kv_major: bool, rows, n_
     # operations per (real query, key) pair
     pairs = float((mask & rows[:, :, None]).sum())
     keys = float(valid[:, :qs_int + T].sum())
-    bd = bound(2 * keys * KV8 * HD8 * 2 + 2 * q.numel() * 2 + valid.numel(),
-               4 * HD8 * H8 * pairs, torch.bfloat16)
+    bd = bound(2 * keys * KV * hd * 2 + 2 * q.numel() * 2 + valid.numel(),
+               4 * hd * H * pairs, torch.bfloat16)
     log(f"  flash {label}: kernel {ms:.4f} ms, plain {plain_ms:.4f} ms, sdpa {fmt_ms(lib_ms)}, "
         f"bound {bd['bound_ms']:.5f} ms ({bd['bound_by']})")
     return dict(shape=label, max_abs_err=err, ms=ms, plain_ms=plain_ms, library_ms=lib_ms, **bd)
@@ -1858,6 +1898,519 @@ def phase_small_loops() -> None:
         "with its overrides and seeds; greedy run_drain on the card == run on the CPU")
 
 
+# ----------------------------------------------------------------- phase 10
+RT_FRAMES = 64  # frames per stream of the engine's timed load (bench.py's --steps default)
+RT_CHECK = 24  # frames per stream of the graph-against-eager and seed checks
+RT_SMALL = RealtimeConfig(  # a small float32 Realtime model whose heads the kernels take
+    language_config=tiny_qwen3(hidden_size=256, intermediate_size=512, num_attention_heads=4,
+                               num_key_value_heads=2, head_dim=128),
+    local_config=RealtimeLocalConfig(hidden_size=256, intermediate_size=512, num_hidden_layers=2,
+                                     num_attention_heads=4, num_key_value_heads=2, head_dim=128,
+                                     rvq=4, max_position_embeddings=5),
+    rvq=4)
+RT_GREEDY = dict(temperature=0.0, do_sample=False)
+
+
+def rt_load(cfg, B: int, seed: int = 0, rows: int = 4, text: int = 160):
+    """``bench.py:357-366``'s engine load: ``B`` turn grids of ``rows`` random
+    rows and ``text`` random text tokens each."""
+    rng = np.random.default_rng(seed)
+    grids = []
+    for _ in range(B):
+        g = np.full((rows, 1 + cfg.rvq), cfg.audio_pad_token, np.int64)
+        g[:, 0] = rng.integers(100, 1000, rows)
+        g[:, 1:] = rng.integers(0, 1024, (rows, cfg.rvq))
+        grids.append(g)
+    return grids, [[int(t) for t in rng.integers(100, 1000, text)] for _ in range(B)]
+
+
+def rt_same(a, b) -> bool:
+    return len(a) == len(b) and all(np.array_equal(x, y) for x, y in zip(a, b))
+
+
+def rt_kernels() -> dict:
+    """The three kernels of the Realtime path at its 1.7B shapes, each
+    against its plain version, with its device time, the plain version's,
+    the library call's where one computes the same function, and the
+    bound: flash at GQA group 2 (16 heads over 8 KV heads) for a second
+    turn at q_start 208 over the first turn's cache, with a left-pad hole
+    between the turns, and for a batch-8 admission at q_start 0; decode over
+    the depth transformer's 16-slot cache at attend 16 (B = 1, 8) and over
+    the backbone's cache at B = 8; W8A16 at the backbone's and the depth
+    transformer's (2048, 2048), (2048, 1024), (2048, 6144), (6144, 2048)
+    and one head of the stacked (16, 2048, 1027) local heads, at M = 1
+    and 8."""
+    g = torch.Generator(device=DEV).manual_seed(10)
+    bf = torch.bfloat16
+    lc = RealtimeConfig().language_config
+    L, H, KV, hd = lc.num_hidden_layers, lc.num_attention_heads, lc.num_key_value_heads, lc.head_dim
+    scale = hd ** -0.5
+    out = {}
+    # flash: a second turn of T=64 at q_start 208 over a cache whose first
+    # turn holds slots 3..199 (left pad 0..2), then the second turn's left
+    # pad 200..207 (the hole), then its own rows
+    S = 1024
+    kc = torch.randn((L, 1, KV, S, hd), generator=g, device=DEV).to(bf)
+    vc = torch.randn((L, 1, KV, S, hd), generator=g, device=DEV).to(bf)
+    T, q0 = 64, 208
+    q = torch.randn((1, T, H, hd), generator=g, device=DEV).to(bf)
+    valid = torch.zeros((1, S), dtype=torch.bool, device=DEV)
+    valid[0, 3:200] = True
+    valid[0, q0:q0 + T] = True
+    rows = valid[:, q0:q0 + T]
+    flash_shapes = [flash_shape(f"1.7B second turn B=1 T={T} q_start={q0} hole 200-207 S={S}",
+                                q, None, None, valid, torch.tensor(q0, dtype=torch.int32,
+                                                                   device=DEV),
+                                kv_major=True, rows=rows, n_layers=L,
+                                layer=lambda i: (kc[i % L], vc[i % L]))]
+    # a batch-8 admission: prompts of 16-31 rows left-padded to 32 at q_start 0
+    kc8 = torch.randn((8, KV, S, hd), generator=g, device=DEV).to(bf)
+    vc8 = torch.randn((8, KV, S, hd), generator=g, device=DEV).to(bf)
+    q8 = torch.randn((8, 32, H, hd), generator=g, device=DEV).to(bf)
+    valid8 = torch.zeros((8, S), dtype=torch.bool, device=DEV)
+    for b, pad in enumerate((0, 3, 7, 11, 16, 1, 5, 9)):
+        valid8[b, pad:32] = True
+    flash_shapes.append(flash_shape(f"1.7B admission B=8 T=32 q_start=0 S={S}", q8, kc8, vc8,
+                                    valid8, torch.zeros((), dtype=torch.int32, device=DEV),
+                                    kv_major=True, rows=valid8[:, :32]))
+    out["flash"] = dict(max_abs_err=max(r["max_abs_err"] for r in flash_shapes),
+                        shapes=flash_shapes)
+
+    # decode: the depth transformer's (4, B, 8, 16, 128) cache at attend 16,
+    # i + 1 slots valid at depth step i; the backbone's (28, 8, 8, 1024, 128)
+    dshapes, derr = [], 0.0
+    loc = RealtimeConfig().local_config
+    for label, Ld, B, Sd, attend, n_valid in (
+            ("depth", loc.num_hidden_layers, 1, 16, 16, lambda b: 9),
+            ("depth", loc.num_hidden_layers, 8, 16, 16, lambda b: 1 + 2 * b),
+            ("backbone", L, 8, S, 256, lambda b: 100 + 20 * b)):
+        kd = torch.randn((Ld, B, KV, Sd, hd), generator=g, device=DEV).to(bf)
+        vd = torch.randn((Ld, B, KV, Sd, hd), generator=g, device=DEV).to(bf)
+        qd = torch.randn((B, H, hd), generator=g, device=DEV).to(bf)
+        vald = torch.zeros((B, Sd), dtype=torch.bool, device=DEV)
+        for b in range(B):
+            vald[b, :n_valid(b)] = True
+        for li in (0, Ld - 1):
+            args = (qd, kd, vd, vald, li)
+            derr = max(derr, check_close(
+                f"decode 1.7B {label} B={B} attend={attend} layer={li}",
+                decode_attn.decode_attention(*args, scale=scale, attend_len=attend),
+                decode_attn.decode_attention_ref(*args, scale=scale, attend_len=attend)))
+        ms = time_ms(lambda i: decode_attn.decode_attention(qd, kd, vd, vald, i % Ld, scale=scale,
+                                                             attend_len=attend))
+        plain = time_ms(lambda i: decode_attn.decode_attention_ref(qd, kd, vd, vald, i % Ld,
+                                                                   scale=scale, attend_len=attend))
+        lib = library_ms(lambda i: F.scaled_dot_product_attention(
+            qd[:, :, None], kd[i % Ld, :, :, :attend], vd[i % Ld, :, :, :attend],
+            attn_mask=vald[:, None, None, :attend], scale=scale, enable_gqa=True))
+        bd = decode_bound(qd, vald, attend, KV, hd * 2)
+        log(f"  decode 1.7B {label} B={B} attend={attend} of {tuple(kd.shape)}: kernel "
+            f"{ms:.4f} ms, plain {plain:.4f} ms, sdpa {fmt_ms(lib)}, bound "
+            f"{bd['bound_ms']:.5f} ms ({bd['bound_by']})")
+        dshapes.append(dict(shape=f"1.7B {label} B={B} attend={attend} of {tuple(kd.shape)}",
+                            ms=ms, plain_ms=plain, library_ms=lib, **bd))
+        del kd, vd
+    out["decode"] = dict(max_abs_err=derr, shapes=dshapes)
+
+    # W8A16: the 1.7B matmul shapes over 28-layer int8 stacks (call i reads
+    # layer i % 28), and one head of the (16, 2048, 1027) local heads at a
+    # time, in QuantWeight's layout (16-byte row pitch), f32 out
+    wshapes, werr = [], 0.0
+    w8_gemm.LAUNCHES_W8A16_BYTES = 0
+    for name, K, N, count in (("wq/wo", 2048, 2048, 0), ("wk/wv", 2048, 1024, 0),
+                              ("w_gate/w_up", 2048, 6144, 0), ("w_down", 6144, 2048, 0),
+                              ("local head", 2048, 1027, 16)):
+        n_stack = count or L
+        qw = pitched(torch.empty((n_stack, K, N), dtype=torch.int8, device=DEV).random_(
+            -127, 128, generator=g))
+        sc = torch.rand((n_stack, N), generator=g, device=DEV) * 0.019 + 0.001
+        out_dtype = torch.float32 if count else bf
+        qt = qw.transpose(1, 2).contiguous()
+        for M in (1, 8):
+            x = torch.randn((M, K), generator=g, device=DEV).to(bf)
+            for li in (0, n_stack - 1):
+                o = w8_gemm.w8a16_gemm(x, qw[li], sc[li], out_dtype)
+                ref = w8_gemm.w8a16_gemm_ref(x, qw[li], sc[li], out_dtype)
+                absref = w8_gemm.w8a16_gemm_ref(x.abs(), qw[li].abs(), sc[li], torch.float32)
+                werr = max(werr, check_gemm(f"w8a16 1.7B {name} M={M} layer={li}", o, ref,
+                                            absref))
+            ms = time_ms(lambda i: w8_gemm.w8a16_gemm(x, qw[i % n_stack], sc[i % n_stack],
+                                                      out_dtype))
+            plain = time_ms(lambda i: w8_gemm.w8a16_gemm_ref(x, qw[i % n_stack],
+                                                             sc[i % n_stack], out_dtype))
+            lib = library_ms(lambda i: torch._weight_int8pack_mm(x, qt[i % n_stack],
+                                                                 sc[i % n_stack].to(bf)))
+            bd = gemm_bound(M, K, N, out_bytes=4 if count else 2)
+            log(f"  w8a16 1.7B {name} M={M} K={K} N={N}: kernel {ms:.4f} ms, plain "
+                f"{plain:.4f} ms, torch._weight_int8pack_mm {fmt_ms(lib)}, bound "
+                f"{bd['bound_ms']:.5f} ms ({bd['bound_by']})")
+            wshapes.append(dict(shape=f"1.7B {name} M={M}", ms=ms, plain_ms=plain,
+                                library_ms=lib, **bd))
+        del qw, sc, qt
+    if w8_gemm.LAUNCHES_W8A16_BYTES:
+        raise AssertionError(f"W8A16 took byte loads {w8_gemm.LAUNCHES_W8A16_BYTES} times at "
+                             "the 1.7B shapes")
+    out["w8a16"] = dict(max_abs_err=werr, shapes=wshapes)
+    del kc, vc, kc8, vc8
+    torch.cuda.empty_cache()
+    return out
+
+
+def rt_time(engine, grids, text, label: str) -> dict:
+    """The warm engine's load through ``generate`` (greedy, ``RT_FRAMES``
+    frames): wall per frame, the streams' realtime multiple (frames / 12.5
+    over the wall), the time to the first frame (a warm prefill), and the
+    device time per frame (``device_profile`` over 8 enqueued frames)."""
+    B = len(grids)
+    engine.generate(grids, text, max_length=RT_FRAMES, **RT_GREEDY)  # warm: graphs captured
+    torch.cuda.synchronize()
+    t = time.perf_counter()
+    frames = engine.generate(grids, text, max_length=RT_FRAMES, **RT_GREEDY)
+    wall = time.perf_counter() - t
+    n = len(engine.generated_tokens)  # frames per stream, the prefill's first included
+    ttff = []
+    for _ in range(5):
+        engine.reset_generation_state(keep_cache=False)
+        torch.cuda.synchronize()
+        t = time.perf_counter()
+        engine.prefill(grids, [x[:12] for x in text], **RT_GREEDY)
+        ttff.append(time.perf_counter() - t)
+    for _ in range(2):
+        engine.step_async(None, **RT_GREEDY)
+    reset_counts()
+    with profile_step.device_profile() as prof:
+        for _ in range(8):
+            engine.step_async(None, **RT_GREEDY)
+    per_frame = {k: v / 8 for k, v in read_counts()["graphs"].items() if v}
+    evts = profile_step.device_events(prof)
+    dev_ms = sum(e.self_device_time_total for e in evts) / 8 / 1e3
+    kernels = sum(e.count for e in evts) / 8
+    r = dict(weights=label, batch=B, frames=n, wall_s=wall, ms_per_frame=wall / n * 1e3,
+             device_ms_per_frame=dev_ms, kernels_per_frame=kernels,
+             realtime_per_stream=n / 12.5 / wall, realtime_total=B * n / 12.5 / wall,
+             first_frame_ms=float(np.median(ttff)) * 1e3, launches_per_frame=per_frame)
+    log(f"  {label} B={B}: {n} frames in {wall:.3f} s ({r['ms_per_frame']:.2f} ms/frame wall, "
+        f"{dev_ms:.2f} ms/frame device, {kernels:.0f} device kernels/frame), "
+        f"{r['realtime_per_stream']:.2f}x realtime per stream, {r['realtime_total']:.2f}x total; "
+        f"first frame {r['first_frame_ms']:.1f} ms (median of 5 warm prefills); kernel "
+        f"launches per frame, all in the replayed graph: {per_frame}")
+    if dev_ms <= 0 or not all(f.shape[1] == engine.config.rvq for f in frames):
+        raise AssertionError(f"{label} B={B}: no device time or bad frames")
+    return r
+
+
+def rt_engine_phase(engine, label: str) -> tuple:
+    """10a on ``engine`` (graph frames) and an eager engine over the same
+    weights: at B = 1 and 8, greedy frames equal bit for bit, seeds s1, s2,
+    s1 equal, different, equal (and s1 eager equal to s1 graph), a second
+    turn on each kept cache equal (``RT_CHECK`` frames each), then the
+    timings. Returns (launch counts of the graph engine's runs, timing
+    rows)."""
+    cfg = engine.config
+    eager = RealtimeEngine(engine.params, cfg, dtype=engine.dtype, device=DEV,
+                           max_length=engine.max_length, cache_len=engine.cache_len,
+                           graphs=False)
+    rows = []
+    counts = []
+    for B in (1, 8):
+        grids, text = rt_load(cfg, B)
+        reset_counts()
+        g = engine.generate(grids, text, max_length=RT_CHECK, **RT_GREEDY)
+        seeded = [engine.generate(grids, text, max_length=RT_CHECK, seed=s) for s in (1, 2, 1)]
+        turn2, cursor = rt_second_turn(engine, cfg, B)
+        counts.append(read_counts())
+        e = eager.generate(grids, text, max_length=RT_CHECK, **RT_GREEDY)
+        e1 = eager.generate(grids, text, max_length=RT_CHECK, seed=1)
+        if not rt_same(g, e) or not rt_same(turn2, rt_second_turn(eager, cfg, B)[0]):
+            raise AssertionError(f"{label} B={B}: graph frames differ from eager frames")
+        if not (rt_same(seeded[0], seeded[2]) and rt_same(seeded[0], e1)
+                and not rt_same(seeded[0], seeded[1])):
+            raise AssertionError(f"{label} B={B}: seeds s1, s2, s1 not equal, different, equal")
+        log(f"  {label} B={B}: greedy graph frames == eager ({sum(len(f) for f in g)} frames), "
+            f"seeds s1 s2 s1 equal/different/equal (s1 eager equal), second turn prefilled at "
+            f"cache slot {cursor} == eager")
+        rows.append(rt_time(engine, grids, text, label))
+    return counts, rows
+
+
+def rt_second_turn(engine, cfg, B: int) -> list:
+    """A second turn on the cache the last ``generate`` left: a new turn
+    grid and prefix prefilled at the cursor (flash at q_start > 0, a
+    left-pad hole between the turns), then 16 greedy frames. Returns the
+    turn's frames per row and the slot where its prefill began."""
+    engine.reset_generation_state(keep_cache=True)
+    cursor = int(engine.state.cur_len)
+    grids, text = rt_load(cfg, B, seed=7, rows=9, text=28)
+    engine.prefill(grids, [x[:12] for x in text], **RT_GREEDY)
+    engine.step_block([[x[12 + i] for x in text] for i in range(16)], **RT_GREEDY)
+    return [np.stack([f[b] for f in engine.generated_tokens]) for b in range(B)], cursor
+
+
+def rt_server_load(cfg, n: int = 24, seed: int = 0):
+    """``bench.py:425-432``: ``n`` conversations of 4-11 grid rows and 80
+    text tokens; budgets of 32-63 frames (``bench.py:498``)."""
+    rng = np.random.default_rng(seed)
+    reqs = []
+    for _ in range(n):
+        T = int(rng.integers(4, 12))
+        g = np.full((T, 1 + cfg.rvq), cfg.audio_pad_token, np.int64)
+        g[:, 0] = rng.integers(100, 1000, T)
+        g[:, 1:] = rng.integers(0, 1024, (T, cfg.rvq))
+        reqs.append((g, [int(t) for t in rng.integers(100, 1000, 80)]))
+    return reqs, [int(x) for x in rng.integers(RT_FRAMES // 2, RT_FRAMES, n)]
+
+
+def rt_server_phase(params, cfg) -> tuple:
+    """10b: ``RealtimeBatchServer(slots=8, cache_len=1024, prompt_bucket=16,
+    poll_every=8)`` at temperature 0.8 (``bench.py:434-438``), warmed up,
+    serves the 24 conversations through ``run`` and through ``run_events``:
+    useful frames/s (``min(steps, budget + 1)``, ``bench.py:450-455``), ms
+    per frame step, host waits per conversation. Returns (counts, rows)."""
+    reqs, budgets = rt_server_load(cfg)
+    server = RealtimeBatchServer(params, cfg, slots=8, cache_len=1024,
+                                 max_frames=RT_FRAMES + 16, prompt_bucket=16, poll_every=8,
+                                 sampling=make_rt_sampling(temperature=0.8))
+    t = time.perf_counter()
+    server.warmup(prompt_lens=(16, 32), attend_upto=256)
+    torch.cuda.synchronize()
+    log(f"  warmup (admissions at buckets 16/32 x k 1-8, frame graphs of attend 128/256): "
+        f"{time.perf_counter() - t:.2f} s, {len(server._steps.keys)} frame graphs")
+    counts, rows = [], []
+    for run in ("run", "run_events"):
+        rids = {server.submit(g, txt, max_new_tokens=n): n for (g, txt), n in zip(reqs, budgets)}
+        steps0 = server.total_steps
+        reset_counts()
+        with host_waits() as waits:
+            torch.cuda.synchronize()
+            t = time.perf_counter()
+            done = getattr(server, run)()
+            torch.cuda.synchronize()
+            wall = time.perf_counter() - t
+        counts.append(read_counts())
+        if sorted(c.request_id for c in done) != sorted(rids):
+            raise AssertionError(f"server {run}: completions {len(done)} of {len(rids)}")
+        useful = sum(min(c.steps, rids[c.request_id] + 1) for c in done)
+        steps = server.total_steps - steps0
+        if not all(c.frames.ndim == 2 and c.frames.shape[1] == cfg.rvq and
+                   ((c.frames >= 0) & (c.frames < cfg.audio_vocab_size)).all() for c in done):
+            raise AssertionError(f"server {run}: bad frames")
+        r = dict(run=run, conversations=len(done), useful_frames=useful, wall_s=wall,
+                 useful_frames_per_s=useful / wall, frame_steps=steps,
+                 ms_per_step=wall / steps * 1e3, host_waits_per_conversation=waits[0] / len(done))
+        log(f"  server {run}: {len(done)} conversations, {useful} useful frames in {wall:.3f} s "
+            f"= {r['useful_frames_per_s']:.1f} useful frames/s, {steps} frame steps "
+            f"({r['ms_per_step']:.2f} ms/step), {r['host_waits_per_conversation']:.1f} host "
+            f"waits per conversation")
+        rows.append(r)
+        c = counts[-1]
+        if not (c["graphs"]["decode"] and c["graphs"]["w8a16"] and c["flash"]):
+            raise AssertionError(f"server {run}: the frames did not run the kernels in "
+                                 f"replayed graphs, or no admission ran flash: {c}")
+    del server
+    gc.collect()
+    torch.cuda.empty_cache()
+    return counts, rows
+
+
+def rt_small_server_vs_solo() -> None:
+    """On the small float32 model: a 2-slot server's greedy streams (5
+    conversations, mid-flight admissions) equal the solo engine's, on the
+    card, and the card's equal the CPU's."""
+    cfg = RT_SMALL
+    gen = torch.Generator(device="cpu").manual_seed(3)
+    cpu_params = init_realtime_params(cfg, generator=gen, dtype=torch.float32, device="cpu")
+    proc = RealtimeProcessor(ByteFallbackTokenizer(), channels=cfg.rvq)
+    rng = np.random.default_rng(1)
+    load = [(proc.make_user_prompt(f"q{i}", rng.integers(0, 1024, (3 + i, cfg.rvq))),
+             proc.tokenizer.encode("a reply of some length " * (i + 1))) for i in range(5)]
+    budgets = [12, 20, 9, 15, 11]
+    streams = {}
+    for dev in ("cpu", DEV):
+        params = copy.deepcopy(cpu_params).to(dev)
+        server = RealtimeBatchServer(params, cfg, slots=2, cache_len=256, max_frames=48,
+                                     prompt_bucket=32, dtype=torch.float32,
+                                     sampling=make_rt_sampling(**RT_GREEDY))
+        rids = [server.submit(g, t, max_new_tokens=n, prefill_text_len=4)
+                for (g, t), n in zip(load, budgets)]
+        done = {c.request_id: c.frames for c in server.run()}
+        engine = RealtimeEngine(params, cfg, dtype=torch.float32, device=dev, cache_len=256,
+                                max_length=64, prefill_bucket=32)
+        for rid, (g, t), n in zip(rids, load, budgets):
+            solo = engine.generate([g], [t], max_length=n - 1, prefill_text_len=4,
+                                   **RT_GREEDY)[0]
+            if not np.array_equal(done[rid], solo):
+                raise AssertionError(f"small f32 {dev}: server stream {rid} != solo engine")
+        streams[dev] = [done[r] for r in rids]
+    if not rt_same(streams["cpu"], streams[DEV]):
+        raise AssertionError("small f32: the card's server streams differ from the CPU's")
+    log(f"  small f32 2-slot server, 5 greedy conversations: == solo engine on the card "
+        f"and on the CPU, card == CPU ({sum(len(s) for s in streams[DEV])} frames)")
+
+
+def rt_streaming_phase(engine, codec, proc, label: str) -> dict:
+    """10c: a ``RealtimeStreamingSession`` on ``engine`` and an
+    ``AudioStreamDecoder`` on ``codec`` (chunks of 12 frames, the first of
+    2, 2 frames of crossfade), fed by ``RealtimeTextStreamBridge`` with a
+    text split into word deltas, the drain bounded at 96 frames: the time
+    to the first wave chunk, and the wave's length against its frames."""
+    session = RealtimeStreamingSession(engine, proc, codec=codec, temperature=0.8)
+    session.reset_turn(user_text="hello", user_audio_tokens=np.random.default_rng(0).integers(
+        0, 1024, (8, engine.config.rvq)))
+    decoder = AudioStreamDecoder(codec, chunk_frames=12, overlap_frames=2, first_chunk_frames=2)
+    bridge = RealtimeTextStreamBridge(session, decoder)
+    words = ("the port streams audio while the text is still arriving, one delta at a "
+             "time, as a language model would send it").split(" ")
+    chunks, first = [], None
+    torch.cuda.synchronize()
+    t = time.perf_counter()
+    with codec.streaming(batch_size=1):
+        for w in words:
+            for wav in bridge.push_text_delta(w + " "):
+                first = first or time.perf_counter() - t
+                chunks.append(wav)
+        for wav in bridge.finish(max_frames=96):
+            first = first or time.perf_counter() - t
+            chunks.append(wav)
+    wall = time.perf_counter() - t
+    wave = np.concatenate(chunks)
+    n = len(engine.generated_tokens)
+    if not (np.isfinite(wave).all() and wave.size > 0 and first is not None):
+        raise AssertionError(f"streaming: bad wave {wave.shape}")
+    r = dict(run=label, frames=n, chunks=len(chunks), first_chunk_ms=first * 1e3, wall_s=wall,
+             wave_s=wave.size / codec.sampling_rate, frames_s=n / 12.5)
+    log(f"  streaming session ({label}): {n} frames -> {len(chunks)} chunks, "
+        f"{r['wave_s']:.2f} s of wave ({r['frames_s']:.2f} s of frames; frames trimmed at EOS "
+        f"or past the codebooks do not sound), first chunk after {r['first_chunk_ms']:.1f} ms, "
+        f"{wall:.2f} s in all")
+    return r
+
+
+def rt_http_phase(engine, proc, codec) -> tuple:
+    """10c: the port's HTTP server in this process with ``--rt-pool-slots
+    4`` serves three concurrent ``POST /stream`` requests (temperature 0.8,
+    at most 48 frames): each a chunked PCM16 answer with the sample-rate and
+    pooled headers and the TTFA in its chunks' extensions. Returns (launch
+    counts, rows)."""
+    from http.server import ThreadingHTTPServer
+    import socket
+    import threading
+
+    hs = http_server
+    hs._STATE["args"] = SimpleNamespace(model_path=None, codec_path=None, device=DEV,
+                                        pool_slots=0, rt_pool_slots=4)
+    hs._STATE["rt_backend"] = (engine, proc, codec)
+    srv = ThreadingHTTPServer(("127.0.0.1", 0), hs.Handler)
+    th = threading.Thread(target=srv.serve_forever, daemon=True)
+    th.start()
+    port = srv.server_address[1]
+
+    def stream(i, out):
+        body = json.dumps({"text": f"stream number {i} of three, sent at once.",
+                           "user_text": "hi", "max_frames": 48, "seed": i}).encode()
+        t = time.perf_counter()
+        with socket.create_connection(("127.0.0.1", port), timeout=600) as sock:
+            sock.sendall(b"POST /stream HTTP/1.1\r\nHost: x\r\nContent-Type: application/json"
+                         b"\r\nContent-Length: %d\r\nConnection: close\r\n\r\n" % len(body)
+                         + body)
+            raw = b""
+            while chunk := sock.recv(1 << 16):
+                raw += chunk
+        head, rest = raw.split(b"\r\n\r\n", 1)
+        headers = dict(x.split(": ", 1) for x in head.decode().split("\r\n")[1:])
+        exts, n = [], 0
+        while True:
+            line, rest = rest.split(b"\r\n", 1)
+            size, _, ext = line.decode().partition(";")
+            if int(size, 16) == 0:
+                break
+            exts.append(ext)
+            n += int(size, 16) // 2
+            rest = rest[int(size, 16) + 2:]
+        out[i] = dict(status=head.split(b" ")[1].decode(), headers=headers, ttfa=exts[0] if exts
+                      else None, samples=n, chunks=len(exts), wall_s=time.perf_counter() - t)
+
+    try:
+        # the pool is built and warmed by the first request; one request first
+        # so that the three concurrent ones meet a warm pool
+        warm = {}
+        stream(0, warm)
+        reset_counts()
+        out = {}
+        threads = [threading.Thread(target=stream, args=(i, out)) for i in (1, 2, 3)]
+        for x in threads:
+            x.start()
+        for x in threads:
+            x.join(timeout=600)
+        counts = read_counts()
+    finally:
+        srv.shutdown()
+        srv.server_close()
+        if hs._STATE["rt_pool"] is not None:
+            hs._STATE["rt_pool"].close()
+        hs._STATE["rt_pool"], hs._STATE["rt_backend"] = None, None
+    for i in (1, 2, 3):
+        r = out.get(i)
+        if not (r and r["status"] == "200" and r["headers"].get("X-Pooled") == "1"
+                and r["headers"].get("X-Sample-Rate") == str(codec.sampling_rate)
+                and r["ttfa"] and r["ttfa"].startswith("ttfa=") and r["samples"] > 0):
+            raise AssertionError(f"/stream request {i}: {r}")
+        log(f"  /stream #{i} (pooled): {r['chunks']} chunks, {r['samples']} samples "
+            f"({r['samples'] / codec.sampling_rate:.2f} s), first chunk's {r['ttfa']}, "
+            f"request {r['wall_s']:.2f} s")
+    if not (counts["graphs"]["decode"] and counts["graphs"]["w8a16"] and counts["flash"]):
+        raise AssertionError(f"/stream: the pool's frames did not run the kernels: {counts}")
+    return counts, [out[i] for i in (1, 2, 3)]
+
+
+def phase_realtime() -> tuple:
+    """Phase 10 (see the module docstring). Returns (the main paths' launch
+    counts, the kernel numbers at the 1.7B shapes, the path's numbers)."""
+    log("phase 10: the Realtime family at MOSS-TTS-Realtime 1.7B width")
+    log("phase 10 kernels: flash, decode and W8A16 at the 1.7B shapes against plain")
+    knum = rt_kernels()
+    cfg = RealtimeConfig()
+    t = time.perf_counter()
+    engine = RealtimeEngine.random_init(seed=0, config=cfg, dtype=torch.bfloat16, device=DEV,
+                                        max_length=RT_FRAMES + 16, cache_len=1024)
+    torch.cuda.synchronize()
+    bf16_bytes = param_bytes(engine.params)
+    log(f"  init on card: RealtimeConfig() bf16 ({bf16_bytes / 1e9:.3f} GB of parameters) in "
+        f"{time.perf_counter() - t:.2f} s")
+    log("phase 10a: engine, bf16 weights")
+    counts, rows = rt_engine_phase(engine, "bf16")
+    engine.quantize()
+    int8_bytes = param_bytes(engine.params)
+    log(f"  quantize(): parameters {bf16_bytes / 1e9:.3f} -> {int8_bytes / 1e9:.3f} GB")
+    log("phase 10a: engine, int8 weights")
+    c, r = rt_engine_phase(engine, "int8")
+    counts += c
+    rows += r
+    for c in counts:
+        if not (c["flash"] and c["graphs"]["decode"]):
+            raise AssertionError(f"engine: prefills without flash or frames without the decode "
+                                 f"kernel in replayed graphs: {c}")
+    if not all(c["graphs"]["w8a16"] for c in counts[2:]):
+        raise AssertionError(f"int8 engine: no W8A16 launch in replayed graphs: {counts[2:]}")
+    log("phase 10b: continuous batching, 8 slots, int8 weights, 24 conversations")
+    sc, srows = rt_server_phase(engine.params, cfg)
+    counts += sc
+    rt_small_server_vs_solo()
+    log("phase 10c: streaming session and decoder on codec_1p6b, then /stream over HTTP")
+    codec = MossAudioTokenizer.random_init(seed=0, config=codec_1p6b(), dtype=torch.float32,
+                                           device=DEV)
+    proc = RealtimeProcessor(ByteFallbackTokenizer(), channels=cfg.rvq)
+    stream = [rt_streaming_phase(engine, codec, proc, label) for label in ("cold", "warm")]
+    hc, hrows = rt_http_phase(engine, proc, codec)
+    counts.append(hc)
+    numbers = dict(engine=rows, param_bytes=dict(bf16=bf16_bytes, int8=int8_bytes),
+                   server=srows, stream=stream, http=hrows)
+    log("  phase 10 numbers: " + json.dumps(numbers))
+    del engine, codec
+    gc.collect()
+    torch.cuda.empty_cache()
+    return counts, knum, numbers
+
+
 def kernel_label(name: str) -> str:
     """A ptxas entry's name, ``ring_kernel``'s instantiations spelled out:
     ring_kernel<mode, MT, BN, WM, WN, WK, STAGES, NP, MINB, vec>."""
@@ -1874,8 +2427,8 @@ def main() -> None:
         raise RuntimeError("torch.cuda.is_available() is false: this script runs on an NVIDIA GPU")
     torch.backends.cuda.matmul.allow_tf32 = False  # full f32 products, as the JAX package
     torch.backends.cudnn.allow_tf32 = False
-    name = torch.cuda.get_device_name(0)
-    log(f"  {name}; nvidia-smi: {card_line()}; torch {torch.__version__} "
+    kind = torch.cuda.get_device_name(0)
+    log(f"  {kind}; nvidia-smi: {card_line()}; torch {torch.__version__} "
         f"cuda {torch.version.cuda}; TF32 off")
 
     log("phase 2: build")
@@ -1981,9 +2534,18 @@ def main() -> None:
     loop_counts = loops_vs_run(backend.engine.params)
     log("phase 9c: the same loops on the small f32 model, card against card and CPU")
     phase_small_loops()
+    del backend
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    rt_counts, rt_knum, _ = phase_realtime()
+    for kernel in ("flash", "decode", "w8a16"):
+        numbers[kernel]["max_abs_err"] = max(numbers[kernel]["max_abs_err"],
+                                             rt_knum[kernel]["max_abs_err"])
+        numbers[kernel]["shapes"] += rt_knum[kernel]["shapes"]
 
     runs = [solo_counts, int8_counts, *server_counts.values(), *int8_server_counts.values(),
-            front_counts, *loop_counts]
+            front_counts, *loop_counts, *rt_counts]
     launches = {name: sum(c[name] for c in runs) for name in COUNTERS}
     if not all(launches[name] for name in COUNTERS if name not in OFF_PATH):
         raise AssertionError(f"a kernel was never launched on the main paths: {launches}")
@@ -1991,8 +2553,8 @@ def main() -> None:
     if not all(in_graphs[name] for name in IN_GRAPHS):
         raise AssertionError(f"the main paths' prefills and decode steps did not run their "
                              f"kernels inside replayed CUDA graphs: {in_graphs}")
-    log(f"main paths (phases 4-6, 8, 9b): launches {launches}; of them inside replayed CUDA graphs "
-        f"{in_graphs}")
+    log(f"main paths (phases 4-6, 8, 9b, 10): launches {launches}; of them inside replayed CUDA "
+        f"graphs {in_graphs}")
     launches.update(decode_q8t=numbers.pop("q8t_launches"), w8a8=numbers["w8a8"].pop("launches"),
                     int4=numbers["int4"].pop("launches"))
     if not all(launches[name] for name in OFF_PATH):
@@ -2030,7 +2592,7 @@ def main() -> None:
     ]
     print(json.dumps({"kernels": kernels}))
     print(card_line())
-    print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": name,
+    print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": kind,
                                              "count": torch.cuda.device_count()}}), flush=True)
 
 

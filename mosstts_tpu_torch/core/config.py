@@ -1,7 +1,7 @@
 """The port's configurations: its own copy of the parts of
 ``mosstts_tpu/core/config.py`` it runs (the Qwen3 backbone, the Delay model,
-the codec, and the ``qwen3_8b``/``delay_8b``/``codec_1p6b``/``tiny_qwen3``
-presets). Plain frozen dataclasses that ingest the reference's
+the Realtime model, the codec, and the ``qwen3_1p7b``/``qwen3_8b``/
+``delay_8b``/``codec_1p6b``/``tiny_qwen3`` presets). Plain frozen dataclasses that ingest the reference's
 ``config.json`` via ``from_hf_dict``; the port imports nothing of the JAX
 package, so it keeps this copy.
 """
@@ -102,6 +102,74 @@ class DelayConfig:
 
 
 # ---------------------------------------------------------------------------
+# Realtime model: Qwen3 backbone + RoPE'd 4-layer local transformer
+# (configuration_mossttsrealtime.py:35-113).
+# ---------------------------------------------------------------------------
+@dataclass(frozen=True)
+class RealtimeLocalConfig:
+    hidden_size: int = 2048
+    intermediate_size: int = 6144
+    num_hidden_layers: int = 4
+    num_attention_heads: int = 16
+    num_key_value_heads: int = 8
+    head_dim: int = 128
+    rms_norm_eps: float = 1e-6
+    rope_theta: float = 1_000_000.0
+    max_position_embeddings: int = 33
+    attention_bias: bool = False
+    audio_pad_token: int = 1024
+    audio_vocab_size: int = 1027
+    rvq: int = 16
+    initializer_range: float = 0.02
+
+    @classmethod
+    def from_hf_dict(cls, d: Dict[str, Any]) -> "RealtimeLocalConfig":
+        return cls(**_filter_kwargs(cls, dict(d)))
+
+    @property
+    def q_dim(self) -> int:
+        return self.num_attention_heads * self.head_dim
+
+    @property
+    def kv_dim(self) -> int:
+        return self.num_key_value_heads * self.head_dim
+
+
+@dataclass(frozen=True)
+class RealtimeConfig:
+    language_config: Qwen3Config = field(default_factory=Qwen3Config)
+    local_config: RealtimeLocalConfig = field(default_factory=RealtimeLocalConfig)
+    rvq: int = 16
+    audio_pad_token: int = 1024
+    audio_vocab_size: int = 1027  # 1024 codes + pad(1024)/bos(1025)/eos(1026)
+    reference_audio_pad: int = 151654
+    text_pad: int = 151655
+    initializer_range: float = 0.02
+    audio_bos_token: int = 1025
+    audio_eos_token: int = 1026
+
+    @property
+    def channels(self) -> int:
+        return 1 + self.rvq
+
+    @classmethod
+    def from_hf_dict(cls, d: Dict[str, Any]) -> "RealtimeConfig":
+        d = dict(d)
+        lc = d.pop("language_config", None) or {}
+        loc = d.pop("local_config", None) or {}
+        return cls(
+            language_config=Qwen3Config.from_hf_dict(lc),
+            local_config=RealtimeLocalConfig.from_hf_dict(loc),
+            **_filter_kwargs(cls, d),
+        )
+
+    @classmethod
+    def from_json(cls, path: str | Path) -> "RealtimeConfig":
+        with open(path) as f:
+            return cls.from_hf_dict(json.load(f))
+
+
+# ---------------------------------------------------------------------------
 # Audio codec ("Cat" MOSS-Audio-Tokenizer equivalent). The reference ships no
 # codec source (empty moss_audio_tokenizer/); this config describes our
 # TPU-native reimplementation of the documented contract:
@@ -156,6 +224,17 @@ def codec_1p6b(**over) -> CodecConfig:
     )
     base.update(over)
     return CodecConfig(**base)
+
+
+def qwen3_1p7b(**over) -> Qwen3Config:
+    """Qwen3-1.7B-class backbone (the reference Local/Realtime scale)."""
+    base = dict(
+        vocab_size=151936, hidden_size=2048, intermediate_size=6144,
+        num_hidden_layers=28, num_attention_heads=16,
+        num_key_value_heads=8, head_dim=128,
+    )
+    base.update(over)
+    return Qwen3Config(**base)
 
 
 def qwen3_8b(**over) -> Qwen3Config:

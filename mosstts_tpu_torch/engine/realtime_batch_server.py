@@ -1,0 +1,604 @@
+"""Continuous-batching server for the Realtime (streaming) family.
+
+Ports ``mosstts_tpu/engine/realtime_batch_server.py``:
+``RealtimeBatchServer`` with ``submit`` (per-conversation sampling
+overrides), ``step``, ``step_block``, ``run`` (pipelined and sequential),
+``run_events``, ``partial_frames``, ``cancel``, ``warmup`` and
+``total_steps``. A fixed pool of slots decodes frames in lock-step; queued
+conversations are admitted into freed slots mid-flight: the admissions of
+one prompt bucket prefill together as one batch-k group (k rounded up to a
+power of two by repeating the last one) into a fresh state, and their rows
+are spliced into the slots (``_splice_rt_rows_``). Each slot has its own
+cache cursor and frame counter (the per-row ``RealtimeState``), its own
+sampling controls, its own text feed (``_text_rest``) and its own
+``torch.Generator``.
+
+``self.state`` is one set of static buffers for the server's whole life.
+The frames advance it in place through ``engine/step_graph.RealtimeSteps``:
+on the card each frame is the replay of a CUDA graph of
+``realtime_decode_step``, one per attend bucket (the JAX server's
+``_step_fn``), and ``warmup()`` captures those of the buckets it walks.
+Admissions run eagerly. ``run_events`` (JAX ``_event_fn``) decodes until a
+scheduling event through ``models.delay._lagged_steps``, the lagged-replay
+loop of the Delay server: on the card it reads the watched stop flags one
+replay late, so a completion by EOS holds its trimmed frames all the same
+and the slot decodes one frozen frame more than JAX's. ``graphs=False``
+runs the frames eagerly on the card, to compare; the CPU always does.
+
+Differences from the JAX server, by design: a conversation draws from its
+slot's generator, reseeded at admission from its request id
+(``_request_seed``), so a sampled stream depends on its own request only;
+the JAX server draws every slot from one shared key, so its sampled
+streams depend on the cohort (``realtime_batch_server.py:409-413``). The
+draws are PyTorch's, not JAX's; greedy streams equal JAX's and the solo
+engine's. The pipelined ``run`` snapshots the stop flags with a
+non-blocking copy to pinned host memory and a CUDA event.
+"""
+from __future__ import annotations
+
+import itertools
+import logging
+from dataclasses import dataclass
+from typing import Dict, List, Optional
+
+import numpy as np
+import torch
+
+from ..core.config import RealtimeConfig
+from ..models.delay import _lagged_steps
+from ..models.realtime import (RealtimeParams, RealtimeSampling, RealtimeState,
+                               init_realtime_srv_state, init_realtime_state, make_rt_sampling,
+                               realtime_prefill_step)
+from ..ops.sampling import row_generators
+from .delay_engine import _round_up, attend_bucket
+from .step_graph import RealtimeSteps, host_tensor
+
+
+@dataclass
+class _RTRequest:
+    request_id: int
+    grid: np.ndarray  # (T, 1+rvq) turn grid from RealtimeProcessor
+    text_ids: List[int]
+    max_new_tokens: int
+    prefill_text_len: int
+    sampling: Optional[dict] = None  # per-request generation config
+
+
+@dataclass
+class CompletedStream:
+    request_id: int
+    frames: np.ndarray  # (T, rvq) generated frames, trimmed at EOS
+    steps: int  # frames generated (incl. any post-EOS poll slack)
+
+
+@torch.no_grad()
+def _splice_rt_rows_(big: RealtimeState, small: RealtimeState, rows: torch.Tensor) -> None:
+    """Copy the first ``len(rows)`` rows of the batch-k scalar-cursor state
+    ``small`` into slots ``rows`` of ``big`` in place: their cache lanes,
+    masks, frames and history, with ``small``'s scalar cursors. The
+    generators are not copied: the group prefilled from the slots' own."""
+    k = rows.shape[0]
+    for bf, sf in zip(big.cache, small.cache):
+        bf.index_copy_(1, rows, sf[:, :k])
+    for name in ("kv_valid", "last_audio", "is_stopping", "history"):
+        getattr(big, name).index_copy_(0, rows, getattr(small, name)[:k])
+    big.cur_len.index_copy_(0, rows, small.cur_len.expand(k).contiguous())
+    big.hist_len.index_copy_(0, rows, small.hist_len.expand(k).contiguous())
+
+
+def _request_seed(request_id: int) -> int:
+    """A conversation's generator seed: an int-only hash of its request id
+    (string tuples are salted per process)."""
+    return hash((0x52D417, request_id)) & 0x7FFFFFFF
+
+
+class _TokenFeed:
+    """``steps`` as ``models.delay._lagged_steps`` drives it, feeding
+    column i of the device matrix ``toks`` (slots, KMAX) at its i-th step."""
+
+    def __init__(self, steps: RealtimeSteps, toks: torch.Tensor):
+        self.steps, self.state, self._toks, self._i = steps, steps.state, toks, 0
+
+    def step(self, **kw) -> None:
+        self.steps.step(self._toks[:, self._i], **kw)
+        self._i += 1
+
+
+class RealtimeBatchServer:
+    """Ports ``mosstts_tpu.engine.realtime_batch_server.RealtimeBatchServer``.
+    The server runs where ``params`` live. ``graphs`` (on the card): replay
+    each frame as a CUDA graph; False runs the frames eagerly, to compare.
+    The graphs read ``params`` where they are: build a new server after
+    quantizing them."""
+
+    # the event block's text-feed width (JAX ``_KMAX``)
+    _KMAX = 128
+
+    def __init__(self, params: RealtimeParams, config: RealtimeConfig, *, slots: int = 8,
+                 cache_len: int = 1024, max_frames: int = 256, prompt_bucket: int = 16,
+                 dtype=torch.bfloat16, sampling: Optional[RealtimeSampling] = None,
+                 top_k: int = 30, poll_every: int = 4, text_pad_id: int = 151655,
+                 pad_token_id: int = 151643, graphs: bool = True):
+        self.params = params
+        self.config = config
+        self.device = params.text_emb.device
+        self.slots = slots
+        self.cache_len = cache_len
+        self.max_frames = max_frames
+        self.prompt_bucket = prompt_bucket
+        self.dtype = dtype
+        self.sampling = sampling or make_rt_sampling()
+        self.top_k = top_k
+        self.poll_every = poll_every
+        self.text_pad_id = text_pad_id
+        self.pad_token_id = pad_token_id
+
+        self._ids = itertools.count()
+        self._queue: List[_RTRequest] = []
+        self._active: Dict[int, _RTRequest] = {}
+        self._text_rest: Dict[int, List[int]] = {}  # slot -> tokens to feed
+        dev = self.device
+        self.state = init_realtime_srv_state(config, slots, cache_len, max_frames,
+                                             row_generators(0, slots, dev), dtype=dtype,
+                                             device=dev)
+        self.total_steps = 0
+        # host mirrors (exact): frames generated per slot since admission,
+        # and an upper bound on each slot's cache cursor (cursors freeze at
+        # EOS, so prefill_len + steps only over-covers): the attend bucket
+        # needs no device read
+        self._step_host = np.full(slots, 1 << 30, np.int64)
+        self._ub_host = np.zeros(slots, np.int64)
+
+        # per-slot sampling: raw values on the host; the static (slots,)
+        # tensors are rewritten from them when an admission changes a slot
+        d = self.sampling
+        self._samp_default = {
+            "temperature": float(d.temperature),
+            "top_p": float(d.top_p),
+            "repetition_penalty": float(d.repetition_penalty),
+            "do_sample": bool(d.do_sample),
+        }
+        self._samp_host = {
+            k: np.full(slots, v, np.bool_ if isinstance(v, bool) else np.float32)
+            for k, v in self._samp_default.items()
+        }
+        self._samp_dev = make_rt_sampling(**self._samp_host, device=dev)
+        self._samp_stale = False
+        self._steps = RealtimeSteps(params, config, self.state, self._samp_dev, graphs=graphs)
+
+    # ---- per-slot sampling -------------------------------------------
+    def _set_slot_sampling(self, slot: int, overrides: dict) -> None:
+        h, sd = self._samp_host, self._samp_default
+        for k in sd:
+            h[k][slot] = sd[k]
+        if overrides.get("temperature") is not None:
+            # an explicit temperature decides: 0 greedy, > 0 sampled
+            t = overrides["temperature"]
+            h["temperature"][slot] = t
+            h["do_sample"][slot] = t != 0.0
+        for k in ("top_p", "repetition_penalty"):
+            if overrides.get(k) is not None:
+                h[k][slot] = overrides[k]
+        self._samp_stale = True
+
+    def _sync_sampling(self) -> None:
+        """Rewrite the static per-slot sampling tensors if an admission
+        changed them."""
+        if self._samp_stale:
+            for static, value in zip(self._samp_dev, make_rt_sampling(**self._samp_host)):
+                static.copy_(host_tensor(value, self.device), non_blocking=True)
+            self._samp_stale = False
+
+    # ------------------------------------------------------------------
+    def submit(self, grid: np.ndarray, text_ids: List[int], *, max_new_tokens: int = 128,
+               prefill_text_len: int = 12, sampling: Optional[dict] = None) -> int:
+        """Queue a conversation turn: a (T, 1+rvq) grid from the processor
+        and the whole text token stream (the first ``prefill_text_len`` go
+        into the prefill, the rest feed one per frame). ``sampling``
+        overrides the server defaults for this conversation: temperature
+        (0 = greedy), top_p, repetition_penalty."""
+        if sampling:
+            bad = set(sampling) - {"temperature", "top_p", "repetition_penalty"}
+            if bad:
+                raise ValueError(f"unknown sampling overrides: {sorted(bad)}")
+        grid = np.asarray(grid, np.int64)
+        if grid.ndim != 2 or grid.shape[1] != self.config.rvq + 1:
+            raise ValueError(f"expected (T, {self.config.rvq + 1}) grid")
+        prefix = list(text_ids[:prefill_text_len])
+        if not prefix:
+            raise ValueError("need at least one text token to prefill")
+        Tb = _round_up(grid.shape[0] + len(prefix), self.prompt_bucket)
+        max_new_tokens = min(max_new_tokens, self.max_frames)
+        if Tb + max_new_tokens + self.poll_every > self.cache_len:
+            raise ValueError(f"prompt ({Tb} slots) + max_new_tokens ({max_new_tokens}) "
+                             f"exceeds cache_len={self.cache_len}")
+        rid = next(self._ids)
+        self._queue.append(_RTRequest(
+            request_id=rid, grid=grid, text_ids=list(text_ids), max_new_tokens=max_new_tokens,
+            prefill_text_len=prefill_text_len, sampling=dict(sampling) if sampling else None))
+        return rid
+
+    def _prompt_rows(self, req: _RTRequest) -> np.ndarray:
+        """The grid plus the prefix rows, ``audio_bos`` on the last prefix
+        row's channel 1 (as ``RealtimeEngine.prefill`` builds them)."""
+        cfg = self.config
+        prefix = req.text_ids[:req.prefill_text_len]
+        seg = np.full((len(prefix), cfg.rvq + 1), cfg.audio_pad_token, np.int64)
+        seg[:, 0] = prefix
+        seg[len(prefix) - 1, 1] = cfg.audio_bos_token
+        return np.concatenate([req.grid, seg], axis=0)
+
+    @torch.no_grad()
+    def _prefill_group(self, ids: np.ndarray, valid: np.ndarray, slots: List[int],
+                       seeds: List[int], sampling: RealtimeSampling) -> None:
+        """Prefill the kb prompt rows ``ids``/``valid`` as one batch into a
+        fresh scalar-cursor state, drawing row i from slot ``slots[i]``'s
+        generator reseeded with ``seeds[i]`` (the padding rows past
+        ``len(slots)`` from generators of their own), and splice the first
+        ``len(slots)`` rows into those slots."""
+        kb, Tb = ids.shape[:2]
+        dev, k = self.device, len(slots)
+        gens = [self.state.rng[s] for s in slots] + [torch.Generator(device=dev)
+                                                      for _ in range(kb - k)]
+        for g, seed in zip(gens, list(seeds) + [0] * (kb - k)):
+            g.manual_seed(seed)
+        small = init_realtime_state(self.config, kb, self.cache_len, self.max_frames, gens,
+                                    dtype=self.dtype, device=dev)
+        attend = attend_bucket(Tb, max(self.prompt_bucket, 128), self.cache_len)
+        small, _ = realtime_prefill_step(
+            self.params, self.config, small, host_tensor(ids, dev).to(dev, non_blocking=True),
+            host_tensor(valid, dev).to(dev, non_blocking=True), sampling, top_k=self.top_k,
+            attend_len=attend)
+        rows = host_tensor(np.asarray(slots, np.int64), dev).to(dev, non_blocking=True)
+        _splice_rt_rows_(self.state, small, rows)
+
+    def _admit_group(self, Tb: int, group) -> None:
+        """Admit every (slot, request, prompt rows) of ``group``, all in the
+        prompt bucket ``Tb``, through one batch-k prefill; k is rounded up
+        to a power of two by repeating the last admission (its rows are not
+        spliced), so a bucket sees O(log slots) batch shapes."""
+        cfg = self.config
+        k = len(group)
+        kb = 1
+        while kb < k:
+            kb *= 2
+        padded = group + [group[-1]] * (kb - k)
+        ids = np.full((kb, Tb, cfg.rvq + 1), cfg.audio_pad_token, np.int64)
+        ids[..., 0] = self.pad_token_id
+        valid = np.zeros((kb, Tb), bool)
+        for i, (_slot, _req, rows) in enumerate(padded):
+            ids[i, Tb - rows.shape[0]:] = rows
+            valid[i, Tb - rows.shape[0]:] = True
+        for slot, req, _rows in group:
+            self._set_slot_sampling(slot, req.sampling or {})
+        h = self._samp_host
+        samp_slots = np.array([s for s, _r, _w in padded], np.int64)
+        sampling = make_rt_sampling(**{name: h[name][samp_slots].copy() for name in h},
+                                    device=self.device)
+        self._prefill_group(ids, valid, [s for s, _r, _w in group],
+                            [_request_seed(req.request_id) for _s, req, _w in group], sampling)
+        for slot, req, _rows in group:
+            self._active[slot] = req
+            self._text_rest[slot] = list(req.text_ids[req.prefill_text_len:])
+            self._step_host[slot] = 1  # the prefill produced the first frame
+            self._ub_host[slot] = Tb
+
+    def _fill_free_slots(self) -> None:
+        busy = set(self._active)
+        groups: Dict[int, list] = {}
+        for slot in range(self.slots):
+            if not self._queue:
+                break
+            if slot not in busy:
+                req = self._queue.pop(0)
+                rows = self._prompt_rows(req)
+                Tb = _round_up(rows.shape[0], self.prompt_bucket)
+                groups.setdefault(Tb, []).append((slot, req, rows))
+        for Tb, group in sorted(groups.items()):
+            self._admit_group(Tb, group)
+
+    # ------------------------------------------------------------------
+    def _attend(self, active) -> int:
+        max_ub = int(self._ub_host[active].max())
+        return attend_bucket(max_ub + 2, max(self.prompt_bucket, 128), self.cache_len)
+
+    def _frame(self, active) -> None:
+        """One frame of every slot, each active slot fed the next token of
+        its text (a pad once it has none)."""
+        toks = np.full(self.slots, self.text_pad_id, np.int64)
+        for slot in active:
+            rest = self._text_rest[slot]
+            if rest:
+                toks[slot] = rest.pop(0)
+        self._sync_sampling()
+        self._steps.step(host_tensor(toks, self.device), attend_len=self._attend(active),
+                         top_k=self.top_k)
+        self.total_steps += 1
+        self._step_host[active] += 1
+        self._ub_host[active] += 1
+
+    def step(self, *, poll: Optional[bool] = None) -> List[CompletedStream]:
+        """Admit queued requests, decode one frame for every slot in
+        lock-step, collect completions. Idle and finished slots ride along
+        frozen (their cursor and cache stay put; the frame they compute
+        never reaches a result)."""
+        self._fill_free_slots()
+        if not self._active:
+            return []
+        active = sorted(self._active)
+        self._frame(active)
+        if poll is None:
+            poll = (self.total_steps % self.poll_every == 0
+                    or any(self._step_host[s] >= self._active[s].max_new_tokens
+                           for s in active))
+        return self._collect() if poll else []
+
+    def step_block(self, n: int) -> List[CompletedStream]:
+        """``n`` lock-step frames back to back (one admission pass, one
+        poll); the block ends early when a slot reaches its budget."""
+        self._fill_free_slots()
+        if not self._active:
+            return []
+        active = sorted(self._active)
+        for _ in range(n):
+            if any(self._step_host[s] >= self._active[s].max_new_tokens for s in active):
+                break
+            self._frame(active)
+        return self._collect()
+
+    def _trim(self, hist: np.ndarray, slot: int, max_new: int) -> np.ndarray:
+        """The frames written so far for ``slot``, clamped to its budget and
+        trimmed at the first audio-EOS frame (reference
+        streaming_mossttsrealtime.py:854-878)."""
+        n = int(min(self._step_host[slot], max_new, self.max_frames))
+        frames = hist[slot, :n]
+        eos = np.nonzero(frames[:, 0] == self.config.audio_eos_token)[0]
+        if len(eos):
+            frames = frames[: int(eos[0])]
+        return frames
+
+    def _hist_bucket(self, n: int) -> int:
+        """Exponential frame buckets (64, 128, 256, ...) for
+        ``partial_frames``' transfer."""
+        nb = 64
+        while nb < n:
+            nb *= 2
+        return min(nb, self.max_frames)
+
+    def partial_frames(self) -> Dict[int, np.ndarray]:
+        """For streaming consumers: request_id -> the EOS-trimmed frames
+        generated so far, for every conversation in flight, in one
+        transfer of the history's first frame bucket over the furthest
+        active cursor (a host mirror: no device read to size it)."""
+        if not self._active:
+            return {}
+        n = int(max(min(self._step_host[s], self._active[s].max_new_tokens, self.max_frames)
+                    for s in self._active))
+        nb = self._hist_bucket(max(n, 1))
+        hist = self.state.history[:, :nb].cpu().numpy()
+        return {req.request_id: self._trim(hist, slot, req.max_new_tokens).copy()
+                for slot, req in sorted(self._active.items())}
+
+    def _free(self, slot: int) -> None:
+        """Free ``slot``: its row freezes (``is_stopping``) and parks."""
+        del self._active[slot]
+        del self._text_rest[slot]
+        self._step_host[slot] = 1 << 30
+        self.state.is_stopping[slot] = True
+
+    def cancel(self, request_id: int) -> bool:
+        """Abort one conversation (a client that disconnected): a queued
+        request is dropped; an active one frees its slot at once, its frames
+        never collected. Returns True if the request was found."""
+        for i, req in enumerate(self._queue):
+            if req.request_id == request_id:
+                del self._queue[i]
+                return True
+        slot = next((s for s, req in self._active.items() if req.request_id == request_id),
+                    None)
+        if slot is None:
+            return False
+        self._free(slot)
+        return True
+
+    def _collect(self, stopped: Optional[np.ndarray] = None) -> List[CompletedStream]:
+        if stopped is None:
+            stopped = self.state.is_stopping.cpu().numpy()
+        finished = [(slot, req) for slot, req in sorted(self._active.items())
+                    if stopped[slot] or self._step_host[slot] >= req.max_new_tokens]
+        if not finished:
+            return []
+        hist = self.state.history.cpu().numpy()  # one transfer of the whole buffer
+        done: List[CompletedStream] = []
+        for slot, req in finished:
+            # clamped to the budget: a block can run a few frames past it
+            frames = self._trim(hist, slot, req.max_new_tokens)
+            done.append(CompletedStream(request_id=req.request_id, frames=frames.copy(),
+                                        steps=int(self._step_host[slot])))
+            self._free(slot)
+        return done
+
+    def _snap_flags(self):
+        """Start copying the stop flags to the host: on the card a
+        non-blocking copy into pinned memory and an event after it, so a
+        later read waits for the copy only, not for the frames behind it."""
+        flags = self.state.is_stopping
+        if flags.device.type != "cuda":
+            return flags.clone(), None
+        host = torch.empty(flags.shape, dtype=flags.dtype, pin_memory=True)
+        host.copy_(flags, non_blocking=True)
+        event = torch.cuda.Event()
+        event.record()
+        return host, event
+
+    def run(self, max_steps: int = 100000, block: int = 1,
+            pipelined: bool = True) -> List[CompletedStream]:
+        """Drain the queue and the active slots; completions in finish order.
+
+        ``pipelined`` (block 1) hides each poll's host round trip: the stop
+        flags are snapshotted at a poll boundary, the next ``poll_every``
+        frames are enqueued, and only then are the flags read. EOS is seen
+        up to one block late (frozen frames the trim drops); budget
+        completions come from the host mirrors and stay exact."""
+        done: List[CompletedStream] = []
+        steps = 0
+        if block > 1 or not pipelined:
+            while steps < max_steps:
+                if block > 1:
+                    done.extend(self.step_block(block))
+                    steps += block
+                else:
+                    done.extend(self.step())
+                    steps += 1
+                if not self._active and not self._queue:
+                    break
+            return done
+        pending = None  # (flag snapshot, its event, slot -> request_id)
+        while True:
+            did = 0
+            while did < self.poll_every and steps < max_steps:
+                if not (self._active or self._queue):
+                    break
+                if self._active and any(self._step_host[s] >= self._active[s].max_new_tokens
+                                        for s in self._active):
+                    break  # budget hit: resolve now (the host mirror is exact)
+                self.step(poll=False)
+                steps += 1
+                did += 1
+            if pending is not None:
+                flags, event, snap_rids = pending
+                if event is not None:
+                    event.synchronize()
+                flags = flags.numpy()
+                # a slot freed and readmitted since the snapshot carries the
+                # old occupant's flag: trust only unchanged occupants
+                stopped = np.zeros(self.slots, bool)
+                for slot, rid in snap_rids.items():
+                    if slot in self._active and self._active[slot].request_id == rid:
+                        stopped[slot] = flags[slot]
+                done.extend(self._collect(stopped=stopped))
+                pending = None
+            if not (self._active or self._queue):
+                break
+            if steps >= max_steps and did == 0:
+                break
+            if self._active:
+                pending = (*self._snap_flags(),
+                           {s: r.request_id for s, r in self._active.items()})
+        return done
+
+    # ---- event-driven dispatch -------------------------------------------
+    def _dispatch_event(self, max_k: int):
+        """Admit, then decode until a scheduling event (a watched slot
+        stopped, or the block's cap: a budget, the attend bucket's end,
+        ``_KMAX``). Returns ``(frames run, stop flags | None)``; no
+        admission happens in between, so the flags map onto the current
+        occupants."""
+        self._fill_free_slots()
+        if not self._active:
+            return 0, None
+        active = sorted(self._active)
+        max_ub = int(self._ub_host[active].max())
+        attend = attend_bucket(max_ub + 2, max(self.prompt_bucket, 128), self.cache_len)
+        budget = np.full(self.slots, 1 << 30, np.int64)
+        for s, req in self._active.items():
+            budget[s] = req.max_new_tokens - self._step_host[s]
+        k_cap = int(min(max_k, attend - max_ub - 1, int(budget[active].min()), self._KMAX))
+        if k_cap <= 0:
+            return 0, None
+        toks = np.full((self.slots, self._KMAX), self.text_pad_id, np.int64)
+        watch = np.zeros(self.slots, bool)
+        for slot in active:
+            watch[slot] = True
+            rest = self._text_rest[slot][:k_cap]
+            if rest:
+                toks[slot, :len(rest)] = rest
+        self._sync_sampling()
+        feed = _TokenFeed(self._steps, host_tensor(toks, self.device).to(self.device,
+                                                                           non_blocking=True))
+        watched = torch.from_numpy(watch)
+        did, _ = _lagged_steps(feed, k_cap, lambda f: bool((f & watched).any()),
+                               dict(attend_len=attend, top_k=self.top_k))
+        flags = self.state.is_stopping.cpu().numpy()
+        self.total_steps += did
+        self._step_host[active] += did
+        self._ub_host[active] += did
+        for slot in active:
+            del self._text_rest[slot][:did]
+        return did, flags
+
+    def run_events(self, max_steps: int = 100000) -> List[CompletedStream]:
+        """Drain the queue and the active slots with event-driven dispatch:
+        each block decodes until a slot needs the scheduler (EOS or
+        budget). On the CPU the frame streams equal ``run()``'s; on the card
+        an EOS is seen one frame late (see the module docstring)."""
+        out: List[CompletedStream] = []
+        steps = 0
+        while True:
+            if self._active:
+                # budget completions are host-knowable: free those slots
+                # before dispatching so the block admits into them
+                out.extend(self._collect(stopped=np.zeros(self.slots, bool)))
+            if not (self._active or self._queue):
+                break
+            did, flags = self._dispatch_event(max_steps - steps)
+            steps += did
+            got = self._collect(stopped=flags) if flags is not None else []
+            out.extend(got)
+            if did == 0 and not got:
+                if self._queue:
+                    logging.getLogger(__name__).warning(
+                        "run_events() stopping with %d undrained stream(s) still queued",
+                        len(self._queue))
+                break
+        return out
+
+    # ------------------------------------------------------------------
+    @torch.no_grad()
+    def warmup(self, prompt_lens=(64,), attend_upto: Optional[int] = None,
+               k_buckets: Optional[List[int]] = None) -> None:
+        """Run every admission shape the load can hit (each prompt bucket at
+        each k bucket) and capture the frame graph of every attend bucket up
+        to ``attend_upto``, so nothing is built mid-serve; then return the
+        slots to idle, in place (the graphs keep their buffers)."""
+        assert not self._active and not self._queue, "warmup on a busy server"
+        cfg = self.config
+        upto = attend_upto or self.cache_len
+        if k_buckets is None:
+            k_buckets, kb = [], 1
+            while kb < self.slots:
+                k_buckets.append(kb)
+                kb *= 2
+            k_buckets.append(kb)
+        sd = self._samp_default
+        for T in prompt_lens:
+            Tb = _round_up(T, self.prompt_bucket)
+            for kb in k_buckets:
+                ids = np.full((kb, Tb, cfg.rvq + 1), cfg.audio_pad_token, np.int64)
+                ids[..., 0] = self.pad_token_id
+                ids[:, -1, 0] = self.text_pad_id
+                ids[:, -1, 1] = cfg.audio_bos_token
+                sampling = make_rt_sampling(**{
+                    k: np.full(kb, v, np.bool_ if isinstance(v, bool) else np.float32)
+                    for k, v in sd.items()}, device=self.device)
+                slots = list(range(min(kb, self.slots)))
+                self._prefill_group(ids, np.ones((kb, Tb), bool), slots, [0] * len(slots),
+                                    sampling)
+        a = max(self.prompt_bucket, 128)
+        toks = host_tensor(np.full(self.slots, self.text_pad_id, np.int64), self.device)
+        self._sync_sampling()
+        while True:
+            self._steps.step(toks, attend_len=a, top_k=self.top_k)
+            if a >= min(upto, self.cache_len):
+                break
+            a = attend_bucket(a + 1, max(self.prompt_bucket, 128), self.cache_len)
+        # back to a clean idle pool (warmup dirtied the slots and cursors)
+        st = self.state
+        for buf in st.cache:
+            buf.zero_()
+        for t in (st.kv_valid, st.cur_len, st.history, st.hist_len):
+            t.zero_()
+        st.last_audio.fill_(cfg.audio_pad_token)
+        st.is_stopping.fill_(True)
+        self._step_host[:] = 1 << 30
+        self._ub_host[:] = 0

@@ -1,10 +1,20 @@
-"""Delay decode steps and prefills over static buffers, replayed as CUDA
-graphs on the card.
+"""Delay decode steps and prefills, and Realtime frames, over static
+buffers, replayed as CUDA graphs on the card.
 
 The port's counterpart of the JAX package's compiled step and prefill
 programs: ``jax.jit`` of ``delay_decode_step`` with the state donated
-(``mosstts_tpu/engine/delay_engine.py:125``, ``batch_server.py:398``) and of
-``delay_prefill`` (``delay_engine.py:110``, ``batch_server.py:262``).
+(``mosstts_tpu/engine/delay_engine.py:125``, ``batch_server.py:398``), of
+``delay_prefill`` (``delay_engine.py:110``, ``batch_server.py:262``) and of
+``realtime_decode_step`` (``realtime_engine.py:159``,
+``realtime_batch_server.py:186``). ``GraphSteps`` holds what they share:
+the capture stream and pool, the warm-up and capture of a key, the replay
+and its launch accounting, the check that the weights are still the
+ones captured.
+
+``RealtimeSteps`` does for a ``RealtimeState`` what ``DecodeSteps`` (below)
+does for a ``DelayGenState``: one graph per ``(attend_len, top_k,
+per_row)`` of a whole frame (the backbone step, the unrolled depth loop,
+the samplings), fed from a static (B,) text-token buffer.
 
 ``DecodeSteps`` owns one ``DelayGenState`` and one ``DelaySampling`` whose
 tensors never move, and advances the state in place, one decode step per
@@ -77,9 +87,11 @@ from typing import Callable, Optional
 import numpy as np
 import torch
 
-from ..core.config import DelayConfig
+from ..core.config import DelayConfig, RealtimeConfig
 from ..models.delay import (DelayGenState, DelayParams, DelaySampling, delay_decode_step,
                             delay_prefill)
+from ..models.realtime import (RealtimeParams, RealtimeSampling, RealtimeState,
+                               realtime_decode_step)
 from ..nn.qwen3 import init_kv_cache, init_quant_kv_cache
 from ..ops.kernels import launches
 
@@ -89,6 +101,8 @@ _CAPTURE_LOCK = threading.Lock()
 # the DelayGenState fields delay_decode_step returns as new tensors
 STEP_FIELDS = ("cur_ids", "pos", "step", "is_stopping", "is_audio", "audio_lengths",
                "delayed", "seen")
+# the RealtimeState fields realtime_decode_step returns as new tensors
+RT_STEP_FIELDS = ("cur_len", "last_audio", "is_stopping", "hist_len")
 
 
 def host_tensor(x, device) -> torch.Tensor:
@@ -140,16 +154,21 @@ def copy_state_(dst: DelayGenState, src: DelayGenState) -> None:
         d[:, s.shape[1]:].zero_()
 
 
-class DecodeSteps:
-    """Decode steps of ``params`` over the static ``state`` and ``sampling``.
-    ``graphs`` replays CUDA graphs for CUDA tensors."""
+class GraphSteps:
+    """What every static-state program over ``params`` shares: the capture
+    stream and memory pool of its graphs, the warm-up and capture of a key,
+    the replay with its launch accounting, and the check that ``params``
+    still holds the weights the graphs read (``marker``, a parameter that
+    ``quantize()`` replaces). ``graphs`` replays CUDA graphs when
+    ``device`` is a CUDA device."""
 
-    def __init__(self, params: DelayParams, cfg: DelayConfig, state: DelayGenState,
-                 sampling: DelaySampling, *, graphs: bool = True):
-        self.params, self.cfg, self.state, self.sampling = params, cfg, state, sampling
-        self.graphs = graphs and state.pos.device.type == "cuda"
+    def __init__(self, params, marker, device, *, graphs: bool = True):
+        self.params = params
+        self.graphs = graphs and torch.device(device).type == "cuda"
         self.pool = None  # the graphs' memory pool, made at the first capture
-        self._head = params.text_head
+        self._marker_name = marker
+        self._marker = getattr(params, marker)
+        self._device = device
         self._stream: Optional[torch.cuda.Stream] = None
         self._captured = {}  # key -> (CUDAGraph, the launches its capture counted)
 
@@ -159,7 +178,7 @@ class DecodeSteps:
         return tuple(self._captured)
 
     def check_params(self) -> None:
-        if self.params.text_head is not self._head:
+        if getattr(self.params, self._marker_name) is not self._marker:
             raise RuntimeError("the parameters were replaced since these decode steps were "
                                "built (quantize()?): build new ones")
 
@@ -171,7 +190,7 @@ class DecodeSteps:
             fn()
             return
         if self._stream is None:
-            self._stream = torch.cuda.Stream(self.state.pos.device)
+            self._stream = torch.cuda.Stream(self._device)
             self.pool = torch.cuda.graph_pool_handle()
         self._stream.wait_stream(torch.cuda.current_stream())
         with torch.cuda.stream(self._stream):
@@ -197,21 +216,37 @@ class DecodeSteps:
                 launches.restore(before)
         return graph, captured
 
-    @torch.no_grad()
-    def step(self, *, attend_len: Optional[int], uniform_slots: bool, top_k_text: int,
-             top_k_audio: int, hidden_out_layers: Optional[tuple] = None) -> None:
-        """One decode step of the whole batch, in place."""
+    def run_key(self, key, fn: Callable[[], None], generators) -> None:
+        """``fn`` at ``key``: the replay of its graph if one was captured;
+        else ``fn`` run eagerly (``warm``), then, with graphs on, captured
+        for the key's later calls."""
         self.check_params()
-        key = (attend_len, uniform_slots, top_k_text, top_k_audio,
-               None if hidden_out_layers is None else tuple(hidden_out_layers))
         entry = self._captured.get(key)
         if entry is not None:
             entry[0].replay()
             launches.add_replay(entry[1])
             return
-        self.warm(lambda: self._eager(key))  # a real step
+        self.warm(fn)  # a real step
         if self.graphs:
-            self._captured[key] = self.capture(lambda: self._eager(key), self.state.rng)
+            self._captured[key] = self.capture(fn, generators)
+
+
+class DecodeSteps(GraphSteps):
+    """Decode steps of ``params`` over the static ``state`` and ``sampling``.
+    ``graphs`` replays CUDA graphs for CUDA tensors."""
+
+    def __init__(self, params: DelayParams, cfg: DelayConfig, state: DelayGenState,
+                 sampling: DelaySampling, *, graphs: bool = True):
+        super().__init__(params, "text_head", state.pos.device, graphs=graphs)
+        self.cfg, self.state, self.sampling = cfg, state, sampling
+
+    @torch.no_grad()
+    def step(self, *, attend_len: Optional[int], uniform_slots: bool, top_k_text: int,
+             top_k_audio: int, hidden_out_layers: Optional[tuple] = None) -> None:
+        """One decode step of the whole batch, in place."""
+        key = (attend_len, uniform_slots, top_k_text, top_k_audio,
+               None if hidden_out_layers is None else tuple(hidden_out_layers))
+        self.run_key(key, lambda: self._eager(key), self.state.rng)
 
     def _eager(self, key) -> None:
         attend_len, uniform_slots, top_k_text, top_k_audio, hol = key
@@ -221,6 +256,47 @@ class DecodeSteps:
                                 hidden_out_layers=hol)
         for name in STEP_FIELDS:
             getattr(self.state, name).copy_(getattr(new, name))
+
+
+class RealtimeSteps(GraphSteps):
+    """Realtime frames (``models.realtime.realtime_decode_step``) of
+    ``params`` over the static ``state`` (a scalar cursor for the engine,
+    (B,) cursors for the server) and ``sampling``, with a static (B,) text
+    token buffer, ``tokens``. On the card a frame is the replay of a CUDA
+    graph per ``(attend_len, top_k, per_row)``, which copies back the fields
+    the step replaces (``RT_STEP_FIELDS``); ``kv_valid``, ``history`` and
+    the cache are written in place by the step."""
+
+    def __init__(self, params: RealtimeParams, cfg: RealtimeConfig, state: RealtimeState,
+                 sampling: RealtimeSampling, *, graphs: bool = True):
+        super().__init__(params, "local_heads", state.is_stopping.device, graphs=graphs)
+        self.cfg, self.state, self.sampling = cfg, state, sampling
+        self.tokens = torch.full(state.is_stopping.shape, cfg.text_pad, dtype=torch.int64,
+                                 device=state.is_stopping.device)
+
+    @torch.no_grad()
+    def step(self, tokens: Optional[torch.Tensor] = None, *, attend_len: Optional[int],
+             top_k: int) -> None:
+        """One frame of the whole batch, in place, feeding ``tokens`` (B,)
+        (on the host, pinned, or on the device), else what ``self.tokens``
+        holds."""
+        if tokens is not None:
+            self.tokens.copy_(tokens, non_blocking=True)
+        key = (attend_len, top_k, self.state.cur_len.ndim == 1)
+        self.run_key(key, lambda: self._eager(key), self.state.rng)
+
+    def _eager(self, key) -> None:
+        attend_len, top_k, _ = key
+        new, _ = realtime_decode_step(self.params, self.cfg, self.state, self.tokens,
+                                      self.sampling, top_k=top_k, attend_len=attend_len)
+        copy_rt_fields_(self.state, new)
+
+
+def copy_rt_fields_(dst: RealtimeState, src: RealtimeState) -> None:
+    """Copy the fields a Realtime step or prefill replaces from ``src`` into
+    the static ``dst`` in place."""
+    for name in RT_STEP_FIELDS:
+        getattr(dst, name).copy_(getattr(src, name))
 
 
 class _Prompt:

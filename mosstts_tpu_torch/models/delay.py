@@ -453,7 +453,8 @@ def delay_decode_step(
 
 def _lagged_steps(steps, n: int, stop: Callable[[torch.Tensor], bool], kw: dict,
                   lag: Optional[int] = None) -> Tuple[int, Optional[int]]:
-    """Up to ``n`` steps of ``steps`` (an ``engine.step_graph.DecodeSteps``)
+    """Up to ``n`` steps of ``steps`` (an ``engine.step_graph.DecodeSteps``,
+    or anything with a ``state`` holding ``is_stopping`` and a ``step(**kw)``)
     until ``stop``, given a copy of the stop flags on the host, holds for a
     state. Returns ``(executed, at)``: the steps run and the number of steps
     after which ``stop`` first held (None if it did not within ``n``).
@@ -468,7 +469,7 @@ def _lagged_steps(steps, n: int, stop: Callable[[torch.Tensor], bool], kw: dict,
     state is the last, and never past ``n``. ``lag`` (1 on the card, 0 on
     the CPU by default) lets a CPU test run the card's schedule."""
     state = steps.state
-    cuda = state.pos.device.type == "cuda"
+    cuda = state.is_stopping.device.type == "cuda"
     lag = (1 if cuda else 0) if lag is None else lag
     flags = torch.empty((n + 1,) + state.is_stopping.shape, dtype=torch.bool, pin_memory=cuda)
     events = []

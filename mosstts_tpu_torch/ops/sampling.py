@@ -88,6 +88,22 @@ def seen_mask_update(seen: torch.Tensor, tokens: torch.Tensor,
     return seen | hot
 
 
+def window_seen_mask(history: torch.Tensor, vocab: int,
+                     valid: Optional[torch.Tensor] = None) -> torch.Tensor:
+    """Ports ``mosstts_tpu.ops.sampling.window_seen_mask``: history (..., W)
+    int tokens -> (..., V) bool of the tokens present; ``valid`` (..., W)
+    marks the real entries. Tokens outside [0, V) mark nothing, as JAX's
+    ``one_hot`` gives them an all-false row: they (and invalid entries)
+    scatter into a spare column V that is then dropped."""
+    keep = (history >= 0) & (history < vocab)
+    if valid is not None:
+        keep = keep & valid
+    idx = torch.where(keep, history.long(), vocab)
+    seen = torch.zeros(history.shape[:-1] + (vocab + 1,), dtype=torch.bool,
+                       device=history.device)
+    return seen.scatter_(-1, idx, True)[..., :vocab]
+
+
 def _categorical(gens: Sequence[torch.Generator], logits: torch.Tensor) -> torch.Tensor:
     """Gumbel-max draw along the last axis; row b's noise comes from
     ``gens[b]`` alone."""

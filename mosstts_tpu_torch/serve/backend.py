@@ -1,13 +1,14 @@
 """Backend loading for the serving layer.
 
-Ports ``mosstts_tpu/serve/backend.py`` in its demo mode: ``load_codec`` and
-``load_delay_backend`` build random-weight models (a tiny backbone, the
-demo codec, the offline byte tokenizer) on ``device``, the card unless the
-caller asks for the CPU, so every pipeline runs without a checkpoint. The
-engine runs in ``dtype_str`` (bf16 by default), the codec in float32.
-Checkpoint directories (``model_path``, ``codec_path``) wait for the
-checkpoint loaders (ROADMAP A.7), and the Local and Realtime backends for
-their families (ROADMAP A.9, A.8): those raise ``NotImplementedError``.
+Ports ``mosstts_tpu/serve/backend.py`` in its demo mode: ``load_codec``,
+``load_delay_backend`` and ``load_realtime_backend`` build random-weight
+models (a tiny backbone, the demo codec, the offline byte tokenizer) on
+``device``, the card unless the caller asks for the CPU, so every pipeline
+runs without a checkpoint. The engines run in ``dtype_str`` (bf16 by
+default), the codec in float32. Checkpoint directories (``model_path``,
+``codec_path``) wait for the checkpoint loaders (ROADMAP A.7), and the
+Local backend for its family (ROADMAP A.9): those raise
+``NotImplementedError``.
 """
 from __future__ import annotations
 
@@ -17,9 +18,12 @@ from typing import Optional
 import torch
 
 from ..codec.model import MossAudioTokenizer
-from ..core.config import CodecConfig, DelayConfig, tiny_qwen3
+from ..core.config import (CodecConfig, DelayConfig, RealtimeConfig, RealtimeLocalConfig,
+                           tiny_qwen3)
 from ..engine.delay_engine import DelayEngine
+from ..engine.realtime_engine import RealtimeEngine
 from ..processing.delay_processor import DelayProcessor
+from ..processing.realtime_processor import RealtimeProcessor
 from ..processing.tokenizer import ByteFallbackTokenizer
 from .pipelines import DelayBackend
 
@@ -73,6 +77,28 @@ def load_local_backend(*args, **kwargs):
     raise NotImplementedError("the Local family is not ported yet (ROADMAP A.9)")
 
 
-def load_realtime_backend(*args, **kwargs):
-    """``mosstts_tpu.serve.backend.load_realtime_backend``: not ported yet."""
-    raise NotImplementedError("the Realtime family is not ported yet (ROADMAP A.8)")
+@functools.lru_cache(maxsize=2)
+def load_realtime_backend(
+    model_path: Optional[str] = None,
+    codec_path: Optional[str] = None,
+    dtype_str: str = "bfloat16",
+    device: str = "cuda",
+):
+    """Ports ``mosstts_tpu.serve.backend.load_realtime_backend`` (demo
+    mode): ``(engine, processor, codec)``, a tiny Realtime engine (16
+    codebooks, half the demo codec's) in ``dtype_str`` and the demo codec
+    in float32, both from seed 0 on ``device``. One backend per argument
+    tuple is kept for the process."""
+    if model_path:
+        _no_checkpoints("model_path", model_path)
+    codec = load_codec(codec_path, device=device)
+    cfg = RealtimeConfig(
+        language_config=tiny_qwen3(hidden_size=64),
+        local_config=RealtimeLocalConfig(
+            hidden_size=64, intermediate_size=128, num_hidden_layers=2,
+            num_attention_heads=4, num_key_value_heads=2, head_dim=16,
+            rvq=_DEMO_CODEC.n_q // 2),
+        rvq=_DEMO_CODEC.n_q // 2)
+    engine = RealtimeEngine.random_init(seed=0, config=cfg, dtype=_DTYPES[dtype_str],
+                                        device=device)
+    return engine, RealtimeProcessor(ByteFallbackTokenizer(), channels=cfg.rvq), codec

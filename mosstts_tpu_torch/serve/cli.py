@@ -8,15 +8,20 @@ Ports ``mosstts_tpu/serve/cli.py``:
         [--speaker 1:ref.wav:"prompt"]
     python3 -m mosstts_tpu_torch.serve.cli voice-gen --text "..." --instruction "..."
     python3 -m mosstts_tpu_torch.serve.cli sound-effect --ambient "rain" --seconds 4
+    python3 -m mosstts_tpu_torch.serve.cli realtime --text "..." [--voice-prompt x.wav]
 
-Each writes the wave to ``--output`` and prints its path and a status line.
-The models run on ``--device`` (the card by default) with random demo
-weights. The ``realtime`` subcommand exits with an error until the Realtime
-family is ported (ROADMAP A.8).
+Each writes the wave to ``--output`` and prints its path and a status line
+(``realtime`` streams the text as simulated LLM deltas through the
+Realtime session and prints the time to the first audio and the realtime
+factor). The models run on ``--device`` (the card by default) with random
+demo weights.
 """
 from __future__ import annotations
 
 import argparse
+import time
+
+import numpy as np
 
 from ..utils.audio import write_wav
 
@@ -98,7 +103,64 @@ def cmd_sound_effect(args):
 
 
 def cmd_realtime(args):
-    raise SystemExit("realtime: the Realtime family is not ported yet (ROADMAP A.8)")
+    """Ports ``mosstts_tpu.serve.cli.cmd_realtime``."""
+    from ..engine.streaming import (
+        AudioStreamDecoder,
+        RealtimeStreamingSession,
+        RealtimeTextStreamBridge,
+    )
+    from .backend import load_realtime_backend
+
+    engine, proc, codec = load_realtime_backend(args.model_path, args.codec_path,
+                                                device=args.device)
+    session = RealtimeStreamingSession(
+        engine, proc, codec=codec,
+        temperature=args.temperature if args.temperature is not None else 0.8,
+        top_p=args.top_p if args.top_p is not None else 0.6,
+        top_k=args.top_k if args.top_k is not None else 30,
+        repetition_penalty=args.repetition_penalty
+        if args.repetition_penalty is not None else 1.1,
+    )
+    if args.voice_prompt:
+        session.set_voice_prompt(args.voice_prompt)
+
+    rng = np.random.default_rng(args.seed)
+    user_audio = rng.integers(0, 1024, (args.user_audio_frames, engine.config.rvq))
+    session.reset_turn(user_text=args.user_text, user_audio_tokens=user_audio)
+
+    decoder = AudioStreamDecoder(codec, chunk_frames=args.chunk_frames,
+                                 overlap_frames=args.overlap_frames)
+    bridge = RealtimeTextStreamBridge(session, decoder)
+
+    # simulate an LLM delta stream from the text
+    words = args.text.split(" ")
+    deltas = [w + " " for w in words[:-1]] + [words[-1]]
+
+    t0 = time.monotonic()
+    ttfa = None
+    chunks = []
+    with codec.streaming(batch_size=1):
+        for delta in deltas:
+            for wav in bridge.push_text_delta(delta):
+                if ttfa is None:
+                    ttfa = time.monotonic() - t0
+                chunks.append(wav)
+        for wav in bridge.finish(max_frames=args.max_frames):
+            if ttfa is None:
+                ttfa = time.monotonic() - t0
+            chunks.append(wav)
+    elapsed = time.monotonic() - t0
+    if not chunks:
+        print("no audio generated")
+        return
+    full = np.concatenate(chunks)
+    sr = codec.sampling_rate
+    rtf = (full.size / sr) / elapsed if elapsed > 0 else float("inf")
+    write_wav(args.output, full, sr)
+    print(
+        f"Done | TTFA={ttfa:.3f}s | RTF={rtf:.2f}x | chunks={len(chunks)} | "
+        f"elapsed={elapsed:.2f}s\nwrote {args.output} ({full.size / sr:.2f}s @ {sr}Hz)"
+    )
 
 
 def main(argv=None):
@@ -135,9 +197,16 @@ def main(argv=None):
     p.add_argument("--seconds", type=float, default=4.0)
     p.set_defaults(fn=cmd_sound_effect)
 
-    p = sub.add_parser("realtime", help="MOSS-TTS-Realtime streaming (not ported yet)")
+    p = sub.add_parser("realtime", help="MOSS-TTS-Realtime streaming demo")
     _add_common(p)
-    p.add_argument("--text", required=True)
+    p.add_argument("--text", required=True, help="text to stream (simulated LLM deltas)")
+    p.add_argument("--user-text", default="hello")
+    p.add_argument("--user-audio-frames", type=int, default=8)
+    p.add_argument("--voice-prompt", default=None, help="voice prompt wav path")
+    p.add_argument("--chunk-frames", type=int, default=12)
+    p.add_argument("--overlap-frames", type=int, default=2)
+    p.add_argument("--max-frames", type=int, default=1024,
+                   help="end the stream after this many frames if no EOS came")
     p.set_defaults(fn=cmd_realtime)
 
     args = ap.parse_args(argv)

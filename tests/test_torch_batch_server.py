@@ -27,6 +27,17 @@ CFG = DelayConfig(language_config=tiny_qwen3(), n_vq=4)
 KW = dict(slots=2, cache_len=256, out_capacity=64, prompt_bucket=32)
 
 
+@pytest.fixture(scope="module", autouse=True)
+def one_thread():
+    """One intra-op thread while this module runs: its tiny eager steps are
+    many small ops, which a thread pool only slows when the test workers
+    share the machine's cores."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
+
+
 @pytest.fixture(scope="module")
 def setup():
     jp = init_delay_params(jax.random.PRNGKey(0), CFG, dtype=jnp.float32)

@@ -41,6 +41,17 @@ FIELDS = ("kv_valid", "cur_ids", "pos", "step", "is_stopping", "is_audio",
 BUCKET = 100  # attend buckets of 100, 200, 400 slots, capped: the runs below cross them
 
 
+@pytest.fixture(scope="module", autouse=True)
+def one_thread():
+    """One intra-op thread while this module runs: its tiny eager steps are
+    many small ops, which a thread pool only slows when the test workers
+    share the machine's cores."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
+
+
 def _stopper(params):
     """``params`` changed so that greedy text is ``<|im_end|>`` wherever the
     state machine lets it be sampled."""

@@ -2,13 +2,16 @@
 bf16 engine, f32 codec) behind a ``ThreadingHTTPServer`` on port 0 with a 2-slot
 serving pool. ``/tts`` with a base64 reference wave, ``/ttsd``,
 ``/sound_effect`` and ``/voice_gen`` return WAV bytes; ``/healthz``,
-``/metrics`` and the player page answer; ``/stream`` answers 501 (the
-Realtime family is not ported) and an unknown route 404. Every request has
-its own timeout.
+``/metrics`` and the player page answer; ``/stream`` streams chunked PCM16
+from the demo Realtime backend, solo and through a 2-slot Realtime pool
+(three concurrent streams), with the sample-rate header and the live TTFA
+in the chunk extensions; an unknown route answers 404. The backends' and
+the CLI's ``realtime`` run too. Every request has its own timeout.
 """
 import base64
 import io
 import json
+import socket
 import threading
 import urllib.error
 import urllib.request
@@ -30,12 +33,14 @@ class Args:
     codec_path = None
     device = "cpu"
     pool_slots = 2
+    rt_pool_slots = 0
 
 
 @pytest.fixture(scope="module")
 def server():
     old = hs._STATE["args"], hs._STATE["pool"], hs._STATE["last_metrics"]
     hs._STATE["args"], hs._STATE["pool"], hs._STATE["last_metrics"] = Args(), None, None
+    hs._STATE["rt_pool"] = None
     srv = ThreadingHTTPServer(("127.0.0.1", 0), hs.Handler)
     t = threading.Thread(target=srv.serve_forever, daemon=True)
     t.start()
@@ -45,8 +50,10 @@ def server():
         srv.shutdown()
         srv.server_close()
         t.join(timeout=WAIT)
-        if hs._STATE["pool"] is not None:
-            hs._STATE["pool"].close()
+        for name in ("pool", "rt_pool"):
+            if hs._STATE[name] is not None:
+                hs._STATE[name].close()
+        hs._STATE["rt_pool"] = None
         hs._STATE["args"], hs._STATE["pool"], hs._STATE["last_metrics"] = old
 
 
@@ -125,16 +132,81 @@ def test_tts_error_answers_400(server):
     assert e.value.code == 400 and "error" in json.loads(e.value.read())
 
 
+def _stream(server, body):
+    """POST /stream on a raw socket: (headers, [chunk extensions], PCM16
+    samples) of the chunked answer."""
+    host, port = server.rsplit("/", 1)[1].split(":")
+    data = json.dumps(body).encode()
+    with socket.create_connection((host, int(port)), timeout=WAIT) as sock:
+        sock.sendall(b"POST /stream HTTP/1.1\r\nHost: x\r\nContent-Type: application/json\r\n"
+                     b"Content-Length: %d\r\nConnection: close\r\n\r\n" % len(data) + data)
+        raw = b""
+        while chunk := sock.recv(1 << 16):
+            raw += chunk
+    head, rest = raw.split(b"\r\n\r\n", 1)
+    lines = head.decode().split("\r\n")
+    assert lines[0].split()[1] == "200", raw[:300]
+    headers = dict(line.split(": ", 1) for line in lines[1:])
+    exts, pcm = [], b""
+    while True:
+        size_line, rest = rest.split(b"\r\n", 1)
+        size, _, ext = size_line.decode().partition(";")
+        if int(size, 16) == 0:
+            break
+        exts.append(ext)
+        pcm, rest = pcm + rest[:int(size, 16)], rest[int(size, 16) + 2:]
+    return headers, exts, np.frombuffer(pcm, "<i2")
+
+
+STREAM = {"text": "hello from the stream", "user_text": "hi", "max_frames": 24,
+          "chunk_frames": 4, "first_chunk_frames": 2}
+
+
 def test_stream_501_and_unknown_route_404(server):
-    with pytest.raises(urllib.error.HTTPError) as e:
-        _post(server + "/stream", {"text": "hello"})
-    assert e.value.code == 501 and "ROADMAP A.8" in json.loads(e.value.read())["error"]
+    """(Named when ``/stream`` answered 501.) A solo ``/stream``: chunked
+    PCM16 at the codec's rate, each chunk's extension carrying the TTFA
+    and RTF, at most ``max_frames`` frames of audio; an unknown route
+    answers 404."""
+    headers, exts, pcm = _stream(server, STREAM)
+    assert headers["X-Sample-Rate"] == "24000" and "X-Pooled" not in headers
+    assert headers["Transfer-Encoding"] == "chunked"
+    assert exts and all(e.startswith("ttfa=") and ";rtf=" in e for e in exts)
+    assert 0 < pcm.size <= 24 * HOP
     with pytest.raises(urllib.error.HTTPError) as e:
         _post(server + "/nope", {})
     assert e.value.code == 404
     with pytest.raises(urllib.error.HTTPError) as e:
         urllib.request.urlopen(server + "/nope", timeout=WAIT)
     assert e.value.code == 404
+
+
+def test_stream_through_the_realtime_pool(server):
+    """Three concurrent pooled streams share a 2-slot Realtime pool (built
+    and warmed at the first one); each returns audio with the pooled
+    header and its TTFA."""
+    hs._STATE["args"].rt_pool_slots = 2
+    out, errors = {}, []
+
+    def fetch(i):
+        try:
+            out[i] = _stream(server, dict(STREAM, seed=i, temperature=0.0))
+        except Exception as e:  # surfaced below
+            errors.append(e)
+
+    try:
+        threads = [threading.Thread(target=fetch, args=(i,)) for i in range(3)]
+        for t in threads:
+            t.start()
+        for t in threads:
+            t.join(timeout=WAIT)
+    finally:
+        hs._STATE["args"].rt_pool_slots = 0
+    assert not any(t.is_alive() for t in threads) and not errors, errors
+    for headers, exts, pcm in out.values():
+        assert headers["X-Pooled"] == "1" and headers["X-Sample-Rate"] == "24000"
+        assert exts[0].startswith("ttfa=") and 0 < pcm.size <= 24 * HOP
+    pool = hs._STATE["rt_pool"]
+    assert pool is not None and pool.server.total_steps > 0 and not pool.server._active
 
 
 def test_player_page(server):
@@ -154,13 +226,16 @@ def test_checkpoints_and_other_families_raise():
         backend.load_codec("/some/codec", device="cpu")
     with pytest.raises(NotImplementedError, match="A.9"):
         backend.load_local_backend()
-    with pytest.raises(NotImplementedError, match="A.8"):
-        backend.load_realtime_backend()
+    with pytest.raises(NotImplementedError, match="A.7"):
+        backend.load_realtime_backend("/some/checkpoint", device="cpu")
+    engine, proc, codec = backend.load_realtime_backend(device="cpu")
+    assert engine.config.rvq == proc.channels == codec.config.n_q // 2
+    assert engine.params.text_emb.device.type == "cpu"
 
 
 def test_cli_clone_from_a_wave_file(tmp_path):
-    """``cli tts --mode Clone --reference x.wav`` writes a wave; ``realtime``
-    exits naming its ROADMAP item."""
+    """``cli tts --mode Clone --reference x.wav`` writes a wave, and so does
+    ``cli realtime``."""
     from mosstts_tpu_torch.serve import cli
 
     ref = tmp_path / "ref.wav"
@@ -171,5 +246,7 @@ def test_cli_clone_from_a_wave_file(tmp_path):
               "--output", str(out)])
     with wave.open(str(out)) as w:
         assert w.getframerate() == 24000 and w.getnframes() > 0
-    with pytest.raises(SystemExit, match="A.8"):
-        cli.main(["realtime", "--text", "hi", "--device", "cpu"])
+    cli.main(["realtime", "--text", "stream this text", "--device", "cpu",
+              "--max-frames", "12", "--output", str(out)])
+    with wave.open(str(out)) as w:
+        assert w.getframerate() == 24000 and 0 < w.getnframes() <= 12 * HOP

@@ -74,6 +74,10 @@ def test_port_imports_without_jax_triton_or_cuda():
     assert {f"mosstts_tpu_torch.{m}" for m in (
         "serve.pool", "serve.backend", "serve.http_server", "serve.cli", "serve.web_player",
         "serve.text_norm", "engine.metrics", "utils.native")} <= names
+    # the Realtime family: model, processor, engine, server, streaming layer
+    assert {f"mosstts_tpu_torch.{m}" for m in (
+        "models.realtime", "processing.realtime_processor", "engine.realtime_engine",
+        "engine.realtime_batch_server", "engine.streaming")} <= names
 
 
 def test_chip_smoke_imports_without_jax():
