@@ -1,5 +1,5 @@
 #!/usr/bin/env python3
-"""Drive the PyTorch port's Delay and Realtime TTS paths once on one NVIDIA GPU.
+"""Drive the PyTorch port's Delay, Realtime and Local TTS paths once on one NVIDIA GPU.
 
 Run from the repository root with no arguments:
 
@@ -120,12 +120,44 @@ Phases, one or more lines each; any failure raises and exits non-zero:
    chunk, the wave's length against its frames), then three concurrent
    pooled ``POST /stream`` requests to the HTTP server in this process
    (``--rt-pool-slots 4``): status, headers, TTFA, samples.
-Phases 4-6, 8, 9 and 10 run the package's default: every decode step a
+11. checkpoints, then the Local family at MossTTSLocal 1.7B width
+   (``LocalConfig(qwen3_1p7b(), n_vq=32)``: the 28-layer backbone, a 4-layer
+   depth transformer of width 1536 without rotary embeddings, 32 codebooks;
+   random bf16 weights made on the card after the Realtime model is
+   released). First flash (the engine's B = 64 prefill, the server's
+   admission), decode (the depth transformer's 33-slot cache at attend 1,
+   17 and 33, B = 1, 8 and 64; the backbone's at B = 64) and W8A16 (the
+   depth transformer's, the adapters' and the heads' shapes, M = 1 and 64)
+   against their plain versions, with their times, yardsticks and bounds.
+   11a: directories in the reference's HF layout (1 GB bf16 shards with an
+   index, ``tools/hf_checkpoint.py``) written from random full-width
+   models, Local 1.7B with 4 of its 28 backbone layers, Delay 8B and
+   Realtime 1.7B with 2, loaded onto the card through
+   ``load_{local,delay,realtime}_checkpoint`` (seconds and GB/s): every
+   tensor equal to its source bit for bit, and greedy frames of the loaded
+   model equal to the source's; ``save_model``/``load_model`` of the Local
+   model and the ``codec_1p6b()`` codec's ``save_pretrained``/
+   ``from_pretrained`` round trips equal bit for bit. 11b: ``LocalEngine``
+   on ``bench.py:279-310``'s load (128-row grids with an ``audio_start``
+   row) at B = 1, 8 and 64, in bf16 and then after ``quantize()``: greedy
+   frames through the frame graphs equal an eager engine's bit for bit,
+   seeds s1, s2, s1 give equal, different, equal grids,
+   ``n_vq_for_inference=8`` zero-fills channels 9-32; ms per frame (wall,
+   the median of 3 ``generate`` calls; replays by CUDA events; kernel time
+   under the profiler), kernels and launches per frame, realtime multiple,
+   time to the first frame, parameter bytes before and after
+   ``quantize()``. 11c:
+   a ``LocalBatchServer`` (8 slots, cache 512, prompt bucket 32, greedy) on
+   the int8 weights, warmed up, serves ``bench.py:581-603``'s 24 requests
+   through ``run`` and ``run_events``: useful frames/s, ms per step, host
+   waits per request; on a small float32 model a 2-slot server's greedy
+   grids equal the solo engine's, card and CPU.
+Phases 4-6, 8, 9, 10 and 11 run the package's default: every decode step a
 CUDA-graph replay, and every prefill one from its key's second use (or a
 server's ``warmup``) on (``engine/step_graph.py``). The kernels' launch
 counts are set to 0 just before phases 4, 6, 8b, each server mode and each
-loop of 9b, each engine batch, server loop and the concurrent streams of 10
-and read just after, and must show every prefill and every
+loop of 9b, each engine batch, server loop and the concurrent streams of 10,
+each engine batch and server loop of 11, and read just after, and must show every prefill and every
 decode step went through the kernels; a graph's launches count once per
 replay (``ops/kernels/launches.py``), and flash, the decode kernels and
 W8A16 must have run inside replayed graphs. Phase 3 adds the int8-weight GEMMs
@@ -164,20 +196,25 @@ sys.path.insert(0, str(Path(__file__).resolve().parent))
 
 from mosstts_tpu_torch.codec.model import MossAudioTokenizer  # noqa: E402
 from mosstts_tpu_torch.core.config import (  # noqa: E402
-    DelayConfig, RealtimeConfig, RealtimeLocalConfig, codec_1p6b, delay_8b, tiny_qwen3)
+    DelayConfig, LocalConfig, RealtimeConfig, RealtimeLocalConfig, codec_1p6b, delay_8b,
+    qwen3_1p7b, qwen3_8b, tiny_qwen3)
 from mosstts_tpu_torch.engine.batch_server import DelayBatchServer  # noqa: E402
 from mosstts_tpu_torch.engine.delay_engine import DelayEngine  # noqa: E402
+from mosstts_tpu_torch.engine.local_batch_server import LocalBatchServer  # noqa: E402
+from mosstts_tpu_torch.engine.local_engine import LocalEngine  # noqa: E402
 from mosstts_tpu_torch.engine.realtime_batch_server import RealtimeBatchServer  # noqa: E402
 from mosstts_tpu_torch.engine.realtime_engine import RealtimeEngine  # noqa: E402
 from mosstts_tpu_torch.engine.streaming import (  # noqa: E402
     AudioStreamDecoder, RealtimeStreamingSession, RealtimeTextStreamBridge)
 from mosstts_tpu_torch.models.delay import make_sampling  # noqa: E402
-from mosstts_tpu_torch.models.delay import delay_forward  # noqa: E402
+from mosstts_tpu_torch.models.delay import delay_forward, init_delay_params  # noqa: E402
+from mosstts_tpu_torch.models.local import init_local_params  # noqa: E402
 from mosstts_tpu_torch.models.realtime import init_realtime_params, make_rt_sampling  # noqa: E402
 from mosstts_tpu_torch.nn import qwen3  # noqa: E402
 from mosstts_tpu_torch.ops.kernels import _build, decode_attn, flash, paged_attn, w8_gemm  # noqa: E402
 from mosstts_tpu_torch.ops.kernels import launches as kernel_launches  # noqa: E402
 from mosstts_tpu_torch.ops.quant import is_quantized, pitched  # noqa: E402
+from mosstts_tpu_torch.processing.delay_processor import DelayProcessor  # noqa: E402
 from mosstts_tpu_torch.processing.realtime_processor import RealtimeProcessor  # noqa: E402
 from mosstts_tpu_torch.processing.tokenizer import ByteFallbackTokenizer  # noqa: E402
 from mosstts_tpu_torch.serve import http_server  # noqa: E402
@@ -188,9 +225,14 @@ from mosstts_tpu_torch.tools.admission_path import N as TIMED_N  # noqa: E402
 from mosstts_tpu_torch.tools.admission_path import prompt_grid, timed  # noqa: E402
 from mosstts_tpu_torch.tools.kernel_inputs import (  # noqa: E402
     GEMM_8B, bound, card_line, decode_bound, decode_inputs, gemm_bound, time_ms)
+from mosstts_tpu_torch.tools.hf_checkpoint import same_params, write_hf_checkpoint  # noqa: E402
 from mosstts_tpu_torch.tools.kernel_times import int4_library  # noqa: E402
 from mosstts_tpu_torch.tools.pool_vs_solo import first_divergence  # noqa: E402
 from mosstts_tpu_torch.utils.audio import read_wav, write_wav  # noqa: E402
+from mosstts_tpu_torch.utils.checkpoints import (  # noqa: E402
+    delay_table, load_delay_checkpoint, load_local_checkpoint, load_realtime_checkpoint,
+    local_table, realtime_table)
+from mosstts_tpu_torch.utils.save import load_model, save_model  # noqa: E402
 
 DEV = "cuda"
 L8, B8, KV8, S8, HD8, H8 = 36, 4, 8, 512, 128, 32  # 8B layers / heads; batch 4, cache 512
@@ -2411,6 +2453,511 @@ def phase_realtime() -> tuple:
     return counts, knum, numbers
 
 
+# ----------------------------------------------------------------- phase 11
+LOCAL_FRAMES = 64  # frames of the engine's timed load (bench.py's --steps default)
+LOCAL_CHECK = 12  # frames of the graph-against-eager, seed and bitrate checks
+LOCAL_SMALL = LocalConfig(  # a small float32 Local model whose heads the kernels take
+    language_config=tiny_qwen3(hidden_size=256, intermediate_size=512, num_attention_heads=4,
+                               num_key_value_heads=2, head_dim=128),
+    n_vq=8, additional_mlp_ffn_hidden_size=256, local_ffn_hidden_size=512,
+    local_hidden_size=256, local_num_layers=2)
+
+
+def local_greedy(cfg) -> dict:
+    return dict(do_samples=[False] * cfg.channels)
+
+
+def local_load(cfg, B: int, T: int = 128, seed: int = 0):
+    """``bench.py:291-297``'s engine load: ``B`` random (T, C) grids with an
+    ``audio_start`` row at 8, all rows valid."""
+    rng = np.random.default_rng(seed)
+    ids = rng.integers(0, 1000, (B, T, cfg.channels))
+    ids[..., 1:] = rng.integers(0, 1024, (B, T, cfg.n_vq))
+    ids[:, 8, 0] = cfg.audio_start_token_id
+    return ids, np.ones((B, T), bool)
+
+
+def local_frames(out) -> int:
+    """Frames a ``LocalEngine.generate`` produced (its grids start at the
+    last ``audio_start`` row, ``start_length + 1`` prompt rows)."""
+    start, grid = out[0]
+    return grid.shape[0] - start - 1
+
+
+def local_kernels() -> dict:
+    """The three kernels of the Local path at MossTTSLocal 1.7B's shapes,
+    each against its plain version, with its device time, the plain
+    version's, the library call's and the bound: flash for the engine's
+    prefill (B = 64, the 127 rows before the last of bench.py's 128-row
+    prompt, over a 256-slot cache) and the server's admission (B = 1, a
+    64-row bucket with 33 rows of left pad, over 512 slots), GQA group 2;
+    decode over the depth transformer's 33-slot cache (attend 1, 17 and 33
+    at B = 1, 8 and 64; timed at 33) and the backbone's at B = 64; W8A16
+    at the depth transformer's, the adapters' and the heads' shapes (one
+    (2048, 1025) slice of the 32 stacked audio heads, f32 out; the
+    (2048, 151936) text head), M = 1 and 64."""
+    g = torch.Generator(device=DEV).manual_seed(11)
+    bf = torch.bfloat16
+    cfg = LocalConfig(language_config=qwen3_1p7b(), n_vq=32)
+    lc = cfg.language_config
+    L, H, KV, hd = lc.num_hidden_layers, lc.num_attention_heads, lc.num_key_value_heads, lc.head_dim
+    scale = hd ** -0.5
+    out = {}
+    fshapes = []
+    for label, B, T, S, pad in (("engine prefill B=64 T=127 S=256", 64, 127, 256, 0),
+                                ("server admission B=1 T=63 S=512", 1, 63, 512, 33)):
+        q = torch.randn((B, T, H, hd), generator=g, device=DEV).to(bf)
+        kc = torch.randn((L, B, KV, S, hd), generator=g, device=DEV).to(bf)
+        vc = torch.randn((L, B, KV, S, hd), generator=g, device=DEV).to(bf)
+        valid = torch.zeros((B, S), dtype=torch.bool, device=DEV)
+        valid[:, pad:T + 1] = True
+        fshapes.append(flash_shape(f"Local 1.7B {label}", q, None, None, valid,
+                                   torch.zeros((), dtype=torch.int32, device=DEV), kv_major=True,
+                                   rows=valid[:, :T], n_layers=L,
+                                   layer=lambda i, kc=kc, vc=vc: (kc[i % L], vc[i % L])))
+        del q, kc, vc
+    out["flash"] = dict(max_abs_err=max(r["max_abs_err"] for r in fshapes), shapes=fshapes)
+
+    dshapes, derr = [], 0.0
+    Ld = cfg.local_num_layers
+    for label, Lx, B, Sd, attends in (("depth", Ld, 1, 33, (1, 17, 33)),
+                                      ("depth", Ld, 8, 33, (1, 17, 33)),
+                                      ("depth", Ld, 64, 33, (1, 17, 33)),
+                                      ("backbone", L, 64, 256, (256,))):
+        kd = torch.randn((Lx, B, KV, Sd, hd), generator=g, device=DEV).to(bf)
+        vd = torch.randn((Lx, B, KV, Sd, hd), generator=g, device=DEV).to(bf)
+        qd = torch.randn((B, H, hd), generator=g, device=DEV).to(bf)
+        for attend in attends:
+            vald = (torch.arange(Sd, device=DEV) < attend)[None].expand(B, Sd).contiguous()
+            if label == "backbone":
+                vald = vald & (torch.rand((B, Sd), generator=g, device=DEV) < 0.9)
+            for li in (0, Lx - 1):
+                args = (qd, kd, vd, vald, li)
+                derr = max(derr, check_close(
+                    f"decode Local 1.7B {label} B={B} attend={attend} layer={li}",
+                    decode_attn.decode_attention(*args, scale=scale, attend_len=attend),
+                    decode_attn.decode_attention_ref(*args, scale=scale, attend_len=attend)))
+        ms = time_ms(lambda i: decode_attn.decode_attention(qd, kd, vd, vald, i % Lx, scale=scale,
+                                                             attend_len=attend))
+        plain = time_ms(lambda i: decode_attn.decode_attention_ref(qd, kd, vd, vald, i % Lx,
+                                                                   scale=scale, attend_len=attend))
+        lib = library_ms(lambda i: F.scaled_dot_product_attention(
+            qd[:, :, None], kd[i % Lx, :, :, :attend], vd[i % Lx, :, :, :attend],
+            attn_mask=vald[:, None, None, :attend], scale=scale, enable_gqa=True))
+        bd = decode_bound(qd, vald, attend, KV, hd * 2)
+        shape = f"Local 1.7B {label} B={B} attend={attend} of {tuple(kd.shape)}"
+        log(f"  decode {shape}: kernel {ms:.4f} ms, plain {plain:.4f} ms, sdpa {fmt_ms(lib)}, "
+            f"bound {bd['bound_ms']:.5f} ms ({bd['bound_by']})")
+        dshapes.append(dict(shape=shape, ms=ms, plain_ms=plain, library_ms=lib, **bd))
+        del kd, vd
+    out["decode"] = dict(max_abs_err=derr, shapes=dshapes)
+
+    wshapes, werr = [], 0.0
+    w8_gemm.LAUNCHES_W8A16_BYTES = 0
+    for name, K, N, count in (
+            ("depth wq, mlp_out gate/up", 1536, 2048, Ld), ("depth wk/wv", 1536, 1024, Ld),
+            ("depth wo, mlp_in down", 2048, 1536, Ld), ("depth w_gate/w_up", 1536, 8960, Ld),
+            ("depth w_down", 8960, 1536, Ld), ("mlp_in gate/up, mlp_out down", 2048, 2048, 32),
+            ("one audio head", 2048, 1025, 32), ("text head", 2048, 151936, 1)):
+        qw = pitched(torch.empty((count, K, N), dtype=torch.int8, device=DEV).random_(
+            -127, 128, generator=g))
+        sc = torch.rand((count, N), generator=g, device=DEV) * 0.019 + 0.001
+        head = name == "one audio head"
+        out_dtype = torch.float32 if head else bf
+        qt = qw.transpose(1, 2).contiguous()
+        for M in (1, 64):
+            x = torch.randn((M, K), generator=g, device=DEV).to(bf)
+            for li in sorted({0, count - 1}):
+                o = w8_gemm.w8a16_gemm(x, qw[li], sc[li], out_dtype)
+                ref = w8_gemm.w8a16_gemm_ref(x, qw[li], sc[li], out_dtype)
+                absref = w8_gemm.w8a16_gemm_ref(x.abs(), qw[li].abs(), sc[li], torch.float32)
+                werr = max(werr, check_gemm(f"w8a16 Local 1.7B {name} M={M} layer={li}", o, ref,
+                                            absref))
+            ms = time_ms(lambda i: w8_gemm.w8a16_gemm(x, qw[i % count], sc[i % count], out_dtype))
+            plain = time_ms(lambda i: w8_gemm.w8a16_gemm_ref(x, qw[i % count], sc[i % count],
+                                                             out_dtype))
+            lib = library_ms(lambda i: torch._weight_int8pack_mm(x, qt[i % count],
+                                                                 sc[i % count].to(bf)))
+            bd = gemm_bound(M, K, N, out_bytes=4 if head else 2)
+            log(f"  w8a16 Local 1.7B {name} M={M} K={K} N={N}: kernel {ms:.4f} ms, plain "
+                f"{plain:.4f} ms, torch._weight_int8pack_mm {fmt_ms(lib)}, bound "
+                f"{bd['bound_ms']:.5f} ms ({bd['bound_by']})")
+            wshapes.append(dict(shape=f"Local 1.7B {name} ({K}, {N}) M={M}", ms=ms,
+                                plain_ms=plain, library_ms=lib, **bd))
+        del qw, sc, qt
+    if w8_gemm.LAUNCHES_W8A16_BYTES:
+        raise AssertionError(f"W8A16 took byte loads {w8_gemm.LAUNCHES_W8A16_BYTES} times at "
+                             "the Local shapes")
+    out["w8a16"] = dict(max_abs_err=werr, shapes=wshapes)
+    torch.cuda.empty_cache()
+    return out
+
+
+def ckpt_family(label: str, cfg, src, table, load, same_output) -> dict:
+    """Write ``src`` (a random model on the card) under the reference's
+    names into a sharded bf16 directory (1 GB shards and an index), load it
+    onto the card through ``load``, and hold the loaded weights equal to
+    the source's bit for bit and ``same_output(src, loaded)`` true."""
+    with tempfile.TemporaryDirectory(dir=_build.build_root()) as tmp:
+        t = time.perf_counter()
+        info = write_hf_checkpoint(tmp, src, cfg, table(cfg), shard_bytes=1 << 30)
+        write_s = time.perf_counter() - t
+        torch.cuda.synchronize()
+        t = time.perf_counter()
+        loaded, lcfg = load(tmp, dtype=torch.bfloat16, device=DEV)
+        torch.cuda.synchronize()
+        load_s = time.perf_counter() - t
+    if lcfg != cfg or not same_params(loaded, src):
+        raise AssertionError(f"{label}: the loaded weights differ from their source")
+    if not same_output(src, loaded):
+        raise AssertionError(f"{label}: the loaded model's greedy frames differ from the source's")
+    r = dict(family=label, tensors=info["tensors"], shards=info["shards"], gb=info["bytes"] / 1e9,
+             write_s=write_s, load_s=load_s, load_gb_per_s=info["bytes"] / 1e9 / load_s)
+    log(f"  checkpoint {label}: {info['tensors']} tensors, {r['gb']:.3f} GB in {info['shards']} "
+        f"shards; written in {write_s:.2f} s, loaded onto the card in {load_s:.2f} s "
+        f"({r['load_gb_per_s']:.2f} GB/s); every tensor == its source bit for bit; greedy "
+        "frames == the source model's")
+    del loaded
+    return r
+
+
+def phase_checkpoints() -> list:
+    """11a (see the module docstring)."""
+    rows = []
+    gen = torch.Generator(device=DEV).manual_seed(21)
+    bf = torch.bfloat16
+
+    # Local 1.7B at full width, the backbone cut to 4 of 28 layers
+    cfg = LocalConfig(language_config=qwen3_1p7b(num_hidden_layers=4), n_vq=32)
+    src = init_local_params(cfg, generator=gen, dtype=bf, device=DEV)
+    ids, mask = local_load(cfg, 2, T=32)
+
+    def local_same(a, b):
+        return same_grids(*(LocalEngine(p, cfg, graphs=False).generate(
+            ids, mask, max_new_tokens=4, **local_greedy(cfg)) for p in (a, b)))
+
+    rows.append(ckpt_family("Local 1.7B (4 of 28 layers)", cfg, src, local_table,
+                            load_local_checkpoint, local_same))
+    with tempfile.TemporaryDirectory(dir=_build.build_root()) as tmp:
+        t = time.perf_counter()
+        save_model(tmp, src, cfg, "moss_tts_local")
+        back, bcfg = load_model(tmp, device=DEV)
+        torch.cuda.synchronize()
+        if bcfg != cfg or not same_params(back, src):
+            raise AssertionError("save_model/load_model: the round trip changed the weights")
+        log(f"  save_model/load_model round trip of that model: equal bit for bit, "
+            f"{time.perf_counter() - t:.2f} s")
+    del src, back
+
+    # Delay 8B and Realtime 1.7B at full width with 2 layers
+    cfg = DelayConfig(language_config=qwen3_8b(num_hidden_layers=2), n_vq=32)
+    src = init_delay_params(cfg, generator=gen, dtype=bf, device=DEV)
+    proc = DelayProcessor(ByteFallbackTokenizer(), config=cfg)
+    batch = proc([[proc.build_user_message(text="A checkpoint, loaded.")]], mode="generation")
+
+    def delay_same(a, b):
+        return same_grids(*(DelayEngine(p, cfg, graphs=False).generate(
+            batch["input_ids"], batch["attention_mask"], max_new_tokens=4, text_temperature=0.0,
+            audio_temperature=0.0) for p in (a, b)))
+
+    rows.append(ckpt_family("Delay 8B (2 of 36 layers)", cfg, src, delay_table,
+                            load_delay_checkpoint, delay_same))
+    del src
+    cfg = RealtimeConfig(language_config=qwen3_1p7b(num_hidden_layers=2))
+    src = init_realtime_params(cfg, generator=gen, dtype=bf, device=DEV)
+    grids, text = rt_load(cfg, 1)
+
+    def rt_same_output(a, b):
+        return rt_same(*(RealtimeEngine(p, cfg, device=DEV, max_length=16, cache_len=256,
+                                        graphs=False).generate(grids, text, max_length=4,
+                                                               **RT_GREEDY) for p in (a, b)))
+
+    rows.append(ckpt_family("Realtime 1.7B (2 of 28 layers)", cfg, src, realtime_table,
+                            load_realtime_checkpoint, rt_same_output))
+    del src
+
+    codec = MossAudioTokenizer.random_init(seed=3, config=codec_1p6b(), dtype=torch.float32,
+                                           device=DEV)
+    with tempfile.TemporaryDirectory(dir=_build.build_root()) as tmp:
+        t = time.perf_counter()
+        codec.save_pretrained(tmp)
+        saved = time.perf_counter() - t
+        back = MossAudioTokenizer.from_pretrained(tmp, device=DEV)
+        torch.cuda.synchronize()
+        if back.config != codec.config or not same_params(back.params, codec.params):
+            raise AssertionError("codec save_pretrained/from_pretrained changed the weights")
+        log(f"  codec_1p6b save_pretrained/from_pretrained ({param_bytes(codec.params) / 1e9:.3f} "
+            f"GB, f32): equal bit for bit; saved in {saved:.2f} s, loaded in "
+            f"{time.perf_counter() - t - saved:.2f} s")
+    del codec, back
+    gc.collect()
+    torch.cuda.empty_cache()
+    return rows
+
+
+def local_time(engine, ids, mask, label: str) -> dict:
+    """The warm engine's load through ``generate`` (greedy, ``LOCAL_FRAMES``
+    frames): wall per frame (the median of 3 calls, the prefill included,
+    with their spread), the realtime multiple (frames / 12.5 over that
+    wall, per stream and in all), the time to the first frame (a warm
+    eager prefill and one frame replay; median of 5); then 8 frames
+    replayed back to back, timed by CUDA events with no profiler (the
+    device clock), and 8 more under ``device_profile`` for the device
+    kernels, their summed time (CUPTI's per-kernel tracing included) and
+    the launches per frame."""
+    cfg = engine.config
+    B = ids.shape[0]
+    greedy = local_greedy(cfg)
+    engine.generate(ids, mask, max_new_tokens=LOCAL_FRAMES, **greedy)  # warm
+    walls = []
+    for _ in range(3):
+        torch.cuda.synchronize()
+        t = time.perf_counter()
+        out = engine.generate(ids, mask, max_new_tokens=LOCAL_FRAMES, **greedy)
+        walls.append(time.perf_counter() - t)
+    wall = float(np.median(walls))
+    n = local_frames(out)
+    ttff = []
+    for _ in range(5):
+        torch.cuda.synchronize()
+        t = time.perf_counter()
+        engine.generate(ids, mask, max_new_tokens=1, **greedy)
+        ttff.append(time.perf_counter() - t)
+    kw = dict(attend_len=engine._steps.keys[0][0], n_vq_infer=cfg.n_vq,
+              eos_token_id=cfg.audio_end_token_id)
+    engine._steps.step(**kw)
+    ev = [torch.cuda.Event(enable_timing=True) for _ in range(2)]
+    ev[0].record()
+    for _ in range(8):
+        engine._steps.step(**kw)
+    ev[1].record()
+    ev[1].synchronize()
+    replay_ms = ev[0].elapsed_time(ev[1]) / 8
+    reset_counts()
+    with profile_step.device_profile() as prof:
+        for _ in range(8):
+            engine._steps.step(**kw)
+    per_frame = {k: v / 8 for k, v in read_counts()["graphs"].items() if v}
+    evts = profile_step.device_events(prof)
+    dev_ms = sum(e.self_device_time_total for e in evts) / 8 / 1e3
+    kernels = sum(e.count for e in evts) / 8
+    r = dict(weights=label, batch=B, frames=n, wall_s=wall, ms_per_frame=wall / n * 1e3,
+             ms_per_frame_min=min(walls) / n * 1e3, ms_per_frame_max=max(walls) / n * 1e3,
+             replay_ms_per_frame=replay_ms, device_ms_per_frame=dev_ms,
+             kernels_per_frame=kernels, realtime_per_stream=n / 12.5 / wall,
+             realtime_total=B * n / 12.5 / wall,
+             first_frame_ms=float(np.median(ttff)) * 1e3, launches_per_frame=per_frame)
+    log(f"  {label} B={B}: {n} frames in {wall:.3f} s, {r['ms_per_frame']:.2f} ms/frame wall "
+        f"(median of 3, {r['ms_per_frame_min']:.2f}-{r['ms_per_frame_max']:.2f}); replays "
+        f"{replay_ms:.2f} ms/frame by CUDA events, {dev_ms:.2f} ms/frame of kernel time under "
+        f"the profiler, {kernels:.0f} device kernels/frame; "
+        f"{r['realtime_per_stream']:.2f}x realtime per stream, {r['realtime_total']:.2f}x total; "
+        f"first frame {r['first_frame_ms']:.1f} ms (median of 5); kernel launches per frame, "
+        f"all in the replayed graph: {per_frame}")
+    if dev_ms <= 0 or replay_ms <= 0 or n <= 0:
+        raise AssertionError(f"{label} B={B}: no device time, or no frame")
+    return r
+
+
+def cut_bitrate_ok(out: torch.Tensor, cfg, n: int) -> bool:
+    """The frames ``out`` (B, frames, C) of a ``n_vq_for_inference=n`` run:
+    channels 1..n hold codes, channels past n are 0 up to each row's first
+    EOS frame and the pad code after it (a finished row emits EOS and pads,
+    reference :429-432)."""
+    out = out.cpu().numpy()
+    eos = out[:, :, 0] == cfg.audio_end_token_id
+    after = (np.cumsum(eos, axis=1) - eos) > 0  # frames after a row's first EOS frame
+    tail = out[:, :, 1 + n:]
+    return bool(np.where(after[..., None], tail == cfg.audio_pad_code, tail == 0).all()
+                and (out[:, :, 1:1 + n] != 0).any())
+
+
+def local_engine_phase(engine, label: str) -> tuple:
+    """11b on ``engine`` (graph frames) and an eager engine over the same
+    weights, at B = 1, 8 and 64: greedy grids equal bit for bit; seeds s1,
+    s2, s1 give equal, different, equal grids; ``n_vq_for_inference=8``
+    zero-fills channels 9-32; then the timings. Returns (launch counts of
+    the graph engine's runs, timing rows)."""
+    cfg = engine.config
+    greedy = local_greedy(cfg)
+    eager = LocalEngine(engine.params, cfg, dtype=engine.dtype, graphs=False)
+    counts, rows = [], []
+    for B in (1, 8, 64):
+        ids, mask = local_load(cfg, B)
+        reset_counts()
+        g = engine.generate(ids, mask, max_new_tokens=LOCAL_CHECK, **greedy)
+        seeded = [engine.generate(ids, mask, max_new_tokens=LOCAL_CHECK, seed=s)
+                  for s in SEEDS]
+        cut = engine.generate(ids, mask, max_new_tokens=LOCAL_CHECK, n_vq_for_inference=8,
+                              **greedy)
+        counts.append(read_counts())
+        if not same_grids(g, eager.generate(ids, mask, max_new_tokens=LOCAL_CHECK, **greedy)):
+            raise AssertionError(f"{label} B={B}: graph frames differ from eager frames")
+        if not (same_grids(seeded[0], seeded[2]) and not same_grids(seeded[0], seeded[1])):
+            raise AssertionError(f"{label} B={B}: seeds s1, s2, s1 not equal, different, equal")
+        if not cut_bitrate_ok(engine._steps.state.out[:, :local_frames(cut)], cfg, 8):
+            raise AssertionError(f"{label} B={B}: n_vq_for_inference=8 did not zero-fill "
+                                 "channels 9-32")
+        log(f"  {label} B={B}: greedy graph frames == eager ({B} x {LOCAL_CHECK} frames), seeds "
+            f"s1 s2 s1 equal/different/equal, n_vq_for_inference=8 zero-fills channels 9-32")
+        rows.append(local_time(engine, ids, mask, label))
+    del eager
+    return counts, rows
+
+
+def local_server_load(cfg, n: int = 24, steps: int = LOCAL_FRAMES, seed: int = 0):
+    """``bench.py:581-590``: ``n`` prompts of 24-63 rows with an
+    ``audio_start`` row at 2, budgets of steps/2 .. steps-1 frames."""
+    rng = np.random.default_rng(seed)
+    prompts = []
+    for _ in range(n):
+        T = int(rng.integers(24, 64))
+        g = rng.integers(0, 1000, (T, cfg.channels))
+        g[..., 1:] = rng.integers(0, 1024, (T, cfg.n_vq))
+        g[2, 0] = cfg.audio_start_token_id
+        prompts.append(g)
+    return prompts, [int(x) for x in rng.integers(steps // 2, steps, n)]
+
+
+def local_server_phase(params, cfg) -> tuple:
+    """11c: ``LocalBatchServer(slots=8, cache_len=512, prompt_bucket=32)``,
+    greedy (``bench.py:592-603``), warmed up, serves the 24 requests through
+    ``run`` and through ``run_events``: useful frames/s (``min(steps,
+    budget)``, ``bench.py:607``), ms per frame step, host waits per request.
+    Returns (counts, rows)."""
+    prompts, budgets = local_server_load(cfg)
+    server = LocalBatchServer(params, cfg, slots=8, cache_len=512,
+                              out_capacity=LOCAL_FRAMES + 8, prompt_bucket=32, **local_greedy(cfg))
+    t = time.perf_counter()
+    server.warmup(prompt_lens=(32, 64), attend_upto=min(64 + LOCAL_FRAMES + 16, 512))
+    torch.cuda.synchronize()
+    log(f"  warmup (admissions at buckets 32/64, frame graphs {server._steps.keys}): "
+        f"{time.perf_counter() - t:.2f} s")
+    counts, rows = [], []
+    for run in ("run", "run_events"):
+        rids = {server.submit(g, max_new_tokens=n): n for g, n in zip(prompts, budgets)}
+        steps0 = server.total_steps
+        reset_counts()
+        with host_waits() as waits:
+            torch.cuda.synchronize()
+            t = time.perf_counter()
+            done = getattr(server, run)()
+            torch.cuda.synchronize()
+            wall = time.perf_counter() - t
+        counts.append(read_counts())
+        if sorted(c.request_id for c in done) != sorted(rids):
+            raise AssertionError(f"server {run}: completions {len(done)} of {len(rids)}")
+        if not all(c.tokens.shape[1] == cfg.channels and c.start_length >= 0 for c in done):
+            raise AssertionError(f"server {run}: bad grids")
+        useful = sum(min(c.steps, rids[c.request_id]) for c in done)
+        steps = server.total_steps - steps0
+        r = dict(run=run, requests=len(done), useful_frames=useful, wall_s=wall,
+                 useful_frames_per_s=useful / wall, frame_steps=steps,
+                 ms_per_step=wall / steps * 1e3, host_waits_per_request=waits[0] / len(done))
+        log(f"  server {run}: {len(done)} requests, {useful} useful frames in {wall:.3f} s "
+            f"= {r['useful_frames_per_s']:.1f} useful frames/s, {steps} frame steps "
+            f"({r['ms_per_step']:.2f} ms/step), {r['host_waits_per_request']:.1f} host waits "
+            f"per request")
+        rows.append(r)
+        c = counts[-1]
+        if not (c["graphs"]["decode"] and c["graphs"]["w8a16"] and c["flash"]):
+            raise AssertionError(f"server {run}: the frames did not run the kernels in "
+                                 f"replayed graphs, or no admission ran flash: {c}")
+    del server
+    gc.collect()
+    torch.cuda.empty_cache()
+    return counts, rows
+
+
+def local_small_server_vs_solo() -> None:
+    """On the small float32 model: a 2-slot server's greedy grids (5
+    requests, mid-flight admissions) equal the solo engine's fed the same
+    bucket-padded grid, on the card and on the CPU, and the card's equal
+    the CPU's."""
+    cfg = LOCAL_SMALL
+    greedy = local_greedy(cfg)
+    gen = torch.Generator(device="cpu").manual_seed(4)
+    cpu_params = init_local_params(cfg, generator=gen, dtype=torch.float32, device="cpu")
+    prompts, _ = local_server_load(cfg, n=5, seed=2)
+    budgets = [12, 20, 9, 15, 11]
+    grids = {}
+    for dev in ("cpu", DEV):
+        params = copy.deepcopy(cpu_params).to(dev)
+        server = LocalBatchServer(params, cfg, slots=2, cache_len=256, out_capacity=32,
+                                  prompt_bucket=32, dtype=torch.float32, **greedy)
+        rids = [server.submit(g, max_new_tokens=n) for g, n in zip(prompts, budgets)]
+        done = {c.request_id: c for c in server.run()}
+        engine = LocalEngine(params, cfg, dtype=torch.float32, cache_bucket=64, device=dev)
+        for rid, g, n in zip(rids, prompts, budgets):
+            T = g.shape[0]
+            Tb = -(-T // 32) * 32
+            ids = np.full((1, Tb, cfg.channels), cfg.audio_pad_code, np.int64)
+            ids[..., 0] = cfg.pad_token_id
+            ids[0, Tb - T:] = g
+            mask = np.zeros((1, Tb), bool)
+            mask[0, Tb - T:] = True
+            start, solo = engine.generate(ids, mask, max_new_tokens=n, **greedy)[0]
+            got = done[rid]
+            # the server ends a request at its first EOS frame (kept), else
+            # at its budget; the engine runs on to its next poll
+            eos = np.nonzero(solo[start + 1:, 0] == server.eos_token_id)[0]
+            if len(eos):
+                solo = solo[: start + 2 + int(eos[0])]
+            if got.start_length != start or not np.array_equal(got.tokens, solo):
+                raise AssertionError(f"small f32 {dev}: server grid {rid} != solo engine")
+        grids[dev] = [done[r].tokens for r in rids]
+    if not all(np.array_equal(a, b) for a, b in zip(grids["cpu"], grids[DEV])):
+        raise AssertionError("small f32: the card's server grids differ from the CPU's")
+    log(f"  small f32 2-slot server, 5 greedy requests: == solo engine on the card and on the "
+        f"CPU, card == CPU ({sum(len(x) for x in grids[DEV])} rows)")
+
+
+def phase_local() -> tuple:
+    """Phase 11 (see the module docstring). Returns (the main paths' launch
+    counts, the kernel numbers at the Local shapes, the path's numbers)."""
+    t11 = time.perf_counter()
+    log("phase 11: checkpoints, and the Local family at MossTTSLocal 1.7B width")
+    log("phase 11 kernels: flash, decode and W8A16 at the Local 1.7B shapes against plain")
+    knum = local_kernels()
+    log(f"phase 11a: checkpoint directories in the reference's layout, loaded onto the card "
+        f"({time.perf_counter() - t11:.1f} s into phase 11)")
+    ckpt = phase_checkpoints()
+    cfg = LocalConfig(language_config=qwen3_1p7b(), n_vq=32)
+    t = time.perf_counter()
+    engine = LocalEngine.random_init(seed=0, config=cfg, dtype=torch.bfloat16, device=DEV)
+    torch.cuda.synchronize()
+    bf16_bytes = param_bytes(engine.params)
+    log(f"  init on card: LocalConfig(qwen3_1p7b(), n_vq=32) bf16 ({bf16_bytes / 1e9:.3f} GB of "
+        f"parameters) in {time.perf_counter() - t:.2f} s")
+    log(f"phase 11b: engine, bf16 weights ({time.perf_counter() - t11:.1f} s into phase 11)")
+    counts, rows = local_engine_phase(engine, "bf16")
+    engine.quantize()
+    int8_bytes = param_bytes(engine.params)
+    log(f"  quantize(): parameters {bf16_bytes / 1e9:.3f} -> {int8_bytes / 1e9:.3f} GB")
+    log("phase 11b: engine, int8 weights")
+    c, r = local_engine_phase(engine, "int8")
+    counts += c
+    rows += r
+    for c in counts:
+        if not (c["flash"] and c["graphs"]["decode"]):
+            raise AssertionError(f"Local engine: prefills without flash or frames without the "
+                                 f"decode kernel in replayed graphs: {c}")
+    if not all(c["graphs"]["w8a16"] for c in counts[3:]):
+        raise AssertionError(f"int8 Local engine: no W8A16 launch in replayed graphs: {counts[3:]}")
+    log(f"phase 11c: continuous batching, 8 slots, int8 weights, 24 requests "
+        f"({time.perf_counter() - t11:.1f} s into phase 11)")
+    sc, srows = local_server_phase(engine.params, cfg)
+    counts += sc
+    local_small_server_vs_solo()
+    numbers = dict(checkpoints=ckpt, engine=rows, param_bytes=dict(bf16=bf16_bytes, int8=int8_bytes),
+                   server=srows)
+    log(f"  phase 11 numbers ({time.perf_counter() - t11:.1f} s): " + json.dumps(numbers))
+    del engine
+    gc.collect()
+    torch.cuda.empty_cache()
+    return counts, knum, numbers
+
+
 def kernel_label(name: str) -> str:
     """A ptxas entry's name, ``ring_kernel``'s instantiations spelled out:
     ring_kernel<mode, MT, BN, WM, WN, WK, STAGES, NP, MINB, vec>."""
@@ -2539,13 +3086,15 @@ def main() -> None:
     torch.cuda.empty_cache()
 
     rt_counts, rt_knum, _ = phase_realtime()
-    for kernel in ("flash", "decode", "w8a16"):
-        numbers[kernel]["max_abs_err"] = max(numbers[kernel]["max_abs_err"],
-                                             rt_knum[kernel]["max_abs_err"])
-        numbers[kernel]["shapes"] += rt_knum[kernel]["shapes"]
+    local_counts, local_knum, _ = phase_local()
+    for knum in (rt_knum, local_knum):
+        for kernel in ("flash", "decode", "w8a16"):
+            numbers[kernel]["max_abs_err"] = max(numbers[kernel]["max_abs_err"],
+                                                 knum[kernel]["max_abs_err"])
+            numbers[kernel]["shapes"] += knum[kernel]["shapes"]
 
     runs = [solo_counts, int8_counts, *server_counts.values(), *int8_server_counts.values(),
-            front_counts, *loop_counts, *rt_counts]
+            front_counts, *loop_counts, *rt_counts, *local_counts]
     launches = {name: sum(c[name] for c in runs) for name in COUNTERS}
     if not all(launches[name] for name in COUNTERS if name not in OFF_PATH):
         raise AssertionError(f"a kernel was never launched on the main paths: {launches}")
@@ -2553,8 +3102,8 @@ def main() -> None:
     if not all(in_graphs[name] for name in IN_GRAPHS):
         raise AssertionError(f"the main paths' prefills and decode steps did not run their "
                              f"kernels inside replayed CUDA graphs: {in_graphs}")
-    log(f"main paths (phases 4-6, 8, 9b, 10): launches {launches}; of them inside replayed CUDA "
-        f"graphs {in_graphs}")
+    log(f"main paths (phases 4-6, 8, 9b, 10, 11): launches {launches}; of them inside replayed "
+        f"CUDA graphs {in_graphs}")
     launches.update(decode_q8t=numbers.pop("q8t_launches"), w8a8=numbers["w8a8"].pop("launches"),
                     int4=numbers["int4"].pop("launches"))
     if not all(launches[name] for name in OFF_PATH):

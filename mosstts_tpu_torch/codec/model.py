@@ -11,14 +11,19 @@ linear -> causal transformer -> RMSNorm -> linear frame head -> overlap-add
 -> 24 kHz wave. Both run in chunks that carry a window of K/V, so chunked
 output equals one-shot output, and inside ``streaming()`` a 2-D ``decode``
 call continues the previous call's stream. ``from_pretrained`` and
-``save_pretrained`` are not ported yet (checkpoints, ROADMAP A.7).
+``save_pretrained`` read and write the JAX package's codec directory
+(``config.json`` and ``model.safetensors`` under the parameter tree's
+names) with the port's safetensors reader and writer.
 """
 from __future__ import annotations
 
 import contextlib
+import dataclasses
+import json
 import math
 import threading
 from dataclasses import dataclass
+from pathlib import Path
 from typing import Optional, Sequence
 
 import numpy as np
@@ -197,6 +202,37 @@ class MossAudioTokenizer:
         config = config or CodecConfig()
         gen = torch.Generator(device=device).manual_seed(seed)
         return cls(init_codec_params(config, generator=gen, dtype=dtype, device=device), config)
+
+    @classmethod
+    @torch.no_grad()
+    def from_pretrained(cls, path, dtype=torch.float32, device="cuda") -> "MossAudioTokenizer":
+        """Ports ``MossAudioTokenizer.from_pretrained``: the codec of a
+        directory that ``save_pretrained`` (of either package) wrote, on
+        ``device`` in ``dtype``."""
+        from ..utils.convert import load_tree_
+        from ..utils.hf_loader import load_safetensors_dir
+
+        path = Path(path)
+        if not (path / "config.json").is_file():
+            raise FileNotFoundError(f"no codec (config.json) at {str(path)!r}")
+        with open(path / "config.json") as f:
+            cfg = CodecConfig.from_hf_dict(json.load(f))
+        params = load_tree_(CodecParams(cfg, dtype=dtype, device=device),
+                            dict(load_safetensors_dir(path)))
+        return cls(params, cfg)
+
+    def save_pretrained(self, path) -> None:
+        """Ports ``MossAudioTokenizer.save_pretrained``: ``config.json`` and
+        ``model.safetensors`` (every parameter under its tree name, in its
+        own dtype)."""
+        from ..utils.hf_loader import save_safetensors
+
+        path = Path(path)
+        path.mkdir(parents=True, exist_ok=True)
+        with open(path / "config.json", "w") as f:
+            json.dump(dataclasses.asdict(self.config), f, indent=2)
+        save_safetensors({n: p.detach() for n, p in self.params.named_parameters()},
+                         path / "model.safetensors")
 
     # ------------------------------- encode --------------------------------
     @torch.no_grad()

@@ -1,9 +1,10 @@
 """The port's configurations: its own copy of the parts of
 ``mosstts_tpu/core/config.py`` it runs (the Qwen3 backbone, the Delay model,
-the Realtime model, the codec, and the ``qwen3_1p7b``/``qwen3_8b``/
+the Local model, the Realtime model, the codec, and the ``qwen3_1p7b``/``qwen3_8b``/
 ``delay_8b``/``codec_1p6b``/``tiny_qwen3`` presets). Plain frozen dataclasses that ingest the reference's
 ``config.json`` via ``from_hf_dict``; the port imports nothing of the JAX
-package, so it keeps this copy.
+package, so it keeps this copy. ``LocalConfig`` is the MossTTSLocal
+model's (the Delay fields plus the depth transformer's dimensions).
 """
 from __future__ import annotations
 
@@ -97,6 +98,65 @@ class DelayConfig:
 
     @classmethod
     def from_json(cls, path: str | Path) -> "DelayConfig":
+        with open(path) as f:
+            return cls.from_hf_dict(json.load(f))
+
+
+# ---------------------------------------------------------------------------
+# Local model (MossTTSLocal): Delay config + depth-transformer dims
+# (moss_tts_local/configuration_moss_tts.py:78-112).
+# ---------------------------------------------------------------------------
+@dataclass(frozen=True)
+class LocalConfig:
+    language_config: Qwen3Config = field(default_factory=Qwen3Config)
+    n_vq: int = 32
+    audio_vocab_size: int = 1024
+    audio_pad_code: int = 1024
+    pad_token_id: int = 151643
+    im_start_token_id: int = 151644
+    im_end_token_id: int = 151645
+    audio_start_token_id: int = 151652
+    audio_end_token_id: int = 151653
+    audio_user_slot_token_id: int = 151654
+    audio_assistant_gen_slot_token_id: int = 151656
+    audio_assistant_delay_slot_token_id: int = 151662
+    sampling_rate: int = 24000
+    initializer_range: float = 0.02
+    # Depth ("local") transformer dims
+    additional_mlp_ffn_hidden_size: int = 2048
+    local_ffn_hidden_size: int = 8960
+    local_hidden_size: int = 1536
+    local_num_layers: int = 4
+
+    @property
+    def channels(self) -> int:
+        return 1 + self.n_vq
+
+    @property
+    def audio_emb_vocab(self) -> int:
+        return self.audio_vocab_size + 1
+
+    @property
+    def local_transformer_config(self) -> Qwen3Config:
+        """The depth transformer reuses the backbone layer layout with
+        mutated dims (reference moss_tts_local/modeling_moss_tts.py:581-586)."""
+        return dataclasses.replace(
+            self.language_config,
+            num_hidden_layers=self.local_num_layers,
+            hidden_size=self.local_hidden_size,
+            intermediate_size=self.local_ffn_hidden_size,
+        )
+
+    @classmethod
+    def from_hf_dict(cls, d: Dict[str, Any]) -> "LocalConfig":
+        d = dict(d)
+        lc = d.pop("language_config", None) or {}
+        if not isinstance(lc, dict):
+            lc = dataclasses.asdict(lc)
+        return cls(language_config=Qwen3Config.from_hf_dict(lc), **_filter_kwargs(cls, d))
+
+    @classmethod
+    def from_json(cls, path: str | Path) -> "LocalConfig":
         with open(path) as f:
             return cls.from_hf_dict(json.load(f))
 

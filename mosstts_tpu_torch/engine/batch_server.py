@@ -86,6 +86,7 @@ from ..models.delay import (
 from ..nn.qwen3 import init_kv_cache, init_paged_kv_cache, init_quant_kv_cache
 from ..ops.sampling import row_generators
 from .delay_engine import attend_bucket
+from .polling import request_seed, run_pipelined
 from .step_graph import DecodeSteps, Prefills, host_tensor, zero_state
 
 
@@ -158,9 +159,9 @@ def _insert_row_paged(big: DelayGenState, small: DelayGenState, row: int,
 
 def _request_seed(seed: Optional[int], request_id: int) -> int:
     """The JAX server's per-request key seed (``batch_server.py:903-906``):
-    an int-only hash, so an explicit seed reproduces across processes and
-    server lifetimes, and the request id enters only unseeded streams."""
-    return hash((0xD317A9, seed if seed is not None else request_id)) & 0x7FFFFFFF
+    an explicit seed reproduces across processes and server lifetimes, and
+    the request id enters only unseeded streams."""
+    return request_seed(0xD317A9, seed if seed is not None else request_id)
 
 
 class DelayBatchServer:
@@ -597,76 +598,21 @@ class DelayBatchServer:
                 self._free_slot_pages(slot)
         return done
 
-    def _snap_flags(self):
-        """Start copying the stop flags to the host: on the card a
-        non-blocking copy into pinned memory and an event recorded after it,
-        both enqueued before the next block, so reading the flags later
-        waits for the copy only, not for the block behind it."""
-        flags = self.state.is_stopping
-        if flags.device.type != "cuda":
-            return flags.clone(), None
-        host = torch.empty(flags.shape, dtype=flags.dtype, pin_memory=True)
-        host.copy_(flags, non_blocking=True)
-        event = torch.cuda.Event()
-        event.record()
-        return host, event
-
     def run(self, max_steps: int = 100000, pipelined: bool = True) -> List[CompletedRequest]:
         """Drain the queue and the active slots; returns completions in
-        finish order.
-
-        ``pipelined`` hides each poll's host round trip behind device work:
-        the stop flags are snapshotted at a poll boundary, the next
-        poll_every decode steps are enqueued, and only then are the flags
-        read. EOS detection lags up to one block (masked idle steps that the
-        processor's im_end trim discards); budget completions come from the
-        host mirrors and stay exact."""
+        finish order. ``pipelined`` hides each poll's host round trip
+        behind the next block of ``poll_every`` decode steps
+        (``polling.run_pipelined``): EOS detection lags up to one block
+        (masked idle steps that the processor's im_end trim discards);
+        budget completions come from the host mirrors and stay exact."""
+        if pipelined:
+            return run_pipelined(self, lambda room: self._dispatch_block(
+                min(self.poll_every, room)), lambda: self.state.is_stopping, max_steps)
         out: List[CompletedRequest] = []
-        if not pipelined:
-            for _ in range(max_steps):
-                out.extend(self.step())
-                if not self._active and not self._queue:
-                    break
-            return out
-        pending = None  # (flag snapshot, its event, slot -> request_id)
-        steps = 0
-        while True:
-            # budget completions are host-knowable: free those slots before
-            # dispatching so the block admits into them
-            if self._active:
-                out.extend(self._collect(stopped=np.zeros(self.slots, bool)))
-            did = 0
-            k = min(self.poll_every, max_steps - steps)
-            if k > 0 and (self._active or self._queue):
-                did = self._dispatch_block(k)
-                steps += did
-            if pending is not None:
-                flags, event, snap_rids = pending
-                if event is not None:
-                    event.synchronize()
-                flags = flags.numpy()
-                # a slot freed and readmitted since the snapshot carries the
-                # old occupant's flag: trust only unchanged occupants
-                stopped = np.zeros(self.slots, bool)
-                for slot, rid in snap_rids.items():
-                    if slot in self._active and self._active[slot].request_id == rid:
-                        stopped[slot] = flags[slot]
-                out.extend(self._collect(stopped=stopped))
-                pending = None
-            if not (self._active or self._queue):
+        for _ in range(max_steps):
+            out.extend(self.step())
+            if not self._active and not self._queue:
                 break
-            if did == 0:
-                # max_steps exhausted, or (paged) nothing could be admitted:
-                # no progress is possible; surface what is left in the queue
-                if self._queue:
-                    logging.getLogger(__name__).warning(
-                        "batch server run() stopping with %d undrained request(s) still "
-                        "queued (ids %s)", len(self._queue),
-                        [r.request_id for r in self._queue])
-                break
-            if self._active:
-                pending = (*self._snap_flags(),
-                           {s: r.request_id for s, r in self._active.items()})
         return out
 
     # ---- event-driven dispatch -------------------------------------------

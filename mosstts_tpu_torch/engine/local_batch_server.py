@@ -1,0 +1,361 @@
+"""Continuous-batching server for the Local (depth-transformer) family.
+
+Ports ``mosstts_tpu/engine/local_batch_server.py``: ``LocalBatchServer``
+with ``submit``, ``step``, ``step_block``, ``run`` (pipelined and
+sequential), ``run_events``, ``warmup`` and ``utilization``. A fixed pool
+of slots decodes frames in lock-step (a backbone step and the cached depth
+pass per frame); a finished slot admits a queued request mid-flight: a
+batch-1 prefill at the prompt bucket (``_admit``), spliced into the slot
+(``_insert_local_row_``, JAX ``_insert_local_row``). Each slot has its own
+cursors (the per-row ``LocalGenState``), so its backbone KV writes at its
+own slot, only advancing rows validate their next slot, and stopped or idle
+rows freeze.
+
+``self.state`` is one set of static buffers for the server's whole life.
+The frames advance it in place through ``engine/step_graph.LocalSteps``:
+on the card each frame is the replay of a CUDA graph of
+``local_frame_step``, one per attend bucket (the JAX server's
+``_step_fn``; its k-step ``_block_fn`` is k replays), and ``warmup()``
+captures those of the buckets it walks. A multi-token forward with (B,)
+cursors has no kernel on the card, so admissions prefill eagerly into a
+static batch-1 state with a scalar cursor (``_small``), which is then
+spliced in. ``run_events`` (JAX ``_event_fn``) decodes until a scheduling
+event through ``models.delay._lagged_steps``, the Delay server's
+lagged-replay loop: on the card it reads the watched stop flags one replay
+late, so a slot decodes one frozen frame more than JAX's there (the EOS
+trim drops it). ``graphs=False`` runs the frames eagerly on the card, to
+compare; the CPU always does.
+
+A difference from the JAX server, by design: each slot draws from its own
+generator, reseeded at admission from the request id (``polling.request_seed``),
+so a sampled request depends on its own draws only; the JAX server draws
+every slot from one shared key. The draws are PyTorch's, not JAX's; greedy
+grids equal JAX's and the solo engine's.
+"""
+from __future__ import annotations
+
+import itertools
+import logging
+from dataclasses import dataclass
+from typing import Dict, List, Optional
+
+import numpy as np
+import torch
+
+from ..core.config import LocalConfig
+from ..models.delay import _lagged_steps
+from ..models.local import (LocalGenState, LocalParams, init_local_state, local_prefill_split,
+                            make_local_sampling)
+from ..ops.sampling import row_generators
+from .delay_engine import _round_up, attend_bucket
+from .polling import request_seed, run_pipelined
+from .step_graph import LocalSteps, host_tensor
+
+
+@dataclass
+class _LocalRequest:
+    request_id: int
+    input_ids: np.ndarray  # (T, C)
+    max_new_tokens: int
+
+
+@dataclass
+class CompletedLocal:
+    request_id: int
+    start_length: int
+    tokens: np.ndarray  # ids from the last audio_start (the engine's output format)
+    steps: int
+
+
+@torch.no_grad()
+def _insert_local_row_(big: LocalGenState, small: LocalGenState, row: int, pos0: int) -> None:
+    """Ports ``_insert_local_row``: splice the batch-1 scalar-cursor
+    prefilled state ``small`` into slot ``row`` of ``big`` in place, its
+    cursor at ``pos0``, its frame count at 0, its output zeroed."""
+    for bf, sf in zip(big.cache, small.cache):
+        bf[:, row].copy_(sf[:, 0])
+    for name in ("kv_valid", "cur_ids", "unfinished", "seen_text", "seen_audio"):
+        getattr(big, name)[row].copy_(getattr(small, name)[0])
+    big.pos[row] = pos0
+    big.step[row] = 0
+    big.out[row].zero_()
+
+
+_SEED_SALT = 0x10CA1  # ``polling.request_seed``'s salt for this family
+
+
+class LocalBatchServer:
+    """Ports ``mosstts_tpu.engine.local_batch_server.LocalBatchServer``. The
+    server runs where ``params`` live. ``graphs`` (on the card): replay each
+    frame as a CUDA graph; False runs the frames eagerly, to compare. The
+    graphs read ``params`` where they are: build a new server after
+    quantizing them."""
+
+    def __init__(self, params: LocalParams, config: LocalConfig, *, slots: int = 8,
+                 cache_len: int = 1024, out_capacity: int = 256, prompt_bucket: int = 32,
+                 dtype=torch.bfloat16, layers: Optional[List[dict]] = None,
+                 do_samples: Optional[List[bool]] = None,
+                 n_vq_for_inference: Optional[int] = None, eos_token_id: int = 151653,
+                 poll_every: int = 4, graphs: bool = True):
+        self.params = params
+        self.config = config
+        self.device = params.text_emb.device
+        self.slots = slots
+        self.cache_len = cache_len
+        self.out_capacity = out_capacity
+        self.prompt_bucket = prompt_bucket
+        self.dtype = dtype
+        self.n_vq_infer = int(n_vq_for_inference or config.n_vq)
+        self.eos_token_id = eos_token_id
+        self.poll_every = poll_every
+
+        self._ids = itertools.count()
+        self._queue: List[_LocalRequest] = []
+        self._active: Dict[int, _LocalRequest] = {}
+        dev = self.device
+        self.state = init_local_state(config, slots, cache_len, out_capacity,
+                                      row_generators(0, slots, dev), per_row=True, dtype=dtype,
+                                      device=dev)
+        self.sampling = make_local_sampling(layers, do_samples, config.channels, device=dev)
+        self._steps = LocalSteps(params, config, self.state, self.sampling, graphs=graphs)
+        # the static batch-1 admission caches (a scalar cursor): each
+        # admission prefills into them, then is spliced into its slot
+        self._small = init_local_state(config, 1, cache_len, 1, [torch.Generator(device=dev)],
+                                       dtype=dtype, device=dev)
+        self.total_steps = 0
+        self.util_sum = 0.0  # sum over steps of active/slots (mean = /total_steps)
+        self._pos_host = np.zeros(slots, np.int64)  # upper bound (freezes lag)
+        self._step_host = np.full(slots, 1 << 30, np.int64)
+
+    def _frame_kw(self, attend: int) -> dict:
+        return dict(attend_len=attend, n_vq_infer=self.n_vq_infer,
+                    eos_token_id=self.eos_token_id)
+
+    def _attend(self, active, ahead: int) -> int:
+        return attend_bucket(int(self._pos_host[active].max()) + ahead, 256, self.cache_len)
+
+    # ------------------------------------------------------------------
+    def submit(self, input_ids: np.ndarray, *, max_new_tokens: int = 256) -> int:
+        """Queue a (T, C) prompt grid; ``max_new_tokens`` is clamped to
+        ``out_capacity``. A grid of the wrong width, or a prompt bucket plus
+        budget plus poll slack past ``cache_len``, raises ValueError."""
+        input_ids = np.asarray(input_ids, np.int64)
+        if input_ids.ndim != 2 or input_ids.shape[1] != self.config.channels:
+            raise ValueError(f"expected (T, {self.config.channels}) grid")
+        Tb = _round_up(input_ids.shape[0], self.prompt_bucket)
+        max_new_tokens = min(max_new_tokens, self.out_capacity)
+        if Tb + max_new_tokens + self.poll_every > self.cache_len:
+            raise ValueError(f"prompt ({Tb}) + max_new_tokens ({max_new_tokens}) exceeds "
+                             f"cache_len={self.cache_len}")
+        rid = next(self._ids)
+        self._queue.append(_LocalRequest(request_id=rid, input_ids=input_ids,
+                                         max_new_tokens=max_new_tokens))
+        return rid
+
+    @torch.no_grad()
+    def _admit(self, slot: int, req: _LocalRequest) -> None:
+        """A batch-1 prefill of the request's grid, left-padded to its
+        prompt bucket, into ``_small``, spliced into ``slot``; the slot's
+        generator reseeded from the request id."""
+        cfg = self.config
+        T = req.input_ids.shape[0]
+        Tb = _round_up(T, self.prompt_bucket)
+        ids = np.full((1, Tb, cfg.channels), cfg.audio_pad_code, np.int64)
+        ids[..., 0] = cfg.pad_token_id
+        ids[0, Tb - T:] = req.input_ids
+        mask = np.zeros((1, Tb), bool)
+        mask[0, Tb - T:] = True
+        dev, small = self.device, self._small
+        new = local_prefill_split(
+            self.params, cfg, host_tensor(ids, dev).to(dev, non_blocking=True),
+            host_tensor(mask, dev).to(dev, non_blocking=True), max_new_tokens=1,
+            cache_len=self.cache_len, rng=small.rng, n_vq_infer=self.n_vq_infer,
+            dtype=self.dtype, cache=small.cache, depth=small.depth)
+        # local_prefill_split leaves pos = Tb-1 (the cur_ids row's slot)
+        _insert_local_row_(self.state, new, slot, Tb - 1)
+        self.state.rng[slot].manual_seed(request_seed(_SEED_SALT, req.request_id))
+        self._active[slot] = req
+        self._pos_host[slot] = Tb - 1
+        self._step_host[slot] = 0
+
+    def _fill_free_slots(self) -> None:
+        busy = set(self._active)
+        for slot in range(self.slots):
+            if not self._queue:
+                break
+            if slot not in busy:
+                self._admit(slot, self._queue.pop(0))
+
+    # ------------------------------------------------------------------
+    def _advance(self, active, k: int) -> None:
+        """The host mirrors after ``k`` frames of the ``active`` slots."""
+        self.total_steps += k
+        self.util_sum += k * (len(self._active) / self.slots)
+        self._pos_host[active] += k
+        self._step_host[active] += k
+
+    def step(self, *, poll: Optional[bool] = None) -> List[CompletedLocal]:
+        """Admit, decode one frame for every slot in lock-step, then collect
+        if ``poll`` (by default every ``poll_every`` steps, and whenever a
+        slot reaches its budget)."""
+        self._fill_free_slots()
+        if not self._active:
+            return []
+        active = sorted(self._active)
+        self._steps.step(**self._frame_kw(self._attend(active, 2)))
+        self._advance(active, 1)
+        if poll is None:
+            poll = (self.total_steps % self.poll_every == 0
+                    or any(self._step_host[s] >= self._active[s].max_new_tokens
+                           for s in active))
+        return self._collect() if poll else []
+
+    def _dispatch_block(self, k: int) -> int:
+        """Admit, then ``k`` frames at one attend bucket (JAX's one-program
+        block: k replays here); returns the frames run. Budget overshoot is
+        bounded by k - 1 frames (``submit`` reserves ``poll_every`` slots of
+        slack); EOS-frozen rows hold their cursor, so the host mirrors only
+        over-count."""
+        self._fill_free_slots()
+        if not self._active:
+            return 0
+        active = sorted(self._active)
+        kw = self._frame_kw(self._attend(active, k + 1))
+        for _ in range(k):
+            self._steps.step(**kw)
+        self._advance(active, k)
+        return k
+
+    def step_block(self, k: Optional[int] = None) -> List[CompletedLocal]:
+        """One poll window: admit, ``k`` (default ``poll_every``) frames, then
+        collect."""
+        k = self.poll_every if k is None else k
+        if self._dispatch_block(k) == 0:
+            return []
+        return self._collect()
+
+    def _dispatch_event(self, max_k: int):
+        """Admit, then decode until a scheduling event (a watched slot
+        finished, or the block's cap: a budget or the attend bucket's end).
+        Returns ``(frames run, finished mask | None)``; no admission happens
+        in between, so the mask maps onto the current occupants."""
+        self._fill_free_slots()
+        if not self._active:
+            return 0, None
+        active = sorted(self._active)
+        max_pos = int(self._pos_host[active].max())
+        attend = attend_bucket(max_pos + 2, 256, self.cache_len)
+        budget = np.full(self.slots, 1 << 30, np.int64)
+        for s, req in self._active.items():
+            budget[s] = req.max_new_tokens - self._step_host[s]
+        k_cap = int(min(max_k, attend - max_pos - 1, int(budget[active].min())))
+        if k_cap <= 0:
+            return 0, None
+        watched = torch.zeros(self.slots, dtype=torch.bool)
+        watched[active] = True
+        kw = self._frame_kw(attend)
+        did, _ = _lagged_steps(lambda: self._steps.step(**kw), self.state.unfinished, k_cap,
+                               lambda f: bool((~f & watched).any()))
+        finished = ~self.state.unfinished.cpu().numpy()
+        self._advance(active, did)
+        return did, finished
+
+    def run_events(self, max_steps: int = 100000) -> List[CompletedLocal]:
+        """Drain the queue and the active slots with event-driven dispatch:
+        each block decodes until a slot needs the scheduler (EOS or budget).
+        On the CPU the grids equal ``run()``'s; on the card an EOS is seen
+        one frame late (see the module docstring)."""
+        done: List[CompletedLocal] = []
+        steps = 0
+        while True:
+            if self._active:
+                # budget completions are host-knowable: free those slots
+                # before dispatching so the block admits into them
+                done.extend(self._collect(stopped=np.zeros(self.slots, bool)))
+            if not (self._active or self._queue):
+                break
+            did, finished = self._dispatch_event(max_steps - steps)
+            steps += did
+            got = self._collect(stopped=finished) if finished is not None else []
+            done.extend(got)
+            if did == 0 and not got:
+                if self._queue:
+                    logging.getLogger(__name__).warning(
+                        "run_events() stopping with %d undrained request(s) still queued",
+                        len(self._queue))
+                break
+        return done
+
+    def _collect(self, stopped: Optional[np.ndarray] = None) -> List[CompletedLocal]:
+        if stopped is None:
+            stopped = ~self.state.unfinished.cpu().numpy()
+        finished = [(slot, req) for slot, req in sorted(self._active.items())
+                    if stopped[slot] or self._step_host[slot] >= req.max_new_tokens]
+        if not finished:
+            return []
+        outs_all = self.state.out.cpu().numpy()  # one transfer of the whole buffer
+        cfg = self.config
+        done: List[CompletedLocal] = []
+        for slot, req in finished:
+            n = int(min(self._step_host[slot], req.max_new_tokens, self.out_capacity))
+            gen = outs_all[slot, :n]
+            # trim after the first EOS row on the text channel (the engine
+            # keeps the EOS frame; frames past it are frozen repeats)
+            eos = np.nonzero(gen[:, 0] == self.eos_token_id)[0]
+            if len(eos):
+                gen = gen[: int(eos[0]) + 1]
+            full = np.concatenate([req.input_ids, gen.astype(np.int64)], axis=0)
+            T = req.input_ids.shape[0]
+            matches = np.nonzero(full[:, 0] == cfg.audio_start_token_id)[0]
+            start_idx = int(matches[-1]) if len(matches) else 0
+            done.append(CompletedLocal(request_id=req.request_id,
+                                       start_length=T - start_idx - 1,  # reference :472
+                                       tokens=full[start_idx:], steps=len(gen)))
+            del self._active[slot]
+            self._step_host[slot] = 1 << 30
+            self.state.unfinished[slot] = False
+        return done
+
+    def run(self, max_steps: int = 100000, pipelined: bool = True) -> List[CompletedLocal]:
+        """Drain the queue and the active slots; completions in finish order.
+
+        ``pipelined`` hides each poll's host round trip behind the next
+        block of ``poll_every`` frames (``polling.run_pipelined``): EOS is
+        seen up to one block late (frozen frames the EOS trim drops);
+        budget completions come from the host mirrors and stay exact."""
+        if pipelined:
+            return run_pipelined(self, lambda room: self._dispatch_block(
+                min(self.poll_every, room)), lambda: ~self.state.unfinished, max_steps)
+        done: List[CompletedLocal] = []
+        for _ in range(max_steps):
+            done.extend(self.step())
+            if not self._active and not self._queue:
+                break
+        return done
+
+    def warmup(self, *, prompt_lens=(32,), attend_upto: Optional[int] = None) -> None:
+        """Run each prompt bucket's admission (a short request each) and
+        capture the frame graph of every attend bucket up to
+        ``attend_upto`` (JAX compiles the same programs). Idle rows are
+        frozen (``unfinished`` False), so the extra idle frames cannot leak
+        into later requests."""
+        assert not self._active and not self._queue, "warmup on a busy server"
+        cfg = self.config
+        for T in prompt_lens:
+            g = np.full((int(T), cfg.channels), cfg.audio_pad_code, np.int64)
+            g[:, 0] = cfg.pad_token_id
+            g[min(2, T - 1), 0] = cfg.audio_start_token_id
+            self.submit(g, max_new_tokens=2)
+        self.run()
+        upto = min(attend_upto or self.cache_len, self.cache_len)
+        pos = 2
+        while True:
+            a = attend_bucket(pos, 256, self.cache_len)
+            self._steps.step(**self._frame_kw(a))
+            if a >= upto:
+                break
+            pos = a + 1
+
+    @property
+    def utilization(self) -> float:
+        return len(self._active) / self.slots

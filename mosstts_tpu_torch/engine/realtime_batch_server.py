@@ -27,7 +27,7 @@ runs the frames eagerly on the card, to compare; the CPU always does.
 
 Differences from the JAX server, by design: a conversation draws from its
 slot's generator, reseeded at admission from its request id
-(``_request_seed``), so a sampled stream depends on its own request only;
+(``polling.request_seed``), so a sampled stream depends on its own request only;
 the JAX server draws every slot from one shared key, so its sampled
 streams depend on the cohort (``realtime_batch_server.py:409-413``). The
 draws are PyTorch's, not JAX's; greedy streams equal JAX's and the solo
@@ -51,6 +51,7 @@ from ..models.realtime import (RealtimeParams, RealtimeSampling, RealtimeState,
                                realtime_prefill_step)
 from ..ops.sampling import row_generators
 from .delay_engine import _round_up, attend_bucket
+from .polling import request_seed, run_pipelined
 from .step_graph import RealtimeSteps, host_tensor
 
 
@@ -86,22 +87,7 @@ def _splice_rt_rows_(big: RealtimeState, small: RealtimeState, rows: torch.Tenso
     big.hist_len.index_copy_(0, rows, small.hist_len.expand(k).contiguous())
 
 
-def _request_seed(request_id: int) -> int:
-    """A conversation's generator seed: an int-only hash of its request id
-    (string tuples are salted per process)."""
-    return hash((0x52D417, request_id)) & 0x7FFFFFFF
-
-
-class _TokenFeed:
-    """``steps`` as ``models.delay._lagged_steps`` drives it, feeding
-    column i of the device matrix ``toks`` (slots, KMAX) at its i-th step."""
-
-    def __init__(self, steps: RealtimeSteps, toks: torch.Tensor):
-        self.steps, self.state, self._toks, self._i = steps, steps.state, toks, 0
-
-    def step(self, **kw) -> None:
-        self.steps.step(self._toks[:, self._i], **kw)
-        self._i += 1
+_SEED_SALT = 0x52D417  # ``polling.request_seed``'s salt for this family
 
 
 class RealtimeBatchServer:
@@ -275,8 +261,8 @@ class RealtimeBatchServer:
         samp_slots = np.array([s for s, _r, _w in padded], np.int64)
         sampling = make_rt_sampling(**{name: h[name][samp_slots].copy() for name in h},
                                     device=self.device)
-        self._prefill_group(ids, valid, [s for s, _r, _w in group],
-                            [_request_seed(req.request_id) for _s, req, _w in group], sampling)
+        seeds = [request_seed(_SEED_SALT, req.request_id) for _s, req, _w in group]
+        self._prefill_group(ids, valid, [s for s, _r, _w in group], seeds, sampling)
         for slot, req, _rows in group:
             self._active[slot] = req
             self._text_rest[slot] = list(req.text_ids[req.prefill_text_len:])
@@ -418,73 +404,40 @@ class RealtimeBatchServer:
             self._free(slot)
         return done
 
-    def _snap_flags(self):
-        """Start copying the stop flags to the host: on the card a
-        non-blocking copy into pinned memory and an event after it, so a
-        later read waits for the copy only, not for the frames behind it."""
-        flags = self.state.is_stopping
-        if flags.device.type != "cuda":
-            return flags.clone(), None
-        host = torch.empty(flags.shape, dtype=flags.dtype, pin_memory=True)
-        host.copy_(flags, non_blocking=True)
-        event = torch.cuda.Event()
-        event.record()
-        return host, event
+    def _poll_window(self, room: int) -> int:
+        """Admit and decode up to ``min(poll_every, room)`` frames, ending
+        early when a slot reaches its budget (the host mirror is exact);
+        returns the frames run."""
+        did = 0
+        while did < min(self.poll_every, room) and (self._active or self._queue):
+            if any(self._step_host[s] >= r.max_new_tokens for s, r in self._active.items()):
+                break
+            self.step(poll=False)
+            did += 1
+        return did
 
     def run(self, max_steps: int = 100000, block: int = 1,
             pipelined: bool = True) -> List[CompletedStream]:
         """Drain the queue and the active slots; completions in finish order.
 
-        ``pipelined`` (block 1) hides each poll's host round trip: the stop
-        flags are snapshotted at a poll boundary, the next ``poll_every``
-        frames are enqueued, and only then are the flags read. EOS is seen
+        ``pipelined`` (block 1) hides each poll's host round trip behind the
+        next ``poll_every`` frames (``polling.run_pipelined``): EOS is seen
         up to one block late (frozen frames the trim drops); budget
         completions come from the host mirrors and stay exact."""
+        if block == 1 and pipelined:
+            return run_pipelined(self, self._poll_window, lambda: self.state.is_stopping,
+                                 max_steps)
         done: List[CompletedStream] = []
         steps = 0
-        if block > 1 or not pipelined:
-            while steps < max_steps:
-                if block > 1:
-                    done.extend(self.step_block(block))
-                    steps += block
-                else:
-                    done.extend(self.step())
-                    steps += 1
-                if not self._active and not self._queue:
-                    break
-            return done
-        pending = None  # (flag snapshot, its event, slot -> request_id)
-        while True:
-            did = 0
-            while did < self.poll_every and steps < max_steps:
-                if not (self._active or self._queue):
-                    break
-                if self._active and any(self._step_host[s] >= self._active[s].max_new_tokens
-                                        for s in self._active):
-                    break  # budget hit: resolve now (the host mirror is exact)
-                self.step(poll=False)
+        while steps < max_steps:
+            if block > 1:
+                done.extend(self.step_block(block))
+                steps += block
+            else:
+                done.extend(self.step())
                 steps += 1
-                did += 1
-            if pending is not None:
-                flags, event, snap_rids = pending
-                if event is not None:
-                    event.synchronize()
-                flags = flags.numpy()
-                # a slot freed and readmitted since the snapshot carries the
-                # old occupant's flag: trust only unchanged occupants
-                stopped = np.zeros(self.slots, bool)
-                for slot, rid in snap_rids.items():
-                    if slot in self._active and self._active[slot].request_id == rid:
-                        stopped[slot] = flags[slot]
-                done.extend(self._collect(stopped=stopped))
-                pending = None
-            if not (self._active or self._queue):
+            if not self._active and not self._queue:
                 break
-            if steps >= max_steps and did == 0:
-                break
-            if self._active:
-                pending = (*self._snap_flags(),
-                           {s: r.request_id for s, r in self._active.items()})
         return done
 
     # ---- event-driven dispatch -------------------------------------------
@@ -514,11 +467,12 @@ class RealtimeBatchServer:
             if rest:
                 toks[slot, :len(rest)] = rest
         self._sync_sampling()
-        feed = _TokenFeed(self._steps, host_tensor(toks, self.device).to(self.device,
-                                                                           non_blocking=True))
+        toks = host_tensor(toks, self.device).to(self.device, non_blocking=True)
+        cols = iter(range(k_cap))  # frame i is fed column i
         watched = torch.from_numpy(watch)
-        did, _ = _lagged_steps(feed, k_cap, lambda f: bool((f & watched).any()),
-                               dict(attend_len=attend, top_k=self.top_k))
+        did, _ = _lagged_steps(
+            lambda: self._steps.step(toks[:, next(cols)], attend_len=attend, top_k=self.top_k),
+            self.state.is_stopping, k_cap, lambda f: bool((f & watched).any()))
         flags = self.state.is_stopping.cpu().numpy()
         self.total_steps += did
         self._step_host[active] += did

@@ -14,7 +14,11 @@ ones captured.
 ``RealtimeSteps`` does for a ``RealtimeState`` what ``DecodeSteps`` (below)
 does for a ``DelayGenState``: one graph per ``(attend_len, top_k,
 per_row)`` of a whole frame (the backbone step, the unrolled depth loop,
-the samplings), fed from a static (B,) text-token buffer.
+the samplings), fed from a static (B,) text-token buffer. ``LocalSteps``
+does the same for a ``LocalGenState`` (JAX ``local_engine.py:74``,
+``local_batch_server.py:156``): one graph per ``(attend_len, n_vq_infer,
+eos_token_id, per_row)`` of ``local_frame_step``, its depth loop over the
+channels unrolled.
 
 ``DecodeSteps`` owns one ``DelayGenState`` and one ``DelaySampling`` whose
 tensors never move, and advances the state in place, one decode step per
@@ -90,6 +94,7 @@ import torch
 from ..core.config import DelayConfig, RealtimeConfig
 from ..models.delay import (DelayGenState, DelayParams, DelaySampling, delay_decode_step,
                             delay_prefill)
+from ..models.local import LocalGenState, LocalParams, LocalSampling, local_frame_step
 from ..models.realtime import (RealtimeParams, RealtimeSampling, RealtimeState,
                                realtime_decode_step)
 from ..nn.qwen3 import init_kv_cache, init_quant_kv_cache
@@ -103,6 +108,8 @@ STEP_FIELDS = ("cur_ids", "pos", "step", "is_stopping", "is_audio", "audio_lengt
                "delayed", "seen")
 # the RealtimeState fields realtime_decode_step returns as new tensors
 RT_STEP_FIELDS = ("cur_len", "last_audio", "is_stopping", "hist_len")
+# the LocalGenState fields local_frame_step returns as new tensors
+LOCAL_STEP_FIELDS = ("cur_ids", "pos", "step", "unfinished")
 
 
 def host_tensor(x, device) -> torch.Tensor:
@@ -290,6 +297,35 @@ class RealtimeSteps(GraphSteps):
         new, _ = realtime_decode_step(self.params, self.cfg, self.state, self.tokens,
                                       self.sampling, top_k=top_k, attend_len=attend_len)
         copy_rt_fields_(self.state, new)
+
+
+class LocalSteps(GraphSteps):
+    """Local frames (``models.local.local_frame_step``) of ``params`` over
+    the static ``state`` (a scalar cursor for the engine, (B,) cursors for
+    the server) and the static per-channel ``sampling``. On the card a frame
+    is the replay of a CUDA graph per ``(attend_len, n_vq_infer,
+    eos_token_id, per_row)``, which copies back the fields the step
+    replaces (``LOCAL_STEP_FIELDS``); the caches, ``kv_valid``, the seen
+    masks and ``out`` are written in place by the step."""
+
+    def __init__(self, params: LocalParams, cfg, state: LocalGenState,
+                 sampling: LocalSampling, *, graphs: bool = True):
+        super().__init__(params, "text_head", state.unfinished.device, graphs=graphs)
+        self.cfg, self.state, self.sampling = cfg, state, sampling
+
+    @torch.no_grad()
+    def step(self, *, attend_len: Optional[int], n_vq_infer: int, eos_token_id: int) -> None:
+        """One frame of the whole batch, in place."""
+        key = (attend_len, n_vq_infer, eos_token_id, self.state.pos.ndim == 1)
+        self.run_key(key, lambda: self._eager(key), self.state.rng)
+
+    def _eager(self, key) -> None:
+        attend_len, n_vq_infer, eos_token_id, _ = key
+        new = local_frame_step(self.params, self.cfg, self.state, self.sampling,
+                               n_vq_infer=n_vq_infer, eos_token_id=eos_token_id,
+                               attend_len=attend_len)
+        for name in LOCAL_STEP_FIELDS:
+            getattr(self.state, name).copy_(getattr(new, name))
 
 
 def copy_rt_fields_(dst: RealtimeState, src: RealtimeState) -> None:

@@ -451,11 +451,12 @@ def delay_decode_step(
                                     text_logits[:, -1], audio_logits[:, -1])
 
 
-def _lagged_steps(steps, n: int, stop: Callable[[torch.Tensor], bool], kw: dict,
+def _lagged_steps(step: Callable[[], None], flags: torch.Tensor, n: int,
+                  stop: Callable[[torch.Tensor], bool],
                   lag: Optional[int] = None) -> Tuple[int, Optional[int]]:
-    """Up to ``n`` steps of ``steps`` (an ``engine.step_graph.DecodeSteps``,
-    or anything with a ``state`` holding ``is_stopping`` and a ``step(**kw)``)
-    until ``stop``, given a copy of the stop flags on the host, holds for a
+    """Up to ``n`` calls of ``step`` (one decode step or frame of a static
+    state, in place) until ``stop``, given a copy on the host of ``flags``
+    (that state's stop flags, written in place by ``step``), holds for a
     state. Returns ``(executed, at)``: the steps run and the number of steps
     after which ``stop`` first held (None if it did not within ``n``).
 
@@ -468,14 +469,13 @@ def _lagged_steps(steps, n: int, stop: Callable[[torch.Tensor], bool], kw: dict,
     state at which ``stop`` first held (``executed == at + 1``) unless that
     state is the last, and never past ``n``. ``lag`` (1 on the card, 0 on
     the CPU by default) lets a CPU test run the card's schedule."""
-    state = steps.state
-    cuda = state.is_stopping.device.type == "cuda"
+    cuda = flags.device.type == "cuda"
     lag = (1 if cuda else 0) if lag is None else lag
-    flags = torch.empty((n + 1,) + state.is_stopping.shape, dtype=torch.bool, pin_memory=cuda)
+    host = torch.empty((n + 1,) + flags.shape, dtype=torch.bool, pin_memory=cuda)
     events = []
 
     def snap(i):
-        flags[i].copy_(state.is_stopping, non_blocking=cuda)
+        host[i].copy_(flags, non_blocking=cuda)
         if cuda:
             events.append(torch.cuda.Event())
             events[-1].record()
@@ -486,11 +486,11 @@ def _lagged_steps(steps, n: int, stop: Callable[[torch.Tensor], bool], kw: dict,
         if j >= 0:
             if cuda:
                 events[j].synchronize()
-            if stop(flags[j]):
+            if stop(host[j]):
                 return i, j
         if i == n:
             break
-        steps.step(**kw)
+        step()
         snap(i + 1)
     return n, None
 
@@ -521,7 +521,8 @@ def delay_decode_until_event(
     watched = torch.from_numpy(watch)
     kw = dict(top_k_text=top_k_text, top_k_audio=top_k_audio, attend_len=attend_len,
               uniform_slots=uniform_slots, hidden_out_layers=hidden_out_layers)
-    executed, _ = _lagged_steps(steps, max(n, 0), lambda f: bool((f & watched).any()), kw)
+    executed, _ = _lagged_steps(lambda: steps.step(**kw), steps.state.is_stopping, max(n, 0),
+                                lambda f: bool((f & watched).any()))
     return steps.state, executed
 
 
@@ -550,5 +551,6 @@ def delay_generate_on_device(
               uniform_slots=uniform_slots, hidden_out_layers=hidden_out_layers)
     lo, hi = int(state.step.min()), int(state.step.max())
     n = 0 if bool(state.is_stopping.all()) else max(0, max_new_tokens - lo)
-    executed, at = _lagged_steps(steps, n, lambda f: bool(f.all()), kw)
+    executed, at = _lagged_steps(lambda: steps.step(**kw), state.is_stopping, n,
+                                 lambda f: bool(f.all()))
     return state, hi + (executed if at is None else at)

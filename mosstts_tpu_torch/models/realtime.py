@@ -34,8 +34,7 @@ from torch import nn
 
 from ..core.config import Qwen3Config, RealtimeConfig, RealtimeLocalConfig
 from ..nn.qwen3 import Qwen3Params, empty_param, fill_qwen3_params_, init_kv_cache, qwen3_forward
-from ..ops.kernels import w8_gemm
-from ..ops.quant import is_quantized
+from ..ops.basic import head_logits
 from ..ops.sampling import (_categorical, align_rows, apply_repetition_penalty_seen,
                             topk_topp_filter, window_seen_mask)
 
@@ -147,20 +146,6 @@ def _rt_sample(gens, logits: torch.Tensor, s: RealtimeSampling, top_k: int) -> t
     return torch.where(align_rows(s.do_sample, sampled.ndim), sampled, greedy)
 
 
-def _head_logits(h: torch.Tensor, heads, i: int) -> torch.Tensor:
-    """(B, Dl) x head ``i`` (Dl, Va) -> (B, Va) float32 logits, the
-    accumulator as it is. An int8 stack reads head ``i``'s slice only,
-    through the W8A16 kernel (``(h @ q[i]) * scale[i]``) on the card;
-    bf16 heads take one product with a float32 output on the card; float32
-    heads, and every head on the CPU, the product in float32."""
-    w = heads[i]
-    if is_quantized(heads):
-        return w8_gemm.w8a16_gemm(h.contiguous(), w.q, w.scale, torch.float32)
-    if h.device.type == "cuda" and w.dtype != torch.float32:
-        return torch.bmm(h[None], w[None], out_dtype=torch.float32)[0]
-    return torch.matmul(h.float(), w.float())
-
-
 def _history_window(history: torch.Tensor, hist_len: torch.Tensor, R: int):
     """The last ``REP_WINDOW`` frames before ``hist_len`` (a 0-dim or (B,)
     cursor): (B, R, W) tokens and their validity."""
@@ -206,7 +191,7 @@ def depth_generate_frame(
             params.local, lq, x[:, None, :],
             positions=torch.full((B, 1), i, dtype=torch.int32, device=dev),
             kv_valid=(slots <= i).expand(B, R), cache=cache, cache_offset=i)
-        logits = _head_logits(h[:, 0], params.local_heads, i)
+        logits = head_logits(h[:, 0], params.local_heads, i)
         logits = apply_repetition_penalty_seen(logits, seen[:, i], rp)
         tok = _rt_sample(gens, logits, sampling, top_k)
         toks.append(tok)

@@ -30,7 +30,8 @@ The caches are written in place (slice, ``index_copy_`` or indexed store
 into the preallocated buffers): no copy of a cache per step. The quantize
 and scatter of a cache write are plain PyTorch, as in JAX.
 ``output_hidden_states`` returns the per-layer hidden states (the Delay
-model's ``hidden_out_layers``). ``remat``, ``use_rope=False`` and
+model's ``hidden_out_layers``). ``use_rope=False`` leaves q and k
+unrotated (the Local model's depth transformer). ``remat`` and
 ``final_norm=False`` are not ported yet.
 """
 from __future__ import annotations
@@ -283,6 +284,7 @@ def qwen3_forward(
     cache_offset: Union[int, torch.Tensor] = 0,  # int, 0-dim tensor, or (B,) row cursors
     kv_positions: Optional[torch.Tensor] = None,
     attn_window: Optional[int] = None,
+    use_rope: bool = True,
     attend_len: Optional[int] = None,
     output_hidden_states: bool = False,
 ):
@@ -297,7 +299,8 @@ def qwen3_forward(
     sliding-window caches); by default slot == position. ``attend_len``
     restricts attention reads to the first ``attend_len`` cache slots (a
     multiple of the page size for a paged cache). A (B,) ``cache_offset``
-    gives each row its own write cursor; writes past the capacity drop."""
+    gives each row its own write cursor; writes past the capacity drop.
+    ``use_rope=False`` applies no rotary embedding to q and k."""
     B, T, D = inputs_embeds.shape
     hd, H, KV = cfg.head_dim, cfg.num_attention_heads, cfg.num_key_value_heads
     scale = hd ** -0.5
@@ -313,7 +316,7 @@ def qwen3_forward(
         raise NotImplementedError("a multi-token forward with per-row cursors has no "
                                   "kernel on the card")
 
-    cos, sin = rope_cos_sin(positions, hd, cfg.rope_theta)
+    cos, sin = rope_cos_sin(positions, hd, cfg.rope_theta) if use_rope else (None, None)
 
     use_flash = linear_slots and cache is not None and not per_row
     if kv_positions is None:
@@ -368,8 +371,9 @@ def qwen3_forward(
         q = rms_norm(dense(x, lay.wq[li]).reshape(B, T, H, hd), lay.q_norm[li], eps)
         k = rms_norm(dense(x, lay.wk[li]).reshape(B, T, KV, hd), lay.k_norm[li], eps)
         v = dense(x, lay.wv[li]).reshape(B, T, KV, hd)
-        q = apply_rope(q, cos, sin)
-        k = apply_rope(k, cos, sin)
+        if use_rope:
+            q = apply_rope(q, cos, sin)
+            k = apply_rope(k, cos, sin)
         if cache is not None:
             kt, vt = k.transpose(1, 2), v.transpose(1, 2)  # (B, KV, T, hd)
             if quant:

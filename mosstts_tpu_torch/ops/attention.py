@@ -1,8 +1,8 @@
 """Grouped-query attention with explicit masks, in plain PyTorch.
 
 Ports ``mosstts_tpu/ops/attention.py``: ``gqa_attention`` and
-``gqa_attention_kvmajor``. They are the plain versions, and the test oracles,
-of the two CUDA kernels in ``ops/kernels/``. Math runs in float32 and the
+``gqa_attention_kvmajor``, the plain versions, and the test oracles, of the
+two CUDA kernels in ``ops/kernels/``, and ``attention_nopos``. Math runs in float32 and the
 result is cast back to the query dtype, as in the JAX package.
 """
 from __future__ import annotations
@@ -68,3 +68,26 @@ def gqa_attention_kvmajor(
     qf = (q.float() * scale).reshape(B, Tq, KV, H // KV, hd)
     return _masked_softmax_out(qf, k, v, q_positions, kv_positions, kv_valid, window,
                                "bqkgh,bksh->bkgqs", "bkgqs,bksh->bqkgh", q.dtype)
+
+
+def attention_nopos(
+    q: torch.Tensor,  # (B, T, H, hd)
+    k: torch.Tensor,  # (B, T, KV, hd)
+    v: torch.Tensor,
+    *,
+    scale: float,
+) -> torch.Tensor:
+    """Ports ``mosstts_tpu.ops.attention.attention_nopos``: plain causal
+    attention with no positional encoding and no padding, over a fixed-length
+    block (the reference's MossTTSLocal depth transformer,
+    moss_tts_local/modeling_moss_tts.py:126-176)."""
+    B, T, H, hd = q.shape
+    KV = k.shape[2]
+    qf = (q.float() * scale).reshape(B, T, KV, H // KV, hd)
+    scores = torch.einsum("bqkgh,bskh->bkgqs", qf, k.float())
+    i = torch.arange(T, device=q.device)
+    causal = i[:, None] >= i[None, :]
+    scores = torch.where(causal[None, None, None], scores, NEG_INF)
+    probs = torch.softmax(scores, dim=-1)
+    out = torch.einsum("bkgqs,bskh->bqkgh", probs, v.float())
+    return out.reshape(B, T, H, hd).to(q.dtype)

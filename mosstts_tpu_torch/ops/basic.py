@@ -1,4 +1,4 @@
-"""Core plain ops: RMSNorm, dense, SwiGLU, RoPE.
+"""Core plain ops: RMSNorm, dense, the per-channel head product, SwiGLU, RoPE.
 
 Ports ``mosstts_tpu/ops/basic.py``. Rounding happens at the same points as
 in the JAX package: RMSNorm reduces in float32 and casts back; ``dense``
@@ -40,6 +40,21 @@ def dense(x: torch.Tensor, w) -> torch.Tensor:
     if x.device.type == "cuda" and x.dtype != torch.bfloat16:
         raise TypeError(f"dense: int8 weights take bf16 activations on the card, got {x.dtype}")
     return w8_gemm.w8a16_gemm(x.contiguous(), w.q, w.scale, x.dtype)
+
+
+def head_logits(h: torch.Tensor, heads, i: int) -> torch.Tensor:
+    """(B, D) x head ``i`` of a stack (n, D, V) -> (B, V) float32 logits,
+    the accumulator as it is (the per-channel heads of the Realtime and
+    Local depth transformers). An int8 stack reads head ``i``'s slice only,
+    through the W8A16 kernel (``(h @ q[i]) * scale[i]``) on the card; bf16
+    heads take one product with a float32 output on the card; float32
+    heads, and every head on the CPU, the product in float32."""
+    w = heads[i]
+    if is_quantized(heads):
+        return w8_gemm.w8a16_gemm(h.contiguous(), w.q, w.scale, torch.float32)
+    if h.device.type == "cuda" and w.dtype != torch.float32:
+        return torch.bmm(h[None], w[None], out_dtype=torch.float32)[0]
+    return torch.matmul(h.float(), w.float())
 
 
 def swiglu(x, w_gate, w_up, w_down) -> torch.Tensor:

@@ -1,30 +1,44 @@
 """Backend loading for the serving layer.
 
-Ports ``mosstts_tpu/serve/backend.py`` in its demo mode: ``load_codec``,
-``load_delay_backend`` and ``load_realtime_backend`` build random-weight
-models (a tiny backbone, the demo codec, the offline byte tokenizer) on
-``device``, the card unless the caller asks for the CPU, so every pipeline
-runs without a checkpoint. The engines run in ``dtype_str`` (bf16 by
-default), the codec in float32. Checkpoint directories (``model_path``,
-``codec_path``) wait for the checkpoint loaders (ROADMAP A.7), and the
-Local backend for its family (ROADMAP A.9): those raise
-``NotImplementedError``.
+Ports ``mosstts_tpu/serve/backend.py``: ``load_codec``,
+``load_delay_backend``, ``load_local_backend`` and
+``load_realtime_backend``, on ``device`` (the card unless the caller asks
+for the CPU). A backend comes from a checkpoint directory (``model_path``:
+``config.json`` and safetensors shards in the reference's layout, read by
+``utils/checkpoints.py``, and the directory's tokenizer; ``codec_path``: a
+codec directory ``save_pretrained`` wrote), or, with no path, from random
+demo weights (a tiny backbone, the demo codec, the offline byte tokenizer)
+so every pipeline runs without a checkpoint. The engines run in
+``dtype_str`` (bf16 by default), the codec in float32.
+
+Differences from the JAX package, by design: a path that does not exist
+raises ``FileNotFoundError`` (JAX silently serves the random demo model
+then, so a typo would serve random weights); the tokenizer a checkpoint
+loads is logged, a warning when it is the byte fallback (no
+``transformers``, or no tokenizer in the directory), which JAX takes
+silently. ``load_local_backend`` returns a ``DelayBackend`` over a
+``LocalEngine``, as JAX does; the pipelines' ``synthesize`` passes keywords
+``LocalEngine.generate`` does not take, so it raises ``TypeError`` over that
+backend in both packages.
 """
 from __future__ import annotations
 
 import functools
+import logging
 from typing import Optional
 
 import torch
 
 from ..codec.model import MossAudioTokenizer
-from ..core.config import (CodecConfig, DelayConfig, RealtimeConfig, RealtimeLocalConfig,
-                           tiny_qwen3)
+from ..core.config import (CodecConfig, DelayConfig, LocalConfig, RealtimeConfig,
+                           RealtimeLocalConfig, tiny_qwen3)
 from ..engine.delay_engine import DelayEngine
+from ..engine.local_engine import LocalEngine
 from ..engine.realtime_engine import RealtimeEngine
 from ..processing.delay_processor import DelayProcessor
+from ..processing.local_processor import LocalProcessor
 from ..processing.realtime_processor import RealtimeProcessor
-from ..processing.tokenizer import ByteFallbackTokenizer
+from ..processing.tokenizer import ByteFallbackTokenizer, load_tokenizer
 from .pipelines import DelayBackend
 
 _DEMO_CODEC = CodecConfig(
@@ -36,18 +50,25 @@ _DEMO_CODEC = CodecConfig(
 _DTYPES = {"bfloat16": torch.bfloat16, "float32": torch.float32}
 
 
-def _no_checkpoints(what: str, path: str):
-    raise NotImplementedError(
-        f"{what} {path!r}: loading checkpoints is not ported yet (ROADMAP A.7); "
-        "leave it unset for the random-weight demo backend")
+def _tokenizer(model_path: str):
+    """The checkpoint directory's tokenizer (``load_tokenizer``), logged."""
+    tok = load_tokenizer(model_path)
+    log = logging.getLogger(__name__)
+    if isinstance(tok, ByteFallbackTokenizer):
+        log.warning("%s: no HF tokenizer loaded (transformers missing, or none in the "
+                    "directory); using the byte fallback tokenizer", model_path)
+    else:
+        log.info("%s: tokenizer %s", model_path, type(tok).__name__)
+    return tok
 
 
 def load_codec(codec_path: Optional[str] = None, dtype=torch.float32,
                device="cuda") -> MossAudioTokenizer:
-    """Ports ``mosstts_tpu.serve.backend.load_codec``: the demo codec with
-    random weights from seed 0 on ``device``."""
+    """Ports ``mosstts_tpu.serve.backend.load_codec``: the codec of the
+    directory ``codec_path``, else the demo codec with random weights from
+    seed 0, on ``device``."""
     if codec_path:
-        _no_checkpoints("codec_path", codec_path)
+        return MossAudioTokenizer.from_pretrained(codec_path, dtype=dtype, device=device)
     return MossAudioTokenizer.random_init(seed=0, config=_DEMO_CODEC, dtype=dtype, device=device)
 
 
@@ -58,23 +79,57 @@ def load_delay_backend(
     dtype_str: str = "bfloat16",
     device: str = "cuda",
 ) -> DelayBackend:
-    """Ports ``mosstts_tpu.serve.backend.load_delay_backend`` (demo mode):
-    a tiny Delay engine in ``dtype_str`` and the demo codec in float32, both
-    from seed 0 on ``device``. One backend per argument tuple is kept for
-    the process, as in the JAX package."""
-    if model_path:
-        _no_checkpoints("model_path", model_path)
+    """Ports ``mosstts_tpu.serve.backend.load_delay_backend``: the Delay
+    checkpoint at ``model_path`` (``load_delay_checkpoint``), else a tiny
+    demo engine from seed 0, in ``dtype_str``, and the codec, on
+    ``device``. One backend per argument tuple is kept for the process, as
+    in the JAX package."""
+    from ..utils.checkpoints import load_delay_checkpoint
+
     codec = load_codec(codec_path, device=device)
-    cfg = DelayConfig(language_config=tiny_qwen3(hidden_size=128), n_vq=_DEMO_CODEC.n_q)
-    engine = DelayEngine.random_init(seed=0, config=cfg, dtype=_DTYPES[dtype_str],
-                                     device=device)
-    proc = DelayProcessor(ByteFallbackTokenizer(), audio_tokenizer=codec, config=cfg)
-    return DelayBackend(engine=engine, processor=proc, sample_rate=cfg.sampling_rate, demo=True)
+    dtype = _DTYPES[dtype_str]
+    if model_path:
+        params, cfg = load_delay_checkpoint(model_path, dtype, device)
+        engine = DelayEngine(params, cfg, dtype=dtype, device=device)
+        tokenizer = _tokenizer(model_path)
+    else:
+        cfg = DelayConfig(language_config=tiny_qwen3(hidden_size=128), n_vq=_DEMO_CODEC.n_q)
+        engine = DelayEngine.random_init(seed=0, config=cfg, dtype=dtype, device=device)
+        tokenizer = ByteFallbackTokenizer()
+    proc = DelayProcessor(tokenizer, audio_tokenizer=codec, config=cfg)
+    return DelayBackend(engine=engine, processor=proc, sample_rate=cfg.sampling_rate,
+                        demo=not model_path)
 
 
-def load_local_backend(*args, **kwargs):
-    """``mosstts_tpu.serve.backend.load_local_backend``: not ported yet."""
-    raise NotImplementedError("the Local family is not ported yet (ROADMAP A.9)")
+@functools.lru_cache(maxsize=2)
+def load_local_backend(
+    model_path: Optional[str] = None,
+    codec_path: Optional[str] = None,
+    dtype_str: str = "bfloat16",
+    device: str = "cuda",
+) -> DelayBackend:
+    """Ports ``mosstts_tpu.serve.backend.load_local_backend``: the Local
+    checkpoint at ``model_path`` (``load_local_checkpoint``), else JAX's demo
+    config (a tiny backbone, 32 codebooks, a 2-layer depth transformer of
+    width 48) from seed 0, in ``dtype_str``, and the codec, on ``device``;
+    a ``DelayBackend`` over a ``LocalEngine`` with a ``LocalProcessor``."""
+    from ..utils.checkpoints import load_local_checkpoint
+
+    codec = load_codec(codec_path, device=device)
+    dtype = _DTYPES[dtype_str]
+    if model_path:
+        params, cfg = load_local_checkpoint(model_path, dtype, device)
+        engine = LocalEngine(params, cfg, dtype=dtype, device=device)
+        tokenizer = _tokenizer(model_path)
+    else:
+        cfg = LocalConfig(
+            language_config=tiny_qwen3(hidden_size=128), n_vq=_DEMO_CODEC.n_q,
+            additional_mlp_ffn_hidden_size=64, local_ffn_hidden_size=96,
+            local_hidden_size=48, local_num_layers=2)
+        engine = LocalEngine.random_init(seed=0, config=cfg, dtype=dtype, device=device)
+        tokenizer = ByteFallbackTokenizer()
+    proc = LocalProcessor(tokenizer, audio_tokenizer=codec, config=cfg)
+    return DelayBackend(engine=engine, processor=proc, sample_rate=cfg.sampling_rate)
 
 
 @functools.lru_cache(maxsize=2)
@@ -84,21 +139,28 @@ def load_realtime_backend(
     dtype_str: str = "bfloat16",
     device: str = "cuda",
 ):
-    """Ports ``mosstts_tpu.serve.backend.load_realtime_backend`` (demo
-    mode): ``(engine, processor, codec)``, a tiny Realtime engine (16
-    codebooks, half the demo codec's) in ``dtype_str`` and the demo codec
-    in float32, both from seed 0 on ``device``. One backend per argument
-    tuple is kept for the process."""
-    if model_path:
-        _no_checkpoints("model_path", model_path)
+    """Ports ``mosstts_tpu.serve.backend.load_realtime_backend``:
+    ``(engine, processor, codec)``, the Realtime checkpoint at
+    ``model_path`` (``load_realtime_checkpoint``), else a tiny demo engine
+    (16 codebooks, half the demo codec's) from seed 0, in ``dtype_str``, and
+    the codec, on ``device``. One backend per argument tuple is kept for the
+    process."""
+    from ..utils.checkpoints import load_realtime_checkpoint
+
     codec = load_codec(codec_path, device=device)
-    cfg = RealtimeConfig(
-        language_config=tiny_qwen3(hidden_size=64),
-        local_config=RealtimeLocalConfig(
-            hidden_size=64, intermediate_size=128, num_hidden_layers=2,
-            num_attention_heads=4, num_key_value_heads=2, head_dim=16,
-            rvq=_DEMO_CODEC.n_q // 2),
-        rvq=_DEMO_CODEC.n_q // 2)
-    engine = RealtimeEngine.random_init(seed=0, config=cfg, dtype=_DTYPES[dtype_str],
-                                        device=device)
-    return engine, RealtimeProcessor(ByteFallbackTokenizer(), channels=cfg.rvq), codec
+    dtype = _DTYPES[dtype_str]
+    if model_path:
+        params, cfg = load_realtime_checkpoint(model_path, dtype, device)
+        engine = RealtimeEngine(params, cfg, dtype=dtype, device=device)
+        tokenizer = _tokenizer(model_path)
+    else:
+        cfg = RealtimeConfig(
+            language_config=tiny_qwen3(hidden_size=64),
+            local_config=RealtimeLocalConfig(
+                hidden_size=64, intermediate_size=128, num_hidden_layers=2,
+                num_attention_heads=4, num_key_value_heads=2, head_dim=16,
+                rvq=_DEMO_CODEC.n_q // 2),
+            rvq=_DEMO_CODEC.n_q // 2)
+        engine = RealtimeEngine.random_init(seed=0, config=cfg, dtype=dtype, device=device)
+        tokenizer = ByteFallbackTokenizer()
+    return engine, RealtimeProcessor(tokenizer, channels=cfg.rvq), codec

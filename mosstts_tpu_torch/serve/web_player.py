@@ -12,9 +12,9 @@ invisible to browser fetch by spec, so metrics ride the side channel).
 Dependency-free: one self-contained HTML page served by http_server's
 ``GET /player``.
 
-The port's own copy of ``mosstts_tpu/serve/web_player.py``. The port's
-server answers ``POST /stream`` with 501 until the Realtime family is
-ported (ROADMAP A.8), so the page plays nothing there yet.
+The port's own copy of ``mosstts_tpu/serve/web_player.py``. The page's
+``fetch('/stream')`` reaches the port's ``POST /stream`` route
+(``serve/http_server.py``), which streams the Realtime family's audio.
 """
 
 PLAYER_HTML = """<!doctype html>

@@ -23,7 +23,9 @@ from torch import nn
 
 def to_tensor(x) -> torch.Tensor:
     """numpy-convertible array -> CPU tensor of the same dtype; ml_dtypes
-    bfloat16 becomes torch.bfloat16 through float32."""
+    bfloat16 becomes torch.bfloat16 through float32; a tensor as it is."""
+    if isinstance(x, torch.Tensor):
+        return x
     a = np.asarray(x)
     if a.dtype.name == "bfloat16":
         return torch.tensor(a.astype(np.float32)).to(torch.bfloat16)

@@ -217,19 +217,56 @@ def test_player_page(server):
         assert "AudioContext" in html and "/metrics" in html
 
 
-def test_checkpoints_and_other_families_raise():
-    from mosstts_tpu_torch.serve import backend
+def test_checkpoints_and_other_families_raise(tmp_path):
+    """Checkpoint directories load through the backend loaders (a codec
+    ``save_pretrained`` wrote, and Delay, Local and Realtime directories in
+    the reference's layout, written from the demo backends' weights); a
+    path that does not exist raises ``FileNotFoundError`` (JAX would serve
+    random weights); the Local demo backend builds and generates on the
+    CPU."""
+    import torch
 
-    with pytest.raises(NotImplementedError, match="A.7"):
-        backend.load_delay_backend("/some/checkpoint", device="cpu")
-    with pytest.raises(NotImplementedError, match="A.7"):
-        backend.load_codec("/some/codec", device="cpu")
-    with pytest.raises(NotImplementedError, match="A.9"):
-        backend.load_local_backend()
-    with pytest.raises(NotImplementedError, match="A.7"):
-        backend.load_realtime_backend("/some/checkpoint", device="cpu")
-    engine, proc, codec = backend.load_realtime_backend(device="cpu")
-    assert engine.config.rvq == proc.channels == codec.config.n_q // 2
+    from mosstts_tpu_torch.engine.local_engine import LocalEngine
+    from mosstts_tpu_torch.processing.local_processor import LocalProcessor
+    from mosstts_tpu_torch.serve import backend
+    from mosstts_tpu_torch.tools.hf_checkpoint import same_params, write_hf_checkpoint
+    from mosstts_tpu_torch.utils import checkpoints
+
+    for fn in (backend.load_delay_backend, backend.load_local_backend,
+               backend.load_realtime_backend):
+        with pytest.raises(FileNotFoundError):
+            fn(str(tmp_path / "no-such-checkpoint"), device="cpu")
+    with pytest.raises(FileNotFoundError):
+        backend.load_codec(str(tmp_path / "no-such-codec"), device="cpu")
+
+    local = backend.load_local_backend(device="cpu")
+    assert isinstance(local.engine, LocalEngine) and isinstance(local.processor, LocalProcessor)
+    assert local.engine.params.text_emb.device.type == "cpu"
+    start, grid = local.engine.generate(
+        local.processor([[local.processor.build_user_message(text="hi")]])["input_ids"],
+        max_new_tokens=3)[0]
+    assert start == 0 and grid.shape == (4, local.engine.config.channels)
+
+    codec_dir = tmp_path / "codec"
+    local.processor.audio_tokenizer.save_pretrained(codec_dir)
+    codec = backend.load_codec(str(codec_dir), device="cpu")
+    assert same_params(codec.params, local.processor.audio_tokenizer.params)
+    delay = backend.load_delay_backend(device="cpu")
+    engine, proc, rt_codec = backend.load_realtime_backend(device="cpu")
+    for name, params, cfg, table, load in (
+            ("delay", delay.engine.params, delay.engine.config, checkpoints.delay_table,
+             backend.load_delay_backend),
+            ("local", local.engine.params, local.engine.config, checkpoints.local_table,
+             backend.load_local_backend),
+            ("realtime", engine.params, engine.config, checkpoints.realtime_table,
+             backend.load_realtime_backend)):
+        write_hf_checkpoint(tmp_path / name, params, cfg, table(cfg), shard_bytes=8 << 20)
+        loaded = load(str(tmp_path / name), str(codec_dir), device="cpu")
+        got = loaded[0] if name == "realtime" else loaded.engine
+        assert got.config == cfg and got.dtype == torch.bfloat16
+        assert same_params(got.params, params), name
+    assert not backend.load_delay_backend(str(tmp_path / "delay"), device="cpu").demo
+    assert engine.config.rvq == proc.channels == rt_codec.config.n_q // 2
     assert engine.params.text_emb.device.type == "cpu"
 
 

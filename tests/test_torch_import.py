@@ -78,6 +78,12 @@ def test_port_imports_without_jax_triton_or_cuda():
     assert {f"mosstts_tpu_torch.{m}" for m in (
         "models.realtime", "processing.realtime_processor", "engine.realtime_engine",
         "engine.realtime_batch_server", "engine.streaming")} <= names
+    # checkpoints, and the Local family: model, processor, engine, server;
+    # the servers' shared polling core
+    assert {f"mosstts_tpu_torch.{m}" for m in (
+        "utils.hf_loader", "utils.checkpoints", "utils.save", "tools.hf_checkpoint",
+        "models.local", "processing.local_processor", "engine.local_engine",
+        "engine.local_batch_server", "engine.polling")} <= names
 
 
 def test_chip_smoke_imports_without_jax():
