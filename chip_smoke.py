@@ -152,6 +152,29 @@ Phases, one or more lines each; any failure raises and exits non-zero:
    through ``run`` and ``run_events``: useful frames/s, ms per step, host
    waits per request; on a small float32 model a 2-slot server's greedy
    grids equal the solo engine's, card and CPU.
+12. training (``train/``, ``codec/train.py``), float32, AdamW unless named.
+   No kernel of ``ops/kernels`` is on the training path (no Pallas kernel is
+   on JAX's: its no-cache forward takes the XLA attention): the launch
+   counts are set to 0 before each full-width trainer and must read 0
+   after it. 12a: the small Delay, Local and Realtime trainers
+   (``train.trainer.tiny_config``) and a small codec trainer, plain and
+   adversarial, run 3 steps on the card and on the CPU from the same
+   parameters: each step's loss within rel 1e-4 and gradient norm within
+   1e-3, the parameters after them within ||d|| / ||p|| 1e-4. 12b: at full
+   width, random weights made on the card, one synthetic batch repeated
+   (``synthetic_tts_batch``, T = 256), warmup 1, peak lr 1e-4: Local 1.7B
+   (``LocalConfig(qwen3_1p7b(), n_vq=32)``, B = 3, the largest that fits
+   with remat off after phases 1-11) and Realtime 1.7B (``RealtimeConfig()``,
+   B = 8) at full
+   depth, Delay at 8B width with 4 of its 36 layers (B = 8), 4 steps with
+   remat off then 4 with it on;
+   ``codec_1p6b()`` on 1 s clips (B = 4), 4 AdamW steps, then one
+   Adafactor step and one adversarial step: ms a step (CUDA events, the
+   median from the second step), tokens/s (frames/s for the codec), peak
+   memory, first and last loss (finite, and the last below the first).
+   12c: the Local 1.7B trainer saved in the serving format, read back
+   with ``load_model`` bit for bit, and its greedy ``LocalEngine`` frames
+   equal the trainer's own parameters'.
 Phases 4-6, 8, 9, 10 and 11 run the package's default: every decode step a
 CUDA-graph replay, and every prefill one from its key's second use (or a
 server's ``warmup``) on (``engine/step_graph.py``). The kernels' launch
@@ -195,9 +218,10 @@ import torch.nn.functional as F
 sys.path.insert(0, str(Path(__file__).resolve().parent))
 
 from mosstts_tpu_torch.codec.model import MossAudioTokenizer  # noqa: E402
+from mosstts_tpu_torch.codec.train import CodecTrainer, synthetic_audio_batch  # noqa: E402
 from mosstts_tpu_torch.core.config import (  # noqa: E402
-    DelayConfig, LocalConfig, RealtimeConfig, RealtimeLocalConfig, codec_1p6b, delay_8b,
-    qwen3_1p7b, qwen3_8b, tiny_qwen3)
+    CodecConfig, DelayConfig, LocalConfig, RealtimeConfig, RealtimeLocalConfig, codec_1p6b,
+    delay_8b, qwen3_1p7b, qwen3_8b, tiny_qwen3)
 from mosstts_tpu_torch.engine.batch_server import DelayBatchServer  # noqa: E402
 from mosstts_tpu_torch.engine.delay_engine import DelayEngine  # noqa: E402
 from mosstts_tpu_torch.engine.local_batch_server import LocalBatchServer  # noqa: E402
@@ -228,7 +252,9 @@ from mosstts_tpu_torch.tools.kernel_inputs import (  # noqa: E402
 from mosstts_tpu_torch.tools.hf_checkpoint import same_params, write_hf_checkpoint  # noqa: E402
 from mosstts_tpu_torch.tools.kernel_times import int4_library  # noqa: E402
 from mosstts_tpu_torch.tools.pool_vs_solo import first_divergence  # noqa: E402
+from mosstts_tpu_torch.train.trainer import TTSTrainer, synthetic_tts_batch, tiny_config  # noqa: E402
 from mosstts_tpu_torch.utils.audio import read_wav, write_wav  # noqa: E402
+from mosstts_tpu_torch.utils.convert import load_tree_  # noqa: E402
 from mosstts_tpu_torch.utils.checkpoints import (  # noqa: E402
     delay_table, load_delay_checkpoint, load_local_checkpoint, load_realtime_checkpoint,
     local_table, realtime_table)
@@ -2958,6 +2984,238 @@ def phase_local() -> tuple:
     return counts, knum, numbers
 
 
+TRAIN_T = 256  # the full-width trainers' sequence length (frames)
+# batch at T = 256: Local's is the largest whose remat-off step fits the card
+# after the earlier phases (B = 4 peaks at 78.0 GB alone and runs out of
+# memory here, beside the 1.4 GB they leave allocated and the allocator's
+# fragments); Realtime's and Delay's leave 14 and 33 GB free
+TRAIN_B = dict(local=3, realtime=8, delay=8)
+CODEC_B, CODEC_SECONDS = 4, 1.0
+TRAIN_SMALL_CODEC = CodecConfig(  # the codec of tests/test_codec_training.py's trainer test
+    hidden_size=48, intermediate_size=96, num_encoder_layers=1, num_decoder_layers=1,
+    num_attention_heads=2, num_key_value_heads=2, head_dim=24, n_q=4, codebook_dim=24,
+    causal_context=16)
+
+
+def rel_gap(a: float, b: float) -> float:
+    return abs(a - b) / max(abs(b), 1e-30)
+
+
+def params_gap(a, b) -> float:
+    """||a - b|| / ||b|| over every parameter of two modules (b on any device)."""
+    pb = dict(b.named_parameters())
+    num = den = 0.0
+    for n, x in a.named_parameters():
+        y = pb[n].detach().to(x.device, torch.float64)
+        num += float(((x.detach().double() - y) ** 2).sum())
+        den += float((y ** 2).sum())
+    return (num / den) ** 0.5
+
+
+def same_start(card, cpu) -> None:
+    """The card trainer's parameters (and discriminators) := the CPU trainer's."""
+    load_tree_(card.params, cpu.params.state_dict())
+    if hasattr(cpu, "d_params"):
+        load_tree_(card.d_params, cpu.d_params.state_dict())
+
+
+def card_vs_cpu(label: str, make, batches) -> dict:
+    """12a: the same trainer on the card and on the CPU from the same
+    parameters over the same batches: per step loss within rel 1e-4 and
+    grad_norm within 1e-3, the final parameters within ||d|| / ||p|| 1e-4."""
+    card, cpu = make(DEV), make("cpu")
+    same_start(card, cpu)
+    worst = dict(loss=0.0, grad_norm=0.0)
+    for b in batches:
+        rc, rp = card.train_step(b), cpu.train_step(b)
+        for key, tol in (("loss", 1e-4), ("grad_norm", 1e-3)):
+            if key not in rp:
+                continue
+            gap = rel_gap(rc[key], rp[key])
+            worst[key] = max(worst[key], gap)
+            if not gap <= tol:
+                raise AssertionError(f"12a {label}: step {rp['step']} {key} card {rc[key]} "
+                                     f"CPU {rp[key]} (rel {gap:.2e} > {tol:g})")
+    gap = params_gap(card.params, cpu.params)
+    if hasattr(cpu, "d_params"):
+        gap = max(gap, params_gap(card.d_params, cpu.d_params))
+    if not gap <= 1e-4:
+        raise AssertionError(f"12a {label}: parameters after {len(batches)} steps differ, "
+                             f"||d||/||p|| {gap:.2e}")
+    log(f"  12a {label}: {len(batches)} steps, card == CPU: loss rel {worst['loss']:.2e}, "
+        f"grad_norm rel {worst['grad_norm']:.2e}, parameters ||d||/||p|| {gap:.2e}")
+    return dict(label=label, loss_rel=worst["loss"], grad_norm_rel=worst["grad_norm"],
+                params_rel=gap)
+
+
+def train_small() -> list:
+    """12a (see the module docstring)."""
+    rows = []
+    for family in ("delay", "local", "realtime"):
+        cfg = tiny_config(family)
+        rng = np.random.default_rng(12)
+        batches = [synthetic_tts_batch(family, cfg, rng, batch=2, seq=16) for _ in range(3)]
+        rows.append(card_vs_cpu(family, lambda dev: TTSTrainer(
+            family, cfg, peak_lr=3e-3, warmup_steps=1, total_steps=10, device=dev), batches))
+    wav = synthetic_audio_batch(np.random.default_rng(12), 2, 0.25)
+    for label, kw in (("codec", {}), ("codec adversarial", dict(adversarial=True,
+                                                                   disc_channels=8))):
+        rows.append(card_vs_cpu(label, lambda dev: CodecTrainer(
+            TRAIN_SMALL_CODEC, num_quantizers=4, peak_lr=1e-3, warmup_steps=1, total_steps=10,
+            device=dev, **kw), [wav] * 3))
+    return rows
+
+
+def no_kernel_launches(label: str) -> None:
+    counts = read_counts()
+    ran = {k: v for k, v in counts.items() if k != "graphs" and v}
+    if ran:
+        raise AssertionError(f"{label}: a training step launched hand-written kernels: {ran}")
+
+
+def timed_steps(trainer, batch, n: int, label: str) -> dict:
+    """``n`` steps on one batch, each timed by CUDA events (a step ends in
+    the host reading its loss); the peak memory from the first step on."""
+    gc.collect()
+    torch.cuda.empty_cache()  # the run before may have cached blocks of other sizes
+    torch.cuda.reset_peak_memory_stats()
+    retries = torch.cuda.memory_stats().get("num_alloc_retries", 0)
+    recs, ms = [], []
+    for _ in range(n):
+        start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+        start.record()
+        recs.append(trainer.train_step(batch))
+        end.record()
+        end.synchronize()
+        ms.append(start.elapsed_time(end))
+    peak = torch.cuda.max_memory_allocated()
+    losses = [r["loss"] for r in recs]
+    if not all(np.isfinite(losses)):
+        raise AssertionError(f"12b {label}: a loss is not finite: {losses}")
+    return dict(ms=ms, step_ms=float(np.median(ms[1:])) if n > 1 else ms[0],
+                peak_gb=peak / 1e9, losses=losses,
+                alloc_retries=torch.cuda.memory_stats().get("num_alloc_retries", 0) - retries)
+
+
+def train_full(label: str, trainer, batch, tokens: int, n: int, remat_too: bool,
+               unit: str = "tokens") -> dict:
+    """12b: ``n`` steps with remat off (and with ``remat_too`` ``n`` more
+    with it on) on one repeated batch; the loss must fall; no kernel of
+    ``ops/kernels`` may launch."""
+    reset_counts()
+    runs = {"off": timed_steps(trainer, batch, n, label)}
+    if remat_too:
+        trainer.remat = True
+        runs["on"] = timed_steps(trainer, batch, n, label)
+        trainer.remat = False
+    no_kernel_launches(f"12b {label}")
+    losses = [x for r in runs.values() for x in r["losses"]]
+    if not losses[-1] < losses[0]:
+        raise AssertionError(f"12b {label}: the loss did not fall on a repeated batch: {losses}")
+    row = dict(label=label, params=sum(p.numel() for p in trainer.params.parameters()),
+               tokens=tokens, first_loss=losses[0], last_loss=losses[-1])
+    for key, r in runs.items():
+        row[f"remat_{key}"] = dict(step_ms=r["step_ms"], per_s=tokens / r["step_ms"] * 1e3,
+                                   peak_gb=r["peak_gb"], ms=r["ms"],
+                                   alloc_retries=r["alloc_retries"])
+    log(f"  12b {label}: {row['params'] / 1e9:.3f} B parameters (f32), {tokens} {unit} a step; "
+        + "; ".join(f"{'remat ' + k + ': ' if remat_too else ''}{v['step_ms']:.1f} ms a step, "
+                    f"{v['per_s']:.0f} {unit}/s, "
+                    f"peak {v['peak_gb']:.2f} GB, {v['alloc_retries']} allocator retries"
+                    for k, v in ((k, row[f'remat_{k}']) for k in runs))
+        + f"; loss {losses[0]:.4f} -> {losses[-1]:.4f}; no kernel of ops/kernels launched")
+    return row
+
+
+def tts_full(family: str, cfg, n: int = 4):
+    """12b for one TTS family: (its trainer, the numbers)."""
+    B = TRAIN_B[family]
+    trainer = TTSTrainer(family, cfg, peak_lr=1e-4, warmup_steps=1, total_steps=2 * n,
+                         device=DEV)
+    batch = synthetic_tts_batch(family, cfg, np.random.default_rng(12), batch=B, seq=TRAIN_T)
+    return trainer, train_full(f"{family} B={B} T={TRAIN_T}", trainer, batch, B * TRAIN_T, n,
+                               remat_too=True)
+
+
+def serve_trained(trainer, cfg) -> None:
+    """12c: the Local trainer saved in the serving format, read back onto the
+    card bit for bit, and its greedy frames equal the trainer's own."""
+    trainer.params.requires_grad_(False)
+    ids, mask = local_load(cfg, 1, T=32)
+    with tempfile.TemporaryDirectory(dir=_build.build_root()) as tmp:
+        t = time.perf_counter()
+        trainer.save(tmp)
+        saved = time.perf_counter() - t
+        back, bcfg = load_model(tmp, device=DEV)
+        torch.cuda.synchronize()
+        loaded = time.perf_counter() - t - saved
+    if bcfg != cfg or not same_params(back, trainer.params):
+        raise AssertionError("12c: the saved trainer loaded back differs from its parameters")
+    grids = [LocalEngine(p, cfg, dtype=torch.float32, graphs=False).generate(
+        ids, mask, max_new_tokens=6, **local_greedy(cfg)) for p in (trainer.params, back)]
+    if not same_grids(*grids):
+        raise AssertionError("12c: the loaded model's greedy frames differ from the trainer's")
+    log(f"  12c: Local 1.7B trainer saved ({param_bytes(back) / 1e9:.3f} GB f32) in "
+        f"{saved:.2f} s, load_model onto the card in {loaded:.2f} s: equal bit for bit; "
+        f"greedy LocalEngine frames from the loaded model == from the trainer's")
+
+
+def release() -> None:
+    gc.collect()
+    torch.cuda.empty_cache()
+
+
+def phase_training() -> dict:
+    """Phase 12 (see the module docstring)."""
+    t12 = time.perf_counter()
+    log("phase 12: training (no kernel of ops/kernels on the path, as no Pallas kernel is on "
+        "JAX's)")
+    log(f"  {torch.cuda.memory_allocated() / 1e9:.2f} GB allocated on the card at the start")
+    log("phase 12a: small f32 trainers, card against CPU")
+    small = train_small()
+    log(f"phase 12b: full width, f32, AdamW, T={TRAIN_T} ({time.perf_counter() - t12:.1f} s)")
+    rows = []
+    cfg = LocalConfig(language_config=qwen3_1p7b(), n_vq=32)
+    local, row = tts_full("local", cfg)
+    rows.append(row)
+    log(f"phase 12c: train, save, serve ({time.perf_counter() - t12:.1f} s)")
+    del local.opt
+    serve_trained(local, cfg)
+    del local
+    release()
+    for family, cfg in (("realtime", RealtimeConfig()),
+                        ("delay", dataclasses.replace(
+                            delay_8b(), language_config=qwen3_8b(num_hidden_layers=4)))):
+        trainer, row = tts_full(family, cfg)
+        rows.append(row)
+        del trainer
+        release()
+    ccfg = codec_1p6b()
+    wav = synthetic_audio_batch(np.random.default_rng(12), CODEC_B, CODEC_SECONDS)
+    frames = CODEC_B * (wav.shape[1] // ccfg.hop)
+    for label, kw, n in (("codec_1p6b AdamW", {}, 4),
+                         ("codec_1p6b Adafactor", dict(optimizer="adafactor"), 1),
+                         ("codec_1p6b adversarial", dict(adversarial=True), 1)):
+        trainer = CodecTrainer(ccfg, peak_lr=1e-4, warmup_steps=1, total_steps=8, device=DEV,
+                               **kw)
+        if n > 1:
+            rows.append(train_full(f"{label} B={CODEC_B} {CODEC_SECONDS:g} s", trainer, wav,
+                                   frames, n, remat_too=False, unit="frames"))
+        else:
+            reset_counts()
+            r = timed_steps(trainer, wav, n, label)
+            no_kernel_launches(f"12b {label}")
+            log(f"  12b {label}: one step, {r['step_ms']:.1f} ms, peak {r['peak_gb']:.2f} GB, "
+                f"loss {r['losses'][0]:.4f}")
+            rows.append(dict(label=label, step_ms=r["step_ms"], peak_gb=r["peak_gb"],
+                             loss=r["losses"][0]))
+        del trainer
+        release()
+    numbers = dict(small=small, full=rows, seconds=time.perf_counter() - t12)
+    log(f"  phase 12 numbers ({numbers['seconds']:.1f} s): " + json.dumps(numbers))
+    return numbers
+
+
 def kernel_label(name: str) -> str:
     """A ptxas entry's name, ``ring_kernel``'s instantiations spelled out:
     ring_kernel<mode, MT, BN, WM, WN, WK, STAGES, NP, MINB, vec>."""
@@ -3087,6 +3345,7 @@ def main() -> None:
 
     rt_counts, rt_knum, _ = phase_realtime()
     local_counts, local_knum, _ = phase_local()
+    phase_training()
     for knum in (rt_knum, local_knum):
         for kernel in ("flash", "decode", "w8a16"):
             numbers[kernel]["max_abs_err"] = max(numbers[kernel]["max_abs_err"],

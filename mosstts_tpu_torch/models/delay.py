@@ -5,8 +5,9 @@ Ports ``mosstts_tpu/models/delay.py``: ``init_delay_params``,
 ``hidden_out_layers``; no pipeline, no ``text_lazy``),
 ``DelaySampling``/``make_sampling``, ``DelayGenState``, ``delay_prefill``,
 ``_text_preds``, ``_sample_text_full``, ``_delay_sample_and_update``,
-``delay_decode_step``, ``delay_decode_until_event`` and
-``delay_generate_on_device``. The 32 audio tables and 33 heads stay stacked
+``delay_decode_step``, ``delay_decode_until_event``,
+``delay_generate_on_device``, and the training loss ``delay_loss`` with
+``delay_train_step``. The 32 audio tables and 33 heads stay stacked
 (``(n_vq, Va, D)`` and ``(n_vq, D, Va)``) so the embedding sum and the head
 projection are one gather and one batched product. The heads may be int8
 ``QuantWeight``s (``ops/quant.py``, ``DelayEngine.quantize``): the text head
@@ -93,13 +94,16 @@ def _audio_head_logits(hidden: torch.Tensor, heads) -> torch.Tensor:
       launch over the whole stack with f32 output.
     * bf16 heads on the card: one batched product with a float32 output
       (``torch.bmm(..., out_dtype=torch.float32)``).
-    * float32 heads, and bf16 heads on the CPU: the product in float32."""
+    * float32 heads, bf16 heads on the CPU, and bf16 heads wherever autograd
+      records the product (training): the product in float32. The
+      ``out_dtype`` overload of ``torch.bmm`` has no derivative."""
     if is_quantized(heads):
         return w8_gemm.w8a16_gemm(hidden.contiguous(), heads.q, heads.scale, torch.float32)
     B, T, D = hidden.shape
     n, V = heads.shape[0], heads.shape[2]
     x = hidden.reshape(B * T, D)
-    if x.device.type == "cuda" and heads.dtype != torch.float32:
+    records = torch.is_grad_enabled() and (x.requires_grad or heads.requires_grad)
+    if x.device.type == "cuda" and heads.dtype != torch.float32 and not records:
         logits = torch.bmm(x.expand(n, B * T, D), heads, out_dtype=torch.float32)
     else:
         logits = torch.matmul(x.float(), heads.float())  # (n, B*T, V)
@@ -136,6 +140,7 @@ def delay_forward(
     attend_len: Optional[int] = None,
     hidden_out_layers: Optional[Sequence[int]] = None,
     logits_len: Optional[int] = None,
+    remat: bool = False,
 ):
     """Ports ``mosstts_tpu.models.delay.delay_forward``. Returns
     (text_logits (B, T, V) f32, audio_logits (B, T, n_vq, Va) f32, cache);
@@ -143,11 +148,12 @@ def delay_forward(
     ``logits_len`` keeps only the last positions for the heads.
     ``hidden_out_layers`` (1 + n_vq indices into HF's hidden states: 0 the
     embeddings, -1 the final-normed last layer) sources the text head
-    (entry 0) and each audio head from its own backbone layer."""
+    (entry 0) and each audio head from its own backbone layer. ``remat``
+    (no cache) recomputes the backbone's layers in the backward pass."""
     embeds = delay_embed(params, cfg, ids)
     lc = cfg.language_config
     kw = dict(positions=positions, kv_valid=kv_valid, cache=cache, cache_offset=cache_offset,
-              attend_len=attend_len)
+              attend_len=attend_len, remat=remat)
     if hidden_out_layers is None:
         hidden, cache = qwen3_forward(params.backbone, lc, embeds, **kw)
         if logits_len is not None:
@@ -493,6 +499,63 @@ def _lagged_steps(step: Callable[[], None], flags: torch.Tensor, n: int,
         step()
         snap(i + 1)
     return n, None
+
+
+def ce_sums(logits: torch.Tensor, labels: torch.Tensor):
+    """Cross-entropy over the last axis with -100 ignored: (..., T, V)
+    logits and (..., T) labels -> the sum over T of each row's negative
+    log-likelihoods and its count of labels, both (...,)."""
+    valid = labels != -100
+    safe = torch.where(valid, labels, 0).long()
+    logp = torch.log_softmax(logits.float(), dim=-1)
+    nll = -logp.gather(-1, safe[..., None])[..., 0]
+    return torch.where(valid, nll, 0.0).sum(-1), valid.sum(-1)
+
+
+def delay_loss(
+    params: DelayParams, cfg: DelayConfig,
+    ids: torch.Tensor,  # (B, T, C)
+    attention_mask: torch.Tensor,  # (B, T)
+    labels: torch.Tensor,  # (B, T, C), -100 = ignore
+    channelwise_loss_weight: Optional[torch.Tensor] = None,  # (C,)
+    remat: bool = False,
+):
+    """Ports ``mosstts_tpu.models.delay.delay_loss`` (no ``pipeline``): the
+    multi-channel cross-entropy, summed per sample and channel and divided
+    by the count of valid labels; with ``channelwise_loss_weight``, the
+    weighted mean of the per-channel losses instead. Returns (loss,
+    {"channel_losses" (C,), "token_counts" (C,)}). The pad code's logit is
+    -inf (``delay_forward``), so a pad label would make the loss infinite:
+    data never trains one (``train/data.py``)."""
+    B, T, C = ids.shape
+    positions = torch.arange(T, dtype=torch.int32, device=ids.device)[None].expand(B, T)
+    text_logits, audio_logits, _ = delay_forward(params, cfg, ids, positions=positions,
+                                                 kv_valid=attention_mask.bool(), remat=remat)
+    s0, c0 = ce_sums(text_logits, labels[..., 0])  # (B,)
+    sa, ca = ce_sums(audio_logits.transpose(1, 2), labels[..., 1:].transpose(1, 2))  # (B, n_vq)
+    all_sum = torch.cat([s0[:, None], sa], dim=1)  # (B, C)
+    all_cnt = torch.cat([c0[:, None], ca], dim=1)
+    ch_loss = all_sum.sum(0) / all_cnt.sum(0).float().clamp(min=1.0)
+    if channelwise_loss_weight is not None:
+        w = torch.as_tensor(channelwise_loss_weight, dtype=torch.float32, device=ids.device)
+        loss = (ch_loss * w).sum() / w.sum()
+    else:
+        loss = all_sum.sum() / all_cnt.sum().float().clamp(min=1.0)
+    return loss, {"channel_losses": ch_loss, "token_counts": all_cnt.sum(0)}
+
+
+def delay_train_step(params: DelayParams, cfg: DelayConfig, batch, lr: float = 1e-4):
+    """Ports ``mosstts_tpu.models.delay.delay_train_step``: one SGD step
+    ``p - lr * g`` over ``delay_loss``, in place. Returns (params, loss,
+    aux)."""
+    from ..train.optim import value_and_grad
+
+    loss, aux, grads = value_and_grad(params, lambda p: delay_loss(
+        p, cfg, batch["input_ids"], batch["attention_mask"], batch["labels"]))
+    with torch.no_grad():
+        for name, p in params.named_parameters():
+            p.sub_(lr * grads[name].to(p.dtype))
+    return params, loss, aux
 
 
 def delay_decode_until_event(

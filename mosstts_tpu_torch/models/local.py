@@ -6,8 +6,8 @@ Ports ``mosstts_tpu/models/local.py``: ``LocalParams`` (the
 ``local_embed``, ``LocalSampling``/``make_local_sampling``,
 ``_sample_channel``, ``LocalGenState``, ``_depth_decode``,
 ``local_frame_step`` (a scalar cursor, or (B,) per-row cursors for the
-continuous-batching server) and ``local_prefill_split``. ``local_loss``
-(training) is not ported.
+continuous-batching server), ``local_prefill_split`` and the training loss
+``local_loss``.
 
 A frame is one backbone token step, then the depth transformer (the Qwen3
 block without rotary embeddings) decodes the frame's text channel and its
@@ -45,6 +45,7 @@ from ..ops.basic import dense, head_logits, rms_norm, swiglu
 from ..ops.quant import take_weight
 from ..ops.sampling import (NEG_INF, _categorical, apply_repetition_penalty_seen,
                             window_seen_mask)
+from .delay import ce_sums
 
 TOPK_WIDTH = 64  # static top-k working set for dynamic per-channel k
 
@@ -132,6 +133,70 @@ def local_embed(params: LocalParams, cfg: LocalConfig, ids: torch.Tensor,
         audio = flat[ids[..., 1:1 + n].long().clamp(0, Va - 1) + offs]
         emb = emb + audio.to(emb.dtype).sum(dim=-2)
     return emb
+
+
+def local_loss(
+    params: LocalParams, cfg: LocalConfig,
+    ids: torch.Tensor,  # (B, T, 1+n_vq)
+    attention_mask: torch.Tensor,  # (B, T)
+    labels: torch.Tensor,  # (B, T, 1+n_vq), -100 ignore
+    channel_weights: Optional[torch.Tensor] = None,  # (C,)
+    n_vq_infer: Optional[int] = None,
+    remat: bool = False,
+):
+    """Ports ``mosstts_tpu.models.local.local_loss``: the teacher-forced
+    training loss (reference MossTTSDelayModel.forward,
+    moss_tts_local/modeling_moss_tts.py:652-743). The backbone's hidden
+    state is depth position 0; positions 1..C-1 embed the label channels
+    0..C-2 (zero where a label is -100); the depth transformer (no rotary
+    embedding) runs over (B*T, C, Dl) blocks; each channel's cross-entropy
+    is its mean over valid labels, and the loss their mean weighted by
+    ``channel_weights / channel_weights.sum()``. The backbone embeds the
+    first ``n_vq_infer`` audio channels only, as in JAX. Returns (loss,
+    {"loss_all" (C,)}). The stacked tables, adapters, norms and heads are
+    split once (``unbind``), so each stack's backward is one stack of its
+    per-channel gradients."""
+    B, T, C = ids.shape
+    lc, lcfg = cfg.language_config, cfg.local_transformer_config
+    dev = ids.device
+    n = n_vq_infer or cfg.n_vq
+    positions = torch.arange(T, dtype=torch.int32, device=dev)[None].expand(B, T)
+    embeds = local_embed(params, cfg, ids, n)
+    hidden, _ = qwen3_forward(params.backbone, lc, embeds, positions=positions,
+                              kv_valid=attention_mask.bool(), remat=remat)  # (B, T, D)
+
+    Va = cfg.audio_emb_vocab
+    valid = labels != -100
+    safe = torch.where(valid, labels, 0).long()
+    audio_emb = params.audio_emb.unbind(0)
+    chans = [hidden, torch.where(valid[..., 0:1], params.text_emb[safe[..., 0]], 0.0)]
+    for i in range(C - 2):
+        e = audio_emb[i][safe[..., i + 1].clamp(0, Va - 1)]
+        chans.append(torch.where(valid[..., i + 1:i + 2], e, 0.0))
+    blocks = _mlp(params.mlp_in, torch.stack(chans, dim=2))  # (B, T, C, Dl)
+    h, _ = qwen3_forward(
+        params.local, lcfg, blocks.reshape(B * T, C, -1),
+        positions=torch.arange(C, dtype=torch.int32, device=dev)[None].expand(B * T, C),
+        kv_valid=torch.ones((B * T, C), dtype=torch.bool, device=dev),
+        use_rope=False, remat=remat)  # (B*T, C, Dl)
+
+    def ce(logits, lab):  # the mean over the valid labels of one channel
+        total, count = ce_sums(logits.reshape(1, B * T, -1), lab.reshape(1, B * T))
+        return total[0] / count[0].clamp(min=1)
+
+    eps = lcfg.rms_norm_eps
+    y0 = rms_norm(_mlp(params.mlp_out_text, h[:, 0]), params.ln_text, eps)
+    losses = [ce(dense(y0, params.text_head), labels[..., 0])]
+    gate, up, down = (getattr(params.mlp_out_audio, k).unbind(0) for k in ("gate", "up", "down"))
+    ln_audio, heads = params.ln_audio.unbind(0), params.audio_heads.unbind(0)
+    for i in range(C - 1):
+        y = rms_norm(swiglu(h[:, i + 1], gate[i], up[i], down[i]), ln_audio[i], eps)
+        losses.append(ce(dense(y, heads[i]), labels[..., i + 1]))
+    loss_all = torch.stack(losses)
+    w = (torch.ones((C,), dtype=torch.float32, device=dev) if channel_weights is None
+         else torch.as_tensor(channel_weights, dtype=torch.float32, device=dev))
+    w = w / w.sum()
+    return (loss_all * w).sum(), {"loss_all": loss_all}
 
 
 class LocalSampling(NamedTuple):

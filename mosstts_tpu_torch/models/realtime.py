@@ -6,8 +6,8 @@ Ports ``mosstts_tpu/models/realtime.py``: ``local_qwen_cfg``,
 ``make_rt_sampling``, ``_rt_sample``, ``depth_generate_frame``,
 ``RealtimeState``, ``realtime_prefill_step`` (a scalar cache cursor, or
 (B,) per-row cursors for one row at a time), ``realtime_decode_step``,
-``init_realtime_state`` and ``init_realtime_srv_state``. ``realtime_loss``
-(training) is not ported.
+``init_realtime_state``, ``init_realtime_srv_state`` and the training loss
+``realtime_loss``.
 
 A frame is one backbone token step, then the depth transformer (the Qwen3
 block over a fresh cache of ``rvq`` slots) decodes the frame's ``rvq``
@@ -37,6 +37,7 @@ from ..nn.qwen3 import Qwen3Params, empty_param, fill_qwen3_params_, init_kv_cac
 from ..ops.basic import head_logits
 from ..ops.sampling import (_categorical, align_rows, apply_repetition_penalty_seen,
                             topk_topp_filter, window_seen_mask)
+from .delay import ce_sums
 
 REP_WINDOW = 50  # reference default repetition_window (streaming:136)
 
@@ -102,6 +103,49 @@ def realtime_embed(params: RealtimeParams, cfg: RealtimeConfig,
     offs = torch.arange(cfg.rvq, device=ids.device) * Va
     audio = flat[ids[..., 1:].long().clamp(0, Va - 1) + offs]
     return emb + audio.to(emb.dtype).sum(dim=-2)
+
+
+def realtime_loss(
+    params: RealtimeParams, cfg: RealtimeConfig,
+    ids: torch.Tensor,  # (B, T, 1+rvq)
+    attention_mask: torch.Tensor,  # (B, T)
+    labels: torch.Tensor,  # (B, T, 1+rvq), -100 ignore; audio channels trained
+    remat: bool = False,
+):
+    """Ports ``mosstts_tpu.models.realtime.realtime_loss`` (reference
+    modeling_mossttsrealtime.py:149-171): the backbone runs over the grid;
+    the depth transformer is teacher-forced per frame with the backbone's
+    hidden state at the PREVIOUS position in slot 0 (position 0 takes its
+    own) and the label codebooks 0..rvq-2 in slots 1..rvq-1 (a -100 label
+    embeds the pad token); the loss is the cross-entropy over the rvq
+    codebooks' valid labels at the frames whose audio labels are not all
+    -100 (the fixed (B, T) lattice, masked, as in JAX). Returns (loss,
+    {"trained_frames"})."""
+    lc, loc = cfg.language_config, cfg.local_config
+    lq = local_qwen_cfg(loc)
+    B, T, C = ids.shape
+    R, Va = cfg.rvq, loc.audio_vocab_size
+    dev = ids.device
+    positions = torch.arange(T, dtype=torch.int32, device=dev)[None].expand(B, T)
+    hidden, _ = qwen3_forward(params.backbone, lc, realtime_embed(params, cfg, ids),
+                              positions=positions, kv_valid=attention_mask.bool(), remat=remat)
+
+    audio_labels = labels[..., 1:]  # (B, T, R)
+    train_mask = ~(audio_labels == -100).all(dim=-1)  # (B, T)
+    prev_hidden = torch.cat([hidden[:, :1], hidden[:, :-1]], dim=1)
+    safe = torch.where(audio_labels == -100, loc.audio_pad_token, audio_labels)
+    safe = safe.clamp(0, Va - 1).long()
+    emb = params.local_emb.unbind(0)
+    chans = [prev_hidden] + [emb[i][safe[..., i]] for i in range(R - 1)]
+    h, _ = qwen3_forward(
+        params.local, lq, torch.stack(chans, dim=2).reshape(B * T, R, -1),
+        positions=torch.arange(R, dtype=torch.int32, device=dev)[None].expand(B * T, R),
+        kv_valid=torch.ones((B * T, R), dtype=torch.bool, device=dev), remat=remat)
+    logits = torch.einsum("brd,rdv->brv", h.float(), params.local_heads.float())
+    valid = (audio_labels != -100) & train_mask[..., None]
+    labels_masked = torch.where(valid, safe, -100)
+    total, count = ce_sums(logits.reshape(1, B * T * R, Va), labels_masked.reshape(1, -1))
+    return total[0] / count[0].clamp(min=1), {"trained_frames": train_mask.sum()}
 
 
 class RealtimeSampling(NamedTuple):

@@ -31,8 +31,16 @@ into the preallocated buffers): no copy of a cache per step. The quantize
 and scatter of a cache write are plain PyTorch, as in JAX.
 ``output_hidden_states`` returns the per-layer hidden states (the Delay
 model's ``hidden_out_layers``). ``use_rope=False`` leaves q and k
-unrotated (the Local model's depth transformer). ``remat`` and
-``final_norm=False`` are not ported yet.
+unrotated (the Local model's depth transformer).
+
+Training runs the no-cache pass under autograd (the parameters
+``requires_grad``). Where autograd records, the layer stacks are split once
+per pass (``unbind``) rather than indexed per layer, so the backward pass
+stacks each weight's per-layer gradients once instead of adding a
+zero-filled stack per layer. ``remat=True`` (no-cache pass only, as in JAX)
+runs each layer's body under ``torch.utils.checkpoint`` (non-reentrant): its
+activations are recomputed in the backward pass instead of stored.
+``final_norm=False`` (pipeline stages) is not ported yet.
 """
 from __future__ import annotations
 
@@ -40,6 +48,7 @@ from typing import NamedTuple, Optional, Union
 
 import torch
 from torch import nn
+from torch.utils.checkpoint import checkpoint
 
 from ..core.config import Qwen3Config
 from ..ops.attention import gqa_attention, gqa_attention_kvmajor
@@ -287,6 +296,7 @@ def qwen3_forward(
     use_rope: bool = True,
     attend_len: Optional[int] = None,
     output_hidden_states: bool = False,
+    remat: bool = False,
 ):
     """Ports ``mosstts_tpu.nn.qwen3.qwen3_forward``. Returns
     (hidden (B, T, D), cache or None); the cache is updated in place. With
@@ -300,7 +310,11 @@ def qwen3_forward(
     restricts attention reads to the first ``attend_len`` cache slots (a
     multiple of the page size for a paged cache). A (B,) ``cache_offset``
     gives each row its own write cursor; writes past the capacity drop.
-    ``use_rope=False`` applies no rotary embedding to q and k."""
+    ``use_rope=False`` applies no rotary embedding to q and k. ``remat``
+    (no cache) recomputes each layer's activations in the backward pass."""
+    if remat and cache is not None:
+        raise ValueError("remat recomputes the no-cache (training) pass only; a cache "
+                         "forward has no backward pass")
     B, T, D = inputs_embeds.shape
     hd, H, KV = cfg.head_dim, cfg.num_attention_heads, cfg.num_key_value_heads
     scale = hd ** -0.5
@@ -364,13 +378,23 @@ def qwen3_forward(
         return decode_attn.decode_attention(q1, cache.k, cache.v, kv_valid_a, li, **kw)
 
     lay = params.layers
-    hidden = inputs_embeds
-    states = [inputs_embeds] if output_hidden_states else None
-    for li in range(cfg.num_hidden_layers):
-        x = rms_norm(hidden, lay.ln1[li], eps)
-        q = rms_norm(dense(x, lay.wq[li]).reshape(B, T, H, hd), lay.q_norm[li], eps)
-        k = rms_norm(dense(x, lay.wk[li]).reshape(B, T, KV, hd), lay.k_norm[li], eps)
-        v = dense(x, lay.wv[li]).reshape(B, T, KV, hd)
+    split = None
+    if cache is None and torch.is_grad_enabled() and any(p.requires_grad
+                                                         for p in lay.parameters()):
+        # autograd records: one split per pass, so each stack's backward is
+        # one stack of its per-layer gradients (an index per layer would add
+        # a zero-filled stack per layer)
+        split = {n: p.unbind(0) for n, p in lay.named_parameters()}
+
+    def block(hidden, li):
+        """Layer ``li``; a cache is written in place."""
+        def w(name):
+            return split[name][li] if split is not None else getattr(lay, name)[li]
+
+        x = rms_norm(hidden, w("ln1"), eps)
+        q = rms_norm(dense(x, w("wq")).reshape(B, T, H, hd), w("q_norm"), eps)
+        k = rms_norm(dense(x, w("wk")).reshape(B, T, KV, hd), w("k_norm"), eps)
+        v = dense(x, w("wv")).reshape(B, T, KV, hd)
         if use_rope:
             q = apply_rope(q, cos, sin)
             k = apply_rope(k, cos, sin)
@@ -397,9 +421,17 @@ def qwen3_forward(
                 attn = attend(q, k_all, v_all, kv_major=True)
         else:
             attn = attend(q, k, v, kv_major=False)
-        hidden = hidden + dense(attn, lay.wo[li])
-        x = rms_norm(hidden, lay.ln2[li], eps)
-        hidden = hidden + swiglu(x, lay.w_gate[li], lay.w_up[li], lay.w_down[li])
+        hidden = hidden + dense(attn, w("wo"))
+        x = rms_norm(hidden, w("ln2"), eps)
+        return hidden + swiglu(x, w("w_gate"), w("w_up"), w("w_down"))
+
+    hidden = inputs_embeds
+    states = [inputs_embeds] if output_hidden_states else None
+    for li in range(cfg.num_hidden_layers):
+        if remat:
+            hidden = checkpoint(block, hidden, li, use_reentrant=False)
+        else:
+            hidden = block(hidden, li)
         if output_hidden_states:
             states.append(hidden)
 

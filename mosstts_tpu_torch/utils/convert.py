@@ -2,8 +2,10 @@
 modules under the same names and layouts.
 
 A nested dict ``{"layers": {"wq": ...}, "final_norm": ...}`` maps to the
-module parameters ``layers.wq``, ``final_norm``: the port's modules register
-their parameters under the JAX tree's keys, so the flattened names agree.
+module parameters ``layers.wq``, ``final_norm``, and a list's entries to
+their indices (``subs.0.mid.1``, as ``nn.ModuleList`` names them): the
+port's modules register their parameters under the JAX tree's keys, so the
+flattened names agree.
 A JAX ``QuantWeight`` leaf (a NamedTuple ``(q, scale)``) flattens to
 ``<name>.q`` and ``<name>.scale``, the parameters of the port's
 ``ops.quant.QuantWeight``: a JAX ``quantize_tree(params)`` loads into a port
@@ -33,10 +35,14 @@ def to_tensor(x) -> torch.Tensor:
 
 
 def flatten_tree(tree: Any, prefix: str = "") -> Dict[str, Any]:
-    """Nested dict -> {"a.b.c": leaf}; a NamedTuple leaf (a JAX
+    """Nested dict -> {"a.b.c": leaf}; a list -> one entry per index
+    ({"subs": [{"mid": [w0, w1]}]} -> "subs.0.mid.1", the names of an
+    ``nn.ModuleList``/``nn.ParameterList``); a NamedTuple leaf (a JAX
     ``QuantWeight``) -> one entry per field, {"a.b.q": ..., "a.b.scale": ...}."""
     if isinstance(tree, dict):
         items = tree.items()
+    elif isinstance(tree, list):
+        items = enumerate(tree)
     elif isinstance(tree, tuple) and hasattr(tree, "_fields"):
         items = zip(tree._fields, tree)
     else:

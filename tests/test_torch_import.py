@@ -15,6 +15,8 @@ import importlib, pkgutil, sys
 sys.modules["jax"] = None      # any import of jax (direct or indirect) raises
 sys.modules["triton"] = None
 sys.modules["mosstts_tpu"] = None  # nor of the JAX package, even its JAX-free modules
+sys.modules["optax"] = None    # nor JAX's optimizer and checkpoint libraries
+sys.modules["orbax"] = None
 import torch
 import mosstts_tpu_torch
 bad = []
@@ -26,7 +28,7 @@ for name in names:
         bad.append(f"{name}: {type(e).__name__}: {e}")
 from mosstts_tpu_torch.ops.kernels import _build
 leaked = sorted(m for m in sys.modules
-                if m.split(".")[0] in ("jax", "jaxlib", "triton", "mosstts_tpu")
+                if m.split(".")[0] in ("jax", "jaxlib", "triton", "mosstts_tpu", "optax", "orbax")
                 and sys.modules[m] is not None)
 print("MODULES", len(names))
 print("NAMES", ",".join(names))
@@ -84,6 +86,11 @@ def test_port_imports_without_jax_triton_or_cuda():
         "utils.hf_loader", "utils.checkpoints", "utils.save", "tools.hf_checkpoint",
         "models.local", "processing.local_processor", "engine.local_engine",
         "engine.local_batch_server", "engine.polling")} <= names
+    # training: the TTS trainer, its optimizers, train state and data; the
+    # codec's losses, discriminators, trainer and synthetic speech
+    assert {f"mosstts_tpu_torch.{m}" for m in (
+        "train", "train.trainer", "train.optim", "train.checkpoint", "train.data",
+        "codec.losses", "codec.discriminator", "codec.train", "codec.speech_synth")} <= names
 
 
 def test_chip_smoke_imports_without_jax():
@@ -164,10 +171,26 @@ def test_entry_points_default_to_the_card():
     import inspect
 
     from mosstts_tpu_torch.codec.model import MossAudioTokenizer
+    from mosstts_tpu_torch.codec.train import CodecTrainer
     from mosstts_tpu_torch.engine.batch_server import DelayBatchServer
     from mosstts_tpu_torch.engine.delay_engine import DelayEngine
     from mosstts_tpu_torch.serve.pipelines import demo_backend
+    from mosstts_tpu_torch.train.trainer import TTSTrainer
 
-    for fn in (DelayEngine.random_init, demo_backend, MossAudioTokenizer.random_init):
+    for fn in (DelayEngine.random_init, demo_backend, MossAudioTokenizer.random_init,
+               TTSTrainer, CodecTrainer):
         assert inspect.signature(fn).parameters["device"].default == "cuda", fn.__qualname__
     assert "device" not in inspect.signature(DelayBatchServer).parameters
+
+
+def test_train_memory_tool_refuses_to_run_without_a_gpu(monkeypatch):
+    """``tools/train_memory.py`` measures the card; without one it raises
+    before it makes a trainer."""
+    import pytest
+    import torch
+
+    from mosstts_tpu_torch.tools import train_memory
+
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    with pytest.raises(RuntimeError, match="measures a GPU"):
+        train_memory.main(["--family", "local"])

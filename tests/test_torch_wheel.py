@@ -52,6 +52,14 @@ def test_wheel_carries_every_kernel_source(wheel):
     assert got == CSRC
 
 
+def test_wheel_carries_the_training_modules(wheel):
+    names = set(zipfile.ZipFile(wheel).namelist())
+    want = {f"mosstts_tpu_torch/{m}.py" for m in (
+        "train/__init__", "train/trainer", "train/optim", "train/checkpoint", "train/data",
+        "codec/losses", "codec/discriminator", "codec/train", "codec/speech_synth")}
+    assert want <= names, sorted(want - names)
+
+
 def test_installed_package_builds_into_a_user_cache(wheel, tmp_path):
     site = tmp_path / "site"
     _run([sys.executable, "-m", "pip", "install", "--no-deps", "--no-index", "-q",
