@@ -175,6 +175,40 @@ Phases, one or more lines each; any failure raises and exits non-zero:
    12c: the Local 1.7B trainer saved in the serving format, read back
    with ``load_model`` bit for bit, and its greedy ``LocalEngine`` frames
    equal the trainer's own parameters'.
+13. parallelism over ``torch.distributed`` (``parallel/``), the int8 codec
+   and ``text_lazy``. 13a: flash (B = 4, T = 160, kv-major over 512
+   slots), decode (B = 1, 4, 16 at attend 256, 300 and 1024, each with its
+   ``decode_plan``) and W8A16 (M = 1, 16) at one rank's shapes of tensor
+   parallelism 2 and 4 at 8B width (H = 16 / 8, KV = 4 / 2, the weights'
+   column or row blocks, the heads' vocab and codebook blocks) against
+   their plain versions; W8A16's float32-activation mode (``w8f32_gemm``)
+   at ``codec_1p6b()``'s shapes, M = 50, 12 and 1, against plain, with its
+   time, plain time, a yardstick (the f32 ``torch.matmul`` over weights
+   dequantized outside the timing), ``torch._weight_int8pack_mm`` with
+   float32 activations and scales where it takes them, and its bound. 13b: one rank per card
+   (``torch.cuda.device_count()``, at most 4; ranks after the first in
+   spawned processes; NCCL through ``tcp://localhost``), the 8B model
+   (random bf16 weights) in a ``DelayEngine`` and a 16-slot
+   ``DelayBatchServer`` with ``mesh=make_mesh(data=1, model=n)``, graphs
+   on, against the same weights unsharded, bf16 and then after
+   ``quantize()``: greedy grids (batch-4 ``generate``, both loops; 16
+   greedy requests) equal bit for bit at n = 1 (first frames at n > 1),
+   the collectives counted inside the replayed graphs. 13c: one Delay
+   trainer step at 8B width with 4 layers (B = 2, T = 64) with ``mesh=``
+   and with ``pipeline=(make_pp_mesh(n), 2)``, and one Local and one
+   Realtime step at 1.7B width with 2 backbone layers with ``mesh=``
+   (Realtime's data-parallel, B = 2n: its spec table admits no model axis
+   of 2 or more), each loss within rel 1e-5 of the unsharded trainer's, no
+   kernel of ``ops/kernels`` launched. 13d:
+   ``codec_1p6b()`` with int8 weights (``quantize_tree_``) encodes and
+   decodes phase 8a's 4 s wave on the card (its encoder through
+   ``w8f32_gemm``, its decoder through W8A16): mean relative deviation
+   from the float32 codec below 0.5 (JAX's test's bound), and with 2 of
+   22 layers the card's codes against the CPU's (near ties only) and its
+   wave within two bf16 ulps of the peak of the CPU's. 13e: greedy frames
+   with ``text_lazy`` on a small float32 model equal the full path's, and
+   the lazy step's graph capture raises ``ValueError``. W8A16's float32
+   mode is the tenth entry of the kernels line, its launches 13d's.
 Phases 4-6, 8, 9, 10 and 11 run the package's default: every decode step a
 CUDA-graph replay, and every prefill one from its key's second use (or a
 server's ``warmup``) on (``engine/step_graph.py``). The kernels' launch
@@ -238,6 +272,8 @@ from mosstts_tpu_torch.nn import qwen3  # noqa: E402
 from mosstts_tpu_torch.ops.kernels import _build, decode_attn, flash, paged_attn, w8_gemm  # noqa: E402
 from mosstts_tpu_torch.ops.kernels import launches as kernel_launches  # noqa: E402
 from mosstts_tpu_torch.ops.quant import is_quantized, pitched  # noqa: E402
+from mosstts_tpu_torch.parallel.mesh import make_mesh  # noqa: E402
+from mosstts_tpu_torch.parallel.pipeline import make_pp_mesh  # noqa: E402
 from mosstts_tpu_torch.processing.delay_processor import DelayProcessor  # noqa: E402
 from mosstts_tpu_torch.processing.realtime_processor import RealtimeProcessor  # noqa: E402
 from mosstts_tpu_torch.processing.tokenizer import ByteFallbackTokenizer  # noqa: E402
@@ -883,6 +919,8 @@ COUNTERS = {k: v for k, v in kernel_launches.COUNTERS.items() if k != "w8a16_byt
 # from phase 3's drive of the path that does run them (a tool's walk, or
 # decode_attention_q8t once per layer)
 OFF_PATH = ("decode_q8t", "w8a8", "int4")
+# what only phase 13 runs: W8A16's float32-activation mode (the int8 codec)
+PHASE13 = ("w8f32",)
 
 
 # kernels the main paths launch inside replayed CUDA graphs (flash in the
@@ -903,6 +941,14 @@ def read_counts() -> dict:
     counts = {name: getattr(mod, attr) for name, (mod, attr) in COUNTERS.items()}
     counts["graphs"] = {name: kernel_launches.IN_GRAPHS[name] for name in COUNTERS}
     return counts
+
+
+def read_collectives() -> dict:
+    """The collectives a sharded model issued since ``reset_counts``
+    (``launches.COLLECTIVES``), and how many of them ran inside replayed
+    CUDA graphs."""
+    (name, (mod, attr)), = kernel_launches.COLLECTIVES.items()
+    return {name: getattr(mod, attr), "in_graphs": kernel_launches.IN_GRAPHS[name]}
 
 
 def drive_solo(backend, label: str):
@@ -3216,6 +3262,488 @@ def phase_training() -> dict:
     return numbers
 
 
+# ---------------------------------------------------------------------------
+# Phase 13: tensor and pipeline parallelism over torch.distributed, the int8
+# codec, text_lazy
+
+P13_NEW = 24  # new frames of 13b's greedy requests
+P13_TRAIN = dict(B=2, T=64)  # 13c's batch
+
+
+def shared_copy(module):
+    """A module tree of its own over the same parameter tensors: ``shard_params``
+    marks the modules it shards, and the unsharded engine keeps its own."""
+    new = copy.copy(module)
+    new._parameters = dict(module._parameters)
+    new._buffers = dict(module._buffers)
+    new._modules = {k: shared_copy(v) for k, v in module._modules.items()}
+    if hasattr(new, "_views"):
+        new._views = {}
+    return new
+
+
+def tp_shapes(n: int) -> list:
+    """The 8B model's int8 products on one rank of TP ``n``: name, K, N,
+    stacked count, output dtype (column-parallel weights split N, the
+    row-parallel ``wo``/``w_down`` split K, the heads their vocab columns
+    and codebooks)."""
+    return [("wq", 4096, 4096 // n, 0, torch.bfloat16), ("wk", 4096, 1024 // n, 0, torch.bfloat16),
+            ("wo", 4096 // n, 4096, 0, torch.bfloat16),
+            ("w_gate", 4096, 12288 // n, 0, torch.bfloat16),
+            ("w_down", 12288 // n, 4096, 0, torch.bfloat16),
+            ("text_head", 4096, 151936 // n, 0, torch.bfloat16),
+            ("audio_heads", 4096, 1025, 32 // n, torch.float32)]
+
+
+def codec_f32_shapes() -> list:
+    """``codec_1p6b()``'s int8 products with float32 activations: name, K, N."""
+    cfg = codec_1p6b()
+    D, F_ = cfg.hidden_size, cfg.intermediate_size
+    kv = cfg.num_key_value_heads * cfg.head_dim
+    return [("w_gate", D, F_), ("w_down", F_, D), ("wq", D, cfg.num_attention_heads * cfg.head_dim),
+            ("wk", D, kv), ("enc_in", cfg.hop, D), ("enc_out", D, cfg.codebook_dim)]
+
+
+def phase_parallel_kernels() -> dict:
+    """13a: flash, decode and W8A16 at one rank's shapes of TP 2 and 4 at 8B
+    width (H = 32 / n, KV = 8 / n heads; the weights' blocks), against their
+    plain versions; then W8A16's float32-activation mode (``w8f32_gemm``)
+    at ``codec_1p6b()``'s shapes against plain, with its time, the plain
+    version's, a yardstick (the float32 ``torch.matmul`` over the weights
+    dequantized outside the timing), the library call
+    ``torch._weight_int8pack_mm`` with float32 activations and scales
+    (``library_ms``; where it refuses them, null, and the refusal recorded)
+    and the bound, at M = 50 (the frames of phase 8a's 4 s wave), 12 (a 1 s
+    chunk) and 1."""
+    g = torch.Generator(device=DEV).manual_seed(13)
+    bf = torch.bfloat16
+    scale = HD8 ** -0.5
+    for n in (2, 4):
+        H, KV = H8 // n, KV8 // n
+        kc = torch.randn((4, B8, KV, S8, HD8), generator=g, device=DEV).to(bf)
+        vc = torch.randn((4, B8, KV, S8, HD8), generator=g, device=DEV).to(bf)
+        T = 160
+        q = torch.randn((B8, T, H, HD8), generator=g, device=DEV).to(bf)
+        valid = torch.zeros((B8, S8), dtype=torch.bool, device=DEV)
+        for b, p in enumerate((0, 17, 40, 95)):
+            valid[b, p:T] = True
+        flash_shape(f"TP{n} H={H} KV={KV} B={B8} T={T} kv-major S={S8}", q, None, None, valid, 0,
+                    kv_major=True, rows=valid[:, :T], n_layers=4,
+                    layer=lambda i: (kc[i % 4], vc[i % 4]))
+        for B in (1, 4, 16):
+            qd = torch.randn((B, H, HD8), generator=g, device=DEV).to(bf)
+            kd = torch.randn((2, B, KV, SS, HD8), generator=g, device=DEV).to(bf)
+            vd = torch.randn((2, B, KV, SS, HD8), generator=g, device=DEV).to(bf)
+            vld = torch.rand((B, SS), generator=g, device=DEV) < 0.7
+            vld[:, 0] = True
+            for a in (256, 300, 1024):
+                plan = decode_attn.decode_plan(B, KV, a, HD8, 2)
+                out = decode_attn.decode_attention(qd, kd, vd, vld, 1, scale=scale, attend_len=a)
+                ref = decode_attn.decode_attention_ref(qd, kd, vd, vld, 1, scale=scale,
+                                                       attend_len=a)
+                check_close(f"decode TP{n} H={H} KV={KV} B={B} attend={a} plan={plan}", out, ref)
+            ms = time_ms(lambda i: decode_attn.decode_attention(qd, kd, vd, vld, i % 2,
+                                                                scale=scale, attend_len=256))
+            log(f"  decode TP{n} B={B} attend=256: kernel {ms:.4f} ms")
+        for name, K, N, count, out_dtype in tp_shapes(n):
+            shape = ((count,) if count else ()) + (K, N)
+            qw = torch.empty(shape, dtype=torch.int8, device=DEV).random_(-127, 128, generator=g)
+            sc = torch.rand(shape[:-2] + (N,), generator=g, device=DEV) * 0.019 + 0.001
+            qw = pitched(qw)
+            for M in (1, 16):
+                x = torch.randn((M, K), generator=g, device=DEV).to(bf)
+                out = w8_gemm.w8a16_gemm(x, qw, sc, out_dtype)
+                ref = w8_gemm.w8a16_gemm_ref(x, qw, sc, out_dtype)
+                absref = w8_gemm.w8a16_gemm_ref(x.abs(), qw.abs(), sc, torch.float32)
+                check_gemm(f"w8a16 TP{n} {name} {tuple(shape)} M={M}", out, ref, absref)
+            ms = time_ms(lambda i: w8_gemm.w8a16_gemm(x, qw, sc, out_dtype))
+            log(f"  w8a16 TP{n} {name} M=16: kernel {ms:.4f} ms")
+        del kc, vc, q
+        torch.cuda.empty_cache()
+
+    rows, main = [], None
+    for name, K, N in codec_f32_shapes():
+        qw = torch.empty((K, N), dtype=torch.int8, device=DEV).random_(-127, 128, generator=g)
+        sc = torch.rand((N,), generator=g, device=DEV) * 0.019 + 0.001
+        wf = qw.float() * sc  # the yardstick's weights, dequantized once
+        qt = qw.t().contiguous()  # torch._weight_int8pack_mm's (N, K) layout
+        err = 0.0
+        for M in (50, 12, 1):
+            x = torch.randn((M, K), generator=g, device=DEV)
+            out = w8_gemm.w8f32_gemm(x, qw, sc)
+            ref = w8_gemm.w8a16_gemm_ref(x, qw, sc, torch.float32)
+            absref = w8_gemm.w8a16_gemm_ref(x.abs(), qw.abs(), sc, torch.float32)
+            err = max(err, check_gemm(f"w8f32 codec {name} ({K}, {N}) M={M}", out, ref, absref))
+            ms = time_ms(lambda i: w8_gemm.w8f32_gemm(x, qw, sc))
+            plain_ms = time_ms(lambda i: w8_gemm.w8a16_gemm_ref(x, qw, sc, torch.float32))
+            yard_ms = time_ms(lambda i: torch.matmul(x, wf))
+            # PyTorch's one call for (x @ q) * scale, with float32 x and scales
+            try:
+                lib = torch._weight_int8pack_mm(x, qt, sc)
+                lib_ms, refusal = time_ms(lambda i: torch._weight_int8pack_mm(x, qt, sc)), None
+                lib_err = float((lib.float() - ref).abs().max())
+            except (RuntimeError, NotImplementedError) as e:
+                lib_ms, lib_err, refusal = None, None, f"{type(e).__name__}: {e}"[:300]
+            bd = bound(M * K * 4 + K * N + N * 4 + M * N * 4, 2.0 * M * K * N, torch.float32)
+            row = dict(shape=f"{name} ({K}, {N}) M={M}", ms=ms, plain_ms=plain_ms,
+                       yardstick_ms=yard_ms, library_ms=lib_ms, library_refusal=refusal,
+                       library_max_abs_diff=lib_err, max_abs_err=err, **bd)
+            rows.append(row)
+            lib_note = (f"torch._weight_int8pack_mm {lib_ms:.4f} ms (max abs difference from "
+                        f"plain {lib_err:.3e})" if refusal is None else
+                        f"torch._weight_int8pack_mm refuses float32: {refusal}")
+            log(f"  w8f32 codec {name} ({K}, {N}) M={M}: kernel {ms:.4f} ms, plain "
+                f"{plain_ms:.4f} ms, f32 matmul over dequantized weights {yard_ms:.4f} ms, "
+                f"{lib_note}, bound {bd['bound_ms']:.5f} ms ({bd['bound_by']})")
+            if name == "w_gate" and M == 50:
+                main = row
+        del qw, sc, wf
+    torch.cuda.synchronize()
+    torch.cuda.empty_cache()
+    return dict(max_abs_err=max(r["max_abs_err"] for r in rows),
+                **{k: main[k] for k in ("ms", "plain_ms", "library_ms", "bound_ms", "bound_by")},
+                yardstick_ms=main["yardstick_ms"], library_refusal=main["library_refusal"],
+                shapes=rows)
+
+
+def p13_prompts(cfg, B: int, seed: int = 13):
+    """``B`` left-padded prompt grids that end in the audio generation slot."""
+    rng = np.random.default_rng(seed)
+    T = 40
+    ids = rng.integers(0, 1024, (B, T, cfg.channels)).astype(np.int64)
+    ids[..., 0] = rng.integers(0, 20000, (B, T))
+    mask = np.ones((B, T), bool)
+    for b in range(B):
+        mask[b, :3 * b] = False
+        ids[b, 3 * b + 1, 0] = cfg.im_start_token_id
+    ids[:, -1, 0] = cfg.audio_assistant_gen_slot_token_id
+    return ids, mask
+
+
+def p13_server(params, cfg, mesh, grids) -> tuple:
+    server = DelayBatchServer(params, cfg, slots=16, cache_len=512, out_capacity=64,
+                              prompt_bucket=64, sampling=make_sampling(text_temperature=0.0,
+                                                                       audio_temperature=0.0),
+                              mesh=mesh)
+    rids = [server.submit(g, max_new_tokens=P13_NEW) for g in grids]
+    done = {c.request_id: c for c in server.run()}
+    return [(done[r].start_length, done[r].tokens) for r in rids], server
+
+
+def p13_engines(rank: int, world: int, mesh) -> dict:
+    """13b on one rank: the 8B model, unsharded and with ``mesh=``, graphs on,
+    bf16 then int8: ``generate`` (both loops) and a 16-slot server."""
+    from mosstts_tpu_torch.parallel.mesh import mesh_axis
+
+    cfg = delay_8b()
+    gen = torch.Generator(device=DEV).manual_seed(13)
+    params = init_delay_params(cfg, generator=gen, dtype=torch.bfloat16, device=DEV)
+    solo = DelayEngine(params, cfg, dtype=torch.bfloat16, device=DEV)
+    tp = DelayEngine(shared_copy(params), cfg, dtype=torch.bfloat16, device=DEV, mesh=mesh)
+    ids, mask = p13_prompts(cfg, 4)
+    grids = [ids[b][mask[b]] for b in range(4)] * 4  # 16 requests, 16 slots
+    out, greedy = {}, dict(max_new_tokens=P13_NEW, text_temperature=0.0, audio_temperature=0.0)
+    for label in ("bf16", "int8"):
+        if label == "int8":
+            solo.quantize()
+            tp.quantize()
+        for od in (False, True):
+            reset_counts()
+            t = time.perf_counter()
+            got = tp.generate(ids, mask, on_device=od, **greedy)
+            wall = time.perf_counter() - t
+            counts, coll = read_counts(), read_collectives()
+            want = solo.generate(ids, mask, on_device=od, **greedy)
+            same = same_grids(got, want)
+            # at n > 1 the bf16 sums of the shards round otherwise than one
+            # card's (the CPU tests hold TP against JAX in float32)
+            first = all(np.array_equal(a[1][a[0]], b[1][b[0]]) for a, b in zip(got, want))
+            if world == 1 and not same:
+                raise AssertionError(f"13b {label} on_device={od}: the TP1 engine's greedy "
+                                     f"grids differ from the unsharded engine's")
+            if not coll["in_graphs"]:
+                raise AssertionError(f"13b {label}: no collective ran inside the replayed "
+                                     f"graphs: {coll}")
+            out[f"engine_{label}_{od}"] = dict(same=same, wall_s=wall, launches=counts,
+                                               collectives=coll)
+            if rank == 0:
+                log(f"  13b engine {label} B=4 on_device={od} TP{world}: greedy grids "
+                    f"{'equal bit for bit to' if same else 'differ from'} the unsharded engine's "
+                    f"(first frames {'equal' if first else 'differ'}); {wall:.2f} s; launches "
+                    f"{counts}; collectives {coll}")
+        reset_counts()
+        got, server = p13_server(tp.params, cfg, mesh, grids)
+        counts, coll = read_counts(), read_collectives()
+        want, _ = p13_server(solo.params, cfg, None, grids)
+        same = same_grids(got, want)
+        if world == 1 and not same:
+            raise AssertionError(f"13b {label}: the TP1 server's grids differ from the unsharded "
+                                 f"server's")
+        if not coll["in_graphs"] or not counts["graphs"]["decode"]:
+            raise AssertionError(f"13b {label} server: no collective or decode kernel inside "
+                                 f"the replayed graphs: {counts} {coll}")
+        out[f"server_{label}"] = dict(same=same, steps=server.total_steps, launches=counts,
+                                      collectives=coll)
+        if rank == 0:
+            log(f"  13b server {label} 16 slots, 16 greedy requests TP{world}: grids "
+                f"{'equal bit for bit to' if same else 'against'} the unsharded server's; "
+                f"{server.total_steps} steps; launches {counts} (inside replayed graphs: "
+                f"{counts['graphs']}); collectives {coll}")
+        del server
+    if world > 1:  # (one card makes no data axis; the CPU tests hold the refusal)
+        try:
+            DelayBatchServer(shared_copy(solo.params), cfg, slots=2,
+                             mesh=make_mesh(data=world, model=1, device="cuda"))
+            raise AssertionError("13b: a server mesh with data > 1 was accepted")
+        except ValueError:
+            pass
+    assert mesh_axis(mesh, "model").size == world
+    del solo, tp, params
+    release()
+    return out
+
+
+def p13_trainers(rank: int, world: int, mesh) -> dict:
+    """13c on one rank: one Delay step at 8B width cut to 4 layers with
+    ``mesh=`` and with ``pipeline=`` (S = world), and one step of Local and
+    Realtime at 1.7B width cut to 2 backbone layers with ``mesh=``, each
+    against the unsharded trainer's loss (on rank 0). Realtime's mesh is
+    data-parallel (``data=world``, twice the rows a rank): its spec table
+    admits no model axis of 2 or more."""
+    rt = RealtimeConfig()
+    dp = make_mesh(data=world, model=1, device="cuda")
+    runs = (
+        ("delay", dataclasses.replace(delay_8b(), language_config=qwen3_8b(num_hidden_layers=4)),
+         P13_TRAIN["B"], (("mesh", dict(mesh=mesh)),
+                          ("pipeline", dict(pipeline=(make_pp_mesh(world, device="cuda"), 2))))),
+        ("local", LocalConfig(language_config=qwen3_1p7b(num_hidden_layers=2), n_vq=32),
+         P13_TRAIN["B"], (("mesh", dict(mesh=mesh)),)),
+        ("realtime", dataclasses.replace(rt, language_config=dataclasses.replace(
+            rt.language_config, num_hidden_layers=2)), P13_TRAIN["B"] * world,
+         (("mesh", dict(mesh=dp)),)),
+    )
+    kw = dict(peak_lr=1e-4, warmup_steps=1, total_steps=4, device=DEV)
+    out = {}
+    for family, cfg, rows, options in runs:
+        batch = synthetic_tts_batch(family, cfg, np.random.default_rng(13), batch=rows,
+                                    seq=P13_TRAIN["T"])
+        ref = None
+        if rank == 0:
+            plain = TTSTrainer(family, cfg, **kw)
+            ref = plain.train_step(batch)
+            del plain
+            release()
+        for option, extra in options:
+            label = f"{family} {option}"
+            reset_counts()
+            tr = TTSTrainer(family, cfg, **kw, **extra)
+            torch.cuda.synchronize()
+            t = time.perf_counter()
+            rec = tr.train_step(batch)
+            torch.cuda.synchronize()
+            wall = time.perf_counter() - t
+            no_kernel_launches(f"13c {label}")
+            out[label] = dict(rec=rec, wall_s=wall)
+            if rank == 0:
+                gap = rel_gap(rec["loss"], ref["loss"])
+                if not gap <= 1e-5:
+                    raise AssertionError(f"13c {label}: loss {rec['loss']} against the "
+                                         f"unsharded {ref['loss']} (rel {gap:.2e})")
+                log(f"  13c {label} TP/PP {world}: loss {rec['loss']:.6f} against unsharded "
+                    f"{ref['loss']:.6f} (rel {gap:.2e}), |g| {rec['grad_norm']:.5f} against "
+                    f"{ref['grad_norm']:.5f}; {wall:.2f} s a step")
+            del tr
+            release()
+    return out
+
+
+def parallel_ranks(rank: int, world: int) -> dict:
+    """13b and 13c, every rank the same calls (SPMD)."""
+    mesh = make_mesh(data=1, model=world, device="cuda")
+    return dict(engines=p13_engines(rank, world, mesh), trainers=p13_trainers(rank, world, mesh))
+
+
+def _init_group(rank: int, world: int, address: str) -> None:
+    import datetime
+
+    import torch.distributed as dist
+
+    torch.cuda.set_device(rank)
+    dist.init_process_group("nccl", init_method=address, rank=rank, world_size=world,
+                            device_id=torch.device("cuda", rank),
+                            timeout=datetime.timedelta(seconds=300))
+
+
+def _spawned_rank(rank: int, world: int, address: str) -> None:
+    """A rank of 13b/13c after the first, in a process of its own."""
+    import torch.distributed as dist
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    _init_group(rank, world, address)
+    parallel_ranks(rank, world)
+    dist.destroy_process_group()
+
+
+def phase_int8_codec(wav: np.ndarray) -> dict:
+    """13d: ``codec_1p6b()`` with int8 weights (``quantize_tree_``): the
+    encoder's products through W8A16's float32-activation mode, the
+    decoder's through W8A16 (bf16 activations, as JAX's int8 codec). Phase
+    8a's 4 s wave encoded and decoded on the card against the float32 codec
+    on the card (JAX's test's bound: mean relative deviation < 0.5); with 2
+    of 22 encoder and decoder layers, the card's int8 codes against the
+    CPU's int8 codes (near ties only) and the card's wave against the CPU's."""
+    from mosstts_tpu_torch.codec.model import MossAudioTokenizer
+    from mosstts_tpu_torch.ops.quant import quantize_tree_
+
+    cfg = codec_1p6b()
+    f32 = MossAudioTokenizer.random_init(seed=13, config=cfg, device=DEV)
+    q8 = MossAudioTokenizer(quantize_tree_(copy.deepcopy(f32.params)), cfg)
+    reset_counts()
+    t = time.perf_counter()
+    enc = q8.encode(wav)
+    wave = np.asarray(q8.decode(enc.audio_codes, chunk_duration=None)["audio"], np.float32)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t
+    counts = read_counts()
+    if not counts["w8f32"] or not counts["w8a16"]:
+        raise AssertionError(f"13d: the int8 codec did not run both GEMMs: {counts}")
+    ref = np.asarray(f32.decode(enc.audio_codes, chunk_duration=None)["audio"], np.float32)
+    if not np.isfinite(wave).all():
+        raise AssertionError("13d: non-finite int8 wave")
+    dev = float(np.abs(wave - ref).mean() / (np.abs(ref).mean() + 1e-6))
+    if not dev < 0.5:
+        raise AssertionError(f"13d: int8 wave deviates {dev:.3f} (mean relative) from f32's")
+    # card against CPU, 2 of 22 layers each side
+    cut = dataclasses.replace(cfg, num_encoder_layers=2, num_decoder_layers=2)
+    card_cut = MossAudioTokenizer(quantize_tree_(cpu_codec_copy(f32.params, cut).to(DEV)), cut)
+    cpu_cut = MossAudioTokenizer(quantize_tree_(cpu_codec_copy(f32.params, cut)), cut)
+    with rvq_inputs() as lat_cpu:
+        cpu_codes = cpu_cut.encode(wav).audio_codes
+    card_codes = card_cut.encode(wav).audio_codes
+    T = cpu_codes.shape[-1]
+    books = f32.params.rvq.codebooks.detach().cpu()
+    flips = code_mismatches("13d int8 encode, 2 of 22 layers, card vs CPU", card_codes,
+                            cpu_codes, lat_cpu[0][:, :T], books)
+    cw = np.asarray(card_cut.decode(cpu_codes, chunk_duration=None)["audio"], np.float32)
+    pw = np.asarray(cpu_cut.decode(cpu_codes, chunk_duration=None)["audio"], np.float32)
+    wave_gap = float(np.abs(cw - pw).max() / (np.abs(pw).max() + 1e-6))
+    if not wave_gap < 2.0 ** -6:  # the decoder runs bf16: two bf16 ulps of the peak
+        raise AssertionError(f"13d: the card's int8 wave (2 layers) lies {wave_gap:.2e} of its "
+                             f"peak from the CPU's")
+    log(f"  13d int8 codec_1p6b: encode + decode of {wav.size / cfg.sampling_rate:.1f} s on the "
+        f"card {wall:.2f} s (w8f32 {counts['w8f32']} launches, w8a16 {counts['w8a16']}); mean "
+        f"relative deviation from the f32 codec {dev:.4f} (< 0.5); 2-layer card vs CPU: {flips} "
+        f"frames differ at near ties, wave {wave_gap:.2e} of the peak apart")
+    out = dict(wall_s=wall, deviation=dev, card_vs_cpu_frames=flips, wave_gap=wave_gap,
+               w8f32_launches=counts["w8f32"], w8a16_launches=counts["w8a16"])
+    del f32, q8, card_cut
+    release()
+    return out
+
+
+def cpu_codec_copy(params, cfg):
+    """The first layers of ``params`` (both halves) for config ``cfg``, as a
+    float32 CodecParams on the CPU."""
+    from mosstts_tpu_torch.codec.model import CodecParams
+
+    card = dict(params.named_parameters())
+    cpu = CodecParams(cfg)
+    with torch.no_grad():
+        for name, dst in cpu.named_parameters():
+            src = card[name]
+            dst.copy_(src[: dst.shape[0]] if src.shape != dst.shape else src)
+    return cpu
+
+
+def phase_text_lazy() -> dict:
+    """13e: ``delay_decode_step(text_lazy=True)`` (eager steps) against the
+    full path, greedy, on a small float32 model on the card; a CUDA graph's
+    capture of the lazy step raises ``ValueError``."""
+    from mosstts_tpu_torch.engine.step_graph import GraphSteps, zero_state
+    from mosstts_tpu_torch.models.delay import delay_decode_step, delay_prefill
+    from mosstts_tpu_torch.ops.sampling import row_generators
+
+    cfg = DelayConfig(language_config=tiny_qwen3(
+        hidden_size=256, intermediate_size=512, num_attention_heads=4,
+        num_key_value_heads=2, head_dim=128), n_vq=4)
+    params = init_delay_params(cfg, generator=torch.Generator(device=DEV).manual_seed(13),
+                               dtype=torch.float32, device=DEV)
+    greedy = make_sampling(text_temperature=0.0, audio_temperature=0.0, device=DEV)
+    ids, mask = p13_prompts(cfg, 3)
+    ids[2, -1, 0] = 100  # row 2 in free text: the full branch; then all audio: the 2 columns
+    outs = {}
+    for lazy in (False, True):
+        with torch.no_grad():
+            st = delay_prefill(params, cfg, torch.as_tensor(ids, device=DEV),
+                               torch.as_tensor(mask, device=DEV), max_new_tokens=16, cache_len=128,
+                               rng=row_generators(1, 3, DEV), sampling=greedy,
+                               dtype=torch.float32)
+            for _ in range(15):
+                st = delay_decode_step(params, cfg, st, greedy, attend_len=128, text_lazy=lazy)
+        outs[lazy] = st.out.cpu().numpy()
+    if not np.array_equal(outs[False], outs[True]):
+        raise AssertionError("13e: text_lazy's greedy frames differ from the full path's")
+    state = zero_state(cfg, 1, 128, 8, dtype=torch.float32, kv_quant=False,
+                       rng=row_generators(0, 1, DEV), device=DEV)
+    graphs = GraphSteps(params, "text_head", DEV)
+
+    def lazy_step():
+        delay_decode_step(params, cfg, state, greedy, attend_len=128, text_lazy=True)
+
+    graphs.warm(lazy_step)  # eager: runs
+    try:
+        graphs.capture(lazy_step, state.rng)
+        raise AssertionError("13e: a CUDA graph captured text_lazy's host decision")
+    except ValueError:
+        pass
+    log("  13e text_lazy: 16 greedy frames of 3 rows (one in free text) equal the full path's "
+        "bit for bit on the card; a graph capture of the lazy step raises ValueError")
+    return dict(frames=int(outs[True].shape[1]))
+
+
+def phase_parallel() -> dict:
+    """Phase 13 (see the module docstring)."""
+    import socket
+
+    import torch.distributed as dist
+
+    t13 = time.perf_counter()
+    log("phase 13: parallelism over torch.distributed, the int8 codec, text_lazy")
+    log("phase 13a: flash, decode and W8A16 at TP 2 and 4 shard shapes (8B width); W8A16's "
+        "float32-activation mode at codec_1p6b's shapes")
+    numbers = dict(w8f32=phase_parallel_kernels())
+    world = min(torch.cuda.device_count(), 4)
+    with socket.socket() as s:
+        s.bind(("localhost", 0))
+        address = f"tcp://localhost:{s.getsockname()[1]}"
+    log(f"phase 13b: DelayEngine and a 16-slot DelayBatchServer with mesh=make_mesh(1, {world}) "
+        f"over NCCL, graphs on, bf16 then int8 ({time.perf_counter() - t13:.1f} s)")
+    ctx = torch.multiprocessing.get_context("spawn")
+    procs = [ctx.Process(target=_spawned_rank, args=(r, world, address)) for r in range(1, world)]
+    for p in procs:
+        p.start()
+    _init_group(0, world, address)
+    try:
+        numbers["ranks"] = parallel_ranks(0, world)
+    finally:
+        for p in procs:
+            p.join(600)
+        dist.destroy_process_group()
+    bad = [(i + 1, p.exitcode) for i, p in enumerate(procs) if p.exitcode != 0]
+    if bad:
+        raise AssertionError(f"13b/13c: ranks failed (rank, exit code): {bad}")
+    log(f"phase 13d: int8 codec_1p6b ({time.perf_counter() - t13:.1f} s)")
+    numbers["codec"] = phase_int8_codec(sweep_wav(4.0, seed=8))
+    numbers["w8f32_launches"] = numbers["codec"]["w8f32_launches"]
+    log(f"phase 13e: text_lazy on a small model ({time.perf_counter() - t13:.1f} s)")
+    numbers["text_lazy"] = phase_text_lazy()
+    numbers["seconds"] = time.perf_counter() - t13
+    log(f"  phase 13 numbers ({numbers['seconds']:.1f} s): "
+        + json.dumps({k: v for k, v in numbers.items() if k != "w8f32"}, default=str))
+    return numbers
+
+
 def kernel_label(name: str) -> str:
     """A ptxas entry's name, ``ring_kernel``'s instantiations spelled out:
     ring_kernel<mode, MT, BN, WM, WN, WK, STAGES, NP, MINB, vec>."""
@@ -3247,6 +3775,7 @@ def main() -> None:
     w8_gemm._entry("mosstts_w8a16_gemm")
     w8_gemm._entry("mosstts_int4_gemm")
     w8_gemm._entry("mosstts_w8a8_gemm", 2)
+    w8_gemm._entry_f32()
     log(f"  {lib.relative_to(Path(__file__).resolve().parent)} in "
         f"{time.perf_counter() - t0:.2f} s")
     # ptxas -v of the redesigned kernels' instantiations (static shared
@@ -3346,6 +3875,7 @@ def main() -> None:
     rt_counts, rt_knum, _ = phase_realtime()
     local_counts, local_knum, _ = phase_local()
     phase_training()
+    p13 = phase_parallel()
     for knum in (rt_knum, local_knum):
         for kernel in ("flash", "decode", "w8a16"):
             numbers[kernel]["max_abs_err"] = max(numbers[kernel]["max_abs_err"],
@@ -3355,7 +3885,7 @@ def main() -> None:
     runs = [solo_counts, int8_counts, *server_counts.values(), *int8_server_counts.values(),
             front_counts, *loop_counts, *rt_counts, *local_counts]
     launches = {name: sum(c[name] for c in runs) for name in COUNTERS}
-    if not all(launches[name] for name in COUNTERS if name not in OFF_PATH):
+    if not all(launches[name] for name in COUNTERS if name not in OFF_PATH + PHASE13):
         raise AssertionError(f"a kernel was never launched on the main paths: {launches}")
     in_graphs = {name: sum(c["graphs"][name] for c in runs) for name in COUNTERS}
     if not all(in_graphs[name] for name in IN_GRAPHS):
@@ -3364,7 +3894,7 @@ def main() -> None:
     log(f"main paths (phases 4-6, 8, 9b, 10, 11): launches {launches}; of them inside replayed "
         f"CUDA graphs {in_graphs}")
     launches.update(decode_q8t=numbers.pop("q8t_launches"), w8a8=numbers["w8a8"].pop("launches"),
-                    int4=numbers["int4"].pop("launches"))
+                    int4=numbers["int4"].pop("launches"), w8f32=p13["w8f32_launches"])
     if not all(launches[name] for name in OFF_PATH):
         raise AssertionError(f"an off-path kernel was never launched on its path: {launches}")
     kernels = [
@@ -3397,6 +3927,11 @@ def main() -> None:
              replaces="tools/tune_mm8.py:85", launches=launches["w8a8"], **numbers["w8a8"]),
         dict(name="int4_gemm", route="cuda", source="mosstts_tpu_torch/csrc/w8_gemm.cu",
              replaces="tools/probe_int4.py:102", launches=launches["int4"], **numbers["int4"]),
+        # W8A16's float32-activation mode (the int8 codec's encoder, 13d)
+        dict(name="w8a16_gemm_f32_activations", route="cuda",
+             source="mosstts_tpu_torch/csrc/w8_gemm.cu", replaces="tools/tune_mm8.py:165",
+             launches=launches["w8f32"],
+             **{k: v for k, v in p13["w8f32"].items() if k != "yardstick_ms"}),
     ]
     print(json.dumps({"kernels": kernels}))
     print(card_line())

@@ -33,6 +33,7 @@ from torch import nn
 from ..core.config import CodecConfig, Qwen3Config
 from ..nn.qwen3 import Qwen3Params, empty_param, fill_qwen3_params_
 from ..ops.basic import dense, rms_norm
+from ..ops.quant import is_quantized
 from .rvq import RVQParams, fill_rvq_params_, rvq_decode, rvq_encode
 from .transformer import init_stream_state, run_chunk
 
@@ -248,7 +249,10 @@ class MossAudioTokenizer:
             return np.zeros((num_quantizers, B, 0), np.int64)
         frames = torch.zeros((B, T * hop), dtype=torch.float32, device=dev)
         frames[:, :L] = torch.as_tensor(np.asarray(wav, np.float32), device=dev)
-        frames = frames.to(self.params.enc_in.dtype).reshape(B, T, hop)
+        # an int8 encoder runs float32 activations, as JAX's (its frames are
+        # float32 numpy; ``QuantWeight.dtype`` names bf16, the cache's dtype)
+        act = torch.float32 if is_quantized(self.params.enc_in) else self.params.enc_in.dtype
+        frames = frames.to(act).reshape(B, T, hop)
 
         cf = chunk_frames or self.DEFAULT_CHUNK_FRAMES
         state = init_stream_state(_txf_cfg(cfg, cfg.num_encoder_layers), B, cfg.causal_context,

@@ -104,6 +104,7 @@
 // needs the whole row's absmax before its first k tile.
 // The TPU kernels' (td, to) VMEM tiles and their sequential-grid f32
 // accumulator are MXU/VMEM choices and are not carried over.
+#include <algorithm>
 #include <cooperative_groups.h>
 #include <cuda.h>  // CUtensorMap and its enums (types only: the driver is reached at run time)
 #include <cudaTypedefs.h>
@@ -1030,4 +1031,140 @@ extern "C" int mosstts_w8a8_gemm(const mosstts::w8::Args* args, const void* x_bf
     cudaError_t err = cudaGetLastError();
     if (err != cudaSuccess) return (int)err;
     return mosstts::w8::ring::run_w8a8(args, stream);
+}
+
+// ---------------------------------------------------------------------------
+// W8A16's float32-activation mode: out (M, N) f32 = (x @ q) * scale with x
+// f32 (M, K) rows ldx floats apart and q int8 (K, N) rows ldw bytes apart,
+// accumulated in f32 with no rounding of x (the int8 codec's encoder runs
+// f32 activations, as the JAX package's ``dense`` does). A plain tiled
+// SIMT kernel: a 256-thread block owns a (16 * TM) x 64 tile of the
+// output, each thread a TM x 4 block of it (TM = 4 for M > 16, else 1, so
+// a few rows do not pay for 64); per 32-row slice of K the block stages x's
+// slice (k-major) and q's 32 x 64 values (converted to f32) in shared
+// memory, loading the next slice into registers while it multiplies this
+// one, and each thread adds the slice's products in ascending k. The
+// codec's M is small (tens of frames), so the column tiles alone leave most
+// SMs idle: K is split over ``splits`` blocks (gridDim.z), each writing its
+// partial tile to ``partial`` (splits, M, N), and a second kernel sums the
+// partials in split order and applies the scales. Both are deterministic:
+// a result does not depend on the launch.
+namespace mosstts {
+namespace w8 {
+
+constexpr int F_BN = 64, F_BK = 32, F_THREADS = 256;
+
+template <int TM>
+__global__ void __launch_bounds__(F_THREADS)
+f32_gemm_kernel(const float* __restrict__ x, long long ldx, const int8_t* __restrict__ w,
+                long long ldw, const float* __restrict__ scale, float* __restrict__ out,
+                float* __restrict__ partial, int M, int K, int N, int k_per_split) {
+    constexpr int BM = 16 * TM;
+    constexpr int XU = BM * F_BK / F_THREADS, WU = F_BK * F_BN / F_THREADS;
+    __shared__ float xs[F_BK][BM + 1];
+    __shared__ float ws[F_BK][F_BN + 4];
+    const int tx = threadIdx.x % 16, ty = threadIdx.x / 16;
+    const int row0 = blockIdx.y * BM, col0 = blockIdx.x * F_BN;
+    const int k_lo = blockIdx.z * k_per_split, k_hi = min(K, k_lo + k_per_split);
+    // this thread's share of a slice: XU x values and WU w values
+    float xr[XU], wr[WU];
+    auto load = [&](int k0) {
+#pragma unroll
+        for (int u = 0; u < XU; ++u) {
+            const int i = threadIdx.x + u * F_THREADS;
+            const int gr = row0 + i / F_BK, gk = k0 + i % F_BK;
+            xr[u] = (gr < M && gk < k_hi) ? x[(long long)gr * ldx + gk] : 0.f;
+        }
+#pragma unroll
+        for (int u = 0; u < WU; ++u) {
+            const int i = threadIdx.x + u * F_THREADS;
+            const int gk = k0 + i / F_BN, gc = col0 + i % F_BN;
+            wr[u] = (gk < k_hi && gc < N) ? (float)w[(long long)gk * ldw + gc] : 0.f;
+        }
+    };
+    float acc[TM][4] = {};
+    if (k_lo < k_hi) load(k_lo);
+    for (int k0 = k_lo; k0 < k_hi; k0 += F_BK) {
+#pragma unroll
+        for (int u = 0; u < XU; ++u) {
+            const int i = threadIdx.x + u * F_THREADS;
+            xs[i % F_BK][i / F_BK] = xr[u];
+        }
+#pragma unroll
+        for (int u = 0; u < WU; ++u) {
+            const int i = threadIdx.x + u * F_THREADS;
+            ws[i / F_BN][i % F_BN] = wr[u];
+        }
+        __syncthreads();
+        if (k0 + F_BK < k_hi) load(k0 + F_BK);  // the next slice, in flight while this one runs
+#pragma unroll 8
+        for (int kk = 0; kk < F_BK; ++kk) {
+            float a[TM], b[4];
+#pragma unroll
+            for (int i = 0; i < TM; ++i) a[i] = xs[kk][ty * TM + i];
+#pragma unroll
+            for (int j = 0; j < 4; ++j) b[j] = ws[kk][tx * 4 + j];
+#pragma unroll
+            for (int i = 0; i < TM; ++i)
+#pragma unroll
+                for (int j = 0; j < 4; ++j) acc[i][j] = fmaf(a[i], b[j], acc[i][j]);
+        }
+        __syncthreads();
+    }
+    float* dst = gridDim.z > 1 ? partial + (long long)blockIdx.z * M * N : out;
+#pragma unroll
+    for (int i = 0; i < TM; ++i) {
+        const int gr = row0 + ty * TM + i;
+        if (gr >= M) continue;
+#pragma unroll
+        for (int j = 0; j < 4; ++j) {
+            const int gc = col0 + tx * 4 + j;
+            if (gc < N)
+                dst[(long long)gr * N + gc] = gridDim.z > 1 ? acc[i][j] : acc[i][j] * scale[gc];
+        }
+    }
+}
+
+// out[m, n] = (sum over the splits, in order, of partial[s, m, n]) * scale[n]
+__global__ void f32_gemm_reduce_kernel(const float* __restrict__ partial,
+                                       const float* __restrict__ scale, float* __restrict__ out,
+                                       long long MN, int N, int splits) {
+    for (long long i = blockIdx.x * (long long)blockDim.x + threadIdx.x; i < MN;
+         i += (long long)gridDim.x * blockDim.x) {
+        float s = 0.f;
+        for (int z = 0; z < splits; ++z) s += partial[z * MN + i];
+        out[i] = s * scale[i % N];
+    }
+}
+
+}  // namespace w8
+}  // namespace mosstts
+
+// ``partial`` holds splits * M * N floats when splits > 1 (unused otherwise);
+// each split takes k_per_split rows of K (a multiple of 32); a block covers
+// ``tile_rows`` (16 or 64) rows of M.
+extern "C" int mosstts_w8f32_gemm(const float* x, long long ldx, const int8_t* w, long long ldw,
+                                  const float* scale, float* out, float* partial, int M, int K,
+                                  int N, int splits, int k_per_split, int tile_rows,
+                                  void* stream) {
+    using namespace mosstts::w8;
+    if (M <= 0 || K <= 0 || N <= 0 || ldx < K || ldw < N || splits < 1 ||
+        k_per_split % F_BK != 0 || (long long)splits * k_per_split < K ||
+        (splits > 1 && partial == nullptr) || (tile_rows != 16 && tile_rows != 64))
+        return (int)cudaErrorInvalidValue;
+    const dim3 grid((N + F_BN - 1) / F_BN, (M + tile_rows - 1) / tile_rows, splits);
+    if (grid.y > 65535 || grid.z > 65535) return (int)cudaErrorInvalidValue;
+    cudaStream_t s = static_cast<cudaStream_t>(stream);
+    if (tile_rows == 16)
+        f32_gemm_kernel<1><<<grid, F_THREADS, 0, s>>>(x, ldx, w, ldw, scale, out, partial, M, K,
+                                                      N, k_per_split);
+    else
+        f32_gemm_kernel<4><<<grid, F_THREADS, 0, s>>>(x, ldx, w, ldw, scale, out, partial, M, K,
+                                                      N, k_per_split);
+    cudaError_t err = cudaGetLastError();
+    if (err != cudaSuccess || splits == 1) return (int)err;
+    const long long MN = (long long)M * N;
+    const int blocks = (int)std::min<long long>((MN + 255) / 256, 4096);
+    f32_gemm_reduce_kernel<<<blocks, 256, 0, s>>>(partial, scale, out, MN, N, splits);
+    return (int)cudaGetLastError();
 }

@@ -60,9 +60,16 @@ the slot's generator, so a seeded request reproduces whatever slot it
 lands in; the draws are PyTorch's, not JAX's threefry bits, so
 cross-framework parity holds for greedy requests. A preempted request
 resumes with its own sampling overrides and seed (the JAX server requeues
-it without them, so it resumes at the server's defaults). ``mesh=`` is not
-ported. The server serves whatever params it is given, int8 weights
-(``DelayEngine.quantize``) included, in all four cache modes.
+it without them, so it resumes at the server's defaults). The server
+serves whatever params it is given, int8 weights (``DelayEngine.quantize``)
+included, in all four cache modes.
+
+``mesh=`` (``parallel.mesh.make_mesh``) serves the model tensor-parallel over
+``"model"``: the params are sharded in place (``delay_param_specs``), each
+rank's caches hold its KV heads, and every rank runs the same scheduler on
+the same requests (SPMD), its steps' collectives inside the graphs. The
+batch-1 prefill splice cannot split the batch, so, as in JAX, a mesh with
+``data > 1`` raises ``ValueError``.
 """
 from __future__ import annotations
 
@@ -82,6 +89,7 @@ from ..models.delay import (
     DelaySampling,
     delay_decode_until_event,
     make_sampling,
+    rank_delay_config,
 )
 from ..nn.qwen3 import init_kv_cache, init_paged_kv_cache, init_quant_kv_cache
 from ..ops.sampling import row_generators
@@ -190,9 +198,19 @@ class DelayBatchServer:
         page_size: int = 128,
         num_pages: Optional[int] = None,
         graphs: bool = True,
+        mesh=None,
     ):
+        self.mesh = mesh
+        if mesh is not None:
+            from ..parallel.mesh import delay_param_specs, shard_params
+
+            if mesh.size(mesh.mesh_dim_names.index("data")) != 1:
+                raise ValueError("DelayBatchServer mesh must have data=1 (batch-1 prefill "
+                                 "splice); shard the backbone on 'model' only")
+            shard_params(params, mesh, delay_param_specs())
         self.params = params
         self.config = config
+        self._cache_config = rank_delay_config(config, params)  # this rank's KV heads
         self.device = params.text_head.device
         self.slots = slots
         self.cache_len = cache_len
@@ -267,7 +285,8 @@ class DelayBatchServer:
         self._steps = DecodeSteps(params, config, self.state, self._samp_dev, graphs=graphs)
         # the admissions' static batch-1 state (a linear cache of cache_len
         # slots), sampling and generator, and the prefill graphs over them
-        self._small = zero_state(config, 1, cache_len, 1, dtype=dtype, kv_quant=kv_quant,
+        self._small = zero_state(self._cache_config, 1, cache_len, 1, dtype=dtype,
+                                 kv_quant=kv_quant,
                                  rng=[torch.Generator(device=dev)], device=dev)
         self._prefill_samp = make_sampling(
             audio_rp_cross_batch=bool(d.audio_rp_cross_batch), device=dev)
@@ -276,7 +295,7 @@ class DelayBatchServer:
     # ------------------------------------------------------------------
     def _empty_state(self) -> DelayGenState:
         B, C, dev = self.slots, self.config.channels, self.device
-        lc = self.config.language_config
+        lc = self._cache_config.language_config
         if self.paged:
             cache = init_paged_kv_cache(lc, B, self.cache_len, self.num_pages,
                                         page_size=self.page_size, dtype=self.dtype,

@@ -19,6 +19,17 @@ bucket (its ``_get_step``). ``on_device=False`` polls the stop flags every
 ``delay_generate_on_device``, whose replays read the stop flags one step
 behind the device (JAX: one ``lax.while_loop`` program per segment). ``graphs=False`` runs the same prefills and steps
 eagerly on the card, to compare; the CPU always runs them eagerly.
+
+``mesh=`` (``parallel.mesh.make_mesh``; every rank makes the same calls)
+shards the params in place on ``"model"`` (``delay_param_specs``: each
+rank's steps hold its heads and run their collectives inside the graphs)
+and the batch on ``"data"``: ``generate`` needs ``B % data == 0``, each
+data rank decodes its block of rows (their generators seeded as those rows
+of the whole batch), the stop flags are gathered over ``"data"`` after
+every step so all ranks run the same steps, and every rank returns every
+row. ``quantize()`` under a mesh gives each output channel of a
+row-parallel weight the scale of the whole input dimension
+(``ops.quant.quantize_tree_``), so int8 weights are those of one device.
 """
 from __future__ import annotations
 
@@ -29,9 +40,11 @@ import numpy as np
 import torch
 
 from ..core.config import DelayConfig
-from ..models.delay import DelayParams, delay_generate_on_device, init_delay_params, make_sampling
+from ..models.delay import (DelayParams, delay_generate_on_device, init_delay_params,
+                            make_sampling, rank_delay_config)
 from ..ops.quant import quantize_tree_
 from ..ops.sampling import reseed_generators_, row_generators
+from ..ops.collectives import gather
 from .step_graph import DecodeSteps, Prefills, host_tensor, zero_state
 
 # prefill graphs kept per decode state. The key holds the prompt's exact
@@ -62,12 +75,20 @@ class DelayEngine:
     ``hidden_out_layers`` (1 + n_vq indices into the backbone's hidden
     states) sources each head from its own layer. ``graphs`` (on the card):
     replay each prefill and decode step as a CUDA graph; False runs them
-    eagerly, to compare."""
+    eagerly, to compare. ``mesh``: tensor and data parallelism (see the
+    module docstring)."""
 
     def __init__(self, params: DelayParams, config: DelayConfig, *, dtype=torch.bfloat16,
                  cache_bucket: int = 256, top_k_text: int = 50, top_k_audio: int = 25,
                  hidden_out_layers: Optional[tuple] = None, kv_quant: bool = False,
-                 device=None, graphs: bool = True):
+                 device=None, graphs: bool = True, mesh=None):
+        self.mesh = mesh
+        self._data = None  # the "data" axis of a mesh
+        if mesh is not None:
+            from ..parallel.mesh import delay_param_specs, mesh_axis, shard_params
+
+            shard_params(params, mesh, delay_param_specs())
+            self._data = mesh_axis(mesh, "data")
         self.params = params
         self.config = config
         self.dtype = dtype
@@ -126,10 +147,19 @@ class DelayEngine:
             self._steps.clear()  # the old cache, buffers and graphs go first
             self._prefills.clear()
             dev = self.device
-            state = zero_state(self.config, B, cache_len, cache_len, dtype=self.dtype,
+            state = zero_state(rank_delay_config(self.config, self.params), B, cache_len,
+                               cache_len, dtype=self.dtype,
                                kv_quant=self.kv_quant, rng=row_generators(0, B, dev), device=dev)
             steps = self._steps[key] = DecodeSteps(
                 self.params, self.config, state, make_sampling(device=dev), graphs=self.graphs)
+            if self._data is not None:  # every data rank's stop flags, after each step
+                data, flags = self._data, torch.zeros((B * self._data.size,), dtype=torch.bool,
+                                                      device=dev)
+
+                def sync(st=state):
+                    flags.copy_(gather(st.is_stopping.to(torch.uint8), 0, data))
+
+                steps.flags, steps.sync = flags, sync
             self._prefills[key] = Prefills(steps, state, steps.sampling,
                                            max_graphs=PREFILL_GRAPHS)
         return steps, self._prefills[key]
@@ -164,6 +194,16 @@ class DelayEngine:
                 raise ValueError(f"input_ids must have {cfg.channels} channels, got {C}")
             if attention_mask is None:
                 attention_mask = np.ones((B, T), bool)
+            first = 0  # this rank's first row
+            if self._data is not None:
+                n = self._data.size
+                if B % n:
+                    raise ValueError(f"batch {B} not divisible by mesh data axis {n}")
+                first = self._data.index * (B // n)
+                rows = slice(first, first + B // n)
+                ids_rank, mask_rank = input_ids[rows], np.asarray(attention_mask)[rows]
+            else:
+                ids_rank, mask_rank = input_ids, attention_mask
 
             self.top_k_text = text_top_k
             self.top_k_audio = audio_top_k
@@ -175,14 +215,16 @@ class DelayEngine:
             )
             cache_len = _round_up(T + max_new_tokens + 1, self.cache_bucket)
 
-            runner, prefills = self._decode_steps(B, cache_len)
+            runner, prefills = self._decode_steps(ids_rank.shape[0], cache_len)
             state, samp = runner.state, runner.sampling
             for static, value in zip(samp, sampling):
                 static.copy_(value)
-            reseed_generators_(state.rng, seed)
+            reseed_generators_(state.rng, seed, first_row=first)
             kw = dict(top_k_text=self.top_k_text, top_k_audio=self.top_k_audio,
                       hidden_out_layers=self.hidden_out_layers)
-            prefills.run(host_tensor(input_ids, dev), host_tensor(attention_mask, dev), **kw)
+            prefills.run(host_tensor(ids_rank, dev), host_tensor(mask_rank, dev), **kw)
+            if runner.sync is not None:
+                runner.sync()
             kw["uniform_slots"] = True
             steps = 1
             if on_device:
@@ -192,17 +234,18 @@ class DelayEngine:
                     seg_end = min(attend - T - 1, max_new_tokens)
                     _, steps = delay_generate_on_device(runner, max_new_tokens=seg_end,
                                                         attend_len=attend, **kw)
-                    if bool(state.is_stopping.all()):
+                    if bool(runner.flags.all()):
                         break
             else:
                 while steps < max_new_tokens:
                     attend = attend_bucket(T + steps + 1, self.cache_bucket, cache_len)
                     runner.step(attend_len=attend, **kw)
                     steps += 1
-                    if steps % poll_every == 0 and bool(state.is_stopping.all()):
+                    if steps % poll_every == 0 and bool(runner.flags.all()):
                         break
 
-            out = state.out[:, :steps].cpu().numpy().astype(np.int64)  # (B, steps, C)
+            out = gather(state.out[:, :steps].contiguous(), 0, self._data)  # every row
+            out = out.cpu().numpy().astype(np.int64)  # (B, steps, C)
             full = np.concatenate([input_ids, out], axis=1)
             # slice from the last <|im_start|> + 3 (reference generate :518-524)
             results: List[Tuple[int, np.ndarray]] = []

@@ -246,6 +246,11 @@ class DecodeSteps(GraphSteps):
                  sampling: DelaySampling, *, graphs: bool = True):
         super().__init__(params, "text_head", state.pos.device, graphs=graphs)
         self.cfg, self.state, self.sampling = cfg, state, sampling
+        # the stop flags the loops read (``models.delay._lagged_steps``): the
+        # state's own, or, for a data-parallel engine, every rank's rows,
+        # which ``sync`` (run after each step) gathers
+        self.flags = state.is_stopping
+        self.sync: Optional[Callable[[], None]] = None
 
     @torch.no_grad()
     def step(self, *, attend_len: Optional[int], uniform_slots: bool, top_k_text: int,
@@ -254,6 +259,8 @@ class DecodeSteps(GraphSteps):
         key = (attend_len, uniform_slots, top_k_text, top_k_audio,
                None if hidden_out_layers is None else tuple(hidden_out_layers))
         self.run_key(key, lambda: self._eager(key), self.state.rng)
+        if self.sync is not None:
+            self.sync()
 
     def _eager(self, key) -> None:
         attend_len, uniform_slots, top_k_text, top_k_audio, hol = key

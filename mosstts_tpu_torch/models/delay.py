@@ -2,9 +2,10 @@
 
 Ports ``mosstts_tpu/models/delay.py``: ``init_delay_params``,
 ``delay_embed``, ``_audio_head_logits``, ``delay_forward`` (with
-``hidden_out_layers``; no pipeline, no ``text_lazy``),
+``hidden_out_layers``, ``text_lazy`` and ``pipeline``),
 ``DelaySampling``/``make_sampling``, ``DelayGenState``, ``delay_prefill``,
-``_text_preds``, ``_sample_text_full``, ``_delay_sample_and_update``,
+``_text_preds``, ``_sample_text_full``, ``_sample_text_lazy``,
+``_delay_sample_and_update``,
 ``delay_decode_step``, ``delay_decode_until_event``,
 ``delay_generate_on_device``, and the training loss ``delay_loss`` with
 ``delay_train_step``. The 32 audio tables and 33 heads stay stacked
@@ -12,6 +13,16 @@ Ports ``mosstts_tpu/models/delay.py``: ``init_delay_params``,
 projection are one gather and one batched product. The heads may be int8
 ``QuantWeight``s (``ops/quant.py``, ``DelayEngine.quantize``): the text head
 goes through ``dense``, the audio stack through one W8A16 launch.
+
+Tensor parallelism (``parallel/mesh.delay_param_specs``): the text
+embedding is split by vocab rows (a masked lookup), the audio tables by
+codebooks; this rank's part of the embedding sum is summed over the
+``"model"`` axis once. The text head is split by vocab columns and the
+audio heads by codebooks: each ends in an ``all_gather`` to the full
+logits, so every rank samples the same tokens from identically seeded
+generators. Under data parallelism the loss sums and label counts are
+summed over ``"data"`` before the division (the loss is normalised by the
+global count of valid labels, as JAX's is).
 
 State updates follow the JAX package's order: ``kv_valid[pos]`` is set by
 the sampler, before the next forward writes K/V at ``pos``; ``pos``
@@ -21,6 +32,7 @@ buffer are dropped, as JAX's ``mode="drop"`` does, by masking. The cache,
 """
 from __future__ import annotations
 
+import dataclasses
 from typing import Any, Callable, List, NamedTuple, Optional, Sequence, Tuple
 
 import numpy as np
@@ -29,7 +41,7 @@ from torch import nn
 
 from ..core.config import DelayConfig
 from ..nn.qwen3 import (Qwen3Params, empty_param, fill_qwen3_params_, init_kv_cache,
-                        init_quant_kv_cache, qwen3_forward)
+                        init_quant_kv_cache, qwen3_forward, rank_config)
 from ..ops.basic import dense, put_drop_
 from ..ops.kernels import w8_gemm
 from ..ops.quant import is_quantized
@@ -40,6 +52,7 @@ from ..ops.sampling import (
     sample_topk_topp,
     seen_mask_update,
 )
+from ..ops.collectives import axis_of, enter, gather, reduce, vocab_lookup
 
 SENTINEL = 1 << 30  # int32 in the state tensors
 NEG_INF = -1e30
@@ -71,16 +84,29 @@ def init_delay_params(cfg: DelayConfig, *, generator: torch.Generator, dtype=tor
     return params
 
 
+def rank_delay_config(cfg: DelayConfig, params: DelayParams) -> DelayConfig:
+    """``cfg`` with the backbone's head counts of ``params``' own weights
+    (``nn.qwen3.rank_config``): a tensor-parallel rank's caches hold its KV
+    heads."""
+    return dataclasses.replace(cfg, language_config=rank_config(cfg.language_config,
+                                                                params.backbone))
+
+
 def delay_embed(params: DelayParams, cfg: DelayConfig, ids: torch.Tensor) -> torch.Tensor:
     """Ports ``mosstts_tpu.models.delay.delay_embed``: ids (B, T, 1+n_vq) ->
     summed embeddings (B, T, D). Channel 0 uses the text embedding, channels
-    1..n_vq the stacked audio tables."""
+    1..n_vq the stacked audio tables. Under tensor parallelism this rank
+    looks up its vocab rows and its codebooks, and the ranks' sums are
+    summed."""
     Va = cfg.audio_emb_vocab
-    emb = params.backbone.embed[ids[..., 0].long()]
-    flat = params.audio_emb.reshape(cfg.n_vq * Va, -1)
-    offs = torch.arange(cfg.n_vq, device=ids.device) * Va
-    audio = flat[ids[..., 1:].long() + offs]  # (B, T, n_vq, D)
-    return emb + audio.to(emb.dtype).sum(dim=-2)
+    tp = axis_of(params, "model")
+    emb = vocab_lookup(params.backbone.embed, ids[..., 0].long(), tp)
+    n = params.audio_emb.shape[0]  # this rank's codebooks
+    lo = 0 if tp is None else tp.index * n
+    flat = params.audio_emb.reshape(n * Va, -1)
+    offs = torch.arange(n, device=ids.device) * Va
+    audio = flat[ids[..., 1 + lo:1 + lo + n].long() + offs]  # (B, T, n, D)
+    return reduce(emb + audio.to(emb.dtype).sum(dim=-2), tp)
 
 
 def _audio_head_logits(hidden: torch.Tensor, heads) -> torch.Tensor:
@@ -140,7 +166,9 @@ def delay_forward(
     attend_len: Optional[int] = None,
     hidden_out_layers: Optional[Sequence[int]] = None,
     logits_len: Optional[int] = None,
+    text_lazy: bool = False,
     remat: bool = False,
+    pipeline=None,
 ):
     """Ports ``mosstts_tpu.models.delay.delay_forward``. Returns
     (text_logits (B, T, V) f32, audio_logits (B, T, n_vq, Va) f32, cache);
@@ -149,17 +177,38 @@ def delay_forward(
     ``hidden_out_layers`` (1 + n_vq indices into HF's hidden states: 0 the
     embeddings, -1 the final-normed last layer) sources the text head
     (entry 0) and each audio head from its own backbone layer. ``remat``
-    (no cache) recomputes the backbone's layers in the backward pass."""
+    (no cache) recomputes the backbone's layers in the backward pass.
+    ``text_lazy`` returns the text head's source hidden state (B, T, D) in
+    place of the text logits (``_sample_text_lazy`` projects it).
+    ``pipeline=(mesh, n_micro)`` (training, no cache) runs the backbone's
+    layers as a GPipe schedule over the mesh's ``"stage"`` axis
+    (``parallel/pipeline.py``); the embeddings and the heads stay
+    replicated."""
     embeds = delay_embed(params, cfg, ids)
     lc = cfg.language_config
+    tp = axis_of(params, "model")
     kw = dict(positions=positions, kv_valid=kv_valid, cache=cache, cache_offset=cache_offset,
               attend_len=attend_len, remat=remat)
+    if text_lazy and tp is not None:
+        raise ValueError("text_lazy takes an unsharded text head")
     if hidden_out_layers is None:
-        hidden, cache = qwen3_forward(params.backbone, lc, embeds, **kw)
+        if pipeline is not None:
+            if cache is not None:
+                raise ValueError("pipeline= is a training-path option (no cache)")
+            from ..parallel.pipeline import pipelined_qwen3_forward
+
+            pp_mesh, n_micro = pipeline
+            hidden = pipelined_qwen3_forward(params.backbone, lc, embeds, positions=positions,
+                                             kv_valid=kv_valid, mesh=pp_mesh, n_micro=n_micro,
+                                             remat=remat)
+        else:
+            hidden, cache = qwen3_forward(params.backbone, lc, embeds, **kw)
         if logits_len is not None:
             hidden = hidden[:, -logits_len:]
-        text_logits = dense(hidden, params.text_head).float()
-        audio_logits = _audio_head_logits(hidden, params.audio_heads)
+        hidden = enter(hidden, tp)
+        text_logits = (hidden if text_lazy else
+                       gather(dense(hidden, params.text_head).float(), -1, tp))
+        audio_logits = gather(_audio_head_logits(hidden, params.audio_heads), 2, tp)
     else:
         if len(hidden_out_layers) != 1 + cfg.n_vq:
             raise ValueError("hidden_out_layers must have 1 + n_vq entries")
@@ -169,9 +218,13 @@ def delay_forward(
                                            output_hidden_states=True, **kw)
         if logits_len is not None:
             states = [h[:, -logits_len:] for h in states]
-        text_logits = dense(states[idxs[0]], params.text_head).float()
-        audio_logits = _per_head_logits(torch.stack([states[i] for i in idxs[1:]]),
-                                        params.audio_heads)
+        n = params.audio_heads.shape[0]  # this rank's codebooks
+        lo = 0 if tp is None else tp.index * n
+        text_logits = (states[idxs[0]] if text_lazy else
+                       gather(dense(enter(states[idxs[0]], tp), params.text_head).float(), -1, tp))
+        audio_logits = gather(_per_head_logits(
+            torch.stack([enter(states[i], tp) for i in idxs[1 + lo:1 + lo + n]]),
+            params.audio_heads), 2, tp)
     audio_logits[..., -1] = NEG_INF
     return text_logits, audio_logits, cache
 
@@ -271,8 +324,9 @@ def delay_prefill(
         raise ValueError(f"need one generator per row: {len(rng)} for batch {B}")
 
     if cache is None:
-        cache = (init_quant_kv_cache(cfg.language_config, B, cache_len, device=dev) if kv_quant
-                 else init_kv_cache(cfg.language_config, B, cache_len, dtype=dtype, device=dev))
+        lc = rank_delay_config(cfg, params).language_config  # this rank's KV heads
+        cache = (init_quant_kv_cache(lc, B, cache_len, device=dev) if kv_quant
+                 else init_kv_cache(lc, B, cache_len, dtype=dtype, device=dev))
     else:
         if cache.k.shape[1] != B or cache.max_len != cache_len or (
                 len(cache) == 4) != kv_quant:
@@ -360,14 +414,53 @@ def _sample_text_full(gens, cfg: DelayConfig, s: DelaySampling, top_k_text: int,
                             do_sample=s.text_do_sample)
 
 
+def _sample_text_lazy(gens, cfg: DelayConfig, s: DelaySampling, top_k_text: int,
+                      hidden: torch.Tensor,  # (B, D) the text head's source hidden
+                      text_head, sampling_text, is_audio, first_step, early) -> torch.Tensor:
+    """Ports ``mosstts_tpu.models.delay._sample_text_lazy``: the text
+    sample with the full-vocab head projected only when some row samples
+    free text. Inside audio blocks the channel allows only the gen and
+    delay slots, so when no row samples free text a 2-column projection
+    replaces the full one (the same greedy tokens; the columns in vocab
+    order keep the full path's tie-breaking). JAX decides behind a
+    ``lax.cond``; here the decision is a host read of the flags, so a CUDA
+    graph cannot hold it: capturing this function raises. JAX records a
+    net loss for it on its own device, and no engine turns it on."""
+    if hidden.device.type == "cuda" and torch.cuda.is_current_stream_capturing():
+        raise ValueError("text_lazy decides on the host: a CUDA graph cannot capture it; "
+                         "run these steps eagerly")
+    if bool((sampling_text & ~is_audio).any()):
+        logits = dense(hidden, text_head).float() / align_rows(s.text_temperature, 2)
+        return _sample_text_full(gens, cfg, s, top_k_text, logits, is_audio, first_step, early)
+    ids2 = sorted((cfg.audio_assistant_gen_slot_token_id,
+                   cfg.audio_assistant_delay_slot_token_id))
+    delay_col = ids2.index(cfg.audio_assistant_delay_slot_token_id)
+    cols = torch.tensor(ids2, dtype=torch.long, device=hidden.device)
+    if is_quantized(text_head):
+        w2 = text_head.q.index_select(1, cols).to(hidden.dtype)
+        logits2 = torch.matmul(hidden.float(), w2.float()) * text_head.scale[cols]
+    else:
+        logits2 = torch.matmul(hidden.float(), text_head.index_select(1, cols).float())
+    # dense()'s rounding to the activation dtype, so the logits match it
+    logits2 = logits2.to(hidden.dtype).float() / align_rows(s.text_temperature, 2)
+    logits2 = torch.where(first_step[:, None] & (torch.arange(2, device=hidden.device)
+                                                 == delay_col)[None], NEG_INF, logits2)
+    choice = sample_topk_topp(gens, logits2, top_k=2, top_p=s.text_top_p,
+                              do_sample=s.text_do_sample)
+    return cols[choice.long()].to(torch.int32)
+
+
 def _delay_sample_and_update(
     state: DelayGenState, cfg: DelayConfig, s: DelaySampling,
     top_k_text: int, top_k_audio: int,
-    text_logits: torch.Tensor,  # (B, V)
+    text_logits: torch.Tensor,  # (B, V); or (B, D) hidden when text_head is given
     audio_logits: torch.Tensor,  # (B, n_vq, Va)
+    text_head=None,
 ) -> DelayGenState:
     """Ports ``mosstts_tpu.models.delay._delay_sample_and_update``: one
-    iteration of the delay state machine given this step's logits."""
+    iteration of the delay state machine given this step's logits. With
+    ``text_head``, ``text_logits`` is the head's source hidden state and
+    the projection is deferred (``_sample_text_lazy``)."""
     B = text_logits.shape[0]
     n_vq = cfg.n_vq
     dev = text_logits.device
@@ -377,9 +470,13 @@ def _delay_sample_and_update(
     # ---- text channel ----
     (not_stop, forced_delay, forced_end, sampling_text, is_audio,
      first_step, early) = _text_preds(state, cfg)
-    sampled_text = _sample_text_full(
-        state.rng, cfg, s, top_k_text, text_logits / align_rows(s.text_temperature, 2),
-        is_audio, first_step, early)
+    if text_head is not None:
+        sampled_text = _sample_text_lazy(state.rng, cfg, s, top_k_text, text_logits, text_head,
+                                         sampling_text, is_audio, first_step, early)
+    else:
+        sampled_text = _sample_text_full(
+            state.rng, cfg, s, top_k_text, text_logits / align_rows(s.text_temperature, 2),
+            is_audio, first_step, early)
     next_text = torch.full((B,), cfg.pad_token_id, dtype=torch.int32, device=dev)
     next_text = torch.where(sampling_text, sampled_text, next_text)
     next_text = torch.where(forced_delay, cfg.audio_assistant_delay_slot_token_id, next_text)
@@ -440,21 +537,25 @@ def delay_decode_step(
     attend_len: Optional[int] = None,
     uniform_slots: bool = False,
     hidden_out_layers: Optional[Sequence[int]] = None,
+    text_lazy: bool = False,
 ) -> DelayGenState:
     """Ports ``mosstts_tpu.models.delay.delay_decode_step``: forward the
     pending frame, then run the state machine once. ``uniform_slots`` says
     every row's cache cursor is equal (the solo engine: one slice write at
     ``pos[0]``); by default each row writes at its own cursor ``pos[b]``, as
-    the continuous-batching server needs."""
+    the continuous-batching server needs. ``text_lazy`` projects the text
+    head only when a row samples free text (``_sample_text_lazy``; eager
+    steps only)."""
     positions = state.pos[:, None]
     text_logits, audio_logits, cache = delay_forward(
         params, cfg, state.cur_ids, positions=positions, kv_valid=state.kv_valid,
         cache=state.cache, cache_offset=state.pos[0] if uniform_slots else state.pos,
-        attend_len=attend_len, hidden_out_layers=hidden_out_layers,
+        attend_len=attend_len, hidden_out_layers=hidden_out_layers, text_lazy=text_lazy,
     )
     state = state._replace(cache=cache, pos=state.pos + 1)
     return _delay_sample_and_update(state, cfg, sampling, top_k_text, top_k_audio,
-                                    text_logits[:, -1], audio_logits[:, -1])
+                                    text_logits[:, -1], audio_logits[:, -1],
+                                    text_head=params.text_head if text_lazy else None)
 
 
 def _lagged_steps(step: Callable[[], None], flags: torch.Tensor, n: int,
@@ -519,29 +620,36 @@ def delay_loss(
     labels: torch.Tensor,  # (B, T, C), -100 = ignore
     channelwise_loss_weight: Optional[torch.Tensor] = None,  # (C,)
     remat: bool = False,
+    pipeline=None,
 ):
-    """Ports ``mosstts_tpu.models.delay.delay_loss`` (no ``pipeline``): the
+    """Ports ``mosstts_tpu.models.delay.delay_loss``: the
     multi-channel cross-entropy, summed per sample and channel and divided
     by the count of valid labels; with ``channelwise_loss_weight``, the
     weighted mean of the per-channel losses instead. Returns (loss,
     {"channel_losses" (C,), "token_counts" (C,)}). The pad code's logit is
     -inf (``delay_forward``), so a pad label would make the loss infinite:
-    data never trains one (``train/data.py``)."""
+    data never trains one (``train/data.py``). A data-parallel rank holds
+    its block of the batch; the sums and counts are summed over ``"data"``
+    (``pipeline``: the GPipe schedule of ``delay_forward``)."""
     B, T, C = ids.shape
     positions = torch.arange(T, dtype=torch.int32, device=ids.device)[None].expand(B, T)
     text_logits, audio_logits, _ = delay_forward(params, cfg, ids, positions=positions,
-                                                 kv_valid=attention_mask.bool(), remat=remat)
+                                                 kv_valid=attention_mask.bool(), remat=remat,
+                                                 pipeline=pipeline)
     s0, c0 = ce_sums(text_logits, labels[..., 0])  # (B,)
     sa, ca = ce_sums(audio_logits.transpose(1, 2), labels[..., 1:].transpose(1, 2))  # (B, n_vq)
     all_sum = torch.cat([s0[:, None], sa], dim=1)  # (B, C)
     all_cnt = torch.cat([c0[:, None], ca], dim=1)
-    ch_loss = all_sum.sum(0) / all_cnt.sum(0).float().clamp(min=1.0)
+    dp = axis_of(params, "data")
+    sums, counts = reduce(all_sum.sum(0), dp), reduce(all_cnt.sum(0), dp)  # (C,)
+    ch_loss = sums / counts.float().clamp(min=1.0)
     if channelwise_loss_weight is not None:
         w = torch.as_tensor(channelwise_loss_weight, dtype=torch.float32, device=ids.device)
         loss = (ch_loss * w).sum() / w.sum()
     else:
-        loss = all_sum.sum() / all_cnt.sum().float().clamp(min=1.0)
-    return loss, {"channel_losses": ch_loss, "token_counts": all_cnt.sum(0)}
+        loss = (reduce(all_sum.sum(), dp)
+                / reduce(all_cnt.sum(), dp).float().clamp(min=1.0))
+    return loss, {"channel_losses": ch_loss, "token_counts": counts}
 
 
 def delay_train_step(params: DelayParams, cfg: DelayConfig, batch, lr: float = 1e-4):
@@ -552,6 +660,8 @@ def delay_train_step(params: DelayParams, cfg: DelayConfig, batch, lr: float = 1
 
     loss, aux, grads = value_and_grad(params, lambda p: delay_loss(
         p, cfg, batch["input_ids"], batch["attention_mask"], batch["labels"]))
+    dp = axis_of(params, "data")  # a data-parallel rank's rows: the shares summed
+    grads = {k: reduce(g, dp) for k, g in grads.items()}
     with torch.no_grad():
         for name, p in params.named_parameters():
             p.sub_(lr * grads[name].to(p.dtype))
@@ -584,7 +694,7 @@ def delay_decode_until_event(
     watched = torch.from_numpy(watch)
     kw = dict(top_k_text=top_k_text, top_k_audio=top_k_audio, attend_len=attend_len,
               uniform_slots=uniform_slots, hidden_out_layers=hidden_out_layers)
-    executed, _ = _lagged_steps(lambda: steps.step(**kw), steps.state.is_stopping, max(n, 0),
+    executed, _ = _lagged_steps(lambda: steps.step(**kw), steps.flags, max(n, 0),
                                 lambda f: bool((f & watched).any()))
     return steps.state, executed
 
@@ -613,7 +723,7 @@ def delay_generate_on_device(
     kw = dict(top_k_text=top_k_text, top_k_audio=top_k_audio, attend_len=attend_len,
               uniform_slots=uniform_slots, hidden_out_layers=hidden_out_layers)
     lo, hi = int(state.step.min()), int(state.step.max())
-    n = 0 if bool(state.is_stopping.all()) else max(0, max_new_tokens - lo)
-    executed, at = _lagged_steps(lambda: steps.step(**kw), state.is_stopping, n,
+    n = 0 if bool(steps.flags.all()) else max(0, max_new_tokens - lo)
+    executed, at = _lagged_steps(lambda: steps.step(**kw), steps.flags, n,
                                  lambda f: bool(f.all()))
     return state, hi + (executed if at is None else at)

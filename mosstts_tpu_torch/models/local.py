@@ -45,6 +45,7 @@ from ..ops.basic import dense, head_logits, rms_norm, swiglu
 from ..ops.quant import take_weight
 from ..ops.sampling import (NEG_INF, _categorical, apply_repetition_penalty_seen,
                             window_seen_mask)
+from ..ops.collectives import axis_of, reduce, whole_view
 from .delay import ce_sums
 
 TOPK_WIDTH = 64  # static top-k working set for dynamic per-channel k
@@ -155,7 +156,12 @@ def local_loss(
     first ``n_vq_infer`` audio channels only, as in JAX. Returns (loss,
     {"loss_all" (C,)}). The stacked tables, adapters, norms and heads are
     split once (``unbind``), so each stack's backward is one stack of its
-    per-channel gradients."""
+    per-channel gradients. On a sharded model (``parallel/mesh.py``) the
+    backbone and depth stacks run tensor-parallel, the tables, adapters and
+    heads (indexed per channel) are gathered whole, and each channel's
+    sums and counts are summed over ``"data"``."""
+    tp, dp = axis_of(params, "model"), axis_of(params, "data")
+    params = whole_view(params, tp, keep=("backbone", "local"))
     B, T, C = ids.shape
     lc, lcfg = cfg.language_config, cfg.local_transformer_config
     dev = ids.device
@@ -182,7 +188,7 @@ def local_loss(
 
     def ce(logits, lab):  # the mean over the valid labels of one channel
         total, count = ce_sums(logits.reshape(1, B * T, -1), lab.reshape(1, B * T))
-        return total[0] / count[0].clamp(min=1)
+        return reduce(total[0], dp) / reduce(count[0], dp).clamp(min=1)
 
     eps = lcfg.rms_norm_eps
     y0 = rms_norm(_mlp(params.mlp_out_text, h[:, 0]), params.ln_text, eps)

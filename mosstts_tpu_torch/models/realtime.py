@@ -37,6 +37,7 @@ from ..nn.qwen3 import Qwen3Params, empty_param, fill_qwen3_params_, init_kv_cac
 from ..ops.basic import head_logits
 from ..ops.sampling import (_categorical, align_rows, apply_repetition_penalty_seen,
                             topk_topp_filter, window_seen_mask)
+from ..ops.collectives import axis_of, reduce
 from .delay import ce_sums
 
 REP_WINDOW = 50  # reference default repetition_window (streaming:136)
@@ -120,7 +121,11 @@ def realtime_loss(
     embeds the pad token); the loss is the cross-entropy over the rvq
     codebooks' valid labels at the frames whose audio labels are not all
     -100 (the fixed (B, T) lattice, masked, as in JAX). Returns (loss,
-    {"trained_frames"})."""
+    {"trained_frames"}). On a mesh (``parallel/mesh.py``) the sum and
+    count are summed over ``"data"``; the family's spec table admits no
+    ``"model"`` axis of 2 or more (its rvq and rvq - 1 codebook tables
+    cannot both divide), in JAX as here."""
+    dp = axis_of(params, "data")
     lc, loc = cfg.language_config, cfg.local_config
     lq = local_qwen_cfg(loc)
     B, T, C = ids.shape
@@ -145,7 +150,8 @@ def realtime_loss(
     valid = (audio_labels != -100) & train_mask[..., None]
     labels_masked = torch.where(valid, safe, -100)
     total, count = ce_sums(logits.reshape(1, B * T * R, Va), labels_masked.reshape(1, -1))
-    return total[0] / count[0].clamp(min=1), {"trained_frames": train_mask.sum()}
+    return (reduce(total[0], dp) / reduce(count[0], dp).clamp(min=1),
+            {"trained_frames": train_mask.sum()})
 
 
 class RealtimeSampling(NamedTuple):

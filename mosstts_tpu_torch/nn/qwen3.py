@@ -40,10 +40,22 @@ stacks each weight's per-layer gradients once instead of adding a
 zero-filled stack per layer. ``remat=True`` (no-cache pass only, as in JAX)
 runs each layer's body under ``torch.utils.checkpoint`` (non-reentrant): its
 activations are recomputed in the backward pass instead of stored.
-``final_norm=False`` (pipeline stages) is not ported yet.
+``final_norm=False`` (a pipeline stage's layers) returns the last layer's
+output unnormed.
+
+Tensor parallelism (``parallel/mesh.py``): when ``shard_params`` split the
+stacks over a ``"model"`` axis, this rank holds a contiguous block of the
+query and KV heads (``wq``/``wk``/``wv`` by columns), of the FFN columns
+(``w_gate``/``w_up``) and the matching rows of ``wo`` and ``w_down``. The
+head counts come from the weights' widths, so the same code runs a shard or
+the whole. The layer input enters the column products through
+``collectives.enter``, ``q_norm``/``k_norm`` too (replicated, applied to
+this rank's heads only), and the outputs of ``wo`` and ``w_down`` are
+summed over the axis (``collectives.reduce``), once each per layer.
 """
 from __future__ import annotations
 
+import dataclasses
 from typing import NamedTuple, Optional, Union
 
 import torch
@@ -54,6 +66,7 @@ from ..core.config import Qwen3Config
 from ..ops.attention import gqa_attention, gqa_attention_kvmajor
 from ..ops.basic import apply_rope, dense, put_drop_, rms_norm, rope_cos_sin, swiglu
 from ..ops.kernels import decode_attn, flash, paged_attn
+from ..ops.collectives import axis_of, enter, reduce
 
 
 def empty_param(shape, dtype, device) -> nn.Parameter:
@@ -122,6 +135,15 @@ class QuantPagedKVCache(NamedTuple):
     @property
     def max_len(self) -> int:
         return self.table.shape[1] * self.k.shape[3]
+
+
+def rank_config(cfg: Qwen3Config, params: "Qwen3Params") -> Qwen3Config:
+    """``cfg`` with the head counts of ``params``' own weights: the whole
+    model's, or this rank's block of a tensor-parallel shard (the KV caches
+    of a sharded model hold this rank's KV heads)."""
+    lay = params.layers
+    return dataclasses.replace(cfg, num_attention_heads=lay.wq.shape[-1] // cfg.head_dim,
+                               num_key_value_heads=lay.wk.shape[-1] // cfg.head_dim)
 
 
 def init_kv_cache(cfg: Qwen3Config, batch: int, max_len: int, *,
@@ -297,6 +319,7 @@ def qwen3_forward(
     attend_len: Optional[int] = None,
     output_hidden_states: bool = False,
     remat: bool = False,
+    final_norm: bool = True,
 ):
     """Ports ``mosstts_tpu.nn.qwen3.qwen3_forward``. Returns
     (hidden (B, T, D), cache or None); the cache is updated in place. With
@@ -311,12 +334,21 @@ def qwen3_forward(
     multiple of the page size for a paged cache). A (B,) ``cache_offset``
     gives each row its own write cursor; writes past the capacity drop.
     ``use_rope=False`` applies no rotary embedding to q and k. ``remat``
-    (no cache) recomputes each layer's activations in the backward pass."""
+    (no cache) recomputes each layer's activations in the backward pass.
+    ``final_norm=False`` returns the last layer's output unnormed (a
+    pipeline stage); it cannot be asked with ``output_hidden_states``."""
+    if not final_norm and output_hidden_states:
+        raise ValueError("output_hidden_states ends with the final-normed state; it needs "
+                         "final_norm=True")
     if remat and cache is not None:
         raise ValueError("remat recomputes the no-cache (training) pass only; a cache "
                          "forward has no backward pass")
     B, T, D = inputs_embeds.shape
-    hd, H, KV = cfg.head_dim, cfg.num_attention_heads, cfg.num_key_value_heads
+    lay = params.layers
+    tp = axis_of(params, "model")
+    # this rank's heads: all of them, or its block of a tensor-parallel shard
+    hd = cfg.head_dim
+    H, KV = lay.wq.shape[-1] // hd, lay.wk.shape[-1] // hd
     scale = hd ** -0.5
     eps = cfg.rms_norm_eps
     dev = inputs_embeds.device
@@ -377,7 +409,6 @@ def qwen3_forward(
                 q1, cache.k, cache.k_scale, cache.v, cache.v_scale, kv_valid_a, li, **kw)
         return decode_attn.decode_attention(q1, cache.k, cache.v, kv_valid_a, li, **kw)
 
-    lay = params.layers
     split = None
     if cache is None and torch.is_grad_enabled() and any(p.requires_grad
                                                          for p in lay.parameters()):
@@ -391,9 +422,9 @@ def qwen3_forward(
         def w(name):
             return split[name][li] if split is not None else getattr(lay, name)[li]
 
-        x = rms_norm(hidden, w("ln1"), eps)
-        q = rms_norm(dense(x, w("wq")).reshape(B, T, H, hd), w("q_norm"), eps)
-        k = rms_norm(dense(x, w("wk")).reshape(B, T, KV, hd), w("k_norm"), eps)
+        x = enter(rms_norm(hidden, w("ln1"), eps), tp)
+        q = rms_norm(dense(x, w("wq")).reshape(B, T, H, hd), enter(w("q_norm"), tp), eps)
+        k = rms_norm(dense(x, w("wk")).reshape(B, T, KV, hd), enter(w("k_norm"), tp), eps)
         v = dense(x, w("wv")).reshape(B, T, KV, hd)
         if use_rope:
             q = apply_rope(q, cos, sin)
@@ -421,9 +452,9 @@ def qwen3_forward(
                 attn = attend(q, k_all, v_all, kv_major=True)
         else:
             attn = attend(q, k, v, kv_major=False)
-        hidden = hidden + dense(attn, w("wo"))
-        x = rms_norm(hidden, w("ln2"), eps)
-        return hidden + swiglu(x, w("w_gate"), w("w_up"), w("w_down"))
+        hidden = hidden + reduce(dense(attn, w("wo")), tp)
+        x = enter(rms_norm(hidden, w("ln2"), eps), tp)
+        return hidden + reduce(swiglu(x, w("w_gate"), w("w_up"), w("w_down")), tp)
 
     hidden = inputs_embeds
     states = [inputs_embeds] if output_hidden_states else None
@@ -435,7 +466,8 @@ def qwen3_forward(
         if output_hidden_states:
             states.append(hidden)
 
-    hidden = rms_norm(hidden, params.final_norm, eps)
+    if final_norm:
+        hidden = rms_norm(hidden, params.final_norm, eps)
     if output_hidden_states:
         return hidden, (cache, states[:-1] + [hidden])
     return hidden, cache

@@ -33,12 +33,17 @@ def dense(x: torch.Tensor, w) -> torch.Tensor:
     laid out (in, out), float32 accumulation, output in x's dtype. ``w`` may
     be an int8 ``QuantWeight``/``QuantView`` (``ops/quant.py``):
     ``(x @ q) * scale`` in float32, rounded once, through the W8A16 kernel
-    on CUDA tensors (bf16 activations only, as the JAX package serves int8
-    weights; other dtypes raise there) and its plain version on the CPU."""
+    on CUDA tensors (bf16 activations, as the JAX package serves int8
+    weights), its float32-activation mode for float32 ones (the int8
+    codec's encoder; ``w8_gemm.w8f32_gemm``; other dtypes raise there) and
+    their plain version on the CPU."""
     if not is_quantized(w):
         return torch.matmul(x, w)
+    if x.device.type == "cuda" and x.dtype == torch.float32:
+        return w8_gemm.w8f32_gemm(x.contiguous(), w.q, w.scale)
     if x.device.type == "cuda" and x.dtype != torch.bfloat16:
-        raise TypeError(f"dense: int8 weights take bf16 activations on the card, got {x.dtype}")
+        raise TypeError(f"dense: int8 weights take bf16 or float32 activations on the card, "
+                        f"got {x.dtype}")
     return w8_gemm.w8a16_gemm(x.contiguous(), w.q, w.scale, x.dtype)
 
 

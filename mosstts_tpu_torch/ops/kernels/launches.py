@@ -9,10 +9,14 @@ then say how many times each kernel ran on the device, and ``IN_GRAPHS`` how
 many of those runs were inside replayed graphs. They are exact while one
 thread at a time launches the counted kernels (a server's decode thread, a
 solo engine): a capture takes back whatever the counts gained meanwhile,
-another thread's launches included.
+another thread's launches included. ``COLLECTIVES`` counts, beside the
+kernels and in the same way, the collectives of a sharded model's forward
+(``ops/collectives.py``), which a graph captures and replays as it does
+the kernels.
 """
 from __future__ import annotations
 
+from .. import collectives
 from . import decode_attn, flash, paged_attn, w8_gemm
 
 COUNTERS = {  # name -> (module, attribute) of a wrapper's launch count
@@ -26,17 +30,20 @@ COUNTERS = {  # name -> (module, attribute) of a wrapper's launch count
     "w8a16_bytes": (w8_gemm, "LAUNCHES_W8A16_BYTES"),
     "w8a8": (w8_gemm, "LAUNCHES_W8A8"),
     "int4": (w8_gemm, "LAUNCHES_INT4"),
+    "w8f32": (w8_gemm, "LAUNCHES_W8F32"),
 }
-IN_GRAPHS = dict.fromkeys(COUNTERS, 0)  # launches inside replayed CUDA graphs
+COLLECTIVES = {"nccl": (collectives, "LAUNCHES")}  # not kernels: counted alike
+_ALL = {**COUNTERS, **COLLECTIVES}
+IN_GRAPHS = dict.fromkeys(_ALL, 0)  # launches inside replayed CUDA graphs
 
 
 def read() -> dict:
-    return {name: getattr(mod, attr) for name, (mod, attr) in COUNTERS.items()}
+    return {name: getattr(mod, attr) for name, (mod, attr) in _ALL.items()}
 
 
 def reset() -> None:
-    """Set every wrapper's count and ``IN_GRAPHS`` to 0."""
-    for name, (mod, attr) in COUNTERS.items():
+    """Set every count and ``IN_GRAPHS`` to 0."""
+    for name, (mod, attr) in _ALL.items():
         setattr(mod, attr, 0)
         IN_GRAPHS[name] = 0
 
@@ -47,7 +54,7 @@ def since(before: dict) -> dict:
 
 
 def restore(before: dict) -> None:
-    for name, (mod, attr) in COUNTERS.items():
+    for name, (mod, attr) in _ALL.items():
         setattr(mod, attr, before[name])
 
 
@@ -55,6 +62,6 @@ def add_replay(captured: dict) -> None:
     """One replay of a graph whose capture launched ``captured`` (a
     ``since()``)."""
     for name, n in captured.items():
-        mod, attr = COUNTERS[name]
+        mod, attr = _ALL[name]
         setattr(mod, attr, getattr(mod, attr) + n)
         IN_GRAPHS[name] += n

@@ -15,7 +15,15 @@ PyTorch versions.
   high nibble W[d + D/2]) times x's two halves, f32 out, no scale. Ports
   ``tools/probe_int4.py::mm4_pallas``.
 
-All three are modes of one kernel (``csrc/w8_gemm.cu`` ``ring_kernel``):
+* ``w8f32_gemm``: W8A16's float32-activation mode, ``(x @ q) * scale``
+  with x float32 and f32 out, no rounding of x (the int8 codec's encoder:
+  ``mosstts_tpu/ops/basic.py:28-30`` with f32 activations). A plain tiled
+  kernel of its own (``csrc/w8_gemm.cu`` ``f32_gemm_kernel``, 16- or
+  64-row tiles), K split over ``f32_plan``'s blocks and their partials
+  summed in order by a second kernel (``f32_gemm_reduce_kernel``): two
+  launches a call, deterministic.
+
+The first three are modes of one kernel (``csrc/w8_gemm.cu`` ``ring_kernel``):
 one device kernel per product, whose tile variant and split of K over a
 thread-block cluster (the blocks sum their partials inside the launch)
 ``gemm_plan`` picks; W8A8 first quantizes x's rows in a launch of its own.
@@ -56,6 +64,7 @@ LAUNCHES_W8A16 = 0  # w8a16_gemm kernel launches since the count was last set to
 LAUNCHES_W8A16_BYTES = 0  # of those, launches on byte-loaded (not 16-byte aligned) weight rows
 LAUNCHES_W8A8 = 0  # w8a8_gemm kernel launches
 LAUNCHES_INT4 = 0  # int4_gemm kernel launches
+LAUNCHES_W8F32 = 0  # w8f32_gemm kernel launches
 
 
 def _stack(q: torch.Tensor, scale: Optional[torch.Tensor]):
@@ -389,6 +398,65 @@ def int4_gemm(x: torch.Tensor, packed: torch.Tensor) -> torch.Tensor:
     global LAUNCHES_INT4
     LAUNCHES_INT4 += 1
     return out
+
+
+F32_BN, F32_BK = 64, 32  # csrc/w8_gemm.cu F_BN, F_BK
+
+
+def f32_plan(M: int, K: int, N: int, sm_count: int) -> tuple:
+    """(splits, k_per_split, tile_rows) of a ``w8f32_gemm`` launch: tiles
+    of 16 rows for M <= 16, else 64, by 64 columns; an (M, N) product with
+    small M leaves most SMs idle with those alone, so K is split over about
+    four blocks an SM in all, each split two or more 32-row slices of K."""
+    rows = 16 if M <= 16 else 64
+    tiles = -(-M // rows) * -(-N // F32_BN)
+    slices = -(-K // F32_BK)
+    splits = max(1, min(slices // 2, -(-4 * sm_count // tiles)))
+    per = -(-slices // splits) * F32_BK
+    return -(-K // per), per, rows
+
+
+def w8f32_gemm(x: torch.Tensor, q: torch.Tensor, scale: torch.Tensor) -> torch.Tensor:
+    """x (..., K) float32 with contiguous rows (a contiguous (..., K), or
+    (M, K) rows ldx apart); q (K, N) int8 with contiguous rows ``ldw =
+    q.stride(0) >= N`` bytes apart (a layer of a stack is read in place);
+    scale (N,) f32. Returns (..., N) float32 ``(x @ q) * scale``."""
+    if not _on_cuda("w8f32_gemm", x):
+        return w8a16_gemm_ref(x, q, scale, torch.float32)
+    if x.dtype != torch.float32 or q.dtype != torch.int8 or scale.dtype != torch.float32:
+        raise TypeError(f"w8f32_gemm: x {x.dtype} must be float32, q {q.dtype} int8, "
+                        f"scale {scale.dtype} float32")
+    K = x.shape[-1]
+    rows_ok = x.dim() == 2 and x.stride(-1) == 1 or x.is_contiguous()
+    if (q.dim() != 2 or q.shape[0] != K or q.stride(1) != 1 or q.stride(0) < q.shape[1]
+            or tuple(scale.shape) != (q.shape[1],) or not scale.is_contiguous() or not rows_ok
+            or x.get_device() != q.get_device() or q.get_device() != scale.get_device()):
+        raise ValueError(f"w8f32_gemm: x {tuple(x.shape)} {x.stride()}, q {tuple(q.shape)} "
+                         f"{q.stride()}, scale {tuple(scale.shape)} on one device")
+    M, N = x.numel() // max(K, 1), q.shape[1]
+    out = torch.empty(x.shape[:-1] + (N,), dtype=torch.float32, device=x.device)
+    if M == 0:
+        return out
+    ldx = x.stride(0) if x.dim() == 2 else K
+    splits, per, rows = f32_plan(M, K, N, _sm_count(x.device.index))
+    partial = (torch.empty((splits, M, N), dtype=torch.float32, device=x.device) if splits > 1
+               else None)
+    rc = _entry_f32()(x.data_ptr(), ldx, q.data_ptr(), q.stride(0), scale.data_ptr(),
+                      out.data_ptr(), None if partial is None else partial.data_ptr(), M, K, N,
+                      splits, per, rows, torch._C._cuda_getCurrentRawStream(x.device.index))
+    if rc != 0:
+        raise RuntimeError(f"mosstts_w8f32_gemm kernel launch failed: cudaError {rc}")
+    global LAUNCHES_W8F32
+    LAUNCHES_W8F32 += 1
+    return out
+
+
+@functools.cache
+def _entry_f32():
+    from . import _build
+
+    p, i, ll = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
+    return _build.kernel("mosstts_w8f32_gemm", [p, ll, p, ll, p, p, p, i, i, i, i, i, i, p])
 
 
 @functools.cache

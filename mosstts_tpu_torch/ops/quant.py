@@ -29,7 +29,10 @@ the pad is restored after a move, a copy or an unpickle (``.to()`` and
 from __future__ import annotations
 
 import torch
+import torch.distributed as dist
 from torch import nn
+
+from .collectives import axis_of, reduce, sharded_dims
 
 # weight names eligible for quantization (2-D+ matmul operands; embeddings
 # are gathers and norms are tiny: those stay in their float dtype)
@@ -143,15 +146,18 @@ class QuantWeight(_QuantShape, nn.Module):
         return view
 
 
-def quantize_weight(w: torch.Tensor) -> QuantWeight:
+def quantize_weight(w: torch.Tensor, in_axis=None) -> QuantWeight:
     """Ports ``mosstts_tpu.ops.quant.quantize_weight``: the absmax over the
     ``in`` axis (-2) over 127, floored at 1e-8; values rounded half to even
     (``torch.round``, as ``jnp.round``) and clipped to +-127. The divisor
     127 is a tensor: on CUDA, PyTorch multiplies by the reciprocal of a
     Python-number divisor, which can land one ulp from the division JAX
-    does."""
+    does. ``in_axis`` (a ``ops.collectives.Axis``): ``w`` is this
+    rank's block of rows of a weight split over that axis (row-parallel);
+    the absmax is taken over the whole ``in`` dimension (an ``all_reduce``
+    of the maxima), as JAX quantizes the whole sharded array."""
     wf = w.float()
-    amax = wf.abs().amax(dim=-2)
+    amax = reduce(wf.abs().amax(dim=-2), in_axis, op=dist.ReduceOp.MAX)
     scale = (amax / torch.full_like(amax, 127.0)).clamp_min(1e-8)
     q = torch.clamp(torch.round(wf / scale[..., None, :]), -127, 127).to(torch.int8)
     return QuantWeight(q, scale)
@@ -185,23 +191,33 @@ def quantize_tree_(module: nn.Module) -> nn.Module:
     parameter named in ``MATMUL_KEYS`` with ndim >= 2 becomes a
     ``QuantWeight`` and its float tensor is freed. A stacked weight is
     quantized one leading slice at a time, so the float temporaries stay the
-    size of one layer. Returns ``module``."""
+    size of one layer. On a tensor-parallel shard (``parallel/mesh.py``) a
+    weight split by rows takes the scales of its whole ``in`` dimension
+    (``quantize_weight(in_axis=)``), so the int8 weights equal one device's.
+    Returns ``module``."""
     for mod in list(module.modules()):
         for name, p in list(mod.named_parameters(recurse=False)):
             if isinstance(mod, QuantWeight) or not _eligible(name, p):
                 continue
+            dims = sharded_dims(mod, name)
+            in_axis = axis_of(mod, dims[p.ndim - 2]) if p.ndim - 2 in dims else None
             lead = p.shape[:-2]
             q = torch.empty(p.shape, dtype=torch.int8, device=p.device)
             scale = torch.empty(lead + p.shape[-1:], dtype=torch.float32, device=p.device)
             flat_p = p.reshape((-1,) + p.shape[-2:])
             flat_q, flat_s = q.view((-1,) + p.shape[-2:]), scale.view(-1, p.shape[-1])
             for i in range(flat_p.shape[0]):
-                qi = quantize_weight(flat_p[i])
+                qi = quantize_weight(flat_p[i], in_axis)
                 flat_q[i].copy_(qi.q)
                 flat_s[i].copy_(qi.scale)
             delattr(mod, name)  # drops the module's reference to the float tensor
             del p, flat_p
-            setattr(mod, name, QuantWeight(q, scale))
+            qw = QuantWeight(q, scale)
+            if hasattr(mod, "_mesh_axes"):  # q split as the weight was, scale without ``in``
+                qw._mesh_axes = mod._mesh_axes
+                qw._mesh_dims = {"q": dims, "scale": {
+                    d - (d > q.ndim - 2): a for d, a in dims.items() if d != q.ndim - 2}}
+            setattr(mod, name, qw)
     return module
 
 

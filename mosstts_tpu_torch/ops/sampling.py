@@ -32,11 +32,13 @@ def row_generators(seed: int, batch: int, device) -> list:
     return reseed_generators_([torch.Generator(device=device) for _ in range(batch)], seed)
 
 
-def reseed_generators_(gens: Sequence[torch.Generator], seed: int) -> list:
+def reseed_generators_(gens: Sequence[torch.Generator], seed: int,
+                       first_row: int = 0) -> list:
     """Reseed the generators ``gens`` in place with ``row_generators``'
-    (seed, row) seeds, so they draw what new ones would. A CUDA graph that
-    registered them draws from the new seeds at its next replay."""
-    for row, g in enumerate(gens):
+    (seed, row) seeds, so they draw what new ones would; ``gens[i]`` is row
+    ``first_row + i`` (a data-parallel rank's block of the batch). A CUDA
+    graph that registered them draws from the new seeds at its next replay."""
+    for row, g in enumerate(gens, start=first_row):
         g.manual_seed(_row_seed(seed, row))
     return list(gens)
 

@@ -37,6 +37,7 @@ from typing import Callable, Dict, Iterable, Optional, Tuple
 
 import numpy as np
 import torch
+import torch.distributed as dist
 from torch import nn
 
 Schedule = Callable[[int], float]
@@ -70,6 +71,18 @@ def global_norm(grads: Iterable[torch.Tensor]) -> torch.Tensor:
     """``optax.global_norm``: the square root of the sum of every leaf's
     sum of squares (a 0-dim float32 tensor)."""
     return torch.sqrt(sum((g.float() * g.float()).sum() for g in grads))
+
+
+def sharded_global_norm(grads: Dict[str, torch.Tensor],
+                        replicas: Dict[str, int]) -> torch.Tensor:
+    """``global_norm`` of a model sharded over the world's ranks
+    (``parallel/mesh.py``): each rank's sums of squares, each divided by the
+    number of ranks holding the same block (``replicas``), summed over the
+    world, so a split parameter counts every block once and a replicated
+    one once."""
+    sq = sum((g.float() * g.float()).sum() / replicas[n] for n, g in grads.items())
+    dist.all_reduce(sq)
+    return torch.sqrt(sq)
 
 
 def _clip(g: torch.Tensor, norm: torch.Tensor, max_norm: float) -> torch.Tensor:
@@ -121,6 +134,9 @@ class _Optimizer:
         self.weight_decay = float(weight_decay)
         self.clip_norm = float(clip_norm)
         self.count = 0
+        # name -> ranks holding the same block, for a sharded model (None: the
+        # whole model is here)
+        self.replicas: Optional[Dict[str, int]] = None
 
     @torch.no_grad()
     def step(self, grads: Dict[str, torch.Tensor]) -> torch.Tensor:
@@ -129,7 +145,8 @@ class _Optimizer:
         if set(grads) != set(self.params):
             raise KeyError(f"gradients and parameters differ: "
                            f"{sorted(set(grads) ^ set(self.params))}")
-        norm = global_norm(grads.values())
+        norm = (global_norm(grads.values()) if self.replicas is None
+                else sharded_global_norm(grads, self.replicas))
         # one leaf at a time: no clipped copy of all the gradients
         self._update(lambda name: _clip(grads[name], norm, self.clip_norm))
         self.count += 1

@@ -20,11 +20,24 @@ Realtime families over their losses (``models.delay.delay_loss``,
 
 The parameters are made trainable (``requires_grad_``): the families'
 ``init_*_params`` build frozen ones. The trainer runs on the card unless
-the caller passes ``device="cpu"``. ``mesh=`` and ``pipeline=``
-(data/tensor and pipeline parallelism) are not ported: passing either
-raises. Real data loading is the caller's: ``fit`` consumes any iterator of
-batches ``{"input_ids", "attention_mask", "labels"}`` shaped (B, T, C)
-(``train/data.py``'s ``BucketedLoader`` yields them).
+the caller passes ``device="cpu"``. Real data loading is the caller's:
+``fit`` consumes any iterator of batches ``{"input_ids", "attention_mask",
+"labels"}`` shaped (B, T, C) (``train/data.py``'s ``BucketedLoader`` yields
+them).
+
+Parallel training (SPMD: every rank makes the same calls with the same
+batches; ``parallel/mesh.py``):
+
+* ``mesh=`` (``make_mesh``): the family's spec table shards the parameters
+  on ``"model"`` (tensor parallelism); each ``"data"`` rank takes its block
+  of the batch's rows, the loss sums and counts are summed over ``"data"``
+  and so are the gradients, and the clipping norm counts every block once
+  (``optim.sharded_global_norm``). The optimizer moments are the shards'.
+* ``pipeline=(make_pp_mesh(S[, model]), n_micro)`` (Delay only, as in
+  JAX): each rank holds its stage's layers (and its ``"model"`` block
+  of them), and the loss runs through ``delay_forward(pipeline=)``.
+* ``save_state``/``restore_state`` write and read per rank: each rank its
+  blocks, rank 0 the replicated tensors and the step.
 """
 from __future__ import annotations
 
@@ -34,11 +47,13 @@ from typing import Callable, Dict, Iterator, List
 
 import numpy as np
 import torch
+import torch.distributed as dist
 
 from ..core.config import DelayConfig, LocalConfig, RealtimeConfig
 from ..models.delay import delay_loss, init_delay_params
 from ..models.local import init_local_params, local_loss
 from ..models.realtime import init_realtime_params, realtime_loss
+from ..ops.collectives import axis_of, reduce, sharded_dims
 from .optim import AdamW, value_and_grad, warmup_cosine
 
 _FAMILIES = {
@@ -84,31 +99,68 @@ class TTSTrainer:
                  pipeline=None, device="cuda"):
         if family not in _FAMILIES:
             raise ValueError(f"unknown family {family!r}; pick from {sorted(_FAMILIES)}")
-        if mesh is not None or pipeline is not None:
-            raise NotImplementedError("mesh= and pipeline= (parallel training) are not ported: "
-                                      "ROADMAP item A.11")
+        if pipeline is not None and family != "delay":
+            raise ValueError("pipeline= is supported for the delay family")
+        if pipeline is not None and mesh is not None:
+            raise ValueError("pass mesh= or pipeline=, not both (a pipeline mesh may hold "
+                             "a 'model' axis)")
         init_fn, _ = _FAMILIES[family]
         self.family = family
         self.cfg = cfg
         self.device = torch.device(device)
         gen = torch.Generator(device=self.device).manual_seed(seed)
         self.params = init_fn(cfg, generator=gen, dtype=dtype, device=self.device)
+        self.mesh, self.pipeline = mesh, pipeline
+        if mesh is not None or pipeline is not None:
+            from ..parallel import mesh as pm
+
+            specs = {"delay": pm.delay_param_specs, "local": pm.local_param_specs,
+                     "realtime": pm.realtime_param_specs}[family]()
+            if pipeline is not None:
+                specs = pipeline_specs(specs, pipeline[0].mesh_dim_names)
+            pm.shard_params(self.params, mesh if mesh is not None else pipeline[0], specs)
         self.params.requires_grad_(True)
         self.opt = AdamW(dict(self.params.named_parameters()),
                          warmup_cosine(peak_lr, warmup_steps, total_steps),
                          weight_decay=WEIGHT_DECAY, clip_norm=CLIP_NORM)
+        if self.sharded:
+            self.opt.replicas = self._replicas()
         self.step_idx = 0
         self.history: List[Dict[str, float]] = []
         self.remat = bool(remat)
         self.channel_weights = (None if channel_weights is None else torch.as_tensor(
             np.asarray(channel_weights, np.float32), device=self.device))
 
+    @property
+    def sharded(self) -> bool:
+        """Whether the parameters are sharded over a mesh (``mesh=`` or
+        ``pipeline=``)."""
+        return self.mesh is not None or self.pipeline is not None
+
+    def _replicas(self) -> Dict[str, int]:
+        """name -> the number of ranks holding the same block of it."""
+        world = dist.get_world_size()
+        axes = getattr(self.params, "_mesh_axes", {})
+        out = {}
+        for mod_name, mod in self.params.named_modules():
+            for name, _ in mod.named_parameters(recurse=False):
+                split = 1
+                for axis in sharded_dims(mod, name).values():
+                    split *= axes[axis].size
+                out[f"{mod_name}.{name}" if mod_name else name] = world // split
+        return out
+
+    def sharded_names(self) -> List[str]:
+        """The parameters split over an axis of the mesh (each rank holds
+        its own block of them)."""
+        return [n for n, r in self._replicas().items() if r < dist.get_world_size()]
+
     def loss(self, params, b: Dict[str, torch.Tensor]):
         """The family's loss of ``params`` on a batch of tensors: (loss, aux)."""
         args = (params, self.cfg, b["input_ids"], b["attention_mask"], b["labels"])
         if self.family == "delay":
             return delay_loss(*args, channelwise_loss_weight=self.channel_weights,
-                              remat=self.remat)
+                              remat=self.remat, pipeline=self.pipeline)
         if self.family == "local":
             return local_loss(*args, channel_weights=self.channel_weights, remat=self.remat)
         return realtime_loss(*args, remat=self.remat)
@@ -117,8 +169,18 @@ class TTSTrainer:
     def train_step(self, batch: Dict[str, np.ndarray]) -> Dict[str, float]:
         """One step: forward, backward, clip, update. Returns {"step",
         "loss", "grad_norm"} (the norm before clipping)."""
-        b = {k: torch.as_tensor(np.asarray(v), device=self.device) for k, v in batch.items()}
+        b = {k: np.asarray(v) for k, v in batch.items()}
+        data = axis_of(self.params, "data")
+        if data is not None:  # this rank's block of the rows
+            B = len(b["input_ids"])
+            if B % data.size:
+                raise ValueError(f"batch {B} not divisible by mesh data axis {data.size}")
+            n = B // data.size
+            b = {k: v[data.index * n:(data.index + 1) * n] for k, v in b.items()}
+        b = {k: torch.as_tensor(v, device=self.device) for k, v in b.items()}
         loss, _, grads = value_and_grad(self.params, lambda p: self.loss(p, b))
+        if data is not None:  # the global loss' gradient: every rank's share summed
+            grads = {k: reduce(g, data) for k, g in grads.items()}
         gnorm = self.opt.step(grads)
         rec = {"step": self.step_idx, "loss": float(loss), "grad_norm": float(gnorm)}
         self.step_idx += 1
@@ -157,9 +219,30 @@ class TTSTrainer:
         serving loaders' ``model_type`` names) and ``train_history.json``."""
         from ..utils.save import save_model
 
+        if self.sharded:
+            raise ValueError("save() writes the whole model; a sharded trainer saves per rank "
+                             "with save_state()")
         save_model(path, self.params, self.cfg, f"moss_tts_{self.family}")
         with open(str(path) + "/train_history.json", "w") as f:
             json.dump(self.history, f)
+
+
+def pipeline_specs(specs: dict, mesh_dims) -> dict:
+    """A family's spec table for a pipeline mesh: the backbone's layer
+    stacks split on ``"stage"`` along the layer dimension, and on
+    ``"model"`` as the table says when the mesh has that axis (else nothing
+    else is split)."""
+    tp = "model" in mesh_dims
+
+    def walk(node, in_layers):
+        if isinstance(node, dict):
+            return {k: walk(v, in_layers or k == "layers") for k, v in node.items()}
+        spec = node if tp else tuple(None for _ in node)
+        if in_layers:
+            spec = ("stage",) + tuple(spec[1:]) if spec else ("stage",)
+        return spec
+
+    return walk(specs, False)
 
 
 def tiny_config(family: str):
@@ -185,7 +268,9 @@ def tiny_config(family: str):
 def main(argv=None):
     """``python -m mosstts_tpu_torch.train.trainer``: train a family's small
     configuration on synthetic batches; the last line is {"first_loss",
-    "last_loss"}."""
+    "last_loss"}. ``--mesh DATAxMODEL`` shards it over a mesh: run it under
+    ``torchrun --nproc-per-node DATA*MODEL`` (every rank draws the same
+    batches; rank 0 prints)."""
     import argparse
 
     ap = argparse.ArgumentParser(
@@ -197,6 +282,8 @@ def main(argv=None):
     ap.add_argument("--batch", type=int, default=2)
     ap.add_argument("--seq", type=int, default=24)
     ap.add_argument("--lr", type=float, default=1e-4)
+    ap.add_argument("--mesh", default=None,
+                    help="'DATAxMODEL', e.g. 2x4: shard over a device mesh (under torchrun)")
     ap.add_argument("--remat", action="store_true",
                     help="recompute each layer's activations in the backward pass")
     ap.add_argument("--save", default=None)
@@ -204,19 +291,31 @@ def main(argv=None):
     args = ap.parse_args(argv)
 
     cfg = tiny_config(args.family)
+    mesh = None
+    if args.mesh:
+        from ..parallel.mesh import make_mesh
+
+        d, m = (int(x) for x in args.mesh.split("x"))
+        mesh = make_mesh(data=d, model=m, device="cuda" if args.device == "cuda" else "cpu")
+        if args.device == "cuda":  # this rank's card
+            args.device = f"cuda:{torch.cuda.current_device()}"
     trainer = TTSTrainer(args.family, cfg, peak_lr=args.lr,
                          warmup_steps=max(1, args.steps // 10),
-                         total_steps=args.steps, remat=args.remat, device=args.device)
+                         total_steps=args.steps, mesh=mesh, remat=args.remat,
+                         device=args.device)
+    log = print if mesh is None or dist.get_rank() == 0 else (lambda *a: None)
     rng = np.random.default_rng(0)
 
     def data():
         while True:
             yield synthetic_tts_batch(args.family, cfg, rng, batch=args.batch, seq=args.seq)
 
-    hist = trainer.fit(data(), args.steps)
+    hist = trainer.fit(data(), args.steps, log_fn=log)
     if args.save:
         trainer.save(args.save)
-    print(json.dumps({"first_loss": hist[0]["loss"], "last_loss": hist[-1]["loss"]}))
+    log(json.dumps({"first_loss": hist[0]["loss"], "last_loss": hist[-1]["loss"]}))
+    if mesh is not None:
+        dist.destroy_process_group()
 
 
 if __name__ == "__main__":

@@ -79,9 +79,11 @@ def fast_jax_compiles():
     compile in about half the time on one core, and the reference's
     results stay what the cases compare (exact tokens and states)."""
     old = jax.config.read("jax_disable_most_optimizations")
+    jax.clear_caches()  # the flag is not in JAX's cache keys (test_torch_train.jax_numerics)
     jax.config.update("jax_disable_most_optimizations", True)
     yield
     jax.config.update("jax_disable_most_optimizations", old)
+    jax.clear_caches()
 
 
 @pytest.fixture(scope="module")

@@ -35,8 +35,10 @@ print("NAMES", ",".join(names))
 print("BAD", bad)
 print("LEAKED", leaked)
 print("CUDA_INIT", torch.cuda.is_initialized())
+print("DIST_INIT", torch.distributed.is_initialized())
 print("LIB", _build._lib)
-sys.exit(1 if bad or leaked or torch.cuda.is_initialized() or _build._lib is not None else 0)
+sys.exit(1 if bad or leaked or torch.cuda.is_initialized() or torch.distributed.is_initialized()
+         or _build._lib is not None else 0)
 """
 
 
@@ -91,6 +93,10 @@ def test_port_imports_without_jax_triton_or_cuda():
     assert {f"mosstts_tpu_torch.{m}" for m in (
         "train", "train.trainer", "train.optim", "train.checkpoint", "train.data",
         "codec.losses", "codec.discriminator", "codec.train", "codec.speech_synth")} <= names
+    # parallelism: the mesh, the collectives, the pipeline and ring attention
+    # (importing them makes no process group)
+    assert {f"mosstts_tpu_torch.{m}" for m in (
+        "parallel.mesh", "ops.collectives", "parallel.pipeline", "parallel.ring_attn")} <= names
 
 
 def test_chip_smoke_imports_without_jax():
@@ -194,3 +200,14 @@ def test_train_memory_tool_refuses_to_run_without_a_gpu(monkeypatch):
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
     with pytest.raises(RuntimeError, match="measures a GPU"):
         train_memory.main(["--family", "local"])
+
+
+def test_ops_and_nn_import_nothing_above_them():
+    """The layers below the models (``ops/``, ``nn/``) import nothing of
+    ``parallel/``: the collectives the sharded forwards call live in
+    ``ops/collectives.py``."""
+    pkg = REPO / "mosstts_tpu_torch"
+    for path in sorted((pkg / "ops").rglob("*.py")) + sorted((pkg / "nn").rglob("*.py")):
+        for n in ast.walk(ast.parse(path.read_text())):
+            if isinstance(n, ast.ImportFrom) and n.module:
+                assert "parallel" not in n.module.split("."), (path, n.module)

@@ -59,9 +59,11 @@ def fast_jax_compiles():
     programs compile about twice as fast on one core, and the reference's
     results stay within the tolerances."""
     old = jax.config.read("jax_disable_most_optimizations")
+    jax.clear_caches()  # the flag is not in JAX's cache keys (test_torch_train.jax_numerics)
     jax.config.update("jax_disable_most_optimizations", True)
     yield
     jax.config.update("jax_disable_most_optimizations", old)
+    jax.clear_caches()
 
 
 def numpy_params(cfg=CFG, seed=0):

@@ -1,0 +1,182 @@
+"""The port's parallel paths and W8A16's float32-activation mode on the
+card. They skip without one (the CPU tests hold the same paths against JAX
+in gloo processes: ``tests/test_torch_parallel_*.py``).
+
+* One NCCL rank (a group of world size 1 in this process): a small float32
+  ``DelayEngine`` and a 2-slot ``DelayBatchServer`` with
+  ``mesh=make_mesh(data=1, model=1)``, graphs on, equal the unsharded ones
+  bit for bit, greedy, and their steps' collectives run inside the
+  replayed graphs.
+* Two NCCL ranks, spawned (skips unless two cards are visible): the same
+  engine tensor-parallel over both cards, its greedy grids equal to the
+  unsharded engine's.
+* ``w8f32_gemm`` against its plain version at ``codec_1p6b()``'s shapes
+  and a few ragged ones; ``dense`` sends float32 activations to it.
+* ``delay_decode_step(text_lazy=True)`` runs eagerly, and its capture
+  into a CUDA graph raises ``ValueError``.
+
+This file imports no JAX:
+
+    python3 -m pytest --noconftest tests/test_torch_parallel_cuda.py -q
+"""
+import copy
+import socket
+
+import numpy as np
+import pytest
+import torch
+import torch.distributed as dist
+
+from mosstts_tpu_torch.core.config import DelayConfig, tiny_qwen3
+from mosstts_tpu_torch.engine.batch_server import DelayBatchServer
+from mosstts_tpu_torch.engine.delay_engine import DelayEngine
+from mosstts_tpu_torch.models.delay import init_delay_params, make_sampling
+from mosstts_tpu_torch.ops.kernels import launches, w8_gemm
+
+pytestmark = pytest.mark.cuda
+
+CFG = DelayConfig(language_config=tiny_qwen3(hidden_size=256, intermediate_size=512,
+                                             num_attention_heads=4, num_key_value_heads=2,
+                                             head_dim=128), n_vq=4)
+GREEDY = dict(max_new_tokens=12, text_temperature=0.0, audio_temperature=0.0)
+
+
+def _need_cards(n: int = 1):
+    if not torch.cuda.is_available() or torch.cuda.device_count() < n:
+        pytest.skip(f"needs {n} NVIDIA GPU(s)")
+    torch.backends.cuda.matmul.allow_tf32 = False
+
+
+def _address() -> str:
+    with socket.socket() as s:
+        s.bind(("localhost", 0))
+        return f"tcp://localhost:{s.getsockname()[1]}"
+
+
+def _params(device="cuda"):
+    return init_delay_params(CFG, generator=torch.Generator(device=device).manual_seed(3),
+                             dtype=torch.float32, device=device)
+
+
+def _prompts(B=3, T=24, seed=0):
+    rng = np.random.default_rng(seed)
+    ids = rng.integers(0, 1024, (B, T, CFG.channels)).astype(np.int64)
+    ids[:, 1, 0] = CFG.im_start_token_id
+    ids[:, -1, 0] = CFG.audio_assistant_gen_slot_token_id
+    return ids
+
+
+@pytest.fixture
+def one_rank():
+    _need_cards()
+    torch.cuda.set_device(0)
+    dist.init_process_group("nccl", init_method=_address(), rank=0, world_size=1,
+                            device_id=torch.device("cuda", 0))
+    yield
+    dist.destroy_process_group()
+
+
+def test_one_rank_engine_and_server_equal_unsharded(one_rank):
+    from mosstts_tpu_torch.parallel.mesh import make_mesh
+
+    params = _params()
+    mesh = make_mesh(data=1, model=1, device="cuda")
+    solo = DelayEngine(params, CFG, dtype=torch.float32, cache_bucket=64)
+    tp = DelayEngine(copy.deepcopy(params), CFG, dtype=torch.float32, cache_bucket=64, mesh=mesh)
+    ids = _prompts()
+    for od in (False, True):
+        launches.reset()
+        got = tp.generate(ids, on_device=od, **GREEDY)
+        torch.cuda.synchronize()
+        assert launches.IN_GRAPHS["nccl"] > 0 and launches.IN_GRAPHS["decode"] > 0
+        want = solo.generate(ids, on_device=od, **GREEDY)
+        for (a, ga), (b, gb) in zip(got, want):
+            assert a == b
+            np.testing.assert_array_equal(ga, gb)
+
+    def serve(p, m):
+        server = DelayBatchServer(p, CFG, slots=2, cache_len=128, out_capacity=32,
+                                  prompt_bucket=32, dtype=torch.float32, mesh=m,
+                                  sampling=make_sampling(text_temperature=0.0,
+                                                         audio_temperature=0.0, device="cuda"))
+        rids = [server.submit(g, max_new_tokens=10) for g in _prompts(4, 20, seed=1)]
+        done = {c.request_id: c for c in server.run()}
+        return [done[r].tokens for r in rids]
+
+    for a, b in zip(serve(copy.deepcopy(params), mesh), serve(params, None)):
+        np.testing.assert_array_equal(a, b)
+
+
+def _two_rank_body(rank, address, ids, out_path):
+    from mosstts_tpu_torch.parallel.mesh import make_mesh
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.cuda.set_device(rank)
+    dist.init_process_group("nccl", init_method=address, rank=rank, world_size=2,
+                            device_id=torch.device("cuda", rank))
+    eng = DelayEngine(_params(), CFG, dtype=torch.float32, cache_bucket=64,
+                      mesh=make_mesh(data=1, model=2, device="cuda"))
+    got = eng.generate(ids, **GREEDY)
+    if rank == 0:
+        torch.save(got, out_path)
+    dist.barrier()
+    dist.destroy_process_group()
+
+
+def test_two_ranks_tensor_parallel_engine(tmp_path):
+    _need_cards(2)
+    ids = _prompts()
+    out = tmp_path / "tp2.pt"
+    torch.multiprocessing.spawn(_two_rank_body, args=(_address(), ids, str(out)), nprocs=2)
+    got = torch.load(out, weights_only=False)
+    want = DelayEngine(_params(), CFG, dtype=torch.float32, cache_bucket=64).generate(ids, **GREEDY)
+    for (a, ga), (b, gb) in zip(got, want):
+        assert a == b
+        np.testing.assert_array_equal(ga, gb)
+
+
+@pytest.mark.parametrize("K,N,M", [(1536, 6144, 50), (6144, 1536, 50), (1920, 1536, 1),
+                                   (1536, 256, 7), (100, 70, 65), (33, 129, 130)])
+def test_w8f32_gemm_matches_plain(K, N, M):
+    _need_cards()
+    g = torch.Generator(device="cuda").manual_seed(K + N + M)
+    q = torch.empty((K, N), dtype=torch.int8, device="cuda").random_(-127, 128, generator=g)
+    scale = torch.rand((N,), generator=g, device="cuda") * 0.02 + 1e-3
+    x = torch.randn((M, K), generator=g, device="cuda")
+    before = w8_gemm.LAUNCHES_W8F32
+    out = w8_gemm.w8f32_gemm(x, q, scale)
+    assert w8_gemm.LAUNCHES_W8F32 == before + 1
+    ref = w8_gemm.w8a16_gemm_ref(x, q, scale, torch.float32)
+    absref = w8_gemm.w8a16_gemm_ref(x.abs(), q.abs(), scale, torch.float32)
+    assert out.dtype == torch.float32 and out.shape == (M, N)
+    assert bool(((out - ref).abs() <= 1e-5 * absref + 1e-6).all())
+    # dense() sends float32 activations there, a layer of a stack in place
+    from mosstts_tpu_torch.ops.basic import dense
+    from mosstts_tpu_torch.ops.quant import QuantView
+
+    stack = torch.stack([q, q])
+    view = QuantView(stack[1], torch.stack([scale, scale])[1])
+    np.testing.assert_array_equal(dense(x, view).cpu().numpy(), out.cpu().numpy())
+    with pytest.raises(TypeError):
+        dense(x.half(), view)
+
+
+def test_text_lazy_is_eager_only():
+    _need_cards()
+    from mosstts_tpu_torch.engine.step_graph import GraphSteps, zero_state
+    from mosstts_tpu_torch.models.delay import delay_decode_step
+    from mosstts_tpu_torch.ops.sampling import row_generators
+
+    params = _params()
+    greedy = make_sampling(text_temperature=0.0, audio_temperature=0.0, device="cuda")
+    state = zero_state(CFG, 1, 128, 8, dtype=torch.float32, kv_quant=False,
+                       rng=row_generators(0, 1, "cuda"), device="cuda")
+    graphs = GraphSteps(params, "text_head", "cuda")
+
+    def lazy_step():
+        delay_decode_step(params, CFG, state, greedy, attend_len=128, text_lazy=True)
+
+    for _ in range(3):
+        graphs.warm(lazy_step)
+    with pytest.raises(ValueError, match="eagerly"):
+        graphs.capture(lazy_step, state.rng)

@@ -70,12 +70,20 @@ def one_thread():
 @pytest.fixture(scope="module", autouse=True)
 def jax_numerics():
     """float32 products at full precision, and most XLA optimizations off
-    (the tiny programs compile about twice as fast)."""
+    (the tiny programs compile about twice as fast). JAX's caches are
+    cleared on the way in and out: ``jax_disable_most_optimizations`` is not
+    part of JAX's cache keys, so without that a program an earlier module of
+    the same worker compiled with the optimizations on would serve this
+    module (the Adafactor codec case's parameter gap then measured 1.27e-4
+    against its 2.82e-5, over the 1e-4 bound), and this module's programs
+    would serve a later one."""
     old = jax.config.read("jax_disable_most_optimizations")
+    jax.clear_caches()
     jax.config.update("jax_disable_most_optimizations", True)
     with jax.default_matmul_precision("highest"):
         yield
     jax.config.update("jax_disable_most_optimizations", old)
+    jax.clear_caches()
 
 
 def jax_params(family: str, seed: int = 0):

@@ -90,6 +90,10 @@ def test_async_save_writes_the_same_files(tmp_path):
 
 
 def test_parallel_options_raise():
-    for kw in ({"mesh": object()}, {"pipeline": object()}):
-        with pytest.raises(NotImplementedError, match="A.11"):
-            TTSTrainer("delay", tiny_config("delay"), device="cpu", **kw)
+    """``mesh=`` and ``pipeline=`` are ported (``tests/test_torch_parallel_*.py``
+    run them); what JAX refuses the port refuses: ``pipeline=`` outside the
+    Delay family, and both options at once."""
+    with pytest.raises(ValueError, match="delay"):
+        TTSTrainer("local", tiny_config("local"), device="cpu", pipeline=object())
+    with pytest.raises(ValueError, match="not both"):
+        TTSTrainer("delay", tiny_config("delay"), device="cpu", mesh=object(), pipeline=object())
