@@ -181,11 +181,14 @@ Phases, one or more lines each; any failure raises and exits non-zero:
    ``decode_plan``) and W8A16 (M = 1, 16) at one rank's shapes of tensor
    parallelism 2 and 4 at 8B width (H = 16 / 8, KV = 4 / 2, the weights'
    column or row blocks, the heads' vocab and codebook blocks) against
-   their plain versions; W8A16's float32-activation mode (``w8f32_gemm``)
-   at ``codec_1p6b()``'s shapes, M = 50, 12 and 1, against plain, with its
-   time, plain time, a yardstick (the f32 ``torch.matmul`` over weights
-   dequantized outside the timing), ``torch._weight_int8pack_mm`` with
-   float32 activations and scales where it takes them, and its bound. 13b: one rank per card
+   their plain versions; W8A16's float32-activation mode (``w8f32_gemm``,
+   the ring kernel's F32X3 mode) at ``codec_1p6b()``'s shapes, M = 200,
+   100 (the encoder's 100-frame chunks of two waves and one), 50, 12 and 1,
+   against plain and bit-equal over two calls, with its time, its
+   device kernels a call, plain time, a yardstick (the f32 ``torch.matmul``
+   over weights dequantized outside the timing), ``torch._weight_int8pack_mm``
+   with float32 activations and scales where it takes them, its bound (three
+   bf16 products or the bytes) and the f32 bound (one f32 product). 13b: one rank per card
    (``torch.cuda.device_count()``, at most 4; ranks after the first in
    spawned processes; NCCL through ``tcp://localhost``), the 8B model
    (random bf16 weights) in a ``DelayEngine`` and a 16-slot
@@ -284,7 +287,8 @@ from mosstts_tpu_torch.tools import probe_int4, profile_step, tune_mm8  # noqa: 
 from mosstts_tpu_torch.tools.admission_path import N as TIMED_N  # noqa: E402
 from mosstts_tpu_torch.tools.admission_path import prompt_grid, timed  # noqa: E402
 from mosstts_tpu_torch.tools.kernel_inputs import (  # noqa: E402
-    GEMM_8B, bound, card_line, decode_bound, decode_inputs, gemm_bound, time_ms)
+    GEMM_8B, bound, card_line, codec_f32_shapes, decode_bound, decode_inputs, gemm_bound,
+    graph_kernels, time_ms)
 from mosstts_tpu_torch.tools.hf_checkpoint import same_params, write_hf_checkpoint  # noqa: E402
 from mosstts_tpu_torch.tools.kernel_times import int4_library  # noqa: E402
 from mosstts_tpu_torch.tools.pool_vs_solo import first_divergence  # noqa: E402
@@ -3295,26 +3299,21 @@ def tp_shapes(n: int) -> list:
             ("audio_heads", 4096, 1025, 32 // n, torch.float32)]
 
 
-def codec_f32_shapes() -> list:
-    """``codec_1p6b()``'s int8 products with float32 activations: name, K, N."""
-    cfg = codec_1p6b()
-    D, F_ = cfg.hidden_size, cfg.intermediate_size
-    kv = cfg.num_key_value_heads * cfg.head_dim
-    return [("w_gate", D, F_), ("w_down", F_, D), ("wq", D, cfg.num_attention_heads * cfg.head_dim),
-            ("wk", D, kv), ("enc_in", cfg.hop, D), ("enc_out", D, cfg.codebook_dim)]
-
-
 def phase_parallel_kernels() -> dict:
     """13a: flash, decode and W8A16 at one rank's shapes of TP 2 and 4 at 8B
     width (H = 32 / n, KV = 8 / n heads; the weights' blocks), against their
-    plain versions; then W8A16's float32-activation mode (``w8f32_gemm``)
-    at ``codec_1p6b()``'s shapes against plain, with its time, the plain
-    version's, a yardstick (the float32 ``torch.matmul`` over the weights
-    dequantized outside the timing), the library call
-    ``torch._weight_int8pack_mm`` with float32 activations and scales
-    (``library_ms``; where it refuses them, null, and the refusal recorded)
-    and the bound, at M = 50 (the frames of phase 8a's 4 s wave), 12 (a 1 s
-    chunk) and 1."""
+    plain versions; then W8A16's float32-activation mode (``w8f32_gemm``,
+    the ring kernel's F32X3 mode) at ``codec_1p6b()``'s shapes against
+    plain and bit-equal over two calls, with its time, its device kernels a
+    call (read off a captured graph), the plain version's time, a yardstick
+    (the float32 ``torch.matmul`` over the weights dequantized outside the
+    timing), the library call ``torch._weight_int8pack_mm`` with float32
+    activations and scales (``library_ms``; where it refuses them, null, and
+    the refusal recorded) and two bounds: the work as the kernel does it
+    (three bf16 products, or the bytes) and as one f32 product, at M = 200
+    and 100 (the encoder pads every chunk to 100 frames: two waves and one,
+    as phase 13d's 4 s wave runs), 50, 12 and 1. The kernels line takes
+    ``w_gate`` at M = 100."""
     g = torch.Generator(device=DEV).manual_seed(13)
     bf = torch.bfloat16
     scale = HD8 ** -0.5
@@ -3368,12 +3367,15 @@ def phase_parallel_kernels() -> dict:
         wf = qw.float() * sc  # the yardstick's weights, dequantized once
         qt = qw.t().contiguous()  # torch._weight_int8pack_mm's (N, K) layout
         err = 0.0
-        for M in (50, 12, 1):
+        for M in (200, 100, 50, 12, 1):
             x = torch.randn((M, K), generator=g, device=DEV)
             out = w8_gemm.w8f32_gemm(x, qw, sc)
             ref = w8_gemm.w8a16_gemm_ref(x, qw, sc, torch.float32)
             absref = w8_gemm.w8a16_gemm_ref(x.abs(), qw.abs(), sc, torch.float32)
             err = max(err, check_gemm(f"w8f32 codec {name} ({K}, {N}) M={M}", out, ref, absref))
+            if not torch.equal(w8_gemm.w8f32_gemm(x, qw, sc), out):
+                raise AssertionError(f"w8f32 codec {name} M={M}: two calls gave different bits")
+            kernels, _ = graph_kernels(lambda: w8_gemm.w8f32_gemm(x, qw, sc))
             ms = time_ms(lambda i: w8_gemm.w8f32_gemm(x, qw, sc))
             plain_ms = time_ms(lambda i: w8_gemm.w8a16_gemm_ref(x, qw, sc, torch.float32))
             yard_ms = time_ms(lambda i: torch.matmul(x, wf))
@@ -3384,24 +3386,34 @@ def phase_parallel_kernels() -> dict:
                 lib_err = float((lib.float() - ref).abs().max())
             except (RuntimeError, NotImplementedError) as e:
                 lib_ms, lib_err, refusal = None, None, f"{type(e).__name__}: {e}"[:300]
-            bd = bound(M * K * 4 + K * N + N * 4 + M * N * 4, 2.0 * M * K * N, torch.float32)
+            # the work as the kernel does it: three bf16 products (x's
+            # terms) on the tensor cores; beside it, one f32 product on the
+            # CUDA cores
+            nbytes = M * K * 4 + K * N + N * 4 + M * N * 4
+            bd = bound(nbytes, 3 * 2.0 * M * K * N, torch.bfloat16)
+            f32_bd = bound(nbytes, 2.0 * M * K * N, torch.float32)
             row = dict(shape=f"{name} ({K}, {N}) M={M}", ms=ms, plain_ms=plain_ms,
                        yardstick_ms=yard_ms, library_ms=lib_ms, library_refusal=refusal,
-                       library_max_abs_diff=lib_err, max_abs_err=err, **bd)
+                       library_max_abs_diff=lib_err, max_abs_err=err, kernels_per_call=kernels,
+                       f32_bound_ms=f32_bd["bound_ms"], **bd)
             rows.append(row)
             lib_note = (f"torch._weight_int8pack_mm {lib_ms:.4f} ms (max abs difference from "
                         f"plain {lib_err:.3e})" if refusal is None else
                         f"torch._weight_int8pack_mm refuses float32: {refusal}")
-            log(f"  w8f32 codec {name} ({K}, {N}) M={M}: kernel {ms:.4f} ms, plain "
-                f"{plain_ms:.4f} ms, f32 matmul over dequantized weights {yard_ms:.4f} ms, "
-                f"{lib_note}, bound {bd['bound_ms']:.5f} ms ({bd['bound_by']})")
-            if name == "w_gate" and M == 50:
+            log(f"  w8f32 codec {name} ({K}, {N}) M={M}: kernel {ms:.4f} ms ({kernels} device "
+                f"kernels a call, bit-equal over two calls), plain {plain_ms:.4f} ms, f32 matmul "
+                f"over dequantized weights {yard_ms:.4f} ms, {lib_note}, bound {bd['bound_ms']:.5f} "
+                f"ms ({bd['bound_by']}; three bf16 products at 989 TFLOP/s), f32 bound "
+                f"{f32_bd['bound_ms']:.5f} ms ({f32_bd['bound_by']}; one f32 product at 67 "
+                f"TFLOP/s)")
+            if name == "w_gate" and M == 100:
                 main = row
         del qw, sc, wf
     torch.cuda.synchronize()
     torch.cuda.empty_cache()
     return dict(max_abs_err=max(r["max_abs_err"] for r in rows),
-                **{k: main[k] for k in ("ms", "plain_ms", "library_ms", "bound_ms", "bound_by")},
+                **{k: main[k] for k in ("ms", "plain_ms", "library_ms", "bound_ms", "bound_by",
+                                        "f32_bound_ms", "kernels_per_call")},
                 yardstick_ms=main["yardstick_ms"], library_refusal=main["library_refusal"],
                 shapes=rows)
 
@@ -3634,7 +3646,8 @@ def phase_int8_codec(wav: np.ndarray) -> dict:
     log(f"  13d int8 codec_1p6b: encode + decode of {wav.size / cfg.sampling_rate:.1f} s on the "
         f"card {wall:.2f} s (w8f32 {counts['w8f32']} launches, w8a16 {counts['w8a16']}); mean "
         f"relative deviation from the f32 codec {dev:.4f} (< 0.5); 2-layer card vs CPU: {flips} "
-        f"frames differ at near ties, wave {wave_gap:.2e} of the peak apart")
+        f"frames differ at near ties, wave {wave_gap:.2e} of the peak apart (the SIMT f32 "
+        f"kernel's run, PERF.md §6: 0.13 s, 156 w8f32 launches, 0 frames differ, 7.18e-03)")
     out = dict(wall_s=wall, deviation=dev, card_vs_cpu_frames=flips, wave_gap=wave_gap,
                w8f32_launches=counts["w8f32"], w8a16_launches=counts["w8a16"])
     del f32, q8, card_cut
@@ -3750,7 +3763,7 @@ def kernel_label(name: str) -> str:
     if "ring_kernel" not in name:
         return name[:160]
     ints, vec = re.findall(r"Li(\d+)E", name), re.findall(r"Lb(\d)E", name)
-    mode = ("W8A16", "W8A8", "INT4")[int(ints[0])]
+    mode = ("W8A16", "W8A8", "INT4", "F32X3")[int(ints[0])]
     return f"ring_kernel<{mode}, {', '.join(ints[1:])}, vec={''.join(vec)}>"
 
 
@@ -3775,7 +3788,7 @@ def main() -> None:
     w8_gemm._entry("mosstts_w8a16_gemm")
     w8_gemm._entry("mosstts_int4_gemm")
     w8_gemm._entry("mosstts_w8a8_gemm", 2)
-    w8_gemm._entry_f32()
+    w8_gemm._entry("mosstts_w8f32_gemm", 2)
     log(f"  {lib.relative_to(Path(__file__).resolve().parent)} in "
         f"{time.perf_counter() - t0:.2f} s")
     # ptxas -v of the redesigned kernels' instantiations (static shared
@@ -3783,7 +3796,7 @@ def main() -> None:
     # launch)
     for r in _build.ptxas_report():
         if any(k in r["name"] for k in ("flash_tc_kernel", "decode_kernel", "ring_kernel",
-                                         "quant_rows_kernel")):
+                                         "quant_rows_kernel", "split3_kernel")):
             log(f"  ptxas: {kernel_label(r['name'])}: {r.get('registers')} registers, "
                 f"{r.get('smem')} B "
                 f"static smem, {r.get('stack')} B stack, spill stores {r.get('spill_stores')} B, "

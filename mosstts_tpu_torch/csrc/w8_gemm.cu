@@ -1,4 +1,4 @@
-// Int8-weight GEMMs on the tensor cores, three modes of one kernel:
+// Int8-weight GEMMs on the tensor cores, four modes of one kernel:
 //
 //   W8A16  out[m, h*N + n] = (sum_k x[m, k] * q[h, k, n]) * w_scale[h, n]
 //          x bf16, q int8 (converted to bf16 exactly, |q| <= 127), f32
@@ -15,6 +15,22 @@
 //   INT4   q packed two 4-bit two's-complement values per byte, (K, N) with
 //          K = D/2: the low nibble is W[k], the high nibble W[k + D/2];
 //          out = x[:, :D/2] @ lo + x[:, D/2:] @ hi in f32, no scale.
+//   F32X3  W8A16's function with float32 x and f32 output (the int8 codec's
+//          encoder; the JAX package's ``dense`` with f32 activations,
+//          mosstts_tpu/ops/basic.py:28-30): x is split into three bf16
+//          terms, hi = bf16(x), mid = bf16(x - hi), lo = bf16(x - hi - mid)
+//          (round to nearest; the differences are exact in f32, and hi +
+//          mid + lo == x wherever lo stays normal, |x| >= 2^-110), and each
+//          B fragment (int8 -> bf16, exact) is multiplied by the three in
+//          one f32 accumulator, lo first: the f32 product to f32 rounding
+//          at the bf16 tensor-core rate, three passes of ~989 TFLOP/s
+//          against one of the 67 TFLOP/s f32 cores. The terms come from
+//          split3_kernel, a prologue launch that writes them once as
+//          (M, 3 Kp) bf16 rows [hi | mid | lo] (Kp = K rounded up to 8,
+//          zeros past K), copied as three x tiles a stage. Its bound at
+//          the codec's shapes is the weight bytes up to M ~ 50, the three
+//          bf16 products past that; the kernel takes several times it
+//          (PERF.md §6).
 //
 // Replaces: tools/tune_mm8.py::mm8 (_kernel_dmajor) and ::mm8_omajor
 // (_kernel_omajor), which compute the W8A16 function over layer-stacked
@@ -22,7 +38,8 @@
 // mm8_pallas (_mm8_kernel, W8A16 with no scale) and ::mm4_pallas
 // (_mm4_kernel). The serving path's int8 dense layers and heads
 // (mosstts_tpu/ops/basic.py::dense, models/delay.py::_audio_head_logits on a
-// QuantWeight) compute the W8A16 function; XLA left them to its int8 dot.
+// QuantWeight) compute the W8A16 function, and the int8 codec's encoder it
+// with f32 activations (F32X3); XLA left them to its int8 dot.
 //
 // What bounds them on the H100: at decode (M = 1-16 rows, 254 W8A16
 // launches per 8B step) the weight bytes, ~1 flop per byte read against the
@@ -38,14 +55,16 @@
 // measurements). The design (ring_kernel below):
 // - Warp-specialized: producer warps stream the weight tiles (8 KB:
 //   BK rows x BN = 64 or 128 bytes) and the x tile (BM rows x BK: bf16,
-//   int8, or INT4's two bf16 tiles, columns k and x_hi + k) of each stage
+//   int8, INT4's two bf16 tiles, columns k and x_hi + k, or F32X3's three,
+//   columns k, x_hi + k and 2 x_hi + k of the prologue's rows) of each stage
 //   global -> shared into a ring of STAGES (3-12) slots; each slot's "full"
 //   mbarrier completes when its copies land, its "empty" mbarrier when
 //   every consumer warp is done with it. Eight consumer warps do only math,
 //   with no block-wide barrier in the loop, so one warp's waits overlap the
 //   others' work and up to STAGES - 1 tiles of a block are in flight.
-//   W8A16 copies with 16-byte cp.async (cp.async.mbarrier.arrive) into rows
-//   padded by 16 bytes, so the fragment reads below hit distinct banks.
+//   W8A16 and F32X3 copy with 16-byte cp.async (cp.async.mbarrier.arrive)
+//   into rows padded by 16 bytes, so the fragment reads below hit distinct
+//   banks.
 //   W8A8 and INT4 copy a whole tile with one tensor copy (the tensor memory
 //   accelerator, cp.async.bulk.tensor, on the full barrier's transaction
 //   bytes; tensor maps made per launch, make_maps) into dense rows under
@@ -63,7 +82,9 @@
 //   A layout).
 //   * W8A16 (k 2t, 2t+1, 2t+8, 2t+9): int8 -> bf16 takes a byte permute,
 //     two LOP3s and one bf16x2 subtraction per pair of values: q = (128 +
-//     (b & 0x7f)) - (128 + (b & 0x80)), exact, no I2F.
+//     (b & 0x7f)) - (128 + (b & 0x80)), exact, no I2F. F32X3 builds the
+//     same fragments once and multiplies each row tile's three terms by
+//     them (three mma a fragment, lo, mid, hi into one accumulator).
 //   * W8A8 (k 4t .. 4t+3 and 16 + 4t .. 16 + 4t+3): the 4x4 byte block of
 //     4 words is transposed into the four n8 tiles' s8 registers with 8
 //     byte permutes, no conversion at all. Rows 4t lie 4 rows apart, which
@@ -101,7 +122,10 @@
 // The launch plan (variant, splits) is chosen in Python for each mode and
 // shape (ops/kernels/w8_gemm.py gemm_plan) and checked here. W8A8's row
 // quantization stays a launch of its own before the product: every block
-// needs the whole row's absmax before its first k tile.
+// needs the whole row's absmax before its first k tile. F32X3's split of x
+// is one too: the producers splitting every stage's f32 tile in every
+// column block measured ~30% slower at M = 50 (30.9 against 24.0 µs at the
+// codec's 1536 x 6144) and no faster at M = 1 (PERF.md §6).
 // The TPU kernels' (td, to) VMEM tiles and their sequential-grid f32
 // accumulator are MXU/VMEM choices and are not carried over.
 #include <algorithm>
@@ -119,18 +143,19 @@
 namespace mosstts {
 namespace w8 {
 
-enum Mode { W8A16 = 0, W8A8 = 1, INT4 = 2 };
+enum Mode { W8A16 = 0, W8A8 = 1, INT4 = 2, F32X3 = 3 };
 
 // Launch arguments, filled by ops/kernels/w8_gemm.py (GemmArgs) field for
 // field. Strides in elements.
 struct Args {
-    const void* x;          // (M, >= K) rows: bf16 (W8A16, INT4) or int8 (W8A8)
+    const void* x;          // (M, >= K) rows: bf16 (W8A16, INT4, F32X3's terms) or int8 (W8A8)
     const int8_t* w;        // (count, K, N) int8, rows ldw bytes apart, weights w_sh apart
     const float* w_scale;   // (count, N) f32, or null (INT4)
     const float* x_scale;   // (M,) f32 (W8A8), else null
     void* out;              // (M, count * N) rows ldo apart, bf16 or f32
     int M, K, N, count;
-    int x_hi;               // INT4: column of x where its second half starts; else 0
+    int x_hi;               // INT4: column of x where its second half starts; F32X3:
+                            // of its second term (Kp; the third at 2 Kp); else 0
     int splits;             // blocks per cluster: the split of K
     int out_f32;            // 1: f32 output; 0: bf16
     long long ldx, w_sh, ldo;
@@ -191,14 +216,15 @@ struct Cfg {
     static constexpr int BK = STAGE_W / BN_;    // weight rows per stage
     static constexpr int CH = BN_ / 16;         // 16-byte chunks per weight row
     // W8A8, INT4: whole tiles by the tensor memory accelerator into dense,
-    // swizzled rows (swz); W8A16: cp.async into rows padded by 16 bytes
-    static constexpr bool TMA = MODE_ != W8A16;
+    // swizzled rows (swz); W8A16, F32X3: cp.async into rows padded by 16 bytes
+    static constexpr bool TMA = MODE_ == W8A8 || MODE_ == INT4;
     static constexpr int ROWP = TMA ? BN_ : BN_ + 16;  // shared bytes per weight row
     static constexpr int MTW = MT_ / WM_;       // row tiles per consumer warp
     static constexpr int CGW = BN_ / 32 / WN_;  // column groups per consumer warp
     static constexpr int KS = MODE_ == W8A8 ? 32 : 16;  // k rows per mma step
     static constexpr int KSW = BK / KS / WK_;   // mma steps per consumer warp per stage
-    static constexpr int NX = MODE_ == INT4 ? 2 : 1;    // x tiles per stage (INT4: lo, hi)
+    // x tiles per stage (INT4: lo, hi; F32X3: its terms hi, mid, lo)
+    static constexpr int NX = MODE_ == INT4 ? 2 : MODE_ == F32X3 ? 3 : 1;
     static constexpr int XE = MODE_ == W8A8 ? 1 : 2;    // bytes per x element
     static constexpr int XP = TMA ? BK : BK + 16 / XE;  // x elements per shared row
     static constexpr int XRB = XP * XE;         // bytes per shared x row
@@ -245,6 +271,13 @@ using I0 = Cfg<INT4, 1, 128, 1, 4, 2, 5, 2, 3>;    // decode
 using I1 = Cfg<INT4, 2, 128, 1, 4, 2, 4, 2, 2>;    // M <= 32
 using I2 = Cfg<INT4, 4, 128, 1, 4, 2, 8, 2, 1>;    // M <= 64 (the tool's B=64)
 using I3 = Cfg<INT4, 8, 128, 2, 4, 1, 5, 2, 1>;    // M <= 128 and beyond
+// F32X3: W8A16's tiles with three bf16 x tiles a stage (hi, mid, lo), so
+// fewer ring stages fit. Of the 16-row tiles of 64 and 128 columns and the
+// 32-, 64-, 96- and 128-row ones, these three were the fastest or within a
+// few % of it at the codec's shapes and M = 1-200 (PERF.md §6).
+using F0 = Cfg<F32X3, 1, 64, 1, 1, 8, 4, 2, 2>;   // M <= 16
+using F1 = Cfg<F32X3, 2, 128, 1, 4, 2, 4, 4, 1>;  // 32-row tiles: more blocks
+using F2 = Cfg<F32X3, 8, 128, 2, 4, 1, 3, 2, 1>;  // 128-row tiles: the weights read fewer times
 
 // bf16x2 of byte j of u (low half) and byte j of v (high half), exact: a
 // byte b = q (two's complement) gives the bf16 128 + (b & 0x7f) and the
@@ -255,6 +288,60 @@ __device__ __forceinline__ uint32_t bf16_pair(uint32_t u, uint32_t v, int j) {
     const __nv_bfloat162 d = __hsub2(*reinterpret_cast<__nv_bfloat162*>(&lo),
                                      *reinterpret_cast<__nv_bfloat162*>(&hi));
     return *reinterpret_cast<const uint32_t*>(&d);
+}
+
+// F32X3's split of x into bf16 terms, each rounded to nearest: hi =
+// bf16(x), mid = bf16(x - hi), lo = bf16(x - hi - mid). Both differences
+// are exact in f32, and hi + mid + lo == x wherever lo stays a normal bf16
+// (|x| >= 2^-110); below, the remainder is at most 2^-134 (half of bf16's
+// smallest subnormal step). A finite x that rounds past bf16's largest
+// value keeps its truncation as hi; inf and NaN are hi alone (mid = lo =
+// 0), so the product sees inf and NaN as the f32 product does.
+// (ops/kernels/w8_gemm.py split3_bf16 is the plain version.)
+__device__ __forceinline__ void split3(float x, __nv_bfloat16& hi, __nv_bfloat16& mid,
+                                       __nv_bfloat16& lo) {
+    hi = __float2bfloat16_rn(x);
+    float h = __bfloat162float(hi);
+    if (fabsf(h) > 3.402823466e38f) {  // inf: x is, or rounded past the largest bf16
+        hi = __float2bfloat16_rz(x);
+        h = __bfloat162float(hi);
+    }
+    const float r = fabsf(x) <= 3.402823466e38f ? x - h : 0.f;
+    mid = __float2bfloat16_rn(r);
+    lo = __float2bfloat16_rn(r - __bfloat162float(mid));
+}
+
+// The three terms of 8 consecutive values as 16-byte rows: t[0] hi, t[1]
+// mid, t[2] lo (bf16x2 words, element 2e in the low half of word e)
+__device__ __forceinline__ void split3_8(const float (&v)[8], uint4 (&t)[3]) {
+    uint32_t w[3][4];
+#pragma unroll
+    for (int e = 0; e < 4; ++e) {
+        __nv_bfloat16 h0, m0, l0, h1, m1, l1;
+        split3(v[2 * e], h0, m0, l0);
+        split3(v[2 * e + 1], h1, m1, l1);
+        const __nv_bfloat162 h = __halves2bfloat162(h0, h1), m = __halves2bfloat162(m0, m1),
+                             l = __halves2bfloat162(l0, l1);
+        w[0][e] = *reinterpret_cast<const uint32_t*>(&h);
+        w[1][e] = *reinterpret_cast<const uint32_t*>(&m);
+        w[2][e] = *reinterpret_cast<const uint32_t*>(&l);
+    }
+#pragma unroll
+    for (int h = 0; h < 3; ++h) t[h] = make_uint4(w[h][0], w[h][1], w[h][2], w[h][3]);
+}
+
+// 8 f32 values from p, those from column `lim` on as 0; 16-byte loads
+// where p is 16-byte aligned (`vec`) and all 8 are real
+__device__ __forceinline__ void load8(float (&v)[8], const float* p, int lim, bool vec) {
+    if (vec && lim >= 8) {
+        const float4 a = *reinterpret_cast<const float4*>(p);
+        const float4 b = *reinterpret_cast<const float4*>(p + 4);
+        v[0] = a.x, v[1] = a.y, v[2] = a.z, v[3] = a.w, v[4] = b.x, v[5] = b.y, v[6] = b.z,
+        v[7] = b.w;
+    } else {
+#pragma unroll
+        for (int e = 0; e < 8; ++e) v[e] = e < lim ? p[e] : 0.f;
+    }
 }
 
 // The signed nibbles (low: lo, high: hi) of byte j of u and byte j of v as
@@ -504,17 +591,24 @@ __global__ void __launch_bounds__(C::THREADS, C::MINB)
                 }
             }
             wrow += C::BK * a.ldw;
-            if constexpr (C::MODE == W8A16) {
+            if constexpr (C::MODE == W8A16 || C::MODE == F32X3) {
+                // bf16 x: W8A16's tile, or F32X3's three terms (columns k,
+                // x_hi + k and 2 x_hi + k of the prologue's rows)
                 __nv_bfloat16* sx = reinterpret_cast<__nv_bfloat16*>(sw + C::W_BYTES);
                 for (int i = pl; i < rows * C::XCR; i += 32 * C::NP) {
                     const int r = i / C::XCR, c8 = i % C::XCR;
                     const bool in = c8 * 8 < left;
                     const __nv_bfloat16* xs = xgb + r * a.ldx + k0 + c8 * 8;
-                    if constexpr (VEC) {
-                        cp_async16(smem_u32(sx + r * C::XP + c8 * 8), in ? xs : xgb, in);
-                    } else {
-                        *reinterpret_cast<uint4*>(sx + r * C::XP + c8 * 8) =
-                            in ? *reinterpret_cast<const uint4*>(xs) : make_uint4(0u, 0u, 0u, 0u);
+#pragma unroll
+                    for (int h = 0; h < C::NX; ++h) {
+                        __nv_bfloat16* d = sx + h * (C::X_BYTES / 2) + r * C::XP + c8 * 8;
+                        const __nv_bfloat16* hs = xs + h * a.x_hi;
+                        if constexpr (VEC) {
+                            cp_async16(smem_u32(d), in ? hs : xgb, in);
+                        } else {
+                            *reinterpret_cast<uint4*>(d) = in ? *reinterpret_cast<const uint4*>(hs)
+                                                              : make_uint4(0u, 0u, 0u, 0u);
+                        }
                     }
                 }
             } else {  // W8A8 (int8 x), INT4 (columns k and x_hi + k), swizzled
@@ -578,10 +672,12 @@ __global__ void __launch_bounds__(C::THREADS, C::MINB)
                                            (row * C::XP + s * C::KS + (lane >> 4) * (16 / C::XE)) *
                                                C::XE);
                 };
-                // W8A16, W8A8: every row tile's A first (INT4 loads its two
-                // halves per row tile below, after its B fragments)
-                uint32_t af[C::MODE == INT4 ? 1 : C::MTW][4];
-                if constexpr (C::MODE != INT4) {
+                // W8A16, W8A8: every row tile's A first (INT4 and F32X3
+                // load their two or three x tiles per row tile below, after
+                // their B fragments)
+                constexpr bool A_FIRST = C::MODE == W8A16 || C::MODE == W8A8;
+                uint32_t af[A_FIRST ? C::MTW : 1][4];
+                if constexpr (A_FIRST) {
 #pragma unroll
                     for (int mt = 0; mt < C::MTW; ++mt) load_a(af[mt], 0, mt);
                 }
@@ -646,6 +742,27 @@ __global__ void __launch_bounds__(C::THREADS, C::MINB)
 #pragma unroll
                                     for (int mt = 0; mt < C::MTW; ++mt)
                                         mma_bf16(acc[mt][gi][j], af[mt], b0, b1);
+                                }
+                            } else if constexpr (C::MODE == F32X3) {
+                                // the four n8 tiles' fragments converted
+                                // once, then per row tile its three terms,
+                                // the smallest first, into one accumulator
+                                uint32_t b[4][2];
+#pragma unroll
+                                for (int j = 0; j < 4; ++j) {
+                                    b[j][0] = bf16_pair(w0, w1, j);
+                                    b[j][1] = bf16_pair(w2, w3, j);
+                                }
+#pragma unroll
+                                for (int mt = 0; mt < C::MTW; ++mt) {
+                                    uint32_t xa[3][4];
+#pragma unroll
+                                    for (int h = 0; h < 3; ++h) load_a(xa[h], h, mt);
+#pragma unroll
+                                    for (int h = 2; h >= 0; --h)
+#pragma unroll
+                                        for (int j = 0; j < 4; ++j)
+                                            mma_bf16(acc[mt][gi][j], xa[h], b[j][0], b[j][1]);
                                 }
                             } else {
                                 // INT4: the four n8 tiles' fragments converted
@@ -792,7 +909,7 @@ __global__ void __launch_bounds__(C::THREADS, C::MINB)
             for (int r = 0; r < MAX_SPLITS; ++r)
                 if (r < splits) v += rv[r];
         }
-        if constexpr (C::MODE == W8A16)
+        if constexpr (C::MODE == W8A16 || C::MODE == F32X3)
             store_out(a, m0 + row, c, v * a.w_scale[c]);
         else if constexpr (C::MODE == W8A8)
             store_out(a, m0 + row, c, static_cast<float>(v) * a.x_scale[m0 + row] * a.w_scale[c]);
@@ -905,14 +1022,18 @@ template <class C> int launch_vec(const Args& a, cudaStream_t st) {
 }
 
 // Host checks the Python wrapper also makes; a call that breaks them is
-// refused rather than read out of bounds.
+// refused rather than read out of bounds. (F32X3's x is the prologue's
+// terms: rows of 3 x_hi bf16, x_hi >= K a multiple of 8.)
 template <int MODE> bool args_ok(const Args* a) {
     const int xe = MODE == W8A8 ? 1 : 2;  // bytes per x element
-    return a->M > 0 && a->K > 0 && a->N > 0 && a->count > 0 && (a->K * xe) % 16 == 0 &&
-           (a->ldx * xe) % 16 == 0 && reinterpret_cast<uintptr_t>(a->x) % 16 == 0 &&
+    return a->M > 0 && a->K > 0 && a->N > 0 && a->count > 0 &&
+           (MODE == F32X3 || (a->K * xe) % 16 == 0) && (a->ldx * xe) % 16 == 0 &&
+           reinterpret_cast<uintptr_t>(a->x) % 16 == 0 &&
            a->ldw >= a->N && (a->w_scale != nullptr) == (MODE != INT4) &&
            (a->x_scale != nullptr) == (MODE == W8A8) &&
-           (MODE == INT4 ? a->x_hi >= a->K && a->x_hi % 8 == 0 : a->x_hi == 0) &&
+           (MODE == INT4 || MODE == F32X3 ? a->x_hi >= a->K && a->x_hi % 8 == 0 : a->x_hi == 0) &&
+           (MODE != F32X3 || a->ldx == 3LL * a->x_hi) &&
+           (MODE != F32X3 || a->count == 1) &&
            // W8A8, INT4: a stack's weights are count * K contiguous rows
            (MODE == W8A16 || a->count == 1 || a->w_sh == (long long)a->K * a->ldw) &&
            (!a->vec || (a->ldw % 16 == 0 && a->w_sh % 16 == 0 &&
@@ -953,6 +1074,57 @@ int run_int4(const Args* a, void* stream) {
         case 1: return launch_vec<I1>(*a, st);
         case 2: return launch_vec<I2>(*a, st);
         case 3: return launch_vec<I3>(*a, st);
+        default: return (int)cudaErrorInvalidValue;
+    }
+}
+
+}  // namespace ring
+
+// F32X3's prologue: x (M, K) f32, rows ldx apart, into its three bf16
+// terms, t (M, 3 Kp) rows [hi | mid | lo] (ring::split3), zeros from
+// column K to Kp (a multiple of 8). A thread takes 8 columns of a row:
+// 16-byte loads where x allows, three 16-byte stores.
+__global__ void __launch_bounds__(256) split3_kernel(const float* __restrict__ x, long long ldx,
+                                                     int M, int K, int Kp,
+                                                     __nv_bfloat16* __restrict__ t) {
+    const int chunks = Kp / 8;
+    const bool vec = (reinterpret_cast<uintptr_t>(x) & 15) == 0 && (ldx & 3) == 0;
+    for (long long i = blockIdx.x * 256LL + threadIdx.x; i < (long long)M * chunks;
+         i += gridDim.x * 256LL) {
+        const long long row = i / chunks;
+        const int k = 8 * static_cast<int>(i % chunks);
+        float v[8];
+        ring::load8(v, x + row * ldx + k, K - k, vec);
+        uint4 w[3];
+        ring::split3_8(v, w);
+        __nv_bfloat16* d = t + row * 3 * Kp + k;
+#pragma unroll
+        for (int h = 0; h < 3; ++h) *reinterpret_cast<uint4*>(d + h * Kp) = w[h];
+    }
+}
+
+namespace ring {
+
+// F32X3 with instantiation C: the prologue writes x's terms into a.x, then
+// the product. x (M, K) f32, rows ldx apart, is the caller's activation.
+template <class C> int launch_f32(const Args& a, const float* x, long long ldx, cudaStream_t st) {
+    if (x == nullptr || ldx < a.K) return (int)cudaErrorInvalidValue;
+    const long long chunks = (long long)a.M * (a.x_hi / 8);
+    const int blocks = static_cast<int>(std::min<long long>((chunks + 255) / 256, 4096));
+    split3_kernel<<<blocks, 256, 0, st>>>(x, ldx, a.M, a.K, a.x_hi,
+                                          static_cast<__nv_bfloat16*>(const_cast<void*>(a.x)));
+    const cudaError_t err = cudaGetLastError();
+    if (err != cudaSuccess) return (int)err;
+    return launch_vec<C>(a, st);
+}
+
+int run_f32x3(const Args* a, const float* x, long long ldx, void* stream) {
+    if (!args_ok<F32X3>(a)) return (int)cudaErrorInvalidValue;
+    cudaStream_t st = static_cast<cudaStream_t>(stream);
+    switch (a->variant) {
+        case 0: return launch_f32<F0>(*a, x, ldx, st);
+        case 1: return launch_f32<F1>(*a, x, ldx, st);
+        case 2: return launch_f32<F2>(*a, x, ldx, st);
         default: return (int)cudaErrorInvalidValue;
     }
 }
@@ -1033,138 +1205,9 @@ extern "C" int mosstts_w8a8_gemm(const mosstts::w8::Args* args, const void* x_bf
     return mosstts::w8::ring::run_w8a8(args, stream);
 }
 
-// ---------------------------------------------------------------------------
-// W8A16's float32-activation mode: out (M, N) f32 = (x @ q) * scale with x
-// f32 (M, K) rows ldx floats apart and q int8 (K, N) rows ldw bytes apart,
-// accumulated in f32 with no rounding of x (the int8 codec's encoder runs
-// f32 activations, as the JAX package's ``dense`` does). A plain tiled
-// SIMT kernel: a 256-thread block owns a (16 * TM) x 64 tile of the
-// output, each thread a TM x 4 block of it (TM = 4 for M > 16, else 1, so
-// a few rows do not pay for 64); per 32-row slice of K the block stages x's
-// slice (k-major) and q's 32 x 64 values (converted to f32) in shared
-// memory, loading the next slice into registers while it multiplies this
-// one, and each thread adds the slice's products in ascending k. The
-// codec's M is small (tens of frames), so the column tiles alone leave most
-// SMs idle: K is split over ``splits`` blocks (gridDim.z), each writing its
-// partial tile to ``partial`` (splits, M, N), and a second kernel sums the
-// partials in split order and applies the scales. Both are deterministic:
-// a result does not depend on the launch.
-namespace mosstts {
-namespace w8 {
-
-constexpr int F_BN = 64, F_BK = 32, F_THREADS = 256;
-
-template <int TM>
-__global__ void __launch_bounds__(F_THREADS)
-f32_gemm_kernel(const float* __restrict__ x, long long ldx, const int8_t* __restrict__ w,
-                long long ldw, const float* __restrict__ scale, float* __restrict__ out,
-                float* __restrict__ partial, int M, int K, int N, int k_per_split) {
-    constexpr int BM = 16 * TM;
-    constexpr int XU = BM * F_BK / F_THREADS, WU = F_BK * F_BN / F_THREADS;
-    __shared__ float xs[F_BK][BM + 1];
-    __shared__ float ws[F_BK][F_BN + 4];
-    const int tx = threadIdx.x % 16, ty = threadIdx.x / 16;
-    const int row0 = blockIdx.y * BM, col0 = blockIdx.x * F_BN;
-    const int k_lo = blockIdx.z * k_per_split, k_hi = min(K, k_lo + k_per_split);
-    // this thread's share of a slice: XU x values and WU w values
-    float xr[XU], wr[WU];
-    auto load = [&](int k0) {
-#pragma unroll
-        for (int u = 0; u < XU; ++u) {
-            const int i = threadIdx.x + u * F_THREADS;
-            const int gr = row0 + i / F_BK, gk = k0 + i % F_BK;
-            xr[u] = (gr < M && gk < k_hi) ? x[(long long)gr * ldx + gk] : 0.f;
-        }
-#pragma unroll
-        for (int u = 0; u < WU; ++u) {
-            const int i = threadIdx.x + u * F_THREADS;
-            const int gk = k0 + i / F_BN, gc = col0 + i % F_BN;
-            wr[u] = (gk < k_hi && gc < N) ? (float)w[(long long)gk * ldw + gc] : 0.f;
-        }
-    };
-    float acc[TM][4] = {};
-    if (k_lo < k_hi) load(k_lo);
-    for (int k0 = k_lo; k0 < k_hi; k0 += F_BK) {
-#pragma unroll
-        for (int u = 0; u < XU; ++u) {
-            const int i = threadIdx.x + u * F_THREADS;
-            xs[i % F_BK][i / F_BK] = xr[u];
-        }
-#pragma unroll
-        for (int u = 0; u < WU; ++u) {
-            const int i = threadIdx.x + u * F_THREADS;
-            ws[i / F_BN][i % F_BN] = wr[u];
-        }
-        __syncthreads();
-        if (k0 + F_BK < k_hi) load(k0 + F_BK);  // the next slice, in flight while this one runs
-#pragma unroll 8
-        for (int kk = 0; kk < F_BK; ++kk) {
-            float a[TM], b[4];
-#pragma unroll
-            for (int i = 0; i < TM; ++i) a[i] = xs[kk][ty * TM + i];
-#pragma unroll
-            for (int j = 0; j < 4; ++j) b[j] = ws[kk][tx * 4 + j];
-#pragma unroll
-            for (int i = 0; i < TM; ++i)
-#pragma unroll
-                for (int j = 0; j < 4; ++j) acc[i][j] = fmaf(a[i], b[j], acc[i][j]);
-        }
-        __syncthreads();
-    }
-    float* dst = gridDim.z > 1 ? partial + (long long)blockIdx.z * M * N : out;
-#pragma unroll
-    for (int i = 0; i < TM; ++i) {
-        const int gr = row0 + ty * TM + i;
-        if (gr >= M) continue;
-#pragma unroll
-        for (int j = 0; j < 4; ++j) {
-            const int gc = col0 + tx * 4 + j;
-            if (gc < N)
-                dst[(long long)gr * N + gc] = gridDim.z > 1 ? acc[i][j] : acc[i][j] * scale[gc];
-        }
-    }
-}
-
-// out[m, n] = (sum over the splits, in order, of partial[s, m, n]) * scale[n]
-__global__ void f32_gemm_reduce_kernel(const float* __restrict__ partial,
-                                       const float* __restrict__ scale, float* __restrict__ out,
-                                       long long MN, int N, int splits) {
-    for (long long i = blockIdx.x * (long long)blockDim.x + threadIdx.x; i < MN;
-         i += (long long)gridDim.x * blockDim.x) {
-        float s = 0.f;
-        for (int z = 0; z < splits; ++z) s += partial[z * MN + i];
-        out[i] = s * scale[i % N];
-    }
-}
-
-}  // namespace w8
-}  // namespace mosstts
-
-// ``partial`` holds splits * M * N floats when splits > 1 (unused otherwise);
-// each split takes k_per_split rows of K (a multiple of 32); a block covers
-// ``tile_rows`` (16 or 64) rows of M.
-extern "C" int mosstts_w8f32_gemm(const float* x, long long ldx, const int8_t* w, long long ldw,
-                                  const float* scale, float* out, float* partial, int M, int K,
-                                  int N, int splits, int k_per_split, int tile_rows,
+// F32X3: ``x`` (M, K) f32 rows ``ldx`` floats apart; args->x is the
+// (M, 3 Kp) bf16 buffer the prologue fills (args->x_hi = Kp): two launches.
+extern "C" int mosstts_w8f32_gemm(const mosstts::w8::Args* args, const float* x, long long ldx,
                                   void* stream) {
-    using namespace mosstts::w8;
-    if (M <= 0 || K <= 0 || N <= 0 || ldx < K || ldw < N || splits < 1 ||
-        k_per_split % F_BK != 0 || (long long)splits * k_per_split < K ||
-        (splits > 1 && partial == nullptr) || (tile_rows != 16 && tile_rows != 64))
-        return (int)cudaErrorInvalidValue;
-    const dim3 grid((N + F_BN - 1) / F_BN, (M + tile_rows - 1) / tile_rows, splits);
-    if (grid.y > 65535 || grid.z > 65535) return (int)cudaErrorInvalidValue;
-    cudaStream_t s = static_cast<cudaStream_t>(stream);
-    if (tile_rows == 16)
-        f32_gemm_kernel<1><<<grid, F_THREADS, 0, s>>>(x, ldx, w, ldw, scale, out, partial, M, K,
-                                                      N, k_per_split);
-    else
-        f32_gemm_kernel<4><<<grid, F_THREADS, 0, s>>>(x, ldx, w, ldw, scale, out, partial, M, K,
-                                                      N, k_per_split);
-    cudaError_t err = cudaGetLastError();
-    if (err != cudaSuccess || splits == 1) return (int)err;
-    const long long MN = (long long)M * N;
-    const int blocks = (int)std::min<long long>((MN + 255) / 256, 4096);
-    f32_gemm_reduce_kernel<<<blocks, 256, 0, s>>>(partial, scale, out, MN, N, splits);
-    return (int)cudaGetLastError();
+    return mosstts::w8::ring::run_f32x3(args, x, ldx, stream);
 }

@@ -15,22 +15,21 @@ PyTorch versions.
   high nibble W[d + D/2]) times x's two halves, f32 out, no scale. Ports
   ``tools/probe_int4.py::mm4_pallas``.
 
-* ``w8f32_gemm``: W8A16's float32-activation mode, ``(x @ q) * scale``
-  with x float32 and f32 out, no rounding of x (the int8 codec's encoder:
-  ``mosstts_tpu/ops/basic.py:28-30`` with f32 activations). A plain tiled
-  kernel of its own (``csrc/w8_gemm.cu`` ``f32_gemm_kernel``, 16- or
-  64-row tiles), K split over ``f32_plan``'s blocks and their partials
-  summed in order by a second kernel (``f32_gemm_reduce_kernel``): two
-  launches a call, deterministic.
+* ``w8f32_gemm``: W8A16's function with float32 activations and f32 out
+  (the int8 codec's encoder: ``mosstts_tpu/ops/basic.py:28-30`` with f32
+  activations), mode F32X3: x split into three bf16 terms (``split3_bf16``)
+  whose products with the int8 values, exact, go to one f32 accumulator on
+  the tensor cores, so x is not rounded.
 
-The first three are modes of one kernel (``csrc/w8_gemm.cu`` ``ring_kernel``):
+All four are modes of one kernel (``csrc/w8_gemm.cu`` ``ring_kernel``):
 one device kernel per product, whose tile variant and split of K over a
 thread-block cluster (the blocks sum their partials inside the launch)
-``gemm_plan`` picks; W8A8 first quantizes x's rows in a launch of its own.
+``gemm_plan`` picks; W8A8 first quantizes x's rows in a launch of its own,
+and F32X3 splits x into its terms in one.
 Each wrapper runs its plain version for CPU tensors and its kernel for CUDA
 tensors, never falling back from one to the other; it raises on what the
-kernel does not take and counts its calls (a W8A8 call, two device
-kernels, counts one). The plain versions compute each
+kernel does not take and counts its calls (a call of two device kernels
+counts one). The plain versions compute each
 product exactly (float32, or float64 for the int8 x int8 sum, which float32
 cannot hold exactly) and apply the scales in the kernels' order.
 """
@@ -44,19 +43,20 @@ import torch
 
 _OUT_F32 = {torch.bfloat16: 0, torch.float32: 1}
 
-W8A16, W8A8, INT4 = 0, 1, 2  # csrc/w8_gemm.cu Mode
-# csrc/w8_gemm.cu ring::V0-V5, Q0-Q3, I0-I3, each mode's instantiations of
-# the kernel: (MT 16-row tiles, BN columns, its consumer warps across the
-# row tiles (WM), the 32-column groups (WN) and the mma k steps of a stage
-# (WK: k16 steps, k32 for W8A8), STAGES ring tiles, NP producer warps, MINB
-# blocks an SM at least (its register budget))
+W8A16, W8A8, INT4, F32X3 = 0, 1, 2, 3  # csrc/w8_gemm.cu Mode
+# csrc/w8_gemm.cu ring::V0-V5, Q0-Q3, I0-I3, F0-F2, each mode's
+# instantiations of the kernel: (MT 16-row tiles, BN columns, its consumer
+# warps across the row tiles (WM), the 32-column groups (WN) and the mma k
+# steps of a stage (WK: k16 steps, k32 for W8A8), STAGES ring tiles, NP
+# producer warps, MINB blocks an SM at least (its register budget))
 A16_VARIANTS = ((1, 64, 1, 1, 8, 5, 2, 3), (1, 128, 1, 2, 4, 6, 2, 3), (2, 128, 1, 4, 2, 4, 2, 2),
                 (4, 128, 1, 4, 2, 4, 2, 2), (8, 128, 2, 4, 1, 3, 2, 2), (6, 128, 2, 4, 1, 3, 2, 2))
 A8_VARIANTS = ((1, 128, 1, 4, 2, 6, 2, 3), (2, 128, 1, 4, 2, 5, 2, 2), (4, 128, 2, 4, 1, 5, 2, 2),
                (8, 128, 2, 4, 1, 12, 2, 1))
 I4_VARIANTS = ((1, 128, 1, 4, 2, 5, 2, 3), (2, 128, 1, 4, 2, 4, 2, 2), (4, 128, 1, 4, 2, 8, 2, 1),
                (8, 128, 2, 4, 1, 5, 2, 1))
-VARIANTS = {W8A16: A16_VARIANTS, W8A8: A8_VARIANTS, INT4: I4_VARIANTS}
+F32_VARIANTS = ((1, 64, 1, 1, 8, 4, 2, 2), (2, 128, 1, 4, 2, 4, 4, 1), (8, 128, 2, 4, 1, 3, 2, 1))
+VARIANTS = {W8A16: A16_VARIANTS, W8A8: A8_VARIANTS, INT4: I4_VARIANTS, F32X3: F32_VARIANTS}
 STAGE_W = 8192  # weight bytes per ring tile: BK = STAGE_W // BN rows
 MAX_CLUSTER = 8  # blocks per cluster (the split of K): the portable cluster size
 
@@ -232,9 +232,12 @@ def gemm_plan(M: int, K: int, N: int, count: int, sm_count: int, *, mode: int = 
       whose 128- and 64-row tiles hold one block an SM and a deep ring (at
       the tools' shapes a split of 2 cost them 21-27%, of 4 49-68%); a tie
       goes to the larger tile.
+    * F32X3 has a plan of its own (``f32x3_plan``).
 
     ``variant`` and ``splits`` (at most the k tiles) override the choice
     (``tools/w8a16_plans.py`` times the alternatives)."""
+    if mode == F32X3:
+        return f32x3_plan(M, K, N, sm_count, variant=variant, splits=splits)
     table = VARIANTS[mode]
     merge = 0.1 if mode == W8A16 else 0.35
 
@@ -277,6 +280,34 @@ def gemm_plan(M: int, K: int, N: int, count: int, sm_count: int, *, mode: int = 
         fill = [blocks * s / sm_count / -(-blocks * s // sm_count) for s in fit]
         splits = next((s for s, f in zip(fit, fill) if f >= 0.9), fit[fill.index(max(fill))])
     return GemmPlan(variant, mt, bn, bk, tiles, tail, row_tiles, min(splits, k_tiles), k_tiles)
+
+
+def f32x3_plan(M: int, K: int, N: int, sm_count: int, *, variant: Optional[int] = None,
+               splits: Optional[int] = None) -> GemmPlan:
+    """F32X3's launch (``w8f32_gemm``, one weight), from the sweep of
+    ``tools/w8a16_plans.py --mode f32x3`` over the int8 codec's encoder
+    shapes at M = 1-200 on an H100 (PERF.md §6). M <= 16 takes the 16-row
+    tile of 64 columns (F0), more rows the 32-row (F1) or the 128-row tile
+    (F2). Of those, with K split over s blocks of a cluster (a power of
+    two up to ``MAX_CLUSTER``, whole ring tiles, none empty), the fewest
+    rounds of blocks win (a second wave cost 25-60%), then the least
+    rounds x ring tiles per block x (1 + MT): the 32-row tile gives narrow
+    N more blocks, the 128-row tile reads the weights fewer times (wide N
+    at M = 100-200). ``variant`` and ``splits`` override the choice."""
+    best = None
+    for v in ([variant] if variant is not None else [0] if M <= 16 else [1, 2]):
+        mt, bn = F32_VARIANTS[v][:2]
+        tiles, tail = a16_columns(N, 1, bn)
+        row_tiles, k_tiles = -(-M // (16 * mt)), -(-K // (STAGE_W // bn))
+        for s in [splits] if splits is not None else (1, 2, 4, 8):
+            if s > max(1, min(MAX_CLUSTER, k_tiles)):
+                continue
+            rounds = -(-(tiles + tail) * row_tiles * s // sm_count)
+            cost = (rounds, rounds * -(-k_tiles // s) * (1 + mt))
+            if best is None or cost < best[0]:
+                best = (cost, GemmPlan(v, mt, bn, STAGE_W // bn, tiles, tail, row_tiles,
+                                       min(s, k_tiles), k_tiles))
+    return best[1]
 
 
 def _on_cuda(name: str, x: torch.Tensor) -> bool:
@@ -400,27 +431,36 @@ def int4_gemm(x: torch.Tensor, packed: torch.Tensor) -> torch.Tensor:
     return out
 
 
-F32_BN, F32_BK = 64, 32  # csrc/w8_gemm.cu F_BN, F_BK
-
-
-def f32_plan(M: int, K: int, N: int, sm_count: int) -> tuple:
-    """(splits, k_per_split, tile_rows) of a ``w8f32_gemm`` launch: tiles
-    of 16 rows for M <= 16, else 64, by 64 columns; an (M, N) product with
-    small M leaves most SMs idle with those alone, so K is split over about
-    four blocks an SM in all, each split two or more 32-row slices of K."""
-    rows = 16 if M <= 16 else 64
-    tiles = -(-M // rows) * -(-N // F32_BN)
-    slices = -(-K // F32_BK)
-    splits = max(1, min(slices // 2, -(-4 * sm_count // tiles)))
-    per = -(-slices // splits) * F32_BK
-    return -(-K // per), per, rows
+def split3_bf16(x: torch.Tensor):
+    """Plain version of F32X3's split (``csrc/w8_gemm.cu`` ``ring::split3``,
+    the prologue ``split3_kernel``): float32 x as three bf16 terms, each
+    rounded to nearest, ``hi = bf16(x)``, ``mid = bf16(x - hi)``, ``lo =
+    bf16(x - hi - mid)``. The differences are exact in float32, and ``hi +
+    mid + lo == x`` wherever lo stays a normal bf16 (|x| >= 2**-110); below,
+    the remainder is at most 2**-134, half of bf16's smallest subnormal
+    step. A finite x that rounds past bf16's largest value keeps its
+    truncation as hi; inf and NaN are hi alone (mid = lo = 0)."""
+    x = x.float()
+    hi = x.to(torch.bfloat16)
+    trunc = (x.view(torch.int32) & -65536).view(torch.float32).to(torch.bfloat16)
+    hi = torch.where(hi.isinf(), trunc, hi)  # inf stays inf: its truncation is inf
+    finite = x.isfinite()
+    r = torch.where(finite, x - hi.float(), torch.zeros_like(x))
+    mid = r.to(torch.bfloat16)
+    lo = (r - mid.float()).to(torch.bfloat16)
+    return hi, mid, lo
 
 
 def w8f32_gemm(x: torch.Tensor, q: torch.Tensor, scale: torch.Tensor) -> torch.Tensor:
     """x (..., K) float32 with contiguous rows (a contiguous (..., K), or
     (M, K) rows ldx apart); q (K, N) int8 with contiguous rows ``ldw =
     q.stride(0) >= N`` bytes apart (a layer of a stack is read in place);
-    scale (N,) f32. Returns (..., N) float32 ``(x @ q) * scale``."""
+    scale (N,) f32. Returns (..., N) float32 ``(x @ q) * scale``: the
+    F32X3 mode of the ring kernel, x's three bf16 terms (``split3_bf16``)
+    times the int8 values in one f32 accumulator, the K split summed in rank
+    order inside a cluster, so two calls give the same bits. Two device
+    kernels: a prologue that writes x's terms, (M, 3 Kp) bf16, then the
+    product."""
     if not _on_cuda("w8f32_gemm", x):
         return w8a16_gemm_ref(x, q, scale, torch.float32)
     if x.dtype != torch.float32 or q.dtype != torch.int8 or scale.dtype != torch.float32:
@@ -434,29 +474,16 @@ def w8f32_gemm(x: torch.Tensor, q: torch.Tensor, scale: torch.Tensor) -> torch.T
         raise ValueError(f"w8f32_gemm: x {tuple(x.shape)} {x.stride()}, q {tuple(q.shape)} "
                          f"{q.stride()}, scale {tuple(scale.shape)} on one device")
     M, N = x.numel() // max(K, 1), q.shape[1]
-    out = torch.empty(x.shape[:-1] + (N,), dtype=torch.float32, device=x.device)
-    if M == 0:
-        return out
-    ldx = x.stride(0) if x.dim() == 2 else K
-    splits, per, rows = f32_plan(M, K, N, _sm_count(x.device.index))
-    partial = (torch.empty((splits, M, N), dtype=torch.float32, device=x.device) if splits > 1
-               else None)
-    rc = _entry_f32()(x.data_ptr(), ldx, q.data_ptr(), q.stride(0), scale.data_ptr(),
-                      out.data_ptr(), None if partial is None else partial.data_ptr(), M, K, N,
-                      splits, per, rows, torch._C._cuda_getCurrentRawStream(x.device.index))
-    if rc != 0:
-        raise RuntimeError(f"mosstts_w8f32_gemm kernel launch failed: cudaError {rc}")
+    if x.numel() == 0:  # no rows, or K = 0: the empty sums
+        return torch.zeros(x.shape[:-1] + (N,), dtype=torch.float32, device=x.device)
+    kp = -(-K // 8) * 8
+    terms = torch.empty((M, 3 * kp), dtype=torch.bfloat16, device=x.device)
+    out, _ = _launch(F32X3, "mosstts_w8f32_gemm", x, q, scale, torch.float32, K=K, ldx=3 * kp,
+                     x_hi=kp, x_ptr=terms.data_ptr(),
+                     extra=(x.data_ptr(), x.stride(0) if x.dim() == 2 else K))
     global LAUNCHES_W8F32
     LAUNCHES_W8F32 += 1
     return out
-
-
-@functools.cache
-def _entry_f32():
-    from . import _build
-
-    p, i, ll = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
-    return _build.kernel("mosstts_w8f32_gemm", [p, ll, p, ll, p, p, p, i, i, i, i, i, i, p])
 
 
 @functools.cache

@@ -10,7 +10,7 @@ pages unallocated: they ride the trash page 0, which holds a large poison
 value that ``kv_valid`` masks. ``bound``, ``decode_bound`` and
 ``gemm_bound`` give the least time the card could take for a call, from the
 published peaks of an NVIDIA H100 SXM; ``time_ms`` a call's device time from
-CUDA-graph replays.
+CUDA-graph replays; ``graph_kernels`` the device kernels a call launches.
 """
 from __future__ import annotations
 
@@ -94,6 +94,49 @@ def time_ms(fn, n: int = 36, reps: int = 7) -> float:
         out.append(start.elapsed_time(end) / n)
     del graph
     return statistics.median(out)
+
+
+def codec_f32_shapes() -> list:
+    """``codec_1p6b()``'s int8 products with float32 activations (the int8
+    codec's encoder, ``w8_gemm.w8f32_gemm``): name, K, N."""
+    from ..core.config import codec_1p6b
+
+    cfg = codec_1p6b()
+    D, F_ = cfg.hidden_size, cfg.intermediate_size
+    kv = cfg.num_key_value_heads * cfg.head_dim
+    return [("w_gate", D, F_), ("w_down", F_, D), ("wq", D, cfg.num_attention_heads * cfg.head_dim),
+            ("wk", D, kv), ("enc_in", cfg.hop, D), ("enc_out", D, cfg.codebook_dim)]
+
+
+def graph_kernels(fn) -> tuple:
+    """(kernel nodes, all nodes) of a CUDA graph that captures one ``fn()``
+    (warmed up on a side stream first): the device kernels one call
+    launches, read off the graph (libcuda's ``cuGraphGetNodes``), not
+    from a profiler's records, which can be lost (PERF.md §6)."""
+    import ctypes
+
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        fn()
+    torch.cuda.current_stream().wait_stream(side)
+    graph = torch.cuda.CUDAGraph(keep_graph=True)
+    with torch.cuda.graph(graph):
+        fn()
+    cuda = ctypes.CDLL("libcuda.so.1")
+    g, n = ctypes.c_void_p(graph.raw_cuda_graph()), ctypes.c_size_t(0)
+    if cuda.cuGraphGetNodes(g, None, ctypes.byref(n)) != 0:
+        raise RuntimeError("cuGraphGetNodes failed")
+    nodes = (ctypes.c_void_p * n.value)()
+    if cuda.cuGraphGetNodes(g, nodes, ctypes.byref(n)) != 0:
+        raise RuntimeError("cuGraphGetNodes failed")
+    kinds = []
+    for node in nodes:
+        kind = ctypes.c_int(-1)
+        if cuda.cuGraphNodeGetType(ctypes.c_void_p(node), ctypes.byref(kind)) != 0:
+            raise RuntimeError("cuGraphNodeGetType failed")
+        kinds.append(kind.value)
+    return kinds.count(0), len(kinds)  # CU_GRAPH_NODE_TYPE_KERNEL = 0
 
 
 def decode_bound(q, kv_valid, attend: int, kv_heads: int, row_bytes: float,

@@ -2,7 +2,7 @@
 ``mosstts_tpu_torch`` of any checkout, so that two commits can be compared
 on one NVIDIA GPU.
 
-    python3 mosstts_tpu_torch/tools/kernel_times.py --root DIR [--only attention|gemm]
+    python3 mosstts_tpu_torch/tools/kernel_times.py --root DIR [--only attention|gemm|f32]
 
 Run it as a file, as ``tools/bf16_path.py``: it imports ``chip_smoke`` and
 the port from ``--root`` (a checkout, e.g. an archive of another commit
@@ -22,6 +22,11 @@ unpacked under the git-ignored ``build/``).
   the W8A16 shapes' allocations can differ between the trees, with int4's
   yardstick ``torch._weight_int4pack_mm`` (``int4_library``) beside it.
   Inputs from one seed, the same in every tree.
+* f32: the tree's ``w8f32_gemm(x, q, scale)`` (float32 x) at its
+  ``chip_smoke.codec_f32_shapes()`` (``codec_1p6b()``'s encoder products)
+  and M = 200, 100 (the encoder's 100-frame chunks of one and two waves),
+  50, 12 and 1, warm (one weight every call, as smoke phase 13a
+  times it) and cold (22 layers, the encoder's, read in turn).
 
 One JSON line last: µs per call by kernel and shape, and a digest of each
 W8A16 shape's output bits (layer 0). Compare two trees only within one
@@ -129,11 +134,34 @@ def gemm_times(torch) -> dict:
     return res
 
 
+def f32_times(torch) -> dict:
+    """µs per call of the imported tree's ``w8f32_gemm`` at the codec's
+    shapes, warm and cold in L2."""
+    import chip_smoke
+    from mosstts_tpu_torch.ops.kernels import w8_gemm
+    from mosstts_tpu_torch.tools.kernel_inputs import time_ms
+
+    dev, res, L = "cuda", {}, 22
+    g = torch.Generator(device=dev).manual_seed(14)
+    for name, K, N in chip_smoke.codec_f32_shapes():
+        q = torch.empty((L, K, N), dtype=torch.int8, device=dev).random_(-127, 128, generator=g)
+        sc = torch.rand((L, N), generator=g, device=dev) * 0.019 + 0.001
+        for M in (200, 100, 50, 12, 1):
+            x = torch.randn((M, K), generator=g, device=dev)
+            for label, pick in (("warm", lambda i: 0), ("cold", lambda i: i % L)):
+                ms = time_ms(lambda i: w8_gemm.w8f32_gemm(x, q[pick(i)], sc[pick(i)]))
+                res[f"w8f32 {name} M={M} {label}"] = round(ms * 1e3, 2)
+                print(f"w8f32 {name} M={M} {label}: {ms * 1e3:.2f} µs", flush=True)
+        del q, sc
+        torch.cuda.empty_cache()
+    return res
+
+
 def main(argv=None) -> dict:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--root", type=Path, required=True, help="the checkout to measure")
-    ap.add_argument("--only", choices=("attention", "gemm"), default=None,
-                    help="time only these kernels (default: both)")
+    ap.add_argument("--only", choices=("attention", "gemm", "f32"), default=None,
+                    help="time only these kernels (default: attention and gemm)")
     args = ap.parse_args(argv)
     root = args.root.resolve()
 
@@ -147,7 +175,9 @@ def main(argv=None) -> dict:
 
     torch.backends.cuda.matmul.allow_tf32 = False
     res = {"root": str(root), "card": chip_smoke.card_line()}
-    if args.only != "gemm":
+    if args.only == "f32":
+        res.update(f32_times(torch))
+    if args.only is None or args.only == "attention":
         numbers = chip_smoke.phase_kernels()
         numbers.update(chip_smoke.phase_kernels_server())
         for name, n in numbers.items():
@@ -155,7 +185,7 @@ def main(argv=None) -> dict:
                 res[name] = round(n["ms"] * 1e3, 2)
                 for sh in n.get("shapes", ()):
                     res[f"{name} {sh['shape']}"] = round(sh["ms"] * 1e3, 2)
-    if args.only != "attention":
+    if args.only is None or args.only == "gemm":
         res.update(gemm_times(torch))
     print(json.dumps(res), flush=True)
     return res

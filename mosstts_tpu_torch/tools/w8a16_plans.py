@@ -4,6 +4,7 @@ could take, on one NVIDIA GPU.
     python3 -m mosstts_tpu_torch.tools.w8a16_plans [--shapes wq wk ...] [--M 1 16]
     python3 -m mosstts_tpu_torch.tools.w8a16_plans --mode w8a8 [--M 128]
     python3 -m mosstts_tpu_torch.tools.w8a16_plans --mode int4 [--M 64]
+    python3 -m mosstts_tpu_torch.tools.w8a16_plans --mode f32x3 [--M 200 100 1]
 
 For each shape and row count M: the plan ``gemm_plan`` picks, then each
 of the mode's decode instantiations (M <= 16) or each prefill one (M > 16)
@@ -17,9 +18,13 @@ audio stack at ``QuantWeight``'s 16-byte row pitch. W8A8 and int4 on their
 tools' inputs (``tools/tune_mm8.py``: 16 layers of (4096, 12288), B=128;
 ``tools/probe_int4.py``: 16 packed layers of (2048, 12288), B=64), call i
 reading layer i % 16 (``--warm``: layer 0); W8A8's time includes its row
-quantization. Beside each plan its blocks and its difference from the
-plain version (a reading, not a check). The card's ``nvidia-smi`` line
-first, one JSON object last.
+quantization. F32X3 (``w8f32_gemm``) at ``codec_1p6b()``'s encoder shapes
+(``kernel_inputs.codec_f32_shapes``), 22 layers (the encoder's) read in
+turn (``--warm``: layer 0), float32 x at M = 200, 100 (the encoder's
+100-frame chunks of one and two waves), 50, 12 and 1, the prologue launch
+that writes x's terms in the time. Beside each plan its blocks and its
+difference from the plain version (a reading, not a check). The card's
+``nvidia-smi`` line first, one JSON object last.
 """
 from __future__ import annotations
 
@@ -31,14 +36,30 @@ import torch
 
 from ..ops import quant
 from ..ops.kernels import w8_gemm
-from .kernel_inputs import GEMM_8B, card_line, time_ms
+from .kernel_inputs import GEMM_8B, card_line, codec_f32_shapes, time_ms
 
 L8 = 36
-MODES = {"w8a16": w8_gemm.W8A16, "w8a8": w8_gemm.W8A8, "int4": w8_gemm.INT4}
+L_CODEC = 22  # codec_1p6b()'s encoder layers
+MODES = {"w8a16": w8_gemm.W8A16, "w8a8": w8_gemm.W8A8, "int4": w8_gemm.INT4,
+         "f32x3": w8_gemm.F32X3}
 
 
 def _products(mode: int, args, g):
     """(name, K, N, count, M list, call(x, i), plain(x), x of M) per shape."""
+    if mode == w8_gemm.F32X3:
+        for name, K, N in codec_f32_shapes():
+            q = torch.empty((L_CODEC, K, N), dtype=torch.int8, device="cuda").random_(
+                -127, 128, generator=g)
+            sc = torch.rand((L_CODEC, N), generator=g, device="cuda") * 0.019 + 0.001
+            layer = (lambda i: 0) if args.warm else (lambda i: i % L_CODEC)
+            yield (name, K, N, 1, args.M or [200, 100, 50, 12, 1],
+                   lambda x, i, q=q, sc=sc, layer=layer: w8_gemm.w8f32_gemm(x, q[layer(i)],
+                                                                            sc[layer(i)]),
+                   lambda x, q=q, sc=sc: w8_gemm.w8a16_gemm_ref(x, q[0], sc[0], torch.float32),
+                   lambda M, K=K: torch.randn((M, K), generator=g, device="cuda"))
+            del q, sc
+            torch.cuda.empty_cache()
+        return
     if mode != w8_gemm.W8A16:
         from . import probe_int4, tune_mm8
 

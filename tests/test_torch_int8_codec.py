@@ -4,7 +4,8 @@
 config, the same float weights through ``utils.convert``. As in JAX the
 encoder runs float32 activations over the int8 weights (``dense``'s
 float32-activation mode of W8A16, ``ops/kernels/w8_gemm.w8f32_gemm``, on
-the card) and the decoder bf16 ones (``QuantWeight.dtype``).
+the card; its arithmetic is pinned in ``tests/test_torch_w8f32.py``) and the
+decoder bf16 ones (``QuantWeight.dtype``).
 
 The counterpart of ``tests/test_codec.py::test_quantized_codec_runs``:
 encode, decode and streaming run over ``QuantWeight``s and the decoded
@@ -127,20 +128,3 @@ def test_int8_codec_streaming_matches_jax(codecs):
         return np.concatenate([np.asarray(p, np.float32) for p in parts], axis=-1)
 
     _close_bf16(stream(tq), stream(jq))
-
-
-@pytest.mark.parametrize("M,K,N", [(50, 1536, 6144), (50, 6144, 1536), (1, 1920, 1536),
-                                   (1000, 1536, 6144), (7, 33, 129), (3, 32, 16)])
-def test_f32_plan_splits_k_into_whole_nonempty_slices(M, K, N):
-    """``w8f32_gemm``'s plan: 16-row tiles for M <= 16, else 64; the split
-    of K (the kernel's ``k_per_split`` rows a block, a multiple of its
-    32-row slice; every split non-empty): about four blocks an SM where the
-    output tiles leave SMs idle."""
-    from mosstts_tpu_torch.ops.kernels.w8_gemm import F32_BK, F32_BN, f32_plan
-
-    splits, per, rows = f32_plan(M, K, N, 132)
-    assert per % F32_BK == 0 and splits * per >= K > (splits - 1) * per
-    assert rows == (16 if M <= 16 else 64)
-    tiles = -(-M // rows) * -(-N // F32_BN)
-    assert splits == 1 or tiles * splits <= 4 * 132 + tiles
-    assert per >= min(K, 2 * F32_BK) or splits == 1

@@ -20,6 +20,7 @@ import torch
 
 from mosstts_tpu_torch.nn.qwen3 import _quantize_kv_block
 from mosstts_tpu_torch.ops.kernels import decode_attn, flash, paged_attn, w8_gemm
+from mosstts_tpu_torch.tools import kernel_inputs
 
 ULP = {torch.bfloat16: 2.0 ** -7, torch.float32: 2.0 ** -23}
 
@@ -465,34 +466,6 @@ def test_w8a16_unaligned_rows_take_the_byte_path():
                     w8_gemm.w8a16_gemm_ref(x.abs(), q.abs(), s, torch.float32), torch.bfloat16)
 
 
-def _graph_kernels(fn):
-    """(kernel nodes, all nodes) of a CUDA graph that captures one ``fn()``
-    (warmed up on a side stream first): the device kernels one call
-    launches, read off the graph (the driver's ``cuGraphGetNodes``), not
-    from a profiler session, whose records can be lost (PERF.md §6)."""
-    import ctypes
-
-    side = torch.cuda.Stream()
-    side.wait_stream(torch.cuda.current_stream())
-    with torch.cuda.stream(side):
-        fn()
-    torch.cuda.current_stream().wait_stream(side)
-    graph = torch.cuda.CUDAGraph(keep_graph=True)
-    with torch.cuda.graph(graph):
-        fn()
-    cuda = ctypes.CDLL("libcuda.so.1")
-    g, n = ctypes.c_void_p(graph.raw_cuda_graph()), ctypes.c_size_t(0)
-    assert cuda.cuGraphGetNodes(g, None, ctypes.byref(n)) == 0
-    nodes = (ctypes.c_void_p * n.value)()
-    assert cuda.cuGraphGetNodes(g, nodes, ctypes.byref(n)) == 0
-    kinds = []
-    for node in nodes:
-        kind = ctypes.c_int(-1)
-        assert cuda.cuGraphNodeGetType(ctypes.c_void_p(node), ctypes.byref(kind)) == 0
-        kinds.append(kind.value)
-    return kinds.count(0), len(kinds)  # CU_GRAPH_NODE_TYPE_KERNEL = 0
-
-
 GEMM_TOOL_SHAPES = [(1, 512, 1024, 1), (8, 256, 512, 1), (16, 4096, 1024, 1), (96, 1024, 1000, 1),
                     (128, 4096, 12288, 1), (200, 512, 384, 1), (16, 512, 1000, 3),
                     (40, 256, 512, 4)]
@@ -514,7 +487,7 @@ def test_w8a8_kernel_matches_plain(M, K, N, count):
     launches = w8_gemm.LAUNCHES_W8A8
     out = w8_gemm.w8a8_gemm(x, q, s)
     assert w8_gemm.LAUNCHES_W8A8 == launches + 1
-    assert _graph_kernels(lambda: w8_gemm.w8a8_gemm(x, q, s)) == (2, 2)
+    assert kernel_inputs.graph_kernels(lambda: w8_gemm.w8a8_gemm(x, q, s)) == (2, 2)
     ref = w8_gemm.w8a8_gemm_ref(x, q, s)
     x8, xs = w8_gemm.quant_rows(x)
     qa = q.abs() if count > 1 else q.abs()[None]
@@ -553,7 +526,7 @@ def test_int4_kernel_matches_plain(M, D, N, count):
     launches = w8_gemm.LAUNCHES_INT4
     out = w8_gemm.int4_gemm(x, packed)
     assert w8_gemm.LAUNCHES_INT4 == launches + 1
-    assert _graph_kernels(lambda: w8_gemm.int4_gemm(x, packed)) == (1, 1)
+    assert kernel_inputs.graph_kernels(lambda: w8_gemm.int4_gemm(x, packed)) == (1, 1)
     ref, absref = _int4_ref(x, packed)
     torch.cuda.synchronize()
     assert out.shape == ref.shape
@@ -602,8 +575,9 @@ def test_w8a8_and_int4_replay_in_a_graph(M):
 @pytest.mark.cuda
 def test_int8_dense_and_heads_on_the_card():
     """``dense`` on an int8 weight with bf16 activations is one W8A16 launch;
-    with f32 activations it raises. The stacked audio heads are one launch
-    for all of them, with f32 logits."""
+    with f32 activations one ``w8f32_gemm`` call (the F32X3 mode), equal to
+    the call itself; with other types it raises. The stacked audio heads are
+    one launch for all of them, with f32 logits."""
     _need_card()
     from mosstts_tpu_torch.models.delay import _audio_head_logits
     from mosstts_tpu_torch.ops.basic import dense
@@ -616,8 +590,12 @@ def test_int8_dense_and_heads_on_the_card():
     y = dense(x.to(torch.bfloat16), w[1])
     assert y.shape == (2, 3, 256) and y.dtype == torch.bfloat16
     assert w8_gemm.LAUNCHES_W8A16 == launches + 1
-    with pytest.raises(TypeError, match="bf16 activations"):
-        dense(x, w[1])
+    launches = w8_gemm.LAUNCHES_W8F32
+    y32 = dense(x, w[1])
+    assert w8_gemm.LAUNCHES_W8F32 == launches + 1 and y32.dtype == torch.float32
+    torch.testing.assert_close(y32, w8_gemm.w8f32_gemm(x, w[1].q, w[1].scale), rtol=0, atol=0)
+    with pytest.raises(TypeError, match="bf16 or float32 activations"):
+        dense(x.half(), w[1])
     heads = quantize_weight(torch.tensor(rng.normal(size=(32, 128, 1025)).astype(np.float32)).cuda())
     launches = w8_gemm.LAUNCHES_W8A16
     logits = _audio_head_logits(x.to(torch.bfloat16), heads)

@@ -10,8 +10,12 @@ in gloo processes: ``tests/test_torch_parallel_*.py``).
 * Two NCCL ranks, spawned (skips unless two cards are visible): the same
   engine tensor-parallel over both cards, its greedy grids equal to the
   unsharded engine's.
-* ``w8f32_gemm`` against its plain version at ``codec_1p6b()``'s shapes
-  and a few ragged ones; ``dense`` sends float32 activations to it.
+* ``w8f32_gemm`` (the ring kernel's F32X3 mode) against its plain version
+  at ``codec_1p6b()``'s shapes and a few ragged ones, bit-equal over two
+  calls, at most two device kernels a call; ``dense`` sends float32
+  activations to it. Through an identity weight its output is the sum of
+  x's three bf16 terms bit for bit (x itself wherever the last term is a
+  normal bf16), over the CPU tests' five input families and inf and NaN.
 * ``delay_decode_step(text_lazy=True)`` runs eagerly, and its capture
   into a CUDA graph raises ``ValueError``.
 
@@ -32,6 +36,7 @@ from mosstts_tpu_torch.engine.batch_server import DelayBatchServer
 from mosstts_tpu_torch.engine.delay_engine import DelayEngine
 from mosstts_tpu_torch.models.delay import init_delay_params, make_sampling
 from mosstts_tpu_torch.ops.kernels import launches, w8_gemm
+from torch_f32_families import FAMILIES, family
 
 pytestmark = pytest.mark.cuda
 
@@ -136,9 +141,16 @@ def test_two_ranks_tensor_parallel_engine(tmp_path):
 
 
 @pytest.mark.parametrize("K,N,M", [(1536, 6144, 50), (6144, 1536, 50), (1920, 1536, 1),
-                                   (1536, 256, 7), (100, 70, 65), (33, 129, 130)])
+                                   (1536, 256, 7), (100, 70, 65), (33, 129, 130),
+                                   (1536, 6144, 5), (1536, 1536, 6), (1536, 512, 16),
+                                   (6144, 1536, 17), (1536, 6144, 64), (1920, 1536, 65)])
 def test_w8f32_gemm_matches_plain(K, N, M):
+    """The F32X3 mode against the plain version, within 1e-5 of the sum of
+    the terms' magnitudes; two calls give the same bits; a call is at most
+    two device kernels (the prologue that splits x, then the product)."""
     _need_cards()
+    from mosstts_tpu_torch.tools.kernel_inputs import graph_kernels
+
     g = torch.Generator(device="cuda").manual_seed(K + N + M)
     q = torch.empty((K, N), dtype=torch.int8, device="cuda").random_(-127, 128, generator=g)
     scale = torch.rand((N,), generator=g, device="cuda") * 0.02 + 1e-3
@@ -150,6 +162,9 @@ def test_w8f32_gemm_matches_plain(K, N, M):
     absref = w8_gemm.w8a16_gemm_ref(x.abs(), q.abs(), scale, torch.float32)
     assert out.dtype == torch.float32 and out.shape == (M, N)
     assert bool(((out - ref).abs() <= 1e-5 * absref + 1e-6).all())
+    assert torch.equal(w8_gemm.w8f32_gemm(x, q, scale), out)
+    kernels, nodes = graph_kernels(lambda: w8_gemm.w8f32_gemm(x, q, scale))
+    assert kernels == nodes and 1 <= kernels <= 2
     # dense() sends float32 activations there, a layer of a stack in place
     from mosstts_tpu_torch.ops.basic import dense
     from mosstts_tpu_torch.ops.quant import QuantView
@@ -159,6 +174,36 @@ def test_w8f32_gemm_matches_plain(K, N, M):
     np.testing.assert_array_equal(dense(x, view).cpu().numpy(), out.cpu().numpy())
     with pytest.raises(TypeError):
         dense(x.half(), view)
+
+
+@pytest.mark.parametrize("M", [5, 6, 100])
+@pytest.mark.parametrize("name", FAMILIES + ["nonfinite"])
+def test_w8f32_gemm_terms_sum_to_x_exactly(name, M):
+    """With q the identity (K = N, scale 1) each output is one x value times
+    1 through its three terms, so the kernel must return hi + mid + lo of
+    ``split3_bf16`` exactly: x itself wherever lo is a normal bf16. A term
+    the device split gets wrong or the product leaves out shows here at
+    zero tolerance, where the 1e-5 bound of the test above cannot see it.
+    An inf meets zeros in the other columns: its row is NaN but at the
+    inf's own column, as the float32 product x @ I is."""
+    _need_cards()
+    K = 1536
+    if name == "nonfinite":
+        x = np.random.default_rng(7).standard_normal((M, K)).astype(np.float32)
+        x[0, 3], x[1, 700], x[M - 1, K - 1] = np.inf, -np.inf, np.nan
+    else:
+        x = family(name, M * K).reshape(M, K)
+    xt = torch.from_numpy(x)
+    hi, mid, lo = w8_gemm.split3_bf16(xt)
+    want = (hi.double() + mid.double() + lo.double()).float()
+    normal = np.isfinite(x) & (np.abs(x) >= 2.0 ** -110)
+    np.testing.assert_array_equal(want.numpy()[normal], x[normal])
+    if name == "nonfinite":
+        want[[0, 1, M - 1]] = float("nan")
+        want[0, 3], want[1, 700] = float("inf"), float("-inf")
+    eye = torch.eye(K, dtype=torch.int8, device="cuda")
+    out = w8_gemm.w8f32_gemm(xt.cuda(), eye, torch.ones(K, device="cuda")).cpu()
+    torch.testing.assert_close(out, want, rtol=0, atol=0, equal_nan=True)
 
 
 def test_text_lazy_is_eager_only():
