@@ -212,16 +212,32 @@ Phases, one or more lines each; any failure raises and exits non-zero:
    with ``text_lazy`` on a small float32 model equal the full path's, and
    the lazy step's graph capture raises ``ValueError``. W8A16's float32
    mode is the tenth entry of the kernels line, its launches 13d's.
-Phases 4-6, 8, 9, 10 and 11 run the package's default: every decode step a
+14. the Gradio demos' handlers (``serve/gradio_apps.py``'s factories,
+   plain functions of a backend: no gradio is needed). 14a, after 9c, on
+   phase 4's backend (int8 weights): the four Delay demos' handlers (TTS
+   Direct with duration control, TTS Clone from phase 8's 4 s wave, TTSD
+   with two speakers cloned from it, VoiceGenerator, SoundEffect at 2 s; 40
+   new frames, SoundEffect its duration's budget), each called with values
+   shaped like the UI's once (its graphs captured), then in the order
+   handler, pipeline, pipeline, handler (the same call straight to its
+   pipeline function, same seed): finite float32 waves at 24 kHz, the five
+   waves of a call within 1e-4; each timed call's wall and the handler's
+   own time outside its pipeline call. 14b,
+   in phase 10 after 10c: the Realtime demo's handler on the int8 1.7B
+   engine and ``codec_1p6b()`` with the demo's defaults (chunk 12, no
+   prebuffer), the turn ended at 96 frames: more than one finite chunk at
+   the codec's rate, the last yield ``done | <metrics json>`` with a TTFA;
+   the time to the first chunk and the chunks.
+Phases 4-6, 8, 9, 10, 11 and 14 run the package's default: every decode step a
 CUDA-graph replay, and every prefill one from its key's second use (or a
 server's ``warmup``) on (``engine/step_graph.py``). The kernels' launch
 counts are set to 0 just before phases 4, 6, 8b, each server mode and each
 loop of 9b, each engine batch, server loop and the concurrent streams of 10,
-each engine batch and server loop of 11, and read just after, and must show every prefill and every
-decode step went through the kernels; a graph's launches count once per
-replay (``ops/kernels/launches.py``), and flash, the decode kernels and
-W8A16 must have run inside replayed graphs. Phase 3 adds the int8-weight GEMMs
-(W8A16 at the 8B decode and prefill shapes, each shape's times in the
+each engine batch and server loop of 11, 14a and 14b, and read just after,
+and must show every prefill and every decode step went through the kernels;
+a graph's launches count once per replay (``ops/kernels/launches.py``), and
+flash, the decode kernels and W8A16 must have run inside replayed graphs.
+Phase 3 adds the int8-weight GEMMs (W8A16 at the 8B decode and prefill shapes, each shape's times in the
 kernels line; W8A8 and int4 at their tools' shapes, with ``torch._int_mm``
 and ``torch._weight_int4pack_mm`` as their yardsticks, each tool's walk
 driven once) and ``decode_attention_q8t`` (bf16
@@ -266,7 +282,7 @@ from mosstts_tpu_torch.engine.local_engine import LocalEngine  # noqa: E402
 from mosstts_tpu_torch.engine.realtime_batch_server import RealtimeBatchServer  # noqa: E402
 from mosstts_tpu_torch.engine.realtime_engine import RealtimeEngine  # noqa: E402
 from mosstts_tpu_torch.engine.streaming import (  # noqa: E402
-    AudioStreamDecoder, RealtimeStreamingSession, RealtimeTextStreamBridge)
+    AudioStreamDecoder, AudioTokenCache, RealtimeStreamingSession, RealtimeTextStreamBridge)
 from mosstts_tpu_torch.models.delay import make_sampling  # noqa: E402
 from mosstts_tpu_torch.models.delay import delay_forward, init_delay_params  # noqa: E402
 from mosstts_tpu_torch.models.local import init_local_params  # noqa: E402
@@ -280,7 +296,7 @@ from mosstts_tpu_torch.parallel.pipeline import make_pp_mesh  # noqa: E402
 from mosstts_tpu_torch.processing.delay_processor import DelayProcessor  # noqa: E402
 from mosstts_tpu_torch.processing.realtime_processor import RealtimeProcessor  # noqa: E402
 from mosstts_tpu_torch.processing.tokenizer import ByteFallbackTokenizer  # noqa: E402
-from mosstts_tpu_torch.serve import http_server  # noqa: E402
+from mosstts_tpu_torch.serve import gradio_apps, http_server, pipelines  # noqa: E402
 from mosstts_tpu_torch.serve.pipelines import demo_backend, synthesize  # noqa: E402
 from mosstts_tpu_torch.tools import probe_int4, profile_step, tune_mm8  # noqa: E402
 # warm admissions and first frames timed each way (the median is kept)
@@ -2518,10 +2534,13 @@ def phase_realtime() -> tuple:
                                            device=DEV)
     proc = RealtimeProcessor(ByteFallbackTokenizer(), channels=cfg.rvq)
     stream = [rt_streaming_phase(engine, codec, proc, label) for label in ("cold", "warm")]
+    log("phase 14b: the Realtime Gradio demo's handler on the int8 engine and codec_1p6b")
+    gc_counts, gradio = gradio_realtime(engine, proc, codec)
+    counts.append(gc_counts)
     hc, hrows = rt_http_phase(engine, proc, codec)
     counts.append(hc)
     numbers = dict(engine=rows, param_bytes=dict(bf16=bf16_bytes, int8=int8_bytes),
-                   server=srows, stream=stream, http=hrows)
+                   server=srows, stream=stream, gradio=gradio, http=hrows)
     log("  phase 10 numbers: " + json.dumps(numbers))
     del engine, codec
     gc.collect()
@@ -3757,6 +3776,209 @@ def phase_parallel() -> dict:
     return numbers
 
 
+# ----------------------------------------------------------------- phase 14
+GRADIO_NEW = 40  # max_new_tokens of the Delay demos' calls (sfx: its duration's budget)
+GRADIO_RT_FRAMES = 96  # the Realtime demo's turn, in frames (random weights need not stop)
+
+
+def timed_call(fn, *args, **kw):
+    """``fn(*args, **kw)`` and its wall seconds, the card synchronized
+    before (a call that returns host arrays has waited for its own work)."""
+    torch.cuda.synchronize()
+    t = time.perf_counter()
+    out = fn(*args, **kw)
+    wall = time.perf_counter() - t
+    torch.cuda.synchronize()
+    return out, wall
+
+
+def check_ui_wave(label: str, out, sr: int) -> np.ndarray:
+    """A handler's ``((sr, wav), status)``: the rate, a finite non-empty
+    float32 wave, a status string."""
+    (got_sr, wav), status = out
+    if not (got_sr == sr and isinstance(wav, np.ndarray) and wav.dtype == np.float32
+            and wav.ndim == 1 and wav.size > 0 and np.isfinite(wav).all()
+            and isinstance(status, str) and status):
+        raise AssertionError(f"{label}: bad handler output sr={got_sr} "
+                             f"wave={getattr(wav, 'shape', None)} status={status!r}")
+    return wav
+
+
+@contextlib.contextmanager
+def pipeline_walls(module, names):
+    """Within: each ``module.<name>`` (a pipeline function a handler calls)
+    records its wall seconds in the returned dict's list under ``name``."""
+    walls = {name: [] for name in names}
+    saved = {name: getattr(module, name) for name in names}
+
+    def timed(name, fn):
+        def call(*args, **kw):
+            t = time.perf_counter()
+            try:
+                return fn(*args, **kw)
+            finally:
+                walls[name].append(time.perf_counter() - t)
+        return call
+
+    for name, fn in saved.items():
+        setattr(module, name, timed(name, fn))
+    try:
+        yield walls
+    finally:
+        for name, fn in saved.items():
+            setattr(module, name, fn)
+
+
+def phase_gradio_delay(backend, wav_path: str) -> tuple:
+    """14a: the four Delay demos' click handlers (``serve/gradio_apps.py``'s
+    factories; no gradio needed) on phase 4's backend, int8 weights by then,
+    each called with values shaped like the UI's, once to capture its
+    graphs, then in the order handler, pipeline, pipeline, handler (the
+    same call made straight to its pipeline function, same seed): every
+    output a finite float32 wave at 24 kHz, the five waves of a case within
+    1e-4; each timed call's wall, and the handler's own seconds outside its
+    pipeline call. Returns (launch counts, rows)."""
+    ga = gradio_apps
+    sr = backend.sample_rate
+    tts, ttsd = ga.tts_handler(backend), ga.ttsd_handler(backend)
+    voice, sfx = ga.voice_handler(backend), ga.sfx_handler(backend)
+    n = float(GRADIO_NEW)
+    direct = "Hello from the Gradio handler on a GPU."
+    clone = "The cloned voice reads this line through the demo's handler."
+    dialogue = "[S1]Hello there, how are you today? [S2]Fine, thanks, and you?"
+    prompts = ("[S1]This is the first voice.", "[S2]And this is the second one.")
+    hot = dict(temperature=1.7, top_p=0.8, top_k=25, repetition_penalty=1.0)
+    cases = [  # label, handler, UI values, pipeline name, its arguments
+        ("tts Direct, duration on", tts,
+         (direct, "Direct", None, True, 60.0, 1.7, 0.8, 25.0, 1.0, n),
+         "synthesize", (backend, direct),
+         dict(mode="Direct", reference_audio=None, duration_tokens=60,
+              max_new_tokens=GRADIO_NEW, **hot)),
+        ("tts Clone", tts,
+         (clone, "Clone", wav_path, False, 100.0, 1.7, 0.8, 25.0, 1.0, n),
+         "synthesize", (backend, clone),
+         dict(mode="Clone", reference_audio=wav_path, duration_tokens=None,
+              max_new_tokens=GRADIO_NEW, **hot)),
+        ("ttsd two cloned speakers", ttsd,
+         (dialogue, 2.0, True, False, 1.1, 0.9, 50.0, 1.1, n,
+          wav_path, wav_path, None, None, None, *prompts, "", "", ""),
+         "synthesize_dialogue", (backend, dialogue),
+         dict(speakers={1: (wav_path, prompts[0]), 2: (wav_path, prompts[1])}, speaker_count=2,
+              do_text_normalize=True, sample_rate_normalize=False, max_new_tokens=GRADIO_NEW,
+              temperature=1.1, top_p=0.9, top_k=50, repetition_penalty=1.1)),
+        ("voice", voice,
+         ("A voice designed from its description.", "a warm, low voice", 1.5, 0.6, 50.0,
+          1.1, n),
+         "generate_voice", (backend, "A voice designed from its description.",
+                            "a warm, low voice"),
+         dict(max_new_tokens=GRADIO_NEW, temperature=1.5, top_p=0.6, top_k=50,
+              repetition_penalty=1.1)),
+        ("sfx 2 s", sfx, ("rain on a tin roof", 2.0, 1.5, 0.6, 50.0, 1.2),
+         "generate_sound_effect", (backend, "rain on a tin roof", 2.0),
+         dict(temperature=1.5, top_p=0.6, top_k=50, repetition_penalty=1.2)),
+    ]
+    rows = []
+    names = sorted({c[3] for c in cases})
+    reset_counts()
+    with pipeline_walls(ga, names) as inner:
+        for label, handler, values, name, args, kw in cases:
+            waves = [check_ui_wave(f"14a {label} (first call)", handler(*values), sr)]
+            walls, own = [], []
+            for turn in "ABBA":
+                if turn == "A":
+                    out, wall = timed_call(handler, *values)
+                    own.append(wall - inner[name][-1])
+                else:
+                    got, wall = timed_call(getattr(pipelines, name), *args, **kw)
+                    out = (got[0], got[1]), got[2]
+                waves.append(check_ui_wave(f"14a {label} ({turn})", out, sr))
+                walls.append(wall)
+            diff = max(float(np.abs(w - waves[0]).max()) if w.shape == waves[0].shape
+                       else float("inf") for w in waves)
+            if diff > 1e-4:
+                raise AssertionError(f"14a {label}: handler and pipeline waves differ "
+                                     f"(max |d| {diff}, shapes {[w.shape for w in waves]})")
+            row = dict(case=label, wave_s=waves[0].size / sr, walls_abba_s=walls,
+                       handler_own_ms=[1e3 * x for x in own], max_abs_diff=diff)
+            rows.append(row)
+            log(f"  14a {label}: {row['wave_s']:.2f} s of wave; wall handler / pipeline / "
+                f"pipeline / handler {' / '.join(f'{w:.4f}' for w in walls)} s; the handler's own "
+                f"time outside {name} {' / '.join(f'{x:.4f}' for x in row['handler_own_ms'])} ms; "
+                f"the five waves {'equal' if diff == 0 else f'within {diff:.2e}'}")
+    counts = read_counts()
+    g = counts["graphs"]
+    if not (counts["flash"] and counts["decode"] and counts["w8a16"] and g["flash"]
+            and g["decode"] and g["w8a16"]):
+        raise AssertionError(f"14a: the demos' calls did not run flash, decode and W8A16 "
+                             f"(decode and W8A16 inside replayed graphs): {counts}")
+    log(f"  14a launches (5 x 5 calls): flash {counts['flash']} ({g['flash']} in prefill graphs), "
+        f"decode {counts['decode']} ({g['decode']} in graphs), W8A16 {counts['w8a16']} "
+        f"({g['w8a16']} in graphs)")
+    return counts, rows
+
+
+class BoundedTurn:
+    """``engine``, whose drain (``finish``) ends once the turn holds
+    ``frames`` frames, as an EOS would: the demo drains until EOS, which
+    random weights need not emit."""
+
+    def __init__(self, engine, frames: int):
+        self._engine, self._frames = engine, frames
+
+    def __getattr__(self, name):
+        return getattr(self._engine, name)
+
+    def finish(self, max_steps=None, **kw):
+        left = self._frames - len(self._engine.generated_tokens)
+        if left <= 0:
+            return []
+        return self._engine.finish(max_steps=min(max_steps or left, left), **kw)
+
+
+def gradio_realtime(engine, proc, codec) -> tuple:
+    """14b: the Realtime demo's handler (``gradio_apps.realtime_handler``)
+    on phase 10's int8 engine and the ``codec_1p6b()`` codec, with the
+    demo's defaults (chunk 12, no prebuffer, no backpressure), the turn
+    ended at ``GRADIO_RT_FRAMES`` frames (``BoundedTurn``): more than one
+    chunk, each a finite wave, and a last status ``done | <metrics json>``
+    with its TTFA. Returns (launch counts, numbers)."""
+    run = gradio_apps.realtime_handler(BoundedTurn(engine, GRADIO_RT_FRAMES), proc, codec,
+                                       AudioTokenCache(max_entries=32))
+    values = ("The Gradio demo streams this reply as the words arrive, one chunk at a time.",
+              None, 0.8, 0.6, 30.0, 1.1, 12.0, 0.0, 0.0)
+    reset_counts()
+    torch.cuda.synchronize()
+    t = time.perf_counter()
+    first, outs = None, []
+    for out in run(*values):
+        first = first or time.perf_counter() - t
+        outs.append(out)
+    wall = time.perf_counter() - t
+    counts = read_counts()
+    *chunks, (last, status) = outs
+    if len(chunks) < 2 or last is not None:
+        raise AssertionError(f"14b: {len(chunks)} chunks, last yield {last!r}")
+    for i, out in enumerate(chunks):
+        check_ui_wave(f"14b chunk {i}", out, codec.sampling_rate)
+    if not status.startswith("done | "):
+        raise AssertionError(f"14b: last status {status!r}")
+    report = json.loads(status[len("done | "):])
+    if report.get("ttfa_s") is None:
+        raise AssertionError(f"14b: no TTFA in {report}")
+    g = counts["graphs"]
+    if not (counts["flash"] and g["decode"] and g["w8a16"]):
+        raise AssertionError(f"14b: the demo's frames did not run the kernels: {counts}")
+    samples = sum(out[0][1].size for out in chunks)
+    r = dict(chunks=len(chunks), frames=len(engine.generated_tokens), first_chunk_ms=first * 1e3,
+             wall_s=wall, wave_s=samples / codec.sampling_rate, report=report)
+    log(f"  14b realtime demo: {r['frames']} frames -> {r['chunks']} chunks, {r['wave_s']:.2f} s "
+        f"of wave, first chunk after {r['first_chunk_ms']:.1f} ms, {wall:.2f} s in all; "
+        f"status {status[:120]}")
+    log(f"  14b launches: flash {counts['flash']}, decode {counts['decode']} ({g['decode']} in "
+        f"graphs), W8A16 {counts['w8a16']} ({g['w8a16']} in graphs)")
+    return counts, r
+
+
 def kernel_label(name: str) -> str:
     """A ptxas entry's name, ``ring_kernel``'s instantiations spelled out:
     ring_kernel<mode, MT, BN, WM, WN, WK, STAGES, NP, MINB, vec>."""
@@ -3881,6 +4103,12 @@ def main() -> None:
     loop_counts = loops_vs_run(backend.engine.params)
     log("phase 9c: the same loops on the small f32 model, card against card and CPU")
     phase_small_loops()
+    log("phase 14a: the four Delay Gradio demos' handlers at MOSS-TTS 8B width (int8 weights)")
+    with tempfile.TemporaryDirectory() as tmp:
+        wav_path = str(Path(tmp) / "reference.wav")
+        write_wav(wav_path, sweep_wav(4.0, seed=8), 24000)
+        gradio_counts, gradio_rows = phase_gradio_delay(backend, wav_path)
+    log("  phase 14a numbers: " + json.dumps(gradio_rows))
     del backend
     gc.collect()
     torch.cuda.empty_cache()
@@ -3896,7 +4124,7 @@ def main() -> None:
             numbers[kernel]["shapes"] += knum[kernel]["shapes"]
 
     runs = [solo_counts, int8_counts, *server_counts.values(), *int8_server_counts.values(),
-            front_counts, *loop_counts, *rt_counts, *local_counts]
+            front_counts, *loop_counts, gradio_counts, *rt_counts, *local_counts]
     launches = {name: sum(c[name] for c in runs) for name in COUNTERS}
     if not all(launches[name] for name in COUNTERS if name not in OFF_PATH + PHASE13):
         raise AssertionError(f"a kernel was never launched on the main paths: {launches}")
@@ -3904,8 +4132,8 @@ def main() -> None:
     if not all(in_graphs[name] for name in IN_GRAPHS):
         raise AssertionError(f"the main paths' prefills and decode steps did not run their "
                              f"kernels inside replayed CUDA graphs: {in_graphs}")
-    log(f"main paths (phases 4-6, 8, 9b, 10, 11): launches {launches}; of them inside replayed "
-        f"CUDA graphs {in_graphs}")
+    log(f"main paths (phases 4-6, 8, 9b, 10, 11, 14): launches {launches}; of them inside "
+        f"replayed CUDA graphs {in_graphs}")
     launches.update(decode_q8t=numbers.pop("q8t_launches"), w8a8=numbers["w8a8"].pop("launches"),
                     int4=numbers["int4"].pop("launches"), w8f32=p13["w8f32_launches"])
     if not all(launches[name] for name in OFF_PATH):

@@ -17,6 +17,7 @@ sys.modules["triton"] = None
 sys.modules["mosstts_tpu"] = None  # nor of the JAX package, even its JAX-free modules
 sys.modules["optax"] = None    # nor JAX's optimizer and checkpoint libraries
 sys.modules["orbax"] = None
+sys.modules["gradio"] = None   # the Gradio demos import it only when a UI is built
 import torch
 import mosstts_tpu_torch
 bad = []
@@ -74,10 +75,11 @@ def test_port_imports_without_jax_triton_or_cuda():
     assert {"mosstts_tpu_torch.ops.quant", "mosstts_tpu_torch.ops.kernels.w8_gemm",
             "mosstts_tpu_torch.tools.tune_mm8", "mosstts_tpu_torch.tools.probe_int4",
             "mosstts_tpu_torch.tools.bf16_path"} <= names
-    # the serving front end: pool, backend, HTTP server, CLI and their helpers
+    # the serving front end: pool, backend, HTTP server, CLI, Gradio demos and
+    # their helpers
     assert {f"mosstts_tpu_torch.{m}" for m in (
         "serve.pool", "serve.backend", "serve.http_server", "serve.cli", "serve.web_player",
-        "serve.text_norm", "engine.metrics", "utils.native")} <= names
+        "serve.gradio_apps", "serve.text_norm", "engine.metrics", "utils.native")} <= names
     # the Realtime family: model, processor, engine, server, streaming layer
     assert {f"mosstts_tpu_torch.{m}" for m in (
         "models.realtime", "processing.realtime_processor", "engine.realtime_engine",
