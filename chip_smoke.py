@@ -137,7 +137,20 @@ Phases, one or more lines each; any failure raises and exits non-zero:
    tensor equal to its source bit for bit, and greedy frames of the loaded
    model equal to the source's; ``save_model``/``load_model`` of the Local
    model and the ``codec_1p6b()`` codec's ``save_pretrained``/
-   ``from_pretrained`` round trips equal bit for bit. 11b: ``LocalEngine``
+   ``from_pretrained`` round trips equal bit for bit. The Delay and Realtime
+   directories then get the tokenizer fixture's files
+   (``tools/tokenizer_fixture.py``: a byte-level BPE in Qwen3's layout) and
+   load through ``load_delay_backend``/``load_realtime_backend``: the
+   tokenizer is ``Qwen2BPETokenizer``, not the byte fallback, and the ids
+   and decodes committed in ``tools/tokenizer_fixture_expected.json``
+   (computed through ``transformers``) come out bit for bit; one
+   mixed-script ``synthesize`` request puts the committed prompt text ids
+   into the Delay engine, and a Realtime turn, its reply sent in word
+   deltas through ``TextDeltaTokenizer``, holds the committed prompt ids and
+   releases the committed ids; the tokenizer's load seconds, encode us per
+   1,000 characters (cold, cached) and a ``TextDeltaTokenizer``'s total
+   encode ms over a 2,000-character reply in word deltas (host times, with
+   the card's line). 11b: ``LocalEngine``
    on ``bench.py:279-310``'s load (128-row grids with an ``audio_start``
    row) at B = 1, 8 and 64, in bf16 and then after ``quantize()``: greedy
    frames through the frame graphs equal an eager engine's bit for bit,
@@ -282,7 +295,8 @@ from mosstts_tpu_torch.engine.local_engine import LocalEngine  # noqa: E402
 from mosstts_tpu_torch.engine.realtime_batch_server import RealtimeBatchServer  # noqa: E402
 from mosstts_tpu_torch.engine.realtime_engine import RealtimeEngine  # noqa: E402
 from mosstts_tpu_torch.engine.streaming import (  # noqa: E402
-    AudioStreamDecoder, AudioTokenCache, RealtimeStreamingSession, RealtimeTextStreamBridge)
+    AudioStreamDecoder, AudioTokenCache, RealtimeStreamingSession, RealtimeTextStreamBridge,
+    TextDeltaTokenizer)
 from mosstts_tpu_torch.models.delay import make_sampling  # noqa: E402
 from mosstts_tpu_torch.models.delay import delay_forward, init_delay_params  # noqa: E402
 from mosstts_tpu_torch.models.local import init_local_params  # noqa: E402
@@ -295,8 +309,11 @@ from mosstts_tpu_torch.parallel.mesh import make_mesh  # noqa: E402
 from mosstts_tpu_torch.parallel.pipeline import make_pp_mesh  # noqa: E402
 from mosstts_tpu_torch.processing.delay_processor import DelayProcessor  # noqa: E402
 from mosstts_tpu_torch.processing.realtime_processor import RealtimeProcessor  # noqa: E402
-from mosstts_tpu_torch.processing.tokenizer import ByteFallbackTokenizer  # noqa: E402
+from mosstts_tpu_torch.processing.bpe import Qwen2BPETokenizer  # noqa: E402
+from mosstts_tpu_torch.processing.tokenizer import (  # noqa: E402
+    ByteFallbackTokenizer, load_tokenizer)
 from mosstts_tpu_torch.serve import gradio_apps, http_server, pipelines  # noqa: E402
+from mosstts_tpu_torch.serve.backend import load_delay_backend, load_realtime_backend  # noqa: E402
 from mosstts_tpu_torch.serve.pipelines import demo_backend, synthesize  # noqa: E402
 from mosstts_tpu_torch.tools import probe_int4, profile_step, tune_mm8  # noqa: E402
 # warm admissions and first frames timed each way (the median is kept)
@@ -308,6 +325,7 @@ from mosstts_tpu_torch.tools.kernel_inputs import (  # noqa: E402
 from mosstts_tpu_torch.tools.hf_checkpoint import same_params, write_hf_checkpoint  # noqa: E402
 from mosstts_tpu_torch.tools.kernel_times import int4_library  # noqa: E402
 from mosstts_tpu_torch.tools.pool_vs_solo import first_divergence  # noqa: E402
+from mosstts_tpu_torch.tools import tokenizer_fixture  # noqa: E402
 from mosstts_tpu_torch.train.trainer import TTSTrainer, synthetic_tts_batch, tiny_config  # noqa: E402
 from mosstts_tpu_torch.utils.audio import read_wav, write_wav  # noqa: E402
 from mosstts_tpu_torch.utils.convert import load_tree_  # noqa: E402
@@ -2688,11 +2706,12 @@ def local_kernels() -> dict:
     return out
 
 
-def ckpt_family(label: str, cfg, src, table, load, same_output) -> dict:
+def ckpt_family(label: str, cfg, src, table, load, same_output, serve=None) -> dict:
     """Write ``src`` (a random model on the card) under the reference's
     names into a sharded bf16 directory (1 GB shards and an index), load it
     onto the card through ``load``, and hold the loaded weights equal to
-    the source's bit for bit and ``same_output(src, loaded)`` true."""
+    the source's bit for bit and ``same_output(src, loaded)`` true; then
+    ``serve(directory)``, whose result joins the row as ``served``."""
     with tempfile.TemporaryDirectory(dir=_build.build_root()) as tmp:
         t = time.perf_counter()
         info = write_hf_checkpoint(tmp, src, cfg, table(cfg), shard_bytes=1 << 30)
@@ -2702,18 +2721,212 @@ def ckpt_family(label: str, cfg, src, table, load, same_output) -> dict:
         loaded, lcfg = load(tmp, dtype=torch.bfloat16, device=DEV)
         torch.cuda.synchronize()
         load_s = time.perf_counter() - t
-    if lcfg != cfg or not same_params(loaded, src):
-        raise AssertionError(f"{label}: the loaded weights differ from their source")
-    if not same_output(src, loaded):
-        raise AssertionError(f"{label}: the loaded model's greedy frames differ from the source's")
+        if lcfg != cfg or not same_params(loaded, src):
+            raise AssertionError(f"{label}: the loaded weights differ from their source")
+        if not same_output(src, loaded):
+            raise AssertionError(f"{label}: the loaded model's greedy frames differ from the "
+                                 "source's")
+        served = serve(tmp) if serve is not None else None
     r = dict(family=label, tensors=info["tensors"], shards=info["shards"], gb=info["bytes"] / 1e9,
-             write_s=write_s, load_s=load_s, load_gb_per_s=info["bytes"] / 1e9 / load_s)
+             write_s=write_s, load_s=load_s, load_gb_per_s=info["bytes"] / 1e9 / load_s,
+             served=served)
     log(f"  checkpoint {label}: {info['tensors']} tensors, {r['gb']:.3f} GB in {info['shards']} "
         f"shards; written in {write_s:.2f} s, loaded onto the card in {load_s:.2f} s "
         f"({r['load_gb_per_s']:.2f} GB/s); every tensor == its source bit for bit; greedy "
         "frames == the source model's")
     del loaded
     return r
+
+
+TOK = tokenizer_fixture.load_expected()  # computed through transformers where it is installed
+
+
+def tokenizer_texts(tok) -> None:
+    """The committed texts' ids and decodes out of ``tok`` bit for bit."""
+    if not isinstance(tok, Qwen2BPETokenizer):
+        raise AssertionError(f"the directory's tokenizer is {type(tok).__name__}, not "
+                             "Qwen2BPETokenizer")
+    for e in TOK["texts"]:
+        ids = tok.encode(e["text"])
+        got = (ids, tok.decode(ids), tok.decode(ids, skip_special_tokens=True))
+        if got != (e["ids"], e["decode"], e["decode_skip"]):
+            raise AssertionError(f"tokenizer: {e['text']!r} gives {got}, expected {e}")
+
+
+class TimedEncode:
+    """``tok`` whose ``encode`` calls are timed (``seconds``, ``chars``)."""
+
+    def __init__(self, tok):
+        self.tok, self.seconds, self.chars = tok, 0.0, 0
+
+    def encode(self, text, **kw):
+        t = time.perf_counter()
+        ids = self.tok.encode(text, **kw)
+        self.seconds += time.perf_counter() - t
+        self.chars += len(text)
+        return ids
+
+
+def tokenizer_times(path) -> dict:
+    """Host times of the directory's tokenizer: load seconds (the first in
+    this process builds the Unicode class tables), encode us per 1,000
+    characters of the 2,000-character reply on an empty pre-token cache and
+    then cached (median of 5), and the total encode time of a
+    ``TextDeltaTokenizer`` fed that reply in word deltas (it re-encodes the
+    whole text on every delta), whose released ids must be the committed
+    ones."""
+    reply = TOK["reply"]
+    r = {}
+    for key in ("load_s_first", "load_s"):
+        t = time.perf_counter()
+        tok = load_tokenizer(path)
+        r[key] = time.perf_counter() - t
+    tokenizer_texts(tok)
+    text = reply["text"]
+    tok = load_tokenizer(path)
+    t = time.perf_counter()
+    tok.encode(text)
+    r["encode_us_per_1k_chars_cold"] = (time.perf_counter() - t) * 1e9 / len(text)
+    runs = []
+    for _ in range(5):
+        t = time.perf_counter()
+        tok.encode(text)
+        runs.append((time.perf_counter() - t) * 1e9 / len(text))
+    r["encode_us_per_1k_chars_cached"] = float(np.median(runs))
+    timed = TimedEncode(load_tokenizer(path))
+    deltas = TextDeltaTokenizer(timed)
+    words = tokenizer_fixture.delta_words(text)
+    released = [deltas.push_delta(w) for w in words] + [deltas.flush()]
+    if released != reply["released"]:
+        raise AssertionError("TextDeltaTokenizer over the reply's word deltas released other ids "
+                             "than the committed ones")
+    r.update(reply_chars=len(text), reply_deltas=len(words), reply_chars_encoded=timed.chars,
+             bridge_encode_ms=timed.seconds * 1e3)
+    log(f"  tokenizer (host times on the card's machine; {card_line()}): load "
+        f"{r['load_s_first']:.3f} s first in the process, {r['load_s']:.3f} s again; encode "
+        f"{r['encode_us_per_1k_chars_cold']:.1f} us per 1,000 characters cold, "
+        f"{r['encode_us_per_1k_chars_cached']:.1f} cached; a {len(text)}-character reply in "
+        f"{len(words)} word deltas through TextDeltaTokenizer: {timed.chars} characters "
+        f"encoded in {r['bridge_encode_ms']:.1f} ms; released ids == the committed ones")
+    return r
+
+
+class RecordingEngine:
+    """An engine whose ``generate`` keeps its last prompt and output."""
+
+    def __init__(self, engine):
+        self.engine, self.config, self.input_ids, self.out = engine, engine.config, None, None
+
+    def generate(self, input_ids, *args, **kw):
+        self.input_ids = np.asarray(input_ids)
+        self.out = self.engine.generate(input_ids, *args, **kw)
+        return self.out
+
+
+NO_AUDIO = "No audio segments were generated."  # the pipelines' error, in JAX's too
+
+
+def delay_tokenizer_request(path, src, cfg) -> dict:
+    """11a on the Delay directory with the tokenizer fixture's files:
+    ``load_delay_backend(path)`` on the card reads ``Qwen2BPETokenizer``
+    (not the byte fallback) and weights equal to ``src``; the committed
+    texts come out bit for bit (after the tokenizer's host times,
+    ``tokenizer_times``); one mixed-script ``synthesize`` request
+    (sampled, the demo's opening ``audio_start`` row) puts the committed
+    prompt text ids into the engine, which generates frames, and returns a
+    finite wave, or the pipeline's ``NO_AUDIO`` error when the random
+    2-layer model closes the audio block before it outlasts the prompt's
+    last rows (``DelayProcessor._parse_audio`` trims those)."""
+    tokenizer_fixture.write_tokenizer_dir(path)
+    times = tokenizer_times(path)  # first: its first load builds the Unicode class tables
+    t = time.perf_counter()
+    backend = load_delay_backend(path, device=DEV)
+    torch.cuda.synchronize()
+    load_s = time.perf_counter() - t
+    try:
+        tokenizer_texts(backend.processor.tokenizer)
+        if not same_params(backend.engine.params, src):
+            raise AssertionError("load_delay_backend: the weights differ from their source")
+        rec = RecordingEngine(backend.engine)
+        t = time.perf_counter()
+        try:
+            sr, wav, _ = synthesize(pipelines.DelayBackend(
+                engine=rec, processor=backend.processor, demo=True), TOK["delay"]["text"],
+                max_new_tokens=112, seed=0)
+            outcome = f"{wav.size / sr:.2f} s of finite wave"
+        except RuntimeError as e:
+            if str(e) != NO_AUDIO:
+                raise
+            wav, outcome = np.zeros(1, np.float32), f"no wave ({NO_AUDIO!r})"
+        wall = time.perf_counter() - t
+    finally:
+        del backend
+        load_delay_backend.cache_clear()
+    want = TOK["delay"]["prompt_text_ids"]
+    got = rec.input_ids[0, :, 0].tolist()
+    if got != want + [cfg.audio_start_token_id]:
+        raise AssertionError(f"synthesize: prompt text ids {got}, expected {want} + audio_start")
+    (start, grid), = rec.out
+    frames = grid.shape[0] - start
+    if not (frames > 0 and grid.shape[1] == cfg.channels and grid.min() >= 0
+            and np.isfinite(wav).all()):
+        raise AssertionError(f"synthesize: {frames} frames, grid {grid.shape}, wave {wav.shape}")
+    log(f"  load_delay_backend(directory): {load_s:.2f} s, tokenizer Qwen2BPETokenizer; the "
+        f"committed texts' ids and decodes bit for bit; synthesize({TOK['delay']['text']!r}): "
+        f"{len(want)} prompt text ids == the committed ones, {frames} frames, {outcome}, "
+        f"{wall:.2f} s")
+    return dict(backend_load_s=load_s, synthesize_s=wall, frames=int(frames), wave=outcome,
+                **times)
+
+
+def realtime_tokenizer_turn(path, src) -> dict:
+    """11a on the Realtime directory with the tokenizer fixture's files:
+    ``load_realtime_backend(path)`` on the card reads ``Qwen2BPETokenizer``
+    and weights equal to ``src``; a streaming turn (the committed user text
+    and 8 silent frames) holds the committed prompt text ids, and the
+    committed reply, sent in word deltas through ``TextDeltaTokenizer`` into
+    ``RealtimeTextStreamBridge``, releases the committed ids and streams
+    finite audio (the drain bounded at 64 frames)."""
+    tokenizer_fixture.write_tokenizer_dir(path)
+    exp = TOK["realtime"]
+    t = time.perf_counter()
+    engine, proc, codec = load_realtime_backend(path, device=DEV)
+    load_s = time.perf_counter() - t
+    try:
+        tokenizer_texts(proc.tokenizer)
+        if not same_params(engine.params, src):
+            raise AssertionError("load_realtime_backend: the weights differ from their source")
+        session = RealtimeStreamingSession(engine, proc, codec=codec, temperature=0.8)
+        session.reset_turn(user_text=exp["user_text"], user_audio_tokens=np.zeros(
+            (exp["user_audio_frames"], engine.config.rvq), np.int64))
+        if session._turn_input_ids[:, 0].tolist() != exp["turn_text_ids"]:
+            raise AssertionError("Realtime turn: the prompt's text ids differ from the committed")
+        bridge = RealtimeTextStreamBridge(session, AudioStreamDecoder(
+            codec, chunk_frames=12, overlap_frames=2, first_chunk_frames=2))
+        deltas = TextDeltaTokenizer(proc.tokenizer)
+        released, chunks = [], []
+        t = time.perf_counter()
+        with codec.streaming(batch_size=1):
+            for w in tokenizer_fixture.delta_words(exp["reply"]) + [None]:
+                released.append(deltas.flush() if w is None else deltas.push_delta(w))
+                chunks += bridge.push_text_tokens(released[-1])
+            chunks += bridge.finish(max_frames=64)
+        wall = time.perf_counter() - t
+        frames, sr = len(engine.generated_tokens), codec.sampling_rate
+    finally:
+        del engine, proc, codec
+        load_realtime_backend.cache_clear()
+    if released != exp["released"]:
+        raise AssertionError(f"Realtime turn: released {released}, expected {exp['released']}")
+    wave = np.concatenate(chunks) if chunks else np.zeros(0, np.float32)
+    if not (frames > 0 and np.isfinite(wave).all()):
+        raise AssertionError(f"Realtime turn: {frames} frames, wave {wave.shape}")
+    log(f"  load_realtime_backend(directory): {load_s:.2f} s, tokenizer Qwen2BPETokenizer; "
+        f"the committed texts bit for bit; a turn's prompt text ids and the {len(released)} "
+        f"deltas' released ids == the committed ones; {frames} frames, {len(chunks)} chunks, "
+        f"{wave.size / sr:.2f} s of finite wave in {wall:.2f} s")
+    return dict(backend_load_s=load_s, turn_s=wall, frames=frames, chunks=len(chunks))
+
 
 
 def phase_checkpoints() -> list:
@@ -2756,7 +2969,8 @@ def phase_checkpoints() -> list:
             audio_temperature=0.0) for p in (a, b)))
 
     rows.append(ckpt_family("Delay 8B (2 of 36 layers)", cfg, src, delay_table,
-                            load_delay_checkpoint, delay_same))
+                            load_delay_checkpoint, delay_same,
+                            serve=lambda d: delay_tokenizer_request(d, src, cfg)))
     del src
     cfg = RealtimeConfig(language_config=qwen3_1p7b(num_hidden_layers=2))
     src = init_realtime_params(cfg, generator=gen, dtype=bf, device=DEV)
@@ -2768,7 +2982,8 @@ def phase_checkpoints() -> list:
                                                                **RT_GREEDY) for p in (a, b)))
 
     rows.append(ckpt_family("Realtime 1.7B (2 of 28 layers)", cfg, src, realtime_table,
-                            load_realtime_checkpoint, rt_same_output))
+                            load_realtime_checkpoint, rt_same_output,
+                            serve=lambda d: realtime_tokenizer_turn(d, src)))
     del src
 
     codec = MossAudioTokenizer.random_init(seed=3, config=codec_1p6b(), dtype=torch.float32,

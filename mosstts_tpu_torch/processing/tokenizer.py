@@ -1,16 +1,20 @@
 """Text-tokenizer protocol + built-in fallback.
 
-The framework loads the checkpoint's own HF tokenizer when available
-(``load_tokenizer``); everything downstream only relies on the small
-protocol below, so tests and offline environments use ``ByteFallbackTokenizer``
-— a deterministic byte-level tokenizer that maps the MOSS/Qwen special-token
-*strings* to their real ids (reference ids:
-moss_tts_delay/configuration_moss_tts.py:62-77).
+The framework loads the checkpoint's own tokenizer (``load_tokenizer``);
+everything downstream only relies on the small protocol below, so tests and
+offline environments use ``ByteFallbackTokenizer`` — a deterministic
+byte-level tokenizer that maps the MOSS/Qwen special-token *strings* to
+their real ids (reference ids: moss_tts_delay/configuration_moss_tts.py:62-77).
 
-The port's own copy of ``mosstts_tpu/processing/tokenizer.py``.
+The port's own copy of ``mosstts_tpu/processing/tokenizer.py``, except for
+``load_tokenizer``: where the JAX package asks ``transformers`` for the
+checkpoint's tokenizer, the port reads the directory's ``tokenizer.json``
+itself (``bpe.Qwen2BPETokenizer``): it depends on no ``transformers`` and
+tokenizes the same wherever it runs.
 """
 from __future__ import annotations
 
+from pathlib import Path
 from typing import Dict, List, Protocol, runtime_checkable
 
 
@@ -123,13 +127,27 @@ class ByteFallbackTokenizer:
         return self.encode(s) if tokenize else s
 
 
-def load_tokenizer(path: str | None = None):
-    """HF tokenizer from a local checkpoint dir, else the byte fallback."""
-    if path is not None:
-        try:
-            from transformers import AutoTokenizer
+_OLD_FORMAT = ("vocab.json", "merges.txt", "tokenizer_config.json")
 
-            return AutoTokenizer.from_pretrained(path, trust_remote_code=False)
-        except Exception:
-            pass
+
+def load_tokenizer(path: str | None = None):
+    """The tokenizer of the checkpoint directory ``path``: its
+    ``tokenizer.json`` through ``Qwen2BPETokenizer``, which raises on a
+    file it cannot read; the byte fallback with no path or a directory with
+    no tokenizer files. A directory with only ``vocab.json``/``merges.txt``
+    (or ``tokenizer_config.json``), or a path that is no directory, raises
+    ``FileNotFoundError``."""
+    if path is None:
+        return ByteFallbackTokenizer()
+    path = Path(path)
+    if not path.is_dir():
+        raise FileNotFoundError(f"no checkpoint directory at {path}")
+    if (path / "tokenizer.json").is_file():
+        from .bpe import Qwen2BPETokenizer
+
+        return Qwen2BPETokenizer.from_dir(path)
+    found = [n for n in _OLD_FORMAT if (path / n).is_file()]
+    if found:
+        raise FileNotFoundError(f"{path} holds {', '.join(found)} but no tokenizer.json, the one "
+                                "tokenizer format the port reads")
     return ByteFallbackTokenizer()

@@ -13,10 +13,14 @@ so every pipeline runs without a checkpoint. The engines run in
 
 Differences from the JAX package, by design: a path that does not exist
 raises ``FileNotFoundError`` (JAX silently serves the random demo model
-then, so a typo would serve random weights); the tokenizer a checkpoint
-loads is logged, a warning when it is the byte fallback (no
-``transformers``, or no tokenizer in the directory), which JAX takes
-silently. ``load_local_backend`` returns a ``DelayBackend`` over a
+then, so a typo would serve random weights); the directory's
+``tokenizer.json`` is read by the port's own reader
+(``processing/bpe.Qwen2BPETokenizer``, no ``transformers``), which raises on
+a file it cannot take, and a directory with only ``vocab.json`` and
+``merges.txt`` raises ``FileNotFoundError``, where JAX falls back to the
+byte tokenizer on any failure of ``transformers``; a directory with no
+tokenizer files gives the byte fallback, as in JAX, with a warning.
+``load_local_backend`` returns a ``DelayBackend`` over a
 ``LocalEngine``, as JAX does; the pipelines' ``synthesize`` passes keywords
 ``LocalEngine.generate`` does not take, so it raises ``TypeError`` over that
 backend in both packages.
@@ -55,8 +59,8 @@ def _tokenizer(model_path: str):
     tok = load_tokenizer(model_path)
     log = logging.getLogger(__name__)
     if isinstance(tok, ByteFallbackTokenizer):
-        log.warning("%s: no HF tokenizer loaded (transformers missing, or none in the "
-                    "directory); using the byte fallback tokenizer", model_path)
+        log.warning("%s: no tokenizer files (tokenizer.json) in the directory; using the byte "
+                    "fallback tokenizer", model_path)
     else:
         log.info("%s: tokenizer %s", model_path, type(tok).__name__)
     return tok

@@ -1,8 +1,11 @@
-"""Every module of ``mosstts_tpu_torch`` imports with ``jax``, ``triton``
-and the JAX package ``mosstts_tpu`` blocked, and importing touches neither
-CUDA nor the kernel build: the port must run on a machine with no JAX, keeps
-its own copies of what it needs from the JAX package, and the CPU tests must
-import it with no CUDA toolkit. (``tests/test_import_hermetic.py`` covers
+"""Every module of ``mosstts_tpu_torch`` imports with ``jax``, ``triton``,
+the JAX package ``mosstts_tpu`` and the text-tokenizer packages
+(``transformers``, ``tokenizers``, ``regex``, ``jinja2``) blocked, and
+importing touches neither CUDA nor the kernel build: the port must run on a
+machine with no JAX and needs none of those packages, keeps its own copies of
+what it needs from the JAX package, and the CPU tests must import it with
+no CUDA toolkit; with them blocked it still reads a checkpoint's
+``tokenizer.json``. (``tests/test_import_hermetic.py`` covers
 ``mosstts_tpu``.) The port's entry points default to the card.
 """
 import ast
@@ -10,14 +13,23 @@ import subprocess
 import sys
 from pathlib import Path
 
-CODE = r"""
-import importlib, pkgutil, sys
+BLOCKED = ("jax", "jaxlib", "triton", "mosstts_tpu", "optax", "orbax", "transformers",
+           "tokenizers", "regex", "jinja2")
+
+BLOCK = r"""
+import sys
 sys.modules["jax"] = None      # any import of jax (direct or indirect) raises
 sys.modules["triton"] = None
 sys.modules["mosstts_tpu"] = None  # nor of the JAX package, even its JAX-free modules
 sys.modules["optax"] = None    # nor JAX's optimizer and checkpoint libraries
 sys.modules["orbax"] = None
 sys.modules["gradio"] = None   # the Gradio demos import it only when a UI is built
+for name in ("transformers", "tokenizers", "regex", "jinja2"):  # the port needs none of them
+    sys.modules[name] = None
+"""
+
+CODE = BLOCK + r"""
+import importlib, pkgutil
 import torch
 import mosstts_tpu_torch
 bad = []
@@ -28,9 +40,7 @@ for name in names:
     except Exception as e:
         bad.append(f"{name}: {type(e).__name__}: {e}")
 from mosstts_tpu_torch.ops.kernels import _build
-leaked = sorted(m for m in sys.modules
-                if m.split(".")[0] in ("jax", "jaxlib", "triton", "mosstts_tpu", "optax", "orbax")
-                and sys.modules[m] is not None)
+leaked = sorted(m for m in sys.modules if m.split(".")[0] in BLOCKED and sys.modules[m] is not None)
 print("MODULES", len(names))
 print("NAMES", ",".join(names))
 print("BAD", bad)
@@ -43,24 +53,35 @@ sys.exit(1 if bad or leaked or torch.cuda.is_initialized() or torch.distributed.
 """
 
 
-SMOKE = r"""
-import sys
-sys.modules["jax"] = None
-sys.modules["triton"] = None
-sys.modules["mosstts_tpu"] = None
+SMOKE = BLOCK + r"""
 import torch
 import chip_smoke
-leaked = sorted(m for m in sys.modules
-                if m.split(".")[0] in ("jax", "jaxlib", "triton", "mosstts_tpu")
-                and sys.modules[m] is not None)
+leaked = sorted(m for m in sys.modules if m.split(".")[0] in BLOCKED and sys.modules[m] is not None)
 print("LEAKED", leaked)
 sys.exit(1 if leaked or torch.cuda.is_initialized() else 0)
+"""
+
+TOKENIZER = BLOCK + r"""
+import tempfile
+from mosstts_tpu_torch.processing.bpe import Qwen2BPETokenizer
+from mosstts_tpu_torch.processing.tokenizer import load_tokenizer
+from mosstts_tpu_torch.tools.tokenizer_fixture import load_expected, write_tokenizer_dir
+with tempfile.TemporaryDirectory() as d:
+    tok = load_tokenizer(str(write_tokenizer_dir(d)))
+assert type(tok) is Qwen2BPETokenizer, type(tok)
+for e in load_expected()["texts"]:
+    assert tok.encode(e["text"]) == e["ids"], e["text"]
+    assert tok.decode(e["ids"]) == e["decode"], e["text"]
+leaked = sorted(m for m in sys.modules if m.split(".")[0] in BLOCKED and sys.modules[m] is not None)
+print("LEAKED", leaked)
+sys.exit(1 if leaked else 0)
 """
 
 REPO = Path(__file__).resolve().parent.parent
 
 
 def _run(code: str) -> subprocess.CompletedProcess:
+    code = f"BLOCKED = {BLOCKED!r}\n" + code
     return subprocess.run([sys.executable, "-c", code], cwd=REPO, capture_output=True,
                           text=True, timeout=300)
 
@@ -108,6 +129,15 @@ def test_chip_smoke_imports_without_jax():
     assert proc.returncode == 0, proc.stdout + proc.stderr
 
 
+def test_tokenizer_json_loads_without_the_tokenizer_packages():
+    """The port depends on none of ``transformers``, ``tokenizers``,
+    ``regex`` or ``jinja2``: with them blocked, its ``load_tokenizer`` reads
+    the fixture's ``tokenizer.json`` and gives the committed ids and
+    decodes."""
+    proc = _run(TOKENIZER)
+    assert proc.returncode == 0, proc.stdout + proc.stderr
+
+
 def test_chip_smoke_imports_only_torch_and_the_port():
     """The smoke script names no module of the JAX package, not even its
     JAX-free ones: it reaches configs, processor and tokenizer through the
@@ -118,7 +148,7 @@ def test_chip_smoke_imports_only_torch_and_the_port():
     roots |= {n.module.split(".")[0] for n in ast.walk(tree)
               if isinstance(n, ast.ImportFrom) and n.module}
     assert "mosstts_tpu_torch" in roots and "torch" in roots
-    assert not roots & {"mosstts_tpu", "jax", "jaxlib", "triton"}, roots
+    assert not roots & set(BLOCKED), roots
 
 
 def test_profile_tool_refuses_to_run_without_a_gpu(monkeypatch):

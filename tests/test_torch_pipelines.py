@@ -12,6 +12,11 @@ channel at temperature 1.5, so each backend's engine is wrapped to decode
 greedily (text and audio at temperature 0): JAX's and PyTorch's random
 streams then do not matter, and the wrapper records the generated grids.
 
+The same weights, written with the codec and the tokenizer fixture's
+``tokenizer.json`` into a checkpoint directory, load through both packages'
+``load_delay_backend(dir)``: ``transformers``' tokenizer in JAX, the port's
+own reader, and a mixed-script request gives the same greedy grid.
+
 Tolerance: the grids equal; the waveforms within 1e-4 absolute (float32).
 """
 import re
@@ -27,13 +32,19 @@ from mosstts_tpu.core.config import CodecConfig, DelayConfig, tiny_qwen3
 from mosstts_tpu.engine.delay_engine import DelayEngine as JaxEngine
 from mosstts_tpu.processing.delay_processor import DelayProcessor as JaxProcessor
 from mosstts_tpu.processing.tokenizer import ByteFallbackTokenizer as JaxTokenizer
+from mosstts_tpu.serve import backend as jbackend
 from mosstts_tpu.serve import pipelines as jp
 from mosstts_tpu_torch.codec.model import CodecParams, MossAudioTokenizer
 from mosstts_tpu_torch.engine.delay_engine import DelayEngine
 from mosstts_tpu_torch.models.delay import DelayParams
 from mosstts_tpu_torch.processing.delay_processor import DelayProcessor
 from mosstts_tpu_torch.processing.tokenizer import ByteFallbackTokenizer
+from mosstts_tpu_torch.processing.bpe import Qwen2BPETokenizer
+from mosstts_tpu_torch.serve import backend as tbackend
 from mosstts_tpu_torch.serve import pipelines as tp
+from mosstts_tpu_torch.tools.hf_checkpoint import write_hf_checkpoint
+from mosstts_tpu_torch.tools.tokenizer_fixture import write_tokenizer_dir
+from mosstts_tpu_torch.utils.checkpoints import delay_table
 from mosstts_tpu_torch.utils.audio import write_wav
 from mosstts_tpu_torch.utils.convert import load_tree_
 
@@ -156,3 +167,51 @@ def test_empty_sound_effect_and_unknown_mode_raise(backends):
         tp.synthesize(tb, "x", mode="Clone")  # no reference
     with pytest.raises(ValueError):
         tp.synthesize(tb, "x", mode="Whisper")
+
+
+def _outcome(fn, *args, **kw):
+    """``fn``'s result, or its ``RuntimeError``'s message."""
+    try:
+        return fn(*args, **kw)
+    except RuntimeError as e:
+        return str(e)
+
+
+def test_checkpoint_directory_with_its_tokenizer_serves_like_jax(backends, tmp_path):
+    """The module's weights as float32 shards in the reference layout, with
+    the fixture's tokenizer files, and its codec: JAX's and the port's
+    ``load_delay_backend(dir, codec_dir, "float32")`` read the tokenizer
+    (``transformers`` in JAX, ``Qwen2BPETokenizer`` in the port), and a
+    mixed-script ``synthesize`` gives the same greedy grid, and the same wave
+    or the same error (each loaded backend served as a demo one, whose
+    prompt opens the audio block, which random weights may close at once)."""
+    pytest.importorskip("transformers")
+    _, tb = backends
+    model, codec = tmp_path / "model", tmp_path / "codec"
+    write_hf_checkpoint(model, tb.engine.engine.params, CFG, delay_table(CFG))
+    write_tokenizer_dir(model)
+    tb.processor.audio_tokenizer.save_pretrained(codec)
+    jl = jbackend.load_delay_backend(str(model), str(codec), "float32")
+    tl = tbackend.load_delay_backend(str(model), str(codec), "float32", device="cpu")
+    assert type(jl.processor.tokenizer).__name__ == "Qwen2TokenizerFast"
+    assert type(tl.processor.tokenizer) is Qwen2BPETokenizer
+    assert not (jl.demo or tl.demo)
+    jb = jp.DelayBackend(engine=GreedyEngine(jl.engine), processor=jl.processor, demo=True)
+    tb = tp.DelayBackend(engine=GreedyEngine(tl.engine), processor=tl.processor, demo=True)
+    text = "Hello 世界, it's 12:30 — 天气很好 😀!"
+    jout, tout = (_outcome(mod.synthesize, b, text, max_new_tokens=NEW, seed=5)
+                  for mod, b in ((jp, jb), (tp, tb)))
+    (jstart, jgrid), = jb.engine.calls[-1]
+    (tstart, tgrid), = tb.engine.calls[-1]
+    assert tstart == jstart
+    np.testing.assert_array_equal(tgrid, jgrid)
+    assert CFG.audio_start_token_id in tgrid[:, 0]  # the request reached the audio block
+    if isinstance(jout, str):  # greedy random weights may close the block at once
+        assert tout == jout
+    else:
+        (jsr, jwav, jstatus), (tsr, twav, tstatus) = jout, tout
+        assert re.sub(r"elapsed=\S+", "", tstatus) == re.sub(r"elapsed=\S+", "", jstatus)
+        assert tsr == jsr and twav.shape == jwav.shape
+        np.testing.assert_allclose(twav, jwav, rtol=0, atol=1e-4)
+    ids = tl.processor.tokenizer.encode(text)
+    assert ids == jl.processor.tokenizer.encode(text) and len(ids) < len(text.encode())

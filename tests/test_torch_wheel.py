@@ -90,3 +90,11 @@ def test_build_raises_without_sources(tmp_path, monkeypatch):
     with pytest.raises(RuntimeError, match="no CUDA sources"):
         _build.build()
     assert not (tmp_path / "build").exists()
+
+
+def test_wheel_carries_the_tokenizer_fixture(wheel):
+    """``tools/tokenizer_fixture.py`` writes a tokenizer directory from the
+    committed core beside it, and the smoke reads the expected ids there."""
+    names = set(zipfile.ZipFile(wheel).namelist())
+    assert {f"mosstts_tpu_torch/tools/tokenizer_fixture_{n}.json"
+            for n in ("core", "expected")} <= names
