@@ -107,19 +107,29 @@ Phases, one or more lines each; any failure raises and exits non-zero:
    B = 1 and 8: greedy frames through the frame graphs equal an eager
    engine's bit for bit, seeds s1, s2, s1 give equal, different, equal
    frames (s1 eager equal too), a second turn on each kept cache equal;
-   ms per frame (wall and device), realtime multiple, time to the first
-   frame; then ``quantize()`` (parameter bytes before and after) and all
-   again on int8 weights. 10b: a ``RealtimeBatchServer`` (8 slots, cache
-   1024, prompt bucket 16, poll every 8, temperature 0.8) on the int8
-   weights, warmed up, serves ``bench.py``'s 24 conversations through
+   then a first turn and a later turn whose prefill graphs were captured
+   replay them (no flash or W8A16 launch outside a graph) and equal the
+   eager engine's; ms per frame (wall and device), realtime multiple, the
+   time to the first frame through the prefill graph and eagerly (median of
+   5, wall and device); then ``quantize()`` (parameter bytes before and
+   after) and all again on int8 weights. 10b: a ``RealtimeBatchServer`` (8
+   slots, cache 1024, prompt bucket 16, poll every 8, temperature 0.8) on
+   the int8 weights, warmed up (the admission graphs of buckets 16 and 32
+   at k = 1-8 captured), serves ``bench.py``'s 24 conversations through
    ``run`` and ``run_events``: useful frames/s, ms per step, host waits per
-   conversation; on a small float32 model a 2-slot server's greedy streams
+   conversation, every admission a replay (no flash or W8A16 launch
+   outside a graph); then on that server and an eager one, admissions of
+   k = 1, 2, 4 and 8 at bucket 32 and of k = 1 at buckets 64 and 160 (not
+   warmed): states equal, one replay each at bucket 32, eager with nothing
+   captured at the others, warm admission times both ways; on a small float32 model a 2-slot server's greedy streams
    equal the solo engine's, card and CPU. 10c: a ``RealtimeStreamingSession``
    and ``AudioStreamDecoder`` on the ``codec_1p6b()`` codec, fed by
    ``RealtimeTextStreamBridge`` from word deltas (time to the first wave
    chunk, the wave's length against its frames), then three concurrent
    pooled ``POST /stream`` requests to the HTTP server in this process
-   (``--rt-pool-slots 4``): status, headers, TTFA, samples.
+   (``--rt-pool-slots 4``), the third with a longer user turn: status,
+   headers, TTFA, samples, the pool's admissions by bucket (eager,
+   replayed), and no admission graph captured after the pool's warmup.
 11. checkpoints, then the Local family at MossTTSLocal 1.7B width
    (``LocalConfig(qwen3_1p7b(), n_vq=32)``: the 28-layer backbone, a 4-layer
    depth transformer of width 1536 without rotary embeddings, 32 codebooks;
@@ -154,17 +164,23 @@ Phases, one or more lines each; any failure raises and exits non-zero:
    on ``bench.py:279-310``'s load (128-row grids with an ``audio_start``
    row) at B = 1, 8 and 64, in bf16 and then after ``quantize()``: greedy
    frames through the frame graphs equal an eager engine's bit for bit,
-   seeds s1, s2, s1 give equal, different, equal grids,
-   ``n_vq_for_inference=8`` zero-fills channels 9-32; ms per frame (wall,
-   the median of 3 ``generate`` calls; replays by CUDA events; kernel time
-   under the profiler), kernels and launches per frame, realtime multiple,
-   time to the first frame, parameter bytes before and after
-   ``quantize()``. 11c:
+   seeds s1, s2, s1 give equal, different, equal grids (and greedy grids
+   after a replayed prefill equal eager's), ``n_vq_for_inference=8``
+   zero-fills channels 9-32; ms per frame (wall, the median of 3
+   ``generate`` calls; replays by CUDA events; kernel time under the
+   profiler), kernels and launches per frame, realtime multiple, the time
+   to the first frame through the prefill graph (a replay with no flash or
+   W8A16 launch outside it) and eagerly (median of 5, wall and device),
+   parameter bytes before and after ``quantize()``. 11c:
    a ``LocalBatchServer`` (8 slots, cache 512, prompt bucket 32, greedy) on
-   the int8 weights, warmed up, serves ``bench.py:581-603``'s 24 requests
-   through ``run`` and ``run_events``: useful frames/s, ms per step, host
-   waits per request; on a small float32 model a 2-slot server's greedy
-   grids equal the solo engine's, card and CPU.
+   the int8 weights, warmed up (the admission graphs of buckets 32 and 64
+   captured), serves ``bench.py:581-603``'s 24 requests through ``run`` and
+   ``run_events``: useful frames/s, ms per step, host waits per request,
+   every admission a replay; then on that server and an eager one, a
+   60-row admission (bucket 64) and a 100-row one (bucket 128, not warmed):
+   states equal, one replay at bucket 64, eager with nothing captured at
+   128, warm admission times both ways; on a small float32 model a 2-slot server's greedy grids equal the
+   solo engine's, card and CPU.
 12. training (``train/``, ``codec/train.py``), float32, AdamW unless named.
    No kernel of ``ops/kernels`` is on the training path (no Pallas kernel is
    on JAX's: its no-cache forward takes the XLA attention): the launch
@@ -269,6 +285,7 @@ import copy
 import dataclasses
 import gc
 import io
+import itertools
 import json
 import re
 import sys
@@ -2208,11 +2225,25 @@ def rt_kernels() -> dict:
     return out
 
 
-def rt_time(engine, grids, text, label: str) -> dict:
+def rt_first_frame(engine, grids, text) -> tuple:
+    """The time to the first frame of a new conversation on ``engine``,
+    warm: ``prefill`` (the frame read to the host), median of 5, wall and
+    device (CUDA events) in ms."""
+    def first():
+        engine.reset_generation_state(keep_cache=False)
+        engine.prefill(grids, [x[:12] for x in text], **RT_GREEDY)
+
+    first()  # warm: the key's graph captured (graph engine), eager state made
+    return timed(first, n=5)
+
+
+def rt_time(engine, eager, grids, text, label: str) -> dict:
     """The warm engine's load through ``generate`` (greedy, ``RT_FRAMES``
     frames): wall per frame, the streams' realtime multiple (frames / 12.5
-    over the wall), the time to the first frame (a warm prefill), and the
-    device time per frame (``device_profile`` over 8 enqueued frames)."""
+    over the wall), the time to the first frame (a warm prefill, median of
+    5, wall and device) through the prefill graph and through ``eager``
+    (the same weights, graphs off), and the device time per frame
+    (``device_profile`` over 8 enqueued frames)."""
     B = len(grids)
     engine.generate(grids, text, max_length=RT_FRAMES, **RT_GREEDY)  # warm: graphs captured
     torch.cuda.synchronize()
@@ -2220,13 +2251,8 @@ def rt_time(engine, grids, text, label: str) -> dict:
     frames = engine.generate(grids, text, max_length=RT_FRAMES, **RT_GREEDY)
     wall = time.perf_counter() - t
     n = len(engine.generated_tokens)  # frames per stream, the prefill's first included
-    ttff = []
-    for _ in range(5):
-        engine.reset_generation_state(keep_cache=False)
-        torch.cuda.synchronize()
-        t = time.perf_counter()
-        engine.prefill(grids, [x[:12] for x in text], **RT_GREEDY)
-        ttff.append(time.perf_counter() - t)
+    ttff = {"graph": rt_first_frame(engine, grids, text),
+            "eager": rt_first_frame(eager, grids, text)}
     for _ in range(2):
         engine.step_async(None, **RT_GREEDY)
     reset_counts()
@@ -2240,12 +2266,16 @@ def rt_time(engine, grids, text, label: str) -> dict:
     r = dict(weights=label, batch=B, frames=n, wall_s=wall, ms_per_frame=wall / n * 1e3,
              device_ms_per_frame=dev_ms, kernels_per_frame=kernels,
              realtime_per_stream=n / 12.5 / wall, realtime_total=B * n / 12.5 / wall,
-             first_frame_ms=float(np.median(ttff)) * 1e3, launches_per_frame=per_frame)
+             first_frame_ms=ttff["graph"][0], first_frame_device_ms=ttff["graph"][1],
+             first_frame_eager_ms=ttff["eager"][0],
+             first_frame_eager_device_ms=ttff["eager"][1], launches_per_frame=per_frame)
     log(f"  {label} B={B}: {n} frames in {wall:.3f} s ({r['ms_per_frame']:.2f} ms/frame wall, "
         f"{dev_ms:.2f} ms/frame device, {kernels:.0f} device kernels/frame), "
         f"{r['realtime_per_stream']:.2f}x realtime per stream, {r['realtime_total']:.2f}x total; "
-        f"first frame {r['first_frame_ms']:.1f} ms (median of 5 warm prefills); kernel "
-        f"launches per frame, all in the replayed graph: {per_frame}")
+        f"first frame (median of 5 warm prefills): graph {ttff['graph'][0]:.2f} ms wall / "
+        f"{ttff['graph'][1]:.2f} ms device, eager {ttff['eager'][0]:.2f} ms wall / "
+        f"{ttff['eager'][1]:.2f} ms device; kernel launches per frame, all in the replayed "
+        f"graph: {per_frame}")
     if dev_ms <= 0 or not all(f.shape[1] == engine.config.rvq for f in frames):
         raise AssertionError(f"{label} B={B}: no device time or bad frames")
     return r
@@ -2273,7 +2303,8 @@ def rt_engine_phase(engine, label: str) -> tuple:
         counts.append(read_counts())
         e = eager.generate(grids, text, max_length=RT_CHECK, **RT_GREEDY)
         e1 = eager.generate(grids, text, max_length=RT_CHECK, seed=1)
-        if not rt_same(g, e) or not rt_same(turn2, rt_second_turn(eager, cfg, B)[0]):
+        e_turn2 = rt_second_turn(eager, cfg, B)[0]
+        if not rt_same(g, e) or not rt_same(turn2, e_turn2):
             raise AssertionError(f"{label} B={B}: graph frames differ from eager frames")
         if not (rt_same(seeded[0], seeded[2]) and rt_same(seeded[0], e1)
                 and not rt_same(seeded[0], seeded[1])):
@@ -2281,8 +2312,39 @@ def rt_engine_phase(engine, label: str) -> tuple:
         log(f"  {label} B={B}: greedy graph frames == eager ({sum(len(f) for f in g)} frames), "
             f"seeds s1 s2 s1 equal/different/equal (s1 eager equal), second turn prefilled at "
             f"cache slot {cursor} == eager")
-        rows.append(rt_time(engine, grids, text, label))
+        rt_prefill_replays(engine, grids, text, e, e_turn2, f"{label} B={B}")
+        rows.append(rt_time(engine, eager, grids, text, label))
+    log(f"  {label} engine prefills: {engine._prefills.counts} (graphs held: "
+        f"{list(engine._prefills.keys)})")
     return counts, rows
+
+
+def rt_prefill_replays(engine, grids, text, e, e_turn2, label: str) -> None:
+    """A conversation's first turn and a later turn, each at a key seen
+    twice before (their graphs captured): both prefills replay their graph,
+    with no eager flash or W8A16 launch outside it, and the frames equal
+    the eager engine's ``e`` (a greedy ``generate``) and ``e_turn2`` (the
+    second turn after a ``generate`` with seed s1)."""
+    cfg = engine.config
+    engine.generate(grids, text, max_length=RT_CHECK, seed=1)
+    rt_second_turn(engine, cfg, len(grids))  # the later turn's second use: its capture
+    before = dict(engine._prefills.counts)
+    reset_counts()
+    first = engine.generate(grids, text, max_length=RT_CHECK, **RT_GREEDY)
+    engine.generate(grids, text, max_length=RT_CHECK, seed=1)
+    replayed, cursor = rt_second_turn(engine, cfg, len(grids))
+    c = read_counts()
+    if not (rt_same(first, e) and rt_same(replayed, e_turn2)):
+        raise AssertionError(f"{label}: a replayed turn's frames differ from eager")
+    after = engine._prefills.counts
+    if not (after["replay"] - before["replay"] == 3 and after["eager"] == before["eager"]
+            and c["flash"] == c["graphs"]["flash"] > 0
+            and c["w8a16"] == c["graphs"]["w8a16"]):
+        raise AssertionError(f"{label}: a warm prefill launched outside its graph: {c}, "
+                             f"prefills {before} -> {after}")
+    log(f"  {label}: two first turns and a later turn (prefilled at cache slot {cursor}) each "
+        f"replayed one graph: flash {c['flash']} and W8A16 {c['w8a16']} launches, all in "
+        f"replayed graphs; the turns' frames == eager")
 
 
 def rt_second_turn(engine, cfg, B: int) -> list:
@@ -2317,7 +2379,8 @@ def rt_server_phase(params, cfg) -> tuple:
     poll_every=8)`` at temperature 0.8 (``bench.py:434-438``), warmed up,
     serves the 24 conversations through ``run`` and through ``run_events``:
     useful frames/s (``min(steps, budget + 1)``, ``bench.py:450-455``), ms
-    per frame step, host waits per conversation. Returns (counts, rows)."""
+    per frame step, host waits per conversation. Returns (counts, rows, the
+    server)."""
     reqs, budgets = rt_server_load(cfg)
     server = RealtimeBatchServer(params, cfg, slots=8, cache_len=1024,
                                  max_frames=RT_FRAMES + 16, prompt_bucket=16, poll_every=8,
@@ -2325,8 +2388,9 @@ def rt_server_phase(params, cfg) -> tuple:
     t = time.perf_counter()
     server.warmup(prompt_lens=(16, 32), attend_upto=256)
     torch.cuda.synchronize()
-    log(f"  warmup (admissions at buckets 16/32 x k 1-8, frame graphs of attend 128/256): "
-        f"{time.perf_counter() - t:.2f} s, {len(server._steps.keys)} frame graphs")
+    log(f"  warmup (admission graphs at buckets 16/32 x k 1-8, frame graphs of attend "
+        f"128/256): {time.perf_counter() - t:.2f} s, {len(server._steps.keys)} frame graphs, "
+        f"{sum(len(a.prefills.keys) for a in server._admissions.values())} admission graphs")
     counts, rows = [], []
     for run in ("run", "run_events"):
         rids = {server.submit(g, txt, max_new_tokens=n): n for (g, txt), n in zip(reqs, budgets)}
@@ -2358,10 +2422,135 @@ def rt_server_phase(params, cfg) -> tuple:
         if not (c["graphs"]["decode"] and c["graphs"]["w8a16"] and c["flash"]):
             raise AssertionError(f"server {run}: the frames did not run the kernels in "
                                  f"replayed graphs, or no admission ran flash: {c}")
-    del server
-    gc.collect()
-    torch.cuda.empty_cache()
-    return counts, rows
+        if not (c["flash"] == c["graphs"]["flash"] and c["w8a16"] == c["graphs"]["w8a16"]):
+            raise AssertionError(f"server {run}: an admission launched outside its graph: {c}")
+    adm = {str(key): dict(a.prefills.counts)
+           for key, a in sorted(server._admissions.items())}
+    log(f"  admissions by (k, attend) bucket (eager first uses in warmup, replays in the "
+        f"runs): {adm}; every flash and W8A16 launch of both runs inside replayed graphs")
+    return counts, rows, server
+
+
+def state_diff(a, b) -> list:
+    """Where two states differ: each field whose tensors differ, with the
+    rows (dim 1 of the caches, dim 0 of the rest) that hold a difference,
+    and the rows whose generators' seeds or offsets differ."""
+    out = []
+    for i, (x, y) in enumerate(zip(a.cache, b.cache)):
+        if not torch.equal(x, y):
+            rows = (x != y).transpose(0, 1).reshape(x.shape[1], -1).any(1)
+            out.append((f"cache[{i}]", rows.nonzero().flatten().tolist()))
+    for name, x, y in zip(a._fields[1:], a[1:], b[1:]):
+        if isinstance(x, torch.Tensor) and not torch.equal(x, y):
+            d = x != y
+            rows = d.reshape(d.shape[0], -1).any(1) if d.ndim else d.reshape(1)
+            out.append((name, rows.nonzero().flatten().tolist()))
+    bad = [i for i, (x, y) in enumerate(zip(a.rng, b.rng))
+           if not torch.equal(x.get_state(), y.get_state())]
+    if bad:
+        out.append(("rng", bad))
+    return out
+
+
+def mirror_state(dst, src) -> None:
+    """Copy every tensor of the state ``src`` (its cache's too) and its
+    generators' seeds and offsets into ``dst``: what ``same_state``
+    compares."""
+    ta = list(dst.cache) + [t for t in dst[1:] if isinstance(t, torch.Tensor)]
+    tb = list(src.cache) + [t for t in src[1:] if isinstance(t, torch.Tensor)]
+    for x, y in zip(ta, tb, strict=True):
+        x.copy_(y)
+    for x, y in zip(dst.rng, src.rng, strict=True):
+        x.set_state(y.get_state())
+
+
+# 10b's admissions: (k, grid rows, prompt bucket) with 12 prefix tokens; the
+# server's warmup named bucket 32 only of these: bucket 64 admits eagerly into
+# the static state kept for attend 128, bucket 160 into a transient one
+RT_ADMISSIONS = ((1, 16, 32), (2, 16, 32), (4, 16, 32), (8, 16, 32), (1, 40, 64), (1, 148, 160))
+
+
+def rt_admissions(server, cfg) -> list:
+    """10b, on ``rt_server_phase``'s server (graphs, warmed up at buckets 16
+    and 32) and an eager one of the same shape warmed up at bucket 32: the
+    admissions of ``RT_ADMISSIONS`` into idle slots, each from the same
+    running state (copied over) and request ids in both: after each the running and the
+    admission state (cache, masks, frames, cursors, the generators' seeds
+    and offsets) equal; an admission of a warmed bucket is one replay with
+    no flash or W8A16 launch outside it, one of another bucket runs eagerly
+    and captures nothing (a server never captures mid-serve); then each
+    admission timed warm both ways (median of 5, wall and device, the
+    splice included). Returns the timing rows."""
+    reqs, _ = rt_server_load(cfg, n=8, seed=5)
+    eager = RealtimeBatchServer(server.params, cfg, slots=8, cache_len=1024,
+                                max_frames=server.max_frames, prompt_bucket=16, graphs=False,
+                                sampling=make_rt_sampling(temperature=0.8))
+    eager.warmup(prompt_lens=(32,), attend_upto=128)
+    servers = dict(graph=server, eager=eager)
+    captured = {key: a.prefills.keys for key, a in server._admissions.items()}
+
+    def admit(srv, k, n):  # as serving admits: queued requests into free slots, one group
+        for g, txt in reqs[:k]:
+            srv.submit(np.concatenate([g] * 40)[:n], txt, max_new_tokens=32)
+        srv._fill_free_slots()
+
+    def free(srv):
+        for slot in list(srv._active):
+            srv._free(slot)
+
+    rows = []
+    for k, n, Tb in RT_ADMISSIONS:
+        warm = Tb == 32
+        key = (k, server._admit_attend(Tb))
+        free(server)
+        free(eager)
+        mirror_state(eager.state, server.state)
+        for srv in servers.values():  # the same request ids, so the same seeds
+            srv._ids = itertools.count(1000)
+        kept = server._admissions.get(key)
+        before = dict(kept.prefills.counts) if kept else None
+        reset_counts()
+        admit(server, k, n)
+        c = read_counts()
+        admit(eager, k, n)
+        if not same_state(server.state, eager.state):
+            raise AssertionError(f"admission of k={k} at bucket {Tb}: graph server's state != "
+                                 f"eager's: {state_diff(server.state, eager.state)}")
+        if kept and not same_state(kept.state, eager._admissions[key].state):
+            raise AssertionError(f"admission of k={k} at bucket {Tb}: admission state != eager's: "
+                                 f"{state_diff(kept.state, eager._admissions[key].state)}")
+        runs = {name: kept.prefills.counts[name] - before[name] for name in before} if kept else {}
+        if warm and not (c["flash"] == c["graphs"]["flash"] > 0
+                         and c["w8a16"] == c["graphs"]["w8a16"] and runs["replay"] == 1):
+            raise AssertionError(f"admission of k={k}: not one replay of its graph: {c} {runs}")
+        if not warm and not (c["flash"] > c["graphs"]["flash"]
+                             and (not kept or runs == dict(eager=1, capture=0, replay=0))):
+            raise AssertionError(f"admission of k={k} at bucket {Tb} (not warmed): not eager: "
+                                 f"{c} {runs}")
+        walls = {}
+        for name, srv in servers.items():
+            free(srv)
+            walls[name] = timed(lambda srv=srv: (admit(srv, k, n), free(srv)), n=5)
+        how = "a replay" if warm else ("eager into the kept state" if kept
+                                       else "eager into a transient state")
+        rows.append(dict(k=k, bucket=Tb, warmed=warm, graph_ms=walls["graph"][0],
+                         graph_device_ms=walls["graph"][1], eager_ms=walls["eager"][0],
+                         eager_device_ms=walls["eager"][1]))
+        log(f"  admission of k={k} (bucket {Tb}, {how} on the graph server, splice included), "
+            f"warm, median of 5: graph server {walls['graph'][0]:.2f} ms wall / "
+            f"{walls['graph'][1]:.2f} ms device, eager {walls['eager'][0]:.2f} ms wall / "
+            f"{walls['eager'][1]:.2f} ms device; state == eager's, flash {c['flash']} "
+            f"({c['graphs']['flash']} in replays) and W8A16 {c['w8a16']} "
+            f"({c['graphs']['w8a16']} in replays) launches")
+    if {key: a.prefills.keys for key, a in server._admissions.items()} != captured:
+        raise AssertionError("an admission of a bucket not warmed captured a graph mid-serve")
+    st = server._admissions
+    mb = sum(t.nbytes for a in st.values() for t in a.state.cache) / 1e6
+    log(f"  static admission states kept by warmup ((k, attend) = {sorted(st)}): KV caches "
+        f"{mb:.1f} MB, against {mb * 1024 / 128:.1f} MB at the server's cache_len 1024; no "
+        f"admission of a bucket not warmed captured a graph or kept a state")
+    del servers, eager
+    return rows
 
 
 def rt_small_server_vs_solo() -> None:
@@ -2440,9 +2629,10 @@ def rt_streaming_phase(engine, codec, proc, label: str) -> dict:
 def rt_http_phase(engine, proc, codec) -> tuple:
     """10c: the port's HTTP server in this process with ``--rt-pool-slots
     4`` serves three concurrent ``POST /stream`` requests (temperature 0.8,
-    at most 48 frames): each a chunked PCM16 answer with the sample-rate and
-    pooled headers and the TTFA in its chunks' extensions. Returns (launch
-    counts, rows)."""
+    at most 48 frames), the third with a longer user turn (another prompt
+    bucket): each a chunked PCM16 answer with the sample-rate and pooled
+    headers and the TTFA in its chunks' extensions; the pool captures no
+    admission graph after its warmup. Returns (launch counts, rows)."""
     from http.server import ThreadingHTTPServer
     import socket
     import threading
@@ -2457,8 +2647,9 @@ def rt_http_phase(engine, proc, codec) -> tuple:
     port = srv.server_address[1]
 
     def stream(i, out):
+        user = "hi" if i < 3 else "tell me, in one sentence, what the weather is like today"
         body = json.dumps({"text": f"stream number {i} of three, sent at once.",
-                           "user_text": "hi", "max_frames": 48, "seed": i}).encode()
+                           "user_text": user, "max_frames": 48, "seed": i}).encode()
         t = time.perf_counter()
         with socket.create_connection(("127.0.0.1", port), timeout=600) as sock:
             sock.sendall(b"POST /stream HTTP/1.1\r\nHost: x\r\nContent-Type: application/json"
@@ -2486,6 +2677,8 @@ def rt_http_phase(engine, proc, codec) -> tuple:
         # so that the three concurrent ones meet a warm pool
         warm = {}
         stream(0, warm)
+        pool = hs._STATE["rt_pool"]
+        captured = {key: a.prefills.keys for key, a in pool.server._admissions.items()}
         reset_counts()
         out = {}
         threads = [threading.Thread(target=stream, args=(i, out)) for i in (1, 2, 3)]
@@ -2494,6 +2687,14 @@ def rt_http_phase(engine, proc, codec) -> tuple:
         for x in threads:
             x.join(timeout=600)
         counts = read_counts()
+        adm = {str(key): dict(a.prefills.counts)
+               for key, a in sorted(pool.server._admissions.items())}
+        log(f"  /stream pool admissions by the (k, attend) buckets its warmup kept (the "
+            f"warmup ran the eager first uses and captured; other buckets admit eagerly into "
+            f"transient states): {adm}; of the three requests' flash launches "
+            f"{counts['graphs']['flash']} of {counts['flash']} in replayed graphs")
+        if {key: a.prefills.keys for key, a in pool.server._admissions.items()} != captured:
+            raise AssertionError("/stream: the pool captured an admission graph mid-serve")
     finally:
         srv.shutdown()
         srv.server_close()
@@ -2544,8 +2745,12 @@ def phase_realtime() -> tuple:
     if not all(c["graphs"]["w8a16"] for c in counts[2:]):
         raise AssertionError(f"int8 engine: no W8A16 launch in replayed graphs: {counts[2:]}")
     log("phase 10b: continuous batching, 8 slots, int8 weights, 24 conversations")
-    sc, srows = rt_server_phase(engine.params, cfg)
+    sc, srows, server = rt_server_phase(engine.params, cfg)
     counts += sc
+    admissions = rt_admissions(server, cfg)
+    del server
+    gc.collect()
+    torch.cuda.empty_cache()
     rt_small_server_vs_solo()
     log("phase 10c: streaming session and decoder on codec_1p6b, then /stream over HTTP")
     codec = MossAudioTokenizer.random_init(seed=0, config=codec_1p6b(), dtype=torch.float32,
@@ -2558,7 +2763,8 @@ def phase_realtime() -> tuple:
     hc, hrows = rt_http_phase(engine, proc, codec)
     counts.append(hc)
     numbers = dict(engine=rows, param_bytes=dict(bf16=bf16_bytes, int8=int8_bytes),
-                   server=srows, stream=stream, gradio=gradio, http=hrows)
+                   server=srows, admissions=admissions, stream=stream, gradio=gradio,
+                   http=hrows)
     log("  phase 10 numbers: " + json.dumps(numbers))
     del engine, codec
     gc.collect()
@@ -3005,12 +3211,16 @@ def phase_checkpoints() -> list:
     return rows
 
 
-def local_time(engine, ids, mask, label: str) -> dict:
+def local_time(engine, eager, ids, mask, label: str) -> dict:
     """The warm engine's load through ``generate`` (greedy, ``LOCAL_FRAMES``
     frames): wall per frame (the median of 3 calls, the prefill included,
     with their spread), the realtime multiple (frames / 12.5 over that
     wall, per stream and in all), the time to the first frame (a warm
-    eager prefill and one frame replay; median of 5); then 8 frames
+    prefill and one frame, the frame read to the host; median of 5, wall
+    and device) through the graphs and through ``eager`` (the same
+    weights, graphs off: its frame is eager too), and the prefill alone
+    both ways, the warm prefill checked to be one replay with no flash or
+    W8A16 launch outside it; then 8 frames
     replayed back to back, timed by CUDA events with no profiler (the
     device clock), and 8 more under ``device_profile`` for the device
     kernels, their summed time (CUPTI's per-kernel tracing included) and
@@ -3027,12 +3237,21 @@ def local_time(engine, ids, mask, label: str) -> dict:
         walls.append(time.perf_counter() - t)
     wall = float(np.median(walls))
     n = local_frames(out)
-    ttff = []
-    for _ in range(5):
-        torch.cuda.synchronize()
-        t = time.perf_counter()
-        engine.generate(ids, mask, max_new_tokens=1, **greedy)
-        ttff.append(time.perf_counter() - t)
+    ttff, prefill = {}, {}
+    ids_h, mask_h = torch.as_tensor(ids).pin_memory(), torch.as_tensor(mask).pin_memory()
+    engine.generate(ids, mask, max_new_tokens=1, **greedy)  # warm (the eager engine is warm)
+    for name, e in (("graph", engine), ("eager", eager)):
+        ttff[name] = timed(lambda e=e: e.generate(ids, mask, max_new_tokens=1, **greedy), n=5)
+        # the prefill alone (the eager engine's frame is eager too)
+        prefill[name] = timed(lambda e=e: e._prefills.run(ids_h, mask_h, n_vq_infer=cfg.n_vq),
+                              n=5)
+    replays = engine._prefills.counts["replay"]
+    reset_counts()
+    engine.generate(ids, mask, max_new_tokens=1, **greedy)
+    c = read_counts()
+    if not (engine._prefills.counts["replay"] == replays + 1
+            and c["flash"] == c["graphs"]["flash"] > 0 and c["w8a16"] == c["graphs"]["w8a16"]):
+        raise AssertionError(f"{label} B={B}: a warm prefill launched outside its graph: {c}")
     kw = dict(attend_len=engine._steps.keys[0][0], n_vq_infer=cfg.n_vq,
               eos_token_id=cfg.audio_end_token_id)
     engine._steps.step(**kw)
@@ -3056,14 +3275,23 @@ def local_time(engine, ids, mask, label: str) -> dict:
              replay_ms_per_frame=replay_ms, device_ms_per_frame=dev_ms,
              kernels_per_frame=kernels, realtime_per_stream=n / 12.5 / wall,
              realtime_total=B * n / 12.5 / wall,
-             first_frame_ms=float(np.median(ttff)) * 1e3, launches_per_frame=per_frame)
+             first_frame_ms=ttff["graph"][0], first_frame_device_ms=ttff["graph"][1],
+             first_frame_eager_ms=ttff["eager"][0],
+             first_frame_eager_device_ms=ttff["eager"][1], prefill_ms=prefill["graph"][0],
+             prefill_device_ms=prefill["graph"][1], prefill_eager_ms=prefill["eager"][0],
+             prefill_eager_device_ms=prefill["eager"][1], launches_per_frame=per_frame)
     log(f"  {label} B={B}: {n} frames in {wall:.3f} s, {r['ms_per_frame']:.2f} ms/frame wall "
         f"(median of 3, {r['ms_per_frame_min']:.2f}-{r['ms_per_frame_max']:.2f}); replays "
         f"{replay_ms:.2f} ms/frame by CUDA events, {dev_ms:.2f} ms/frame of kernel time under "
         f"the profiler, {kernels:.0f} device kernels/frame; "
         f"{r['realtime_per_stream']:.2f}x realtime per stream, {r['realtime_total']:.2f}x total; "
-        f"first frame {r['first_frame_ms']:.1f} ms (median of 5); kernel launches per frame, "
-        f"all in the replayed graph: {per_frame}")
+        f"first frame (median of 5): graph {ttff['graph'][0]:.2f} ms wall / "
+        f"{ttff['graph'][1]:.2f} ms device, eager {ttff['eager'][0]:.2f} ms wall / "
+        f"{ttff['eager'][1]:.2f} ms device (a warm prefill: one replay, flash {c['flash']} and "
+        f"W8A16 {c['w8a16']} launches all in it); the prefill alone (median of 5): graph "
+        f"{prefill['graph'][0]:.2f} ms wall / {prefill['graph'][1]:.2f} ms device, eager "
+        f"{prefill['eager'][0]:.2f} ms wall / {prefill['eager'][1]:.2f} ms device; kernel "
+        f"launches per frame, all in the replayed graph: {per_frame}")
     if dev_ms <= 0 or replay_ms <= 0 or n <= 0:
         raise AssertionError(f"{label} B={B}: no device time, or no frame")
     return r
@@ -3098,19 +3326,25 @@ def local_engine_phase(engine, label: str) -> tuple:
         g = engine.generate(ids, mask, max_new_tokens=LOCAL_CHECK, **greedy)
         seeded = [engine.generate(ids, mask, max_new_tokens=LOCAL_CHECK, seed=s)
                   for s in SEEDS]
+        # the key's first prefill ran eagerly, its second captured: this one replays
+        replayed = engine.generate(ids, mask, max_new_tokens=LOCAL_CHECK, **greedy)
         cut = engine.generate(ids, mask, max_new_tokens=LOCAL_CHECK, n_vq_for_inference=8,
                               **greedy)
         counts.append(read_counts())
-        if not same_grids(g, eager.generate(ids, mask, max_new_tokens=LOCAL_CHECK, **greedy)):
-            raise AssertionError(f"{label} B={B}: graph frames differ from eager frames")
+        e = eager.generate(ids, mask, max_new_tokens=LOCAL_CHECK, **greedy)
+        if not (same_grids(g, e) and same_grids(replayed, e)):
+            raise AssertionError(f"{label} B={B}: graph frames or prefills differ from eager")
         if not (same_grids(seeded[0], seeded[2]) and not same_grids(seeded[0], seeded[1])):
             raise AssertionError(f"{label} B={B}: seeds s1, s2, s1 not equal, different, equal")
         if not cut_bitrate_ok(engine._steps.state.out[:, :local_frames(cut)], cfg, 8):
             raise AssertionError(f"{label} B={B}: n_vq_for_inference=8 did not zero-fill "
                                  "channels 9-32")
-        log(f"  {label} B={B}: greedy graph frames == eager ({B} x {LOCAL_CHECK} frames), seeds "
+        log(f"  {label} B={B}: greedy graph frames == eager ({B} x {LOCAL_CHECK} frames; and "
+            f"after a replayed prefill), seeds "
             f"s1 s2 s1 equal/different/equal, n_vq_for_inference=8 zero-fills channels 9-32")
-        rows.append(local_time(engine, ids, mask, label))
+        rows.append(local_time(engine, eager, ids, mask, label))
+    log(f"  {label} engine prefills: {engine._prefills.counts} (graphs held: "
+        f"{list(engine._prefills.keys)})")
     del eager
     return counts, rows
 
@@ -3134,15 +3368,15 @@ def local_server_phase(params, cfg) -> tuple:
     greedy (``bench.py:592-603``), warmed up, serves the 24 requests through
     ``run`` and through ``run_events``: useful frames/s (``min(steps,
     budget)``, ``bench.py:607``), ms per frame step, host waits per request.
-    Returns (counts, rows)."""
+    Returns (counts, rows, the server)."""
     prompts, budgets = local_server_load(cfg)
     server = LocalBatchServer(params, cfg, slots=8, cache_len=512,
                               out_capacity=LOCAL_FRAMES + 8, prompt_bucket=32, **local_greedy(cfg))
     t = time.perf_counter()
     server.warmup(prompt_lens=(32, 64), attend_upto=min(64 + LOCAL_FRAMES + 16, 512))
     torch.cuda.synchronize()
-    log(f"  warmup (admissions at buckets 32/64, frame graphs {server._steps.keys}): "
-        f"{time.perf_counter() - t:.2f} s")
+    log(f"  warmup (admission graphs at buckets {[k[0] for k in server._prefills.keys]}, frame "
+        f"graphs {server._steps.keys}): {time.perf_counter() - t:.2f} s")
     counts, rows = [], []
     for run in ("run", "run_events"):
         rids = {server.submit(g, max_new_tokens=n): n for g, n in zip(prompts, budgets)}
@@ -3173,10 +3407,77 @@ def local_server_phase(params, cfg) -> tuple:
         if not (c["graphs"]["decode"] and c["graphs"]["w8a16"] and c["flash"]):
             raise AssertionError(f"server {run}: the frames did not run the kernels in "
                                  f"replayed graphs, or no admission ran flash: {c}")
-    del server
-    gc.collect()
-    torch.cuda.empty_cache()
-    return counts, rows
+        if not (c["flash"] == c["graphs"]["flash"] and c["w8a16"] == c["graphs"]["w8a16"]):
+            raise AssertionError(f"server {run}: an admission launched outside its graph: {c}")
+    log(f"  admissions {server._prefills.counts} (eager first uses in warmup, replays in the "
+        f"runs); every flash and W8A16 launch of both runs inside replayed graphs")
+    return counts, rows, server
+
+
+def local_admissions(server, cfg) -> list:
+    """11c, on ``local_server_phase``'s server (graphs, warmed up at
+    buckets 32 and 64) and an eager one of the same shape warmed up at
+    bucket 64: a 60-row prompt (bucket 64) and a 100-row one (bucket 128,
+    which the warmup did not name) admitted into slot 0, each from the same
+    running and admission state (copied over) and request id in both: after
+    each the batch-1 admission state and the running state equal; the
+    bucket-64 admission one replay with no flash or W8A16 launch outside it,
+    the bucket-128 one eager with nothing captured (a server never captures
+    mid-serve); then each admission timed warm both ways (median of 5, wall
+    and device, the splice included). Returns the timing rows."""
+    prompts, _ = local_server_load(cfg, n=1, seed=6)
+    eager = LocalBatchServer(server.params, cfg, slots=8, cache_len=512,
+                             out_capacity=server.out_capacity, prompt_bucket=32, graphs=False,
+                             **local_greedy(cfg))
+    eager.warmup(prompt_lens=(64,), attend_upto=256)
+    servers = dict(graph=server, eager=eager)
+    captured = server._prefills.keys
+    rows = []
+    for n, Tb in ((60, 64), (100, 128)):
+        grid = np.concatenate([prompts[0]] * 5)[:n]
+
+        def admit(srv):  # as serving admits: from the queue into a free slot
+            srv.submit(grid, max_new_tokens=32)
+            srv._admit(0, srv._queue.pop(0))
+            srv._active.clear()
+
+        warm = Tb == 64
+        mirror_state(eager.state, server.state)
+        mirror_state(eager._small, server._small)
+        for srv in servers.values():  # the same request ids, so the same seeds
+            srv._ids = itertools.count(1000)
+        before = dict(server._prefills.counts)
+        reset_counts()
+        admit(server)
+        c = read_counts()
+        admit(eager)
+        runs = {name: server._prefills.counts[name] - before[name] for name in before}
+        if not (same_state(server._small, eager._small) and same_state(server.state, eager.state)):
+            raise AssertionError(f"Local admission at bucket {Tb}: graph state != eager state: "
+                                 f"{state_diff(server._small, eager._small)} "
+                                 f"{state_diff(server.state, eager.state)}")
+        if warm and not (c["flash"] == c["graphs"]["flash"] > 0
+                         and c["w8a16"] == c["graphs"]["w8a16"] and runs["replay"] == 1):
+            raise AssertionError(f"Local admission: not one replay of its graph: {c} {runs}")
+        if not warm and not (c["flash"] > c["graphs"]["flash"]
+                             and runs == dict(eager=1, capture=0, replay=0)):
+            raise AssertionError(f"Local admission at bucket {Tb} (not warmed): not eager: "
+                                 f"{c} {runs}")
+        walls = {name: timed(lambda srv=srv: admit(srv), n=5) for name, srv in servers.items()}
+        rows.append(dict(rows=n, bucket=Tb, warmed=warm, graph_ms=walls["graph"][0],
+                         graph_device_ms=walls["graph"][1], eager_ms=walls["eager"][0],
+                         eager_device_ms=walls["eager"][1]))
+        log(f"  admission of a {n}-row prompt (bucket {Tb}, "
+            f"{'a replay' if warm else 'eager'} on the graph server, splice included), warm, "
+            f"median of 5: graph server {walls['graph'][0]:.2f} ms wall / "
+            f"{walls['graph'][1]:.2f} ms device, eager {walls['eager'][0]:.2f} ms wall / "
+            f"{walls['eager'][1]:.2f} ms device; state == eager's, flash {c['flash']} "
+            f"({c['graphs']['flash']} in replays) and W8A16 {c['w8a16']} "
+            f"({c['graphs']['w8a16']} in replays) launches")
+    if server._prefills.keys != captured:
+        raise AssertionError("a Local admission of a bucket not warmed captured a graph mid-serve")
+    del servers, eager
+    return rows
 
 
 def local_small_server_vs_solo() -> None:
@@ -3256,11 +3557,15 @@ def phase_local() -> tuple:
         raise AssertionError(f"int8 Local engine: no W8A16 launch in replayed graphs: {counts[3:]}")
     log(f"phase 11c: continuous batching, 8 slots, int8 weights, 24 requests "
         f"({time.perf_counter() - t11:.1f} s into phase 11)")
-    sc, srows = local_server_phase(engine.params, cfg)
+    sc, srows, server = local_server_phase(engine.params, cfg)
     counts += sc
+    admission = local_admissions(server, cfg)
+    del server
+    gc.collect()
+    torch.cuda.empty_cache()
     local_small_server_vs_solo()
     numbers = dict(checkpoints=ckpt, engine=rows, param_bytes=dict(bf16=bf16_bytes, int8=int8_bytes),
-                   server=srows)
+                   server=srows, admission=admission)
     log(f"  phase 11 numbers ({time.perf_counter() - t11:.1f} s): " + json.dumps(numbers))
     del engine
     gc.collect()

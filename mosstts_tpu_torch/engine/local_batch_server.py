@@ -15,16 +15,21 @@ rows freeze.
 The frames advance it in place through ``engine/step_graph.LocalSteps``:
 on the card each frame is the replay of a CUDA graph of
 ``local_frame_step``, one per attend bucket (the JAX server's
-``_step_fn``; its k-step ``_block_fn`` is k replays), and ``warmup()``
-captures those of the buckets it walks. A multi-token forward with (B,)
-cursors has no kernel on the card, so admissions prefill eagerly into a
-static batch-1 state with a scalar cursor (``_small``), which is then
-spliced in. ``run_events`` (JAX ``_event_fn``) decodes until a scheduling
+``_step_fn``; its k-step ``_block_fn`` is k replays). An admission, as in
+JAX, is a scalar-cursor prefill spliced into the slot: on the card the
+replay of a CUDA graph of ``local_prefill_split`` per prompt bucket (the
+JAX server's ``_prefill_fn``; ``step_graph.LocalPrefills``) into a static
+batch-1 state (``_small``), then the splice (``_insert_local_row_``, JAX's
+``_insert_fn``, a few eager copies). Only ``warmup()`` captures: the
+admission graphs of the prompt buckets it is given and the frame graphs of
+the attend buckets it walks. A prompt bucket it did not name admits
+eagerly, every time: a capture mid-serve would stall every slot's
+frames. ``run_events`` (JAX ``_event_fn``) decodes until a scheduling
 event through ``models.delay._lagged_steps``, the Delay server's
 lagged-replay loop: on the card it reads the watched stop flags one replay
 late, so a slot decodes one frozen frame more than JAX's there (the EOS
-trim drops it). ``graphs=False`` runs the frames eagerly on the card, to
-compare; the CPU always does.
+trim drops it). ``graphs=False`` runs the frames and admissions eagerly on
+the card, to compare; the CPU always does.
 
 A difference from the JAX server, by design: each slot draws from its own
 generator, reseeded at admission from the request id (``polling.request_seed``),
@@ -44,12 +49,11 @@ import torch
 
 from ..core.config import LocalConfig
 from ..models.delay import _lagged_steps
-from ..models.local import (LocalGenState, LocalParams, init_local_state, local_prefill_split,
-                            make_local_sampling)
+from ..models.local import LocalGenState, LocalParams, init_local_state, make_local_sampling
 from ..ops.sampling import row_generators
 from .delay_engine import _round_up, attend_bucket
 from .polling import request_seed, run_pipelined
-from .step_graph import LocalSteps, host_tensor
+from .step_graph import LocalPrefills, LocalSteps, host_tensor
 
 
 @dataclass
@@ -87,9 +91,9 @@ _SEED_SALT = 0x10CA1  # ``polling.request_seed``'s salt for this family
 class LocalBatchServer:
     """Ports ``mosstts_tpu.engine.local_batch_server.LocalBatchServer``. The
     server runs where ``params`` live. ``graphs`` (on the card): replay each
-    frame as a CUDA graph; False runs the frames eagerly, to compare. The
-    graphs read ``params`` where they are: build a new server after
-    quantizing them."""
+    frame and admission as a CUDA graph; False runs them eagerly, to
+    compare. The graphs read ``params`` where they are: build a new server
+    after quantizing them."""
 
     def __init__(self, params: LocalParams, config: LocalConfig, *, slots: int = 8,
                  cache_len: int = 1024, out_capacity: int = 256, prompt_bucket: int = 32,
@@ -118,10 +122,11 @@ class LocalBatchServer:
                                       device=dev)
         self.sampling = make_local_sampling(layers, do_samples, config.channels, device=dev)
         self._steps = LocalSteps(params, config, self.state, self.sampling, graphs=graphs)
-        # the static batch-1 admission caches (a scalar cursor): each
-        # admission prefills into them, then is spliced into its slot
+        # the static batch-1 admission state (a scalar cursor): each
+        # admission prefills into it, then is spliced into its slot
         self._small = init_local_state(config, 1, cache_len, 1, [torch.Generator(device=dev)],
                                        dtype=dtype, device=dev)
+        self._prefills = LocalPrefills(self._steps, self._small, capture_on_use=False)
         self.total_steps = 0
         self.util_sum = 0.0  # sum over steps of active/slots (mean = /total_steps)
         self._pos_host = np.zeros(slots, np.int64)  # upper bound (freezes lag)
@@ -155,8 +160,8 @@ class LocalBatchServer:
     @torch.no_grad()
     def _admit(self, slot: int, req: _LocalRequest) -> None:
         """A batch-1 prefill of the request's grid, left-padded to its
-        prompt bucket, into ``_small``, spliced into ``slot``; the slot's
-        generator reseeded from the request id."""
+        prompt bucket, into ``_small`` (the bucket's program), spliced into
+        ``slot``; the slot's generator reseeded from the request id."""
         cfg = self.config
         T = req.input_ids.shape[0]
         Tb = _round_up(T, self.prompt_bucket)
@@ -165,14 +170,11 @@ class LocalBatchServer:
         ids[0, Tb - T:] = req.input_ids
         mask = np.zeros((1, Tb), bool)
         mask[0, Tb - T:] = True
-        dev, small = self.device, self._small
-        new = local_prefill_split(
-            self.params, cfg, host_tensor(ids, dev).to(dev, non_blocking=True),
-            host_tensor(mask, dev).to(dev, non_blocking=True), max_new_tokens=1,
-            cache_len=self.cache_len, rng=small.rng, n_vq_infer=self.n_vq_infer,
-            dtype=self.dtype, cache=small.cache, depth=small.depth)
+        dev = self.device
+        small = self._prefills.run(host_tensor(ids, dev), host_tensor(mask, dev),
+                                   n_vq_infer=self.n_vq_infer)
         # local_prefill_split leaves pos = Tb-1 (the cur_ids row's slot)
-        _insert_local_row_(self.state, new, slot, Tb - 1)
+        _insert_local_row_(self.state, small, slot, Tb - 1)
         self.state.rng[slot].manual_seed(request_seed(_SEED_SALT, req.request_id))
         self._active[slot] = req
         self._pos_host[slot] = Tb - 1
@@ -335,10 +337,11 @@ class LocalBatchServer:
 
     def warmup(self, *, prompt_lens=(32,), attend_upto: Optional[int] = None) -> None:
         """Run each prompt bucket's admission (a short request each) and
-        capture the frame graph of every attend bucket up to
-        ``attend_upto`` (JAX compiles the same programs). Idle rows are
-        frozen (``unfinished`` False), so the extra idle frames cannot leak
-        into later requests."""
+        capture its graph (a bucket not named here admits eagerly), and
+        capture the frame graph of every attend bucket up to ``attend_upto``
+        (JAX compiles the same programs). Idle rows are frozen
+        (``unfinished`` False), so the extra idle frames cannot leak into
+        later requests."""
         assert not self._active and not self._queue, "warmup on a busy server"
         cfg = self.config
         for T in prompt_lens:
@@ -347,6 +350,9 @@ class LocalBatchServer:
             g[min(2, T - 1), 0] = cfg.audio_start_token_id
             self.submit(g, max_new_tokens=2)
         self.run()
+        for T in prompt_lens:
+            self._prefills.capture(_round_up(int(T), self.prompt_bucket),
+                                   n_vq_infer=self.n_vq_infer)
         upto = min(attend_upto or self.cache_len, self.cache_len)
         pos = 2
         while True:

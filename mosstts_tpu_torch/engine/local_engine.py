@@ -11,13 +11,18 @@ per-channel sampling from ``layers`` and ``do_samples``,
 The engine keeps one static ``LocalGenState`` for its last (batch,
 cache length) only, the cache sized by ``cache_bucket`` as JAX sizes it:
 a call at another key frees the old state and its graphs before it makes
-its own. A call prefills into that state in place (eagerly), then advances
-it one frame at a time through ``engine/step_graph.LocalSteps``: on the
-card every frame is the replay of a CUDA graph of ``local_frame_step`` per
-attend bucket (``delay_engine.attend_bucket``, the JAX engine's jitted,
-state-donated ``_step_fn``). ``graphs=False`` runs the same frames eagerly
-on the card, to compare; the CPU always does. The stop flags are read every
-``poll_every`` frames, as in JAX.
+its own. A call prefills into that state in place, then advances it one
+frame at a time through ``engine/step_graph.LocalSteps``: on the card every
+frame is the replay of a CUDA graph of ``local_frame_step`` per attend
+bucket (``delay_engine.attend_bucket``, the JAX engine's jitted,
+state-donated ``_step_fn``), and every prefill the replay of a CUDA graph
+of ``local_prefill_split`` per prompt length and ``n_vq_infer``
+(``step_graph.LocalPrefills``, the JAX engine's ``_prefill_fn``; a key's
+first prefill runs eagerly, its second captures; the engine keeps its
+``PREFILL_GRAPHS`` most recent keys, since lengths are not bucketed).
+``graphs=False`` runs the same frames and prefills eagerly on the card, to
+compare; the CPU always does. The stop flags are read every ``poll_every``
+frames, as in JAX.
 
 Each row draws from its own ``torch.Generator``, seeded from (seed, row)
 (``ops/sampling.row_generators``): sampled frames are PyTorch's draws, not
@@ -32,19 +37,18 @@ import numpy as np
 import torch
 
 from ..core.config import LocalConfig
-from ..models.local import (LocalParams, copy_local_state_, init_local_params, init_local_state,
-                            local_prefill_split, make_local_sampling)
+from ..models.local import LocalParams, init_local_params, init_local_state, make_local_sampling
 from ..ops.quant import quantize_tree_
 from ..ops.sampling import reseed_generators_, row_generators
-from .delay_engine import _round_up, attend_bucket
-from .step_graph import LocalSteps, host_tensor
+from .delay_engine import PREFILL_GRAPHS, _round_up, attend_bucket
+from .step_graph import LocalPrefills, LocalSteps, host_tensor
 
 
 class LocalEngine:
     """Ports ``mosstts_tpu.engine.local_engine.LocalEngine``. ``params`` is
     a ``LocalParams`` module on ``device``, float or, after ``quantize()``,
     with int8 matmul weights. ``graphs`` (on the card): replay each frame
-    as a CUDA graph; False runs the frames eagerly, to compare."""
+    and prefill as a CUDA graph; False runs them eagerly, to compare."""
 
     def __init__(self, params: LocalParams, config: LocalConfig, *, dtype=torch.bfloat16,
                  cache_bucket: int = 256, device=None, graphs: bool = True):
@@ -55,6 +59,7 @@ class LocalEngine:
         self.device = torch.device(device) if device is not None else params.text_emb.device
         self.graphs = graphs
         self._steps: Optional[LocalSteps] = None  # frames over the static state
+        self._prefills: Optional[LocalPrefills] = None  # and its prefills
         # generate() runs one call at a time: the static state serves one
         self._lock = threading.Lock()
 
@@ -78,9 +83,17 @@ class LocalEngine:
             quantize_tree_(self.params)
             if self._steps is not None:
                 old = self._steps
-                self._steps = LocalSteps(self.params, self.config, old.state, old.sampling,
-                                         graphs=self.graphs)
+                self._set_steps(old.state, old.sampling)
         return self
+
+    def _set_steps(self, state, sampling=None) -> None:
+        """Frames and prefills over the static ``state`` (None drops
+        both, and with them every graph)."""
+        self._steps = self._prefills = None  # the old graphs go first
+        if state is None:
+            return
+        self._steps = LocalSteps(self.params, self.config, state, sampling, graphs=self.graphs)
+        self._prefills = LocalPrefills(self._steps, state, max_graphs=PREFILL_GRAPHS)
 
     def _static(self, B: int, cache_len: int) -> LocalSteps:
         """The frames over the static state of ``B`` rows and ``cache_len``
@@ -89,13 +102,11 @@ class LocalEngine:
         st = self._steps.state if self._steps is not None else None
         if st is not None and st.kv_valid.shape == (B, cache_len):
             return self._steps
-        self._steps = None
+        self._set_steps(None)
         dev = self.device
         st = init_local_state(self.config, B, cache_len, cache_len, row_generators(0, B, dev),
                               dtype=self.dtype, device=dev)
-        self._steps = LocalSteps(self.params, self.config, st,
-                                 make_local_sampling(None, None, self.config.channels,
-                                                     device=dev), graphs=self.graphs)
+        self._set_steps(st, make_local_sampling(None, None, self.config.channels, device=dev))
         return self._steps
 
     @torch.no_grad()
@@ -134,12 +145,9 @@ class LocalEngine:
             for static, value in zip(frames.sampling,
                                      make_local_sampling(layers, do_samples, cfg.channels)):
                 static.copy_(value)
-            ids = host_tensor(input_ids, dev).to(dev, non_blocking=True)
-            mask = host_tensor(np.asarray(attention_mask, bool), dev).to(dev, non_blocking=True)
-            copy_local_state_(st, local_prefill_split(
-                self.params, cfg, ids, mask, max_new_tokens=1, cache_len=cache_len,
-                rng=st.rng, n_vq_infer=n_vq_infer, dtype=self.dtype, cache=st.cache,
-                depth=st.depth))
+            self._prefills.run(host_tensor(input_ids, dev),
+                               host_tensor(np.asarray(attention_mask, bool), dev),
+                               n_vq_infer=n_vq_infer)
             steps = 0
             while steps < max_new_tokens:
                 attend = attend_bucket(T + steps + 1, self.cache_bucket, cache_len)

@@ -17,13 +17,28 @@ sampling controls, its own text feed (``_text_rest``) and its own
 The frames advance it in place through ``engine/step_graph.RealtimeSteps``:
 on the card each frame is the replay of a CUDA graph of
 ``realtime_decode_step``, one per attend bucket (the JAX server's
-``_step_fn``), and ``warmup()`` captures those of the buckets it walks.
-Admissions run eagerly. ``run_events`` (JAX ``_event_fn``) decodes until a
+``_step_fn``). An admission is the replay of one CUDA graph per ``(kb,
+prompt bucket, attend)`` (the JAX server's ``_admit_fn``): a (k bucket,
+attend bucket) has a static kb-row admission state, its linear cache
+``attend`` slots long (what the prefill reads and writes), sampling
+buffers and generators (``_Admission``); the graph returns that state to a
+new conversation's and prefills the group into it
+(``step_graph.RealtimePrefills`` with ``fresh``), and the rows are then
+spliced into the first ``attend`` slots of theirs, the rest of each slot's
+mask cleared (``_splice_rt_rows_``, eager copies), each slot's generator
+taking the seed and offset of its admission row's. Only ``warmup()``
+captures: it keeps the admission states of the (k bucket, attend bucket)
+pairs of the prompt buckets it is given, captures their graphs, and
+captures the frame graphs of the attend buckets it walks. An admission of a
+prompt bucket it did not name runs eagerly, every time, into a transient
+admission state freed after the splice: a capture mid-serve would stall
+every slot's frames. ``run_events`` (JAX ``_event_fn``) decodes until a
 scheduling event through ``models.delay._lagged_steps``, the lagged-replay
 loop of the Delay server: on the card it reads the watched stop flags one
 replay late, so a completion by EOS holds its trimmed frames all the same
 and the slot decodes one frozen frame more than JAX's. ``graphs=False``
-runs the frames eagerly on the card, to compare; the CPU always does.
+runs the frames and admissions eagerly on the card, to compare; the CPU
+always does.
 
 Differences from the JAX server, by design: a conversation draws from its
 slot's generator, reseeded at admission from its request id
@@ -47,12 +62,11 @@ import torch
 from ..core.config import RealtimeConfig
 from ..models.delay import _lagged_steps
 from ..models.realtime import (RealtimeParams, RealtimeSampling, RealtimeState,
-                               init_realtime_srv_state, init_realtime_state, make_rt_sampling,
-                               realtime_prefill_step)
+                               init_realtime_srv_state, init_realtime_state, make_rt_sampling)
 from ..ops.sampling import row_generators
 from .delay_engine import _round_up, attend_bucket
 from .polling import request_seed, run_pipelined
-from .step_graph import RealtimeSteps, host_tensor
+from .step_graph import RealtimePrefills, RealtimeSteps, host_tensor
 
 
 @dataclass
@@ -76,18 +90,42 @@ class CompletedStream:
 def _splice_rt_rows_(big: RealtimeState, small: RealtimeState, rows: torch.Tensor) -> None:
     """Copy the first ``len(rows)`` rows of the batch-k scalar-cursor state
     ``small`` into slots ``rows`` of ``big`` in place: their cache lanes,
-    masks, frames and history, with ``small``'s scalar cursors. The
-    generators are not copied: the group prefilled from the slots' own."""
+    masks, frames and history, with ``small``'s scalar cursors. ``small``'s
+    cache may hold fewer slots than ``big``'s: its rows fill the slots'
+    first ones, and the rest of each slot's mask is cleared (what the
+    cache holds there is never read). The generators are handed over by
+    the caller."""
     k = rows.shape[0]
+    A = small.kv_valid.shape[1]
     for bf, sf in zip(big.cache, small.cache):
-        bf.index_copy_(1, rows, sf[:, :k])
-    for name in ("kv_valid", "last_audio", "is_stopping", "history"):
+        bf[:, :, :, :A].index_copy_(1, rows, sf[:, :k])
+    big.kv_valid.index_fill_(0, rows, False)
+    big.kv_valid[:, :A].index_copy_(0, rows, small.kv_valid[:k])
+    for name in ("last_audio", "is_stopping", "history"):
         getattr(big, name).index_copy_(0, rows, getattr(small, name)[:k])
     big.cur_len.index_copy_(0, rows, small.cur_len.expand(k).contiguous())
     big.hist_len.index_copy_(0, rows, small.hist_len.expand(k).contiguous())
 
 
 _SEED_SALT = 0x52D417  # ``polling.request_seed``'s salt for this family
+
+
+class _Admission:
+    """A (k bucket, attend bucket)'s admission: a kb-row scalar-cursor
+    state (a linear cache of ``attend`` slots) drawing from kb generators
+    of its own, kb-row sampling buffers, and the prefill programs over them
+    (one per prompt bucket), which share the frames' capture stream and
+    pool and are captured only ahead (``warmup()``)."""
+
+    def __init__(self, server: "RealtimeBatchServer", kb: int, attend: int):
+        dev = server.device
+        self.state = init_realtime_state(server.config, kb, attend, server.max_frames,
+                                         [torch.Generator(device=dev) for _ in range(kb)],
+                                         dtype=server.dtype, device=dev)
+        self.sampling = make_rt_sampling(*(np.zeros(kb, np.float32) for _ in range(3)),
+                                         np.zeros(kb, bool), device=dev)
+        self.prefills = RealtimePrefills(server._steps, self.state, self.sampling, fresh=True,
+                                         capture_on_use=False)
 
 
 class RealtimeBatchServer:
@@ -151,6 +189,8 @@ class RealtimeBatchServer:
         self._samp_dev = make_rt_sampling(**self._samp_host, device=dev)
         self._samp_stale = False
         self._steps = RealtimeSteps(params, config, self.state, self._samp_dev, graphs=graphs)
+        # (k bucket, attend bucket) -> its static admission, kept by warmup()
+        self._admissions: Dict[tuple, _Admission] = {}
 
     # ---- per-slot sampling -------------------------------------------
     def _set_slot_sampling(self, slot: int, overrides: dict) -> None:
@@ -214,29 +254,35 @@ class RealtimeBatchServer:
         seg[len(prefix) - 1, 1] = cfg.audio_bos_token
         return np.concatenate([req.grid, seg], axis=0)
 
+    def _admit_attend(self, Tb: int) -> int:
+        return attend_bucket(Tb, max(self.prompt_bucket, 128), self.cache_len)
+
     @torch.no_grad()
     def _prefill_group(self, ids: np.ndarray, valid: np.ndarray, slots: List[int],
                        seeds: List[int], sampling: RealtimeSampling) -> None:
-        """Prefill the kb prompt rows ``ids``/``valid`` as one batch into a
-        fresh scalar-cursor state, drawing row i from slot ``slots[i]``'s
-        generator reseeded with ``seeds[i]`` (the padding rows past
-        ``len(slots)`` from generators of their own), and splice the first
-        ``len(slots)`` rows into those slots."""
+        """Prefill the kb prompt rows ``ids``/``valid`` as one batch with
+        the per-row ``sampling`` (on the host) into the admission state of
+        the k bucket and the prompt's attend bucket (the static one
+        ``warmup()`` kept, else a transient one), returned to a new
+        conversation's in the program,
+        drawing row i from its generator seeded with ``seeds[i]`` (the
+        padding rows past ``len(slots)`` with 0), and splice the first
+        ``len(slots)`` rows into ``slots``, each slot's generator taking its
+        row's seed and offset."""
         kb, Tb = ids.shape[:2]
         dev, k = self.device, len(slots)
-        gens = [self.state.rng[s] for s in slots] + [torch.Generator(device=dev)
-                                                      for _ in range(kb - k)]
-        for g, seed in zip(gens, list(seeds) + [0] * (kb - k)):
+        attend = self._admit_attend(Tb)
+        adm = self._admissions.get((kb, attend)) or _Admission(self, kb, attend)
+        for static, value in zip(adm.sampling, sampling):
+            static.copy_(host_tensor(value, dev), non_blocking=True)
+        for g, seed in zip(adm.state.rng, list(seeds) + [0] * (kb - k)):
             g.manual_seed(seed)
-        small = init_realtime_state(self.config, kb, self.cache_len, self.max_frames, gens,
-                                    dtype=self.dtype, device=dev)
-        attend = attend_bucket(Tb, max(self.prompt_bucket, 128), self.cache_len)
-        small, _ = realtime_prefill_step(
-            self.params, self.config, small, host_tensor(ids, dev).to(dev, non_blocking=True),
-            host_tensor(valid, dev).to(dev, non_blocking=True), sampling, top_k=self.top_k,
-            attend_len=attend)
+        adm.prefills.run(host_tensor(ids, dev), host_tensor(valid, dev), attend_len=attend,
+                         top_k=self.top_k)
         rows = host_tensor(np.asarray(slots, np.int64), dev).to(dev, non_blocking=True)
-        _splice_rt_rows_(self.state, small, rows)
+        _splice_rt_rows_(self.state, adm.state, rows)
+        for slot, g in zip(slots, adm.state.rng):
+            self.state.rng[slot].set_state(g.get_state())
 
     def _admit_group(self, Tb: int, group) -> None:
         """Admit every (slot, request, prompt rows) of ``group``, all in the
@@ -259,8 +305,7 @@ class RealtimeBatchServer:
             self._set_slot_sampling(slot, req.sampling or {})
         h = self._samp_host
         samp_slots = np.array([s for s, _r, _w in padded], np.int64)
-        sampling = make_rt_sampling(**{name: h[name][samp_slots].copy() for name in h},
-                                    device=self.device)
+        sampling = make_rt_sampling(**{name: h[name][samp_slots].copy() for name in h})
         seeds = [request_seed(_SEED_SALT, req.request_id) for _s, req, _w in group]
         self._prefill_group(ids, valid, [s for s, _r, _w in group], seeds, sampling)
         for slot, req, _rows in group:
@@ -512,9 +557,11 @@ class RealtimeBatchServer:
     def warmup(self, prompt_lens=(64,), attend_upto: Optional[int] = None,
                k_buckets: Optional[List[int]] = None) -> None:
         """Run every admission shape the load can hit (each prompt bucket at
-        each k bucket) and capture the frame graph of every attend bucket up
-        to ``attend_upto``, so nothing is built mid-serve; then return the
-        slots to idle, in place (the graphs keep their buffers)."""
+        each k bucket) into the static admission state it keeps for its (k
+        bucket, attend bucket) and capture its graph, and capture the frame
+        graph of every attend bucket up to ``attend_upto``, so nothing is
+        built mid-serve; then return the slots to idle, in place (the graphs
+        keep their buffers). A prompt bucket not named here admits eagerly."""
         assert not self._active and not self._queue, "warmup on a busy server"
         cfg = self.config
         upto = attend_upto or self.cache_len
@@ -534,10 +581,15 @@ class RealtimeBatchServer:
                 ids[:, -1, 1] = cfg.audio_bos_token
                 sampling = make_rt_sampling(**{
                     k: np.full(kb, v, np.bool_ if isinstance(v, bool) else np.float32)
-                    for k, v in sd.items()}, device=self.device)
+                    for k, v in sd.items()})
                 slots = list(range(min(kb, self.slots)))
+                attend = self._admit_attend(Tb)
+                if (kb, attend) not in self._admissions:
+                    self._admissions[kb, attend] = _Admission(self, kb, attend)
                 self._prefill_group(ids, np.ones((kb, Tb), bool), slots, [0] * len(slots),
                                     sampling)
+                self._admissions[kb, attend].prefills.capture(Tb, attend_len=attend,
+                                                              top_k=self.top_k)
         a = max(self.prompt_bucket, 128)
         toks = host_tensor(np.full(self.slots, self.text_pad_id, np.int64), self.device)
         self._sync_sampling()

@@ -14,16 +14,22 @@ card every frame is the replay of a CUDA graph of ``realtime_decode_step``,
 one per attend bucket (the JAX engine's jitted, state-donated
 ``_step_fn``). A step enqueues its replay and a device copy of the frame,
 and returns without waiting; ``fetch_frames`` brings many frames to the
-host in one transfer, as JAX does. Prefills run eagerly. ``graphs=False``
-runs the same frames eagerly on the card; the CPU always does.
+host in one transfer, as JAX does. A prefill is the replay of a CUDA graph
+of ``realtime_prefill_step`` per ``(T, attend_len, top_k)``
+(``step_graph.RealtimePrefills``, the JAX engine's ``_prefill_fn``) into
+the same state, at its cursor: a later turn of the same length and attend
+bucket replays the first turn's graph. A key's first prefill runs eagerly,
+its second captures; the engine keeps its ``PREFILL_GRAPHS`` most recent
+keys. ``graphs=False`` runs the same frames and prefills eagerly on the
+card; the CPU always does.
 
 A new conversation (``reset_generation_state(keep_cache=False)``) at the
 same batch and cache length zeroes that state in place and reseeds its
 generators, so its graphs serve every later conversation. When a
 conversation outgrows the cache, a cache twice as long (or more) is made,
-the old one copied in, and the state's decode steps and every graph over
-the old buffers are dropped and built anew over the new ones
-(``_ensure_capacity``).
+the old one copied in, and the state's decode steps and prefills and
+every graph over the old buffers are dropped and built anew over the new
+ones (``_ensure_capacity``).
 
 Each row draws from its own ``torch.Generator``, seeded from (seed, row)
 (``ops/sampling.row_generators``): sampled frames are PyTorch's draws, not
@@ -38,12 +44,12 @@ import torch
 
 from ..core.config import RealtimeConfig
 from ..models.realtime import (RealtimeParams, RealtimeState, init_realtime_params,
-                               init_realtime_state, make_rt_sampling, realtime_prefill_step)
+                               init_realtime_state, make_rt_sampling)
 from ..nn.qwen3 import KVCache
 from ..ops.quant import quantize_tree_
 from ..ops.sampling import reseed_generators_, row_generators
-from .delay_engine import _round_up, attend_bucket
-from .step_graph import RealtimeSteps, copy_rt_fields_, host_tensor
+from .delay_engine import PREFILL_GRAPHS, _round_up, attend_bucket
+from .step_graph import RealtimePrefills, RealtimeSteps, host_tensor
 
 
 class RealtimeEngine:
@@ -51,8 +57,8 @@ class RealtimeEngine:
     prefill/step/finish over a carried ``RealtimeState``. ``params`` is a
     ``RealtimeParams`` module on ``device``, float or, after
     ``quantize()``, with int8 matmul weights. ``graphs`` (on the card):
-    replay each frame as a CUDA graph; False runs the frames eagerly, to
-    compare."""
+    replay each frame and prefill as a CUDA graph; False runs them eagerly,
+    to compare."""
 
     def __init__(self, params: RealtimeParams, config: RealtimeConfig, *,
                  dtype=torch.bfloat16, max_length: int = 1000, cache_len: int = 4096,
@@ -70,6 +76,7 @@ class RealtimeEngine:
         self.graphs = graphs
 
         self._steps: Optional[RealtimeSteps] = None  # the static state's frames
+        self._prefills: Optional[RealtimePrefills] = None  # and its prefills
         self._live = False  # a conversation is under way in the static state
         self._samp_key = None  # the sampling values the static sampling holds
         # frames: host arrays, and device copies of frames not fetched yet
@@ -99,9 +106,19 @@ class RealtimeEngine:
         quantize_tree_(self.params)
         if self._steps is not None:
             old = self._steps
-            self._steps = RealtimeSteps(self.params, self.config, old.state, old.sampling,
-                                        graphs=self.graphs)
+            self._set_steps(old.state, old.sampling)
         return self
+
+    def _set_steps(self, state: Optional[RealtimeState], sampling=None) -> None:
+        """Frames and prefills over the static ``state`` (None drops
+        both, and with them every graph)."""
+        self._steps = self._prefills = None  # the old graphs go first
+        if state is None:
+            return
+        self._steps = RealtimeSteps(self.params, self.config, state, sampling,
+                                    graphs=self.graphs)
+        self._prefills = RealtimePrefills(self._steps, state, sampling,
+                                          max_graphs=PREFILL_GRAPHS)
 
     # ------------------------------------------------------------------
     @property
@@ -178,14 +195,13 @@ class RealtimeEngine:
             st.last_audio.fill_(self.config.audio_pad_token)
             reseed_generators_(st.rng, self._seed)
             return
-        self._steps = None  # the old cache and graphs go first
+        self._set_steps(None)  # the old cache and graphs go first
         dev = self.device
         st = init_realtime_state(self.config, B, self.cache_len, H,
                                  row_generators(self._seed, B, dev), dtype=self.dtype,
                                  device=dev)
         self._samp_key = None
-        self._steps = RealtimeSteps(self.params, self.config, st, make_rt_sampling(device=dev),
-                                    graphs=self.graphs)
+        self._set_steps(st, make_rt_sampling(device=dev))
 
     def _set_sampling(self, temperature, top_p, repetition_penalty, do_sample) -> None:
         """Write the sampling values into the static sampling, if they
@@ -203,8 +219,9 @@ class RealtimeEngine:
         """Grow the backbone cache toward ``max_context`` instead of
         overflowing: a cache of ``attend_bucket(needed, cache_len,
         max_context)`` slots, the old one copied into its head. The frame
-        graphs read the old buffers' addresses, so the decode steps and all
-        their graphs are built anew over the new state."""
+        and prefill graphs read the old buffers' addresses, so the decode
+        steps, the prefills and all their graphs are built anew over the new
+        state."""
         if needed_total <= self.cache_len or not self._live:
             return
         new_len = attend_bucket(needed_total, self.cache_len, self.max_context)
@@ -223,9 +240,9 @@ class RealtimeEngine:
         new = st._replace(cache=KVCache(grow(st.cache.k, 3), grow(st.cache.v, 3)),
                           kv_valid=grow(st.kv_valid, 1))
         sampling = old.sampling
-        self._steps = None
+        self._set_steps(None)
         del old, st
-        self._steps = RealtimeSteps(self.params, self.config, new, sampling, graphs=self.graphs)
+        self._set_steps(new, sampling)
         self.cache_len = new_len
 
     def _attend_bucket(self, needed: int) -> int:
@@ -308,16 +325,12 @@ class RealtimeEngine:
         self._ensure_capacity(used + max_len)
         self._set_sampling(temperature, top_p, repetition_penalty, do_sample)
 
-        st = self._steps.state
         dev = self.device
-        new, frame = realtime_prefill_step(
-            self.params, cfg, st, host_tensor(ids, dev).to(dev, non_blocking=True),
-            host_tensor(valid, dev).to(dev, non_blocking=True), self._steps.sampling,
-            top_k=top_k, attend_len=self._attend_bucket(used + max_len))
-        copy_rt_fields_(st, new)
+        st = self._prefills.run(host_tensor(ids, dev), host_tensor(valid, dev),
+                                attend_len=self._attend_bucket(used + max_len), top_k=top_k)
         self._host_len = used + max_len
         self._stopped = np.zeros((B,), bool)
-        frame_np = frame.cpu().numpy()
+        frame_np = st.last_audio.cpu().numpy().copy()  # the first frame, off the static buffer
         self._note_frames(frame_np)
         self._generated = [frame_np]
         return frame_np

@@ -1,12 +1,15 @@
-"""Delay decode steps and prefills, and Realtime frames, over static
-buffers, replayed as CUDA graphs on the card.
+"""Decode steps and prefills of the three families over static buffers,
+replayed as CUDA graphs on the card.
 
 The port's counterpart of the JAX package's compiled step and prefill
 programs: ``jax.jit`` of ``delay_decode_step`` with the state donated
 (``mosstts_tpu/engine/delay_engine.py:125``, ``batch_server.py:398``), of
-``delay_prefill`` (``delay_engine.py:110``, ``batch_server.py:262``) and of
+``delay_prefill`` (``delay_engine.py:110``, ``batch_server.py:262``), of
 ``realtime_decode_step`` (``realtime_engine.py:159``,
-``realtime_batch_server.py:186``). ``GraphSteps`` holds what they share:
+``realtime_batch_server.py:186``), of ``realtime_prefill_step``
+(``realtime_engine.py:147``, and inside ``realtime_batch_server.py:161``'s
+``_admit_fn``), and of ``local_prefill_split`` (``local_engine.py:58``,
+``local_batch_server.py:137``). ``GraphSteps`` holds what they share:
 the capture stream and pool, the warm-up and capture of a key, the replay
 and its launch accounting, the check that the weights are still the
 ones captured.
@@ -36,14 +39,20 @@ state, or the server's batch-1 admission state) with its static sampling:
 one CUDA graph of ``delay_prefill`` and ``copy_state_`` per ``(T,
 top_k_text, top_k_audio, hidden_out_layers)``, the prompt's exact length
 (no padding to a bucket: a padded prompt rounds differently), over static
-prompt and mask buffers of that length. A key's first prefill runs
+prompt and mask buffers of that length. ``RealtimePrefills`` (per ``(T,
+attend_len, top_k)``) and ``LocalPrefills`` (per ``(T, n_vq_infer)``) do
+the same for the other two families, on ``PrefillGraphs``, the machinery
+the three share. A key's first prefill runs
 eagerly; the second captures the graph and replays it, and so does every
 later one (``capture()`` captures ahead, for a server's ``warmup()``). So
 a prompt length seen once costs what an eager prefill costs, and the graphs
-pay only where lengths repeat: the server's prompt buckets (at most
+pay only where lengths repeat: the Delay server's prompt buckets (at most
 ``cache_len / prompt_bucket`` of them, so it keeps every graph, as JAX's
 compile cache keeps every program), or an engine's repeated exact lengths
 (the engine keeps ``max_graphs``, the least recently used dropped first).
+The Realtime and Local servers capture only ahead (``capture_on_use``
+False): a prompt bucket their ``warmup()`` did not name runs eagerly at
+every admission instead of stalling every slot's frames for a capture.
 ``counts`` tells how the runs went: eager, captured, or replayed.
 
 The first step at a key, and a key's first prefill, run eagerly on the
@@ -94,9 +103,10 @@ import torch
 from ..core.config import DelayConfig, RealtimeConfig
 from ..models.delay import (DelayGenState, DelayParams, DelaySampling, delay_decode_step,
                             delay_prefill)
-from ..models.local import LocalGenState, LocalParams, LocalSampling, local_frame_step
+from ..models.local import (LocalGenState, LocalParams, LocalSampling, copy_local_state_,
+                            local_frame_step, local_prefill_split)
 from ..models.realtime import (RealtimeParams, RealtimeSampling, RealtimeState,
-                               realtime_decode_step)
+                               realtime_decode_step, realtime_prefill_step)
 from ..nn.qwen3 import init_kv_cache, init_quant_kv_cache
 from ..ops.kernels import launches
 
@@ -354,16 +364,27 @@ class _Prompt:
         self.launches = None
 
 
-class Prefills:
-    """Prefills of ``steps.params`` into the static ``state`` (whose cache
-    has the capacity of every prefill) with the static ``sampling``,
-    through CUDA graphs when ``steps`` replays them; the graphs share
-    ``steps``' capture stream and memory pool (see the module docstring)."""
+class PrefillGraphs:
+    """Prefills of ``steps.params`` into a static state, one program per
+    key (the prompt's length ``T`` first), over the key's static prompt and
+    mask buffers, through CUDA graphs when ``steps`` replays them; the
+    graphs share ``steps``' capture stream and memory pool (see the module
+    docstring). A subclass says what one prefill does (``_eager``) and
+    which keys its calls take; ``generators`` are the state's, registered
+    with every graph. ``max_graphs`` keeps that many keys, the least
+    recently used dropped first (None keeps every key). ``capture_on_use``
+    False captures only through ``capture()``: a key not captured ahead
+    runs eagerly at every use (a server, which must not stall its slots for
+    a capture mid-serve), on the caller's stream; ``capture()`` then warms
+    the key up on the capture stream itself."""
 
-    def __init__(self, steps: DecodeSteps, state: DelayGenState, sampling: DelaySampling,
-                 *, max_graphs: Optional[int] = None):
-        self.steps, self.state, self.sampling = steps, state, sampling
-        self.max_graphs = max_graphs  # None: every key is kept
+    def __init__(self, steps: GraphSteps, state, generators, B: int, C: int, device, *,
+                 max_graphs: Optional[int] = None, capture_on_use: bool = True):
+        self.steps, self.state = steps, state
+        self.max_graphs = max_graphs
+        self.capture_on_use = capture_on_use
+        self._generators = generators
+        self._shape = (B, C, device)
         self._prompts: "OrderedDict[tuple, _Prompt]" = OrderedDict()
         # runs of run(): eager (a key's first use, or graphs off), capture (the
         # key's graph captured, then replayed), replay (a graph captured before)
@@ -374,31 +395,27 @@ class Prefills:
         """The keys captured and kept."""
         return tuple(k for k, p in self._prompts.items() if p.graph is not None)
 
-    def _prompt(self, T: int, top_k_text: int, top_k_audio: int, hidden_out_layers):
-        key = (T, top_k_text, top_k_audio,
-               None if hidden_out_layers is None else tuple(hidden_out_layers))
+    def _prompt(self, key) -> _Prompt:
         prompt = self._prompts.pop(key, None)
         if prompt is None:
-            st = self.state
-            prompt = _Prompt(st.pos.shape[0], T, st.cur_ids.shape[-1], st.pos.device)
+            B, C, device = self._shape
+            prompt = _Prompt(B, key[0], C, device)
         self._prompts[key] = prompt  # the most recently used last
         while self.max_graphs is not None and len(self._prompts) > self.max_graphs:
             _, old = self._prompts.popitem(last=False)
             if old.graph is not None:  # let a replay under way end before its graph goes
                 torch.cuda.current_stream().synchronize()
-        return key, prompt
+        return prompt
 
-    @torch.no_grad()
-    def run(self, ids: torch.Tensor, mask: torch.Tensor, *, top_k_text: int,
-            top_k_audio: int, hidden_out_layers=None) -> DelayGenState:
+    def _run(self, key, ids: torch.Tensor, mask: torch.Tensor) -> None:
         """Prefill ``ids`` (B, T, C) with ``mask`` (B, T), on the host
-        (pinned, for a copy that does not wait) or on the device, into the
-        static state, which it returns."""
+        (pinned, for a copy that does not wait) or on the device, at
+        ``key``."""
         self.steps.check_params()
-        key, prompt = self._prompt(ids.shape[1], top_k_text, top_k_audio, hidden_out_layers)
+        prompt = self._prompt(key)
         prompt.ids.copy_(ids, non_blocking=True)
         prompt.mask.copy_(mask, non_blocking=True)
-        if prompt.graph is None and prompt.warm and self.steps.graphs:
+        if prompt.graph is None and prompt.warm and self.steps.graphs and self.capture_on_use:
             self._capture(key, prompt)
             self.counts["capture"] += 1
         elif prompt.graph is not None:
@@ -406,18 +423,18 @@ class Prefills:
         if prompt.graph is not None:
             prompt.graph.replay()
             launches.add_replay(prompt.launches)
-        else:
+        elif self.capture_on_use or not self.steps.graphs:
             self.steps.warm(lambda: self._eager(key, prompt))
             prompt.warm = True
             self.counts["eager"] += 1
-        return self.state
+        else:  # never captured on use: run where the caller runs
+            self._eager(key, prompt)
+            self.counts["eager"] += 1
 
-    @torch.no_grad()
-    def capture(self, T: int, *, top_k_text: int, top_k_audio: int,
-                hidden_out_layers=None) -> None:
-        """Capture the graph of prompts of length ``T`` ahead of use (after
-        an eager prefill of whatever the key's buffers hold, if none ran)."""
-        key, prompt = self._prompt(T, top_k_text, top_k_audio, hidden_out_layers)
+    def _capture_ahead(self, key) -> None:
+        """Capture ``key``'s graph ahead of use (after an eager prefill of
+        whatever the key's buffers hold, if none ran)."""
+        prompt = self._prompt(key)
         if prompt.graph is not None or not self.steps.graphs:
             return
         if not prompt.warm:
@@ -427,7 +444,43 @@ class Prefills:
 
     def _capture(self, key, prompt: _Prompt) -> None:
         prompt.graph, prompt.launches = self.steps.capture(
-            lambda: self._eager(key, prompt), self.state.rng)
+            lambda: self._eager(key, prompt), self._generators)
+
+    def _eager(self, key, prompt: _Prompt) -> None:
+        raise NotImplementedError
+
+
+class Prefills(PrefillGraphs):
+    """Delay prefills (``delay_prefill`` and ``copy_state_``) into the
+    static ``state`` (whose cache has the capacity of every prefill) with
+    the static ``sampling``: one program per ``(T, top_k_text, top_k_audio,
+    hidden_out_layers)``."""
+
+    def __init__(self, steps: DecodeSteps, state: DelayGenState, sampling: DelaySampling,
+                 *, max_graphs: Optional[int] = None):
+        super().__init__(steps, state, state.rng, state.pos.shape[0], state.cur_ids.shape[-1],
+                         state.pos.device, max_graphs=max_graphs)
+        self.sampling = sampling
+
+    @staticmethod
+    def _key(T: int, top_k_text: int, top_k_audio: int, hidden_out_layers) -> tuple:
+        return (T, top_k_text, top_k_audio,
+                None if hidden_out_layers is None else tuple(hidden_out_layers))
+
+    @torch.no_grad()
+    def run(self, ids: torch.Tensor, mask: torch.Tensor, *, top_k_text: int,
+            top_k_audio: int, hidden_out_layers=None) -> DelayGenState:
+        """Prefill ``ids`` (B, T, C) with ``mask`` (B, T) into the static
+        state, which it returns."""
+        self._run(self._key(ids.shape[1], top_k_text, top_k_audio, hidden_out_layers), ids,
+                  mask)
+        return self.state
+
+    @torch.no_grad()
+    def capture(self, T: int, *, top_k_text: int, top_k_audio: int,
+                hidden_out_layers=None) -> None:
+        """Capture the graph of prompts of length ``T`` ahead of use."""
+        self._capture_ahead(self._key(T, top_k_text, top_k_audio, hidden_out_layers))
 
     def _eager(self, key, prompt: _Prompt) -> None:
         _, top_k_text, top_k_audio, hol = key
@@ -437,3 +490,90 @@ class Prefills:
             cache_len=st.kv_valid.shape[1], rng=st.rng, sampling=self.sampling,
             top_k_text=top_k_text, top_k_audio=top_k_audio, kv_quant=len(st.cache) == 4,
             cache=st.cache, hidden_out_layers=hol))
+
+
+class RealtimePrefills(PrefillGraphs):
+    """Realtime prefills (``models.realtime.realtime_prefill_step``) into
+    the static scalar-cursor ``state`` with the static ``sampling``: one
+    program per ``(T, attend_len, top_k)`` (the JAX engine's
+    ``_prefill_fn``), which feeds the prompt at the state's cursor (a
+    device tensor: a later turn replays the same graph at a later cursor),
+    decodes the first frame into ``state.last_audio`` and copies back the
+    fields the prefill replaces (``RT_STEP_FIELDS``). ``fresh`` first
+    returns the state to a new conversation's, in the program (the JAX
+    server's ``_admit_fn``, which makes its state inside the program): the
+    cursors, masks, frames and the cache's first ``attend_len`` slots
+    (those the prefill reads) zeroed, the last frame the pad frame."""
+
+    def __init__(self, steps: GraphSteps, state: RealtimeState, sampling: RealtimeSampling, *,
+                 fresh: bool = False, max_graphs: Optional[int] = None,
+                 capture_on_use: bool = True):
+        if state.cur_len.ndim != 0:
+            raise ValueError("a Realtime prefill program runs on a scalar-cursor state")
+        super().__init__(steps, state, state.rng, state.is_stopping.shape[0],
+                         state.last_audio.shape[1] + 1, state.is_stopping.device,
+                         max_graphs=max_graphs, capture_on_use=capture_on_use)
+        self.sampling = sampling
+        self.fresh = fresh
+
+    @torch.no_grad()
+    def run(self, ids: torch.Tensor, mask: torch.Tensor, *, attend_len: Optional[int],
+            top_k: int) -> RealtimeState:
+        """Prefill ``ids`` (B, T, 1 + rvq) with ``mask`` (B, T) at the
+        state's cursor; the first frame is ``state.last_audio``."""
+        self._run((ids.shape[1], attend_len, top_k), ids, mask)
+        return self.state
+
+    @torch.no_grad()
+    def capture(self, T: int, *, attend_len: Optional[int], top_k: int) -> None:
+        """Capture the graph of prompts of length ``T`` ahead of use."""
+        self._capture_ahead((T, attend_len, top_k))
+
+    def _eager(self, key, prompt: _Prompt) -> None:
+        _, attend_len, top_k = key
+        st, steps = self.state, self.steps
+        if self.fresh:
+            for buf in st.cache:
+                buf[:, :, :, :attend_len].zero_()
+            for t in (st.kv_valid, st.cur_len, st.is_stopping, st.history, st.hist_len):
+                t.zero_()
+            st.last_audio.fill_(steps.cfg.audio_pad_token)
+        new, _ = realtime_prefill_step(steps.params, steps.cfg, st, prompt.ids, prompt.mask,
+                                       self.sampling, top_k=top_k, attend_len=attend_len)
+        copy_rt_fields_(st, new)
+
+
+class LocalPrefills(PrefillGraphs):
+    """Local prefills (``models.local.local_prefill_split`` and
+    ``copy_local_state_``) into the static scalar-cursor ``state``: one
+    program per ``(T, n_vq_infer)`` (the batch and the cache length are the
+    state's; the JAX engine's ``_prefill_fn``). A prefill draws nothing."""
+
+    def __init__(self, steps: GraphSteps, state: LocalGenState, *,
+                 max_graphs: Optional[int] = None, capture_on_use: bool = True):
+        if state.pos.ndim != 0:
+            raise ValueError("a Local prefill program runs on a scalar-cursor state")
+        super().__init__(steps, state, state.rng, state.unfinished.shape[0],
+                         state.cur_ids.shape[-1], state.unfinished.device,
+                         max_graphs=max_graphs, capture_on_use=capture_on_use)
+
+    @torch.no_grad()
+    def run(self, ids: torch.Tensor, mask: torch.Tensor, *, n_vq_infer: int) -> LocalGenState:
+        """Prefill ``ids`` (B, T, C) with ``mask`` (B, T) into the static
+        state, which it returns (its cursor at T - 1, the prompt's last row
+        in ``cur_ids``)."""
+        self._run((ids.shape[1], n_vq_infer), ids, mask)
+        return self.state
+
+    @torch.no_grad()
+    def capture(self, T: int, *, n_vq_infer: int) -> None:
+        """Capture the graph of prompts of length ``T`` ahead of use."""
+        self._capture_ahead((T, n_vq_infer))
+
+    def _eager(self, key, prompt: _Prompt) -> None:
+        _, n_vq_infer = key
+        st, steps = self.state, self.steps
+        copy_local_state_(st, local_prefill_split(
+            steps.params, steps.cfg, prompt.ids, prompt.mask, max_new_tokens=1,
+            cache_len=st.kv_valid.shape[1], rng=st.rng, n_vq_infer=n_vq_infer,
+            dtype=st.cache.k.dtype, cache=st.cache, depth=st.depth))

@@ -434,7 +434,7 @@ def local_prefill_split(params: LocalParams, cfg: LocalConfig, input_ids: torch.
         valid=attention_mask[:, None, :].expand(B, C - 1, T))
     return LocalGenState(
         cache=cache, kv_valid=kv_valid, cur_ids=input_ids[:, T - 1:T, :],
-        pos=torch.tensor(T - 1, dtype=torch.int32, device=dev),
+        pos=torch.full((), T - 1, dtype=torch.int32, device=dev),
         step=torch.zeros((), dtype=torch.int32, device=dev), rng=list(rng),
         unfinished=torch.ones((B,), dtype=torch.bool, device=dev),
         seen_text=seen_text.contiguous(), seen_audio=seen_audio.contiguous(),

@@ -356,14 +356,11 @@ def qwen3_forward(
     quant = isinstance(cache, (QuantKVCache, QuantPagedKVCache))
     paged = isinstance(cache, (PagedKVCache, QuantPagedKVCache))
     linear_slots = kv_positions is None
-    if per_row and T > 1 and dev.type == "cuda":
-        # the flash kernel takes one q_start for the batch; JAX takes its
-        # einsum path here, which the card does not run silently
-        raise NotImplementedError("a multi-token forward with per-row cursors has no "
-                                  "kernel on the card")
 
     cos, sin = rope_cos_sin(positions, hd, cfg.rope_theta) if use_rope else (None, None)
 
+    # the flash kernel takes one q_start for the batch: (B,) cursors take
+    # the plain attention, as JAX takes its einsum path there (no kernel)
     use_flash = linear_slots and cache is not None and not per_row
     if kv_positions is None:
         kv_positions = (torch.arange(cache.max_len, dtype=torch.int32, device=dev)[None]

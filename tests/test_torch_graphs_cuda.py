@@ -23,7 +23,9 @@ the cache and the generators' seeds and offsets equal to eager prefills';
 stopped at ``<|im_end|>`` up to that frame: the loops see a stop at other
 steps). An engine with ``hidden_out_layers`` (float and int8 heads) gives
 the eager engine's grids through its graphs, and the CPU port's greedy
-grids on a float32 model.
+grids on a float32 model. A multi-token forward with per-row cursors runs
+on the card (the plain attention, as JAX's einsum path) and equals the
+CPU, eagerly and inside a graph.
 
 This file imports no JAX, so it runs on the machine with the card:
 
@@ -486,3 +488,56 @@ def test_hidden_out_layers_graphs_match_eager_and_cpu(heads):
         for (la, ga), (lb, gb) in zip(ref, got):
             assert la == lb
             np.testing.assert_array_equal(gb, ga)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16], ids=["f32", "bf16"])
+def test_multi_token_forward_with_row_cursors_equals_the_cpu(dtype):
+    """A T = 5 forward with (B,) cursors (each row's block at its own slot,
+    one row's past the capacity dropped) runs on the card, on the plain
+    attention (no kernel takes one q_start per row; JAX takes its einsum
+    path), and equals the CPU: float32 within 1e-5 (no TF32), bf16 the
+    CPU's bf16 within two bf16 ulps; inside a CUDA graph too."""
+    _need_card()
+    from mosstts_tpu_torch.nn import qwen3
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    cfg = CFG.language_config
+    gen = torch.Generator().manual_seed(21)
+    params = qwen3.init_qwen3_params(cfg, generator=gen, dtype=torch.float32, with_embed=False)
+    B, T, S, D = 3, 5, 64, cfg.hidden_size
+    rng = np.random.default_rng(22)
+    off = torch.tensor([4, 30, 61], dtype=torch.int32)
+    kv_valid = torch.zeros((B, S), dtype=torch.bool)
+    for b in range(B):
+        kv_valid[b, 1:min(int(off[b]) + T, S)] = True
+    pos = off[:, None] + torch.arange(T, dtype=torch.int32)[None]
+    x = torch.tensor(rng.normal(size=(B, T, D)).astype(np.float32))
+    k0 = torch.tensor(rng.normal(size=(L, B, cfg.num_key_value_heads, S,
+                                       cfg.head_dim)).astype(np.float32))
+    outs = {}
+    for dev in ("cpu", "cuda"):
+        p = copy.deepcopy(params).to(device=dev, dtype=dtype)
+        cache = qwen3.KVCache(k0.to(dev, dtype), (0.5 * k0).to(dev, dtype))
+        args = dict(positions=pos.to(dev), kv_valid=kv_valid.to(dev), cache=cache,
+                    cache_offset=off.to(dev))
+        h, _ = qwen3.qwen3_forward(p, cfg, x.to(dev, dtype), **args)
+        outs[dev] = (h.float().cpu(), cache.k.float().cpu(), cache.v.float().cpu())
+        if dev == "cuda":  # the same forward captured and replayed
+            xs = x.to(dev, dtype)
+            graph = torch.cuda.CUDAGraph()
+            stream = torch.cuda.Stream()
+            stream.wait_stream(torch.cuda.current_stream())
+            with torch.cuda.stream(stream):
+                qwen3.qwen3_forward(p, cfg, xs, **args)
+            torch.cuda.current_stream().wait_stream(stream)
+            with torch.cuda.graph(graph):
+                hg, _ = qwen3.qwen3_forward(p, cfg, xs, **args)
+            graph.replay()
+            torch.cuda.synchronize()
+            assert torch.equal(hg.float().cpu(), outs["cuda"][0])
+    rows = pos < S
+    tol = 1e-5 if dtype == torch.float32 else 2 * 2.0 ** -7
+    for a, b in zip(outs["cuda"], outs["cpu"]):
+        a, b = (a[rows], b[rows]) if a.ndim == 3 else (a, b)
+        assert bool(((a - b).abs() <= tol * b.abs() + tol).all()), float((a - b).abs().max())

@@ -13,7 +13,11 @@ the eager frame's kernels on the same inputs and draws from the same
 generator states. The decode kernel is held against its plain version over
 the depth transformer's 33-slot cache at MossTTSLocal 1.7B's dims (attend
 1, 17 and 33). On the float32 model the card's greedy grids equal the
-CPU's, solo and through the server.
+CPU's, solo and through the server. The engine's prefills and the server's
+admissions are graphs too (first use eager, second captured, then
+replayed; the server's captured by ``warmup``): the static state after
+each equals the eager one's, and a warm one launches flash and W8A16 only
+inside its graph.
 
 This file imports no JAX, so it runs on the machine with the card:
 
@@ -169,3 +173,105 @@ def test_server_graphs_match_eager_and_f32_card_matches_cpu():
     served = [_server_runs(p, True, torch.float32) for p in (cpu, card)]
     for a, b in zip(*served):
         assert _same(a, b)
+
+
+def _assert_same_state(a, b):
+    """Every tensor of two ``LocalGenState``s (both caches too) equal bit for
+    bit, and their generators' seeds and offsets."""
+    ta = list(a.cache) + list(a.depth) + [t for t in a[1:] if isinstance(t, torch.Tensor)]
+    tb = list(b.cache) + list(b.depth) + [t for t in b[1:] if isinstance(t, torch.Tensor)]
+    for x, y in zip(ta, tb, strict=True):
+        assert torch.equal(x, y)
+    for x, y in zip(a.rng, b.rng, strict=True):
+        assert torch.equal(x.get_state(), y.get_state())
+
+
+def _only_replayed(*names):
+    got = launches.read()
+    for name in names:
+        assert got[name] == launches.IN_GRAPHS[name] > 0, (name, got, launches.IN_GRAPHS)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("weights", ["bf16", "int8"])
+def test_engine_prefill_graphs_match_eager(weights):
+    """Prefills (``max_new_tokens=1``: the prefill and one frame) at B = 3,
+    sampled with seeds s1, s2, s1: the first use of the key runs eagerly,
+    the second captures, the third replays; after each the static state
+    equals the eager engine's, and the replay launches flash (and W8A16)
+    only inside graphs. Then a whole sampled generation equals eager's."""
+    _need_card()
+    gen = torch.Generator(device="cuda").manual_seed(5)
+    params = init_local_params(CFG, generator=gen, dtype=torch.bfloat16, device="cuda")
+    if weights == "int8":
+        LocalEngine(params, CFG).quantize()
+    engines = [LocalEngine(params, CFG, dtype=torch.bfloat16, cache_bucket=64, graphs=g)
+               for g in (True, False)]
+    ids, mask = _prompts(3, seed=6)
+    for i, seed in enumerate((1, 2, 1)):
+        launches.reset()
+        outs = []
+        for e in engines:
+            outs.append(e.generate(ids, mask, max_new_tokens=1, seed=seed, **SAMPLED))
+            if i == 2 and e.graphs:
+                _only_replayed("flash", *(("w8a16",) if weights == "int8" else ()))
+        assert _same(*outs)
+        _assert_same_state(engines[0]._steps.state, engines[1]._steps.state)
+    assert engines[0]._prefills.counts == dict(eager=1, capture=1, replay=1)
+    assert engines[0]._prefills.keys == ((ids.shape[1], CFG.n_vq),)
+    runs = [e.generate(ids, mask, max_new_tokens=16, seed=3, **SAMPLED) for e in engines]
+    assert _same(*runs)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("weights", ["bf16", "int8"])
+def test_server_admission_graphs_match_eager(weights):
+    """A 2-slot server warmed up at prompt buckets 32 and 64 (their
+    admission graphs captured) admits sampled requests of both buckets: each
+    admission replays its bucket's graph (flash and W8A16 launched only in
+    graphs) into the static batch-1 state, which equals the eager server's
+    after each, as the running state does; the grids then equal too. Two
+    requests of bucket 96, which ``warmup()`` did not name, admit eagerly
+    (flash launched outside any graph), the second too: nothing is
+    captured mid-serve."""
+    _need_card()
+    gen = torch.Generator(device="cuda").manual_seed(7)
+    params = init_local_params(CFG, generator=gen, dtype=torch.bfloat16, device="cuda")
+    if weights == "int8":
+        LocalEngine(params, CFG).quantize()
+    servers = [LocalBatchServer(params, CFG, slots=2, cache_len=256, out_capacity=32,
+                                prompt_bucket=32, dtype=torch.bfloat16, graphs=g, **SAMPLED)
+               for g in (True, False)]
+    for s in servers:
+        s.warmup(prompt_lens=(32, 64), attend_upto=128)
+    assert sorted(k[0] for k in servers[0]._prefills.keys) == [32, 64]
+    rng = np.random.default_rng(8)
+    grids = []
+    for T in (20, 40, 30, 50, 70, 80):
+        g = rng.integers(100, 1000, (T, CFG.channels))
+        g[..., 1:] = rng.integers(0, 1024, (T, CFG.n_vq))
+        g[2, 0] = CFG.audio_start_token_id
+        grids.append(g)
+    done = [{}, {}]
+    for slot, grid in enumerate(grids):
+        launches.reset()
+        for s, d in zip(servers, done):
+            if slot % 2 == 0 and slot:  # two slots: let the last two requests end
+                d.update({c.request_id: c for c in s.run()})
+            s.submit(grid, max_new_tokens=10 + slot)
+            s._admit(slot % 2, s._queue.pop(0))
+            if s is servers[0] and slot < 4:
+                _only_replayed("flash", *(("w8a16",) if weights == "int8" else ()))
+            elif s is servers[0]:
+                assert launches.read()["flash"] > launches.IN_GRAPHS["flash"]
+        _assert_same_state(servers[0]._small, servers[1]._small)
+        _assert_same_state(servers[0].state, servers[1].state)
+    for s, d in zip(servers, done):
+        d.update({c.request_id: c for c in s.run()})
+    assert sorted(done[0]) == sorted(done[1]) and len(done[0]) == 6
+    for r in done[0]:
+        a, b = done[0][r], done[1][r]
+        assert a.start_length == b.start_length and a.steps == b.steps
+        np.testing.assert_array_equal(a.tokens, b.tokens)
+    assert sorted(k[0] for k in servers[0]._prefills.keys) == [32, 64]
+    assert servers[0]._prefills.counts == dict(eager=4, capture=0, replay=4)

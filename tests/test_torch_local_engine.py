@@ -6,8 +6,9 @@ The cases of JAX ``tests/test_local_model.py``: greedy generation (the
 start length, the ``audio_start`` row), variable bitrate
 (``n_vq_for_inference=2`` zero-fills channels 3-4) and int8 weights; then
 the port's own: a second call reuses the static state and its frames, a
-streamer sees every frame's text token, and seeds s1, s2, s1 give equal,
-different, equal sampled grids.
+streamer sees every frame's text token, seeds s1, s2, s1 give equal,
+different, equal sampled grids, and the prefill programs are kept per
+prompt length and bitrate, at most ``PREFILL_GRAPHS`` of them.
 """
 import jax.numpy as jnp
 import numpy as np
@@ -97,3 +98,24 @@ def test_static_state_streamer_and_seeds(jp):
     assert te._steps is steps
     _same(runs[0], runs[2])
     assert not all(np.array_equal(a[1], b[1]) for a, b in zip(runs[0], runs[1]))
+
+
+def test_prefill_programs_per_length_and_their_bound(jp, monkeypatch):
+    """A prefill program per (prompt length, n_vq_for_inference): prompts
+    of 9 and 12 rows, the 9-row one again, give JAX's grids through two
+    programs, the second 9-row call through the first's key; lengths are not
+    bucketed, so the engine keeps only its ``PREFILL_GRAPHS`` most recent
+    keys (here 2), the least recently used dropped first."""
+    from mosstts_tpu_torch.engine import local_engine
+
+    monkeypatch.setattr(local_engine, "PREFILL_GRAPHS", 2)
+    je, te = _engines(jp)
+    kw = dict(max_new_tokens=4, **GREEDY)
+    for T, seed in ((9, 13), (12, 14), (9, 13)):
+        ids, mask = prompt(T=T, seed=seed)
+        _same(je.generate(ids, mask, **kw), te.generate(ids, mask, **kw))
+    prefills = te._prefills
+    assert list(prefills._prompts) == [(12, NVQ), (9, NVQ)]
+    assert prefills.counts == dict(eager=3, capture=0, replay=0)  # no graphs on the CPU
+    te.generate(*prompt(T=10, seed=15), n_vq_for_inference=2, **kw)
+    assert list(prefills._prompts) == [(9, NVQ), (10, 2)] and te._prefills is prefills

@@ -8,7 +8,9 @@ positions are absolute slots, so the solo engine must see the same
 padding); mid-flight admissions and slot reuse through ``step()``; both
 ``submit`` rejections; the pipelined poll equal to the sequential one; and
 ``run_events`` equal to ``run`` with budget step counts kept. Each also
-equals the JAX server's completions (start length, tokens and steps).
+equals the JAX server's completions (start length, tokens and steps). The
+admissions run one prefill program per prompt bucket into the static
+batch-1 state.
 """
 import jax.numpy as jnp
 import numpy as np
@@ -155,3 +157,24 @@ def test_event_run_matches_windowed_and_jax(jp):
         _same(a, b, f"request {i}")
         np.testing.assert_array_equal(b.tokens, r.tokens)
         assert b.steps <= n
+
+
+def test_admissions_run_one_program_per_prompt_bucket(jp):
+    """Admissions of prompts in two buckets (32 and 64 rows) prefill into
+    the one static batch-1 state through one program per bucket (eager on
+    the CPU, keyed by the bucket), spliced into their slots: the grids equal
+    JAX's; ``warmup()`` runs the buckets it is given and holds no graph on
+    the CPU."""
+    js, ts = _servers(jp, cache_len=192)
+    rng = np.random.default_rng(7)
+    grids = [_grid(rng, T) for T in (20, 40, 25, 50, 31)]
+    budgets = [6, 9, 5, 7, 8]
+    for w, g in zip(_serve(js, grids, budgets), _serve(ts, grids, budgets)):
+        _same(w, g)
+    prefills = ts._prefills
+    assert sorted(prefills._prompts) == [(32, NVQ), (64, NVQ)] and not prefills.keys
+    assert prefills.counts == dict(eager=5, capture=0, replay=0)
+    assert prefills.state is ts._small and ts._small.pos.ndim == 0
+    ts.warmup(prompt_lens=(32, 96), attend_upto=64)
+    assert sorted(prefills._prompts) == [(32, NVQ), (64, NVQ), (96, NVQ)]
+    assert not prefills.keys and not ts._active

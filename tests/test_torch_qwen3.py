@@ -1,7 +1,8 @@
 """The port's Qwen3 backbone against the JAX package on CPU, same weights
 (JAX ``init_qwen3_params`` -> numpy -> ``utils.convert``): prefill into a
-linear cache at offset 0, single-token decode steps at a scalar offset, and
-the codec's ring cache with ``kv_positions`` and a sliding window.
+linear cache at offset 0, single-token decode steps at a scalar offset, a
+multi-token forward with per-row cursors, and the codec's ring cache with
+``kv_positions`` and a sliding window.
 
 Tolerance: float32 on both sides; hidden states and cache entries agree to
 atol 1e-4 (summation order only). Query rows at left-pad positions are
@@ -133,3 +134,36 @@ def test_weight_bridge_carries_bf16_exactly():
             leaf = leaf[part]
         assert p.dtype == torch.bfloat16
         np.testing.assert_array_equal(p.float().numpy(), np.asarray(leaf, np.float32), err_msg=name)
+
+
+@pytest.mark.parametrize("name", sorted(CONFIGS))
+def test_multi_token_forward_with_row_cursors_matches_jax(name, count_plain_calls):
+    """A T = 5 forward with (B,) cursors (each row writing its block at its
+    own slot, one row's block past the capacity dropped) takes the plain
+    attention, as JAX takes its einsum path; on the card it runs the same
+    path (no kernel takes one q_start per row)."""
+    cfg = CONFIGS[name]
+    jp, tp = _params(cfg)
+    B, T, S, D = 3, 5, 24, cfg.hidden_size
+    rng = np.random.default_rng(2)
+    off = np.array([4, 11, 21], np.int32)  # the last row's block runs past slot 23
+    kv_valid = np.zeros((B, S), bool)
+    for b in range(B):
+        kv_valid[b, 1:min(off[b] + T, S)] = True
+    pos = off[:, None] + np.arange(T, dtype=np.int32)[None]
+    x = rng.normal(size=(B, T, D)).astype(np.float32)
+    k0 = rng.normal(size=(cfg.num_hidden_layers, B, cfg.num_key_value_heads, S,
+                          cfg.head_dim)).astype(np.float32)
+    jcache = jq.KVCache(jnp.asarray(k0), jnp.asarray(k0 * 0.5))
+    tcache = tq.KVCache(torch.tensor(k0), torch.tensor(k0 * 0.5))
+    jh, jcache = jq.qwen3_forward(jp, cfg, jnp.asarray(x), positions=jnp.asarray(pos),
+                                  kv_valid=jnp.asarray(kv_valid), cache=jcache,
+                                  cache_offset=jnp.asarray(off))
+    th, tcache = tq.qwen3_forward(tp, cfg, torch.tensor(x), positions=torch.tensor(pos),
+                                  kv_valid=torch.tensor(kv_valid), cache=tcache,
+                                  cache_offset=torch.tensor(off))
+    rows = pos < S  # a query past the capacity has no slot to attend from
+    np.testing.assert_allclose(th.numpy()[rows], np.asarray(jh)[rows], **TOL)
+    for tc, jc in ((tcache.k, jcache.k), (tcache.v, jcache.v)):
+        np.testing.assert_allclose(tc.numpy(), np.asarray(jc), **TOL)
+    assert count_plain_calls == {"flash": 0, "decode": 0}

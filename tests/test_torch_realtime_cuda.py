@@ -12,7 +12,14 @@ state and frame graphs anew), and the continuous-batching server through
 ``run`` and ``run_events``. Frames must be equal bit for bit: a graph
 replays the eager frame's kernels on the same inputs and draws from the
 same generator states. On the float32 model the card's greedy frames equal
-the CPU's.
+the CPU's. The prefills and admissions are graphs too: the engine's
+first-turn and later-turn prefills (first use eager, second captured, then
+replayed at cursor 0 and at a later cursor) and the server's admissions of
+k = 1, 2, 4 and 8 (captured by ``warmup``) leave the whole state equal to
+the eager engine's or server's, and a warm one launches flash and W8A16
+only inside its graph; an admission of a prompt bucket ``warmup`` did not
+name runs eagerly, at its second use too (the server never captures
+mid-serve); a prefill that cannot be captured raises.
 
 This file imports no JAX, so it runs on the machine with the card:
 
@@ -143,3 +150,164 @@ def test_float32_frames_equal_the_cpu():
     got = card.generate(grids, text, max_length=24, **GREEDY)
     for a, b in zip(got, want):
         np.testing.assert_array_equal(a, b)
+
+
+def _assert_same_state(a, b):
+    """Every tensor of two ``RealtimeState``s (their caches' too) equal bit
+    for bit, and their generators' seeds and offsets."""
+    ta = list(a.cache) + [t for t in a[1:] if isinstance(t, torch.Tensor)]
+    tb = list(b.cache) + [t for t in b[1:] if isinstance(t, torch.Tensor)]
+    assert len(ta) == len(tb)
+    for x, y in zip(ta, tb):
+        assert torch.equal(x, y)
+    for x, y in zip(a.rng, b.rng, strict=True):
+        assert torch.equal(x.get_state(), y.get_state())
+
+
+def _only_replayed(*names):
+    """Every launch of the counted kernels since ``launches.reset()`` was a
+    replay's: no eager launch outside a graph."""
+    got = launches.read()
+    for name in names:
+        assert got[name] == launches.IN_GRAPHS[name] > 0, (name, got, launches.IN_GRAPHS)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("weights", ["bf16", "int8"])
+def test_engine_prefill_graphs_match_eager(weights):
+    """Two conversations of two turns, sampled (temperature 0.8): every
+    prefill is one prompt length and attend bucket, so the first runs
+    eagerly, the second (a turn at a later cursor) captures, and the second
+    conversation's two replay the graph, at cursor 0 and at a later cursor.
+    After each prefill the whole state (cache, masks, frames, cursors,
+    generators' seeds and offsets) equals the eager engine's; the replayed
+    prefills launch flash (and W8A16) only inside the graph."""
+    _need_card()
+    params = RealtimeEngine.random_init(seed=8, config=CFG, device="cuda").params
+    kw = dict(device="cuda", cache_len=128, max_length=64)
+    if weights == "int8":
+        RealtimeEngine(params, CFG, **kw).quantize()
+    engines = [RealtimeEngine(params, CFG, graphs=g, **kw) for g in (True, False)]
+    sampling = dict(temperature=0.8)
+    for conv in range(2):
+        for turn in range(2):
+            if conv == 1:
+                launches.reset()
+            frames, cursors = [], []
+            for e in engines:
+                e.reset_generation_state(keep_cache=turn == 1)
+                cursors.append(0 if turn == 0 else int(e.state.cur_len))
+                grids, text = _load(2, seed=10 * conv + turn)
+                frames.append(e.prefill(grids, [t[:12] for t in text], seed=5 + conv,
+                                        **sampling))
+                if conv == 1 and e.graphs:
+                    _only_replayed("flash", *(("w8a16",) if weights == "int8" else ()))
+            np.testing.assert_array_equal(*frames)
+            _assert_same_state(engines[0].state, engines[1].state)
+            assert cursors[0] == cursors[1] and (cursors[0] > 0) == (turn == 1)
+            steps = [e.step_block([[t[12 + i] for t in text] for i in range(6)], **sampling)
+                     for e in engines]
+            for a, b in zip(*steps, strict=True):
+                np.testing.assert_array_equal(a, b)
+    prefills = engines[0]._prefills
+    assert prefills.counts == dict(eager=1, capture=1, replay=2) and len(prefills.keys) == 1
+    assert engines[1]._prefills.counts == dict(eager=4, capture=0, replay=0)
+
+
+def _server_pair(params):
+    return [RealtimeBatchServer(params, CFG, slots=8, cache_len=256, max_frames=48,
+                                prompt_bucket=16, graphs=g) for g in (True, False)]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("weights", ["bf16", "int8"])
+def test_server_admission_graphs_match_eager(weights):
+    """Admissions of k = 1, 2, 4 and 8 sampled conversations (temperature
+    0.9) after ``warmup()`` captured their graphs: each is the replay of one
+    graph (flash and W8A16 launched only inside graphs) into its k bucket's
+    static admission state, and after each the running state (its slots'
+    generators' seeds and offsets too) and the admission state equal the
+    eager server's; the streams then equal too. Admissions of two prompt
+    buckets ``warmup()`` did not name, each twice, one after the other,
+    run eagerly (flash launched outside any graph) and capture nothing:
+    bucket 48 into the admission state kept for attend 128, bucket 144 into
+    a transient one for attend 256, which is not kept; after each the state
+    equals the eager server's."""
+    _need_card()
+    params = RealtimeEngine.random_init(seed=9, config=CFG, device="cuda").params
+    if weights == "int8":
+        RealtimeEngine(params, CFG, device="cuda").quantize()
+    servers = _server_pair(params)
+    for s in servers:
+        s.warmup(prompt_lens=(32,), attend_upto=128)
+    g = servers[0]
+    assert sorted(g._admissions) == [(k, 128) for k in (1, 2, 4, 8)]
+    assert all(a.prefills.keys == ((32, 128, g.top_k),) for a in g._admissions.values())
+    grids, text = _load(15, seed=11, rows=6, text=30)
+    done = [{}, {}]
+    start = 0
+    for k in (1, 2, 4, 8):
+        if k == 8:  # eight free slots: let the first seven conversations end
+            for s, d in zip(servers, done):
+                d.update({c.request_id: c.frames for c in s.run()})
+        rids = [[s.submit(grids[i], text[i], max_new_tokens=12 + i, sampling=dict(
+                temperature=0.9)) for i in range(start, start + k)] for s in servers]
+        assert rids[0] == rids[1]
+        launches.reset()
+        for s, d in zip(servers, done):
+            for c in s.step():
+                d[c.request_id] = c.frames
+            if s is g:
+                _only_replayed("flash", *(("w8a16",) if weights == "int8" else ()))
+        _assert_same_state(g.state, servers[1].state)
+        _assert_same_state(g._admissions[k, 128].state, servers[1]._admissions[k, 128].state)
+        start += k
+    for s, d in zip(servers, done):
+        d.update({c.request_id: c.frames for c in s.run()})
+    grids, text = _load(2, seed=12, rows=30, text=30)  # prompt bucket 48
+    grids2, text2 = _load(2, seed=13, rows=130, text=30)  # prompt bucket 144
+    for grid, text in zip(grids + grids2, text + text2):
+        launches.reset()
+        for s, d in zip(servers, done):
+            s.submit(grid, text, max_new_tokens=12, sampling=dict(temperature=0.9))
+            for c in s.step():
+                d[c.request_id] = c.frames
+            if s is g:
+                assert launches.read()["flash"] > launches.IN_GRAPHS["flash"]
+        _assert_same_state(g.state, servers[1].state)
+        for s, d in zip(servers, done):
+            d.update({c.request_id: c.frames for c in s.run()})
+    assert sorted(done[0]) == sorted(done[1]) == list(range(19))
+    for r in done[0]:
+        np.testing.assert_array_equal(done[0][r], done[1][r])
+    assert sorted(g._admissions) == [(k, 128) for k in (1, 2, 4, 8)]
+    assert all(a.prefills.keys == ((32, 128, g.top_k),) for a in g._admissions.values())
+    counts = {key: a.prefills.counts for key, a in g._admissions.items()}
+    assert counts.pop((1, 128)) == dict(eager=3, capture=0, replay=1)
+    assert all(c == dict(eager=1, capture=0, replay=1) for c in counts.values())
+
+
+@pytest.mark.cuda
+def test_failed_prefill_capture_raises(monkeypatch):
+    """A prefill that cannot be captured (here one that reads the device
+    cursor on the host) raises at its capture; nothing falls back to an
+    eager prefill."""
+    _need_card()
+    from mosstts_tpu_torch.engine import step_graph
+
+    real = step_graph.realtime_prefill_step
+
+    def host_read(params, cfg, state, *a, **k):
+        int(state.cur_len)  # a host read: illegal while a stream captures
+        return real(params, cfg, state, *a, **k)
+
+    monkeypatch.setattr(step_graph, "realtime_prefill_step", host_read)
+    engine = RealtimeEngine.random_init(seed=12, config=CFG, device="cuda", cache_len=128,
+                                        max_length=32)
+    grids, text = _load(1, seed=13)
+    engine.prefill(grids, [t[:12] for t in text], **GREEDY)  # eager: the key's first use
+    engine.reset_generation_state(keep_cache=False)
+    with pytest.raises(RuntimeError):
+        engine.prefill(grids, [t[:12] for t in text], **GREEDY)
+    assert engine._prefills.counts["replay"] == 0 and not engine._prefills.keys
+    torch.cuda.synchronize()

@@ -7,7 +7,9 @@ outgrows ``cache_len`` (128) while it steps: the engine grows the cache
 toward ``max_context``, and the port then holds a new state (the old cache
 in its head) with new decode steps over it. Every prompt is one prefill
 bucket and attend bucket, so the JAX engine compiles three programs in
-all (its prefill, its step, and its step over the grown cache).
+all (its prefill, its step, and its step over the grown cache). Two turns
+of one length then run one prefill program, the second at a nonzero
+cursor.
 """
 import jax
 import jax.numpy as jnp
@@ -82,3 +84,36 @@ def test_second_turn_and_cache_growth_match_jax(engines, proc):
     assert te.state.cache.k.shape[3] == 256 and te._steps.state is te.state
     assert before[0].state.cache.k.shape[3] == 128
     np.testing.assert_array_equal(te.state.kv_valid[:, 128:130].numpy(), [[True, True]])
+
+
+def test_second_turn_replays_the_first_turns_prefill_program(engines, proc):
+    """Two turns of one prompt length and attend bucket: the second prefill
+    starts at a nonzero cursor (a device tensor) through the same program
+    key as the first (one key kept, two runs of it: eager on the CPU); the
+    frames of both turns equal JAX's, whose engine compiles one prefill
+    program for both."""
+    je, te = engines
+    te.reset_generation_state(keep_cache=False)
+    te.prefill([_turn(proc, "turn one", 1)], [proc.tokenizer.encode("reply one")[:4]], **GREEDY)
+    prefills = te._prefills
+    before = dict(prefills.counts)
+    keys = set(je._jit)
+    out = {}
+    for name, e in (("jax", je), ("port", te)):
+        e.reset_generation_state(keep_cache=False)
+        frames = [e.prefill([_turn(proc, "turn one", 1)],
+                            [proc.tokenizer.encode("reply one")[:4]], **GREEDY)]
+        frames += e.step_block([[t] for t in proc.tokenizer.encode("ply")], **GREEDY)
+        e.reset_generation_state(keep_cache=True)
+        cursor = int(np.asarray(e.state.cur_len))
+        frames.append(e.prefill([_turn(proc, "turn one", 1)],
+                                [proc.tokenizer.encode("reply two")[:4]], **GREEDY))
+        frames += e.step_block([[t] for t in proc.tokenizer.encode("two")], **GREEDY)
+        out[name] = (frames, cursor)
+    assert out["port"][1] == out["jax"][1] > 0
+    for g, w in zip(out["port"][0], out["jax"][0], strict=True):
+        np.testing.assert_array_equal(g, w)
+    assert te._prefills is prefills and len(prefills._prompts) == 1
+    assert prefills.counts == dict(before, eager=before["eager"] + 2)
+    assert not prefills.keys  # no graphs on the CPU
+    assert sum(k[0] == "prefill" for k in set(je._jit) - keys) <= 1

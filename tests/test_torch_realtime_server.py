@@ -14,7 +14,12 @@ is not compared with JAX); its stream is the same in ``run()`` and
 ``run_events()``, since each slot draws from its own generator seeded from
 its request. Every prompt is one prompt bucket and the cache one attend
 bucket, so the JAX server compiles three programs (its admissions at k = 1
-and 2, its step).
+and 2, its step). A 4-slot schedule then admits groups of k = 4, 2, 1, 3
+and 1 into slots that are not contiguous, through the static admission
+state ``warmup()`` keeps for each k bucket (or, for a server not warmed
+up, a transient one per admission): greedy streams equal the JAX
+server's, and sampled ones equal, at the same request ids, those of the
+per-admission prefill that state replaced.
 """
 import jax.numpy as jnp
 import numpy as np
@@ -100,3 +105,99 @@ def test_streams_equal_the_solo_engine_and_each_other(servers, load):
                                    top_p=o.get("top_p", 0.6), **GREEDY)[0]
             np.testing.assert_array_equal(x.frames, solo)
     assert not server._active and not server._queue
+
+
+# Admission groups of k = 4, 2, 1, 3 and 1 into slots that are not contiguous
+# (budgets: frames per conversation, the prefill's included, so one admitted
+# at step s with budget b finishes at step s + b - 2; every prompt is one
+# bucket): four slots admit four conversations at step 0; slots 1 and 3
+# finish at step 3 and admit two together at step 4, slot 0 finishes at step
+# 6 and admits one at step 7, slots 0, 1 and 3 finish at step 10 and admit
+# three (padded to k = 4) at step 11, slot 2 finishes at step 14 and admits
+# the last one at step 15.
+GROUP_KW = dict(slots=4, cache_len=128, max_frames=24, prompt_bucket=32)
+GROUP_BUDGETS = [8, 5, 16, 5, 8, 8, 5, 6, 6, 6, 5]
+GROUPS = [(0, 1, 2, 3), (1, 3), (0,), (0, 1, 3), (2,)]
+
+
+def _serve_groups(server, load, sampling, warm=True):
+    """The schedule above through ``run(pipelined=False)`` (completions at
+    their budgets, exactly), after ``warmup()`` of its one prompt bucket if
+    ``warm``; returns the streams in submission order and the slots of
+    every admission group."""
+    if warm:
+        server.warmup(prompt_lens=(32,), attend_upto=128)
+    groups = []
+    prefill_group = server._prefill_group
+
+    def recorded(ids, valid, slots, seeds, samp):
+        groups.append(tuple(slots))
+        prefill_group(ids, valid, slots, seeds, samp)
+
+    server._prefill_group = recorded
+    rids = [server.submit(*load[i % len(load)], max_new_tokens=n, prefill_text_len=4,
+                          sampling=sampling) for i, n in enumerate(GROUP_BUDGETS)]
+    done = {c.request_id: c for c in server.run(pipelined=False)}
+    return [done[r] for r in rids], groups
+
+
+def _old_prefill_group(self, ids, valid, slots, seeds, sampling):
+    """The admission as it was before it became one static-state program:
+    a new kb-row state per admission, row i drawing from slot
+    ``slots[i]``'s own generator reseeded with ``seeds[i]``."""
+    from mosstts_tpu_torch.engine.realtime_batch_server import _splice_rt_rows_
+    from mosstts_tpu_torch.models.realtime import init_realtime_state, realtime_prefill_step
+
+    kb, Tb = ids.shape[:2]
+    k = len(slots)
+    gens = [self.state.rng[s] for s in slots] + [torch.Generator() for _ in range(kb - k)]
+    for g, seed in zip(gens, list(seeds) + [0] * (kb - k)):
+        g.manual_seed(seed)
+    small = init_realtime_state(self.config, kb, self.cache_len, self.max_frames, gens,
+                                dtype=self.dtype)
+    small, _ = realtime_prefill_step(self.params, self.config, small, torch.as_tensor(ids),
+                                     torch.as_tensor(valid), sampling, top_k=self.top_k,
+                                     attend_len=self._admit_attend(Tb))
+    _splice_rt_rows_(self.state, small, torch.as_tensor(slots, dtype=torch.int64))
+
+
+def test_admission_groups_match_jax(servers, load):
+    """Greedy: the groups of ``GROUPS`` (k = 4, 2, 1, 3 and 1, into slots
+    0-3, 1 and 3, 0, 0, 1 and 3, 2), admitted after ``warmup()`` through the
+    static admission state it kept for each k bucket (reused, returned to a
+    new conversation's in the program, its generators' states handed to the
+    slots), give the JAX server's streams and step counts."""
+    js = JServer(servers[0].params, CFG, dtype=jnp.float32, **GROUP_KW)
+    ts = RealtimeBatchServer(servers[2], TCFG, dtype=torch.float32, **GROUP_KW)
+    rids = [js.submit(*load[i % len(load)], max_new_tokens=n, prefill_text_len=4,
+                      sampling=dict(temperature=0.0)) for i, n in enumerate(GROUP_BUDGETS)]
+    jdone = {c.request_id: c for c in js.run(pipelined=False)}
+    want = [jdone[r] for r in rids]
+    got, groups = _serve_groups(ts, load, dict(temperature=0.0))
+    assert groups == GROUPS
+    assert sorted(ts._admissions) == [(1, 128), (2, 128), (4, 128)]
+    for w, g in zip(want, got, strict=True):
+        assert g.steps == w.steps and g.frames.shape[0] > 0
+        np.testing.assert_array_equal(g.frames, w.frames)
+
+
+@pytest.mark.parametrize("warm", [True, False])
+def test_sampled_admission_groups_equal_the_per_admission_prefill(servers, load, warm):
+    """Sampled (temperature 0.9): the same schedule gives, at the same
+    request ids, the streams of the admission it replaced (a new state per
+    admission, drawing from the slots' own generators), through the static
+    admission states ``warmup()`` kept, or without a warmup through a
+    transient one per admission (none kept)."""
+    tp = servers[2]
+    new = RealtimeBatchServer(tp, TCFG, dtype=torch.float32, **GROUP_KW)
+    old = RealtimeBatchServer(tp, TCFG, dtype=torch.float32, **GROUP_KW)
+    old._prefill_group = _old_prefill_group.__get__(old)
+    got, groups = _serve_groups(new, load, dict(temperature=0.9), warm=warm)
+    want, old_groups = _serve_groups(old, load, dict(temperature=0.9), warm=False)
+    assert groups == old_groups == GROUPS
+    assert sorted(new._admissions) == ([(1, 128), (2, 128), (4, 128)] if warm else [])
+    for w, g in zip(want, got, strict=True):
+        assert g.request_id == w.request_id and g.steps == w.steps
+        np.testing.assert_array_equal(g.frames, w.frames)
+    for slot in range(GROUP_KW["slots"]):  # the slots' generators end where the old ones did
+        assert torch.equal(new.state.rng[slot].get_state(), old.state.rng[slot].get_state())
