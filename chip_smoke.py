@@ -29,9 +29,22 @@ Phases, one or more lines each; any failure raises and exits non-zero:
 3b. a 2-slot ``DelayBatchServer`` of that small model, 4 greedy requests:
    linear and paged grids on the card equal the CPU's, and on the card
    paged equals linear for the f32 and the int8 cache.
+3c. the device loops' kernels: JAX's threefry key split and the fused
+   Gumbel-max categorical (``csrc/threefry.cu``) against their plain
+   versions bit for bit at the 16-slot samplers' shapes, with their times,
+   the plain versions', the earlier B-launch ``torch.rand`` draw's and the
+   bounds; the loop condition of each kind, the drain's admission and
+   collect, an 8B cache lane's row copy and the fed text column
+   (``csrc/graph_loop.cu``) against theirs; one step of a 2000-step loop
+   graph over a one-kernel body.
 4. solo path at MOSS-TTS 8B width (``delay_8b()``, random bf16 weights made
    on the card, the ``codec_1p6b()`` codec in f32): three ``synthesize``
-   requests and one greedy batch-4 ``DelayEngine.generate``.
+   requests and one greedy batch-4 ``DelayEngine.generate``; 4b the same
+   batch with ``on_device=True``: one loop-graph launch per attend segment
+   (JAX's ``delay_generate_on_device`` segments), the first frame equal
+   to ``on_device=False``'s (the modes attend other buckets at some steps;
+   7a holds each mode frame for frame against its eager steps), its host
+   waits.
 5. continuous batching at the same width, reusing phase 4's weights: a
    16-slot ``DelayBatchServer`` serves 24 sampled requests (8 admitted
    mid-flight) in each cache mode: linear bf16, linear int8, paged bf16,
@@ -82,17 +95,20 @@ Phases, one or more lines each; any failure raises and exits non-zero:
    int8 weights: 9a the engine's prefills at B=1 T=200 and B=4, greedy
    and seeds s1, s2, s1 (also in 7a on the bf16 weights), and a 16-slot
    server's admissions at buckets 64 and 96 (seeded, sampled), graph
-   against eager: every field of the state, the cache and the generators'
-   seeds and offsets equal, and the completions after the splice; the
+   against eager: every field of the state, the cache and the keys
+   equal, and the completions after the splice; the
    warm admission of a 200-row prompt and the warm time to the first frame
    at B=1 T=200, graph against eager (median of 9, host clock and device
    time), and the static admission state's bytes. 9b serves phase 5's 24
    requests through ``run``, ``run_events`` and ``run_drain`` (linear bf16
    KV) and ``run``, ``run_events`` (paged int8 KV): frames/s, ms per step,
-   dispatches, host waits per request, and the first frame that differs
+   dispatches, loop-graph launches (one per event block and per drain
+   segment) and host waits per request, and the first frame that differs
    from ``run``'s (the first must agree). 9c runs the JAX tests' loads on
    the small f32 model: ``run_events`` and ``run_drain`` equal ``run`` on
-   the card bit for bit, and the greedy grids equal the CPU's.
+   the card bit for bit, the card's ``run_events`` and sampled
+   ``run_drain`` equal the CPU's frame for frame and step for step (no
+   frame past an EOS), and the greedy grids equal the CPU's.
 10. the Realtime family at MOSS-TTS-Realtime 1.7B width (``RealtimeConfig()``:
    the 28-layer Qwen3-1.7B backbone, the 4-layer depth transformer, 16
    codebooks; random bf16 weights made on the card, after the 8B model is
@@ -116,8 +132,10 @@ Phases, one or more lines each; any failure raises and exits non-zero:
    slots, cache 1024, prompt bucket 16, poll every 8, temperature 0.8) on
    the int8 weights, warmed up (the admission graphs of buckets 16 and 32
    at k = 1-8 captured), serves ``bench.py``'s 24 conversations through
-   ``run`` and ``run_events``: useful frames/s, ms per step, host waits per
-   conversation, every admission a replay (no flash or W8A16 launch
+   ``run`` and ``run_events`` (each event block one loop-graph launch, its
+   text fed per frame on the card): useful frames/s, ms per step, host
+   waits and loop launches per conversation, the first frame differing
+   from ``run``'s, every admission a replay (no flash or W8A16 launch
    outside a graph); then on that server and an eager one, admissions of
    k = 1, 2, 4 and 8 at bucket 32 and of k = 1 at buckets 64 and 160 (not
    warmed): states equal, one replay each at bucket 32, eager with nothing
@@ -175,8 +193,9 @@ Phases, one or more lines each; any failure raises and exits non-zero:
    a ``LocalBatchServer`` (8 slots, cache 512, prompt bucket 32, greedy) on
    the int8 weights, warmed up (the admission graphs of buckets 32 and 64
    captured), serves ``bench.py:581-603``'s 24 requests through ``run`` and
-   ``run_events``: useful frames/s, ms per step, host waits per request,
-   every admission a replay; then on that server and an eager one, a
+   ``run_events`` (each event block one loop-graph launch): useful
+   frames/s, ms per step, host waits and loop launches per request, the
+   first frame differing from ``run``'s, every admission a replay; then on that server and an eager one, a
    60-row admission (bucket 64) and a 100-row one (bucket 128, not warmed):
    states equal, one replay at bucket 64, eager with nothing captured at
    128, warm admission times both ways; on a small float32 model a 2-slot server's greedy grids equal the
@@ -274,8 +293,9 @@ and f32 scales), and a small int8-weight model, card against CPU, and its
 int8 against its bf16 weights on the card and on the CPU
 (``tests/test_quant.py``'s thresholds, at the rows with a clear argmax).
 
-Then one JSON line with the kernels' numbers, the nvidia-smi line, and the
-result line ``{"ok": true, "device": {...}}``. Without a CUDA device the
+Each phase's wall time is printed on a line of its own when the next
+begins. Then one JSON line with the kernels' numbers, the nvidia-smi line,
+and the result line ``{"ok": true, "device": {...}}``. Without a CUDA device the
 script raises before printing any result.
 """
 from __future__ import annotations
@@ -306,7 +326,7 @@ from mosstts_tpu_torch.core.config import (  # noqa: E402
     CodecConfig, DelayConfig, LocalConfig, RealtimeConfig, RealtimeLocalConfig, codec_1p6b,
     delay_8b, qwen3_1p7b, qwen3_8b, tiny_qwen3)
 from mosstts_tpu_torch.engine.batch_server import DelayBatchServer  # noqa: E402
-from mosstts_tpu_torch.engine.delay_engine import DelayEngine  # noqa: E402
+from mosstts_tpu_torch.engine.delay_engine import DelayEngine, attend_bucket  # noqa: E402
 from mosstts_tpu_torch.engine.local_batch_server import LocalBatchServer  # noqa: E402
 from mosstts_tpu_torch.engine.local_engine import LocalEngine  # noqa: E402
 from mosstts_tpu_torch.engine.realtime_batch_server import RealtimeBatchServer  # noqa: E402
@@ -362,8 +382,25 @@ BS, SS, PS = 16, 1024, 128  # the server's batch, capacity and page size at 8B w
 REL_TOL, ABS_TOL = 2.0 ** -6, 1e-5
 
 
+_PHASE = {"name": None, "t": 0.0, "start": time.perf_counter()}
+
+
 def log(msg: str) -> None:
+    """Print a line; a line that opens a phase ("phase N: ...") first
+    prints the wall time of the phase before it on a line of its own."""
+    m = re.match(r"phase (\w+)[: ]", msg)
+    if m and m.group(1) != _PHASE["name"]:
+        phase_wall()
+        _PHASE.update(name=m.group(1), t=time.perf_counter())
     print(msg, flush=True)
+
+
+def phase_wall() -> None:
+    """The wall time of the phase under way, on a line of its own."""
+    if _PHASE["name"] is not None:
+        now = time.perf_counter()
+        print(f"  wall of phase {_PHASE['name']}: {now - _PHASE['t']:.1f} s "
+              f"({now - _PHASE['start']:.1f} s since the start)", flush=True)
 
 
 def check_close(name: str, out: torch.Tensor, ref: torch.Tensor, rows=None) -> float:
@@ -595,6 +632,249 @@ def phase_kernels_server() -> dict:
         library_ms=lib, **bd))
     del q, valid, kernels, kc, vc
     torch.cuda.synchronize()
+    torch.cuda.empty_cache()
+    return numbers
+
+
+def host_ms(fn, n: int = 20) -> float:
+    """Host-clock time per call of ``fn`` ending in a synchronisation (a
+    plain version whose control flow reads the card, which no graph can
+    capture), median of ``n``."""
+    out = []
+    for _ in range(n):
+        torch.cuda.synchronize()
+        t = time.perf_counter()
+        fn()
+        torch.cuda.synchronize()
+        out.append((time.perf_counter() - t) * 1e3)
+    return float(np.median(out))
+
+
+# the samplers' shapes on the 8B server: 16 rows, 3 keys a step, the text
+# top-k 50 and the 32 audio heads' top-k 25
+SAMPLER_SHAPES = (("text", (BS, 50)), ("audio", (BS, 32, 25)), ("text B=4", (4, 50)))
+INT32_OPS_PER_S = 67e12  # the card's 32-bit CUDA-core peak (float32's, no tensor cores)
+HASH_OPS = 96  # 32-bit operations of one threefry2x32: 20 rounds of add, rotate, xor + keys
+
+
+def rand_path(logits: torch.Tensor) -> torch.Tensor:
+    """The port's earlier draw, the yardstick of the fused categorical: one
+    ``torch.rand`` launch per row (a generator each), then the clamp, log,
+    log, subtract and argmax."""
+    u = torch.stack([torch.rand(logits.shape[1:], device=logits.device)
+                     for _ in range(logits.shape[0])])
+    u = u.clamp_(min=torch.finfo(torch.float32).tiny)
+    return torch.argmax(logits - torch.log(-torch.log(u)), dim=-1)
+
+
+def phase_kernels_sampling() -> dict:
+    """3c: the kernels this port adds for JAX's device loops. The threefry
+    key split and the fused Gumbel-max categorical (``csrc/threefry.cu``)
+    against their plain versions (``ops.sampling``) bit for bit at the
+    samplers' shapes, with device time per call, the plain version's, the
+    earlier B-launch ``torch.rand`` draw's (yardstick) and the bound; then
+    the loop-control kernels (``csrc/graph_loop.cu``: the loop condition of
+    each kind, the drain's admission and collect, the row copy, the fed
+    column) against their plain versions, and their times."""
+    from mosstts_tpu_torch.ops import sampling
+    from mosstts_tpu_torch.ops.kernels import graph_loop as gl, threefry
+
+    numbers = {}
+    keys = sampling.row_keys(3, BS).to(DEV)
+    got, ref = threefry.split(keys, 3), sampling.split(keys, 3)
+    if not torch.equal(got, ref):
+        raise AssertionError("threefry split: kernel != plain")
+    ms = time_ms(lambda i: threefry.split(keys, 3))
+    plain = time_ms(lambda i: sampling.split(keys, 3))
+    t_b = (BS * 16 + BS * 3 * 16) / 3.35e12 * 1e3  # keys read once, split keys written once
+    t_o = BS * 3 * HASH_OPS / INT32_OPS_PER_S * 1e3
+    bd = dict(bound_ms=max(t_b, t_o), bound_by="bytes" if t_b >= t_o else "operations")
+    log(f"  threefry split B={BS} n=3: kernel {ms:.4f} ms, plain {plain:.4f} ms, bound "
+        f"{bd['bound_ms']:.3e} ms ({bd['bound_by']}), equal bit for bit")
+    numbers["threefry_split"] = dict(max_abs_err=0.0, ms=ms, plain_ms=plain, library_ms=None,
+                                     **bd, shapes=[f"keys ({BS}, 2) -> ({BS}, 3, 2)"])
+    shapes, worst = [], 0
+    g = torch.Generator(device=DEV).manual_seed(11)
+    for label, shape in SAMPLER_SHAPES:
+        k = keys[:shape[0]]
+        logits = torch.randn(shape, generator=g, device=DEV) * 3
+        got, ref = threefry.categorical(k, logits), sampling.categorical_plain(k, logits)
+        worst = max(worst, int((got != ref).sum()))
+        ms = time_ms(lambda i: threefry.categorical(k, logits))
+        plain = time_ms(lambda i: sampling.categorical_plain(k, logits))
+        yard = time_ms(lambda i: rand_path(logits))
+        n = logits.numel()
+        t_b = (n * 4 + shape[0] * 16 + n // shape[-1] * 8) / 3.35e12 * 1e3
+        t_o = n * (HASH_OPS + 40) / INT32_OPS_PER_S * 1e3  # + two logf, add, compare
+        bd = dict(bound_ms=max(t_b, t_o), bound_by="bytes" if t_b >= t_o else "operations")
+        log(f"  categorical {label} {tuple(shape)}: kernel {ms:.4f} ms, plain {plain:.4f} ms, "
+            f"B-launch torch.rand path {yard:.4f} ms, bound {bd['bound_ms']:.3e} ms "
+            f"({bd['bound_by']}); indices differing from plain: {int((got != ref).sum())}")
+        shapes.append(dict(shape=f"{label} {tuple(shape)}", ms=ms, plain_ms=plain,
+                           rand_path_ms=yard, **bd))
+    if worst:
+        raise AssertionError(f"fused categorical: {worst} indices differ from plain")
+    numbers["categorical"] = dict(max_abs_err=0.0, library_ms=None, shapes=shapes,
+                                  **{k: shapes[1][k] for k in ("ms", "plain_ms", "bound_ms",
+                                                               "bound_by")})
+
+    # the loop condition, each kind, against plain
+    def t(x, dt=torch.int32):
+        return torch.tensor(x, dtype=dt, device=DEV)
+
+    flags, step = t([0] * (BS - 1) + [1], torch.bool), t(list(range(BS)))
+    watch, budget = t([1] * BS), t([9] * (BS - 1) + [3])
+    active, pos = t([1] * 8 + [0] * (BS - 8), torch.bool), t([300] * BS)
+    cases = [(gl.GENERATE, 0, 8, dict(flags=flags, step=step)),
+             (gl.GENERATE, 0, 0, dict(flags=flags, step=step)),
+             (gl.EVENT, 2, 9, dict(flags=flags, watch=watch, budget=budget)),
+             (gl.EVENT, 3, 9, dict(flags=flags, watch=watch, budget=budget)),
+             (gl.BLOCK, 3, 4, {}), (gl.DRAIN, 5, 99, dict(active=active, pos=pos, attend=512)),
+             (gl.DRAIN, 5, 99, dict(active=active, pos=pos, attend=256))]
+    for kind, i, limit, kw in cases:
+        ctrl = t([i, limit, 0, 3, 3, 0, 0, 0])
+        gl.loop_cond(gl.cond_args(kind, ctrl, **kw), False, DEV)
+        want = gl.loop_cond_plain(kind, i, limit, qi=3, qn=3, **{
+            k: (v.bool() if k == "watch" else v) for k, v in kw.items()})
+        if bool(ctrl[gl.COND]) is not want:
+            raise AssertionError(f"loop condition kind {kind} i={i}: kernel != plain")
+    # one iteration of a loop graph whose body is one tiny kernel: the
+    # condition kernel's share of a loop step
+    x = torch.zeros(BS, dtype=torch.int32, device=DEV)
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        x.add_(1)
+    torch.cuda.current_stream().wait_stream(side)
+    body = torch.cuda.CUDAGraph(keep_graph=True)
+    with torch.cuda.graph(body, stream=side):
+        x.add_(1)
+    ctrl = t([0, 2000, 0, 0, 0, 0, 0, 0])
+    ex = gl.build_loop(body.raw_cuda_graph(), gl.cond_args(
+        gl.EVENT, ctrl, flags=torch.zeros(BS, dtype=torch.bool, device=DEV), watch=watch,
+        budget=t([1 << 30] * BS)))
+    runs = []
+    for _ in range(5):
+        ctrl.zero_()
+        ctrl[gl.LIMIT] = 2000
+        start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+        start.record()
+        gl.launch(ex, DEV)
+        end.record()
+        end.synchronize()
+        runs.append(start.elapsed_time(end) / 2000)
+    gl.destroy(ex)
+    ms = float(np.median(runs))
+    if int(ctrl[gl.I]) != 2000:
+        raise AssertionError(f"a 2000-step loop graph ran {int(ctrl[gl.I])} steps")
+    plain = host_ms(lambda: gl.loop_cond_plain(gl.EVENT, 3, 9, flags=flags,
+                                               watch=watch.bool(), budget=budget))
+    t_b = BS * (1 + 4 + 4) / 3.35e12 * 1e3
+    numbers["loop_cond"] = dict(max_abs_err=0.0, ms=ms, plain_ms=plain, library_ms=None,
+                                bound_ms=t_b, bound_by="bytes")
+    log(f"  loop condition (7 cases of the 4 kinds == plain); one step of a 2000-step loop "
+        f"graph over a one-kernel body: {ms * 1e3:.2f} us (the condition kernel, the body's "
+        f"kernel and the WHILE node's relaunch); plain condition (host read) {plain:.4f} ms")
+
+    # the drain's admission and collect, and the row copy and fed column
+    ctrl = t([0, 99, 0, 0, 2, 0, 0, 0])
+    slots, nq, row = 4, 2, 96 * 33
+    act = t([1, 0, 1, 0], torch.bool)
+    rid, bud = t([1, 0, 0, 0]), t([9, 1 << 30, 7, 1 << 30])  # slots 0, 2: requests 1, 0
+    qb, qbud, qk = t([1, 0]), t([40, 30]), t([[1, 2], [3, 4]], torch.int64)
+    small_rng = torch.zeros((1, 2), dtype=torch.int64, device=DEV)
+    samp = [(torch.zeros(slots, device=DEV), t([0.5, 0.7], torch.float32),
+             torch.zeros((), device=DEV)),
+            (torch.zeros(slots, dtype=torch.bool, device=DEV), t([1, 0], torch.bool),
+             torch.zeros((), dtype=torch.bool, device=DEV))]
+    stop, stp = t([0, 0, 1, 0], torch.bool), t([9, 0, 3, 0])
+    out = torch.randint(0, 1000, (slots, row), device=DEV, dtype=torch.int32)
+    res, rst = torch.zeros((nq + 1, row), dtype=torch.int32, device=DEV), t([0] * (nq + 1))
+    plain_state = [x.clone() for x in (act, rid, bud, small_rng, samp[0][0], samp[0][2],
+                                       samp[1][0], samp[1][2], res, rst)]
+    pctrl = ctrl.cpu().numpy()
+    P = gl.MAX_SAMP
+    dargs = gl.DrainArgs(
+        ctrl=ctrl.data_ptr(), slots=slots, n_buckets=0, active=act.data_ptr(),
+        slot_rid=rid.data_ptr(), budget=bud.data_ptr(), qbucket=qb.data_ptr(),
+        qbudget=qbud.data_ptr(), qkeys=qk.data_ptr(), small_rng=small_rng.data_ptr(),
+        handles=0, n_f32=1, n_u8=1,
+        f_dst=(gl.ctypes.c_void_p * P)(samp[0][0].data_ptr()),
+        f_src=(gl.ctypes.c_void_p * P)(samp[0][1].data_ptr()),
+        f_pre=(gl.ctypes.c_void_p * P)(samp[0][2].data_ptr()),
+        u_dst=(gl.ctypes.c_void_p * P)(samp[1][0].data_ptr()),
+        u_src=(gl.ctypes.c_void_p * P)(samp[1][1].data_ptr()),
+        u_pre=(gl.ctypes.c_void_p * P)(samp[1][2].data_ptr()),
+        is_stopping=stop.data_ptr(), step=stp.data_ptr(), out=out.data_ptr(),
+        results=res.data_ptr(), rsteps=rst.data_ptr(), out_row=row)
+    gl.drain_admit(dargs, DEV)
+    gl.drain_collect(dargs, DEV)
+    pa, prid, pbud, prng, pf, pfp, pu, pup, pres, prst = plain_state
+    gl.drain_admit_plain(pctrl, pa, prid, pbud, qb.cpu().numpy(), qbud, qk, prng,
+                         [(pf, samp[0][1], pfp), (pu, samp[1][1], pup)])
+    gl.drain_collect_plain(pa, stop, stp, pbud, prid, out, pres, prst)
+    kernel_side = (act, rid, bud, small_rng, samp[0][0], samp[0][2], samp[1][0], samp[1][2],
+                   res, rst)
+    if not all(torch.equal(a, b) for a, b in zip(kernel_side, plain_state)) or \
+            not np.array_equal(ctrl.cpu().numpy(), pctrl):
+        raise AssertionError("drain admission/collect: kernel != plain")
+    admit_ms = time_ms(lambda i: gl.drain_admit(dargs, DEV))
+    collect_ms = time_ms(lambda i: gl.drain_collect(dargs, DEV))
+    admit_plain = host_ms(lambda: gl.drain_admit_plain(
+        pctrl, pa, prid, pbud, qb.cpu().numpy(), qbud, qk, prng, []))
+    collect_plain = host_ms(lambda: gl.drain_collect_plain(pa, stop, stp, pbud, prid, out,
+                                                           pres, prst))
+    numbers["drain_admit"] = dict(max_abs_err=0.0, ms=admit_ms, plain_ms=admit_plain,
+                                  library_ms=None, bound_ms=slots * 1 * 2 / 3.35e12 * 1e3,
+                                  bound_by="bytes")
+    numbers["drain_collect"] = dict(max_abs_err=0.0, ms=collect_ms, plain_ms=collect_plain,
+                                    library_ms=None,
+                                    bound_ms=2 * row * 4 / 3.35e12 * 1e3, bound_by="bytes")
+    # the splice's copy: a (36, 16, 8, 1024, 128) bf16 cache lane from a batch-1 cache
+    big = torch.zeros((36, BS, 8, 1024, 128), dtype=torch.bfloat16, device=DEV)
+    small = torch.randn((36, 1, 8, 1024, 128), generator=g, device=DEV).bfloat16()
+    cctrl = t([0, 0, 0, 0, 0, 5, 0, 0])
+    table = gl.seg_table([gl.seg(big, small, dst_word=gl.SLOT, dst_axis=1, src_axis=1)], DEV)
+    gl.copy_rows(table, cctrl, blocks=264)
+    want = torch.zeros_like(big)
+    want[:, 5] = small[:, 0]
+    if not torch.equal(big, want):
+        raise AssertionError("row copy: kernel != plain")
+    copy_ms = time_ms(lambda i: gl.copy_rows(table, cctrl, blocks=264), n=8)
+    copy_plain = time_ms(lambda i: big[:, 5].copy_(small[:, 0]), n=8)
+    # the library call: index_copy_ at a slot index that lies on the card
+    slot = torch.tensor([5], dtype=torch.int64, device=DEV)
+    big.zero_()
+    big.index_copy_(1, slot, small)
+    if not torch.equal(big, want):
+        raise AssertionError("row copy: index_copy_ != plain")
+    copy_lib = library_ms(lambda i: big.index_copy_(1, slot, small), n=8)
+    lane = small.numel() * 2
+    numbers["row_copy"] = dict(max_abs_err=0.0, ms=copy_ms, plain_ms=copy_plain,
+                               library_ms=copy_lib, bound_ms=2 * lane / 3.35e12 * 1e3,
+                               bound_by="bytes")
+    del big, small, want
+    staged = torch.randint(0, 1000, (BS, 128), device=DEV)
+    dst = torch.zeros(BS, dtype=torch.int64, device=DEV)
+    fctrl = t([7, 0, 0, 0, 0, 0, 0, 0])
+    gl.feed(staged, dst, fctrl)
+    if not torch.equal(dst, staged[:, 7]):
+        raise AssertionError("fed column: kernel != plain")
+    feed_ms = time_ms(lambda i: gl.feed(staged, dst, fctrl))
+    feed_plain = time_ms(lambda i: dst.copy_(staged[:, 7]))
+    # the library call: index_select at the column the control word holds
+    col, picked = fctrl[gl.I:gl.I + 1], torch.zeros((BS, 1), dtype=torch.int64, device=DEV)
+    torch.index_select(staged, 1, col, out=picked)
+    if not torch.equal(picked[:, 0], staged[:, 7]):
+        raise AssertionError("fed column: index_select != plain")
+    feed_lib = library_ms(lambda i: torch.index_select(staged, 1, col, out=picked))
+    numbers["feed"] = dict(max_abs_err=0.0, ms=feed_ms, plain_ms=feed_plain, library_ms=feed_lib,
+                           bound_ms=2 * BS * 8 / 3.35e12 * 1e3, bound_by="bytes")
+    log(f"  drain admission {admit_ms:.4f} ms (plain {admit_plain:.4f}), collect "
+        f"{collect_ms:.4f} ms (plain {collect_plain:.4f}), a {lane / 2**20:.0f} MiB cache-lane "
+        f"copy {copy_ms:.4f} ms (plain copy_ {copy_plain:.4f}, library index_copy_ "
+        f"{fmt_ms(copy_lib)}), fed column {feed_ms:.4f} ms (plain {feed_plain:.4f}, library "
+        f"index_select {fmt_ms(feed_lib)}): each == plain")
     torch.cuda.empty_cache()
     return numbers
 
@@ -1085,7 +1365,51 @@ def phase_main_path():
     log(f"  init on card: delay_8b bf16 + codec_1p6b f32 in {time.perf_counter() - t0:.2f} s, "
         f"{torch.cuda.memory_allocated() / 2**30:.2f} GiB")
     counts, _, _ = drive_solo(backend, "bf16")
-    return counts, backend
+    return counts, backend, on_device_segments(backend)
+
+
+def on_device_segments(backend) -> dict:
+    """4b: the batch-4 greedy ``generate`` with ``on_device=True``: JAX's
+    segment loop, each attend segment one launch of a loop graph (the
+    condition read on the card after every step) and one read of the
+    flags, one launch per segment; its first frame equal to
+    ``on_device=False``'s (7a holds each mode frame for frame against its
+    eager steps). Returns the launch counts of the call alone."""
+    engine, proc = backend.engine, backend.processor
+    batch = four_prompts(proc)
+    kw = dict(max_new_tokens=96, text_temperature=0.0, audio_temperature=0.0)
+    host = engine.generate(batch["input_ids"], batch["attention_mask"], **kw)
+    (steps,) = engine._steps.values()
+    before = steps._loop.launches if steps._loop is not None else 0
+    reset_counts()
+    with host_waits() as waits:
+        torch.cuda.synchronize()
+        t = time.perf_counter()
+        dev = engine.generate(batch["input_ids"], batch["attention_mask"], on_device=True, **kw)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t
+    counts = read_counts()
+    launched = steps._loop.launches - before
+    T = batch["input_ids"].shape[1]
+    cache_len = -(-(T + kw["max_new_tokens"] + 1) // engine.cache_bucket) * engine.cache_bucket
+    n, segments = 1, 0  # JAX's segments (delay_engine.py:221-229) while no row stops
+    while n < kw["max_new_tokens"]:
+        attend = attend_bucket(T + n + 2, engine.cache_bucket, cache_len)
+        n, segments = min(attend - T - 1, kw["max_new_tokens"]), segments + 1
+    frames = dev[0][1].shape[0] - dev[0][0]
+    if frames == kw["max_new_tokens"] and launched != segments:
+        raise AssertionError(f"on_device: {launched} loop-graph launches for {segments} segments")
+    # the two modes attend other buckets at some steps (JAX's loops: T + n + 2
+    # against T + n + 1), which round otherwise at 8B: only the first frame
+    # must agree (7a holds each mode's graphs against its eager steps)
+    firsts = [first_divergence(a, b) for a, b in zip(dev, host)]
+    if 0 in firsts:
+        raise AssertionError("on_device=True's first frame differs from on_device=False's")
+    log(f"  bf16 generate B=4 greedy on_device=True: {frames} frames in {wall:.2f} s "
+        f"({wall / max(frames - 1, 1) * 1e3:.1f} ms/step), {launched} loop-graph launches for "
+        f"{segments} attend segments, {waits[0]} host waits; first frame differing from "
+        f"on_device=False's: {firsts}")
+    return counts
 
 
 SERVER_MODES = (  # name, DelayBatchServer options, the decode kernel it runs
@@ -1818,12 +2142,11 @@ HOT = dict(text_temperature=1.7, audio_temperature=1.7, audio_top_p=0.8)  # phas
 
 
 def same_state(a, b) -> bool:
-    """Every tensor of two ``DelayGenState``s (their caches' too) equal bit
-    for bit on the card, and their generators' seeds and offsets equal."""
+    """Every tensor of two ``DelayGenState``s (their caches' and keys too)
+    equal bit for bit on the card."""
     ta = list(a.cache) + [t for t in a[1:] if isinstance(t, torch.Tensor)]
     tb = list(b.cache) + [t for t in b[1:] if isinstance(t, torch.Tensor)]
-    return (all(torch.equal(x, y) for x, y in zip(ta, tb))
-            and all(torch.equal(x.get_state(), y.get_state()) for x, y in zip(a.rng, b.rng)))
+    return len(ta) == len(tb) and all(torch.equal(x, y) for x, y in zip(ta, tb))
 
 
 def prefill_graphs_vs_eager(engine, proc, label: str) -> None:
@@ -1832,7 +2155,7 @@ def prefill_graphs_vs_eager(engine, proc, label: str) -> None:
     on ``engine`` (the first use of a key eager, the second its capture and
     first replay, then replays) and on an eager engine over the same
     weights: every field of the static state, the cache and the rows'
-    generators equal bit for bit after each. Then the time to the first
+    keys equal bit for bit after each. Then the time to the first
     frame at B=1 T=200, warm (prefill and one decode step), both ways."""
     eager = DelayEngine(engine.params, engine.config, dtype=engine.dtype,
                         cache_bucket=engine.cache_bucket, graphs=False)
@@ -1851,7 +2174,7 @@ def prefill_graphs_vs_eager(engine, proc, label: str) -> None:
                                      "differs from the eager prefill's")
         (prefills,) = engine._prefills.values()
         log(f"  {label} engine prefill B={B} T={ids.shape[1]}: greedy and seeds s1, s2, s1, the "
-            f"state after each (cache, fields, generators) graph == eager; graphs held "
+            f"state after each (cache, fields, keys) graph == eager; graphs held "
             f"{len(prefills.keys)}")
     ttff = {}
     for name, e in (("graph", engine), ("eager", eager)):
@@ -1870,8 +2193,8 @@ def admission_graphs_vs_eager(params) -> None:
     graphs and one eager, warmed up at the prompt buckets of phase 5's load
     (64 and 96) and of a 200-row prompt (224). Seeded sampled requests of
     60 and 90 rows are admitted into both (through the buckets' prefill
-    graphs on the first): the batch-1 admission state (its generator's seed
-    and offset too) and the running state are equal after each admission,
+    graphs on the first): the batch-1 admission state (its key too) and
+    the running state are equal after each admission,
     and so are the completions after the splice. Then a 200-row prompt's
     admission (prefill and splice), warm, both ways, and the bytes of the
     static batch-1 state."""
@@ -1897,8 +2220,8 @@ def admission_graphs_vs_eager(params) -> None:
     if [(c.steps, c.tokens.tobytes()) for c in done[0]] != \
             [(c.steps, c.tokens.tobytes()) for c in done[1]]:
         raise AssertionError("the completions after graph admissions differ from eager ones")
-    log(f"  admissions at buckets 64 and 96, seeded sampled: the batch-1 state, the generator's "
-        f"seed and offset and the running state graph == eager after each; the {len(done[0])} "
+    log(f"  admissions at buckets 64 and 96, seeded sampled: the batch-1 state, its key "
+        f"and the running state graph == eager after each; the {len(done[0])} "
         f"completions equal")
     grid = prompt_grid(cfg, 200, 35)
     walls = {}
@@ -1945,6 +2268,14 @@ def host_waits():
         torch.Tensor.cpu, torch.cuda.Event.synchronize = cpu, sync
 
 
+def loop_launches(server) -> int:
+    """The launches of ``server``'s loop graphs (block, event and drain):
+    one a block, an event block or a drain segment."""
+    loop = server._steps._loop
+    drains = getattr(server, "_drains", {})
+    return (loop.launches if loop is not None else 0) + sum(d.launches for d in drains.values())
+
+
 LOOP_MODES = (("linear bf16", {}, ("run", "run_events", "run_drain")),
               ("paged int8", dict(paged=True, kv_quant=True), ("run", "run_events")))
 
@@ -1956,8 +2287,11 @@ def loops_vs_run(params) -> list:
     useful frames/s, ms per server step, dispatches and host waits per
     request, and each completion's first frame that differs from ``run``'s
     (rows admitted at other times attend other buckets and round otherwise
-    at 8B, so only the first frame must be equal). The launch counts are
-    set to 0 just before each loop and read just after; returns them."""
+    at 8B, so only the first frame must be equal). Each server first runs
+    its loop once over the same prompts at 2 frames each, outside the timed
+    window (the loop graphs' build; the drain's captures), and prints that
+    set-up's wall apart. The launch counts are set to 0 just before each
+    timed loop and read just after; returns them."""
     cfg = delay_8b()
     L = cfg.language_config.num_hidden_layers
     prompts, budgets = server_traffic(cfg)
@@ -1969,7 +2303,17 @@ def loops_vs_run(params) -> list:
                                       prompt_bucket=32, page_size=PS, dtype=torch.bfloat16,
                                       sampling=make_sampling(**HOT, device=DEV), **mode)
             server.warmup(prompt_lens=(64, 96), attend_upto=256)
+            # the loop's own set-up, apart from the timed window: the same
+            # prompts at 2 frames each build its loop graphs (the drain also
+            # captures every attend bucket's step graph up to cache_len)
+            t = time.perf_counter()
+            for g in prompts:
+                server.submit(g, max_new_tokens=2)
+            getattr(server, loop)()
+            torch.cuda.synchronize()
+            setup = time.perf_counter() - t
             server.total_steps, server.total_preemptions, server.total_dispatches = 0, 0, 0
+            launched = loop_launches(server)
             reset_counts()
             with host_waits() as waits:
                 t = time.perf_counter()
@@ -1978,6 +2322,10 @@ def loops_vs_run(params) -> list:
                 torch.cuda.synchronize()
                 wall = time.perf_counter() - t
             counts = read_counts()
+            launched = loop_launches(server) - launched
+            if loop != "run" and launched != server.total_dispatches:
+                raise AssertionError(f"{name} {loop}: {launched} loop-graph launches for "
+                                     f"{server.total_dispatches} dispatches (one each)")
             kernel = "paged_q8" if mode else "decode"
             steps, admissions = server.total_steps, len(rids) + server.total_preemptions
             if [c.request_id for c in done] != sorted(rids) or any(
@@ -2000,8 +2348,10 @@ def loops_vs_run(params) -> list:
             frames = sum(c.steps for c in done)
             log(f"  {name} {loop}: {frames} frames in {wall:.2f} s = {frames / wall:.1f} "
                 f"frames/s, {steps} steps ({wall / steps * 1e3:.2f} ms/step), "
-                f"{server.total_dispatches} dispatches, {waits[0] / len(rids):.1f} host waits "
-                f"per request, {server.total_preemptions} preemptions; launches {kernel} "
+                f"{server.total_dispatches} dispatches, {launched} loop-graph launches "
+                f"({launched / len(rids):.2f} per request), {waits[0] / len(rids):.1f} host waits "
+                f"per request, {server.total_preemptions} preemptions, set-up before the "
+                f"window {setup:.2f} s; launches {kernel} "
                 f"{counts[kernel]} ({counts['graphs'][kernel]} in graphs), flash "
                 f"{counts['flash']} ({counts['graphs']['flash']} in graphs)"
                 + ("" if firsts is None else f"; first differing frame against run(): {firsts}"))
@@ -2051,20 +2401,30 @@ def phase_small_loops() -> None:
     drain = [grid(f"drain wave {i}" + " pad" * (6 * (i % 2)), 90 + i) for i in range(5)]
     for name, mode in (("linear", {}), ("paged", dict(paged=True))):
         ref = serve(gpu_params, DEV, "run", events, 256, **mode)
-        if serve(gpu_params, DEV, "run_events", events, 256, **mode) != ref:
+        card = serve(gpu_params, DEV, "run_events", events, 256, **mode)
+        if card != ref:
             raise AssertionError(f"small f32 {name}: run_events differs from run on the card")
         if serve(cpu_params, "cpu", "run", events, 256, **mode) != ref:
             raise AssertionError(f"small f32 {name}: the card's grids differ from the CPU's")
+        if serve(cpu_params, "cpu", "run_events", events, 256, **mode) != card:
+            raise AssertionError(f"small f32 {name}: the card's run_events differs from the "
+                                 "CPU's (steps or frames)")
         log(f"  small f32 server ({name}), 5 greedy requests, budgets {budgets}: run_events == "
-            f"run on the card == run on the CPU")
+            f"run on the card == run on the CPU; run_events on the card == on the CPU, frame "
+            f"for frame and step for step: {[c[1] for c in card]}")
     ref = serve(gpu_params, DEV, "run", drain, 512, sampled=True)
-    if serve(gpu_params, DEV, "run_drain", drain, 512, sampled=True) != ref:
+    card = serve(gpu_params, DEV, "run_drain", drain, 512, sampled=True)
+    if card != ref:
         raise AssertionError("small f32: run_drain with overrides and seeds differs from run")
+    if serve(cpu_params, "cpu", "run_drain", drain, 512, sampled=True) != card:
+        raise AssertionError("small f32: the card's sampled run_drain differs from the CPU's "
+                             "(steps or frames)")
     greedy = serve(gpu_params, DEV, "run_drain", drain, 512)
     if greedy != serve(cpu_params, "cpu", "run", drain, 512):
         raise AssertionError("small f32: the card's greedy run_drain differs from the CPU's run")
-    log("  small f32 server (linear), the drain test's 5 requests: run_drain == run on the card "
-        "with its overrides and seeds; greedy run_drain on the card == run on the CPU")
+    log(f"  small f32 server (linear), the drain test's 5 requests: run_drain == run on the card "
+        f"with its overrides and seeds, == the CPU's run_drain frame for frame and step for "
+        f"step {[c[1] for c in card]}; greedy run_drain on the card == run on the CPU")
 
 
 # ----------------------------------------------------------------- phase 10
@@ -2391,10 +2751,12 @@ def rt_server_phase(params, cfg) -> tuple:
     log(f"  warmup (admission graphs at buckets 16/32 x k 1-8, frame graphs of attend "
         f"128/256): {time.perf_counter() - t:.2f} s, {len(server._steps.keys)} frame graphs, "
         f"{sum(len(a.prefills.keys) for a in server._admissions.values())} admission graphs")
-    counts, rows = [], []
+    counts, rows, ref = [], [], None
     for run in ("run", "run_events"):
+        # the same request ids in both runs: the same keys (sampled at 0.8)
+        server._ids = itertools.count()
         rids = {server.submit(g, txt, max_new_tokens=n): n for (g, txt), n in zip(reqs, budgets)}
-        steps0 = server.total_steps
+        steps0, launched = server.total_steps, loop_launches(server)
         reset_counts()
         with host_waits() as waits:
             torch.cuda.synchronize()
@@ -2403,6 +2765,7 @@ def rt_server_phase(params, cfg) -> tuple:
             torch.cuda.synchronize()
             wall = time.perf_counter() - t
         counts.append(read_counts())
+        launched = loop_launches(server) - launched
         if sorted(c.request_id for c in done) != sorted(rids):
             raise AssertionError(f"server {run}: completions {len(done)} of {len(rids)}")
         useful = sum(min(c.steps, rids[c.request_id] + 1) for c in done)
@@ -2410,13 +2773,19 @@ def rt_server_phase(params, cfg) -> tuple:
         if not all(c.frames.ndim == 2 and c.frames.shape[1] == cfg.rvq and
                    ((c.frames >= 0) & (c.frames < cfg.audio_vocab_size)).all() for c in done):
             raise AssertionError(f"server {run}: bad frames")
+        done = sorted(done, key=lambda c: c.request_id)
+        firsts = None if ref is None else [first_divergence((0, a.frames), (0, b.frames))
+                                           for a, b in zip(done, ref)]
+        ref = done if ref is None else ref
         r = dict(run=run, conversations=len(done), useful_frames=useful, wall_s=wall,
                  useful_frames_per_s=useful / wall, frame_steps=steps,
-                 ms_per_step=wall / steps * 1e3, host_waits_per_conversation=waits[0] / len(done))
+                 ms_per_step=wall / steps * 1e3, host_waits_per_conversation=waits[0] / len(done),
+                 loop_launches_per_conversation=launched / len(done), first_differing=firsts)
         log(f"  server {run}: {len(done)} conversations, {useful} useful frames in {wall:.3f} s "
             f"= {r['useful_frames_per_s']:.1f} useful frames/s, {steps} frame steps "
             f"({r['ms_per_step']:.2f} ms/step), {r['host_waits_per_conversation']:.1f} host "
-            f"waits per conversation")
+            f"waits and {launched / len(done):.2f} loop-graph launches per conversation"
+            + ("" if firsts is None else f"; first frame differing from run's: {firsts}"))
         rows.append(r)
         c = counts[-1]
         if not (c["graphs"]["decode"] and c["graphs"]["w8a16"] and c["flash"]):
@@ -2433,8 +2802,8 @@ def rt_server_phase(params, cfg) -> tuple:
 
 def state_diff(a, b) -> list:
     """Where two states differ: each field whose tensors differ, with the
-    rows (dim 1 of the caches, dim 0 of the rest) that hold a difference,
-    and the rows whose generators' seeds or offsets differ."""
+    rows (dim 1 of the caches, dim 0 of the rest, the keys' included) that
+    hold a difference."""
     out = []
     for i, (x, y) in enumerate(zip(a.cache, b.cache)):
         if not torch.equal(x, y):
@@ -2445,23 +2814,16 @@ def state_diff(a, b) -> list:
             d = x != y
             rows = d.reshape(d.shape[0], -1).any(1) if d.ndim else d.reshape(1)
             out.append((name, rows.nonzero().flatten().tolist()))
-    bad = [i for i, (x, y) in enumerate(zip(a.rng, b.rng))
-           if not torch.equal(x.get_state(), y.get_state())]
-    if bad:
-        out.append(("rng", bad))
     return out
 
 
 def mirror_state(dst, src) -> None:
-    """Copy every tensor of the state ``src`` (its cache's too) and its
-    generators' seeds and offsets into ``dst``: what ``same_state``
-    compares."""
+    """Copy every tensor of the state ``src`` (its cache's and keys too)
+    into ``dst``: what ``same_state`` compares."""
     ta = list(dst.cache) + [t for t in dst[1:] if isinstance(t, torch.Tensor)]
     tb = list(src.cache) + [t for t in src[1:] if isinstance(t, torch.Tensor)]
     for x, y in zip(ta, tb, strict=True):
         x.copy_(y)
-    for x, y in zip(dst.rng, src.rng, strict=True):
-        x.set_state(y.get_state())
 
 
 # 10b's admissions: (k, grid rows, prompt bucket) with 12 prefix tokens; the
@@ -2475,8 +2837,7 @@ def rt_admissions(server, cfg) -> list:
     and 32) and an eager one of the same shape warmed up at bucket 32: the
     admissions of ``RT_ADMISSIONS`` into idle slots, each from the same
     running state (copied over) and request ids in both: after each the running and the
-    admission state (cache, masks, frames, cursors, the generators' seeds
-    and offsets) equal; an admission of a warmed bucket is one replay with
+    admission state (cache, masks, frames, cursors, the keys) equal; an admission of a warmed bucket is one replay with
     no flash or W8A16 launch outside it, one of another bucket runs eagerly
     and captures nothing (a server never captures mid-serve); then each
     admission timed warm both ways (median of 5, wall and device, the
@@ -3377,10 +3738,11 @@ def local_server_phase(params, cfg) -> tuple:
     torch.cuda.synchronize()
     log(f"  warmup (admission graphs at buckets {[k[0] for k in server._prefills.keys]}, frame "
         f"graphs {server._steps.keys}): {time.perf_counter() - t:.2f} s")
-    counts, rows = [], []
+    counts, rows, ref = [], [], None
     for run in ("run", "run_events"):
+        server._ids = itertools.count()  # the same request ids in both runs
         rids = {server.submit(g, max_new_tokens=n): n for g, n in zip(prompts, budgets)}
-        steps0 = server.total_steps
+        steps0, launched = server.total_steps, loop_launches(server)
         reset_counts()
         with host_waits() as waits:
             torch.cuda.synchronize()
@@ -3389,19 +3751,27 @@ def local_server_phase(params, cfg) -> tuple:
             torch.cuda.synchronize()
             wall = time.perf_counter() - t
         counts.append(read_counts())
+        launched = loop_launches(server) - launched
         if sorted(c.request_id for c in done) != sorted(rids):
             raise AssertionError(f"server {run}: completions {len(done)} of {len(rids)}")
         if not all(c.tokens.shape[1] == cfg.channels and c.start_length >= 0 for c in done):
             raise AssertionError(f"server {run}: bad grids")
         useful = sum(min(c.steps, rids[c.request_id]) for c in done)
         steps = server.total_steps - steps0
+        done = sorted(done, key=lambda c: c.request_id)
+        firsts = None if ref is None else [
+            first_divergence((a.start_length, a.tokens), (b.start_length, b.tokens))
+            for a, b in zip(done, ref)]
+        ref = done if ref is None else ref
         r = dict(run=run, requests=len(done), useful_frames=useful, wall_s=wall,
                  useful_frames_per_s=useful / wall, frame_steps=steps,
-                 ms_per_step=wall / steps * 1e3, host_waits_per_request=waits[0] / len(done))
+                 ms_per_step=wall / steps * 1e3, host_waits_per_request=waits[0] / len(done),
+                 loop_launches_per_request=launched / len(done), first_differing=firsts)
         log(f"  server {run}: {len(done)} requests, {useful} useful frames in {wall:.3f} s "
             f"= {r['useful_frames_per_s']:.1f} useful frames/s, {steps} frame steps "
             f"({r['ms_per_step']:.2f} ms/step), {r['host_waits_per_request']:.1f} host waits "
-            f"per request")
+            f"and {launched / len(done):.2f} loop-graph launches per request"
+            + ("" if firsts is None else f"; first frame differing from run's: {firsts}"))
         rows.append(r)
         c = counts[-1]
         if not (c["graphs"]["decode"] and c["graphs"]["w8a16"] and c["flash"]):
@@ -4214,7 +4584,7 @@ def phase_text_lazy() -> dict:
     capture of the lazy step raises ``ValueError``."""
     from mosstts_tpu_torch.engine.step_graph import GraphSteps, zero_state
     from mosstts_tpu_torch.models.delay import delay_decode_step, delay_prefill
-    from mosstts_tpu_torch.ops.sampling import row_generators
+    from mosstts_tpu_torch.ops.sampling import row_keys
 
     cfg = DelayConfig(language_config=tiny_qwen3(
         hidden_size=256, intermediate_size=512, num_attention_heads=4,
@@ -4229,15 +4599,14 @@ def phase_text_lazy() -> dict:
         with torch.no_grad():
             st = delay_prefill(params, cfg, torch.as_tensor(ids, device=DEV),
                                torch.as_tensor(mask, device=DEV), max_new_tokens=16, cache_len=128,
-                               rng=row_generators(1, 3, DEV), sampling=greedy,
+                               rng=row_keys(1, 3).to(DEV), sampling=greedy,
                                dtype=torch.float32)
             for _ in range(15):
                 st = delay_decode_step(params, cfg, st, greedy, attend_len=128, text_lazy=lazy)
         outs[lazy] = st.out.cpu().numpy()
     if not np.array_equal(outs[False], outs[True]):
         raise AssertionError("13e: text_lazy's greedy frames differ from the full path's")
-    state = zero_state(cfg, 1, 128, 8, dtype=torch.float32, kv_quant=False,
-                       rng=row_generators(0, 1, DEV), device=DEV)
+    state = zero_state(cfg, 1, 128, 8, dtype=torch.float32, kv_quant=False, device=DEV)
     graphs = GraphSteps(params, "text_head", DEV)
 
     def lazy_step():
@@ -4245,7 +4614,7 @@ def phase_text_lazy() -> dict:
 
     graphs.warm(lazy_step)  # eager: runs
     try:
-        graphs.capture(lazy_step, state.rng)
+        graphs.capture(lazy_step)
         raise AssertionError("13e: a CUDA graph captured text_lazy's host decision")
     except ValueError:
         pass
@@ -4559,13 +4928,15 @@ def main() -> None:
     numbers["decode_q8t"]["max_abs_err"] = max(numbers["decode_q8t"]["max_abs_err"],
                                                numbers.pop("decode_q8t_f32")["max_abs_err"])
     numbers.update(phase_kernels_gemm())
+    log("phase 3c: the device loops' kernels: JAX's threefry and the loop control, vs plain")
+    numbers.update(phase_kernels_sampling())
     phase_small_reference()
     phase_small_int8()
     log("phase 3b: small f32 continuous-batching server, card vs CPU and paged vs linear")
     phase_small_server()
 
     log("phase 4: solo path at MOSS-TTS 8B width")
-    solo_counts, backend = phase_main_path()
+    solo_counts, backend, od_counts = phase_main_path()
     gc.collect()
     torch.cuda.empty_cache()
 
@@ -4643,7 +5014,7 @@ def main() -> None:
                                                  knum[kernel]["max_abs_err"])
             numbers[kernel]["shapes"] += knum[kernel]["shapes"]
 
-    runs = [solo_counts, int8_counts, *server_counts.values(), *int8_server_counts.values(),
+    runs = [solo_counts, od_counts, int8_counts, *server_counts.values(), *int8_server_counts.values(),
             front_counts, *loop_counts, gradio_counts, *rt_counts, *local_counts]
     launches = {name: sum(c[name] for c in runs) for name in COUNTERS}
     if not all(launches[name] for name in COUNTERS if name not in OFF_PATH + PHASE13):
@@ -4694,6 +5065,25 @@ def main() -> None:
              launches=launches["w8f32"],
              **{k: v for k, v in p13["w8f32"].items() if k != "yardstick_ms"}),
     ]
+    # the kernels the device loops add; none replaces a Pallas kernel: each
+    # names the JAX code it stands for (the key split and draw inside JAX's
+    # step, the while_loop's condition, the drain program's admission and
+    # collect, its row splice, the Realtime event loop's fed column)
+    for name, key, source, jax_at in (
+            ("threefry_split", "threefry_split", "threefry.cu", "mosstts_tpu/ops/sampling.py:40"),
+            ("categorical_gumbel_max", "categorical", "threefry.cu",
+             "mosstts_tpu/ops/sampling.py:49"),
+            ("loop_condition", "loop_cond", "graph_loop.cu", "mosstts_tpu/models/delay.py:688"),
+            ("drain_admission", "drain_admit", "graph_loop.cu",
+             "mosstts_tpu/engine/batch_server.py:641"),
+            ("drain_collect", "drain_collect", "graph_loop.cu",
+             "mosstts_tpu/engine/batch_server.py:680"),
+            ("row_copy", "row_copy", "graph_loop.cu", "mosstts_tpu/engine/batch_server.py:663"),
+            ("fed_column", "feed", "graph_loop.cu",
+             "mosstts_tpu/engine/realtime_batch_server.py:224")):
+        kernels.append(dict(name=name, route="cuda", source=f"mosstts_tpu_torch/csrc/{source}",
+                            replaces=jax_at, launches=launches[key], **numbers[key]))
+    phase_wall()
     print(json.dumps({"kernels": kernels}))
     print(card_line())
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": kind,

@@ -7,8 +7,8 @@ Ports ``mosstts_tpu/engine/batch_server.py``: ``DelayBatchServer`` with
 whenever a slot finishes its utterance a queued request is prefilled at
 batch 1 and spliced into that slot mid-flight, so the card never drains.
 Each slot has its own cache cursor (``pos``), step counter, delay-pattern
-counters, repetition-penalty mask, sampling knobs and ``torch.Generator``,
-all advanced by the one decode step.
+counters, repetition-penalty mask, sampling knobs and threefry key, all
+advanced by the one decode step.
 
 Four cache modes: the linear cache in ``dtype`` or in int8 (``kv_quant``),
 each also over a shared page pool (``paged``): slots borrow fixed-size pages
@@ -20,49 +20,46 @@ sized for the expected load. The allocator runs off the host mirrors of
 ``self.state`` is one set of static buffers for the server's whole life,
 and the decode steps advance it in place (``engine/step_graph.DecodeSteps``):
 on the card each step is the replay of a CUDA graph of the step, one per
-attend bucket (the JAX server's ``_step_fn``), and a block of k steps is k
-replays (its ``_block_fn``, one ``fori_loop`` program). An admission
-prefills into a second static state of batch 1, a linear cache of
-``cache_len`` slots kept for the server's life, through
-``step_graph.Prefills``: on the card one CUDA graph per prompt bucket (the
-JAX server's ``_prefill_fn``), captured at the bucket's second admission or
-in ``warmup()`` and kept for the server's life (at most ``cache_len /
-prompt_bucket`` graphs, as JAX keeps a program per bucket), drawing from
-one static prefill generator that each admission reseeds
-(``_request_seed``); the splice then copies that state's row, and its
-generator's seed and offset, into the slot. ``graphs=False`` runs
+attend bucket (the JAX server's ``_step_fn``), and a block of k steps one
+launch of a graph that loops over it on the card (its ``_block_fn``, a
+``fori_loop`` program; ``step_graph.DeviceLoop``). An admission prefills
+into a second static state of batch 1, a linear cache of ``cache_len``
+slots kept for the server's life, through ``step_graph.Prefills``: on the
+card one CUDA graph per prompt bucket (the JAX server's ``_prefill_fn``),
+captured at the bucket's second admission or in ``warmup()`` and kept for
+the server's life (at most ``cache_len / prompt_bucket`` graphs, as JAX
+keeps a program per bucket), drawing from JAX's key for the request,
+``PRNGKey(_request_seed(...))`` split to one row; the splice then copies
+that state's row, its key included, into the slot. ``graphs=False`` runs
 prefills and steps eagerly, to compare, and the CPU always does. The
 per-slot sampling controls are static (slots,) buffers that an admission
 rewrites.
 
 ``run_events`` (JAX ``_event_fn``) decodes until a scheduling event
-through ``models.delay.delay_decode_until_event``, which on the card
-replays the step graphs and reads the watched stop flags one replay late.
-``run_drain`` (JAX ``_drain_fn``) stages the whole queue on the device once
-and runs JAX's scheduler: one admission per step while a slot is free,
-from the staged prompt rows through the prefill graphs, decode until an
-event otherwise, completions written on the device into per-request result
-rows read back once. JAX runs that loop as one device program; here the
-admission decision and the reseeding of the slot's generator stay on the
-host, since a device cannot reseed a ``torch.Generator`` and the port's
-draws come from per-row generators, not from keys held in the state.
+through ``models.delay.delay_decode_until_event``: on the card one launch
+of a loop graph whose condition kernel reads the watched stop flags after
+every step, so it stops after the step at which the event holds, as JAX
+does. ``run_drain`` (JAX ``_drain_fn``) stages the whole queue on the
+device once and runs JAX's scheduler there: on the card each attend
+bucket's segment is one launch of a loop graph whose body admits the next
+request into the first free slot (an admission kernel, then, per prompt
+bucket, an IF node that gathers the staged prompt row, replays the
+bucket's prefill graph and splices the row into the slot), decodes one
+step and writes stopped slots' frames into their request's result row
+(a collect kernel); the host reads the queue cursor, the slots' flags and
+cursors once per segment and the results once at the end.
 
 Differences from the JAX server, by design: the splice copies lanes and
-pages into the running state in place, and reseeds the slot's generator in
-place (the graphs draw from the same generator objects); the
-pipelined ``run`` snapshots the stop flags with a non-blocking copy to
-pinned host memory plus a CUDA event, enqueued before the next block, and
-waits on that event only after the block is enqueued; on the card
-``run_events`` and ``run_drain`` see a watched row's EOS one step late (so
-its completion holds one frame more than JAX's, as ``run``'s lagged polls
-do). A request's seed goes through the same integer hash as in JAX into
-the slot's generator, so a seeded request reproduces whatever slot it
-lands in; the draws are PyTorch's, not JAX's threefry bits, so
-cross-framework parity holds for greedy requests. A preempted request
-resumes with its own sampling overrides and seed (the JAX server requeues
-it without them, so it resumes at the server's defaults). The server
-serves whatever params it is given, int8 weights (``DelayEngine.quantize``)
-included, in all four cache modes.
+pages into the running state in place; the pipelined ``run`` snapshots the
+stop flags with a non-blocking copy to pinned host memory plus a CUDA
+event, enqueued before the next block, and waits on that event only after
+the block is enqueued. A request's seed goes through the same integer hash
+as in JAX into its key, and the draws are JAX's threefry bits, so a seeded
+request reproduces whatever slot it lands in, and sampled streams equal
+JAX's. A preempted request resumes with its own sampling overrides and seed
+(the JAX server requeues it without them, so it resumes at the server's
+defaults). The server serves whatever params it is given, int8 weights
+(``DelayEngine.quantize``) included, in all four cache modes.
 
 ``mesh=`` (``parallel.mesh.make_mesh``) serves the model tensor-parallel over
 ``"model"``: the params are sharded in place (``delay_param_specs``), each
@@ -73,6 +70,7 @@ batch-1 prefill splice cannot split the batch, so, as in JAX, a mesh with
 """
 from __future__ import annotations
 
+import ctypes
 import itertools
 import logging
 from dataclasses import dataclass
@@ -92,7 +90,8 @@ from ..models.delay import (
     rank_delay_config,
 )
 from ..nn.qwen3 import init_kv_cache, init_paged_kv_cache, init_quant_kv_cache
-from ..ops.sampling import row_generators
+from ..ops import sampling as sampling_ops
+from ..ops.kernels import graph_loop, launches
 from .delay_engine import attend_bucket
 from .polling import request_seed, run_pipelined
 from .step_graph import DecodeSteps, Prefills, host_tensor, zero_state
@@ -116,32 +115,47 @@ class CompletedRequest:
     steps: int
 
 
-_ROW_FIELDS = ("kv_valid", "cur_ids", "pos", "step", "is_stopping", "is_audio",
+_ROW_FIELDS = ("kv_valid", "cur_ids", "pos", "step", "rng", "is_stopping", "is_audio",
                "audio_lengths", "delayed", "seen")
 
 
+def _splice_parts(big: DelayGenState, small: DelayGenState, cache: bool = True) -> list:
+    """The layout of an admission's splice of the batch-1 state ``small``
+    into a row of ``big``: ``(dst, src, axis)`` triples, ``axis`` the batch
+    axis of both (1 for the cache lanes, each cache field's batch on axis 1;
+    0 for the per-row fields, the key included), ``src`` None where the
+    row's tail is zeroed (``out``/``out_valid`` past the small state's
+    capacity). The host copies them (``_copy_parts``), the drain graph's
+    splice kernel the same triples (``_Drain._exec``)."""
+    parts = [(bf, sf, 1) for bf, sf in zip(big.cache, small.cache)] if cache else []
+    parts += [(getattr(big, f), getattr(small, f), 0) for f in _ROW_FIELDS]
+    for f in ("out", "out_valid"):
+        dst, src = getattr(big, f), getattr(small, f)
+        n = src.shape[1]
+        parts += [(dst[:, :n], src, 0), (dst[:, n:], None, 0)]
+    return parts
+
+
 @torch.no_grad()
+def _copy_parts(parts: list, r: int) -> None:
+    for dst, src, axis in parts:
+        d = dst.select(axis, r)
+        if src is None:
+            d.zero_()
+        else:
+            d.copy_(src.select(axis, 0))
+
+
 def _splice_fields(big: DelayGenState, small: DelayGenState, r: int) -> None:
-    """Copy the batch-1 state ``small``'s per-row fields into row ``r`` of
-    ``big`` in place. Row ``r``'s generator takes the seed and offset of
-    ``small``'s, in place (a CUDA graph of the step holds the object)."""
-    for name in _ROW_FIELDS:
-        getattr(big, name)[r].copy_(getattr(small, name)[0])
-    for name in ("out", "out_valid"):
-        dst, src = getattr(big, name)[r], getattr(small, name)[0]
-        dst.zero_()
-        dst[: src.shape[0]].copy_(src)
-    big.rng[r].set_state(small.rng[0].get_state())
+    """Copy the batch-1 state ``small``'s per-row fields, its key
+    included, into row ``r`` of ``big`` in place."""
+    _copy_parts(_splice_parts(big, small, cache=False), r)
 
 
-@torch.no_grad()
 def _insert_row(big: DelayGenState, small: DelayGenState, row: int) -> None:
     """Splice a batch-1 prefilled state into slot ``row`` of the running
-    batch: every per-row field and the slot's cache lane (each cache field
-    has the batch on axis 1), in place."""
-    for bf, sf in zip(big.cache, small.cache):
-        bf[:, row].copy_(sf[:, 0])
-    _splice_fields(big, small, row)
+    batch: every per-row field and the slot's cache lane, in place."""
+    _copy_parts(_splice_parts(big, small), row)
 
 
 @torch.no_grad()
@@ -165,8 +179,15 @@ def _insert_row_paged(big: DelayGenState, small: DelayGenState, row: int,
     _splice_fields(big, small, row)
 
 
+def request_key(seed: int) -> np.ndarray:
+    """A request's row key: JAX's ``PRNGKey(seed)`` split into one row, as
+    its ``delay_prefill`` splits a scalar key (2,) int64."""
+    return sampling_ops.split(sampling_ops.prng_key(seed)[None], 1)[0, 0].numpy()
+
+
 def _request_seed(seed: Optional[int], request_id: int) -> int:
-    """The JAX server's per-request key seed (``batch_server.py:903-906``):
+    """The JAX server's per-request key seed (``batch_server.py:903-906``,
+    its key ``PRNGKey`` of it, ``request_key``):
     an explicit seed reproduces across processes and server lifetimes, and
     the request id enters only unseeded streams."""
     return request_seed(0xD317A9, seed if seed is not None else request_id)
@@ -284,13 +305,16 @@ class DelayBatchServer:
         self._samp_stale = False
         self._steps = DecodeSteps(params, config, self.state, self._samp_dev, graphs=graphs)
         # the admissions' static batch-1 state (a linear cache of cache_len
-        # slots), sampling and generator, and the prefill graphs over them
+        # slots) and sampling, and the prefill graphs over them
         self._small = zero_state(self._cache_config, 1, cache_len, 1, dtype=dtype,
-                                 kv_quant=kv_quant,
-                                 rng=[torch.Generator(device=dev)], device=dev)
+                                 kv_quant=kv_quant, device=dev)
         self._prefill_samp = make_sampling(
             audio_rp_cross_batch=bool(d.audio_rp_cross_batch), device=dev)
         self._prefills = Prefills(self._steps, self._small, self._prefill_samp)
+        # run_drain's static staging buffers per (prompt buckets, nqcap), and
+        # their loop graphs per attend bucket (JAX's compiled _drain_fn
+        # programs), kept for the server's life
+        self._drains: Dict[tuple, "_Drain"] = {}
 
     # ------------------------------------------------------------------
     def _empty_state(self) -> DelayGenState:
@@ -314,7 +338,7 @@ class DelayBatchServer:
             cur_ids=full((B, 1, C), 0, torch.int64),
             pos=full((B,), 0, torch.int32),
             step=full((B,), self.out_capacity, torch.int32),  # idle: out writes drop
-            rng=row_generators(0, B, dev),
+            rng=full((B, 2), 0, torch.int64),
             is_stopping=full((B,), True, torch.bool),  # idle slots are "stopped"
             is_audio=full((B,), False, torch.bool),
             audio_lengths=full((B,), 0, torch.int32),
@@ -378,13 +402,20 @@ class DelayBatchServer:
         self.state.cache.table[slot].zero_()
 
     # ---- decode ----------------------------------------------------------
+    def _step_kw(self, attend: int) -> dict:
+        return dict(attend_len=attend, uniform_slots=False, top_k_text=self.top_k_text,
+                    top_k_audio=self.top_k_audio)
+
     def _decode_steps(self, attend: int, k: int) -> None:
         """``k`` decode steps of the whole batch at attend bucket ``attend``,
-        in place: on the card ``k`` replays of that bucket's graph."""
+        in place: on the card one replay of that bucket's graph, or for k >
+        1 one launch of a graph looping over it k times (JAX's
+        ``_block_fn``)."""
         self._sync_sampling()
-        for _ in range(k):
-            self._steps.step(attend_len=attend, uniform_slots=False,
-                             top_k_text=self.top_k_text, top_k_audio=self.top_k_audio)
+        if k == 1:
+            self._steps.step(**self._step_kw(attend))
+        else:
+            self._steps.loop_block(k, **self._step_kw(attend))
 
     def _dispatch_block(self, k: int) -> int:
         """Admit queued requests into free slots, then run ``k`` decode
@@ -507,11 +538,11 @@ class DelayBatchServer:
 
     def _prefill_into(self, slot: int, ids, mask, seed: int, pages=None) -> None:
         """Prefill the batch-1 prompt ``ids``/``mask`` (its bucket's length)
-        into the static admission state, drawing from the prefill generator
-        seeded with ``seed``, with the prefill sampling as it stands, and
-        splice it into ``slot`` (paged: into ``pages``). The splice hands
-        the generator's seed and offset to the slot's."""
-        self._small.rng[0].manual_seed(seed)
+        into the static admission state, drawing from the key of ``seed``
+        (``request_key``), with the prefill sampling as it stands, and
+        splice it into ``slot`` (paged: into ``pages``), its key with it."""
+        self._small.rng.copy_(host_tensor(request_key(seed)[None], self.device),
+                              non_blocking=True)
         self._prefills.run(ids, mask, top_k_text=self.top_k_text, top_k_audio=self.top_k_audio)
         Tb = ids.shape[1]
         if self.paged:
@@ -676,10 +707,9 @@ class DelayBatchServer:
         watch = np.zeros(self.slots, bool)
         watch[sorted(self._active)] = True
         self._sync_sampling()
-        _, did = delay_decode_until_event(
+        _, did, flags = delay_decode_until_event(
             self._steps, watch, budget, k_cap, top_k_text=self.top_k_text,
             top_k_audio=self.top_k_audio, attend_len=attend)
-        flags = self.state.is_stopping.cpu().numpy()
         self.total_steps += did
         self.total_dispatches += 1
         self.util_sum += did * (len(self._active) / self.slots)
@@ -691,9 +721,9 @@ class DelayBatchServer:
         """Drain the queue and the active slots with event-driven dispatch
         (JAX ``run_events``): each block decodes until a slot needs the
         scheduler (EOS or budget), so a stretch with no completions costs
-        one dispatch. Completions in finish order; on the CPU the token
-        streams equal ``run()``'s, on the card an EOS is seen one step
-        late (see the module docstring)."""
+        one dispatch. Completions in finish order; the token streams equal
+        ``run()``'s, and a block ends after the step that emitted a watched
+        row's EOS, on the card as on the CPU."""
         out: List[CompletedRequest] = []
         steps = 0
         while True:
@@ -722,21 +752,21 @@ class DelayBatchServer:
     def run_drain(self, max_steps: int = 100000) -> List[CompletedRequest]:
         """Drain the queue with JAX's drain scheduler (``_drain_fn``,
         ``run_drain``): the queue is staged on the device once (left-padded
-        prompts (nqcap, t_max, C) with nqcap rounded up to 16, masks and
-        sampling rows), then each step admits the next request into the
-        first free slot while one is free (a replay of its bucket's
-        prefill graph from its staged row, then one decode step), and
-        otherwise decodes until an event (``delay_decode_until_event``).
-        A segment keeps one attend bucket until an active row reaches it
-        (one dispatch each, as JAX's program per bucket). Completions are
-        written on the device into result rows (the trash row nqcap takes
-        the rest) read back once. Returns the completions in queue order,
+        prompts (nqcap, t_max, C) with nqcap rounded up to 16, masks, prompt
+        bucket indices, budgets, keys and sampling rows), then each step
+        admits the next request into the first free slot while one is free
+        (its bucket's prefill from its staged row, spliced into the slot),
+        decodes one step, and writes the stopped slots' frames into their
+        request's result row (JAX's ``(qi < qn | any(active)) & ~any(active
+        & pos >= attend) & i < max_steps`` is checked after every step). A
+        segment keeps one attend bucket until an active row reaches it: on
+        the card one launch of the drain graph (module docstring), then one
+        read of the queue cursor, the slots and the step count; the results
+        are read once at the end. Returns the completions in queue order,
         each request with its prompt bucket, ``min(max_new_tokens,
         out_capacity)`` budget, sampling overrides and seed, ``steps =
         min(step, budget)``. Linear cache and an idle server only;
-        ``util_sum`` is not updated. The admission decisions and the
-        reseeding of the slots' generators stay on the host (see the module
-        docstring)."""
+        ``util_sum`` is not updated."""
         if self.paged:
             raise ValueError("run_drain requires the linear cache; use run()/run_events for "
                              "paged serving")
@@ -746,98 +776,59 @@ class DelayBatchServer:
         self._queue.clear()
         if not reqs:
             return []
-        cfg, dev = self.config, self.device
-        C, NQ, pb = cfg.channels, len(reqs), self.prompt_bucket
+        cfg, pb = self.config, self.prompt_bucket
+        C, NQ = cfg.channels, len(reqs)
         nqcap = -(-NQ // 16) * 16
-        buckets = [-(-r.input_ids.shape[0] // pb) * pb for r in reqs]
-        t_max = max(buckets)
+        tbs = [-(-r.input_ids.shape[0] // pb) * pb for r in reqs]
+        buckets = tuple(sorted(set(tbs)))
+        t_max = buckets[-1]
         prompts = np.full((nqcap, t_max, C), cfg.audio_pad_code, np.int64)
         prompts[..., 0] = cfg.pad_token_id
         masks = np.zeros((nqcap, t_max), bool)
-        budgets = np.zeros(nqcap, np.int64)
+        qbucket = np.zeros(nqcap, np.int32)
+        qbudget = np.zeros(nqcap, np.int32)
+        qkeys = np.zeros((nqcap, 2), np.int64)
         vals = {k: np.zeros(nqcap, v.dtype) for k, v in self._samp_host.items()}
         for idx, r in enumerate(reqs):
             T = r.input_ids.shape[0]
             prompts[idx, t_max - T:] = r.input_ids
             masks[idx, t_max - T:] = True
-            budgets[idx] = min(r.max_new_tokens, self.out_capacity)
+            qbucket[idx] = buckets.index(tbs[idx])
+            qbudget[idx] = min(r.max_new_tokens, self.out_capacity)
+            qkeys[idx] = request_key(_request_seed(r.seed, r.request_id))
             for k, v in self._request_sampling_values(r.sampling).items():
                 vals[k][idx] = v
-        prompts_d = host_tensor(prompts, dev).to(dev, non_blocking=True)
-        masks_d = host_tensor(masks, dev).to(dev, non_blocking=True)
-        samp_d = {k: host_tensor(v, dev).to(dev, non_blocking=True) for k, v in vals.items()}
-        results = torch.zeros((nqcap + 1, self.out_capacity, C), dtype=torch.int32, device=dev)
+        dr = self._drains.get((buckets, nqcap))
+        if dr is None:
+            dr = self._drains[buckets, nqcap] = _Drain(self, buckets, nqcap)
         self._sync_sampling()
+        if self._steps.graphs:
+            dr.capture_steps(self)
+        dr.stage(prompts, masks, qbucket, qbudget, qkeys, vals, NQ, max_steps)
 
-        active = np.zeros(self.slots, bool)
-        slot_rid = np.zeros(self.slots, np.int64)
-        budget = np.full(self.slots, 1 << 30, np.int64)
-        rsteps = np.zeros(NQ, np.int64)
-        kw = dict(top_k_text=self.top_k_text, top_k_audio=self.top_k_audio)
-
-        def admit(slot: int, idx: int) -> None:
-            tb = buckets[idx]
-            for k, v in samp_d.items():
-                getattr(self._prefill_samp, k).copy_(v[idx])
-                getattr(self._samp_dev, k)[slot].copy_(v[idx])
-                self._samp_host[k][slot] = vals[k][idx]
-            r = reqs[idx]
-            self._prefill_into(slot, prompts_d[idx:idx + 1, t_max - tb:],
-                               masks_d[idx:idx + 1, t_max - tb:],
-                               _request_seed(r.seed, r.request_id))
-            active[slot], slot_rid[slot], budget[slot] = True, idx, budgets[idx]
-
-        # JAX's drain holds a budget against the device's step count, the
-        # frames so far, one more than the host mirror's decode steps (the
-        # prefill samples the first frame)
-        def collect() -> None:
-            flags = self.state.is_stopping.cpu().numpy()
-            frames = self._step_host + 1
-            stopped = active & (flags | (frames >= budget))
-            if stopped.any():
-                rows = np.where(stopped, slot_rid, nqcap)  # the trash row nqcap
-                results[host_tensor(rows, dev).to(dev, non_blocking=True)] = self.state.out
-                for slot in np.nonzero(stopped)[0]:
-                    rsteps[slot_rid[slot]] = min(frames[slot], budget[slot])
-                active[stopped] = False
-
-        qi = i = 0
         pos_floor = t_max  # any admission lands at its bucket, <= t_max
+        prev_i = -1
         while True:
             attend = attend_bucket(pos_floor + 2, 256, self.cache_len)
+            qi, act, pos, i = dr.segment(self, attend)
             self.total_dispatches += 1
-            i0 = i
-            while (qi < NQ or active.any()) and i < max_steps:
-                if active.any() and self._pos_host[active].max() >= attend:
-                    break  # the segment's attend bucket is used up
-                if qi < NQ and not active.all():
-                    admit(int(np.argmin(active)), qi)
-                    qi += 1
-                    self._decode_steps(attend, 1)
-                    did = 1
-                else:
-                    k = min(max_steps - i, attend - int(self._pos_host[active].max()))
-                    _, did = delay_decode_until_event(
-                        self._steps, active, budget - self._step_host - 1, k,
-                        attend_len=attend, **kw)
-                i += did
-                self._pos_host += did
-                self._step_host += did
-                collect()
-            done = qi >= NQ and not active.any()
-            stuck = i == i0 and attend >= self.cache_len
+            done = qi >= NQ and not act.any()
+            stuck = i == prev_i and attend >= self.cache_len
             if done or i >= max_steps or stuck:
                 if not done:
                     logging.getLogger(__name__).warning(
                         "run_drain() stopped with work remaining (steps=%d, stuck=%s)", i, stuck)
                 break
-            pos_floor = max(int(self._pos_host[active].max()) if active.any() else 0,
-                            t_max if qi < NQ else 0)
+            prev_i = i
+            pos_floor = max(int(np.max(np.where(act, pos, 0))), t_max if qi < NQ else 0)
         self.total_steps += i
+        # the slots' sampling rows now hold the drained requests': the next
+        # admission rewrites them all from the host arrays
+        self._samp_stale = True
         # per-step occupancy is not tracked: util_sum is not updated, as in JAX
-        self._pos_host[:] = self.state.pos.cpu().numpy()
+        self._pos_host[:] = pos
         self._step_host[:] = 1 << 30
-        res = results[:NQ].cpu().numpy()
+        res, rsteps = dr.results(NQ)
         out: List[CompletedRequest] = []
         for idx, req in enumerate(reqs):
             n = int(rsteps[idx])
@@ -885,3 +876,207 @@ class DelayBatchServer:
     @property
     def utilization(self) -> float:
         return len(self._active) / self.slots
+
+
+class _Drain:
+    """``run_drain``'s static device buffers for one (prompt buckets,
+    nqcap): the staged queue (prompts, masks, bucket indices, budgets, keys,
+    sampling rows), the scheduler's slot state (``active``, ``slot_rid``,
+    ``budget``), the result rows and the control words
+    (``graph_loop.CTRL_WORDS``: the step count, the cap, the queue cursor
+    and size, the admission's slot and request), and, on the card, one drain
+    graph per attend bucket (``graph_loop.build_drain``) with the copy
+    segments it gathers and splices with. The server holds its drains and
+    passes itself to their methods (no reference back: the server's graphs
+    go with it)."""
+
+    def __init__(self, server: DelayBatchServer, buckets: tuple, nqcap: int):
+        self.buckets, self.nqcap = buckets, nqcap
+        dev, cfg = server.device, server.config
+        C, slots, t_max = cfg.channels, server.slots, buckets[-1]
+
+        def z(shape, dt):
+            return torch.zeros(shape, dtype=dt, device=dev)
+
+        self.prompts = z((nqcap, t_max, C), torch.int64)
+        self.masks = z((nqcap, t_max), torch.bool)
+        self.qbucket = z((nqcap,), torch.int32)
+        self.qbudget = z((nqcap,), torch.int32)
+        self.qkeys = z((nqcap, 2), torch.int64)
+        self.qsamp = {k: z((nqcap,), torch.bool if v.dtype == np.bool_ else torch.float32)
+                      for k, v in server._samp_host.items()}
+        self.active = z((slots,), torch.bool)
+        self.slot_rid = z((slots,), torch.int32)
+        self.budget = z((slots,), torch.int32)
+        self.res = z((nqcap + 1, server.out_capacity, C), torch.int32)
+        self.rsteps = z((nqcap + 1,), torch.int32)
+        self.ctrl = z((graph_loop.CTRL_WORDS,), torch.int32)
+        self._host_ctrl = np.zeros(graph_loop.CTRL_WORDS, np.int32)  # the CPU loop's
+        self._qbucket_host = np.zeros(nqcap, np.int32)
+        self._execs: Dict[int, int] = {}  # attend -> executable drain graph
+        self.launches = 0  # drain graph launches
+        # attend -> the IF handles its drain graph's admission kernel sets:
+        # each graph its own, since its build writes them
+        self._handles: Dict[int, torch.Tensor] = {}
+        self._gathers = self._splice = None
+
+    def __del__(self):
+        graph_loop.release(getattr(self, "_execs", {}))
+
+    def _samp(self, sv: DelayBatchServer) -> list:
+        """(slot tensor, staged rows, admission 0-dim tensor) per sampling
+        field, 4-byte fields first."""
+        names = sorted(self.qsamp, key=lambda k: self.qsamp[k].dtype == torch.bool)
+        return [(getattr(sv._samp_dev, k), self.qsamp[k], getattr(sv._prefill_samp, k))
+                for k in names]
+
+    def stage(self, prompts, masks, qbucket, qbudget, qkeys, vals, NQ: int, cap: int) -> None:
+        dev = self.ctrl.device
+        for dst, src in ((self.prompts, prompts), (self.masks, masks), (self.qbucket, qbucket),
+                         (self.qbudget, qbudget), (self.qkeys, qkeys)):
+            dst.copy_(host_tensor(src, dev), non_blocking=True)
+        for k, v in vals.items():
+            self.qsamp[k].copy_(host_tensor(v, dev), non_blocking=True)
+        self.active.zero_()
+        self.slot_rid.zero_()
+        self.budget.fill_(1 << 30)
+        self.res.zero_()
+        self.rsteps.zero_()
+        ctrl = np.zeros(graph_loop.CTRL_WORDS, np.int32)
+        ctrl[graph_loop.LIMIT], ctrl[graph_loop.QN] = min(cap, (1 << 31) - 1), NQ
+        self._host_ctrl[:] = ctrl
+        self._qbucket_host[:] = qbucket
+        self._done = (0, 0)  # the steps run and requests admitted so far
+        self.ctrl.copy_(host_tensor(ctrl, dev), non_blocking=True)
+
+    def capture_steps(self, sv: DelayBatchServer) -> None:
+        """Capture the step graph of every attend bucket a drain of these
+        prompts can reach, where missing, before the drain begins: an idle
+        step each (the pool is idle, and an admission overwrites every row
+        it takes)."""
+        a = attend_bucket(self.buckets[-1] + 2, 256, sv.cache_len)
+        while True:
+            if sv._steps._key(**sv._step_kw(a)) not in sv._steps._captured:
+                sv._decode_steps(a, 1)
+            if a >= sv.cache_len:
+                break
+            a = attend_bucket(a + 1, 256, sv.cache_len)
+
+    @staticmethod
+    def _prefill_key(sv: DelayBatchServer, tb: int) -> tuple:
+        return Prefills._key(tb, sv.top_k_text, sv.top_k_audio, None)
+
+    def segment(self, sv: DelayBatchServer, attend: int):
+        """One attend bucket's segment of the scheduler. Returns the queue
+        cursor, the slots' ``active`` and ``pos``, and the step count, on
+        the host."""
+        if not sv._steps.graphs:
+            return self._segment_eager(sv, attend)
+        ex = self._exec(sv, attend)
+        graph_loop.launch(ex, sv.device)
+        self.launches += 1
+        ctrl, act, pos = self._read(sv)
+        i0, q0 = self._done
+        di, qi = int(ctrl[graph_loop.I]) - i0, int(ctrl[graph_loop.QI])
+        self._done = (int(ctrl[graph_loop.I]), qi)
+        launches.add_replay(sv._steps._captured[sv._steps._key(**sv._step_kw(attend))][1],
+                            times=di)
+        for q in range(q0, qi):
+            prompt = sv._prefills._prompts[self._prefill_key(sv, self.buckets[self._qbucket_host[q]])]
+            launches.add_replay(prompt.launches)
+        launches.add_replay({"loop_cond": di + 1, "drain_admit": di, "drain_collect": di,
+                             "row_copy": 2 * (qi - q0)})
+        return qi, act, pos, int(ctrl[graph_loop.I])
+
+    def _read(self, sv: DelayBatchServer):
+        """The control words, ``active`` and ``pos``, copied back behind the
+        launch with one wait."""
+        out = [torch.empty(t.shape, dtype=t.dtype, pin_memory=True)
+               for t in (self.ctrl, self.active, sv.state.pos)]
+        for o, t in zip(out, (self.ctrl, self.active, sv.state.pos)):
+            o.copy_(t, non_blocking=True)
+        ev = torch.cuda.Event()
+        ev.record()
+        ev.synchronize()
+        return out[0].numpy().copy(), out[1].numpy().copy(), out[2].numpy().astype(np.int64)
+
+    def _segment_eager(self, sv: DelayBatchServer, attend: int):
+        """The segment's loop on the host: the same admission, step, collect
+        and condition as the drain graph's, through the plain versions."""
+        st, ctrl, samp = sv.state, self._host_ctrl, self._samp(sv)
+        t_max = self.buckets[-1]
+        while graph_loop.loop_cond_plain(
+                graph_loop.DRAIN, int(ctrl[graph_loop.I]), int(ctrl[graph_loop.LIMIT]),
+                active=self.active, pos=st.pos, attend=attend, qi=int(ctrl[graph_loop.QI]),
+                qn=int(ctrl[graph_loop.QN])):
+            j = graph_loop.drain_admit_plain(ctrl, self.active, self.slot_rid, self.budget,
+                                             self._qbucket_host, self.qbudget, self.qkeys,
+                                             sv._small.rng, samp)
+            if j >= 0:
+                tb, qi = self.buckets[j], int(ctrl[graph_loop.ADM_QI])
+                sv._prefills.run(self.prompts[qi:qi + 1, t_max - tb:],
+                                 self.masks[qi:qi + 1, t_max - tb:], top_k_text=sv.top_k_text,
+                                 top_k_audio=sv.top_k_audio)
+                _insert_row(st, sv._small, int(ctrl[graph_loop.SLOT]))
+            sv._steps.step(**sv._step_kw(attend))
+            graph_loop.drain_collect_plain(self.active, st.is_stopping, st.step, self.budget,
+                                           self.slot_rid, st.out, self.res, self.rsteps)
+            ctrl[graph_loop.I] += 1
+        return (int(ctrl[graph_loop.QI]), self.active.cpu().numpy(),
+                st.pos.cpu().numpy().astype(np.int64), int(ctrl[graph_loop.I]))
+
+    def _exec(self, sv: DelayBatchServer, attend: int) -> int:
+        """The drain graph at ``attend``, built at first use over the
+        decode step's graph (``capture_steps``) and every bucket's prefill
+        graph, captured here where missing (an admission-state prefill)."""
+        ex = self._execs.get(attend)
+        if ex is not None:
+            return ex
+        steps, st = sv._steps, sv.state
+        key = steps._key(**sv._step_kw(attend))
+        for tb in self.buckets:
+            sv._prefills.capture(tb, top_k_text=sv.top_k_text, top_k_audio=sv.top_k_audio)
+        prompts = [sv._prefills._prompts[self._prefill_key(sv, tb)] for tb in self.buckets]
+        if self._gathers is None:
+            S, t_max = graph_loop.SLOT, self.buckets[-1]
+            self._gathers = [graph_loop.seg_table([
+                graph_loop.seg(p.ids, self.prompts[:, t_max - tb:], src_word=graph_loop.ADM_QI),
+                graph_loop.seg(p.mask, self.masks[:, t_max - tb:], src_word=graph_loop.ADM_QI),
+            ], sv.device) for p, tb in zip(prompts, self.buckets)]
+            self._splice = graph_loop.seg_table(
+                [graph_loop.seg(d, src, dst_word=S, dst_axis=a, src_axis=a)
+                 for d, src, a in _splice_parts(st, sv._small)], sv.device)
+        samp = self._samp(sv)
+        n_f32 = sum(1 for d, _, _ in samp if d.dtype != torch.bool)
+        f, u = samp[:n_f32], samp[n_f32:]
+        P = graph_loop.MAX_SAMP
+        handles = self._handles[attend] = torch.zeros(len(self.buckets), dtype=torch.int64,
+                                                      device=sv.device)
+        dargs = graph_loop.DrainArgs(
+            ctrl=self.ctrl.data_ptr(), slots=sv.slots, n_buckets=len(self.buckets),
+            active=self.active.data_ptr(), slot_rid=self.slot_rid.data_ptr(),
+            budget=self.budget.data_ptr(), qbucket=self.qbucket.data_ptr(),
+            qbudget=self.qbudget.data_ptr(), qkeys=self.qkeys.data_ptr(),
+            small_rng=sv._small.rng.data_ptr(), handles=handles.data_ptr(),
+            n_f32=len(f), n_u8=len(u),
+            f_dst=(ctypes.c_void_p * P)(*[d.data_ptr() for d, _, _ in f]),
+            f_src=(ctypes.c_void_p * P)(*[q.data_ptr() for _, q, _ in f]),
+            f_pre=(ctypes.c_void_p * P)(*[p.data_ptr() for _, _, p in f]),
+            u_dst=(ctypes.c_void_p * P)(*[d.data_ptr() for d, _, _ in u]),
+            u_src=(ctypes.c_void_p * P)(*[q.data_ptr() for _, q, _ in u]),
+            u_pre=(ctypes.c_void_p * P)(*[p.data_ptr() for _, _, p in u]),
+            is_stopping=st.is_stopping.data_ptr(), step=st.step.data_ptr(),
+            out=st.out.data_ptr(), results=self.res.data_ptr(), rsteps=self.rsteps.data_ptr(),
+            out_row=st.out[0].numel())
+        cargs = graph_loop.cond_args(graph_loop.DRAIN, self.ctrl, active=self.active,
+                                     pos=st.pos, attend=attend)
+        ex = graph_loop.build_drain(steps._captured[key][0].raw_cuda_graph(),
+                                    [p.graph.raw_cuda_graph() for p in prompts], cargs, dargs,
+                                    self._gathers, self._splice, handles)
+        self._execs[attend] = ex
+        return ex
+
+    def results(self, NQ: int):
+        """The result rows and step counts of the ``NQ`` requests, on the
+        host (one read)."""
+        return self.res[:NQ].cpu().numpy(), self.rsteps[:NQ].cpu().numpy()

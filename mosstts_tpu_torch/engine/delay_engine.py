@@ -16,18 +16,22 @@ the graphs of the ``PREFILL_GRAPHS`` most recent keys are kept. Every
 decode step is the replay of a CUDA graph of the step, one per attend
 bucket (its ``_get_step``). ``on_device=False`` polls the stop flags every
 ``poll_every`` steps; ``on_device=True`` runs JAX's segment loop over
-``delay_generate_on_device``, whose replays read the stop flags one step
-behind the device (JAX: one ``lax.while_loop`` program per segment). ``graphs=False`` runs the same prefills and steps
-eagerly on the card, to compare; the CPU always runs them eagerly.
+``delay_generate_on_device``: on the card each segment is one launch of a
+graph that loops on the card until its condition fails
+(``step_graph.DeviceLoop``; JAX: one ``lax.while_loop`` program per
+segment), then one read of the flags. ``graphs=False`` runs the same
+prefills and steps eagerly on the card, to compare; the CPU always runs
+them eagerly. The rows draw from JAX's keys: ``split(PRNGKey(seed), B)``,
+as JAX's prefill splits its key, so a seeded call draws JAX's bits.
 
 ``mesh=`` (``parallel.mesh.make_mesh``; every rank makes the same calls)
 shards the params in place on ``"model"`` (``delay_param_specs``: each
 rank's steps hold its heads and run their collectives inside the graphs)
 and the batch on ``"data"``: ``generate`` needs ``B % data == 0``, each
-data rank decodes its block of rows (their generators seeded as those rows
-of the whole batch), the stop flags are gathered over ``"data"`` after
-every step so all ranks run the same steps, and every rank returns every
-row. ``quantize()`` under a mesh gives each output channel of a
+data rank decodes its block of rows (their keys those rows of the whole
+batch's), the stop flags are gathered over ``"data"`` at the end of every
+step (inside its graph) so all ranks run the same steps, and every rank
+returns every row. ``quantize()`` under a mesh gives each output channel of a
 row-parallel weight the scale of the whole input dimension
 (``ops.quant.quantize_tree_``), so int8 weights are those of one device.
 """
@@ -43,7 +47,7 @@ from ..core.config import DelayConfig
 from ..models.delay import (DelayParams, delay_generate_on_device, init_delay_params,
                             make_sampling, rank_delay_config)
 from ..ops.quant import quantize_tree_
-from ..ops.sampling import reseed_generators_, row_generators
+from ..ops.sampling import prng_key, split
 from ..ops.collectives import gather
 from .step_graph import DecodeSteps, Prefills, host_tensor, zero_state
 
@@ -148,8 +152,7 @@ class DelayEngine:
             self._prefills.clear()
             dev = self.device
             state = zero_state(rank_delay_config(self.config, self.params), B, cache_len,
-                               cache_len, dtype=self.dtype,
-                               kv_quant=self.kv_quant, rng=row_generators(0, B, dev), device=dev)
+                               cache_len, dtype=self.dtype, kv_quant=self.kv_quant, device=dev)
             steps = self._steps[key] = DecodeSteps(
                 self.params, self.config, state, make_sampling(device=dev), graphs=self.graphs)
             if self._data is not None:  # every data rank's stop flags, after each step
@@ -219,7 +222,9 @@ class DelayEngine:
             state, samp = runner.state, runner.sampling
             for static, value in zip(samp, sampling):
                 static.copy_(value)
-            reseed_generators_(state.rng, seed, first_row=first)
+            # JAX's prefill splits PRNGKey(seed) into the batch's rows
+            keys = split(prng_key(seed)[None], B)[0][first:first + ids_rank.shape[0]]
+            state.rng.copy_(host_tensor(keys.numpy(), dev), non_blocking=True)
             kw = dict(top_k_text=self.top_k_text, top_k_audio=self.top_k_audio,
                       hidden_out_layers=self.hidden_out_layers)
             prefills.run(host_tensor(ids_rank, dev), host_tensor(mask_rank, dev), **kw)
@@ -232,9 +237,10 @@ class DelayEngine:
                 while steps < max_new_tokens:
                     attend = attend_bucket(T + steps + 2, self.cache_bucket, cache_len)
                     seg_end = min(attend - T - 1, max_new_tokens)
-                    _, steps = delay_generate_on_device(runner, max_new_tokens=seg_end,
-                                                        attend_len=attend, **kw)
-                    if bool(runner.flags.all()):
+                    _, did, flags = delay_generate_on_device(runner, max_new_tokens=seg_end,
+                                                             attend_len=attend, **kw)
+                    steps += did  # every row steps alike: step.max() advances by did
+                    if bool(flags.all()):
                         break
             else:
                 while steps < max_new_tokens:

@@ -15,7 +15,8 @@ rows freeze.
 The frames advance it in place through ``engine/step_graph.LocalSteps``:
 on the card each frame is the replay of a CUDA graph of
 ``local_frame_step``, one per attend bucket (the JAX server's
-``_step_fn``; its k-step ``_block_fn`` is k replays). An admission, as in
+``_step_fn``), and its k-step ``_block_fn`` one launch of a graph that
+loops over that graph on the card (``step_graph.DeviceLoop``). An admission, as in
 JAX, is a scalar-cursor prefill spliced into the slot: on the card the
 replay of a CUDA graph of ``local_prefill_split`` per prompt bucket (the
 JAX server's ``_prefill_fn``; ``step_graph.LocalPrefills``) into a static
@@ -25,17 +26,16 @@ admission graphs of the prompt buckets it is given and the frame graphs of
 the attend buckets it walks. A prompt bucket it did not name admits
 eagerly, every time: a capture mid-serve would stall every slot's
 frames. ``run_events`` (JAX ``_event_fn``) decodes until a scheduling
-event through ``models.delay._lagged_steps``, the Delay server's
-lagged-replay loop: on the card it reads the watched stop flags one replay
-late, so a slot decodes one frozen frame more than JAX's there (the EOS
-trim drops it). ``graphs=False`` runs the frames and admissions eagerly on
+event: on the card one launch of a loop graph whose condition kernel
+reads the watched rows' flags after every frame, so the block ends after
+the frame at which the event holds, as JAX's does. ``graphs=False`` runs the frames and admissions eagerly on
 the card, to compare; the CPU always does.
 
 A difference from the JAX server, by design: each slot draws from its own
-generator, reseeded at admission from the request id (``polling.request_seed``),
-so a sampled request depends on its own draws only; the JAX server draws
-every slot from one shared key. The draws are PyTorch's, not JAX's; greedy
-grids equal JAX's and the solo engine's.
+threefry key, ``PRNGKey`` of the request id's seed (``polling.request_seed``),
+written at admission, so a sampled request depends on its own draws only;
+the JAX server draws every slot from one shared key. Greedy grids equal
+JAX's and the solo engine's.
 """
 from __future__ import annotations
 
@@ -48,9 +48,8 @@ import numpy as np
 import torch
 
 from ..core.config import LocalConfig
-from ..models.delay import _lagged_steps
 from ..models.local import LocalGenState, LocalParams, init_local_state, make_local_sampling
-from ..ops.sampling import row_generators
+from ..ops.sampling import prng_key, row_keys
 from .delay_engine import _round_up, attend_bucket
 from .polling import request_seed, run_pipelined
 from .step_graph import LocalPrefills, LocalSteps, host_tensor
@@ -118,13 +117,13 @@ class LocalBatchServer:
         self._active: Dict[int, _LocalRequest] = {}
         dev = self.device
         self.state = init_local_state(config, slots, cache_len, out_capacity,
-                                      row_generators(0, slots, dev), per_row=True, dtype=dtype,
+                                      row_keys(0, slots), per_row=True, dtype=dtype,
                                       device=dev)
         self.sampling = make_local_sampling(layers, do_samples, config.channels, device=dev)
         self._steps = LocalSteps(params, config, self.state, self.sampling, graphs=graphs)
         # the static batch-1 admission state (a scalar cursor): each
         # admission prefills into it, then is spliced into its slot
-        self._small = init_local_state(config, 1, cache_len, 1, [torch.Generator(device=dev)],
+        self._small = init_local_state(config, 1, cache_len, 1, row_keys(0, 1),
                                        dtype=dtype, device=dev)
         self._prefills = LocalPrefills(self._steps, self._small, capture_on_use=False)
         self.total_steps = 0
@@ -161,7 +160,7 @@ class LocalBatchServer:
     def _admit(self, slot: int, req: _LocalRequest) -> None:
         """A batch-1 prefill of the request's grid, left-padded to its
         prompt bucket, into ``_small`` (the bucket's program), spliced into
-        ``slot``; the slot's generator reseeded from the request id."""
+        ``slot``; the slot's key made from the request id."""
         cfg = self.config
         T = req.input_ids.shape[0]
         Tb = _round_up(T, self.prompt_bucket)
@@ -175,7 +174,8 @@ class LocalBatchServer:
                                    n_vq_infer=self.n_vq_infer)
         # local_prefill_split leaves pos = Tb-1 (the cur_ids row's slot)
         _insert_local_row_(self.state, small, slot, Tb - 1)
-        self.state.rng[slot].manual_seed(request_seed(_SEED_SALT, req.request_id))
+        self.state.rng[slot].copy_(host_tensor(
+            prng_key(request_seed(_SEED_SALT, req.request_id)).numpy(), dev), non_blocking=True)
         self._active[slot] = req
         self._pos_host[slot] = Tb - 1
         self._step_host[slot] = 0
@@ -223,8 +223,10 @@ class LocalBatchServer:
             return 0
         active = sorted(self._active)
         kw = self._frame_kw(self._attend(active, k + 1))
-        for _ in range(k):
+        if k == 1:
             self._steps.step(**kw)
+        else:
+            self._steps.loop_block(k, **kw)
         self._advance(active, k)
         return k
 
@@ -253,20 +255,19 @@ class LocalBatchServer:
         k_cap = int(min(max_k, attend - max_pos - 1, int(budget[active].min())))
         if k_cap <= 0:
             return 0, None
-        watched = torch.zeros(self.slots, dtype=torch.bool)
-        watched[active] = True
-        kw = self._frame_kw(attend)
-        did, _ = _lagged_steps(lambda: self._steps.step(**kw), self.state.unfinished, k_cap,
-                               lambda f: bool((~f & watched).any()))
-        finished = ~self.state.unfinished.cpu().numpy()
+        watch = np.zeros(self.slots, bool)
+        watch[active] = True
+        did, unfinished = self._steps.loop_event(watch, budget, k_cap,
+                                                 **self._frame_kw(attend))
+        finished = ~unfinished
         self._advance(active, did)
         return did, finished
 
     def run_events(self, max_steps: int = 100000) -> List[CompletedLocal]:
         """Drain the queue and the active slots with event-driven dispatch:
-        each block decodes until a slot needs the scheduler (EOS or budget).
-        On the CPU the grids equal ``run()``'s; on the card an EOS is seen
-        one frame late (see the module docstring)."""
+        each block decodes until a slot needs the scheduler (EOS or budget);
+        the grids equal ``run()``'s, and a block ends after the frame that
+        finished a watched slot, on the card as on the CPU."""
         done: List[CompletedLocal] = []
         steps = 0
         while True:

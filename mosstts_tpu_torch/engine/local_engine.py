@@ -24,9 +24,10 @@ first prefill runs eagerly, its second captures; the engine keeps its
 compare; the CPU always does. The stop flags are read every ``poll_every``
 frames, as in JAX.
 
-Each row draws from its own ``torch.Generator``, seeded from (seed, row)
-(``ops/sampling.row_generators``): sampled frames are PyTorch's draws, not
-JAX's; greedy frames equal JAX's.
+Each row draws from its own threefry key, row b of ``split(PRNGKey(seed),
+B)`` (``ops/sampling.row_keys``), split per frame as JAX splits its one
+key: greedy frames equal JAX's (the JAX engine draws the whole batch from
+one key, so sampled frames differ).
 """
 from __future__ import annotations
 
@@ -39,7 +40,7 @@ import torch
 from ..core.config import LocalConfig
 from ..models.local import LocalParams, init_local_params, init_local_state, make_local_sampling
 from ..ops.quant import quantize_tree_
-from ..ops.sampling import reseed_generators_, row_generators
+from ..ops.sampling import row_keys
 from .delay_engine import PREFILL_GRAPHS, _round_up, attend_bucket
 from .step_graph import LocalPrefills, LocalSteps, host_tensor
 
@@ -104,7 +105,7 @@ class LocalEngine:
             return self._steps
         self._set_steps(None)
         dev = self.device
-        st = init_local_state(self.config, B, cache_len, cache_len, row_generators(0, B, dev),
+        st = init_local_state(self.config, B, cache_len, cache_len, row_keys(0, B),
                               dtype=self.dtype, device=dev)
         self._set_steps(st, make_local_sampling(None, None, self.config.channels, device=dev))
         return self._steps
@@ -141,7 +142,7 @@ class LocalEngine:
         with self._lock:
             frames = self._static(B, cache_len)
             st = frames.state
-            reseed_generators_(st.rng, seed)
+            st.rng.copy_(host_tensor(row_keys(seed, B).numpy(), dev), non_blocking=True)
             for static, value in zip(frames.sampling,
                                      make_local_sampling(layers, do_samples, cfg.channels)):
                 static.copy_(value)

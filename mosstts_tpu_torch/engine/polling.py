@@ -5,7 +5,7 @@
 ``local_batch_server.py``) differ in admission, splice and how a finished
 slot's output is trimmed; they poll alike:
 
-- ``request_seed``: a request's generator seed, an int-only hash (string
+- ``request_seed``: a request's key seed, an int-only hash (string
   tuples are salted per process), salted per server family.
 - ``snap_flags``: start copying a state's stop flags to the host. On the
   card this is a non-blocking copy into pinned memory and an event recorded
@@ -28,7 +28,7 @@ import torch
 
 
 def request_seed(salt: int, key: int) -> int:
-    """A request's generator seed: ``hash((salt, key))`` kept to 31 bits.
+    """A request's key seed (``PRNGKey`` of it): ``hash((salt, key))`` kept to 31 bits.
     Integers hash alike in every process, so a seed reproduces across
     processes and server lifetimes."""
     return hash((salt, key)) & 0x7FFFFFFF

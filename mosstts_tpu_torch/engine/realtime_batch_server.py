@@ -11,7 +11,7 @@ power of two by repeating the last one) into a fresh state, and their rows
 are spliced into the slots (``_splice_rt_rows_``). Each slot has its own
 cache cursor and frame counter (the per-row ``RealtimeState``), its own
 sampling controls, its own text feed (``_text_rest``) and its own
-``torch.Generator``.
+threefry key.
 
 ``self.state`` is one set of static buffers for the server's whole life.
 The frames advance it in place through ``engine/step_graph.RealtimeSteps``:
@@ -21,32 +21,33 @@ on the card each frame is the replay of a CUDA graph of
 prompt bucket, attend)`` (the JAX server's ``_admit_fn``): a (k bucket,
 attend bucket) has a static kb-row admission state, its linear cache
 ``attend`` slots long (what the prefill reads and writes), sampling
-buffers and generators (``_Admission``); the graph returns that state to a
+buffers and keys (``_Admission``); the graph returns that state to a
 new conversation's and prefills the group into it
 (``step_graph.RealtimePrefills`` with ``fresh``), and the rows are then
 spliced into the first ``attend`` slots of theirs, the rest of each slot's
-mask cleared (``_splice_rt_rows_``, eager copies), each slot's generator
-taking the seed and offset of its admission row's. Only ``warmup()``
+mask cleared (``_splice_rt_rows_``, eager copies), each slot taking its
+admission row's key. Only ``warmup()``
 captures: it keeps the admission states of the (k bucket, attend bucket)
 pairs of the prompt buckets it is given, captures their graphs, and
 captures the frame graphs of the attend buckets it walks. An admission of a
 prompt bucket it did not name runs eagerly, every time, into a transient
 admission state freed after the splice: a capture mid-serve would stall
 every slot's frames. ``run_events`` (JAX ``_event_fn``) decodes until a
-scheduling event through ``models.delay._lagged_steps``, the lagged-replay
-loop of the Delay server: on the card it reads the watched stop flags one
-replay late, so a completion by EOS holds its trimmed frames all the same
-and the slot decodes one frozen frame more than JAX's. ``graphs=False``
+scheduling event: on the card one launch of a loop graph whose body feeds
+frame i its text column from the staged (slots, ``_KMAX``) tokens (a feed
+kernel indexed by the loop's device counter), replays the frame graph, and
+reads the watched stop flags (a condition kernel), so the block ends after
+the frame at which the event holds, as JAX's does. ``graphs=False``
 runs the frames and admissions eagerly on the card, to compare; the CPU
 always does.
 
 Differences from the JAX server, by design: a conversation draws from its
-slot's generator, reseeded at admission from its request id
-(``polling.request_seed``), so a sampled stream depends on its own request only;
-the JAX server draws every slot from one shared key, so its sampled
-streams depend on the cohort (``realtime_batch_server.py:409-413``). The
-draws are PyTorch's, not JAX's; greedy streams equal JAX's and the solo
-engine's. The pipelined ``run`` snapshots the stop flags with a
+slot's threefry key, ``PRNGKey`` of its request id's seed
+(``polling.request_seed``), written at admission, so a sampled stream
+depends on its own request only; the JAX server draws every slot from one
+shared key, so its sampled streams depend on the cohort
+(``realtime_batch_server.py:409-413``). Greedy streams equal JAX's and the
+solo engine's. The pipelined ``run`` snapshots the stop flags with a
 non-blocking copy to pinned host memory and a CUDA event.
 """
 from __future__ import annotations
@@ -60,10 +61,9 @@ import numpy as np
 import torch
 
 from ..core.config import RealtimeConfig
-from ..models.delay import _lagged_steps
 from ..models.realtime import (RealtimeParams, RealtimeSampling, RealtimeState,
                                init_realtime_srv_state, init_realtime_state, make_rt_sampling)
-from ..ops.sampling import row_generators
+from ..ops.sampling import prng_key, row_keys
 from .delay_engine import _round_up, attend_bucket
 from .polling import request_seed, run_pipelined
 from .step_graph import RealtimePrefills, RealtimeSteps, host_tensor
@@ -93,15 +93,14 @@ def _splice_rt_rows_(big: RealtimeState, small: RealtimeState, rows: torch.Tenso
     masks, frames and history, with ``small``'s scalar cursors. ``small``'s
     cache may hold fewer slots than ``big``'s: its rows fill the slots'
     first ones, and the rest of each slot's mask is cleared (what the
-    cache holds there is never read). The generators are handed over by
-    the caller."""
+    cache holds there is never read). The keys go with the rows."""
     k = rows.shape[0]
     A = small.kv_valid.shape[1]
     for bf, sf in zip(big.cache, small.cache):
         bf[:, :, :, :A].index_copy_(1, rows, sf[:, :k])
     big.kv_valid.index_fill_(0, rows, False)
     big.kv_valid[:, :A].index_copy_(0, rows, small.kv_valid[:k])
-    for name in ("last_audio", "is_stopping", "history"):
+    for name in ("last_audio", "is_stopping", "history", "rng"):
         getattr(big, name).index_copy_(0, rows, getattr(small, name)[:k])
     big.cur_len.index_copy_(0, rows, small.cur_len.expand(k).contiguous())
     big.hist_len.index_copy_(0, rows, small.hist_len.expand(k).contiguous())
@@ -112,16 +111,15 @@ _SEED_SALT = 0x52D417  # ``polling.request_seed``'s salt for this family
 
 class _Admission:
     """A (k bucket, attend bucket)'s admission: a kb-row scalar-cursor
-    state (a linear cache of ``attend`` slots) drawing from kb generators
-    of its own, kb-row sampling buffers, and the prefill programs over them
+    state (a linear cache of ``attend`` slots) with kb keys of its own,
+    kb-row sampling buffers, and the prefill programs over them
     (one per prompt bucket), which share the frames' capture stream and
     pool and are captured only ahead (``warmup()``)."""
 
     def __init__(self, server: "RealtimeBatchServer", kb: int, attend: int):
         dev = server.device
         self.state = init_realtime_state(server.config, kb, attend, server.max_frames,
-                                         [torch.Generator(device=dev) for _ in range(kb)],
-                                         dtype=server.dtype, device=dev)
+                                         row_keys(0, kb), dtype=server.dtype, device=dev)
         self.sampling = make_rt_sampling(*(np.zeros(kb, np.float32) for _ in range(3)),
                                          np.zeros(kb, bool), device=dev)
         self.prefills = RealtimePrefills(server._steps, self.state, self.sampling, fresh=True,
@@ -163,8 +161,10 @@ class RealtimeBatchServer:
         self._text_rest: Dict[int, List[int]] = {}  # slot -> tokens to feed
         dev = self.device
         self.state = init_realtime_srv_state(config, slots, cache_len, max_frames,
-                                             row_generators(0, slots, dev), dtype=dtype,
-                                             device=dev)
+                                             row_keys(0, slots), dtype=dtype, device=dev)
+        # the event loop's staged text columns (JAX's (slots, _KMAX) matrix)
+        self._toks = torch.full((slots, self._KMAX), text_pad_id, dtype=torch.int64,
+                                device=dev)
         self.total_steps = 0
         # host mirrors (exact): frames generated per slot since admission,
         # and an upper bound on each slot's cache cursor (cursors freeze at
@@ -265,24 +265,21 @@ class RealtimeBatchServer:
         the k bucket and the prompt's attend bucket (the static one
         ``warmup()`` kept, else a transient one), returned to a new
         conversation's in the program,
-        drawing row i from its generator seeded with ``seeds[i]`` (the
-        padding rows past ``len(slots)`` with 0), and splice the first
-        ``len(slots)`` rows into ``slots``, each slot's generator taking its
-        row's seed and offset."""
+        row i drawing from the key ``PRNGKey(seeds[i])`` (the padding rows
+        past ``len(slots)`` from ``PRNGKey(0)``), and splice the first
+        ``len(slots)`` rows, their keys with them, into ``slots``."""
         kb, Tb = ids.shape[:2]
         dev, k = self.device, len(slots)
         attend = self._admit_attend(Tb)
         adm = self._admissions.get((kb, attend)) or _Admission(self, kb, attend)
         for static, value in zip(adm.sampling, sampling):
             static.copy_(host_tensor(value, dev), non_blocking=True)
-        for g, seed in zip(adm.state.rng, list(seeds) + [0] * (kb - k)):
-            g.manual_seed(seed)
+        keys = np.stack([prng_key(seed).numpy() for seed in list(seeds) + [0] * (kb - k)])
+        adm.state.rng.copy_(host_tensor(keys, dev), non_blocking=True)
         adm.prefills.run(host_tensor(ids, dev), host_tensor(valid, dev), attend_len=attend,
                          top_k=self.top_k)
         rows = host_tensor(np.asarray(slots, np.int64), dev).to(dev, non_blocking=True)
         _splice_rt_rows_(self.state, adm.state, rows)
-        for slot, g in zip(slots, adm.state.rng):
-            self.state.rng[slot].set_state(g.get_state())
 
     def _admit_group(self, Tb: int, group) -> None:
         """Admit every (slot, request, prompt rows) of ``group``, all in the
@@ -512,13 +509,9 @@ class RealtimeBatchServer:
             if rest:
                 toks[slot, :len(rest)] = rest
         self._sync_sampling()
-        toks = host_tensor(toks, self.device).to(self.device, non_blocking=True)
-        cols = iter(range(k_cap))  # frame i is fed column i
-        watched = torch.from_numpy(watch)
-        did, _ = _lagged_steps(
-            lambda: self._steps.step(toks[:, next(cols)], attend_len=attend, top_k=self.top_k),
-            self.state.is_stopping, k_cap, lambda f: bool((f & watched).any()))
-        flags = self.state.is_stopping.cpu().numpy()
+        self._toks.copy_(host_tensor(toks, self.device), non_blocking=True)
+        did, flags = self._steps.loop_event(self._toks, watch, budget, k_cap, attend_len=attend,
+                                            top_k=self.top_k)
         self.total_steps += did
         self._step_host[active] += did
         self._ub_host[active] += did
@@ -529,8 +522,9 @@ class RealtimeBatchServer:
     def run_events(self, max_steps: int = 100000) -> List[CompletedStream]:
         """Drain the queue and the active slots with event-driven dispatch:
         each block decodes until a slot needs the scheduler (EOS or
-        budget). On the CPU the frame streams equal ``run()``'s; on the card
-        an EOS is seen one frame late (see the module docstring)."""
+        budget); the frame streams equal ``run()``'s, and a block ends after
+        the frame that stopped a watched slot, on the card as on the
+        CPU."""
         out: List[CompletedStream] = []
         steps = 0
         while True:

@@ -24,16 +24,18 @@ keys. ``graphs=False`` runs the same frames and prefills eagerly on the
 card; the CPU always does.
 
 A new conversation (``reset_generation_state(keep_cache=False)``) at the
-same batch and cache length zeroes that state in place and reseeds its
-generators, so its graphs serve every later conversation. When a
+same batch and cache length zeroes that state in place and writes its
+keys anew, so its graphs serve every later conversation. When a
 conversation outgrows the cache, a cache twice as long (or more) is made,
 the old one copied in, and the state's decode steps and prefills and
 every graph over the old buffers are dropped and built anew over the new
 ones (``_ensure_capacity``).
 
-Each row draws from its own ``torch.Generator``, seeded from (seed, row)
-(``ops/sampling.row_generators``): sampled frames are PyTorch's draws, not
-JAX's; greedy frames equal JAX's.
+Each row draws from its own threefry key, row b of ``split(PRNGKey(seed),
+B)`` (``ops/sampling.row_keys``), split per frame as JAX splits its one
+key: greedy frames equal JAX's, and so do a batch of one's sampled frames
+when its key is JAX's (the JAX engine draws the whole batch from
+``PRNGKey(seed)`` itself).
 """
 from __future__ import annotations
 
@@ -47,7 +49,7 @@ from ..models.realtime import (RealtimeParams, RealtimeState, init_realtime_para
                                init_realtime_state, make_rt_sampling)
 from ..nn.qwen3 import KVCache
 from ..ops.quant import quantize_tree_
-from ..ops.sampling import reseed_generators_, row_generators
+from ..ops.sampling import row_keys
 from .delay_engine import PREFILL_GRAPHS, _round_up, attend_bucket
 from .step_graph import RealtimePrefills, RealtimeSteps, host_tensor
 
@@ -182,7 +184,7 @@ class RealtimeEngine:
     # ------------------------------------------------------------------
     def _new_state(self, B: int) -> None:
         """A zeroed static state of ``B`` rows at ``cache_len`` drawing from
-        generators seeded with ``self._seed``: the one already there, zeroed
+        the row keys of ``self._seed``: the one already there, zeroed
         in place (its graphs kept), when its shape fits."""
         H = self.max_length + 64
         st = self._steps.state if self._steps is not None else None
@@ -193,12 +195,13 @@ class RealtimeEngine:
             for t in (st.kv_valid, st.cur_len, st.is_stopping, st.history, st.hist_len):
                 t.zero_()
             st.last_audio.fill_(self.config.audio_pad_token)
-            reseed_generators_(st.rng, self._seed)
+            st.rng.copy_(host_tensor(row_keys(self._seed, B).numpy(), self.device),
+                         non_blocking=True)
             return
         self._set_steps(None)  # the old cache and graphs go first
         dev = self.device
         st = init_realtime_state(self.config, B, self.cache_len, H,
-                                 row_generators(self._seed, B, dev), dtype=self.dtype,
+                                 row_keys(self._seed, B), dtype=self.dtype,
                                  device=dev)
         self._samp_key = None
         self._set_steps(st, make_rt_sampling(device=dev))
@@ -286,8 +289,8 @@ class RealtimeEngine:
         """The turn grid plus the first text rows (``audio_bos`` planted on
         the last prefix row's channel 1), left-padded to a multiple of
         ``prefill_bucket``, prefilled at the cache cursor; returns the first
-        frame (B, rvq) (reference :122-208). ``seed`` seeds a new
-        conversation's generators."""
+        frame (B, rvq) (reference :122-208). ``seed`` makes a new
+        conversation's keys."""
         cfg = self.config
         grids = self._normalize_input_ids(input_ids)
         B = len(grids)

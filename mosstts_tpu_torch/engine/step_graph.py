@@ -30,9 +30,19 @@ tensors never move, and advances the state in place, one decode step per
 top_k_text, top_k_audio, hidden_out_layers)``. The graph ends by copying
 every field the step replaces (``STEP_FIELDS``) back into its buffer, as a
 donated JAX buffer is reused; the cache, ``kv_valid``, ``out`` and
-``out_valid`` are written in place by the step itself. A block of k steps
-(JAX's ``_block_fn``, a ``fori_loop`` program) is k replays of the one-step
-graph.
+``out_valid`` are written in place by the step itself.
+
+``DeviceLoop`` runs JAX's device-resident loops (its ``lax.while_loop``
+and ``fori_loop`` programs): a decode until every row stops
+(``delay_generate_on_device``), until a scheduling event (the servers'
+``_event_fn``), or k steps (``_block_fn``), each as one launch of a CUDA
+graph with a conditional WHILE node over the step graph, whose condition a
+kernel evaluates on the card after every step (``ops/kernels/graph_loop``).
+The host writes the loop's limits before the launch and reads the counters
+and stop flags back once after it. One executable graph per (loop kind,
+step key) is kept for the owner's life. On the CPU, and with graphs off, the
+same loop runs eagerly and evaluates the same condition after every step,
+which is JAX's ``while_loop`` exactly.
 
 ``Prefills`` prefills prompts into a static state (the engine's decode
 state, or the server's batch-1 admission state) with its static sampling:
@@ -59,11 +69,11 @@ The first step at a key, and a key's first prefill, run eagerly on the
 capture stream: they are real work, and they build the kernels, set their
 shared-memory limits and make cuBLAS's handle and workspace, none of which
 a capture may do. Then the graph is captured (a capture runs nothing) and
-later calls at that key replay it. The state's generators are registered
-with each graph, so a replay draws from their current seed and offset
-exactly as eager work would, and ``ops.sampling.reseed_generators_`` (or a
-``manual_seed``) between replays takes effect at the next one; a replay
-advances a generator's offset as the eager work does. A ``Prefills``
+later calls at that key replay it. The sampling keys are state tensors
+(``ops/sampling.py``): a graph reads and splits them on the card, so a
+replay, or a loop's iteration, draws from the keys the state holds then,
+and writing a key row between replays takes effect at the next one. No
+graph registers a ``torch.Generator``. A ``Prefills``
 shares its ``DecodeSteps``' capture stream and memory pool: nothing a
 capture allocates is read after its graph ends, so the graphs may replay in
 any order, one at a time. A failed capture or replay raises; nothing falls
@@ -93,6 +103,7 @@ synchronisation is fine.
 """
 from __future__ import annotations
 
+import functools
 import threading
 from collections import OrderedDict
 from typing import Callable, Optional
@@ -108,18 +119,18 @@ from ..models.local import (LocalGenState, LocalParams, LocalSampling, copy_loca
 from ..models.realtime import (RealtimeParams, RealtimeSampling, RealtimeState,
                                realtime_decode_step, realtime_prefill_step)
 from ..nn.qwen3 import init_kv_cache, init_quant_kv_cache
-from ..ops.kernels import launches
+from ..ops.kernels import graph_loop, launches
 
 # one capture at a time in the process (see the module docstring)
 _CAPTURE_LOCK = threading.Lock()
 
 # the DelayGenState fields delay_decode_step returns as new tensors
-STEP_FIELDS = ("cur_ids", "pos", "step", "is_stopping", "is_audio", "audio_lengths",
+STEP_FIELDS = ("cur_ids", "pos", "step", "rng", "is_stopping", "is_audio", "audio_lengths",
                "delayed", "seen")
 # the RealtimeState fields realtime_decode_step returns as new tensors
-RT_STEP_FIELDS = ("cur_len", "last_audio", "is_stopping", "hist_len")
+RT_STEP_FIELDS = ("cur_len", "last_audio", "is_stopping", "hist_len", "rng")
 # the LocalGenState fields local_frame_step returns as new tensors
-LOCAL_STEP_FIELDS = ("cur_ids", "pos", "step", "unfinished")
+LOCAL_STEP_FIELDS = ("cur_ids", "pos", "step", "unfinished", "rng")
 
 
 def host_tensor(x, device) -> torch.Tensor:
@@ -130,10 +141,10 @@ def host_tensor(x, device) -> torch.Tensor:
 
 
 def zero_state(cfg: DelayConfig, B: int, cache_len: int, out_len: int, *, dtype,
-               kv_quant: bool, rng, device) -> DelayGenState:
-    """A static state of ``B`` rows, zeros everywhere: a linear KV cache of
-    ``cache_len`` slots in ``dtype`` (int8 with scales when ``kv_quant``)
-    and ``out_len`` output steps, drawing from the generators ``rng``."""
+               kv_quant: bool, device) -> DelayGenState:
+    """A static state of ``B`` rows, zeros everywhere (the keys too): a
+    linear KV cache of ``cache_len`` slots in ``dtype`` (int8 with scales
+    when ``kv_quant``) and ``out_len`` output steps."""
     lc, C = cfg.language_config, cfg.channels
 
     def zeros(shape, dt):
@@ -144,7 +155,7 @@ def zero_state(cfg: DelayConfig, B: int, cache_len: int, out_len: int, *, dtype,
                init_kv_cache(lc, B, cache_len, dtype=dtype, device=device)),
         kv_valid=zeros((B, cache_len), torch.bool),
         cur_ids=zeros((B, 1, C), torch.int64),
-        pos=zeros((B,), torch.int32), step=zeros((B,), torch.int32), rng=list(rng),
+        pos=zeros((B,), torch.int32), step=zeros((B,), torch.int32), rng=zeros((B, 2), torch.int64),
         is_stopping=zeros((B,), torch.bool), is_audio=zeros((B,), torch.bool),
         audio_lengths=zeros((B,), torch.int32), delayed=zeros((B,), torch.int32),
         seen=zeros((B, cfg.n_vq, cfg.audio_emb_vocab), torch.bool),
@@ -156,10 +167,7 @@ def copy_state_(dst: DelayGenState, src: DelayGenState) -> None:
     """Copy ``src`` (a prefill's state) into the static ``dst`` in place; a
     cache the prefill already wrote in place (``delay_prefill(cache=...)``)
     is not copied. ``dst.out``/``out_valid`` may hold more steps than
-    ``src``'s: the rest is zeroed. Both states must draw from the same
-    generators."""
-    if len(dst.rng) != len(src.rng) or any(a is not b for a, b in zip(dst.rng, src.rng)):
-        raise ValueError("copy_state_: the states draw from different generators")
+    ``src``'s: the rest is zeroed."""
     for d, s in zip(dst.cache, src.cache):
         if d is not s:
             d.copy_(s)
@@ -188,6 +196,7 @@ class GraphSteps:
         self._device = device
         self._stream: Optional[torch.cuda.Stream] = None
         self._captured = {}  # key -> (CUDAGraph, the launches its capture counted)
+        self._loop: Optional["DeviceLoop"] = None
 
     @property
     def keys(self):
@@ -214,14 +223,13 @@ class GraphSteps:
             fn()
         torch.cuda.current_stream().wait_stream(self._stream)
 
-    def capture(self, fn: Callable[[], None], generators) -> tuple:
+    def capture(self, fn: Callable[[], None]) -> tuple:
         """Capture ``fn`` (warmed up by ``warm``) into a graph in this
-        object's pool, with ``generators`` registered. Returns the graph and
-        the launches its capture counted, which are taken back from the
-        counts (a replay adds them)."""
-        graph = torch.cuda.CUDAGraph()
-        for gen in generators:
-            graph.register_generator_state(gen)
+        object's pool. Returns the graph, which keeps its ``cudaGraph_t``
+        (``raw_cuda_graph()``, the body a ``DeviceLoop`` clones), and the
+        launches its capture counted, which are taken back from the counts
+        (a replay adds them)."""
+        graph = torch.cuda.CUDAGraph(keep_graph=True)
         with _CAPTURE_LOCK:
             before = launches.read()
             try:
@@ -233,7 +241,7 @@ class GraphSteps:
                 launches.restore(before)
         return graph, captured
 
-    def run_key(self, key, fn: Callable[[], None], generators) -> None:
+    def run_key(self, key, fn: Callable[[], None]) -> None:
         """``fn`` at ``key``: the replay of its graph if one was captured;
         else ``fn`` run eagerly (``warm``), then, with graphs on, captured
         for the key's later calls."""
@@ -245,7 +253,23 @@ class GraphSteps:
             return
         self.warm(fn)  # a real step
         if self.graphs:
-            self._captured[key] = self.capture(fn, generators)
+            self._captured[key] = self.capture(fn)
+
+    def _step_at(self, key) -> None:
+        """One step at ``key`` (``_eager``, the subclass's), replayed or run
+        eagerly (``run_key``)."""
+        self.run_key(key, lambda: self._eager(key))
+
+    def loop(self, kind: int, key, *, limit: int,
+             flags: Optional[torch.Tensor] = None, invert: bool = False,
+             step: Optional[torch.Tensor] = None, watch=None, budget=None,
+             feed: Optional[tuple] = None):
+        """JAX's loop of the step at ``key`` as one device program
+        (``DeviceLoop.run``)."""
+        if self._loop is None:
+            self._loop = DeviceLoop(self._device)
+        return self._loop.run(self, kind, key, limit=limit, flags=flags, invert=invert,
+                              step=step, watch=watch, budget=budget, feed=feed)
 
 
 class DecodeSteps(GraphSteps):
@@ -256,21 +280,43 @@ class DecodeSteps(GraphSteps):
                  sampling: DelaySampling, *, graphs: bool = True):
         super().__init__(params, "text_head", state.pos.device, graphs=graphs)
         self.cfg, self.state, self.sampling = cfg, state, sampling
-        # the stop flags the loops read (``models.delay._lagged_steps``): the
-        # state's own, or, for a data-parallel engine, every rank's rows,
-        # which ``sync`` (run after each step) gathers
+        # the stop flags the loops read: the state's own, or, for a
+        # data-parallel engine, every rank's rows, which ``sync`` gathers at
+        # the end of each step (inside its graph)
         self.flags = state.is_stopping
         self.sync: Optional[Callable[[], None]] = None
+
+    @staticmethod
+    def _key(attend_len, uniform_slots, top_k_text, top_k_audio, hidden_out_layers=None) -> tuple:
+        return (attend_len, uniform_slots, top_k_text, top_k_audio,
+                None if hidden_out_layers is None else tuple(hidden_out_layers))
 
     @torch.no_grad()
     def step(self, *, attend_len: Optional[int], uniform_slots: bool, top_k_text: int,
              top_k_audio: int, hidden_out_layers: Optional[tuple] = None) -> None:
         """One decode step of the whole batch, in place."""
-        key = (attend_len, uniform_slots, top_k_text, top_k_audio,
-               None if hidden_out_layers is None else tuple(hidden_out_layers))
-        self.run_key(key, lambda: self._eager(key), self.state.rng)
-        if self.sync is not None:
-            self.sync()
+        self._step_at(self._key(attend_len, uniform_slots, top_k_text, top_k_audio,
+                                hidden_out_layers))
+
+    @torch.no_grad()
+    def loop_generate(self, max_new_tokens: int, **kw):
+        """Steps while ``min(step) < max_new_tokens`` and some row has not
+        stopped (JAX's ``delay_generate_on_device``): ``(executed, flags)``."""
+        return self.loop(graph_loop.GENERATE, self._key(**kw), limit=max_new_tokens,
+                         flags=self.flags, step=self.state.step)
+
+    @torch.no_grad()
+    def loop_event(self, watch: np.ndarray, budget_left: np.ndarray, max_steps: int, **kw):
+        """Steps until a watched row stops or reaches its budget, or
+        ``max_steps`` (JAX's ``delay_decode_until_event``): ``(executed,
+        flags)``."""
+        return self.loop(graph_loop.EVENT, self._key(**kw), limit=max_steps, flags=self.flags,
+                         watch=watch, budget=budget_left)
+
+    @torch.no_grad()
+    def loop_block(self, k: int, **kw) -> None:
+        """``k`` steps as one launch, nothing read back (JAX's ``_block_fn``)."""
+        self.loop(graph_loop.BLOCK, self._key(**kw), limit=k)
 
     def _eager(self, key) -> None:
         attend_len, uniform_slots, top_k_text, top_k_audio, hol = key
@@ -280,6 +326,8 @@ class DecodeSteps(GraphSteps):
                                 hidden_out_layers=hol)
         for name in STEP_FIELDS:
             getattr(self.state, name).copy_(getattr(new, name))
+        if self.sync is not None:
+            self.sync()
 
 
 class RealtimeSteps(GraphSteps):
@@ -306,8 +354,17 @@ class RealtimeSteps(GraphSteps):
         holds."""
         if tokens is not None:
             self.tokens.copy_(tokens, non_blocking=True)
-        key = (attend_len, top_k, self.state.cur_len.ndim == 1)
-        self.run_key(key, lambda: self._eager(key), self.state.rng)
+        self._step_at((attend_len, top_k, self.state.cur_len.ndim == 1))
+
+    @torch.no_grad()
+    def loop_event(self, staged: torch.Tensor, watch: np.ndarray, budget_left: np.ndarray,
+                   max_steps: int, *, attend_len: Optional[int], top_k: int):
+        """Frames until a watched row stops or reaches its budget, or
+        ``max_steps`` (the JAX server's ``_event_fn``), frame i fed column
+        i of ``staged`` (B, K) on the device: ``(executed, flags)``."""
+        return self.loop(graph_loop.EVENT, (attend_len, top_k, self.state.cur_len.ndim == 1),
+                         limit=max_steps, flags=self.state.is_stopping, watch=watch,
+                         budget=budget_left, feed=(staged, self.tokens))
 
     def _eager(self, key) -> None:
         attend_len, top_k, _ = key
@@ -330,11 +387,27 @@ class LocalSteps(GraphSteps):
         super().__init__(params, "text_head", state.unfinished.device, graphs=graphs)
         self.cfg, self.state, self.sampling = cfg, state, sampling
 
+    def _key(self, attend_len, n_vq_infer, eos_token_id) -> tuple:
+        return (attend_len, n_vq_infer, eos_token_id, self.state.pos.ndim == 1)
+
     @torch.no_grad()
     def step(self, *, attend_len: Optional[int], n_vq_infer: int, eos_token_id: int) -> None:
         """One frame of the whole batch, in place."""
-        key = (attend_len, n_vq_infer, eos_token_id, self.state.pos.ndim == 1)
-        self.run_key(key, lambda: self._eager(key), self.state.rng)
+        self._step_at(self._key(attend_len, n_vq_infer, eos_token_id))
+
+    @torch.no_grad()
+    def loop_event(self, watch: np.ndarray, budget_left: np.ndarray, max_steps: int, **kw):
+        """Frames until a watched row finishes or reaches its budget, or
+        ``max_steps`` (the JAX server's ``_event_fn``): ``(executed,
+        flags)``, the flags ``unfinished``."""
+        return self.loop(graph_loop.EVENT, self._key(**kw), limit=max_steps,
+                         flags=self.state.unfinished, invert=True, watch=watch,
+                         budget=budget_left)
+
+    @torch.no_grad()
+    def loop_block(self, k: int, **kw) -> None:
+        """``k`` frames as one launch, nothing read back (JAX's ``_block_fn``)."""
+        self.loop(graph_loop.BLOCK, self._key(**kw), limit=k)
 
     def _eager(self, key) -> None:
         attend_len, n_vq_infer, eos_token_id, _ = key
@@ -343,6 +416,127 @@ class LocalSteps(GraphSteps):
                                attend_len=attend_len)
         for name in LOCAL_STEP_FIELDS:
             getattr(self.state, name).copy_(getattr(new, name))
+
+
+class DeviceLoop:
+    """JAX's device-resident loops over one ``GraphSteps``' step graphs (the
+    owner holds its ``DeviceLoop``, and passes itself to ``run``).
+
+    ``run`` runs the owner's step at ``key`` (in place) while the loop's
+    condition holds (``ops.kernels.graph_loop.loop_cond_plain`` says which
+    condition each kind has), and returns ``(executed, flags)``: the steps
+    run and the stop flags on the host (None for a block, which reads
+    nothing back). On the
+    card the whole loop is one launch of an executable graph per ``(kind,
+    key)``, built at the key's first loop from the step graph
+    (``graph_loop.build_loop``): the host copies the limits into the
+    control words, launches it, and, but for a block, copies the counters and
+    the flags back behind it and waits once. A key whose step graph is not
+    captured yet runs its first step eagerly, then captures it, after the host checked the condition, and the graph loop
+    carries on from step 1. The launch counts add the step graph's captured
+    launches once per step run, and the control kernels' runs.
+
+    On the CPU, and with graphs off, the loop is eager: the condition is
+    evaluated after every step by its plain version, as JAX's
+    ``while_loop`` does."""
+
+    def __init__(self, device):
+        self.device = device  # no reference to the owner: its graphs go with it
+        self.ctrl = torch.zeros(graph_loop.CTRL_WORDS, dtype=torch.int32, device=self.device)
+        self._rows = None  # (2, B) int32: the event loop's watch and budget rows
+        self._execs = {}  # (kind, key) -> executable graph
+        self.launches = 0  # loop graph launches
+
+    def __del__(self):
+        graph_loop.release(getattr(self, "_execs", {}))
+
+    def run(self, owner: GraphSteps, kind: int, key, *, limit: int, flags=None,
+            invert: bool = False, step=None, watch=None, budget=None, feed=None):
+        owner.check_params()
+        read = kind != graph_loop.BLOCK  # a block runs a fixed count and reads nothing
+        fn = functools.partial(owner._step_at, key)
+        rows = None
+        if watch is not None:  # the watch and budget rows, int32 on the host
+            rows = np.stack([np.asarray(watch, bool),
+                             np.clip(np.asarray(budget, np.int64), -(1 << 30), 1 << 30)]
+                            ).astype(np.int32)
+
+        def holds(i: int) -> bool:  # the condition's plain version, on the host
+            return graph_loop.loop_cond_plain(
+                kind, i, limit, flags=None if flags is None else flags.cpu(), invert=invert,
+                step=None if step is None else step.cpu(),
+                watch=None if rows is None else torch.from_numpy(rows[0]).bool(),
+                budget=None if rows is None else torch.from_numpy(rows[1]))
+
+        def fed(i: int) -> None:
+            if feed is not None:
+                feed[1].copy_(feed[0][:, i])
+
+        i = 0
+        if not owner.graphs:  # JAX's while_loop, eagerly
+            while holds(i):
+                fed(i)
+                fn()
+                i += 1
+            return i, (flags.cpu().numpy() if read and flags is not None else None)
+        if key not in owner._captured:  # the key's first step: eager, then captured
+            if not holds(0):
+                return 0, flags.cpu().numpy() if read and flags is not None else None
+            fed(0)
+            fn()
+            i = 1
+        ex = self._exec(owner, kind, key, dict(flags=flags, invert=invert, step=step,
+                                               rows=rows is not None), feed)
+        host = np.zeros(graph_loop.CTRL_WORDS, np.int32)
+        host[graph_loop.I], host[graph_loop.LIMIT] = i, limit
+        self.ctrl.copy_(host_tensor(host, self.device), non_blocking=True)
+        if rows is not None:
+            self._rows.copy_(host_tensor(rows, self.device), non_blocking=True)
+        graph_loop.launch(ex, self.device)
+        self.launches += 1
+        if not read:  # a fixed count (BLOCK): i + (limit - i) steps
+            done = max(limit, i)
+        else:
+            back = torch.empty(graph_loop.CTRL_WORDS, dtype=torch.int32, pin_memory=True)
+            back.copy_(self.ctrl, non_blocking=True)
+            fl = None
+            if flags is not None:
+                fl = torch.empty(flags.shape, dtype=flags.dtype, pin_memory=True)
+                fl.copy_(flags, non_blocking=True)
+            ev = torch.cuda.Event()
+            ev.record()
+            ev.synchronize()
+            done = int(back[graph_loop.I])
+        n = done - i
+        launches.add_replay(owner._captured[key][1], times=n)
+        launches.add_replay({"loop_cond": n + 1, "feed": n if feed is not None else 0})
+        if not read:
+            return done, None
+        return done, (fl.numpy().copy() if fl is not None else None)
+
+    def _exec(self, owner: GraphSteps, kind: int, key, cond: dict, feed):
+        ex = self._execs.get((kind, key))
+        if ex is not None:
+            return ex
+        flags = cond["flags"]
+        if cond["rows"] and self._rows is None:
+            self._rows = torch.zeros((2, flags.shape[0]), dtype=torch.int32, device=self.device)
+        args = graph_loop.cond_args(
+            kind, self.ctrl, flags=flags, invert=cond["invert"], step=cond["step"],
+            watch=self._rows[0] if cond["rows"] else None,
+            budget=self._rows[1] if cond["rows"] else None)
+        graph, captured = owner._captured[key]
+        try:
+            ex = graph_loop.build_loop(graph.raw_cuda_graph(), args,
+                                       *(feed if feed is not None else (None, None)))
+        except RuntimeError as e:  # named, then raised: no loop runs without its graph
+            nccl = captured.get("nccl", 0)
+            raise RuntimeError(
+                f"{type(owner).__name__}: the loop graph of kind {kind} over the step "
+                f"graph at {key}" + (f", which holds {nccl} collectives (mesh=)" if nccl else "")
+                + f", was refused: {e}") from e
+        self._execs[kind, key] = ex
+        return ex
 
 
 def copy_rt_fields_(dst: RealtimeState, src: RealtimeState) -> None:
@@ -370,20 +564,18 @@ class PrefillGraphs:
     mask buffers, through CUDA graphs when ``steps`` replays them; the
     graphs share ``steps``' capture stream and memory pool (see the module
     docstring). A subclass says what one prefill does (``_eager``) and
-    which keys its calls take; ``generators`` are the state's, registered
-    with every graph. ``max_graphs`` keeps that many keys, the least
+    which keys its calls take. ``max_graphs`` keeps that many keys, the least
     recently used dropped first (None keeps every key). ``capture_on_use``
     False captures only through ``capture()``: a key not captured ahead
     runs eagerly at every use (a server, which must not stall its slots for
     a capture mid-serve), on the caller's stream; ``capture()`` then warms
     the key up on the capture stream itself."""
 
-    def __init__(self, steps: GraphSteps, state, generators, B: int, C: int, device, *,
+    def __init__(self, steps: GraphSteps, state, B: int, C: int, device, *,
                  max_graphs: Optional[int] = None, capture_on_use: bool = True):
         self.steps, self.state = steps, state
         self.max_graphs = max_graphs
         self.capture_on_use = capture_on_use
-        self._generators = generators
         self._shape = (B, C, device)
         self._prompts: "OrderedDict[tuple, _Prompt]" = OrderedDict()
         # runs of run(): eager (a key's first use, or graphs off), capture (the
@@ -444,7 +636,7 @@ class PrefillGraphs:
 
     def _capture(self, key, prompt: _Prompt) -> None:
         prompt.graph, prompt.launches = self.steps.capture(
-            lambda: self._eager(key, prompt), self._generators)
+            lambda: self._eager(key, prompt))
 
     def _eager(self, key, prompt: _Prompt) -> None:
         raise NotImplementedError
@@ -458,7 +650,7 @@ class Prefills(PrefillGraphs):
 
     def __init__(self, steps: DecodeSteps, state: DelayGenState, sampling: DelaySampling,
                  *, max_graphs: Optional[int] = None):
-        super().__init__(steps, state, state.rng, state.pos.shape[0], state.cur_ids.shape[-1],
+        super().__init__(steps, state, state.pos.shape[0], state.cur_ids.shape[-1],
                          state.pos.device, max_graphs=max_graphs)
         self.sampling = sampling
 
@@ -510,7 +702,7 @@ class RealtimePrefills(PrefillGraphs):
                  capture_on_use: bool = True):
         if state.cur_len.ndim != 0:
             raise ValueError("a Realtime prefill program runs on a scalar-cursor state")
-        super().__init__(steps, state, state.rng, state.is_stopping.shape[0],
+        super().__init__(steps, state, state.is_stopping.shape[0],
                          state.last_audio.shape[1] + 1, state.is_stopping.device,
                          max_graphs=max_graphs, capture_on_use=capture_on_use)
         self.sampling = sampling
@@ -553,7 +745,7 @@ class LocalPrefills(PrefillGraphs):
                  max_graphs: Optional[int] = None, capture_on_use: bool = True):
         if state.pos.ndim != 0:
             raise ValueError("a Local prefill program runs on a scalar-cursor state")
-        super().__init__(steps, state, state.rng, state.unfinished.shape[0],
+        super().__init__(steps, state, state.unfinished.shape[0],
                          state.cur_ids.shape[-1], state.unfinished.device,
                          max_graphs=max_graphs, capture_on_use=capture_on_use)
 

@@ -19,8 +19,7 @@ embedding is split by vocab rows (a masked lookup), the audio tables by
 codebooks; this rank's part of the embedding sum is summed over the
 ``"model"`` axis once. The text head is split by vocab columns and the
 audio heads by codebooks: each ends in an ``all_gather`` to the full
-logits, so every rank samples the same tokens from identically seeded
-generators. Under data parallelism the loss sums and label counts are
+logits, so every rank samples the same tokens from the same keys. Under data parallelism the loss sums and label counts are
 summed over ``"data"`` before the division (the loss is normalised by the
 global count of valid labels, as JAX's is).
 
@@ -33,7 +32,7 @@ buffer are dropped, as JAX's ``mode="drop"`` does, by masking. The cache,
 from __future__ import annotations
 
 import dataclasses
-from typing import Any, Callable, List, NamedTuple, Optional, Sequence, Tuple
+from typing import Any, NamedTuple, Optional, Sequence, Tuple
 
 import numpy as np
 import torch
@@ -43,7 +42,7 @@ from ..core.config import DelayConfig
 from ..nn.qwen3 import (Qwen3Params, empty_param, fill_qwen3_params_, init_kv_cache,
                         init_quant_kv_cache, qwen3_forward, rank_config)
 from ..ops.basic import dense, put_drop_
-from ..ops.kernels import w8_gemm
+from ..ops.kernels import threefry, w8_gemm
 from ..ops.quant import is_quantized
 from ..ops.sampling import (
     align_rows,
@@ -51,6 +50,7 @@ from ..ops.sampling import (
     find_last_equal,
     sample_topk_topp,
     seen_mask_update,
+    split_keys,
 )
 from ..ops.collectives import axis_of, enter, gather, reduce, vocab_lookup
 
@@ -268,14 +268,14 @@ def make_sampling(
 
 class DelayGenState(NamedTuple):
     """Ports ``mosstts_tpu.models.delay.DelayGenState``; ``rng`` holds one
-    ``torch.Generator`` per row."""
+    threefry key per row, (B, 2) int64 (``ops.sampling``)."""
 
     cache: Any  # KVCache | QuantKVCache | PagedKVCache | QuantPagedKVCache
     kv_valid: torch.Tensor  # (B, S) bool
     cur_ids: torch.Tensor  # (B, 1, C) token to feed next forward
     pos: torch.Tensor  # (B,) int32 cache slot where cur_ids will be written
     step: torch.Tensor  # (B,) int32 per-row decode step counter
-    rng: List[torch.Generator]
+    rng: torch.Tensor  # (B, 2) int64 per-row threefry keys
     is_stopping: torch.Tensor  # (B,) bool
     is_audio: torch.Tensor  # (B,) bool
     audio_lengths: torch.Tensor  # (B,) int32
@@ -301,7 +301,7 @@ def delay_prefill(
     *,
     max_new_tokens: int,
     cache_len: int,
-    rng: List[torch.Generator],
+    rng: torch.Tensor,
     sampling: DelaySampling,
     top_k_text: int = 50,
     top_k_audio: int = 25,
@@ -313,15 +313,18 @@ def delay_prefill(
     """Ports ``mosstts_tpu.models.delay.delay_prefill``: run the prompt into
     a fresh linear cache (int8 with per-slot scales when ``kv_quant``; the
     prompt then attends its own k/v and only the cache write is quantized),
-    then sample the first frame from its last position. ``rng`` is one
-    generator per row. ``cache``, a linear cache of that kind with
+    then sample the first frame from its last position. ``rng`` is one key
+    (2,), split into one per row as JAX does, or (B, 2) per-row keys.
+    ``cache``, a linear cache of that kind with
     ``cache_len`` slots, is zeroed and written in place instead of a new
     one (the engine's static decode state)."""
     B, T, C = input_ids.shape
     n_vq, Va = cfg.n_vq, cfg.audio_emb_vocab
     dev = input_ids.device
-    if len(rng) != B:
-        raise ValueError(f"need one generator per row: {len(rng)} for batch {B}")
+    if rng.ndim == 1:  # one key: a row each (JAX's split(rng, B))
+        rng = threefry.split(rng[None].to(dev), B)[0]
+    elif rng.shape[0] != B:
+        raise ValueError(f"need one key per row: {rng.shape[0]} for batch {B}")
 
     if cache is None:
         lc = rank_delay_config(cfg, params).language_config  # this rank's KV heads
@@ -365,7 +368,7 @@ def delay_prefill(
         cur_ids=torch.zeros((B, 1, C), dtype=input_ids.dtype, device=dev),
         pos=torch.full((B,), T, dtype=torch.int32, device=dev),
         step=torch.zeros((B,), dtype=torch.int32, device=dev),
-        rng=list(rng),
+        rng=rng,
         is_stopping=torch.zeros((B,), dtype=torch.bool, device=dev),
         is_audio=audio_start_mask,
         audio_lengths=audio_lengths,
@@ -392,7 +395,7 @@ def _text_preds(state: DelayGenState, cfg: DelayConfig):
     return not_stop, forced_delay, forced_end, sampling_text, is_audio, first_step, early
 
 
-def _sample_text_full(gens, cfg: DelayConfig, s: DelaySampling, top_k_text: int,
+def _sample_text_full(keys, cfg: DelayConfig, s: DelaySampling, top_k_text: int,
                       text_logits: torch.Tensor,  # (B, V), temperature-scaled
                       is_audio, first_step, early) -> torch.Tensor:
     """Ports ``mosstts_tpu.models.delay._sample_text_full``: masked
@@ -410,11 +413,11 @@ def _sample_text_full(gens, cfg: DelayConfig, s: DelaySampling, top_k_text: int,
             | (first_step[:, None] & (vocab == cfg.audio_assistant_delay_slot_token_id)[None])
             | (early[:, None] & (vocab == cfg.im_end_token_id)[None]))
     text_logits = torch.where(mask, NEG_INF, text_logits)
-    return sample_topk_topp(gens, text_logits, top_k=top_k_text, top_p=s.text_top_p,
+    return sample_topk_topp(keys, text_logits, top_k=top_k_text, top_p=s.text_top_p,
                             do_sample=s.text_do_sample)
 
 
-def _sample_text_lazy(gens, cfg: DelayConfig, s: DelaySampling, top_k_text: int,
+def _sample_text_lazy(keys, cfg: DelayConfig, s: DelaySampling, top_k_text: int,
                       hidden: torch.Tensor,  # (B, D) the text head's source hidden
                       text_head, sampling_text, is_audio, first_step, early) -> torch.Tensor:
     """Ports ``mosstts_tpu.models.delay._sample_text_lazy``: the text
@@ -431,7 +434,7 @@ def _sample_text_lazy(gens, cfg: DelayConfig, s: DelaySampling, top_k_text: int,
                          "run these steps eagerly")
     if bool((sampling_text & ~is_audio).any()):
         logits = dense(hidden, text_head).float() / align_rows(s.text_temperature, 2)
-        return _sample_text_full(gens, cfg, s, top_k_text, logits, is_audio, first_step, early)
+        return _sample_text_full(keys, cfg, s, top_k_text, logits, is_audio, first_step, early)
     ids2 = sorted((cfg.audio_assistant_gen_slot_token_id,
                    cfg.audio_assistant_delay_slot_token_id))
     delay_col = ids2.index(cfg.audio_assistant_delay_slot_token_id)
@@ -445,7 +448,7 @@ def _sample_text_lazy(gens, cfg: DelayConfig, s: DelaySampling, top_k_text: int,
     logits2 = logits2.to(hidden.dtype).float() / align_rows(s.text_temperature, 2)
     logits2 = torch.where(first_step[:, None] & (torch.arange(2, device=hidden.device)
                                                  == delay_col)[None], NEG_INF, logits2)
-    choice = sample_topk_topp(gens, logits2, top_k=2, top_p=s.text_top_p,
+    choice = sample_topk_topp(keys, logits2, top_k=2, top_p=s.text_top_p,
                               do_sample=s.text_do_sample)
     return cols[choice.long()].to(torch.int32)
 
@@ -465,17 +468,19 @@ def _delay_sample_and_update(
     n_vq = cfg.n_vq
     dev = text_logits.device
 
+    # each row's key splits into its next key and the two draws' keys
+    rng, k_text, k_audio = split_keys(state.rng, 3)
     audio_logits = audio_logits / align_rows(s.audio_temperature, 3)
 
     # ---- text channel ----
     (not_stop, forced_delay, forced_end, sampling_text, is_audio,
      first_step, early) = _text_preds(state, cfg)
     if text_head is not None:
-        sampled_text = _sample_text_lazy(state.rng, cfg, s, top_k_text, text_logits, text_head,
+        sampled_text = _sample_text_lazy(k_text, cfg, s, top_k_text, text_logits, text_head,
                                          sampling_text, is_audio, first_step, early)
     else:
         sampled_text = _sample_text_full(
-            state.rng, cfg, s, top_k_text, text_logits / align_rows(s.text_temperature, 2),
+            k_text, cfg, s, top_k_text, text_logits / align_rows(s.text_temperature, 2),
             is_audio, first_step, early)
     next_text = torch.full((B,), cfg.pad_token_id, dtype=torch.int32, device=dev)
     next_text = torch.where(sampling_text, sampled_text, next_text)
@@ -495,7 +500,7 @@ def _delay_sample_and_update(
                           state.seen)
     audio_logits = apply_repetition_penalty_seen(audio_logits, rp_seen,
                                                  s.audio_repetition_penalty)
-    sampled_audio = sample_topk_topp(state.rng, audio_logits, top_k=top_k_audio,
+    sampled_audio = sample_topk_topp(k_audio, audio_logits, top_k=top_k_audio,
                                      top_p=s.audio_top_p, do_sample=s.audio_do_sample)
     next_audio = torch.where(sampling_audio, sampled_audio, cfg.audio_pad_code).to(torch.int32)
 
@@ -523,6 +528,7 @@ def _delay_sample_and_update(
     return state._replace(
         cur_ids=frame[:, None, :].to(state.cur_ids.dtype),
         step=state.step + 1,
+        rng=rng,
         is_stopping=is_stopping,
         is_audio=is_audio,
         audio_lengths=audio_lengths.to(torch.int32),
@@ -556,50 +562,6 @@ def delay_decode_step(
     return _delay_sample_and_update(state, cfg, sampling, top_k_text, top_k_audio,
                                     text_logits[:, -1], audio_logits[:, -1],
                                     text_head=params.text_head if text_lazy else None)
-
-
-def _lagged_steps(step: Callable[[], None], flags: torch.Tensor, n: int,
-                  stop: Callable[[torch.Tensor], bool],
-                  lag: Optional[int] = None) -> Tuple[int, Optional[int]]:
-    """Up to ``n`` calls of ``step`` (one decode step or frame of a static
-    state, in place) until ``stop``, given a copy on the host of ``flags``
-    (that state's stop flags, written in place by ``step``), holds for a
-    state. Returns ``(executed, at)``: the steps run and the number of steps
-    after which ``stop`` first held (None if it did not within ``n``).
-
-    On the CPU the flags are read before the first step and after each one
-    (JAX's ``lax.while_loop`` condition), so ``executed == at`` when the
-    loop stops. On the card every step is a graph replay, and each state's
-    flags (the entry state's too) are copied to pinned host memory behind
-    it, with an event, and read after the next replay has been enqueued, so
-    the device never waits for the host: the loop runs one step past the
-    state at which ``stop`` first held (``executed == at + 1``) unless that
-    state is the last, and never past ``n``. ``lag`` (1 on the card, 0 on
-    the CPU by default) lets a CPU test run the card's schedule."""
-    cuda = flags.device.type == "cuda"
-    lag = (1 if cuda else 0) if lag is None else lag
-    host = torch.empty((n + 1,) + flags.shape, dtype=torch.bool, pin_memory=cuda)
-    events = []
-
-    def snap(i):
-        host[i].copy_(flags, non_blocking=cuda)
-        if cuda:
-            events.append(torch.cuda.Event())
-            events[-1].record()
-
-    snap(0)
-    for i in range(n + 1):  # i steps have run
-        j = i - lag  # the state whose flags are read now
-        if j >= 0:
-            if cuda:
-                events[j].synchronize()
-            if stop(host[j]):
-                return i, j
-        if i == n:
-            break
-        step()
-        snap(i + 1)
-    return n, None
 
 
 def ce_sums(logits: torch.Tensor, labels: torch.Tensor):
@@ -672,58 +634,42 @@ def delay_decode_until_event(
     steps, watch, budget_left, max_steps: int, *, top_k_text: int = 50,
     top_k_audio: int = 25, attend_len: Optional[int] = None, uniform_slots: bool = False,
     hidden_out_layers: Optional[Sequence[int]] = None,
-) -> Tuple[DelayGenState, int]:
+) -> Tuple[DelayGenState, int, np.ndarray]:
     """Ports ``mosstts_tpu.models.delay.delay_decode_until_event``: decode
     until a scheduling event, a watched row that stopped (EOS) or used up
     its budget, or ``max_steps`` steps. ``steps`` is an
     ``engine.step_graph.DecodeSteps`` whose state advances in place;
     ``watch`` (B,) bool and ``budget_left`` (B,) int are host arrays.
-    Returns ``(state, executed)``, the steps actually run, which the
-    caller's host mirrors of ``pos`` and ``step`` advance by.
+    Returns ``(state, executed, flags)``: the steps run (JAX's loop
+    counter), which the caller's host mirrors of ``pos`` and ``step``
+    advance by, and the stop flags after them on the host.
 
-    The host knows the budget and step caps exactly, so the loop runs at
-    most ``min(max_steps, budget_left[watch])`` steps and never passes
-    them. Only a watched row's stop flag is read from the device: on the
-    CPU after every step, so state and count equal JAX's ``lax.while_loop``;
-    on the card one replay late (``_lagged_steps``), so a stop is seen one
-    step after it (the count says so), as JAX's own ``run()`` overshoots
-    with its poll windows."""
-    watch = np.asarray(watch, bool)
-    budget_left = np.asarray(budget_left, np.int64)
-    n = int(min([max_steps] + list(budget_left[watch])))
-    watched = torch.from_numpy(watch)
-    kw = dict(top_k_text=top_k_text, top_k_audio=top_k_audio, attend_len=attend_len,
-              uniform_slots=uniform_slots, hidden_out_layers=hidden_out_layers)
-    executed, _ = _lagged_steps(lambda: steps.step(**kw), steps.flags, max(n, 0),
-                                lambda f: bool((f & watched).any()))
-    return steps.state, executed
+    The condition ``i < max_steps & ~any(watch & (is_stopping | i >=
+    budget_left))`` is JAX's ``while_loop`` condition, read after every
+    step: on the CPU by the host after each eager step, on the card by a
+    condition kernel inside one graph launch (``step_graph.DeviceLoop``),
+    so the loop stops after the very step at which the event holds."""
+    kw = dict(attend_len=attend_len, uniform_slots=uniform_slots, top_k_text=top_k_text,
+              top_k_audio=top_k_audio, hidden_out_layers=hidden_out_layers)
+    executed, flags = steps.loop_event(np.asarray(watch, bool), np.asarray(budget_left, np.int64),
+                                       max(int(max_steps), 0), **kw)
+    return steps.state, executed, flags
 
 
 def delay_generate_on_device(
     steps, *, max_new_tokens: int, top_k_text: int = 50, top_k_audio: int = 25,
     attend_len: Optional[int] = None, uniform_slots: bool = False,
     hidden_out_layers: Optional[Sequence[int]] = None,
-) -> Tuple[DelayGenState, int]:
+) -> Tuple[DelayGenState, int, np.ndarray]:
     """Ports ``mosstts_tpu.models.delay.delay_generate_on_device``: decode
-    until ``min(step) >= max_new_tokens`` or every row stops. ``steps`` is
-    an ``engine.step_graph.DecodeSteps``: the parameters, config, sampling
-    and the state, which advances in place, are its own. Returns
-    ``(state, n)``, ``n`` being the largest row step count when the
-    condition first held (what the JAX engine reads back,
-    ``int(state.step.max())``).
-
-    The steps run through ``_lagged_steps``: on the CPU the condition is
-    checked after every (eager) step, so the state is the one JAX's
-    ``lax.while_loop`` returns; on the card the stop flags are read one
-    replay late, so the loop may run one step past the first step at which
-    every row had stopped. ``n`` is that first step's count, and the frames
-    past it are not part of the result; the one extra step writes only at
-    ``n`` and beyond."""
-    state = steps.state
-    kw = dict(top_k_text=top_k_text, top_k_audio=top_k_audio, attend_len=attend_len,
-              uniform_slots=uniform_slots, hidden_out_layers=hidden_out_layers)
-    lo, hi = int(state.step.min()), int(state.step.max())
-    n = 0 if bool(steps.flags.all()) else max(0, max_new_tokens - lo)
-    executed, at = _lagged_steps(lambda: steps.step(**kw), steps.flags, n,
-                                 lambda f: bool(f.all()))
-    return state, hi + (executed if at is None else at)
+    while ``min(step) < max_new_tokens`` and some row has not stopped, JAX's
+    ``lax.while_loop``, the condition read after every step (on the card by
+    a condition kernel inside one graph launch). ``steps`` is an
+    ``engine.step_graph.DecodeSteps``: the parameters, config, sampling and
+    the state, which advances in place, are its own. Returns ``(state,
+    executed, flags)``: the steps run and the stop flags after them on the
+    host."""
+    kw = dict(attend_len=attend_len, uniform_slots=uniform_slots, top_k_text=top_k_text,
+              top_k_audio=top_k_audio, hidden_out_layers=hidden_out_layers)
+    executed, flags = steps.loop_generate(int(max_new_tokens), **kw)
+    return steps.state, executed, flags

@@ -25,7 +25,10 @@ through the W8A16 kernel. On the card the backbone step and every depth
 step go through the decode-attention kernel, a prefill through flash
 attention, and int8 weights through W8A16.
 
-The state holds one ``torch.Generator`` per row where JAX splits one key.
+The state holds one threefry key per row, (B, 2) int64, where JAX holds
+one key for the batch; each frame splits a row's key as JAX splits its one
+(``rng, rng_depth = split(rng)``, then ``split(rng_depth, C_run)`` for
+the channels), so a batch of one draws JAX's bits.
 The cache, ``kv_valid``, ``seen_text``, ``seen_audio``, ``out`` and
 ``depth`` are written in place; ``cur_ids``, ``pos``, ``step`` and
 ``unfinished`` come back as new tensors, as in JAX. A scalar ``pos`` and
@@ -33,7 +36,7 @@ The cache, ``kv_valid``, ``seen_text``, ``seen_audio``, ``out`` and
 """
 from __future__ import annotations
 
-from typing import Any, List, NamedTuple, Optional
+from typing import Any, NamedTuple, Optional
 
 import torch
 from torch import nn
@@ -43,8 +46,9 @@ from ..nn.qwen3 import (KVCache, Qwen3Params, empty_param, fill_qwen3_params_, i
                         qwen3_forward)
 from ..ops.basic import dense, head_logits, rms_norm, swiglu
 from ..ops.quant import take_weight
+from ..ops.kernels import threefry
 from ..ops.sampling import (NEG_INF, _categorical, apply_repetition_penalty_seen,
-                            window_seen_mask)
+                            split_keys, window_seen_mask)
 from ..ops.collectives import axis_of, reduce, whole_view
 from .delay import ce_sums
 
@@ -242,7 +246,7 @@ def make_local_sampling(layers, do_samples, channels: int, *, device=None) -> Lo
                      for i in range(channels)], torch.bool))
 
 
-def _sample_channel(gens, logits: torch.Tensor, temp, top_p, top_k, do_sample) -> torch.Tensor:
+def _sample_channel(keys, logits: torch.Tensor, temp, top_p, top_k, do_sample) -> torch.Tensor:
     """Ports ``mosstts_tpu.models.local._sample_channel``: the HF warper
     order (CustomMixin :356-374), temperature, then top-k as a rank mask
     inside the static ``TOPK_WIDTH`` subset (so ``top_k = 0`` samples within
@@ -259,14 +263,14 @@ def _sample_channel(gens, logits: torch.Tensor, temp, top_p, top_k, do_sample) -
     probs = torch.softmax(vals.float(), dim=-1)
     cum = torch.cumsum(probs, dim=-1)
     vals = torch.where((cum - probs) < top_p, vals, NEG_INF)
-    choice = _categorical(gens, vals.float())
+    choice = _categorical(keys, vals.float())
     sampled = torch.gather(idx, -1, choice[:, None])[:, 0].to(torch.int32)
     return torch.where(do_sample, sampled, greedy)
 
 
 class LocalGenState(NamedTuple):
     """Ports ``mosstts_tpu.models.local.LocalGenState``; ``rng`` one
-    ``torch.Generator`` per row, and ``depth`` the depth transformer's
+    threefry key per row, and ``depth`` the depth transformer's
     cache of ``channels`` slots (JAX makes it anew in every frame)."""
 
     cache: Any  # KVCache (L, B, KV, S, hd)
@@ -274,7 +278,7 @@ class LocalGenState(NamedTuple):
     cur_ids: torch.Tensor  # (B, 1, C)
     pos: torch.Tensor  # int32: 0-dim, or (B,) per row
     step: torch.Tensor  # int32: 0-dim, or (B,) per row
-    rng: List[torch.Generator]
+    rng: torch.Tensor  # (B, 2) int64 per-row threefry keys
     unfinished: torch.Tensor  # (B,) bool
     seen_text: torch.Tensor  # (B, V) rep-penalty bitmask, text channel
     seen_audio: torch.Tensor  # (B, n_vq, Va)
@@ -289,7 +293,7 @@ def _mark_seen_(seen: torch.Tensor, tokens: torch.Tensor, active: torch.Tensor) 
     seen.scatter_(-1, idx, seen.gather(-1, idx) | active.unsqueeze(-1))
 
 
-def _depth_decode(params: LocalParams, cfg: LocalConfig, gens, g: torch.Tensor,
+def _depth_decode(params: LocalParams, cfg: LocalConfig, keys: torch.Tensor, g: torch.Tensor,
                   sampling: LocalSampling, seen_text, seen_audio: torch.Tensor,
                   n_vq_infer: int, *, cache: Optional[KVCache] = None):
     """Ports ``mosstts_tpu.models.local._depth_decode``: one frame's depth
@@ -321,11 +325,12 @@ def _depth_decode(params: LocalParams, cfg: LocalConfig, gens, g: torch.Tensor,
             use_rope=False, attend_len=C_run)
         return h[:, 0]
 
+    rngs = threefry.split(keys, C_run)  # (B, C_run, 2)
     h0 = depth_step(_mlp(params.mlp_in, g), 0)
     y0 = rms_norm(_mlp(params.mlp_out_text, h0), params.ln_text, eps)
     logits0 = dense(y0, params.text_head).float()
     s = sampling
-    tok0 = _sample_channel(gens, logits0, s.temperature[0], s.top_p[0], s.top_k[0],
+    tok0 = _sample_channel(rngs[:, 0], logits0, s.temperature[0], s.top_p[0], s.top_k[0],
                            s.do_sample[0])
     x = _mlp(params.mlp_in, params.text_emb[tok0.long()])
 
@@ -340,7 +345,7 @@ def _depth_decode(params: LocalParams, cfg: LocalConfig, gens, g: torch.Tensor,
         # (reference CustomMixin :361-363 skips when do_samples[i] is False)
         rp = torch.where(do_s, s.repetition_penalty[k], 1.0)
         logits = apply_repetition_penalty_seen(logits, seen_audio[:, k - 1], rp)
-        tok = _sample_channel(gens, logits, s.temperature[k], s.top_p[k], s.top_k[k], do_s)
+        tok = _sample_channel(rngs[:, k], logits, s.temperature[k], s.top_p[k], s.top_k[k], do_s)
         toks.append(tok)
         if k + 1 < C_run:  # the next depth step embeds this token
             x = _mlp(params.mlp_in, params.audio_emb[k - 1][tok.long()])
@@ -368,7 +373,8 @@ def local_frame_step(params: LocalParams, cfg: LocalConfig, state: LocalGenState
         params.backbone, cfg.language_config, embeds, positions=positions,
         kv_valid=state.kv_valid, cache=state.cache, cache_offset=state.pos,
         attend_len=attend_len)
-    tok0, audio = _depth_decode(params, cfg, state.rng, hidden[:, -1], sampling,
+    rng, rng_depth = split_keys(state.rng, 2)
+    tok0, audio = _depth_decode(params, cfg, rng_depth, hidden[:, -1], sampling,
                                 state.seen_text, state.seen_audio, n_vq_infer,
                                 cache=state.depth)
     was = state.unfinished
@@ -399,12 +405,12 @@ def local_frame_step(params: LocalParams, cfg: LocalConfig, state: LocalGenState
                                    | (state.pos + 1 < S))
         pos_next, step_next = state.pos + 1, state.step + 1
     return state._replace(cur_ids=frame[:, None, :].to(state.cur_ids.dtype), pos=pos_next,
-                          step=step_next, unfinished=unfinished)
+                          step=step_next, unfinished=unfinished, rng=rng)
 
 
 def local_prefill_split(params: LocalParams, cfg: LocalConfig, input_ids: torch.Tensor,
                         attention_mask: torch.Tensor, *, max_new_tokens: int, cache_len: int,
-                        rng: List[torch.Generator], n_vq_infer: int, dtype=torch.bfloat16,
+                        rng: torch.Tensor, n_vq_infer: int, dtype=torch.bfloat16,
                         cache: Optional[KVCache] = None,
                         depth: Optional[KVCache] = None) -> LocalGenState:
     """Ports ``mosstts_tpu.models.local.local_prefill_split``: prefill all
@@ -412,14 +418,14 @@ def local_prefill_split(params: LocalParams, cfg: LocalConfig, input_ids: torch.
     frame step produces the first frame. The repetition-penalty masks come
     from the prompt. ``cache`` (a linear cache of ``cache_len`` slots or
     more) is written in place instead of a new one, and ``depth`` (a depth
-    cache) carried into the state. ``rng`` one generator per row (a prefill
-    draws nothing)."""
+    cache) carried into the state. ``rng`` (B, 2), one key per row (a
+    prefill draws nothing)."""
     B, T, C = input_ids.shape
     dev = input_ids.device
     lc = cfg.language_config
     Va = cfg.audio_emb_vocab
-    if len(rng) != B:
-        raise ValueError(f"need one generator per row: {len(rng)} for batch {B}")
+    if tuple(rng.shape) != (B, 2):
+        raise ValueError(f"need one key per row: {tuple(rng.shape)} for batch {B}")
     if cache is None:
         cache = init_kv_cache(lc, B, cache_len, dtype=dtype, device=dev)
     kv_valid = torch.zeros((B, cache_len), dtype=torch.bool, device=dev)
@@ -435,7 +441,7 @@ def local_prefill_split(params: LocalParams, cfg: LocalConfig, input_ids: torch.
     return LocalGenState(
         cache=cache, kv_valid=kv_valid, cur_ids=input_ids[:, T - 1:T, :],
         pos=torch.full((), T - 1, dtype=torch.int32, device=dev),
-        step=torch.zeros((), dtype=torch.int32, device=dev), rng=list(rng),
+        step=torch.zeros((), dtype=torch.int32, device=dev), rng=rng,
         unfinished=torch.ones((B,), dtype=torch.bool, device=dev),
         seen_text=seen_text.contiguous(), seen_audio=seen_audio.contiguous(),
         out=torch.zeros((B, max_new_tokens, C), dtype=torch.int32, device=dev),
@@ -444,14 +450,14 @@ def local_prefill_split(params: LocalParams, cfg: LocalConfig, input_ids: torch.
 
 
 def init_local_state(cfg: LocalConfig, batch: int, cache_len: int, out_len: int,
-                     rng: List[torch.Generator], *, per_row: bool = False,
+                     rng: torch.Tensor, *, per_row: bool = False,
                      dtype=torch.bfloat16, device=None) -> LocalGenState:
     """A zeroed state of ``batch`` rows: a linear backbone cache of
     ``cache_len`` slots, ``out_len`` frames of output, every row finished
     (idle); a scalar cursor, or (B,) cursors with ``per_row`` (the JAX
     server's ``_empty_state``, ``local_batch_server.py:111``)."""
-    if len(rng) != batch:
-        raise ValueError(f"need one generator per row: {len(rng)} for batch {batch}")
+    if tuple(rng.shape) != (batch, 2):
+        raise ValueError(f"need one key per row: {tuple(rng.shape)} for batch {batch}")
     lc = cfg.language_config
 
     def zeros(shape, dt):
@@ -462,7 +468,8 @@ def init_local_state(cfg: LocalConfig, batch: int, cache_len: int, out_len: int,
         cache=init_kv_cache(lc, batch, cache_len, dtype=dtype, device=device),
         kv_valid=zeros((batch, cache_len), torch.bool),
         cur_ids=zeros((batch, 1, cfg.channels), torch.int64),
-        pos=zeros(cursor, torch.int32), step=zeros(cursor, torch.int32), rng=list(rng),
+        pos=zeros(cursor, torch.int32), step=zeros(cursor, torch.int32),
+        rng=rng.to(device=device, dtype=torch.int64).clone(),
         unfinished=zeros((batch,), torch.bool),
         seen_text=zeros((batch, lc.vocab_size), torch.bool),
         seen_audio=zeros((batch, cfg.n_vq, cfg.audio_emb_vocab), torch.bool),

@@ -19,15 +19,18 @@ through the decode-attention kernel, a prefill through flash attention, and
 int8 weights through the W8A16 kernel; int8 local heads run one head's
 (D, Va) slice per depth step, so only that slice's bytes are read.
 
-The state holds one ``torch.Generator`` per row where JAX holds one key
-(``ops/sampling.py``). ``kv_valid`` and ``history`` are written in place;
+The state holds one threefry key per row, (B, 2) int64, where JAX holds
+one key for the batch; each frame splits a row's key as JAX splits its one
+(``rng, rng_f = split(rng)``, then ``split(rng_f, rvq)`` for the depth
+steps), so a row's draws depend on its own key only and a batch of one
+draws JAX's bits. ``kv_valid`` and ``history`` are written in place;
 the other fields a step changes come back as new tensors, as in JAX. A
 scalar ``cur_len``/``hist_len`` is a 0-dim device tensor, so a step needs
 no host value and a CUDA graph can capture it.
 """
 from __future__ import annotations
 
-from typing import Any, List, NamedTuple, Optional, Tuple
+from typing import Any, NamedTuple, Optional, Tuple
 
 import torch
 from torch import nn
@@ -35,8 +38,9 @@ from torch import nn
 from ..core.config import Qwen3Config, RealtimeConfig, RealtimeLocalConfig
 from ..nn.qwen3 import Qwen3Params, empty_param, fill_qwen3_params_, init_kv_cache, qwen3_forward
 from ..ops.basic import head_logits
+from ..ops.kernels import threefry
 from ..ops.sampling import (_categorical, align_rows, apply_repetition_penalty_seen,
-                            topk_topp_filter, window_seen_mask)
+                            split_keys, topk_topp_filter, window_seen_mask)
 from ..ops.collectives import axis_of, reduce
 from .delay import ce_sums
 
@@ -181,7 +185,7 @@ def make_rt_sampling(temperature=0.8, top_p=0.6, repetition_penalty=1.1, do_samp
         use_penalty=rp != 1.0)
 
 
-def _rt_sample(gens, logits: torch.Tensor, s: RealtimeSampling, top_k: int) -> torch.Tensor:
+def _rt_sample(keys, logits: torch.Tensor, s: RealtimeSampling, top_k: int) -> torch.Tensor:
     """Ports ``mosstts_tpu.models.realtime._rt_sample``: the reference order
     (streaming:338-356), the penalty on the raw logits (done by the
     caller), then temperature, top-k, top-p (``cum - probs < p``) and the
@@ -191,7 +195,7 @@ def _rt_sample(gens, logits: torch.Tensor, s: RealtimeSampling, top_k: int) -> t
     V = logits.shape[-1]
     k = min(top_k, V) if top_k and top_k > 0 else V
     vals, idx = topk_topp_filter(scaled, k, s.top_p)
-    choice = _categorical(gens, vals)
+    choice = _categorical(keys, vals)
     sampled = torch.gather(idx, -1, choice[..., None])[..., 0].to(torch.int32)
     return torch.where(align_rows(s.do_sample, sampled.ndim), sampled, greedy)
 
@@ -210,7 +214,7 @@ def _history_window(history: torch.Tensor, hist_len: torch.Tensor, R: int):
 
 
 def depth_generate_frame(
-    params: RealtimeParams, cfg: RealtimeConfig, gens,
+    params: RealtimeParams, cfg: RealtimeConfig, keys: torch.Tensor,  # (B, 2)
     hidden: torch.Tensor,  # (B, D) backbone last hidden
     history: torch.Tensor,  # (B, Hlen, rvq) generated frames
     hist_len: torch.Tensor,  # frames generated so far: 0-dim, or (B,) per row
@@ -219,8 +223,9 @@ def depth_generate_frame(
 ) -> torch.Tensor:
     """Ports ``mosstts_tpu.models.realtime.depth_generate_frame``: the
     ``rvq``-codebook depth loop -> (B, rvq) int32 frame (reference
-    generate_local_transformer, streaming:301-357). ``gens`` holds one
-    generator per row; each depth step draws once from each."""
+    generate_local_transformer, streaming:301-357). ``keys`` holds one key
+    per row, split into the ``rvq`` depth steps' keys (JAX's
+    ``split(rng, R)``, row by row)."""
     loc = cfg.local_config
     lq = local_qwen_cfg(loc)
     B = hidden.shape[0]
@@ -234,6 +239,7 @@ def depth_generate_frame(
     seen = window_seen_mask(win, Va, valid=valid)  # (B, rvq, Va)
     rp = torch.where(sampling.use_penalty, sampling.repetition_penalty, 1.0)
 
+    rngs = threefry.split(keys, R)  # (B, R, 2)
     x = hidden
     toks = []
     for i in range(R):
@@ -243,7 +249,7 @@ def depth_generate_frame(
             kv_valid=(slots <= i).expand(B, R), cache=cache, cache_offset=i)
         logits = head_logits(h[:, 0], params.local_heads, i)
         logits = apply_repetition_penalty_seen(logits, seen[:, i], rp)
-        tok = _rt_sample(gens, logits, sampling, top_k)
+        tok = _rt_sample(rngs[:, i], logits, sampling, top_k)
         toks.append(tok)
         if i + 1 < R:  # the next position embeds this token with table i
             x = params.local_emb[i][tok.long().clamp(0, Va - 1)].to(x.dtype)
@@ -253,8 +259,8 @@ def depth_generate_frame(
 class RealtimeState(NamedTuple):
     """Ports ``mosstts_tpu.models.realtime.RealtimeState``: the carried
     decode state of one conversation per row (multi-turn KV reuse is the
-    cache carried over plus the mask concatenated); ``rng`` one
-    ``torch.Generator`` per row."""
+    cache carried over plus the mask concatenated); ``rng`` one threefry
+    key per row."""
 
     cache: Any  # KVCache
     kv_valid: torch.Tensor  # (B, S) bool
@@ -263,7 +269,7 @@ class RealtimeState(NamedTuple):
     is_stopping: torch.Tensor  # (B,) bool
     history: torch.Tensor  # (B, H, rvq) int32 generated frames (rep-penalty window)
     hist_len: torch.Tensor  # int32: 0-dim, or (B,) per row
-    rng: List[torch.Generator]
+    rng: torch.Tensor  # (B, 2) int64 per-row threefry keys
 
 
 def realtime_prefill_step(
@@ -307,7 +313,8 @@ def realtime_prefill_step(
     hidden, cache = qwen3_forward(
         params.backbone, cfg.language_config, embeds, positions=positions, kv_valid=kv_valid,
         cache=state.cache, cache_offset=cache_offset, attend_len=attend_len)
-    frame = depth_generate_frame(params, cfg, state.rng, hidden[:, -1], state.history,
+    rng, rng_f = split_keys(state.rng, 2)
+    frame = depth_generate_frame(params, cfg, rng_f, hidden[:, -1], state.history,
                                  state.hist_len, sampling, top_k=top_k)
     if per_row:
         state.history[rows, state.hist_len.clamp(0, H - 1).long()] = frame
@@ -320,7 +327,7 @@ def realtime_prefill_step(
         new_cur = state.cur_len + T
     is_stopping = state.is_stopping | (frame[:, 0] == cfg.audio_eos_token)
     return (state._replace(cache=cache, kv_valid=kv_valid, cur_len=new_cur, last_audio=frame,
-                           is_stopping=is_stopping, hist_len=state.hist_len + 1),
+                           is_stopping=is_stopping, hist_len=state.hist_len + 1, rng=rng),
             frame)
 
 
@@ -346,12 +353,12 @@ def realtime_decode_step(
 
 
 def init_realtime_state(cfg: RealtimeConfig, batch: int, cache_len: int, max_frames: int,
-                        rng: List[torch.Generator], *, dtype=torch.bfloat16,
+                        rng: torch.Tensor, *, dtype=torch.bfloat16,
                         device=None) -> RealtimeState:
     """Ports ``mosstts_tpu.models.realtime.init_realtime_state``: ``rng``
-    one generator per row."""
-    if len(rng) != batch:
-        raise ValueError(f"need one generator per row: {len(rng)} for batch {batch}")
+    (batch, 2), one key per row."""
+    if tuple(rng.shape) != (batch, 2):
+        raise ValueError(f"need one key per row: {tuple(rng.shape)} for batch {batch}")
     return RealtimeState(
         cache=init_kv_cache(cfg.language_config, batch, cache_len, dtype=dtype, device=device),
         kv_valid=torch.zeros((batch, cache_len), dtype=torch.bool, device=device),
@@ -361,11 +368,11 @@ def init_realtime_state(cfg: RealtimeConfig, batch: int, cache_len: int, max_fra
         is_stopping=torch.zeros((batch,), dtype=torch.bool, device=device),
         history=torch.zeros((batch, max_frames, cfg.rvq), dtype=torch.int32, device=device),
         hist_len=torch.zeros((), dtype=torch.int32, device=device),
-        rng=list(rng))
+        rng=rng.to(device=device, dtype=torch.int64).clone())
 
 
 def init_realtime_srv_state(cfg: RealtimeConfig, slots: int, cache_len: int, max_frames: int,
-                            rng: List[torch.Generator], *, dtype=torch.bfloat16,
+                            rng: torch.Tensor, *, dtype=torch.bfloat16,
                             device=None) -> RealtimeState:
     """Ports ``mosstts_tpu.models.realtime.init_realtime_srv_state``: (slots,)
     ``cur_len``/``hist_len`` cursors, every slot idle (``is_stopping``) until

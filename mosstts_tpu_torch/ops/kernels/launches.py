@@ -17,7 +17,7 @@ the kernels.
 from __future__ import annotations
 
 from .. import collectives
-from . import decode_attn, flash, paged_attn, w8_gemm
+from . import decode_attn, flash, graph_loop, paged_attn, threefry, w8_gemm
 
 COUNTERS = {  # name -> (module, attribute) of a wrapper's launch count
     "flash": (flash, "LAUNCHES"),
@@ -31,6 +31,13 @@ COUNTERS = {  # name -> (module, attribute) of a wrapper's launch count
     "w8a8": (w8_gemm, "LAUNCHES_W8A8"),
     "int4": (w8_gemm, "LAUNCHES_INT4"),
     "w8f32": (w8_gemm, "LAUNCHES_W8F32"),
+    "threefry_split": (threefry, "LAUNCHES_SPLIT"),
+    "categorical": (threefry, "LAUNCHES_CATEGORICAL"),
+    "loop_cond": (graph_loop, "LAUNCHES_COND"),
+    "drain_admit": (graph_loop, "LAUNCHES_ADMIT"),
+    "drain_collect": (graph_loop, "LAUNCHES_COLLECT"),
+    "row_copy": (graph_loop, "LAUNCHES_COPY"),
+    "feed": (graph_loop, "LAUNCHES_FEED"),
 }
 COLLECTIVES = {"nccl": (collectives, "LAUNCHES")}  # not kernels: counted alike
 _ALL = {**COUNTERS, **COLLECTIVES}
@@ -58,10 +65,10 @@ def restore(before: dict) -> None:
         setattr(mod, attr, before[name])
 
 
-def add_replay(captured: dict) -> None:
-    """One replay of a graph whose capture launched ``captured`` (a
-    ``since()``)."""
+def add_replay(captured: dict, times: int = 1) -> None:
+    """``times`` replays of a graph whose capture launched ``captured`` (a
+    ``since()``): a loop graph runs its step graph once per step."""
     for name, n in captured.items():
         mod, attr = _ALL[name]
-        setattr(mod, attr, getattr(mod, attr) + n)
-        IN_GRAPHS[name] += n
+        setattr(mod, attr, getattr(mod, attr) + n * times)
+        IN_GRAPHS[name] += n * times

@@ -1,46 +1,127 @@
-"""Sampling ops: temperature / top-k / top-p / repetition penalty.
+"""Sampling ops: temperature / top-k / top-p / repetition penalty, and
+JAX's threefry2x32 random bits.
 
 Ports ``mosstts_tpu/ops/sampling.py``. The filtering is the same
 arithmetic, so filtered logits and greedy tokens equal the JAX package's.
-The random draws cannot equal JAX's threefry bits: the port draws a
-Gumbel-max categorical from one ``torch.Generator`` per batch row, seeded
-from (seed, row), so row b's stream depends on its own seed only
-(``sampling.py:29-55`` in the JAX package keeps one key per row for the
-same reason). Top-k is exact ``torch.topk``, as the JAX CPU path is.
+Top-k is exact ``torch.topk``, as the JAX CPU path is.
 
-The step path makes no host-to-device copy, so a CUDA graph can capture
-it (``engine/step_graph.py``): a control given as a Python number becomes
-a device fill, and registered generators draw inside the graph.
+The random draws are JAX's own. A state holds one threefry key per row,
+(B, 2) ``int64`` tensors of JAX's two uint32 key words, and each step
+splits them as JAX does (``split_keys``); the draw is JAX's Gumbel-max
+``categorical``, ``argmax(logits - log(-log(u)))`` with ``u`` JAX's
+``uniform(minval=tiny)`` of the row's threefry bits. ``prng_key``,
+``split``, ``random_bits``, ``uniform`` and ``categorical_plain`` below
+reproduce ``jax.random`` (threefry2x32 with ``jax_threefry_partitionable``,
+JAX's default) bit for bit on uint32 values held in int64 tensors. On the
+card the split and the fused categorical are one kernel each
+(``ops/kernels/threefry.py``); the functions here are their plain versions.
+
+Keys live in the state, not in ``torch.Generator`` objects, so a CUDA
+graph replayed many times inside one launch (``engine/step_graph.py``'s
+device loops) draws each iteration from the keys that iteration carries,
+and an admission on the device hands a request its key with a copy. The
+step path makes no host-to-device copy: a control given as a Python
+number becomes a device fill.
 """
 from __future__ import annotations
 
-from typing import Optional, Sequence
+from typing import Optional
 
 import numpy as np
 import torch
 import torch.nn.functional as F
 
+from .kernels import threefry as _threefry
+
 NEG_INF = -1e30
+_M32 = 0xFFFFFFFF
+_ROTATIONS = ((13, 15, 26, 6), (17, 29, 16, 24))
+TINY = float(np.finfo(np.float32).tiny)
 
 
-def _row_seed(seed: int, row: int) -> int:
-    return int(np.random.SeedSequence((seed, row)).generate_state(1, np.uint64)[0])
+def prng_key(seed: int) -> torch.Tensor:
+    """JAX's ``PRNGKey(seed)`` (64-bit values off): the (2,) key ``(0,
+    seed mod 2**32)``."""
+    return torch.tensor([0, int(seed) & _M32], dtype=torch.int64)
 
 
-def row_generators(seed: int, batch: int, device) -> list:
-    """One generator per batch row on ``device``, seeded from (seed, row)."""
-    return reseed_generators_([torch.Generator(device=device) for _ in range(batch)], seed)
+def threefry2x32(k0, k1, x0, x1):
+    """JAX's threefry2x32 hash of the counter words ``(x0, x1)`` under the
+    key ``(k0, k1)``: uint32 values in int64 tensors (broadcast), 20
+    rounds."""
+    ks = (k0, k1, k0 ^ k1 ^ 0x1BD11BDA)
+    x0, x1 = (x0 + k0) & _M32, (x1 + k1) & _M32
+    for i in range(5):
+        for r in _ROTATIONS[i % 2]:
+            x0 = (x0 + x1) & _M32
+            x1 = (((x1 << r) | (x1 >> (32 - r))) & _M32) ^ x0
+        x0 = (x0 + ks[(i + 1) % 3]) & _M32
+        x1 = (x1 + ks[(i + 2) % 3] + (i + 1)) & _M32
+    return x0, x1
 
 
-def reseed_generators_(gens: Sequence[torch.Generator], seed: int,
-                       first_row: int = 0) -> list:
-    """Reseed the generators ``gens`` in place with ``row_generators``'
-    (seed, row) seeds, so they draw what new ones would; ``gens[i]`` is row
-    ``first_row + i`` (a data-parallel rank's block of the batch). A CUDA
-    graph that registered them draws from the new seeds at its next replay."""
-    for row, g in enumerate(gens, start=first_row):
-        g.manual_seed(_row_seed(seed, row))
-    return list(gens)
+def _counter_bits(keys: torch.Tensor, n: int):
+    """threefry of the counters 0..n-1 under each key of ``keys`` (..., 2):
+    two (..., n) word tensors (JAX's partitionable counters: the flat
+    index's high word, 0 here, and its low word)."""
+    cnt = torch.arange(n, dtype=torch.int64, device=keys.device)
+    return threefry2x32(keys[..., 0:1], keys[..., 1:2], torch.zeros_like(cnt), cnt)
+
+
+def split(keys: torch.Tensor, n: int) -> torch.Tensor:
+    """JAX's ``random.split`` of each key of ``keys`` (..., 2) into ``n``:
+    (..., n, 2). The plain version of ``ops.kernels.threefry.split``."""
+    b0, b1 = _counter_bits(keys.long(), n)
+    return torch.stack([b0, b1], dim=-1)
+
+
+def random_bits(key: torch.Tensor, shape) -> torch.Tensor:
+    """JAX's 32-bit ``random_bits(key, 32, shape)``: uint32 values in an
+    int64 tensor."""
+    b0, b1 = _counter_bits(key.long(), int(np.prod(shape, dtype=np.int64)))
+    return (b0 ^ b1).reshape(tuple(shape))
+
+
+def _uniform_bits(bits: torch.Tensor) -> torch.Tensor:
+    """JAX's ``uniform(minval=tiny, maxval=1)`` of 32-bit words: the top 23
+    bits as a mantissa of [1, 2), minus 1, then ``* (1 - tiny) + tiny``
+    (``1 - tiny`` is 1 in float32) floored at tiny."""
+    f = ((bits >> 9) | 0x3F800000).to(torch.int32).view(torch.float32) - 1.0
+    return torch.clamp_min(f + TINY, TINY)
+
+
+def uniform(key: torch.Tensor, shape) -> torch.Tensor:
+    """JAX's ``random.uniform(key, shape, minval=tiny, maxval=1.0)`` in
+    float32, the uniform its Gumbel draw takes."""
+    return _uniform_bits(random_bits(key, shape))
+
+
+def categorical_plain(keys: torch.Tensor, logits: torch.Tensor) -> torch.Tensor:
+    """JAX's ``random.categorical`` of each row of ``logits`` (B, ..., V)
+    with its own key ``keys[b]`` (JAX's ``vmap`` over per-row keys): the
+    Gumbel noise of row b is drawn over the row's whole shape (the flat
+    index counts the counters), added to the float32 logits, and the
+    argmax (the first maximal index) taken over the last axis -> (B, ...)
+    int64. The plain version of ``ops.kernels.threefry.categorical``."""
+    B = logits.shape[0]
+    n = logits[0].numel()
+    b0, b1 = _counter_bits(keys.long().reshape(B, 2), n)
+    g = -torch.log(-torch.log(_uniform_bits(b0 ^ b1)))
+    return torch.argmax(g.reshape(logits.shape) + logits.float(), dim=-1)
+
+
+def row_keys(seed: int, batch: int) -> torch.Tensor:
+    """One key per row of a batch, as JAX's prefill makes them from one
+    seed: ``split(PRNGKey(seed), batch)``, (batch, 2) int64 on the CPU."""
+    return split(prng_key(seed)[None], batch)[0]
+
+
+def split_keys(rng: torch.Tensor, n: int):
+    """Ports ``mosstts_tpu.ops.sampling.split_keys`` for (B, 2) per-row
+    keys: ``n`` (B, 2) keys, each row split from its own (one kernel on
+    the card)."""
+    ks = _threefry.split(rng, n)
+    return tuple(ks[:, i] for i in range(n))
 
 
 def _on(x, dtype: torch.dtype, device) -> torch.Tensor:
@@ -106,17 +187,12 @@ def window_seen_mask(history: torch.Tensor, vocab: int,
     return seen.scatter_(-1, idx, True)[..., :vocab]
 
 
-def _categorical(gens: Sequence[torch.Generator], logits: torch.Tensor) -> torch.Tensor:
-    """Gumbel-max draw along the last axis; row b's noise comes from
-    ``gens[b]`` alone."""
-    if len(gens) != logits.shape[0]:
-        raise ValueError(f"{len(gens)} generators for {logits.shape[0]} rows")
-    u = torch.stack([
-        torch.rand(logits.shape[1:], generator=g, device=logits.device, dtype=torch.float32)
-        for g in gens
-    ])
-    u = u.clamp_(min=torch.finfo(torch.float32).tiny)
-    return torch.argmax(logits.float() - torch.log(-torch.log(u)), dim=-1)
+def _categorical(keys: torch.Tensor, logits: torch.Tensor) -> torch.Tensor:
+    """JAX's per-row ``categorical`` along the last axis: row b's noise
+    comes from ``keys[b]`` alone (the fused kernel on the card)."""
+    if keys.shape[0] != logits.shape[0]:
+        raise ValueError(f"{keys.shape[0]} keys for {logits.shape[0]} rows")
+    return _threefry.categorical(keys, logits)
 
 
 def topk_topp_filter(logits: torch.Tensor, top_k: int, top_p):
@@ -131,7 +207,7 @@ def topk_topp_filter(logits: torch.Tensor, top_k: int, top_p):
 
 
 def sample_topk_topp(
-    gens: Sequence[torch.Generator],
+    keys: torch.Tensor,  # (B, 2) per-row threefry keys
     logits: torch.Tensor,  # (B, ..., V) temperature-scaled, penalty applied
     *,
     top_k: int,
@@ -145,10 +221,10 @@ def sample_topk_topp(
     greedy = torch.argmax(logits, dim=-1).to(torch.int32)
     if top_k and top_k > 0:
         vals, idx = topk_topp_filter(logits, top_k, top_p)
-        choice = _categorical(gens, vals)
+        choice = _categorical(keys, vals)
         sampled = torch.gather(idx, -1, choice[..., None])[..., 0].to(torch.int32)
     else:
-        sampled = _categorical(gens, apply_top_p(logits, top_p)).to(torch.int32)
+        sampled = _categorical(keys, apply_top_p(logits, top_p)).to(torch.int32)
     do_sample = _on(do_sample, torch.bool, logits.device)
     return torch.where(align_rows(do_sample, sampled.ndim), sampled, greedy)
 

@@ -58,7 +58,6 @@ import torch
 from ..core.config import codec_1p6b, delay_8b
 from ..engine.step_graph import DecodeSteps, Prefills, zero_state
 from ..models import delay as td
-from ..ops.sampling import row_generators
 from ..serve.pipelines import demo_backend
 from .kernel_inputs import card_line
 
@@ -111,7 +110,7 @@ def profile_batch(engine, B: int, args, trace_dir, graphs: bool = False, hol=Non
     samp = td.make_sampling(text_temperature=0.0, audio_temperature=0.0, device=dev)
     torch.cuda.reset_peak_memory_stats()
     st = zero_state(cfg, B, args.cache, args.cache, dtype=engine.dtype, kv_quant=False,
-                    rng=row_generators(0, B, dev), device=dev)
+                    device=dev)
     runner = DecodeSteps(engine.params, cfg, st, samp, graphs=graphs)
     prefills = Prefills(runner, st, samp)
 

@@ -21,7 +21,7 @@ from mosstts_tpu.processing.delay_processor import DelayProcessor
 from mosstts_tpu.processing.tokenizer import ByteFallbackTokenizer
 from mosstts_tpu_torch.engine.delay_engine import DelayEngine, attend_bucket
 from mosstts_tpu_torch.models import delay as td
-from mosstts_tpu_torch.ops.sampling import row_generators
+from mosstts_tpu_torch.ops.sampling import row_keys
 from mosstts_tpu_torch.utils.convert import load_tree_
 
 CFG = DelayConfig(language_config=tiny_qwen3(), n_vq=4)
@@ -89,7 +89,7 @@ def test_gen_state_after_prefill_and_8_steps(engines, proc):
         dtype=jnp.float32))(je.params, jnp.asarray(ids), jnp.asarray(mask))
     ts = td.delay_prefill(te.params, CFG, torch.tensor(ids), torch.tensor(mask),
                           max_new_tokens=max_new, cache_len=cache_len,
-                          rng=row_generators(0, B, "cpu"), sampling=td.make_sampling(**greedy),
+                          rng=row_keys(0, B), sampling=td.make_sampling(**greedy),
                           dtype=torch.float32)
     _assert_state_equal(ts, js)
 

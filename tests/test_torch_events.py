@@ -7,11 +7,11 @@ which mirror ``tests/test_batch_server.py:284-370``.
 
 Tokens, states and step counts must be equal exactly: greedy requests equal
 JAX's, and the port's seeded sampled requests with overrides equal its own
-``run()`` (the draws are PyTorch's, not JAX's threefry bits). On the CPU
-the loops read the stop flags after every step, as JAX's ``while_loop``;
-the card's one-replay-late read is pinned by ``lag=1`` in
-``tests/test_torch_graph_step.py`` and run on the card by
-``tests/test_torch_graphs_cuda.py``.
+``run()`` (and JAX's: the draws are JAX's threefry bits,
+``tests/test_torch_device_loops.py``). The loops read the stop flags after
+every step, as JAX's ``while_loop``: on the CPU the host after each eager
+step, on the card a condition kernel inside one graph launch
+(``tests/test_torch_graphs_cuda.py``).
 """
 import jax
 import jax.numpy as jnp
@@ -124,7 +124,7 @@ def _prefilled(jp, tp, proc, cache_len=256, max_new=64, key=None):
             _JAX_PREFILLED[key] = js
     tstate = td.delay_prefill(tp, CFG, torch.tensor(ids), torch.tensor(mask),
                               max_new_tokens=max_new, cache_len=cache_len,
-                              rng=ts.row_generators(0, 2, "cpu"),
+                              rng=ts.row_keys(0, 2),
                               sampling=td.make_sampling(**GREEDY), dtype=torch.float32)
     return js, tstate
 
@@ -152,8 +152,9 @@ def test_decode_until_event_matches_jax(setup, weights, watch, budget, cap):
     js, ji = _JAX_UNTIL_EVENT(jp, js, jnp.asarray(watch), jnp.asarray(budget, jnp.int32),
                               jnp.int32(cap))
     steps = DecodeSteps(tp, CFG, tstate, td.make_sampling(**GREEDY))
-    tstate, n = td.delay_decode_until_event(steps, np.array(watch), np.array(budget), cap,
-                                            attend_len=attend)
+    tstate, n, flags = td.delay_decode_until_event(steps, np.array(watch), np.array(budget),
+                                                   cap, attend_len=attend)
+    np.testing.assert_array_equal(flags, tstate.is_stopping.numpy())
     assert tstate is steps.state
     assert n == int(ji)
     _assert_states_equal(tstate, js)
@@ -193,12 +194,12 @@ def test_prefills_equal_delay_prefill(setup, kv_quant):
     samp = td.make_sampling(text_temperature=1.3, audio_temperature=1.1)
     cache_len = 256
     state = zero_state(CFG, 2, cache_len, 40, dtype=torch.float32, kv_quant=kv_quant,
-                       rng=ts.row_generators(0, 2, "cpu"), device="cpu")
+                       device="cpu")
     prefills = Prefills(DecodeSteps(tp, CFG, state, samp), state, samp, max_graphs=2)
     for use in range(3):
-        ts.reseed_generators_(state.rng, use)
+        state.rng.copy_(ts.row_keys(use, 2))
         ref = td.delay_prefill(tp, CFG, ids, mask, max_new_tokens=40, cache_len=cache_len,
-                               rng=ts.row_generators(use, 2, "cpu"), sampling=samp,
+                               rng=ts.row_keys(use, 2), sampling=samp,
                                dtype=torch.float32, kv_quant=kv_quant)
         got = prefills.run(ids, mask, top_k_text=50, top_k_audio=25)
         assert got is state

@@ -6,9 +6,8 @@ package on CPU: tiny config with n_vq=4, float32, the same weights through
 On the CPU the steps run eagerly over the static buffers (a CUDA graph is
 the card's, ``tests/test_torch_graphs_cuda.py``); these tests pin what the
 graphs replay: the segment loop and its stop condition, the copy of each
-step's fields back into the static buffers, the in-place reseeding of the
-rows' generators, capturable sampling controls, and the launch-count
-arithmetic of a replay.
+step's fields back into the static buffers, the rows' keys, capturable
+sampling controls, and the launch-count arithmetic of a replay.
 
 ``stopper`` weights make every row emit ``<|im_end|>`` as soon as the state
 machine allows it (one embedding dimension held large and positive, and the
@@ -133,34 +132,41 @@ def test_generate_on_device_matches_jax(engines, proc, mode):
         _assert_grids_equal(tdev, thost)
 
 
-def test_late_flag_reads_return_the_first_stop(proc, monkeypatch):
-    """The card's schedule (each state's stop flags read one replay late,
-    ``_lagged_steps(lag=1)``, run here on the CPU) returns the step count of
-    the CPU's schedule (JAX's ``while_loop``) for every segment length,
-    including a segment whose last state is the first at which every row
-    had stopped (counted one too many before the loop was shared)."""
+def test_device_loop_stops_after_the_first_stop(proc):
+    """``delay_generate_on_device`` (the card's graph loop, eager here)
+    stops after the very step at which every row had stopped, or at
+    ``max_new_tokens``: for every segment length its step count equals a
+    host loop that checks JAX's ``while_loop`` condition after each single
+    step, so no step runs past the stop."""
     je = JaxEngine.random_init(seed=0, config=CFG, dtype=jnp.float32, cache_bucket=BUCKET)
     params = load_tree_(td.DelayParams(CFG), jax.device_get(_stopper(je.params)))
     batch = _batch(proc, "continuation")
     ids, mask = torch.tensor(batch["input_ids"]), torch.tensor(batch["attention_mask"])
     samp = td.make_sampling(**GREEDY)
     cache_len = -(-(ids.shape[1] + 40) // 64) * 64
-    shared = td._lagged_steps
     stops = set()
     for max_new in range(2, 16):
         counts = []
-        for lag in (0, 1):
+        for loop in (True, False):
             state = td.delay_prefill(params, CFG, ids, mask, max_new_tokens=max_new,
-                                     cache_len=cache_len, rng=ts.row_generators(0, 2, "cpu"),
+                                     cache_len=cache_len, rng=ts.row_keys(0, 2),
                                      sampling=samp, dtype=torch.float32)
-            monkeypatch.setattr(td, "_lagged_steps",
-                                lambda *a, lag=lag, **k: shared(*a, lag=lag, **k))
-            _, n = td.delay_generate_on_device(DecodeSteps(params, CFG, state, samp),
-                                               max_new_tokens=max_new, attend_len=cache_len,
-                                               uniform_slots=True)
+            steps = DecodeSteps(params, CFG, state, samp)
+            if loop:
+                _, n, flags = td.delay_generate_on_device(steps, max_new_tokens=max_new,
+                                                          attend_len=cache_len,
+                                                          uniform_slots=True)
+                np.testing.assert_array_equal(flags, steps.state.is_stopping.numpy())
+            else:
+                n = 0
+                while (int(steps.state.step.min()) < max_new
+                       and not bool(steps.state.is_stopping.all())):
+                    steps.step(attend_len=cache_len, uniform_slots=True, top_k_text=50,
+                               top_k_audio=25)
+                    n += 1
             counts.append(n)
         assert counts[0] == counts[1], f"max_new_tokens={max_new}: {counts}"
-        stops.add(counts[0] < max_new)
+        stops.add(counts[0] + 1 < max_new)
     assert stops == {False, True}  # segments that end before and after the stop
 
 
@@ -176,7 +182,7 @@ def _prefilled(je, te, proc, max_new):
                           dtype=jnp.float32)
     tstate = td.delay_prefill(te.params, CFG, torch.tensor(ids), torch.tensor(mask),
                               max_new_tokens=max_new, cache_len=cache_len,
-                              rng=ts.row_generators(0, ids.shape[0], "cpu"),
+                              rng=ts.row_keys(0, ids.shape[0]),
                               sampling=td.make_sampling(**GREEDY), dtype=torch.float32)
     return js, tstate, cache_len
 
@@ -198,17 +204,20 @@ def test_delay_generate_on_device_matches_jax(engines, proc):
                                      max_new_tokens=max_new, attend_len=attend,
                                      uniform_slots=True)
     runner = DecodeSteps(te.params, CFG, tstate, td.make_sampling(**GREEDY))
-    tstate, steps = td.delay_generate_on_device(runner, max_new_tokens=max_new,
-                                                attend_len=attend, uniform_slots=True)
+    tstate, did, flags = td.delay_generate_on_device(runner, max_new_tokens=max_new,
+                                                     attend_len=attend, uniform_slots=True)
     assert tstate is runner.state
     _assert_states_equal(tstate, js)
+    np.testing.assert_array_equal(tstate.rng.numpy(), np.asarray(js.rng).astype(np.int64))
+    steps = 1 + did  # the prefill's frame, then one a step
     assert steps == int(np.asarray(js.step).max())
+    np.testing.assert_array_equal(flags, np.asarray(js.is_stopping))
     assert (steps < max_new) == (kind == "stopper")
 
 
 def test_decode_steps_copy_back_keeps_the_buffers(engines, proc):
     """``DecodeSteps.step`` advances the static state in place: the same
-    tensors and generators, the same values as rebinding
+    tensors and keys, the same values as rebinding
     ``delay_decode_step``'s result, and a state copied in by
     ``copy_state_`` into a wider ``out`` decodes to the same frames."""
     _, je, te = engines
@@ -248,13 +257,13 @@ def test_prefill_into_a_used_cache_and_one_engine_state(engines, proc):
     args = (te.params, CFG, torch.tensor(batch["input_ids"]), torch.tensor(batch["attention_mask"]))
     kw = dict(max_new_tokens=16, cache_len=cache_len, sampling=td.make_sampling(**GREEDY),
               dtype=torch.float32)
-    into = td.delay_prefill(*args, rng=ts.row_generators(0, 2, "cpu"), cache=used, **kw)
+    into = td.delay_prefill(*args, rng=ts.row_keys(0, 2), cache=used, **kw)
     assert into.cache is used
     _assert_states_equal(into, fresh)
     for a, b in zip(into.cache, fresh.cache):
         np.testing.assert_array_equal(a.numpy(), b.numpy())
     with pytest.raises(ValueError, match="cache given"):
-        td.delay_prefill(*args, rng=ts.row_generators(0, 2, "cpu"), cache=used,
+        td.delay_prefill(*args, rng=ts.row_keys(0, 2), cache=used,
                          **dict(kw, cache_len=cache_len + 64))
 
     ids, mask = batch["input_ids"], batch["attention_mask"]
@@ -285,23 +294,20 @@ def test_quantize_drops_the_decode_steps(engines, proc):
     assert out[0][1].shape[0] == out[0][0] + 4
 
 
-def test_reseed_generators_matches_new_generators():
-    """Reseeding generators in place gives the draws of new ones from
-    ``row_generators`` with the same seed, whatever they drew before."""
-    gens = ts.row_generators(5, 3, "cpu")
-    for g in gens:
-        torch.rand(7, generator=g)
-    same = ts.reseed_generators_(gens, 11)
-    assert all(a is b for a, b in zip(same, gens))
-    fresh = ts.row_generators(11, 3, "cpu")
-    for g, f in zip(gens, fresh):
-        np.testing.assert_array_equal(torch.rand(50, generator=g).numpy(),
-                                      torch.rand(50, generator=f).numpy())
+def test_row_keys_are_jax_split_keys():
+    """``row_keys(seed, B)`` are JAX's ``split(PRNGKey(seed), B)``, the
+    keys JAX's prefill makes from one key; a key written into a row in
+    place draws what the same key draws anywhere (a graph reads the
+    state's keys where they are)."""
+    for seed, B in ((0, 1), (11, 3), (2**31 - 1, 4)):
+        np.testing.assert_array_equal(
+            ts.row_keys(seed, B).numpy(),
+            np.asarray(jax.random.split(jax.random.PRNGKey(seed), B)).astype(np.int64))
     logits = torch.tensor(np.random.default_rng(0).normal(size=(3, 40)), dtype=torch.float32)
-    ts.reseed_generators_(gens, 2)
-    a = ts.sample_topk_topp(gens, logits, top_k=10, top_p=0.9, do_sample=True)
-    b = ts.sample_topk_topp(ts.row_generators(2, 3, "cpu"), logits, top_k=10, top_p=0.9,
-                            do_sample=True)
+    keys = ts.row_keys(5, 3)
+    keys.copy_(ts.row_keys(2, 3))
+    a = ts.sample_topk_topp(keys, logits, top_k=10, top_p=0.9, do_sample=True)
+    b = ts.sample_topk_topp(ts.row_keys(2, 3), logits, top_k=10, top_p=0.9, do_sample=True)
     np.testing.assert_array_equal(a.numpy(), b.numpy())
 
 
@@ -316,7 +322,7 @@ def test_sampling_controls_as_numbers_or_tensors(top_k):
     for p, pen, do in ((0.8, 1.3, True), (torch.tensor(0.8), torch.tensor(1.3),
                                          torch.tensor(True))):
         x = ts.apply_repetition_penalty_seen(logits, seen, pen)
-        outs.append(ts.sample_topk_topp(ts.row_generators(1, 4, "cpu"), x, top_k=top_k,
+        outs.append(ts.sample_topk_topp(ts.row_keys(1, 4), x, top_k=top_k,
                                         top_p=p, do_sample=do))
         outs.append(ts.apply_top_p(x, p))
     for a, b in zip(outs[:2], outs[2:]):
@@ -347,7 +353,7 @@ def test_replayed_launches_add_to_the_counts():
 
 
 def test_server_keeps_its_static_buffers(engines, proc):
-    """The server's state tensors, generators and sampling tensors are the
+    """The server's state tensors, keys and sampling tensors are the
     same objects after admissions and decode steps (graphs replay over
     them); a seeded request reproduces in another slot."""
     _, je, te = engines
@@ -355,14 +361,13 @@ def test_server_keeps_its_static_buffers(engines, proc):
     srv = DelayBatchServer(te.params, CFG, slots=2, cache_len=256, out_capacity=32,
                            prompt_bucket=32, dtype=torch.float32)
     state, samp = srv.state, srv._samp_dev
-    ids = [id(t) for t in state if isinstance(t, torch.Tensor)] + [id(g) for g in state.rng]
+    ids = [id(t) for t in state if isinstance(t, torch.Tensor)]
     hot = dict(audio_temperature=1.5, text_temperature=1.2)
     a = srv.submit(grids[0], max_new_tokens=12, sampling=hot, seed=5)
     srv.submit(grids[1], max_new_tokens=12)
     done = {c.request_id: c for c in srv.run()}
     assert srv.state is state and srv._samp_dev is samp
-    assert ids == [id(t) for t in srv.state if isinstance(t, torch.Tensor)] + \
-        [id(g) for g in srv.state.rng]
+    assert ids == [id(t) for t in srv.state if isinstance(t, torch.Tensor)]
     srv.submit(grids[1], max_new_tokens=12)
     b = srv.submit(grids[0], max_new_tokens=12, sampling=hot, seed=5)  # now in slot 1
     again = {c.request_id: c for c in srv.run()}

@@ -9,16 +9,16 @@ both ``on_device`` modes, greedy and sampled with the seeds s1, s2, s1, on
 bf16 and then int8 weights, and the continuous-batching server in all four
 cache modes with seeded sampled requests, mid-flight admissions and (paged)
 preemption. Token grids must be equal bit for bit: a graph replays the
-eager step's kernels on the same inputs and draws from the same generator
-states. Each graph's captured kernel launches, counted once per replay,
+eager step's kernels on the same inputs and draws from the same keys. Each graph's captured kernel launches, counted once per replay,
 must match ``ops.kernels.launches.IN_GRAPHS``. Weights that stop every
-row early hold ``on_device=True``'s late read of the stop flags against
-the polling ``on_device=False``. A ``device_profile`` session must see
+row early hold ``on_device=True``'s device loop (one graph launch a
+segment, the condition read on the card after every step) against the
+polling ``on_device=False``. A ``device_profile`` session must see
 the first kernels launched in it. bf16 ``dense`` must not depend on cuBLAS's
 reduced-precision flag. Prefill graphs (the engine's, first use eager,
 second captured, then replayed; the server's admissions through the
 bucket graphs ``warmup`` captures) leave every field of the static state,
-the cache and the generators' seeds and offsets equal to eager prefills';
+the cache and the keys equal to eager prefills';
 ``run_events`` and ``run_drain`` serve ``run()``'s completions (a request
 stopped at ``<|im_end|>`` up to that frame: the loops see a stop at other
 steps). An engine with ``hidden_out_layers`` (float and int8 heads) gives
@@ -160,9 +160,10 @@ def test_replayed_launches_match_the_captures(engines):
 def test_early_stop_on_device_matches_polling(weights):
     """Weights that make every row emit ``<|im_end|>`` as soon as the state
     machine allows it (as ``stopper`` in ``tests/test_torch_graph_step.py``):
-    ``on_device=True``, whose replays read the stop flags one step late,
-    returns the frames of the polling ``on_device=False`` up to its own
-    count, and that count is the last row's ``<|im_end|>`` frame + 1."""
+    ``on_device=True``, a loop graph whose condition kernel reads the stop
+    flags after every step, returns the frames of the polling
+    ``on_device=False`` up to its own count, and that count is the last
+    row's ``<|im_end|>`` frame + 1: no step past the stop."""
     _need_card()
     engine = DelayEngine.random_init(seed=3, config=CFG, dtype=torch.bfloat16, device="cuda",
                                      cache_bucket=64)
@@ -309,16 +310,16 @@ def test_bf16_dense_ignores_the_reduced_precision_flag(M, K, N):
 
 
 def _state_on_host(state):
-    """Every tensor of a ``DelayGenState`` (the cache's too) on the host, and
-    each generator's state (seed and offset)."""
-    tensors = [t.cpu() for t in state.cache] + [t.cpu() for t in state[1:]
-                                                if isinstance(t, torch.Tensor)]
-    return tensors, [g.get_state() for g in state.rng]
+    """Every tensor of a ``DelayGenState`` (the cache's and the keys too) on
+    the host."""
+    return [t.cpu() for t in state.cache] + [t.cpu() for t in state[1:]
+                                             if isinstance(t, torch.Tensor)]
 
 
 def _assert_same_state(a, b):
-    (ta, ga), (tb, gb) = _state_on_host(a), _state_on_host(b)
-    for x, y in zip(ta + ga, tb + gb):
+    ta, tb = _state_on_host(a), _state_on_host(b)
+    assert len(ta) == len(tb)
+    for x, y in zip(ta, tb):
         assert torch.equal(x, y)
 
 
@@ -328,7 +329,7 @@ def test_prefill_graphs_match_eager(kv_quant):
     """The engine's prefill at B = 1 and 3, greedy and seeded sampled: the
     first use of a key runs eagerly, the second captures and replays, the
     third replays; each leaves every field of the static state, its cache
-    and its generators' seeds and offsets equal to the eager engine's.
+    and its keys equal to the eager engine's.
     Flash runs once per layer of each prefill, inside the replayed graph
     from the second on."""
     _need_card()
@@ -356,8 +357,8 @@ def test_prefill_graphs_match_eager(kv_quant):
 def test_admission_prefill_graphs_match_eager():
     """The server's admissions through the prefill graph of their bucket
     (captured by ``warmup``) against eager admissions: the static batch-1
-    state, its generator's seed and offset after the replay, and the slot's
-    row and generator after the splice are equal; so are the sampled,
+    state, its key after the replay, and the slot's row and key after the
+    splice are equal; so are the sampled,
     seeded completions after the splice."""
     _need_card()
     params = DelayEngine.random_init(seed=5, config=CFG, dtype=torch.bfloat16,
@@ -541,3 +542,142 @@ def test_multi_token_forward_with_row_cursors_equals_the_cpu(dtype):
     for a, b in zip(outs["cuda"], outs["cpu"]):
         a, b = (a[rows], b[rows]) if a.ndim == 3 else (a, b)
         assert bool(((a - b).abs() <= tol * b.abs() + tol).all()), float((a - b).abs().max())
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("shape", [(1, 50), (16, 50), (16, 32, 25), (3, 151669)],
+                         ids=["text-1", "text-16", "audio-16", "vocab"])
+def test_threefry_kernels_match_plain(shape):
+    """The key split and the fused categorical equal their plain versions
+    (``ops.sampling``) bit for bit at the samplers' shapes, one launch
+    each."""
+    _need_card()
+    from mosstts_tpu_torch.ops import sampling
+    from mosstts_tpu_torch.ops.kernels import threefry
+
+    keys = sampling.row_keys(shape[0] + 3, shape[0]).cuda()
+    logits = torch.randn(shape, generator=torch.Generator(device="cuda").manual_seed(4),
+                         device="cuda") * 3
+    n0, c0 = threefry.LAUNCHES_SPLIT, threefry.LAUNCHES_CATEGORICAL
+    assert torch.equal(threefry.split(keys, 3).cpu(), sampling.split(keys.cpu(), 3))
+    got = threefry.categorical(keys, logits)
+    assert (threefry.LAUNCHES_SPLIT - n0, threefry.LAUNCHES_CATEGORICAL - c0) == (1, 1)
+    assert torch.equal(got, sampling.categorical_plain(keys, logits))
+    # a view of a split's key rows, as the steps pass them
+    ks = threefry.split(keys, 3)
+    assert torch.equal(threefry.categorical(ks[:, 1], logits),
+                       sampling.categorical_plain(ks[:, 1].contiguous(), logits))
+
+
+@pytest.mark.cuda
+def test_loop_condition_kernel_matches_plain():
+    """The condition kernel (in a one-node graph) equals its plain version
+    for every loop kind, over cases that hold and cases that end."""
+    _need_card()
+    from mosstts_tpu_torch.ops.kernels import graph_loop as gl
+
+    def t(x, dt=torch.int32):
+        return torch.tensor(x, dtype=dt, device="cuda")
+
+    cases = [
+        (gl.GENERATE, 0, 5, dict(flags=t([1, 0], torch.bool), step=t([5, 1]))),
+        (gl.GENERATE, 0, 5, dict(flags=t([1, 1], torch.bool), step=t([1, 1]))),
+        (gl.GENERATE, 0, 5, dict(flags=t([0, 0], torch.bool), step=t([5, 6]))),
+        (gl.EVENT, 3, 8, dict(flags=t([0, 0], torch.bool), watch=t([1, 1]), budget=t([3, 5]))),
+        (gl.EVENT, 3, 8, dict(flags=t([0, 0], torch.bool), watch=t([0, 1]), budget=t([3, 5]))),
+        (gl.EVENT, 2, 8, dict(flags=t([1, 0], torch.bool), invert=True, watch=t([1, 1]),
+                              budget=t([9, 9]))),
+        (gl.BLOCK, 3, 4, {}), (gl.BLOCK, 4, 4, {}),
+        (gl.DRAIN, 5, 99, dict(active=t([1, 0], torch.bool), pos=t([100, 0]), attend=256)),
+        (gl.DRAIN, 5, 99, dict(active=t([1, 0], torch.bool), pos=t([256, 0]), attend=256)),
+        (gl.DRAIN, 5, 99, dict(active=t([0, 0], torch.bool), pos=t([100, 0]), attend=256)),
+    ]
+    for kind, i, limit, kw in cases:
+        ctrl = t([i, limit, 0, 3, 3, 0, 0, 0])
+        ctrl_plain = dict(qi=3, qn=3) if kind == gl.DRAIN else {}
+        want = gl.loop_cond_plain(kind, i, limit, **{
+            k: (v.bool() if k == "watch" else v) for k, v in kw.items()}, **ctrl_plain)
+        args = gl.cond_args(kind, ctrl, **kw)
+        gl.loop_cond(args, False, "cuda")
+        assert bool(ctrl[gl.COND]) is want and int(ctrl[gl.I]) == i, (kind, i, kw)
+
+
+def _f32_pair(seed):
+    cpu = DelayEngine.random_init(seed=seed, config=CFG, dtype=torch.float32, device="cpu",
+                                  cache_bucket=64)
+    card = DelayEngine(copy.deepcopy(cpu.params).cuda(), CFG, dtype=torch.float32,
+                       cache_bucket=64)
+    return cpu, card
+
+
+@pytest.mark.cuda
+def test_device_loops_equal_the_cpu_f32():
+    """On the float32 model (no TF32) the card's loops equal the CPU's eager
+    loops: ``generate(on_device=True)`` greedy and seeded (each attend
+    segment one loop-graph launch), and the 2-slot server's ``run_events``
+    and ``run_drain`` with seeded sampled requests (each event block and
+    each drain segment one launch): the same grids, step counts and
+    completions, no frame past an EOS."""
+    _need_card()
+    torch.backends.cuda.matmul.allow_tf32 = False
+    cpu, card = _f32_pair(9)
+    batch = _left_padded(_grids(2, seed=41))
+    for kw in (dict(text_temperature=0.0, audio_temperature=0.0), dict(seed=11)):
+        want = cpu.generate(*batch, max_new_tokens=80, on_device=True, **kw)
+        got = card.generate(*batch, max_new_tokens=80, on_device=True, **kw)
+        for (sa, ga), (sb, gb) in zip(got, want):
+            assert sa == sb
+            np.testing.assert_array_equal(ga, gb)
+    (steps,) = card._steps.values()
+    assert steps._loop is not None and steps._loop.launches >= 2
+    grids = _grids(5, seed=43)
+    budgets = [24, 9, 17, 31, 12]
+    for run in ("run_events", "run_drain"):
+        out = []
+        for params in (cpu.params, card.params):
+            srv = DelayBatchServer(params, CFG, slots=2, cache_len=256, out_capacity=64,
+                                   prompt_bucket=32, dtype=torch.float32)
+            rids = [srv.submit(g, max_new_tokens=n, seed=50 + i,
+                               sampling=dict(text_temperature=0.0) if i % 2 else None)
+                    for i, (g, n) in enumerate(zip(grids, budgets))]
+            done = {c.request_id: c for c in getattr(srv, run)()}
+            out.append([done[r] for r in rids])
+            if params is card.params:
+                loops = (srv._steps._loop.launches if run == "run_events"
+                         else sum(d.launches for d in srv._drains.values()))
+                assert loops == srv.total_dispatches
+        for a, b in zip(*out):
+            assert (a.start_length, a.steps) == (b.start_length, b.steps)
+            np.testing.assert_array_equal(a.tokens, b.tokens)
+
+
+@pytest.mark.cuda
+def test_run_drain_twice_across_attend_buckets_equals_the_cpu():
+    """Two ``run_drain`` calls on one float32 server whose segments cross
+    from attend 256 to 512: the second call replays the first's drain
+    graphs, the one at 256 after the one at 512 was built (each graph sets
+    its own admission handles), and each call's completions equal the CPU's
+    server's, frame for frame and step for step."""
+    _need_card()
+    torch.backends.cuda.matmul.allow_tf32 = False
+    cpu, card = _f32_pair(10)
+    servers = [DelayBatchServer(p, CFG, slots=2, cache_len=512, out_capacity=96,
+                                prompt_bucket=32, dtype=torch.float32)
+               for p in (cpu.params, card.params)]
+    for call in range(2):
+        # prompts in the 224 bucket: admitted at 224, so a row that lives
+        # 31 steps takes the drain from attend 256 to 512
+        grids = _grids(4, seed=60 + call, lo=200, hi=224)
+        budgets = [80, 40, 90, 60]
+        out = []
+        for srv in servers:
+            rids = [srv.submit(g, max_new_tokens=n, seed=70 + 10 * call + i,
+                               sampling=dict(text_temperature=0.0) if i % 2 else None)
+                    for i, (g, n) in enumerate(zip(grids, budgets))]
+            done = {c.request_id: c for c in srv.run_drain()}
+            out.append([done[r] for r in rids])
+        (drain,) = servers[1]._drains.values()
+        assert sorted(drain._execs) == [256, 512] and drain.launches >= 2 * (call + 1)
+        for a, b in zip(*out):
+            assert (a.start_length, a.steps) == (b.start_length, b.steps)
+            np.testing.assert_array_equal(a.tokens, b.tokens)

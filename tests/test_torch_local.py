@@ -30,7 +30,7 @@ from mosstts_tpu_torch.models import local as tl
 from mosstts_tpu_torch.nn.qwen3 import qwen3_forward
 from mosstts_tpu_torch.ops import attention as tattn
 from mosstts_tpu_torch.ops.quant import quantize_tree_
-from mosstts_tpu_torch.ops.sampling import row_generators
+from mosstts_tpu_torch.ops.sampling import row_keys
 from mosstts_tpu_torch.processing.local_processor import LocalProcessor
 from mosstts_tpu_torch.utils.convert import load_tree_
 
@@ -187,12 +187,12 @@ def test_depth_decode_matches_jax(weights, int8, sampling):
         fn = jax.jit(lambda p, g_, st, sa: jl._depth_decode(
             p, CFG, jax.random.PRNGKey(0), g_, js, st, sa, n))
         w0, wa = fn(jp, jnp.asarray(g), jnp.asarray(seen_text), jnp.asarray(seen))
-        depth = tl.init_local_state(TCFG, B, 8, 1, row_generators(0, B, "cpu"),
+        depth = tl.init_local_state(TCFG, B, 8, 1, row_keys(0, B),
                                     dtype=torch.float32).depth
         for buf in depth:
             buf.fill_(7.0)  # stale values: the pass zeroes its slots first
         for cache in (None, depth):
-            t0, ta = tl._depth_decode(tp, TCFG, row_generators(0, B, "cpu"), torch.tensor(g), ts,
+            t0, ta = tl._depth_decode(tp, TCFG, row_keys(0, B), torch.tensor(g), ts,
                                       torch.tensor(seen_text), torch.tensor(seen), n,
                                       cache=cache)
             np.testing.assert_array_equal(t0.numpy(), np.asarray(w0))
@@ -207,7 +207,7 @@ def _prefill(jp, tp, ids, mask, cache_len=64):
         n_vq_infer=NVQ, dtype=jnp.float32))(jp, jnp.asarray(ids), jnp.asarray(mask))
     ts = tl.local_prefill_split(tp, TCFG, torch.tensor(ids), torch.tensor(mask),
                                 max_new_tokens=8, cache_len=cache_len,
-                                rng=row_generators(0, ids.shape[0], "cpu"), n_vq_infer=NVQ,
+                                rng=row_keys(0, ids.shape[0]), n_vq_infer=NVQ,
                                 dtype=torch.float32)
     return js, ts
 

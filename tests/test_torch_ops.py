@@ -153,8 +153,8 @@ def test_topk_topp_filter_and_greedy_match_jax(top_k):
     jv = jnp.where((cum - probs) < jnp.asarray(p)[:, None, None], jv, js.NEG_INF)
     np.testing.assert_array_equal(N(vals), np.asarray(jv))
     np.testing.assert_array_equal(N(idx), np.asarray(ji))
-    gens = ts.row_generators(0, 3, "cpu")
-    greedy = ts.sample_topk_topp(gens, T(logits), top_k=top_k, top_p=T(p), do_sample=False)
+    keys = ts.row_keys(0, 3)
+    greedy = ts.sample_topk_topp(keys, T(logits), top_k=top_k, top_p=T(p), do_sample=False)
     jgreedy = js.sample_topk_topp(jax.random.split(jax.random.PRNGKey(0), 3), jnp.asarray(logits),
                                   top_k=top_k, top_p=jnp.asarray(p), do_sample=False,
                                   exact_topk=True)
@@ -165,11 +165,11 @@ def test_seeded_draws_are_per_row_and_deterministic():
     rng = np.random.default_rng(6)
     logits = T(rng.normal(size=(3, 4, 50)).astype(np.float32))
     kw = dict(top_k=20, top_p=0.9, do_sample=True)
-    a = ts.sample_topk_topp(ts.row_generators(7, 3, "cpu"), logits, **kw)
-    b = ts.sample_topk_topp(ts.row_generators(7, 3, "cpu"), logits, **kw)
+    a = ts.sample_topk_topp(ts.row_keys(7, 3), logits, **kw)
+    b = ts.sample_topk_topp(ts.row_keys(7, 3), logits, **kw)
     np.testing.assert_array_equal(N(a), N(b))
-    # row 1's draws depend on its own generator only, not on its co-tenants
-    solo = ts.sample_topk_topp(ts.row_generators(7, 3, "cpu")[1:2], logits[1:2], **kw)
+    # row 1's draws depend on its own key only, not on its co-tenants
+    solo = ts.sample_topk_topp(ts.row_keys(7, 3)[1:2], logits[1:2], **kw)
     np.testing.assert_array_equal(N(a)[1:2], N(solo))
     # a draw lies in the top-p nucleus of the top-k candidates
     vals, idx = ts.topk_topp_filter(logits, 20, 0.9)

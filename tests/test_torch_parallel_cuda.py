@@ -210,12 +210,10 @@ def test_text_lazy_is_eager_only():
     _need_cards()
     from mosstts_tpu_torch.engine.step_graph import GraphSteps, zero_state
     from mosstts_tpu_torch.models.delay import delay_decode_step
-    from mosstts_tpu_torch.ops.sampling import row_generators
 
     params = _params()
     greedy = make_sampling(text_temperature=0.0, audio_temperature=0.0, device="cuda")
-    state = zero_state(CFG, 1, 128, 8, dtype=torch.float32, kv_quant=False,
-                       rng=row_generators(0, 1, "cuda"), device="cuda")
+    state = zero_state(CFG, 1, 128, 8, dtype=torch.float32, kv_quant=False, device="cuda")
     graphs = GraphSteps(params, "text_head", "cuda")
 
     def lazy_step():
@@ -224,4 +222,4 @@ def test_text_lazy_is_eager_only():
     for _ in range(3):
         graphs.warm(lazy_step)
     with pytest.raises(ValueError, match="eagerly"):
-        graphs.capture(lazy_step, state.rng)
+        graphs.capture(lazy_step)

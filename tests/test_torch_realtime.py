@@ -160,7 +160,7 @@ def test_depth_generate_frame_matches_jax(weights, per_row, int8):
         want = np.asarray(frame(jp, jnp.asarray(hidden), jnp.asarray(hist),
                                 jnp.asarray(hist_len), jr.make_rt_sampling(0.0, 0.6, rp, False)))
         got = tr.depth_generate_frame(
-            tp, TCFG, tsamp.row_generators(0, B, "cpu"), torch.tensor(hidden),
+            tp, TCFG, tsamp.row_keys(0, B), torch.tensor(hidden),
             torch.tensor(hist), torch.tensor(hist_len),
             tr.make_rt_sampling(0.0, 0.6, rp, False)).numpy()
         np.testing.assert_array_equal(got, want)
@@ -184,7 +184,7 @@ def test_prefill_state_matches_jax(weights, proc):
     js, jf = jax.jit(lambda p, st, i, v, s: jr.realtime_prefill_step(
         p, CFG, st, i, v, s, attend_len=384))(jp, js, jnp.asarray(ids), jnp.asarray(valid),
                                               jr.make_rt_sampling(0.0))
-    ts = tr.init_realtime_state(TCFG, 2, 512, 40, tsamp.row_generators(0, 2, "cpu"),
+    ts = tr.init_realtime_state(TCFG, 2, 512, 40, tsamp.row_keys(0, 2),
                                 dtype=torch.float32)
     ts, tf = tr.realtime_prefill_step(tp, TCFG, ts, torch.tensor(ids), torch.tensor(valid),
                                       tr.make_rt_sampling(0.0), attend_len=384)

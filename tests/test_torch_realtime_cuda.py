@@ -11,8 +11,9 @@ conversation that outgrows its 128-slot cache (the engine then builds its
 state and frame graphs anew), and the continuous-batching server through
 ``run`` and ``run_events``. Frames must be equal bit for bit: a graph
 replays the eager frame's kernels on the same inputs and draws from the
-same generator states. On the float32 model the card's greedy frames equal
-the CPU's. The prefills and admissions are graphs too: the engine's
+same keys. On the float32 model the card's greedy frames equal the CPU's,
+and so do the server's ``run_events`` streams and step counts (a loop
+graph on the card, the text fed per frame there). The prefills and admissions are graphs too: the engine's
 first-turn and later-turn prefills (first use eager, second captured, then
 replayed at cursor 0 and at a later cursor) and the server's admissions of
 k = 1, 2, 4 and 8 (captured by ``warmup``) leave the whole state equal to
@@ -152,16 +153,40 @@ def test_float32_frames_equal_the_cpu():
         np.testing.assert_array_equal(a, b)
 
 
+@pytest.mark.cuda
+def test_float32_event_loop_equals_the_cpu():
+    """The 2-slot server's ``run_events`` on the float32 model: on the card
+    each event block is one launch of a loop graph (the frame graph, the
+    text column fed from the staged tokens, the condition read after every
+    frame); its streams and step counts equal the CPU's eager loop's, so
+    no frame runs past a watched slot's stop."""
+    _need_card()
+    cpu = RealtimeEngine.random_init(seed=6, config=CFG, dtype=torch.float32, device="cpu",
+                                     cache_len=256, max_length=64)
+    grids, text = _load(5, seed=9, rows=5, text=30)
+    out = []
+    for params in (cpu.params, copy.deepcopy(cpu.params).to("cuda")):
+        server = RealtimeBatchServer(params, CFG, slots=2, cache_len=256, max_frames=48,
+                                     prompt_bucket=16, dtype=torch.float32)
+        rids = [server.submit(g, t, max_new_tokens=n, sampling=dict(temperature=0.0))
+                for g, t, n in zip(grids, text, [12, 20, 9, 15, 11])]
+        done = {c.request_id: c for c in server.run_events()}
+        out.append([(done[r].steps, done[r].frames) for r in rids])
+        if params.text_emb.is_cuda:
+            assert server._steps._loop.launches > 0
+    for (sa, fa), (sb, fb) in zip(*out):
+        assert sa == sb
+        np.testing.assert_array_equal(fa, fb)
+
+
 def _assert_same_state(a, b):
-    """Every tensor of two ``RealtimeState``s (their caches' too) equal bit
-    for bit, and their generators' seeds and offsets."""
+    """Every tensor of two ``RealtimeState``s (their caches and keys too)
+    equal bit for bit."""
     ta = list(a.cache) + [t for t in a[1:] if isinstance(t, torch.Tensor)]
     tb = list(b.cache) + [t for t in b[1:] if isinstance(t, torch.Tensor)]
     assert len(ta) == len(tb)
     for x, y in zip(ta, tb):
         assert torch.equal(x, y)
-    for x, y in zip(a.rng, b.rng, strict=True):
-        assert torch.equal(x.get_state(), y.get_state())
 
 
 def _only_replayed(*names):
@@ -180,7 +205,7 @@ def test_engine_prefill_graphs_match_eager(weights):
     eagerly, the second (a turn at a later cursor) captures, and the second
     conversation's two replay the graph, at cursor 0 and at a later cursor.
     After each prefill the whole state (cache, masks, frames, cursors,
-    generators' seeds and offsets) equals the eager engine's; the replayed
+    keys) equals the eager engine's; the replayed
     prefills launch flash (and W8A16) only inside the graph."""
     _need_card()
     params = RealtimeEngine.random_init(seed=8, config=CFG, device="cuda").params
@@ -226,7 +251,7 @@ def test_server_admission_graphs_match_eager(weights):
     0.9) after ``warmup()`` captured their graphs: each is the replay of one
     graph (flash and W8A16 launched only inside graphs) into its k bucket's
     static admission state, and after each the running state (its slots'
-    generators' seeds and offsets too) and the admission state equal the
+    keys too) and the admission state equal the
     eager server's; the streams then equal too. Admissions of two prompt
     buckets ``warmup()`` did not name, each twice, one after the other,
     run eagerly (flash launched outside any graph) and capture nothing:

@@ -143,17 +143,16 @@ def _serve_groups(server, load, sampling, warm=True):
 
 def _old_prefill_group(self, ids, valid, slots, seeds, sampling):
     """The admission as it was before it became one static-state program:
-    a new kb-row state per admission, row i drawing from slot
-    ``slots[i]``'s own generator reseeded with ``seeds[i]``."""
+    a new kb-row state per admission, row i drawing from the key
+    ``PRNGKey(seeds[i])``."""
     from mosstts_tpu_torch.engine.realtime_batch_server import _splice_rt_rows_
     from mosstts_tpu_torch.models.realtime import init_realtime_state, realtime_prefill_step
+    from mosstts_tpu_torch.ops.sampling import prng_key
 
     kb, Tb = ids.shape[:2]
     k = len(slots)
-    gens = [self.state.rng[s] for s in slots] + [torch.Generator() for _ in range(kb - k)]
-    for g, seed in zip(gens, list(seeds) + [0] * (kb - k)):
-        g.manual_seed(seed)
-    small = init_realtime_state(self.config, kb, self.cache_len, self.max_frames, gens,
+    keys = torch.stack([prng_key(seed) for seed in list(seeds) + [0] * (kb - k)])
+    small = init_realtime_state(self.config, kb, self.cache_len, self.max_frames, keys,
                                 dtype=self.dtype)
     small, _ = realtime_prefill_step(self.params, self.config, small, torch.as_tensor(ids),
                                      torch.as_tensor(valid), sampling, top_k=self.top_k,
@@ -165,8 +164,8 @@ def test_admission_groups_match_jax(servers, load):
     """Greedy: the groups of ``GROUPS`` (k = 4, 2, 1, 3 and 1, into slots
     0-3, 1 and 3, 0, 0, 1 and 3, 2), admitted after ``warmup()`` through the
     static admission state it kept for each k bucket (reused, returned to a
-    new conversation's in the program, its generators' states handed to the
-    slots), give the JAX server's streams and step counts."""
+    new conversation's in the program, its keys handed to the slots),
+    give the JAX server's streams and step counts."""
     js = JServer(servers[0].params, CFG, dtype=jnp.float32, **GROUP_KW)
     ts = RealtimeBatchServer(servers[2], TCFG, dtype=torch.float32, **GROUP_KW)
     rids = [js.submit(*load[i % len(load)], max_new_tokens=n, prefill_text_len=4,
@@ -185,7 +184,7 @@ def test_admission_groups_match_jax(servers, load):
 def test_sampled_admission_groups_equal_the_per_admission_prefill(servers, load, warm):
     """Sampled (temperature 0.9): the same schedule gives, at the same
     request ids, the streams of the admission it replaced (a new state per
-    admission, drawing from the slots' own generators), through the static
+    admission, drawing from the requests' own keys), through the static
     admission states ``warmup()`` kept, or without a warmup through a
     transient one per admission (none kept)."""
     tp = servers[2]
@@ -199,5 +198,5 @@ def test_sampled_admission_groups_equal_the_per_admission_prefill(servers, load,
     for w, g in zip(want, got, strict=True):
         assert g.request_id == w.request_id and g.steps == w.steps
         np.testing.assert_array_equal(g.frames, w.frames)
-    for slot in range(GROUP_KW["slots"]):  # the slots' generators end where the old ones did
-        assert torch.equal(new.state.rng[slot].get_state(), old.state.rng[slot].get_state())
+    # the slots' keys end where the old ones did
+    np.testing.assert_array_equal(new.state.rng.numpy(), old.state.rng.numpy())

@@ -22,7 +22,7 @@ from mosstts_tpu.models import delay as jd
 from mosstts_tpu_torch.core import config as tconfig
 from mosstts_tpu_torch.models import delay as td
 from mosstts_tpu_torch.ops.quant import quantize_tree_
-from mosstts_tpu_torch.ops.sampling import row_generators
+from mosstts_tpu_torch.ops.sampling import row_keys
 from mosstts_tpu_torch.utils.convert import load_tree_
 
 CFG = DelayConfig(language_config=tiny_qwen3(), n_vq=4)
@@ -88,7 +88,7 @@ def _port_steps(tparams, all_audio):
     sampling = td.make_sampling(text_temperature=0.0, audio_temperature=0.0)
     state = td.delay_prefill(tparams, TCFG, torch.as_tensor(_prompt(all_audio)),
                              torch.ones((B, T), dtype=torch.bool), max_new_tokens=8, cache_len=64,
-                             rng=row_generators(1, B, "cpu"), sampling=sampling,
+                             rng=row_keys(1, B), sampling=sampling,
                              dtype=torch.float32)
     lazy, full, branches = [], [], []
     with torch.no_grad():
@@ -136,7 +136,7 @@ def test_lazy_decode_loop_matches_plain(setup):
     for lazy in (False, True):
         st = td.delay_prefill(tparams, TCFG, torch.as_tensor(_prompt(all_audio=True)),
                               torch.ones((B, T), dtype=torch.bool), max_new_tokens=8,
-                              cache_len=64, rng=row_generators(1, B, "cpu"), sampling=sampling,
+                              cache_len=64, rng=row_keys(1, B), sampling=sampling,
                               dtype=torch.float32)
         with torch.no_grad():
             for _ in range(6):

@@ -105,7 +105,7 @@ def mesh_cases(rank, world, tree, inp, tmp):
     from mosstts_tpu_torch.engine.batch_server import DelayBatchServer
     from mosstts_tpu_torch.engine.delay_engine import DelayEngine
     from mosstts_tpu_torch.models.delay import delay_decode_step, delay_forward, delay_prefill
-    from mosstts_tpu_torch.ops.sampling import row_generators
+    from mosstts_tpu_torch.ops.sampling import row_keys
     from mosstts_tpu_torch.parallel.mesh import delay_param_specs, make_mesh, shard_params
     from mosstts_tpu_torch.train.trainer import TTSTrainer
 
@@ -134,7 +134,7 @@ def mesh_cases(rank, world, tree, inp, tmp):
 
     d = inp["decode"]
     st = delay_prefill(p, cfg, torch.as_tensor(d["ids"]), torch.as_tensor(d["mask"]),
-                       max_new_tokens=8, cache_len=64, rng=row_generators(3, len(d["ids"]), "cpu"),
+                       max_new_tokens=8, cache_len=64, rng=row_keys(3, len(d["ids"])),
                        sampling=_greedy(), dtype=torch.float32)
     for _ in range(6):
         st = delay_decode_step(p, cfg, st, _greedy(), attend_len=64)
