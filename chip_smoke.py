@@ -77,14 +77,22 @@ Phases, one or more lines each; any failure raises and exits non-zero:
    the CPU's on the same weights, and at all 22 layers 1 s chunks against
    one shot on the card; a frame may differ only where the first differing
    level's two entries tie within 1e-4 relative; the encode time per
-   second of audio. 8b serves 7 requests at once through the port's
+   second of audio. The codec's chunk programs are CUDA graphs
+   (``engine/step_graph.CodecChunks``), captured by ``demo_backend``'s
+   warmup (batch 1, 100 frames): the encode and a 100-frame decode each one
+   replay, equal bit for bit to the same chunk run eagerly
+   (``graphs=False``), both ways' wall and device ms and kernels, the
+   graph's kernel nodes and its memory pool's bytes; the 1 s chunks go
+   through a key captured on use, equal to eager's. 8b serves 7 requests
+   at once through the port's
    ``ThreadingHTTPServer`` in this process with ``--pool-slots 16``
    (linear bf16 KV): four ``/tts`` Clone requests with that wave (audio
    greedy), one two-speaker ``/ttsd``, one ``/voice_gen`` and one
    ``/sound_effect``, 96-128 new frames each: every response a WAV of the
    samples its grid decodes to, each request's seconds, ``/metrics``' TTFA
    and RTF; flash, the decode kernel and W8A16 ran, the last two inside
-   replayed graphs. 8c sends the four Clone prompts, greedy in text and
+   replayed graphs; the codec captured no graph mid-serve. 8c sends the
+   four Clone prompts, greedy in text and
    audio, through that pool at once and through ``engine.generate`` alone:
    at 8B width the two batch sizes round differently (B=16 against B=1
    reductions and GEMM plans, the pool's prompt bucket), so the grids part
@@ -141,9 +149,13 @@ Phases, one or more lines each; any failure raises and exits non-zero:
    warmed): states equal, one replay each at bucket 32, eager with nothing
    captured at the others, warm admission times both ways; on a small float32 model a 2-slot server's greedy streams
    equal the solo engine's, card and CPU. 10c: a ``RealtimeStreamingSession``
-   and ``AudioStreamDecoder`` on the ``codec_1p6b()`` codec, fed by
+   and ``AudioStreamDecoder`` on the ``codec_1p6b()`` codec (its warmup
+   captures the stream's 4-frame decode chunk), fed by
    ``RealtimeTextStreamBridge`` from word deltas (time to the first wave
-   chunk, the wave's length against its frames), then three concurrent
+   chunk, the wave's length against its frames; every codec chunk a
+   replay, and the same pushes through an eager codec give the same
+   chunks bit for bit; one 4-frame chunk's wall and device ms both ways),
+   then three concurrent
    pooled ``POST /stream`` requests to the HTTP server in this process
    (``--rt-pool-slots 4``), the third with a longer user turn: status,
    headers, TTFA, samples, the pool's admissions by bucket (eager,
@@ -253,13 +265,17 @@ Phases, one or more lines each; any failure raises and exits non-zero:
    kernel of ``ops/kernels`` launched. 13d:
    ``codec_1p6b()`` with int8 weights (``quantize_tree_``) encodes and
    decodes phase 8a's 4 s wave on the card (its encoder through
-   ``w8f32_gemm``, its decoder through W8A16): mean relative deviation
+   ``w8f32_gemm``, its decoder through W8A16, every launch inside the
+   codec's chunk graphs, which its warmup captured; equal bit for bit to
+   the same chunks eagerly, both ways' times): mean relative deviation
    from the float32 codec below 0.5 (JAX's test's bound), and with 2 of
    22 layers the card's codes against the CPU's (near ties only) and its
    wave within two bf16 ulps of the peak of the CPU's. 13e: greedy frames
    with ``text_lazy`` on a small float32 model equal the full path's, and
    the lazy step's graph capture raises ``ValueError``. W8A16's float32
-   mode is the tenth entry of the kernels line, its launches 13d's.
+   mode is the tenth entry of the kernels line, its launches 13d's; the
+   W8A16 and float32-mode entries carry 13d's launches inside the codec's
+   graphs (``in_codec_graphs``).
 14. the Gradio demos' handlers (``serve/gradio_apps.py``'s factories,
    plain functions of a backend: no gradio is needed). 14a, after 9c, on
    phase 4's backend (int8 weights): the four Delay demos' handlers (TTS
@@ -270,12 +286,13 @@ Phases, one or more lines each; any failure raises and exits non-zero:
    handler, pipeline, pipeline, handler (the same call straight to its
    pipeline function, same seed): finite float32 waves at 24 kHz, the five
    waves of a call within 1e-4; each timed call's wall and the handler's
-   own time outside its pipeline call. 14b,
+   own time outside its pipeline call; the codec's chunks replay its graphs
+   (batch-2 encodes run eagerly), none captured. 14b,
    in phase 10 after 10c: the Realtime demo's handler on the int8 1.7B
    engine and ``codec_1p6b()`` with the demo's defaults (chunk 12, no
    prebuffer), the turn ended at 96 frames: more than one finite chunk at
    the codec's rate, the last yield ``done | <metrics json>`` with a TTFA;
-   the time to the first chunk and the chunks.
+   the time to the first chunk and the chunks; every codec chunk a replay.
 Phases 4-6, 8, 9, 10, 11 and 14 run the package's default: every decode step a
 CUDA-graph replay, and every prefill one from its key's second use (or a
 server's ``warmup``) on (``engine/step_graph.py``). The kernels' launch
@@ -358,7 +375,7 @@ from mosstts_tpu_torch.tools.admission_path import N as TIMED_N  # noqa: E402
 from mosstts_tpu_torch.tools.admission_path import prompt_grid, timed  # noqa: E402
 from mosstts_tpu_torch.tools.kernel_inputs import (  # noqa: E402
     GEMM_8B, bound, card_line, codec_f32_shapes, decode_bound, decode_inputs, gemm_bound,
-    graph_kernels, time_ms)
+    graph_kernels, graph_nodes, time_ms)
 from mosstts_tpu_torch.tools.hf_checkpoint import same_params, write_hf_checkpoint  # noqa: E402
 from mosstts_tpu_torch.tools.kernel_times import int4_library  # noqa: E402
 from mosstts_tpu_torch.tools.pool_vs_solo import first_divergence  # noqa: E402
@@ -1891,11 +1908,62 @@ def cpu_encoder_copy(params, cfg):
     return cpu
 
 
+def codec_graphs_vs_eager(label: str, graph, eager, calls) -> list:
+    """Each ``(what, key, run)`` of ``calls``: ``run(codec)`` (host arrays)
+    through ``graph``, whose chunks replay its captured graph at ``key``,
+    and through ``eager`` (``graphs=False``, the same weights), equal bit
+    for bit; each way's wall (median of 5, host clock) and device ms and
+    kernels (one call under the profiler, ``profile_step.call_times``), the
+    graph's kernel nodes (the launches of one chunk) and its memory pool's
+    bytes."""
+    from mosstts_tpu_torch.engine.step_graph import pool_bytes
+
+    rows = []
+    for what, key, run in calls:
+        before = dict(graph.chunks.counts)
+        got, ref = run(graph), run(eager)
+        if not np.array_equal(got, ref):
+            raise AssertionError(f"{label} {what}: the graph's output differs from eager's")
+        counts = {k: v - before[k] for k, v in graph.chunks.counts.items()}
+        found = graph.chunks.graph_of(key)
+        if found is None or counts["eager"] or not counts["replay"]:
+            raise AssertionError(f"{label} {what}: not a replay of the graph at {key}: {counts}")
+        g = profile_step.call_times(lambda: run(graph))
+        e = profile_step.call_times(lambda: run(eager))
+        nbytes = pool_bytes(found[1])
+        row = dict(what=what, key=str(key), chunks=counts["replay"], graph=g, eager=e,
+                   graph_kernels=graph_nodes(found[0])[0], pool_bytes=nbytes)
+        rows.append(row)
+        log(f"  {label} {what}: graph == eager bit for bit; {counts['replay']} chunk(s); wall "
+            f"graph {g['wall_ms']:.3f} / eager {e['wall_ms']:.3f} ms, device {g['device_ms']:.3f}"
+            f" / {e['device_ms']:.3f} ms, kernels {g['kernels']} / {e['kernels']} "
+            f"({row['graph_kernels']} kernel nodes a chunk), the key's pool "
+            + ("not measured" if nbytes is None else f"{nbytes / 2**20:.1f} MiB"))
+    return rows
+
+
+@contextlib.contextmanager
+def codec_chunks(label: str, codec, eager_ok: bool = False):
+    """Within: ``codec``'s chunks; after, they are logged, and none may have
+    been captured (a server's codec captures only in its warmup), nor, unless
+    ``eager_ok``, run eagerly (a key the warmup did not capture)."""
+    before, got = dict(codec.chunks.counts), {}
+    yield got
+    got.update({k: v - before[k] for k, v in codec.chunks.counts.items()})
+    log(f"  {label}: codec chunks {got}")
+    if got["capture"] or not got["replay"] or (got["eager"] and not eager_ok):
+        raise AssertionError(f"{label}: the codec's chunks were not all replays of graphs its "
+                             f"warmup captured: {got}")
+
+
 def phase_codec_encode(codec, wav: np.ndarray) -> dict:
     """Phase 8a: ``codec_1p6b()`` encode of a 4 s wave on the card. With the
     first 2 of 22 encoder layers (full width), the card's codes against the
-    CPU's on the same weights; at all 22 layers, chunked against one-shot
-    on the card, and the encode time per second of audio."""
+    CPU's on the same weights; at all 22 layers, the warmed graphs (encode
+    and a 100-frame decode, one replay a chunk) against the same chunks
+    eagerly, bit for bit, with their times, 1 s chunks (a key captured on
+    use) against eager and against one-shot, and the encode time per second
+    of audio."""
     from mosstts_tpu_torch.codec.model import MossAudioTokenizer
 
     cfg = codec.config
@@ -1914,23 +1982,32 @@ def phase_codec_encode(codec, wav: np.ndarray) -> dict:
         "encode, 2 of 22 layers, card vs CPU", card_codes.audio_codes, cpu_codes.audio_codes,
         lat_cpu[0][:, :T], books)
 
+    # a replay calls no Python: rvq_encode's inputs come from an eager codec
+    eager = MossAudioTokenizer(codec.params, cfg, graphs=False)
     with rvq_inputs() as lat_card:
-        one = codec.encode(wav)
-    torch.cuda.synchronize()
-    chunked = codec.encode(wav, chunk_duration=1.0)  # chunks of 12 frames, the last padded
+        one = eager.encode(wav)
+    f32 = cfg.n_q, torch.float32
+    codes = np.random.default_rng(1).integers(0, cfg.codebook_size, (n_q, 1, 100))
+    out["graphs"] = codec_graphs_vs_eager("8a f32 codec_1p6b", codec, eager, [
+        ("encode of the 4 s wave", ("encode", 1, 100) + f32,
+         lambda c: c.encode(wav).audio_codes),
+        ("decode of 100 frames", ("decode", 1, 100) + f32,
+         lambda c: c._decode_array(codes, 100))])
+    on_use = MossAudioTokenizer(codec.params, cfg)  # captures its 12-frame key on use
+    chunked = on_use.encode(wav, chunk_duration=1.0)  # chunks of 12 frames, the last padded
+    if not (np.array_equal(chunked.audio_codes, eager.encode(wav, chunk_duration=1.0).audio_codes)
+            and on_use.chunks.counts == dict(eager=1, capture=1, replay=3)):
+        raise AssertionError(f"8a 1 s chunks: the graph differs from eager's or did not replay "
+                             f"({on_use.chunks.counts})")
     out["chunked_vs_oneshot"] = code_mismatches(
-        "encode, 22 layers on the card, 1 s chunks vs one-shot", chunked.audio_codes,
+        "encode, 22 layers on the card, 1 s chunks (replays) vs one-shot", chunked.audio_codes,
         one.audio_codes, lat_card[0][:, :T], books)
-    walls = []
-    for _ in range(3):
-        torch.cuda.synchronize()
-        t = time.perf_counter()
-        codec.encode(wav)
-        walls.append(time.perf_counter() - t)
-    out["encode_ms_per_audio_s"] = sorted(walls)[1] * 1e3 / seconds
-    log(f"  encode of {seconds:.1f} s ({T} frames x {n_q} levels), codec_1p6b f32, 22 layers: "
-        f"{sorted(walls)[1] * 1e3:.2f} ms (median of 3) = {out['encode_ms_per_audio_s']:.2f} ms "
-        f"per second of audio")
+    wall = out["graphs"][0]["graph"]["wall_ms"]
+    out["encode_ms_per_audio_s"] = wall / seconds
+    log(f"  encode of {seconds:.1f} s ({T} frames x {n_q} levels), codec_1p6b f32, 22 layers, "
+        f"one graph replay: {wall:.2f} ms (median of 5) = {out['encode_ms_per_audio_s']:.2f} ms "
+        f"per second of audio (eager {out['graphs'][0]['eager']['wall_ms']:.2f} ms)")
+    del on_use
     return out
 
 
@@ -2029,10 +2106,14 @@ def phase_front_end(backend, wav_path: str):
         t0 = time.perf_counter()
         clients = [threading.Thread(target=fetch, args=(i, route, body))
                    for i, (route, body) in enumerate(bodies)]
-        for c in clients:
-            c.start()
-        for c in clients:
-            c.join(timeout=900)
+        # the clones' encodes and the waves' decodes replay the codec graphs
+        # the backend's warmup captured (batch 1, 100 frames); the TTSD
+        # speakers' two-wave encode (batch 2) runs eagerly
+        with codec_chunks("8b, the 7 requests", proc.audio_tokenizer, eager_ok=True):
+            for c in clients:
+                c.start()
+            for c in clients:
+                c.join(timeout=900)
         wall = time.perf_counter() - t0
         counts = read_counts()
         if errors or any(c.is_alive() for c in clients):
@@ -2949,23 +3030,30 @@ def rt_small_server_vs_solo() -> None:
         f"and on the CPU, card == CPU ({sum(len(s) for s in streams[DEV])} frames)")
 
 
-def rt_streaming_phase(engine, codec, proc, label: str) -> dict:
+def rt_streaming_phase(engine, codec, proc, label: str, eager) -> dict:
     """10c: a ``RealtimeStreamingSession`` on ``engine`` and an
     ``AudioStreamDecoder`` on ``codec`` (chunks of 12 frames, the first of
     2, 2 frames of crossfade), fed by ``RealtimeTextStreamBridge`` with a
     text split into word deltas, the drain bounded at 96 frames: the time
-    to the first wave chunk, and the wave's length against its frames."""
+    to the first wave chunk, and the wave's length against its frames. Every
+    4-frame codec chunk (the flush's too) replays the graph ``codec``'s
+    warmup captured, and the tokens the decoder took, pushed the same way
+    into a decoder on ``eager`` (``graphs=False``, the same weights), give
+    the same chunks bit for bit."""
     session = RealtimeStreamingSession(engine, proc, codec=codec, temperature=0.8)
     session.reset_turn(user_text="hello", user_audio_tokens=np.random.default_rng(0).integers(
         0, 1024, (8, engine.config.rvq)))
     decoder = AudioStreamDecoder(codec, chunk_frames=12, overlap_frames=2, first_chunk_frames=2)
+    pushed, push = [], decoder.push_tokens
+    decoder.push_tokens = lambda tokens: (pushed.append(np.array(tokens)), push(tokens))[1]
     bridge = RealtimeTextStreamBridge(session, decoder)
     words = ("the port streams audio while the text is still arriving, one delta at a "
              "time, as a language model would send it").split(" ")
     chunks, first = [], None
     torch.cuda.synchronize()
     t = time.perf_counter()
-    with codec.streaming(batch_size=1):
+    with codec_chunks(f"10c streaming session ({label})", codec) as replays, \
+            codec.streaming(batch_size=1):
         for w in words:
             for wav in bridge.push_text_delta(w + " "):
                 first = first or time.perf_counter() - t
@@ -2978,12 +3066,24 @@ def rt_streaming_phase(engine, codec, proc, label: str) -> dict:
     n = len(engine.generated_tokens)
     if not (np.isfinite(wave).all() and wave.size > 0 and first is not None):
         raise AssertionError(f"streaming: bad wave {wave.shape}")
+    twin, again = AudioStreamDecoder(eager, chunk_frames=12, overlap_frames=2,
+                                     first_chunk_frames=2), []
+    with eager.streaming(batch_size=1):
+        for tokens in pushed:
+            twin.push_tokens(tokens)
+            again += [w for w in twin.audio_chunks() if w.size]
+        last = twin.flush()
+        again += [last] if last is not None and last.size else []
+    if len(again) != len(chunks) or not all(np.array_equal(a, b) for a, b in zip(again, chunks)):
+        raise AssertionError(f"streaming ({label}): the replayed chunks differ from eager's")
     r = dict(run=label, frames=n, chunks=len(chunks), first_chunk_ms=first * 1e3, wall_s=wall,
-             wave_s=wave.size / codec.sampling_rate, frames_s=n / 12.5)
+             wave_s=wave.size / codec.sampling_rate, frames_s=n / 12.5,
+             codec_replays=replays["replay"])
     log(f"  streaming session ({label}): {n} frames -> {len(chunks)} chunks, "
         f"{r['wave_s']:.2f} s of wave ({r['frames_s']:.2f} s of frames; frames trimmed at EOS "
         f"or past the codebooks do not sound), first chunk after {r['first_chunk_ms']:.1f} ms, "
-        f"{wall:.2f} s in all")
+        f"{wall:.2f} s in all; {replays['replay']} codec chunks, each a replay, equal to eager's "
+        f"bit for bit")
     return r
 
 
@@ -3116,18 +3216,27 @@ def phase_realtime() -> tuple:
     log("phase 10c: streaming session and decoder on codec_1p6b, then /stream over HTTP")
     codec = MossAudioTokenizer.random_init(seed=0, config=codec_1p6b(), dtype=torch.float32,
                                            device=DEV)
+    codec.warmup(stream_levels=cfg.rvq)  # as load_realtime_backend's codec
+    eager = MossAudioTokenizer(codec.params, codec.config, graphs=False)
     proc = RealtimeProcessor(ByteFallbackTokenizer(), channels=cfg.rvq)
-    stream = [rt_streaming_phase(engine, codec, proc, label) for label in ("cold", "warm")]
+    stream = [rt_streaming_phase(engine, codec, proc, label, eager)
+              for label in ("cold", "warm")]
+    codes = np.random.default_rng(10).integers(0, 1024, (cfg.rvq, 1, 4))
+    chunk = codec_graphs_vs_eager("10c codec_1p6b", codec, eager, [
+        ("decode of one 4-frame stream chunk", ("decode", 1, 4, cfg.rvq, torch.float32),
+         lambda c: c._decode_array(codes, 4))])
     log("phase 14b: the Realtime Gradio demo's handler on the int8 engine and codec_1p6b")
-    gc_counts, gradio = gradio_realtime(engine, proc, codec)
+    with codec_chunks("14b", codec):
+        gc_counts, gradio = gradio_realtime(engine, proc, codec)
     counts.append(gc_counts)
-    hc, hrows = rt_http_phase(engine, proc, codec)
+    with codec_chunks("10c /stream", codec):
+        hc, hrows = rt_http_phase(engine, proc, codec)
     counts.append(hc)
     numbers = dict(engine=rows, param_bytes=dict(bf16=bf16_bytes, int8=int8_bytes),
-                   server=srows, admissions=admissions, stream=stream, gradio=gradio,
-                   http=hrows)
+                   server=srows, admissions=admissions, stream=stream, stream_chunk=chunk,
+                   gradio=gradio, http=hrows)
     log("  phase 10 numbers: " + json.dumps(numbers))
-    del engine, codec
+    del engine, codec, eager
     gc.collect()
     torch.cuda.empty_cache()
     return counts, knum, numbers
@@ -4509,26 +4618,42 @@ def _spawned_rank(rank: int, world: int, address: str) -> None:
 def phase_int8_codec(wav: np.ndarray) -> dict:
     """13d: ``codec_1p6b()`` with int8 weights (``quantize_tree_``): the
     encoder's products through W8A16's float32-activation mode, the
-    decoder's through W8A16 (bf16 activations, as JAX's int8 codec). Phase
-    8a's 4 s wave encoded and decoded on the card against the float32 codec
-    on the card (JAX's test's bound: mean relative deviation < 0.5); with 2
-    of 22 encoder and decoder layers, the card's int8 codes against the
-    CPU's int8 codes (near ties only) and the card's wave against the CPU's."""
+    decoder's through W8A16 (bf16 activations, as JAX's int8 codec), each
+    chunk one replay of the graphs the codec's ``warmup`` captured (batch 1,
+    100 frames). Phase 8a's 4 s wave encoded and decoded on the card: equal
+    bit for bit to the same chunks run eagerly (``graphs=False``), with
+    their times, the two kernels counted inside the graphs; against the
+    float32 codec on the card (JAX's test's bound: mean relative deviation
+    < 0.5); with 2 of 22 encoder and decoder layers, the card's int8 codes
+    against the CPU's int8 codes (near ties only) and the card's wave
+    against the CPU's."""
     from mosstts_tpu_torch.codec.model import MossAudioTokenizer
     from mosstts_tpu_torch.ops.quant import quantize_tree_
 
     cfg = codec_1p6b()
     f32 = MossAudioTokenizer.random_init(seed=13, config=cfg, device=DEV)
     q8 = MossAudioTokenizer(quantize_tree_(copy.deepcopy(f32.params)), cfg)
+    q8.warmup(decode_levels=cfg.n_q)
+    eager = MossAudioTokenizer(q8.params, cfg, graphs=False)
     reset_counts()
     t = time.perf_counter()
-    enc = q8.encode(wav)
-    wave = np.asarray(q8.decode(enc.audio_codes, chunk_duration=None)["audio"], np.float32)
-    torch.cuda.synchronize()
+    with codec_chunks("13d int8 encode + decode", q8):
+        enc = q8.encode(wav)
+        wave = np.asarray(q8.decode(enc.audio_codes)["audio"], np.float32)
+        torch.cuda.synchronize()
     wall = time.perf_counter() - t
     counts = read_counts()
-    if not counts["w8f32"] or not counts["w8a16"]:
-        raise AssertionError(f"13d: the int8 codec did not run both GEMMs: {counts}")
+    g = counts["graphs"]
+    if not (counts["w8f32"] and counts["w8a16"] and g["w8f32"] == counts["w8f32"]
+            and g["w8a16"] == counts["w8a16"]):
+        raise AssertionError(f"13d: the int8 codec did not run both GEMMs inside its graphs: "
+                             f"{counts}")
+    key = ("int8",)
+    graphs = codec_graphs_vs_eager("13d int8 codec_1p6b", q8, eager, [
+        ("encode of the 4 s wave", ("encode", 1, 100, cfg.n_q) + key,
+         lambda c: c.encode(wav).audio_codes),
+        ("decode of its 50 frames", ("decode", 1, 100, cfg.n_q) + key,
+         lambda c: c.decode(enc.audio_codes)["audio"])])
     ref = np.asarray(f32.decode(enc.audio_codes, chunk_duration=None)["audio"], np.float32)
     if not np.isfinite(wave).all():
         raise AssertionError("13d: non-finite int8 wave")
@@ -4553,13 +4678,15 @@ def phase_int8_codec(wav: np.ndarray) -> dict:
         raise AssertionError(f"13d: the card's int8 wave (2 layers) lies {wave_gap:.2e} of its "
                              f"peak from the CPU's")
     log(f"  13d int8 codec_1p6b: encode + decode of {wav.size / cfg.sampling_rate:.1f} s on the "
-        f"card {wall:.2f} s (w8f32 {counts['w8f32']} launches, w8a16 {counts['w8a16']}); mean "
-        f"relative deviation from the f32 codec {dev:.4f} (< 0.5); 2-layer card vs CPU: {flips} "
-        f"frames differ at near ties, wave {wave_gap:.2e} of the peak apart (the SIMT f32 "
-        f"kernel's run, PERF.md §6: 0.13 s, 156 w8f32 launches, 0 frames differ, 7.18e-03)")
+        f"card {wall:.2f} s, one replay a chunk (w8f32 {counts['w8f32']} launches, w8a16 "
+        f"{counts['w8a16']}, all inside the codec's graphs); mean relative deviation from the f32 "
+        f"codec {dev:.4f} (< 0.5); 2-layer card vs CPU: {flips} frames differ at near ties, wave "
+        f"{wave_gap:.2e} of the peak apart (the SIMT f32 kernel's run, PERF.md §6: 0.13 s, 156 "
+        f"w8f32 launches, 0 frames differ, 7.18e-03)")
     out = dict(wall_s=wall, deviation=dev, card_vs_cpu_frames=flips, wave_gap=wave_gap,
-               w8f32_launches=counts["w8f32"], w8a16_launches=counts["w8a16"])
-    del f32, q8, card_cut
+               w8f32_launches=counts["w8f32"], w8a16_launches=counts["w8a16"],
+               w8f32_in_graphs=g["w8f32"], w8a16_in_graphs=g["w8a16"], graphs=graphs)
+    del f32, q8, eager, card_cut
     release()
     return out
 
@@ -4998,7 +5125,9 @@ def main() -> None:
     with tempfile.TemporaryDirectory() as tmp:
         wav_path = str(Path(tmp) / "reference.wav")
         write_wav(wav_path, sweep_wav(4.0, seed=8), 24000)
-        gradio_counts, gradio_rows = phase_gradio_delay(backend, wav_path)
+        with codec_chunks("14a, the Delay demos", backend.processor.audio_tokenizer,
+                          eager_ok=True):  # TTSD's two speakers encode at batch 2, eagerly
+            gradio_counts, gradio_rows = phase_gradio_delay(backend, wav_path)
     log("  phase 14a numbers: " + json.dumps(gradio_rows))
     del backend
     gc.collect()
@@ -5053,8 +5182,10 @@ def main() -> None:
              source="mosstts_tpu_torch/csrc/decode_attn.cu",
              replaces="mosstts_tpu/ops/pallas/decode_attn.py:414",
              launches=launches["decode_q8t"], **numbers["decode_q8t"]),
+        # in_codec_graphs: 13d's launches inside the int8 codec's chunk graphs
         dict(name="w8a16_gemm", route="cuda", source="mosstts_tpu_torch/csrc/w8_gemm.cu",
-             replaces="tools/tune_mm8.py:165", launches=launches["w8a16"], **numbers["w8a16"]),
+             replaces="tools/tune_mm8.py:165", launches=launches["w8a16"],
+             in_codec_graphs=p13["codec"]["w8a16_in_graphs"], **numbers["w8a16"]),
         dict(name="w8a8_gemm", route="cuda", source="mosstts_tpu_torch/csrc/w8_gemm.cu",
              replaces="tools/tune_mm8.py:85", launches=launches["w8a8"], **numbers["w8a8"]),
         dict(name="int4_gemm", route="cuda", source="mosstts_tpu_torch/csrc/w8_gemm.cu",
@@ -5062,7 +5193,7 @@ def main() -> None:
         # W8A16's float32-activation mode (the int8 codec's encoder, 13d)
         dict(name="w8a16_gemm_f32_activations", route="cuda",
              source="mosstts_tpu_torch/csrc/w8_gemm.cu", replaces="tools/tune_mm8.py:165",
-             launches=launches["w8f32"],
+             launches=launches["w8f32"], in_codec_graphs=p13["codec"]["w8f32_in_graphs"],
              **{k: v for k, v in p13["w8f32"].items() if k != "yardstick_ms"}),
     ]
     # the kernels the device loops add; none replaces a Pallas kernel: each

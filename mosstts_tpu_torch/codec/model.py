@@ -10,7 +10,10 @@ unchanged. Encode: 1920-sample frames -> linear -> causal transformer
 linear -> causal transformer -> RMSNorm -> linear frame head -> overlap-add
 -> 24 kHz wave. Both run in chunks that carry a window of K/V, so chunked
 output equals one-shot output, and inside ``streaming()`` a 2-D ``decode``
-call continues the previous call's stream. ``from_pretrained`` and
+call continues the previous call's stream. The chunk programs (JAX's
+``_encode_fn`` and ``_decode_fn``) run through
+``engine/step_graph.CodecChunks``: on the card, CUDA graphs over static
+buffers. ``from_pretrained`` and
 ``save_pretrained`` read and write the JAX package's codec directory
 (``config.json`` and ``model.safetensors`` under the parameter tree's
 names) with the port's safetensors reader and writer.
@@ -35,7 +38,7 @@ from ..nn.qwen3 import Qwen3Params, empty_param, fill_qwen3_params_
 from ..ops.basic import dense, rms_norm
 from ..ops.quant import is_quantized
 from .rvq import RVQParams, fill_rvq_params_, rvq_decode, rvq_encode
-from .transformer import init_stream_state, run_chunk
+from .transformer import device_len, init_stream_state, run_chunk
 
 
 @dataclass
@@ -116,9 +119,10 @@ def overlap_add(frames: torch.Tensor, prev_tail: torch.Tensor, hop: int, ov: int
 
 
 def _encode_chunk(params: CodecParams, cfg: CodecConfig, state, frames: torch.Tensor,
-                  valid_len: int, num_quantizers: int):
+                  valid_len, num_quantizers: int):
     """Ports ``mosstts_tpu.codec.model._encode_chunk``: frames (B, c, hop) ->
-    codes (NQ, B, c), new StreamState."""
+    codes (NQ, B, c), new StreamState; ``valid_len`` the chunk's real
+    frames, a () int32 tensor on the device (or an int)."""
     x = dense(frames, params.enc_in)
     h, state = run_chunk(params.encoder, _txf_cfg(cfg, cfg.num_encoder_layers), state, x,
                          valid_len)
@@ -127,10 +131,12 @@ def _encode_chunk(params: CodecParams, cfg: CodecConfig, state, frames: torch.Te
 
 
 def _decode_chunk(params: CodecParams, cfg: CodecConfig, state, codes: torch.Tensor,
-                  valid_len: int):
+                  valid_len):
     """Ports ``mosstts_tpu.codec.model._decode_chunk``: codes (NQ, B, c) ->
-    wave chunk (B, c*hop), new state; ``state`` = (StreamState, tail)."""
+    wave chunk (B, c*hop), new state; ``state`` = (StreamState, tail),
+    ``valid_len`` as in ``_encode_chunk``."""
     txf_state, prev_tail = state
+    valid_len = device_len(valid_len, codes.device)
     lat = rvq_decode(params.rvq, codes)
     x = dense(lat.to(params.dec_in.dtype), params.dec_in)
     h, txf_state = run_chunk(params.decoder, _txf_cfg(cfg, cfg.num_decoder_layers),
@@ -138,17 +144,20 @@ def _decode_chunk(params: CodecParams, cfg: CodecConfig, state, codes: torch.Ten
     h = rms_norm(h, params.dec_out_norm, cfg.rms_norm_eps)
     frames = dense(h, params.dec_out)  # (B, c, hop+ov)
     wav, _ = overlap_add(frames, prev_tail, cfg.hop, cfg.overlap)
-    # carry the tail of the last VALID frame (padded chunk frames are garbage)
-    c = frames.shape[1]
-    new_tail = frames[:, min(max(valid_len - 1, 0), c - 1), cfg.hop:]
+    # carry the tail of the last VALID frame (padded chunk frames are
+    # garbage), picked at a clamped index on the device (JAX's
+    # dynamic_index_in_dim)
+    last = (valid_len - 1).clamp(0, frames.shape[1] - 1).reshape(1)
+    new_tail = frames[:, :, cfg.hop:].index_select(1, last)[:, 0]
     return wav, (txf_state, new_tail)
 
 
 class CodecStreamSession:
     """Ports ``mosstts_tpu.codec.model.CodecStreamSession``: the decoder
     state that the ``streaming()`` context carries across ``decode`` calls
-    (K/V window, positions and overlap tail), so chunk boundaries are
-    seamless."""
+    (K/V window, positions, cursor and overlap tail), so chunk boundaries
+    are seamless. The session owns these tensors; a call copies them into
+    its decode key's buffers and back (``CodecChunks.decode``)."""
 
     def __init__(self, codec: "MossAudioTokenizer", batch_size: int):
         self.codec = codec
@@ -161,16 +170,29 @@ class CodecStreamSession:
 
 class MossAudioTokenizer:
     """Ports ``mosstts_tpu.codec.model.MossAudioTokenizer``. It runs where
-    its params live. One codec may serve many threads at once: encode and
-    decode keep no state on the object, and the active ``streaming()``
-    session is the calling thread's own."""
+    its params live. One codec may serve many threads at once: the chunk
+    programs keep their static buffers per key under a lock, and the active
+    ``streaming()`` session is the calling thread's own.
+
+    Encode and decode run chunk by chunk through ``chunks``
+    (``engine/step_graph.CodecChunks``, the counterpart of JAX's
+    ``_encode_fn`` and ``_decode_fn``): on the card each chunk is one CUDA
+    graph replay from a key's second chunk on (``graphs=False`` runs the
+    same chunks eagerly; the CPU always does). ``warmup()`` captures a
+    server's keys ahead of its traffic."""
 
     DEFAULT_CHUNK_FRAMES = 100  # 8 s at 12.5 Hz
+    STREAM_CHUNK_FRAMES = 4  # engine.streaming.AudioStreamDecoder's chunks (0.32 s)
 
-    def __init__(self, params: CodecParams, config: Optional[CodecConfig] = None):
+    def __init__(self, params: CodecParams, config: Optional[CodecConfig] = None, *,
+                 graphs: bool = True):
+        # imported here: engine/step_graph.py imports this module's chunk functions
+        from ..engine.step_graph import CodecChunks
+
         self.config = config or CodecConfig()
         self.params = params
         self._stream_tls = threading.local()
+        self.chunks = CodecChunks(self, graphs=graphs)
 
     @property
     def _stream(self) -> Optional[CodecStreamSession]:
@@ -235,6 +257,32 @@ class MossAudioTokenizer:
         save_safetensors({n: p.detach() for n, p in self.params.named_parameters()},
                          path / "model.safetensors")
 
+    @property
+    def encode_dtype(self) -> torch.dtype:
+        """The encoder's activation dtype: an int8 encoder runs float32
+        activations, as JAX's (its frames are float32 numpy;
+        ``QuantWeight.dtype`` names bf16, the cache's dtype)."""
+        return torch.float32 if is_quantized(self.params.enc_in) else self.params.enc_in.dtype
+
+    def warmup(self, *, decode_levels: Optional[int] = None,
+               stream_levels: Optional[int] = None) -> None:
+        """Capture, ahead of traffic, the chunk programs a server runs, all
+        at batch 1: an encode of ``DEFAULT_CHUNK_FRAMES`` chunks of all
+        ``n_q`` levels (a cloned voice or a voice prompt); a decode of
+        ``DEFAULT_CHUNK_FRAMES`` chunks of ``decode_levels`` levels (a Delay
+        wave); a decode of ``STREAM_CHUNK_FRAMES`` chunks of ``stream_levels``
+        levels (a Realtime stream). From then on no key is captured on use:
+        one not captured here runs eagerly at every chunk, so no request
+        waits for a capture."""
+        self.chunks.capture_on_use = False
+        keys = [("encode", self.DEFAULT_CHUNK_FRAMES, self.config.n_q)]
+        if decode_levels:
+            keys.append(("decode", self.DEFAULT_CHUNK_FRAMES, decode_levels))
+        if stream_levels:
+            keys.append(("decode", self.STREAM_CHUNK_FRAMES, stream_levels))
+        for kind, cf, nq in keys:
+            self.chunks.capture(kind, batch=1, chunk_frames=cf, num_quantizers=nq)
+
     # ------------------------------- encode --------------------------------
     @torch.no_grad()
     def _encode_array(self, wav: np.ndarray, num_quantizers: int,
@@ -249,23 +297,10 @@ class MossAudioTokenizer:
             return np.zeros((num_quantizers, B, 0), np.int64)
         frames = torch.zeros((B, T * hop), dtype=torch.float32, device=dev)
         frames[:, :L] = torch.as_tensor(np.asarray(wav, np.float32), device=dev)
-        # an int8 encoder runs float32 activations, as JAX's (its frames are
-        # float32 numpy; ``QuantWeight.dtype`` names bf16, the cache's dtype)
-        act = torch.float32 if is_quantized(self.params.enc_in) else self.params.enc_in.dtype
-        frames = frames.to(act).reshape(B, T, hop)
-
-        cf = chunk_frames or self.DEFAULT_CHUNK_FRAMES
-        state = init_stream_state(_txf_cfg(cfg, cfg.num_encoder_layers), B, cfg.causal_context,
-                                  dtype=self.params.enc_in.dtype, device=dev)
-        outs = []
-        for start in range(0, T, cf):
-            chunk = frames[:, start:start + cf]
-            vlen = chunk.shape[1]
-            if vlen < cf:
-                chunk = torch.nn.functional.pad(chunk, (0, 0, 0, cf - vlen))
-            codes, state = _encode_chunk(self.params, cfg, state, chunk, vlen, num_quantizers)
-            outs.append(codes[:, :, :vlen])
-        return torch.cat(outs, dim=2).cpu().numpy().astype(np.int64)
+        frames = frames.to(self.encode_dtype).reshape(B, T, hop)
+        codes = self.chunks.encode(frames, num_quantizers,
+                                   chunk_frames or self.DEFAULT_CHUNK_FRAMES)
+        return codes.cpu().numpy().astype(np.int64)
 
     def batch_encode(self, wav_list: Sequence, num_quantizers: Optional[int] = None
                      ) -> EncodeOutput:
@@ -318,22 +353,13 @@ class MossAudioTokenizer:
     def _decode_array(self, codes: np.ndarray, chunk_frames: int, state=None,
                       keep_state: bool = False):
         """codes (NQ, B, T) -> wave (B, T*hop) float numpy [, final state],
-        continuing from ``state`` when given."""
-        cfg, dev = self.config, self.device
+        continuing from ``state`` (updated in place) when given."""
         NQ, B, T = codes.shape
-        if state is None:
-            state = self._init_decode_state(B)
-        codes_dev = torch.as_tensor(codes, device=dev)
-        outs = []
-        for start in range(0, T, chunk_frames):
-            chunk = codes_dev[:, :, start:start + chunk_frames]
-            vlen = chunk.shape[2]
-            if vlen < chunk_frames:
-                chunk = torch.nn.functional.pad(chunk, (0, chunk_frames - vlen))
-            wav_chunk, state = _decode_chunk(self.params, cfg, state, chunk, vlen)
-            outs.append(wav_chunk[:, : vlen * cfg.hop])
-        wav = (torch.cat(outs, dim=1).float().cpu().numpy() if outs
-               else np.zeros((B, 0), np.float32))
+        if T == 0:
+            wav = np.zeros((B, 0), np.float32)
+        else:
+            wav = self.chunks.decode(torch.as_tensor(codes, device=self.device), chunk_frames,
+                                     state).float().cpu().numpy()
         return (wav, state) if keep_state else wav
 
     def decode(self, audio_codes, padding_mask=None, return_dict: bool = True,

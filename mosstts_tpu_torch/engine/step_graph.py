@@ -84,6 +84,13 @@ With ``graphs=False``, and always for CPU tensors, each step and prefill
 runs eagerly and copies its fields back the same way, so the two paths
 share everything but how the kernels are issued.
 
+``CodecChunks`` does the same for the codec's chunk programs (JAX's
+``MossAudioTokenizer._encode_fn`` and ``_decode_fn``, ``codec/model.py:226,
+236``): one graph per ``(kind, B, chunk frames, levels, weights)`` over
+static chunk, ``valid_len`` and stream-state buffers, each graph in a
+memory pool of its own, the codec's parameters checked (and the graphs
+dropped when they were replaced) at every call.
+
 Every tensor a graph reads must outlive it at the same address: the
 weights (``quantize()`` replaces them, so an owner drops its
 ``DecodeSteps`` and ``Prefills`` then), the state, prompt and sampling
@@ -105,12 +112,15 @@ from __future__ import annotations
 
 import functools
 import threading
+import weakref
 from collections import OrderedDict
 from typing import Callable, Optional
 
 import numpy as np
 import torch
 
+from ..codec.model import _decode_chunk, _encode_chunk, _txf_cfg
+from ..codec.transformer import init_stream_state
 from ..core.config import DelayConfig, RealtimeConfig
 from ..models.delay import (DelayGenState, DelayParams, DelaySampling, delay_decode_step,
                             delay_prefill)
@@ -120,6 +130,7 @@ from ..models.realtime import (RealtimeParams, RealtimeSampling, RealtimeState,
                                realtime_decode_step, realtime_prefill_step)
 from ..nn.qwen3 import init_kv_cache, init_quant_kv_cache
 from ..ops.kernels import graph_loop, launches
+from ..ops.quant import is_quantized
 
 # one capture at a time in the process (see the module docstring)
 _CAPTURE_LOCK = threading.Lock()
@@ -223,17 +234,18 @@ class GraphSteps:
             fn()
         torch.cuda.current_stream().wait_stream(self._stream)
 
-    def capture(self, fn: Callable[[], None]) -> tuple:
+    def capture(self, fn: Callable[[], None], pool=None) -> tuple:
         """Capture ``fn`` (warmed up by ``warm``) into a graph in this
-        object's pool. Returns the graph, which keeps its ``cudaGraph_t``
-        (``raw_cuda_graph()``, the body a ``DeviceLoop`` clones), and the
-        launches its capture counted, which are taken back from the counts
-        (a replay adds them)."""
+        object's pool, or in ``pool`` when given. Returns the graph, which
+        keeps its ``cudaGraph_t`` (``raw_cuda_graph()``, the body a
+        ``DeviceLoop`` clones), and the launches its capture counted, which
+        are taken back from the counts (a replay adds them)."""
         graph = torch.cuda.CUDAGraph(keep_graph=True)
         with _CAPTURE_LOCK:
             before = launches.read()
             try:
-                with torch.cuda.graph(graph, pool=self.pool, stream=self._stream,
+                with torch.cuda.graph(graph, pool=self.pool if pool is None else pool,
+                                      stream=self._stream,
                                       capture_error_mode="thread_local"):
                     fn()
             finally:
@@ -769,3 +781,301 @@ class LocalPrefills(PrefillGraphs):
             steps.params, steps.cfg, prompt.ids, prompt.mask, max_new_tokens=1,
             cache_len=st.kv_valid.shape[1], rng=st.rng, n_vq_infer=n_vq_infer,
             dtype=st.cache.k.dtype, cache=st.cache, depth=st.depth))
+
+
+CODEC_GRAPHS = 8  # chunk keys a codec keeps, the least recently used dropped first
+
+
+def pool_bytes(pool) -> Optional[int]:
+    """The device bytes the caching allocator holds in the graph memory pool
+    ``pool`` (a ``torch.cuda.graph_pool_handle()``): the sizes of its
+    segments, or None where the allocator's snapshot does not name pools."""
+    segments = torch.cuda.memory_snapshot()
+    if segments and "segment_pool_id" not in segments[0]:
+        return None
+    return sum(s["total_size"] for s in segments if tuple(s["segment_pool_id"]) == tuple(pool))
+
+
+def _leaves(state) -> list:
+    """The tensors of a codec stream state: a ``StreamState``, or the
+    decoder's ``(StreamState, overlap tail)``."""
+    if isinstance(state, torch.Tensor):
+        return [state]
+    return [t for part in state for t in _leaves(part)]
+
+
+def _weights_kind(w):
+    return "int8" if is_quantized(w) else w.dtype
+
+
+class _CodecKey:
+    """A codec chunk key's static buffers: the chunk's input (frames or
+    codes), its count of real frames ``vlen`` (() int32), the stream state
+    and the output; the lock that gives one thread at a time the buffers;
+    once captured, the graph, the launches its capture counted and its
+    memory pool."""
+
+    def __init__(self, inp: torch.Tensor, state, out: torch.Tensor):
+        self.inp, self.state, self.out = inp, state, out
+        self.vlen = torch.zeros((), dtype=torch.int32, device=inp.device)
+        self.lock = threading.Lock()
+        self.warm = False  # a first chunk ran at this key
+        self.graph = None
+        self.launches = None
+        self.pool = None
+
+
+class CodecChunks:
+    """The codec's two chunk programs (JAX ``MossAudioTokenizer._encode_fn``
+    and ``_decode_fn``: ``jax.jit`` of ``_encode_chunk`` and
+    ``_decode_chunk`` with the stream state donated) over static buffers,
+    replayed as CUDA graphs on the card: one program per ``(kind, B, chunk
+    frames, levels, weights)``, kind "encode" or "decode", weights the
+    parameters' dtype or "int8".
+
+    ``encode`` and ``decode`` run a call chunk by chunk: the chunk is copied
+    into the key's input buffer (a short last chunk zero-padded), its count
+    of real frames written to ``vlen`` on the device, the program run, and
+    the valid part of the output copied out before the next chunk runs. The
+    stream state stays in the key's buffers from chunk to chunk (the
+    donation's counterpart); a call starts it from zeros, or, for a
+    ``streaming()`` session, copies the session's own state in first and
+    back out at the end: a graph reads fixed addresses, so a session that
+    kept the graph's buffers would need a graph of its own, while the copies
+    cost two device-to-device copies of the window a call (11.5 MB each at
+    ``codec_1p6b()``'s decoder, f32). Nothing on the path reads a device
+    value on the host (``codec/transformer.py``), so one graph serves
+    every ``vlen`` and cursor.
+
+    A key's first chunk runs eagerly on the capture stream (it makes
+    cuBLAS's handle and workspace, the float64 products of ``rvq_encode``
+    included, which a capture may not); the second captures the graph, in a
+    memory pool of the key's own, and replays it, and so does every later
+    one. ``capture()`` captures ahead; with ``capture_on_use`` set False (a
+    server's codec, by ``MossAudioTokenizer.warmup``) a key not captured
+    ahead runs eagerly at every chunk, on the caller's stream. With graphs
+    off, and always on the CPU, every chunk runs eagerly over the same
+    buffers. ``counts`` tells eager chunks, captures and replays apart; the
+    launch counts are taken back from a capture and added per replay
+    (``ops/kernels/launches.py``). A failed capture or replay raises.
+
+    Threads: one codec serves many at once. A key's lock is held for a
+    whole call, so no two threads are inside one key's copy-in, replay and
+    copy-out at once; other keys run meanwhile. Captures go through
+    ``GraphSteps.capture`` (thread-local mode under ``_CAPTURE_LOCK``), and
+    nothing here synchronises the device, only the current stream (before a
+    graph is dropped).
+
+    At most ``CODEC_GRAPHS`` keys are kept, the least recently used dropped
+    first (``decode(chunk_duration=None)`` makes a key per length). Every
+    call first checks that the codec's parameters are still those the
+    graphs read (their addresses): ``quantize_tree_(codec.params)``
+    replaces them, and then every key is dropped."""
+
+    def __init__(self, codec, *, graphs: bool = True):
+        # one way: the codec owns its chunks, so dropping the codec frees its
+        # graphs at once, never later in the cycle collector (which may run
+        # inside another thread's capture)
+        self._codec = weakref.ref(codec)
+        self.steps = GraphSteps(codec.params, "dec_in", codec.device, graphs=graphs)
+        self.graphs = self.steps.graphs
+        self.capture_on_use = True
+        self._keys: "OrderedDict[tuple, _CodecKey]" = OrderedDict()
+        self._lock = threading.Lock()  # the key table, the counts, the weights' addresses
+        self._weights = self._addresses()
+        # chunks run: eager (a key's first, graphs off, or not captured
+        # ahead), capture (captured, then replayed), replay
+        self.counts = dict(eager=0, capture=0, replay=0)
+        if self.graphs:  # the capture stream, made once for every thread
+            self.steps.warm(lambda: None)
+
+    @property
+    def codec(self):
+        codec = self._codec()
+        if codec is None:
+            raise RuntimeError("the codec of these chunk programs was freed")
+        return codec
+
+    @property
+    def keys(self) -> tuple:
+        """The keys captured and kept."""
+        with self._lock:
+            return tuple(k for k, e in self._keys.items() if e.graph is not None)
+
+    def graph_of(self, key):
+        """The captured graph at ``key`` and its memory pool, or None."""
+        with self._lock:
+            e = self._keys.get(key)
+        return None if e is None or e.graph is None else (e.graph, e.pool)
+
+    def _addresses(self) -> tuple:
+        return tuple(p.data_ptr() for p in self.codec.params.parameters())
+
+    def check_params(self) -> None:
+        """Drop every key if the codec's parameters no longer lie where the
+        graphs read them."""
+        now = self._addresses()
+        with self._lock:
+            if now == self._weights:
+                return
+            self._weights = now
+            old = list(self._keys.values())
+            self._keys.clear()
+        for e in old:
+            self._drop(e)
+
+    @staticmethod
+    def _drop(e: _CodecKey) -> None:
+        with e.lock:
+            if e.graph is not None:  # a replay under way ends before its graph goes
+                torch.cuda.current_stream().synchronize()
+            e.graph = None
+
+    def _entry(self, key, make: Callable[[], _CodecKey]) -> _CodecKey:
+        self.check_params()
+        with self._lock:
+            e = self._keys.pop(key, None)
+            if e is None:
+                e = make()
+            self._keys[key] = e  # the most recently used last
+            old = []
+            while len(self._keys) > CODEC_GRAPHS:
+                old.append(self._keys.popitem(last=False)[1])
+        for o in old:
+            self._drop(o)
+        return e
+
+    def _count(self, kind: str) -> None:
+        with self._lock:
+            self.counts[kind] += 1
+
+    def _run(self, e: _CodecKey, program: Callable[[_CodecKey], None]) -> None:
+        """One chunk at ``e``, whose input and ``vlen`` the caller wrote."""
+        fn = functools.partial(program, e)
+        if e.graph is None and e.warm and self.graphs and self.capture_on_use:
+            self._capture(e, fn)
+            self._count("capture")
+        elif e.graph is not None:
+            self._count("replay")
+        if e.graph is not None:
+            e.graph.replay()
+            launches.add_replay(e.launches)
+        elif self.capture_on_use or not self.graphs:
+            self.steps.warm(fn)
+            e.warm = True
+            self._count("eager")
+        else:  # never captured on use: run where the caller runs
+            fn()
+            self._count("eager")
+
+    def _capture(self, e: _CodecKey, fn) -> None:
+        e.pool = torch.cuda.graph_pool_handle()
+        e.graph, e.launches = self.steps.capture(fn, pool=e.pool)
+
+    # ------------------------------------------------------------ programs
+    def _encode_key(self, B: int, cf: int, nq: int):
+        codec = self.codec
+        cfg, p, dev = codec.config, codec.params, codec.device
+
+        def make():
+            txf = _txf_cfg(cfg, cfg.num_encoder_layers)
+            return _CodecKey(
+                torch.zeros((B, cf, cfg.hop), dtype=codec.encode_dtype, device=dev),
+                init_stream_state(txf, B, cfg.causal_context, dtype=p.enc_in.dtype, device=dev),
+                torch.zeros((nq, B, cf), dtype=torch.int32, device=dev))
+
+        def program(e: _CodecKey) -> None:
+            codes, new = _encode_chunk(codec.params, cfg, e.state, e.inp, e.vlen, nq)
+            e.out.copy_(codes)
+            for d, s in zip(_leaves(e.state), _leaves(new)):
+                d.copy_(s)
+
+        return self._entry(("encode", B, cf, nq, _weights_kind(p.enc_in)), make), program
+
+    def _decode_key(self, B: int, cf: int, nq: int):
+        codec = self.codec
+        cfg, p, dev = codec.config, codec.params, codec.device
+
+        def make():
+            return _CodecKey(torch.zeros((nq, B, cf), dtype=torch.int64, device=dev),
+                             codec._init_decode_state(B),
+                             torch.zeros((B, cf * cfg.hop), dtype=p.dec_in.dtype, device=dev))
+
+        def program(e: _CodecKey) -> None:
+            wav, new = _decode_chunk(codec.params, cfg, e.state, e.inp, e.vlen)
+            e.out.copy_(wav)
+            for d, s in zip(_leaves(e.state), _leaves(new)):
+                d.copy_(s)
+
+        return self._entry(("decode", B, cf, nq, _weights_kind(p.dec_in)), make), program
+
+    @torch.no_grad()
+    def encode(self, frames: torch.Tensor, num_quantizers: int, chunk_frames: int
+               ) -> torch.Tensor:
+        """frames (B, T, hop) in ``codec.encode_dtype`` on the codec's device
+        -> codes (NQ, B, T) int32 there, ``chunk_frames`` at a time."""
+        B, T, _ = frames.shape
+        e, program = self._encode_key(B, chunk_frames, num_quantizers)
+        codes = torch.empty((num_quantizers, B, T), dtype=torch.int32, device=frames.device)
+        with e.lock:
+            for t in _leaves(e.state):
+                t.zero_()
+            for start in range(0, T, chunk_frames):
+                n = min(chunk_frames, T - start)
+                e.inp[:, :n].copy_(frames[:, start:start + n])
+                e.inp[:, n:].zero_()
+                e.vlen.fill_(n)
+                self._run(e, program)
+                codes[:, :, start:start + n].copy_(e.out[:, :, :n])
+        return codes
+
+    @torch.no_grad()
+    def decode(self, codes: torch.Tensor, chunk_frames: int, state=None) -> torch.Tensor:
+        """codes (NQ, B, T) int64 on the codec's device -> wave (B, T * hop)
+        in the decoder's dtype there, ``chunk_frames`` at a time, from a
+        fresh stream, or continuing ``state`` (a session's ``(StreamState,
+        tail)`` of B rows, updated in place)."""
+        NQ, B, T = codes.shape
+        hop = self.codec.config.hop
+        e, program = self._decode_key(B, chunk_frames, NQ)
+        wav = torch.empty((B, T * hop), dtype=e.out.dtype, device=codes.device)
+        with e.lock:
+            if state is None:
+                for t in _leaves(e.state):
+                    t.zero_()
+            else:
+                for d, s in zip(_leaves(e.state), _leaves(state)):
+                    d.copy_(s)
+            for start in range(0, T, chunk_frames):
+                n = min(chunk_frames, T - start)
+                e.inp[:, :, :n].copy_(codes[:, :, start:start + n])
+                e.inp[:, :, n:].zero_()
+                e.vlen.fill_(n)
+                self._run(e, program)
+                wav[:, start * hop:(start + n) * hop].copy_(e.out[:, :n * hop])
+            if state is not None:
+                for d, s in zip(_leaves(state), _leaves(e.state)):
+                    d.copy_(s)
+        return wav
+
+    @torch.no_grad()
+    def capture(self, kind: str, *, batch: int, chunk_frames: int, num_quantizers: int) -> None:
+        """Capture the graph of ``kind`` ("encode" or "decode") chunks of
+        ``chunk_frames`` frames, ``batch`` rows and ``num_quantizers``
+        levels ahead of use (after an eager chunk of zeros on the capture
+        stream, if none ran). Nothing with graphs off."""
+        if not self.graphs:
+            return
+        key = {"encode": self._encode_key, "decode": self._decode_key}[kind]
+        e, program = key(batch, chunk_frames, num_quantizers)
+        with e.lock:
+            if e.graph is not None:
+                return
+            for t in [e.inp] + _leaves(e.state):
+                t.zero_()
+            e.vlen.fill_(chunk_frames)
+            fn = functools.partial(program, e)
+            if not e.warm:
+                self.steps.warm(fn)
+                e.warm = True
+            self._capture(e, fn)

@@ -385,7 +385,13 @@ class AudioStreamDecoder:
     reference streaming_mossttsrealtime.py:679-804): chunk i>0 opens
     with its head blended against the retained tail of chunk i-1; when the
     final window's proportional overlap is narrower than the retained tail,
-    the unblended part of that tail is re-emitted ahead of the seam."""
+    the unblended part of that tail is re-emitted ahead of the seam.
+
+    A window is decoded in the codec's 4-frame chunks (0.32 s), the last
+    one zero-padded: on the card each is one replay of the codec's decode
+    graph at (batch 1, 4 frames, levels), a short flush too, the stream's
+    state copied into the graph's buffers and back per call
+    (``engine/step_graph.CodecChunks``)."""
 
     def __init__(self, codec, chunk_frames: int = 40, overlap_frames: int = 4,
                  decode_kwargs: Optional[dict] = None,

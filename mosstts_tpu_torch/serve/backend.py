@@ -87,7 +87,9 @@ def load_delay_backend(
     checkpoint at ``model_path`` (``load_delay_checkpoint``), else a tiny
     demo engine from seed 0, in ``dtype_str``, and the codec, on
     ``device``. One backend per argument tuple is kept for the process, as
-    in the JAX package."""
+    in the JAX package. The codec's chunk programs are captured here, ahead
+    of traffic (``MossAudioTokenizer.warmup``: encode and decode at batch 1
+    in 100-frame chunks)."""
     from ..utils.checkpoints import load_delay_checkpoint
 
     codec = load_codec(codec_path, device=device)
@@ -101,6 +103,7 @@ def load_delay_backend(
         engine = DelayEngine.random_init(seed=0, config=cfg, dtype=dtype, device=device)
         tokenizer = ByteFallbackTokenizer()
     proc = DelayProcessor(tokenizer, audio_tokenizer=codec, config=cfg)
+    codec.warmup(decode_levels=cfg.n_vq)  # a cloned voice's encode, a wave's decode
     return DelayBackend(engine=engine, processor=proc, sample_rate=cfg.sampling_rate,
                         demo=not model_path)
 
@@ -116,7 +119,8 @@ def load_local_backend(
     checkpoint at ``model_path`` (``load_local_checkpoint``), else JAX's demo
     config (a tiny backbone, 32 codebooks, a 2-layer depth transformer of
     width 48) from seed 0, in ``dtype_str``, and the codec, on ``device``;
-    a ``DelayBackend`` over a ``LocalEngine`` with a ``LocalProcessor``."""
+    a ``DelayBackend`` over a ``LocalEngine`` with a ``LocalProcessor``; its
+    codec warmed up as ``load_delay_backend``'s."""
     from ..utils.checkpoints import load_local_checkpoint
 
     codec = load_codec(codec_path, device=device)
@@ -133,6 +137,7 @@ def load_local_backend(
         engine = LocalEngine.random_init(seed=0, config=cfg, dtype=dtype, device=device)
         tokenizer = ByteFallbackTokenizer()
     proc = LocalProcessor(tokenizer, audio_tokenizer=codec, config=cfg)
+    codec.warmup(decode_levels=cfg.n_vq)
     return DelayBackend(engine=engine, processor=proc, sample_rate=cfg.sampling_rate)
 
 
@@ -148,7 +153,9 @@ def load_realtime_backend(
     ``model_path`` (``load_realtime_checkpoint``), else a tiny demo engine
     (16 codebooks, half the demo codec's) from seed 0, in ``dtype_str``, and
     the codec, on ``device``. One backend per argument tuple is kept for the
-    process."""
+    process. The codec's chunk programs are captured here (a batch-1 encode
+    in 100-frame chunks, the stream's 4-frame decode chunks of ``rvq``
+    levels)."""
     from ..utils.checkpoints import load_realtime_checkpoint
 
     codec = load_codec(codec_path, device=device)
@@ -167,4 +174,5 @@ def load_realtime_backend(
             rvq=_DEMO_CODEC.n_q // 2)
         engine = RealtimeEngine.random_init(seed=0, config=cfg, dtype=dtype, device=device)
         tokenizer = ByteFallbackTokenizer()
+    codec.warmup(stream_levels=cfg.rvq)  # a voice prompt's encode, the stream's chunks
     return engine, RealtimeProcessor(tokenizer, channels=cfg.rvq), codec

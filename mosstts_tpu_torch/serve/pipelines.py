@@ -63,13 +63,17 @@ def demo_backend(
 ) -> DelayBackend:
     """A demo ``DelayBackend`` with random weights drawn on ``device`` from
     ``seed``: the engine in ``dtype``, the codec (when ``codec_config`` is
-    given) in float32, and the byte-fallback tokenizer. ``engine_kw`` goes to
+    given) in float32, its batch-1 100-frame encode and decode programs
+    captured (``MossAudioTokenizer.warmup``), and the byte-fallback
+    tokenizer. ``engine_kw`` goes to
     ``DelayEngine`` (e.g. ``cache_bucket``). Without a codec the processor
     builds prompts but cannot decode audio, so ``synthesize`` needs one."""
     engine = DelayEngine.random_init(seed=seed, config=config, dtype=dtype, device=device,
                                      **engine_kw)
     codec = (None if codec_config is None else
              MossAudioTokenizer.random_init(seed=seed, config=codec_config, device=device))
+    if codec is not None:  # capture the codec's serving programs ahead of traffic
+        codec.warmup(decode_levels=config.n_vq)
     processor = DelayProcessor(ByteFallbackTokenizer(), audio_tokenizer=codec, config=config)
     return DelayBackend(engine=engine, processor=processor, demo=True)
 

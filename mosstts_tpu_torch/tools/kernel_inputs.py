@@ -113,8 +113,6 @@ def graph_kernels(fn) -> tuple:
     (warmed up on a side stream first): the device kernels one call
     launches, read off the graph (libcuda's ``cuGraphGetNodes``), not
     from a profiler's records, which can be lost (PERF.md §6)."""
-    import ctypes
-
     side = torch.cuda.Stream()
     side.wait_stream(torch.cuda.current_stream())
     with torch.cuda.stream(side):
@@ -123,6 +121,14 @@ def graph_kernels(fn) -> tuple:
     graph = torch.cuda.CUDAGraph(keep_graph=True)
     with torch.cuda.graph(graph):
         fn()
+    return graph_nodes(graph)
+
+
+def graph_nodes(graph) -> tuple:
+    """(kernel nodes, all nodes) of a captured ``torch.cuda.CUDAGraph(
+    keep_graph=True)``, read with libcuda's ``cuGraphGetNodes``."""
+    import ctypes
+
     cuda = ctypes.CDLL("libcuda.so.1")
     g, n = ctypes.c_void_p(graph.raw_cuda_graph()), ctypes.c_size_t(0)
     if cuda.cuGraphGetNodes(g, None, ctypes.byref(n)) != 0:

@@ -35,9 +35,12 @@ sourced from the last layer through ``output_hidden_states``: the same
 logits, through the per-head product of JAX's ``delay_forward``, which
 with int8 heads makes a bf16 copy of the audio heads per call).
 
-Then the codec's decode of 100 frames (8 s of audio) at batch 1, host
-clock. The card's ``nvidia-smi`` line comes first and one JSON object of
-the numbers last, and the peak device memory of each batch's run. Host-clock
+Then the codec's decode of 100 frames (8 s of audio) at batch 1, one
+chunk: a replay of the backend's warmed graph and the same chunk eagerly
+(``graphs=False``), each its median wall of 5 calls (host clock) and one
+call's device time and kernels under the profiler. The card's
+``nvidia-smi`` line comes first and one JSON object of the numbers last,
+and the peak device memory of each batch's run. Host-clock
 numbers move with the machine; compare two versions only within one run.
 The bf16 products run at PyTorch's default flags (``ops.basic.dense`` does
 not depend on the reduced-precision reduction flag).
@@ -55,6 +58,7 @@ from pathlib import Path
 import numpy as np
 import torch
 
+from ..codec.model import MossAudioTokenizer
 from ..core.config import codec_1p6b, delay_8b
 from ..engine.step_graph import DecodeSteps, Prefills, zero_state
 from ..models import delay as td
@@ -97,6 +101,19 @@ def device_events(prof) -> list:
     left out (``key_averages``)."""
     return [e for e in prof.key_averages()
             if e.device_type == torch.autograd.DeviceType.CUDA and "spin_kernel" not in e.key]
+
+
+def call_times(fn, n: int = 5) -> dict:
+    """The median wall ms of ``n`` calls of ``fn`` (host clock, the card
+    synchronised around each), then one more call's device ms (the sum of
+    its device activity, copies included, ``device_profile``) and device
+    kernels."""
+    walls = sorted(_wall(fn)[1] * 1e3 for _ in range(n))
+    with device_profile() as prof:
+        fn()
+    evts = device_events(prof)
+    return dict(wall_ms=walls[n // 2], device_ms=sum(e.self_device_time_total for e in evts) / 1e3,
+                kernels=sum(e.count for e in evts if not e.key.startswith(("Memcpy", "Memset"))))
 
 
 def profile_batch(engine, B: int, args, trace_dir, graphs: bool = False, hol=None) -> dict:
@@ -231,12 +248,17 @@ def main(argv=None) -> None:
             for t in r["host_top"]:
                 print(f"   {t['ms_per_step']:8.3f} ms/step  x{t['calls_per_step']:6.0f}  {t['name']}")
 
+    # the backend's codec replays its warmed 100-frame decode graph; an
+    # eager codec over the same weights runs the same chunk op by op
     codec = backend.processor.audio_tokenizer
+    eager = MossAudioTokenizer(codec.params, codec.config, graphs=False)
     codes = np.random.default_rng(1).integers(0, 1024, size=(32, 1, 100))
-    codec.decode(codes[:, :, :13])  # warm-up
-    _, codec_s = _wall(lambda: codec.decode(codes))
-    res["codec_decode_100_frames_ms"] = codec_s * 1e3
-    print(f"codec decode 100 frames B=1: {codec_s * 1e3:.1f} ms", flush=True)
+    eager.decode(codes[:, :, :13])  # warm-up
+    res["codec_decode_100_frames"] = {}
+    for label, c in (("graph", codec), ("eager", eager)):
+        r = res["codec_decode_100_frames"][label] = call_times(lambda: c.decode(codes))
+        print(f"codec decode 100 frames B=1, {label}: wall {r['wall_ms']:.2f} ms, device "
+              f"{r['device_ms']:.2f} ms, {r['kernels']} device kernels", flush=True)
     print(json.dumps(res))
 
 

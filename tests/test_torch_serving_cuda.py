@@ -5,7 +5,11 @@ without one (CUDA graphs and the kernels have no CPU mode; the CPU half is
 Four callers submit greedy requests to a 4-slot ``DelayServingPool`` of a
 small float32 model (2 layers, width 256, n_vq=4) at once, while two other
 threads run the codec's encode and decode on the card in a loop, as the
-HTTP handlers do. The pool's decode thread captures the CUDA graph of each
+HTTP handlers do: in one case eagerly (``graphs=False``, a decode of the
+whole length in one chunk: the codec's launches beside a live capture, as a
+key no warmup named runs them), in the other as replays of the graphs its
+``warmup`` captured before the pool started (a server's codec: it captures
+nothing mid-serve). The pool's decode thread captures the CUDA graph of each
 attend bucket (256, then 512) when the batch first reaches it, and the
 prefill graph of each prompt bucket at its second admission (the four
 prompts fall in two buckets, so one at least); every capture is held open
@@ -73,9 +77,15 @@ def _grids(n, seed):
     return out
 
 
-def test_pool_captures_while_handlers_run_the_codec(card, monkeypatch):
+@pytest.mark.parametrize("codec_mode", ["eager", "replay"])
+def test_pool_captures_while_handlers_run_the_codec(card, monkeypatch, codec_mode):
     engine = DelayEngine.random_init(seed=0, config=CFG, dtype=torch.float32, device="cuda")
     codec = MossAudioTokenizer.random_init(seed=1, config=CODEC, device="cuda")
+    if codec_mode == "eager":
+        codec = MossAudioTokenizer(codec.params, CODEC, graphs=False)
+    else:
+        codec.warmup(decode_levels=CODEC.n_q)  # as a server's codec: its chunks replay graphs
+    chunk = {"eager": dict(chunk_duration=None), "replay": {}}[codec_mode]
     grids = _grids(4, 2)
 
     # hold every capture open for a while, and note when
@@ -105,7 +115,7 @@ def test_pool_captures_while_handlers_run_the_codec(card, monkeypatch):
                 if kind == "encode":
                     out = codec.batch_encode([wav]).audio_codes
                 else:
-                    out = codec.decode(codes, chunk_duration=None).audio
+                    out = codec.decode(codes, **chunk).audio
                 codec_ops.append((t0, time.monotonic()))
                 if first is None:
                     first = out
@@ -140,6 +150,7 @@ def test_pool_captures_while_handlers_run_the_codec(card, monkeypatch):
             c.join(timeout=WAIT)
         assert not any(c.is_alive() for c in callers)
         torch.cuda.current_stream().synchronize()
+        codec_counts = dict(codec.chunks.counts)
         counts = launches.read()
         in_graphs = dict(launches.IN_GRAPHS)
     finally:
@@ -156,9 +167,14 @@ def test_pool_captures_while_handlers_run_the_codec(card, monkeypatch):
     per_bucket = np.bincount([-(-len(g) // 32) for g in grids])
     prefill_keys = pool.server._prefills.keys
     assert sorted(k[0] // 32 for k in prefill_keys) == list(np.nonzero(per_bucket >= 2)[0])
-    assert prefill_keys and len(captures) == 2 + len(prefill_keys)
+    assert prefill_keys and len(captures) == 2 + len(prefill_keys)  # none by the codec
     for t0, t1 in captures:
         assert any(s < t1 and e > t0 for s, e in codec_ops), (t0, t1)
+    assert codec_counts["capture"] == 0
+    if codec_mode == "replay":
+        assert codec_counts["replay"] > 0 and codec_counts["eager"] == 0
+    else:
+        assert codec_counts["eager"] > 0 and codec_counts["replay"] == 0
 
     # every decode step replayed a graph; flash ran for every admission, in a
     # replayed prefill graph from each bucket's second admission on
