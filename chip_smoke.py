@@ -28,15 +28,20 @@ Phases, one or more lines each; any failure raises and exits non-zero:
    the same model on the CPU (plain versions).
 3b. a 2-slot ``DelayBatchServer`` of that small model, 4 greedy requests:
    linear and paged grids on the card equal the CPU's, and on the card
-   paged equals linear for the f32 and the int8 cache.
+   paged equals linear for the f32 and the int8 cache; on the card each
+   mode, warmed up, serves through ``run`` and ``run_events`` with equal
+   grids, every warm admission splicing inside its graph (no eager row
+   copy, ``splice_audit``; phases 5, 9a and 9b check the same).
 3c. the device loops' kernels: JAX's threefry key split and the fused
    Gumbel-max categorical (``csrc/threefry.cu``) against their plain
    versions bit for bit at the 16-slot samplers' shapes, with their times,
    the plain versions', the earlier B-launch ``torch.rand`` draw's and the
    bounds; the loop condition of each kind, the drain's admission and
-   collect, an 8B cache lane's row copy and the fed text column
-   (``csrc/graph_loop.cu``) against theirs; one step of a 2000-step loop
-   graph over a one-kernel body.
+   collect, an 8B cache lane's row copy, the Realtime admission's row
+   scatter at 1.7B width with its padding rows dropped (and
+   ``index_copy_`` at the real rows), the fed text column and text_lazy's
+   condition kernel (``csrc/graph_loop.cu``) against theirs; one step of a
+   2000-step loop graph over a one-kernel body.
 4. solo path at MOSS-TTS 8B width (``delay_8b()``, random bf16 weights made
    on the card, the ``codec_1p6b()`` codec in f32): three ``synthesize``
    requests and one greedy batch-4 ``DelayEngine.generate``; 4b the same
@@ -143,8 +148,8 @@ Phases, one or more lines each; any failure raises and exits non-zero:
    ``run`` and ``run_events`` (each event block one loop-graph launch, its
    text fed per frame on the card): useful frames/s, ms per step, host
    waits and loop launches per conversation, the first frame differing
-   from ``run``'s, every admission a replay (no flash or W8A16 launch
-   outside a graph); then on that server and an eager one, admissions of
+   from ``run``'s, every admission a replay (no flash, W8A16 or splice row
+   copy launch outside a graph); then on that server and an eager one, admissions of
    k = 1, 2, 4 and 8 at bucket 32 and of k = 1 at buckets 64 and 160 (not
    warmed): states equal, one replay each at bucket 32, eager with nothing
    captured at the others, warm admission times both ways; on a small float32 model a 2-slot server's greedy streams
@@ -207,7 +212,8 @@ Phases, one or more lines each; any failure raises and exits non-zero:
    captured), serves ``bench.py:581-603``'s 24 requests through ``run`` and
    ``run_events`` (each event block one loop-graph launch): useful
    frames/s, ms per step, host waits and loop launches per request, the
-   first frame differing from ``run``'s, every admission a replay; then on that server and an eager one, a
+   first frame differing from ``run``'s, every admission a replay, its
+   splice inside; then on that server and an eager one, a
    60-row admission (bucket 64) and a 100-row one (bucket 128, not warmed):
    states equal, one replay at bucket 64, eager with nothing captured at
    128, warm admission times both ways; on a small float32 model a 2-slot server's greedy grids equal the
@@ -271,8 +277,10 @@ Phases, one or more lines each; any failure raises and exits non-zero:
    from the float32 codec below 0.5 (JAX's test's bound), and with 2 of
    22 layers the card's codes against the CPU's (near ties only) and its
    wave within two bf16 ulps of the peak of the CPU's. 13e: greedy frames
-   with ``text_lazy`` on a small float32 model equal the full path's, and
-   the lazy step's graph capture raises ``ValueError``. W8A16's float32
+   with ``text_lazy`` on a small float32 model equal the full path's; the
+   lazy step captured as one graph (a condition kernel and an IF node per
+   branch) replays from states that take each branch, equal to the eager
+   lazy steps, and the branch counts are printed. W8A16's float32
    mode is the tenth entry of the kernels line, its launches 13d's; the
    W8A16 and float32-mode entries carry 13d's launches inside the codec's
    graphs (``in_codec_graphs``).
@@ -851,7 +859,7 @@ def phase_kernels_sampling() -> dict:
     big = torch.zeros((36, BS, 8, 1024, 128), dtype=torch.bfloat16, device=DEV)
     small = torch.randn((36, 1, 8, 1024, 128), generator=g, device=DEV).bfloat16()
     cctrl = t([0, 0, 0, 0, 0, 5, 0, 0])
-    table = gl.seg_table([gl.seg(big, small, dst_word=gl.SLOT, dst_axis=1, src_axis=1)], DEV)
+    table = gl.seg_table([gl.Part(big, small, dst_word=gl.SLOT, dst_axis=1, src_axis=1)], DEV)
     gl.copy_rows(table, cctrl, blocks=264)
     want = torch.zeros_like(big)
     want[:, 5] = small[:, 0]
@@ -867,10 +875,60 @@ def phase_kernels_sampling() -> dict:
         raise AssertionError("row copy: index_copy_ != plain")
     copy_lib = library_ms(lambda i: big.index_copy_(1, slot, small), n=8)
     lane = small.numel() * 2
-    numbers["row_copy"] = dict(max_abs_err=0.0, ms=copy_ms, plain_ms=copy_plain,
-                               library_ms=copy_lib, bound_ms=2 * lane / 3.35e12 * 1e3,
-                               bound_by="bytes")
+    lane_8b = dict(ms=copy_ms, plain_ms=copy_plain, library_ms=copy_lib,
+                   bound_ms=2 * lane / 3.35e12 * 1e3, bound_by="bytes")
     del big, small, want
+    # the same kernel as the Realtime admission's scatter: kb = 8 rows of a
+    # 128-slot admission state into slots of a 1024-slot cache at the 1.7B
+    # width, the 3 padding rows at index `slots` dropped (JAX's mode="drop");
+    # against its plain version and index_copy_ at the 5 real rows, on the card
+    lc = RealtimeConfig().language_config
+    Lr, KVr, hdr, A = lc.num_hidden_layers, lc.num_key_value_heads, lc.head_dim, 128
+    rows = t([6, 1, 3, 0, 4, 8, 8, 8])
+    small = torch.randn((Lr, 8, KVr, A, hdr), generator=g, device=DEV).bfloat16()
+    bigs = [torch.zeros((Lr, 8, KVr, SS, hdr), dtype=torch.bfloat16, device=DEV)
+            for _ in range(3)]
+    scatters = [[gl.Part(b[:, :, :, :A], small[:, i:i + 1], dst_word=i, dst_axis=1, src_axis=1)
+                 for i in range(8)] for b in bigs]
+    scatter = gl.RowCopy(scatters[0], rows)
+    scatter()
+    gl.copy_rows_plain(scatters[1], rows)
+    real = rows[:5].long()
+    bigs[2][:, :, :, :A].index_copy_(1, real, small[:, :5])
+    if not (torch.equal(bigs[0], bigs[1]) and torch.equal(bigs[0], bigs[2])):
+        raise AssertionError("row scatter with dropped rows: kernel != plain")
+    scatter_ms = time_ms(lambda i: scatter(), n=8)
+    scatter_plain = host_ms(lambda: gl.copy_rows_plain(scatters[1], rows), n=5)
+    scatter_lib = library_ms(lambda i: bigs[2][:, :, :, :A].index_copy_(1, real, small[:, :5]),
+                             n=8)
+    moved = 2 * 5 * small[:, 0].numel() * 2  # 5 rows read once and written once
+    numbers["row_copy"] = dict(
+        max_abs_err=0.0, ms=scatter_ms, plain_ms=scatter_plain, library_ms=scatter_lib,
+        bound_ms=moved / 3.35e12 * 1e3, bound_by="bytes", lane_8b=lane_8b,
+        shapes=[f"scatter of 8 rows (3 dropped) of ({Lr}, 8, {KVr}, {A}, {hdr}) bf16 into "
+                f"({Lr}, 8, {KVr}, {SS}, {hdr})", "8B cache lane (36, 16, 8, 1024, 128) bf16"])
+    del bigs, small, scatters, scatter
+    # text_lazy's condition kernel against its plain version at the server's
+    # 16 rows: none, one and every row in free text
+    lazy_cases = []
+    for free in ([], [5], list(range(BS))):
+        st_rows, audio = torch.ones(BS, dtype=torch.bool, device=DEV), \
+            torch.ones(BS, dtype=torch.bool, device=DEV)
+        audio[free] = False
+        lazy_cases.append((st_rows, audio))
+        if gl.lazy_cond(st_rows, audio) is not gl.lazy_cond_plain(st_rows, audio):
+            raise AssertionError(f"text_lazy condition, rows {free} in free text: kernel != plain")
+    st_rows, audio = lazy_cases[1]
+    lazy_ms = time_ms(lambda i: gl.lazy_cond_launch(st_rows, audio))
+    lazy_plain = host_ms(lambda: gl.lazy_cond_plain(st_rows, audio))
+    numbers["lazy_cond"] = dict(max_abs_err=0.0, ms=lazy_ms, plain_ms=lazy_plain,
+                                library_ms=None, bound_ms=2 * BS / 3.35e12 * 1e3,
+                                bound_by="bytes")
+    log(f"  row scatter of 8 admission rows at 1.7B width, 3 dropped: kernel {scatter_ms:.4f} "
+        f"ms, plain {scatter_plain:.4f} ms, library index_copy_ at the 5 rows "
+        f"{fmt_ms(scatter_lib)}, bound {numbers['row_copy']['bound_ms']:.4f} ms (bytes), "
+        f"== plain; text_lazy condition (3 cases == plain) {lazy_ms * 1e3:.2f} us, plain "
+        f"{lazy_plain:.4f} ms")
     staged = torch.randint(0, 1000, (BS, 128), device=DEV)
     dst = torch.zeros(BS, dtype=torch.int64, device=DEV)
     fctrl = t([7, 0, 0, 0, 0, 0, 0, 0])
@@ -955,7 +1013,10 @@ def phase_small_server() -> None:
     """A 2-slot server of the small f32 model (head dim 128, so the kernels
     dispatch) with the same weights on the card and on the CPU: 4 greedy
     continuation requests, two admitted mid-flight. The page pool is the
-    default 60% of the linear footprint, so pages are recycled."""
+    default 60% of the linear footprint, so pages are recycled. On the card
+    each cache mode warms up its prompt buckets and serves through ``run``
+    and ``run_events``: every warm admission splices inside its graph
+    (``splice_audit``), and both loops' grids equal."""
     cfg = SMALL_CFG
     cpu_backend = demo_backend(cfg, seed=2, dtype=torch.float32, device="cpu")
     cpu_params, proc = cpu_backend.engine.params, cpu_backend.processor
@@ -968,17 +1029,26 @@ def phase_small_server() -> None:
                 proc.build_assistant_message([codes])]
         grids.append(proc([conv], mode="continuation")["input_ids"][0])
 
-    def serve(params, dev, **mode):
+    def serve(params, dev, loop="run", **mode):
         srv = DelayBatchServer(params, cfg, slots=2, cache_len=256, out_capacity=64,
                                prompt_bucket=32, dtype=torch.float32, page_size=64,
                                sampling=make_sampling(text_temperature=0.0,
                                                       audio_temperature=0.0, device=dev),
                                **mode)
+        spliced = None
+        if dev != "cpu":
+            srv.warmup(prompt_lens=(32, 64), attend_upto=256)
         rids = [srv.submit(g, max_new_tokens=24) for g in grids]
-        done = {c.request_id: c for c in srv.run(max_steps=1000)}
+        with contextlib.ExitStack() as stack:
+            if dev != "cpu":
+                spliced = stack.enter_context(splice_audit(srv, "_prefill_into"))
+            done = {c.request_id: c for c in getattr(srv, loop)(max_steps=1000)}
         if sorted(done) != sorted(rids):
             raise AssertionError(f"small server {mode}: requests {rids}, completed {sorted(done)}")
-        return [(done[r].start_length, done[r].tokens) for r in rids], srv.total_preemptions
+        if spliced is not None and not spliced["warm"]:
+            raise AssertionError(f"small server {mode} {loop}: no warm admission")
+        return [(done[r].start_length, done[r].tokens) for r in rids], srv.total_preemptions, \
+            spliced
 
     def same(a, b) -> bool:
         return all(la == lb and np.array_equal(ga, gb) for (la, ga), (lb, gb) in zip(a, b))
@@ -988,6 +1058,13 @@ def phase_small_server() -> None:
                        ("linear int8", dict(kv_quant=True)),
                        ("paged int8", dict(paged=True, kv_quant=True))):
         results[name] = serve(gpu_params, DEV, **mode)
+        events = serve(gpu_params, DEV, "run_events", **mode)
+        if not same(results[name][0], events[0]):
+            raise AssertionError(f"small server on the card, {name}: run_events grids differ "
+                                 f"from run's")
+        log(f"  small server on the card ({name}): run_events grids == run grids; warm "
+            f"admissions spliced inside their graphs, none eagerly: run {results[name][2]}, "
+            f"run_events {events[2]}")
     for name in ("linear", "paged"):
         cpu = serve(cpu_params, "cpu", **({"paged": True} if name == "paged" else {}))
         if not same(results[name][0], cpu[0]):
@@ -1271,8 +1348,9 @@ COUNTERS = {k: v for k, v in kernel_launches.COUNTERS.items() if k != "w8a16_byt
 # from phase 3's drive of the path that does run them (a tool's walk, or
 # decode_attention_q8t once per layer)
 OFF_PATH = ("decode_q8t", "w8a8", "int4")
-# what only phase 13 runs: W8A16's float32-activation mode (the int8 codec)
-PHASE13 = ("w8f32",)
+# what only phase 13 runs: W8A16's float32-activation mode (the int8 codec),
+# and text_lazy's condition kernel (no engine turns text_lazy on, as in JAX)
+PHASE13 = ("w8f32", "lazy_cond")
 
 
 # kernels the main paths launch inside replayed CUDA graphs (flash in the
@@ -1478,7 +1556,8 @@ def phase_server(params, modes=SERVER_MODES, label: str = "", w8_per_pass: int =
         reset_counts()
         t = time.perf_counter()
         rids = {server.submit(g, max_new_tokens=n): n for g, n in zip(prompts, budgets)}
-        done = server.run()
+        with splice_audit(server, "_prefill_into") as spliced:
+            done = server.run()
         torch.cuda.synchronize()
         wall = time.perf_counter() - t
         mode_counts = read_counts()
@@ -1504,6 +1583,8 @@ def phase_server(params, modes=SERVER_MODES, label: str = "", w8_per_pass: int =
             f"{server.total_preemptions} preemptions, KV cache {kv_bytes / 2**30:.3f} GiB, "
             f"peak device memory {torch.cuda.max_memory_allocated() / 2**30:.2f} GiB "
             f"(warmup {warm_s:.2f} s)")
+        log(f"  server {name}: admissions {spliced['warm']} warm (prefill and splice one "
+            f"replay, no eager row copy), {spliced['eager']} eager (unwarmed buckets)")
         log(f"  server {name}: launches {kernel} {mode_counts[kernel]} (>= {L} x {steps}), "
             f"flash {mode_counts['flash']} (>= {L} x {admissions})"
             + (f", w8a16 {mode_counts['w8a16']} (>= {w8_per_pass} x {steps + admissions})"
@@ -2290,6 +2371,8 @@ def admission_graphs_vs_eager(params) -> None:
     g, e = servers["graph"], servers["eager"]
     if sorted(k[0] for k in g._prefills.keys) != [64, 96, 224]:
         raise AssertionError(f"warmup captured prefill graphs {g._prefills.keys}")
+    audit = splice_audit(g, "_prefill_into")
+    spliced = audit.__enter__()
     for slot, (T, seed) in enumerate(((60, 31), (90, 32), (60, 33), (90, 34))):
         grid = prompt_grid(cfg, T, seed)
         for srv in (g, e):
@@ -2314,12 +2397,17 @@ def admission_graphs_vs_eager(params) -> None:
         admit()  # warm
         walls[name] = timed(admit)
         srv._active.clear()
+    audit.__exit__(None, None, None)
+    if spliced["eager"] or not spliced["warm"]:
+        raise AssertionError(f"9a: warm admissions spliced eagerly: {spliced}")
     small = g._small
     kv = sum(t.nbytes for t in small.cache)
     rest = sum(t.nbytes for t in small[1:] if isinstance(t, torch.Tensor))
-    log(f"  admission of a 200-row prompt (bucket 224: prefill + splice), warm, median of "
-        f"{TIMED_N}: graph {walls['graph'][0]:.2f} ms wall / {walls['graph'][1]:.2f} ms device, "
-        f"eager {walls['eager'][0]:.2f} ms wall / {walls['eager'][1]:.2f} ms device")
+    log(f"  admission of a 200-row prompt (bucket 224: prefill + splice, one graph replay), "
+        f"warm, median of {TIMED_N}: graph {walls['graph'][0]:.2f} ms wall / "
+        f"{walls['graph'][1]:.2f} ms device, eager {walls['eager'][0]:.2f} ms wall / "
+        f"{walls['eager'][1]:.2f} ms device; the graph server's {spliced['warm']} admissions "
+        f"each spliced inside its replay, none eagerly")
     log(f"  static batch-1 admission state (cache_len {SS}, bf16 KV): KV cache {kv / 1e6:.1f} MB "
         f"+ {rest / 1e6:.3f} MB of other fields")
     del servers, g, e
@@ -2347,6 +2435,38 @@ def host_waits():
         yield n
     finally:
         torch.Tensor.cpu, torch.cuda.Event.synchronize = cpu, sync
+
+
+@contextlib.contextmanager
+def splice_audit(server, method: str):
+    """Check every admission of ``server`` (its ``method``: the Delay
+    server's ``_prefill_into``, the Realtime server's ``_prefill_group``)
+    by how its splice ran: an admission whose prefill launched flash only
+    inside a replayed graph (warm) launched the row copy inside that graph
+    and never outside it; any other ran the same kernel eagerly. Yields the
+    tally {warm, eager}. Reads only the host's counts: no wait."""
+    tally = dict(warm=0, eager=0)
+    inner = getattr(server, method)
+
+    def audited(*args, **kw):
+        before, graphs = kernel_launches.read(), dict(kernel_launches.IN_GRAPHS)
+        out = inner(*args, **kw)
+        d = {k: kernel_launches.read()[k] - before[k] for k in ("flash", "row_copy")}
+        g = {k: kernel_launches.IN_GRAPHS[k] - graphs[k] for k in ("flash", "row_copy")}
+        warm = d["flash"] == g["flash"] > 0
+        if warm and not d["row_copy"] == g["row_copy"] >= 1:
+            raise AssertionError(f"a warm admission launched its splice outside its graph: "
+                                 f"{d} ({g} in graphs)")
+        if not warm and not d["row_copy"] > g["row_copy"]:
+            raise AssertionError(f"an eager admission did not splice by the row copy: {d}")
+        tally["warm" if warm else "eager"] += 1
+        return out
+
+    setattr(server, method, audited)
+    try:
+        yield tally
+    finally:
+        delattr(server, method)
 
 
 def loop_launches(server) -> int:
@@ -2396,7 +2516,7 @@ def loops_vs_run(params) -> list:
             server.total_steps, server.total_preemptions, server.total_dispatches = 0, 0, 0
             launched = loop_launches(server)
             reset_counts()
-            with host_waits() as waits:
+            with host_waits() as waits, splice_audit(server, "_prefill_into") as spliced:
                 t = time.perf_counter()
                 rids = {server.submit(g, max_new_tokens=n): n for g, n in zip(prompts, budgets)}
                 done = sorted(getattr(server, loop)(), key=lambda c: c.request_id)
@@ -2431,7 +2551,9 @@ def loops_vs_run(params) -> list:
                 f"frames/s, {steps} steps ({wall / steps * 1e3:.2f} ms/step), "
                 f"{server.total_dispatches} dispatches, {launched} loop-graph launches "
                 f"({launched / len(rids):.2f} per request), {waits[0] / len(rids):.1f} host waits "
-                f"per request, {server.total_preemptions} preemptions, set-up before the "
+                f"per request, {server.total_preemptions} preemptions, admissions "
+                f"{spliced['warm']} warm / {spliced['eager']} eager (splice inside the graph / "
+                f"the same kernel eagerly), set-up before the "
                 f"window {setup:.2f} s; launches {kernel} "
                 f"{counts[kernel]} ({counts['graphs'][kernel]} in graphs), flash "
                 f"{counts['flash']} ({counts['graphs']['flash']} in graphs)"
@@ -2872,12 +2994,14 @@ def rt_server_phase(params, cfg) -> tuple:
         if not (c["graphs"]["decode"] and c["graphs"]["w8a16"] and c["flash"]):
             raise AssertionError(f"server {run}: the frames did not run the kernels in "
                                  f"replayed graphs, or no admission ran flash: {c}")
-        if not (c["flash"] == c["graphs"]["flash"] and c["w8a16"] == c["graphs"]["w8a16"]):
+        if not (c["flash"] == c["graphs"]["flash"] and c["w8a16"] == c["graphs"]["w8a16"]
+                and c["row_copy"] == c["graphs"]["row_copy"] > 0):
             raise AssertionError(f"server {run}: an admission launched outside its graph: {c}")
     adm = {str(key): dict(a.prefills.counts)
            for key, a in sorted(server._admissions.items())}
     log(f"  admissions by (k, attend) bucket (eager first uses in warmup, replays in the "
-        f"runs): {adm}; every flash and W8A16 launch of both runs inside replayed graphs")
+        f"runs): {adm}; every flash, W8A16 and splice (row copy) launch of both runs inside "
+        f"replayed graphs")
     return counts, rows, server
 
 
@@ -2963,9 +3087,11 @@ def rt_admissions(server, cfg) -> list:
                                  f"{state_diff(kept.state, eager._admissions[key].state)}")
         runs = {name: kept.prefills.counts[name] - before[name] for name in before} if kept else {}
         if warm and not (c["flash"] == c["graphs"]["flash"] > 0
-                         and c["w8a16"] == c["graphs"]["w8a16"] and runs["replay"] == 1):
-            raise AssertionError(f"admission of k={k}: not one replay of its graph: {c} {runs}")
-        if not warm and not (c["flash"] > c["graphs"]["flash"]
+                         and c["w8a16"] == c["graphs"]["w8a16"] and runs["replay"] == 1
+                         and c["row_copy"] == c["graphs"]["row_copy"] == 1):
+            raise AssertionError(f"admission of k={k}: not one replay of its graph, the splice "
+                                 f"inside: {c} {runs}")
+        if not warm and not (c["flash"] > c["graphs"]["flash"] and c["row_copy"] == 1
                              and (not kept or runs == dict(eager=1, capture=0, replay=0))):
             raise AssertionError(f"admission of k={k} at bucket {Tb} (not warmed): not eager: "
                                  f"{c} {runs}")
@@ -2982,8 +3108,9 @@ def rt_admissions(server, cfg) -> list:
             f"warm, median of 5: graph server {walls['graph'][0]:.2f} ms wall / "
             f"{walls['graph'][1]:.2f} ms device, eager {walls['eager'][0]:.2f} ms wall / "
             f"{walls['eager'][1]:.2f} ms device; state == eager's, flash {c['flash']} "
-            f"({c['graphs']['flash']} in replays) and W8A16 {c['w8a16']} "
-            f"({c['graphs']['w8a16']} in replays) launches")
+            f"({c['graphs']['flash']} in replays), W8A16 {c['w8a16']} "
+            f"({c['graphs']['w8a16']} in replays) and splice {c['row_copy']} "
+            f"({c['graphs']['row_copy']} in replays) launches")
     if {key: a.prefills.keys for key, a in server._admissions.items()} != captured:
         raise AssertionError("an admission of a bucket not warmed captured a graph mid-serve")
     st = server._admissions
@@ -3886,10 +4013,12 @@ def local_server_phase(params, cfg) -> tuple:
         if not (c["graphs"]["decode"] and c["graphs"]["w8a16"] and c["flash"]):
             raise AssertionError(f"server {run}: the frames did not run the kernels in "
                                  f"replayed graphs, or no admission ran flash: {c}")
-        if not (c["flash"] == c["graphs"]["flash"] and c["w8a16"] == c["graphs"]["w8a16"]):
+        if not (c["flash"] == c["graphs"]["flash"] and c["w8a16"] == c["graphs"]["w8a16"]
+                and c["row_copy"] == c["graphs"]["row_copy"] > 0):
             raise AssertionError(f"server {run}: an admission launched outside its graph: {c}")
     log(f"  admissions {server._prefills.counts} (eager first uses in warmup, replays in the "
-        f"runs); every flash and W8A16 launch of both runs inside replayed graphs")
+        f"runs); every flash, W8A16 and splice (row copy) launch of both runs inside replayed "
+        f"graphs")
     return counts, rows, server
 
 
@@ -3936,9 +4065,11 @@ def local_admissions(server, cfg) -> list:
                                  f"{state_diff(server._small, eager._small)} "
                                  f"{state_diff(server.state, eager.state)}")
         if warm and not (c["flash"] == c["graphs"]["flash"] > 0
-                         and c["w8a16"] == c["graphs"]["w8a16"] and runs["replay"] == 1):
-            raise AssertionError(f"Local admission: not one replay of its graph: {c} {runs}")
-        if not warm and not (c["flash"] > c["graphs"]["flash"]
+                         and c["w8a16"] == c["graphs"]["w8a16"] and runs["replay"] == 1
+                         and c["row_copy"] == c["graphs"]["row_copy"] == 1):
+            raise AssertionError(f"Local admission: not one replay of its graph, the splice "
+                                 f"inside: {c} {runs}")
+        if not warm and not (c["flash"] > c["graphs"]["flash"] and c["row_copy"] == 1
                              and runs == dict(eager=1, capture=0, replay=0)):
             raise AssertionError(f"Local admission at bucket {Tb} (not warmed): not eager: "
                                  f"{c} {runs}")
@@ -3951,8 +4082,9 @@ def local_admissions(server, cfg) -> list:
             f"median of 5: graph server {walls['graph'][0]:.2f} ms wall / "
             f"{walls['graph'][1]:.2f} ms device, eager {walls['eager'][0]:.2f} ms wall / "
             f"{walls['eager'][1]:.2f} ms device; state == eager's, flash {c['flash']} "
-            f"({c['graphs']['flash']} in replays) and W8A16 {c['w8a16']} "
-            f"({c['graphs']['w8a16']} in replays) launches")
+            f"({c['graphs']['flash']} in replays), W8A16 {c['w8a16']} "
+            f"({c['graphs']['w8a16']} in replays) and splice {c['row_copy']} "
+            f"({c['graphs']['row_copy']} in replays) launches")
     if server._prefills.keys != captured:
         raise AssertionError("a Local admission of a bucket not warmed captured a graph mid-serve")
     del servers, eager
@@ -4706,11 +4838,18 @@ def cpu_codec_copy(params, cfg):
 
 
 def phase_text_lazy() -> dict:
-    """13e: ``delay_decode_step(text_lazy=True)`` (eager steps) against the
-    full path, greedy, on a small float32 model on the card; a CUDA graph's
-    capture of the lazy step raises ``ValueError``."""
-    from mosstts_tpu_torch.engine.step_graph import GraphSteps, zero_state
+    """13e: ``delay_decode_step(text_lazy=True)`` on a small float32 model on
+    the card: 15 eager greedy steps of 3 rows (one in free text) equal the
+    full path's bit for bit; then the lazy step captured into one CUDA
+    graph (the condition kernel and an IF node per branch) and replayed 6
+    times from a state with a row in free text and 6 from one with every
+    row in an audio block: the frames equal the eager lazy steps', and the
+    device counters say how many times each branch ran. Returns the
+    condition kernel's launches and the branch counts."""
+    from mosstts_tpu_torch.engine.step_graph import (STEP_FIELDS, GraphSteps, copy_state_,
+                                                     zero_state)
     from mosstts_tpu_torch.models.delay import delay_decode_step, delay_prefill
+    from mosstts_tpu_torch.ops.kernels import graph_loop as gl
     from mosstts_tpu_torch.ops.sampling import row_keys
 
     cfg = DelayConfig(language_config=tiny_qwen3(
@@ -4719,35 +4858,61 @@ def phase_text_lazy() -> dict:
     params = init_delay_params(cfg, generator=torch.Generator(device=DEV).manual_seed(13),
                                dtype=torch.float32, device=DEV)
     greedy = make_sampling(text_temperature=0.0, audio_temperature=0.0, device=DEV)
-    ids, mask = p13_prompts(cfg, 3)
-    ids[2, -1, 0] = 100  # row 2 in free text: the full branch; then all audio: the 2 columns
-    outs = {}
-    for lazy in (False, True):
-        with torch.no_grad():
-            st = delay_prefill(params, cfg, torch.as_tensor(ids, device=DEV),
-                               torch.as_tensor(mask, device=DEV), max_new_tokens=16, cache_len=128,
-                               rng=row_keys(1, 3).to(DEV), sampling=greedy,
-                               dtype=torch.float32)
-            for _ in range(15):
-                st = delay_decode_step(params, cfg, st, greedy, attend_len=128, text_lazy=lazy)
-        outs[lazy] = st.out.cpu().numpy()
-    if not np.array_equal(outs[False], outs[True]):
-        raise AssertionError("13e: text_lazy's greedy frames differ from the full path's")
-    state = zero_state(cfg, 1, 128, 8, dtype=torch.float32, kv_quant=False, device=DEV)
-    graphs = GraphSteps(params, "text_head", DEV)
 
-    def lazy_step():
-        delay_decode_step(params, cfg, state, greedy, attend_len=128, text_lazy=True)
+    def prefilled(free_text: bool, B: int = 3):
+        ids, mask = p13_prompts(cfg, B)
+        for b in range(B):  # every row in an open audio block, after its im_start
+            ids[b, 3 * b + 3, 0] = cfg.audio_start_token_id
+        if free_text:
+            ids[2, -1, 0] = 100  # row 2 in free text: the full branch
+        return delay_prefill(params, cfg, torch.as_tensor(ids, device=DEV),
+                             torch.as_tensor(mask, device=DEV), max_new_tokens=16,
+                             cache_len=128, rng=row_keys(1, B).to(DEV), sampling=greedy,
+                             dtype=torch.float32)
 
-    graphs.warm(lazy_step)  # eager: runs
-    try:
-        graphs.capture(lazy_step)
-        raise AssertionError("13e: a CUDA graph captured text_lazy's host decision")
-    except ValueError:
-        pass
-    log("  13e text_lazy: 16 greedy frames of 3 rows (one in free text) equal the full path's "
-        "bit for bit on the card; a graph capture of the lazy step raises ValueError")
-    return dict(frames=int(outs[True].shape[1]))
+    def steps(st, n, lazy):
+        for _ in range(n):
+            st = delay_decode_step(params, cfg, st, greedy, attend_len=128, text_lazy=lazy)
+        return st
+
+    reset_counts()
+    with torch.no_grad():
+        outs = {lazy: steps(prefilled(True), 15, lazy).out.cpu().numpy() for lazy in (False, True)}
+        if not np.array_equal(outs[False], outs[True]):
+            raise AssertionError("13e: text_lazy's greedy frames differ from the full path's")
+        state = zero_state(cfg, 3, 128, 16, dtype=torch.float32, kv_quant=False, device=DEV)
+
+        def lazy_step():
+            new = delay_decode_step(params, cfg, state, greedy, attend_len=128, text_lazy=True)
+            for name in STEP_FIELDS:
+                getattr(state, name).copy_(getattr(new, name))
+
+        graphs = GraphSteps(params, "text_head", DEV)
+        copy_state_(state, prefilled(True))
+        graphs.warm(lazy_step)
+        graph, captured = graphs.capture(lazy_step)
+        counts = gl.lazy_counts(DEV)
+        ran = {}
+        for free_text in (True, False):
+            copy_state_(state, prefilled(free_text))
+            before = counts[:2].cpu()
+            for _ in range(6):
+                graph.replay()
+                kernel_launches.add_replay(captured)
+            ran[free_text] = (counts[:2].cpu() - before).tolist()
+            want = steps(prefilled(free_text), 6, True)
+            if not (torch.equal(want.out, state.out) and torch.equal(want.cur_ids, state.cur_ids)):
+                raise AssertionError(f"13e: the lazy graph's frames differ from the eager lazy "
+                                     f"steps' (free text: {free_text})")
+    if not (ran[True][0] >= 1 and ran[False][1] >= 1):
+        raise AssertionError(f"13e: a branch never ran in the lazy graph: {ran}")
+    launched = read_counts()["lazy_cond"]
+    log(f"  13e text_lazy: 16 greedy frames of 3 rows (one in free text) equal the full path's "
+        f"bit for bit on the card; the lazy step as one CUDA graph (condition kernel + an IF "
+        f"node per branch), 6 replays from each state equal the eager lazy steps: branch runs "
+        f"[full, 2 columns] {ran[True]} with a row in free text, {ran[False]} with every row in "
+        f"audio; condition kernel launches {launched}")
+    return dict(frames=int(outs[True].shape[1]), branch_runs=ran, lazy_cond_launches=launched)
 
 
 def phase_parallel() -> dict:
@@ -4786,6 +4951,7 @@ def phase_parallel() -> dict:
     numbers["w8f32_launches"] = numbers["codec"]["w8f32_launches"]
     log(f"phase 13e: text_lazy on a small model ({time.perf_counter() - t13:.1f} s)")
     numbers["text_lazy"] = phase_text_lazy()
+    numbers["lazy_cond_launches"] = numbers["text_lazy"]["lazy_cond_launches"]
     numbers["seconds"] = time.perf_counter() - t13
     log(f"  phase 13 numbers ({numbers['seconds']:.1f} s): "
         + json.dumps({k: v for k, v in numbers.items() if k != "w8f32"}, default=str))
@@ -5155,7 +5321,8 @@ def main() -> None:
     log(f"main paths (phases 4-6, 8, 9b, 10, 11, 14): launches {launches}; of them inside "
         f"replayed CUDA graphs {in_graphs}")
     launches.update(decode_q8t=numbers.pop("q8t_launches"), w8a8=numbers["w8a8"].pop("launches"),
-                    int4=numbers["int4"].pop("launches"), w8f32=p13["w8f32_launches"])
+                    int4=numbers["int4"].pop("launches"), w8f32=p13["w8f32_launches"],
+                    lazy_cond=p13["lazy_cond_launches"])
     if not all(launches[name] for name in OFF_PATH):
         raise AssertionError(f"an off-path kernel was never launched on its path: {launches}")
     kernels = [
@@ -5196,10 +5363,12 @@ def main() -> None:
              launches=launches["w8f32"], in_codec_graphs=p13["codec"]["w8f32_in_graphs"],
              **{k: v for k, v in p13["w8f32"].items() if k != "yardstick_ms"}),
     ]
-    # the kernels the device loops add; none replaces a Pallas kernel: each
-    # names the JAX code it stands for (the key split and draw inside JAX's
-    # step, the while_loop's condition, the drain program's admission and
-    # collect, its row splice, the Realtime event loop's fed column)
+    # the kernels the device loops and splices add; none replaces a Pallas
+    # kernel: each names the JAX code it stands for (the key split and draw
+    # inside JAX's step, the while_loop's condition, the drain program's
+    # admission and collect, the admissions' splices (the row copy, measured
+    # as the Realtime scatter with dropped rows; its 8B cache-lane copy under
+    # lane_8b), the Realtime event loop's fed column, text_lazy's lax.cond)
     for name, key, source, jax_at in (
             ("threefry_split", "threefry_split", "threefry.cu", "mosstts_tpu/ops/sampling.py:40"),
             ("categorical_gumbel_max", "categorical", "threefry.cu",
@@ -5209,9 +5378,12 @@ def main() -> None:
              "mosstts_tpu/engine/batch_server.py:641"),
             ("drain_collect", "drain_collect", "graph_loop.cu",
              "mosstts_tpu/engine/batch_server.py:680"),
-            ("row_copy", "row_copy", "graph_loop.cu", "mosstts_tpu/engine/batch_server.py:663"),
+            ("row_copy", "row_copy", "graph_loop.cu",
+             "mosstts_tpu/engine/realtime_batch_server.py:67"),
             ("fed_column", "feed", "graph_loop.cu",
-             "mosstts_tpu/engine/realtime_batch_server.py:224")):
+             "mosstts_tpu/engine/realtime_batch_server.py:224"),
+            ("text_lazy_condition", "lazy_cond", "graph_loop.cu",
+             "mosstts_tpu/models/delay.py:450")):
         kernels.append(dict(name=name, route="cuda", source=f"mosstts_tpu_torch/csrc/{source}",
                             replaces=jax_at, launches=launches[key], **numbers[key]))
     phase_wall()

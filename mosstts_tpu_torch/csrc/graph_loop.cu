@@ -17,11 +17,25 @@
 // The drain (JAX's _drain_fn) adds an admission kernel (first free slot by
 // argmin, the request's sampling row, key, budget and bookkeeping, and one IF
 // handle per prompt bucket), per bucket an IF node whose body gathers the
-// staged prompt row into the bucket's prefill buffers, replays the bucket's
-// prefill graph and splices the admission state's row into the slot
-// (copy_rows_kernel over a list of segments, indexed on the device), then the
-// decode step, then a collect kernel that writes stopped slots' frames into
-// their request's result row.
+// staged prompt row into the bucket's prefill buffers and replays the
+// bucket's admission graph (its prefill, then the splice of the admission
+// state's row into the slot the admission kernel wrote), then the decode
+// step, then a collect kernel that writes stopped slots' frames into their
+// request's result row.
+//
+// The row copy (copy_rows_kernel) is every server admission's splice, the
+// JAX servers' _insert_fn, _insert_paged_fn, _table_entry_fn, _table_clear_fn,
+// _insert_local_row and _splice_rt_rows: a list of segments, each a row of a
+// destination at an index read from an int32 control word on the device
+// (the slot, a page, a table entry), so one graph serves every slot. A row
+// index outside [0, bound) is dropped, as JAX's scatter with mode="drop"
+// drops the Realtime k bucket's padding rows.
+//
+// text_lazy (mosstts_tpu/models/delay.py _sample_text_lazy, a lax.cond): a
+// condition kernel reads sampling_text & ~is_audio over the rows and sets the
+// handles of two IF nodes on complementary conditions (the full-vocab branch,
+// the 2-column branch), added to the capturing graph of a decode step with
+// each branch's own captured graph as the body's child.
 //
 // Bound on the H100: latency. Each control kernel reads a few bytes a slot;
 // the splice moves one cache lane (bytes). Design: one block, threads over the
@@ -34,7 +48,7 @@ namespace loop {
 
 // ctrl words (int32, device): the loop's counters, written by the host before
 // a launch and read back after it
-enum { kI = 0, kLimit = 1, kCond = 2, kQi = 3, kQn = 4, kSlot = 5, kAdmQi = 6, kCtrl = 8 };
+enum { kI = 0, kLimit = 1, kCond = 2, kQi = 3, kQn = 4, kSlot = 5, kAdmQi = 6, kCtrl = 12 };
 
 struct CondArgs {
     int kind, B;
@@ -50,12 +64,23 @@ struct CondArgs {
     int attend;             // kind 3
 };
 
-// One copy: n_outer chunks of `chunk` bytes; the chunk o of the destination at
-// dst + idx * dst_idx + o * dst_outer (idx = ctrl[idx_word], or 0 when
-// idx_word < 0), of the source alike; src 0 writes zeros.
+// One copy: n_outer x n_mid chunks of `chunk` bytes; the chunk (o, m) of the
+// destination at dst + idx * dst_idx + o * dst_outer + m * dst_mid (idx =
+// ctrl[dst_word], or 0 when dst_word < 0), of the source alike; src 0 writes
+// zeros. A destination index outside [0, bound) drops the segment.
 struct Seg {
-    int64_t dst, src, n_outer, chunk, dst_outer, src_outer, dst_idx, src_idx;
+    int64_t dst, src, n_outer, n_mid, chunk, dst_outer, src_outer, dst_mid, src_mid, dst_idx,
+        src_idx, bound;
     int32_t dst_word, src_word;
+};
+
+// text_lazy's condition: sampling_text, is_audio (B,) bool; counts (3,) int32:
+// full-branch runs, 2-column runs, the last decision
+struct LazyArgs {
+    const uint8_t* sampling_text;
+    const uint8_t* is_audio;
+    int B;
+    int32_t* counts;
 };
 
 constexpr int kMaxSamp = 8;
@@ -141,21 +166,41 @@ __global__ void feed_kernel(const int64_t* staged, int64_t stride, int64_t* dst,
 __global__ void copy_rows_kernel(const Seg* segs, const int32_t* ctrl) {
     const Seg s = segs[blockIdx.y];
     const int64_t di = s.dst_word >= 0 ? ctrl[s.dst_word] : 0;
+    if (di < 0 || di >= s.bound) return;  // JAX's mode="drop"
     const int64_t si = s.src_word >= 0 ? ctrl[s.src_word] : 0;
     char* dst = reinterpret_cast<char*>(s.dst) + di * s.dst_idx;
     const char* src = s.src ? reinterpret_cast<const char*>(s.src) + si * s.src_idx : nullptr;
-    const bool vec = ((s.chunk | s.dst_outer | s.src_outer | reinterpret_cast<int64_t>(dst)
-                       | reinterpret_cast<int64_t>(src)) & 15) == 0;
-    const int64_t unit = vec ? 16 : 1, per = s.chunk / unit, total = s.n_outer * per;
+    const bool vec = ((s.chunk | s.dst_outer | s.src_outer | s.dst_mid | s.src_mid
+                       | reinterpret_cast<int64_t>(dst) | reinterpret_cast<int64_t>(src)) & 15) == 0;
+    const int64_t unit = vec ? 16 : 1, per = s.chunk / unit, total = s.n_outer * s.n_mid * per;
     for (int64_t t = blockIdx.x * (int64_t)blockDim.x + threadIdx.x; t < total;
          t += (int64_t)gridDim.x * blockDim.x) {
-        const int64_t o = t / per, u = (t % per) * unit;
-        char* d = dst + o * s.dst_outer + u;
+        const int64_t c = t / per, u = (t % per) * unit, o = c / s.n_mid, m = c % s.n_mid;
+        char* d = dst + o * s.dst_outer + m * s.dst_mid + u;
+        const char* r = src ? src + o * s.src_outer + m * s.src_mid + u : nullptr;
         if (vec) {
-            *reinterpret_cast<int4*>(d) =
-                src ? *reinterpret_cast<const int4*>(src + o * s.src_outer + u) : make_int4(0, 0, 0, 0);
+            *reinterpret_cast<int4*>(d) = r ? *reinterpret_cast<const int4*>(r) : make_int4(0, 0, 0, 0);
         } else {
-            *d = src ? src[o * s.src_outer + u] : 0;
+            *d = r ? *r : 0;
+        }
+    }
+}
+
+// any(sampling_text & ~is_audio): the full branch's handle takes it, the
+// 2-column branch's its negation (set = 0: a launch outside a graph, which
+// only counts and records the decision)
+__global__ void lazy_cond_kernel(LazyArgs a, cudaGraphConditionalHandle h_full,
+                                 cudaGraphConditionalHandle h_cheap, int set) {
+    int need = 0;
+    for (int b = threadIdx.x; b < a.B; b += blockDim.x)
+        need |= a.sampling_text[b] != 0 && a.is_audio[b] == 0;
+    need = __syncthreads_or(need);
+    if (threadIdx.x == 0) {
+        a.counts[need ? 0 : 1] += 1;
+        a.counts[2] = need;
+        if (set) {
+            cudaGraphSetConditional(h_full, need ? 1u : 0u);
+            cudaGraphSetConditional(h_cheap, need ? 0u : 1u);
         }
     }
 }
@@ -295,12 +340,11 @@ extern "C" int mosstts_loop_build(void* step_graph, const CondArgs* a, const int
 }
 
 // The drain graph: init condition -> WHILE { admission -> per bucket j an IF
-// { gather segs_j -> prefill graph j -> splice } -> step graph -> collect ->
-// condition }. gather[j] and splice are device arrays of Seg; handles_dev a
+// { gather segs_j -> admission graph j (prefill and splice) } -> step graph ->
+// collect -> condition }. gather[j] are device arrays of Seg; handles_dev a
 // device buffer of n_buckets words the builder fills.
 extern "C" int mosstts_drain_build(void* step_graph, void** prefill_graphs, const CondArgs* ca,
                                    const DrainArgs* da, const Seg** gather, const int* n_gather,
-                                   const Seg* splice, int n_splice,
                                    unsigned long long* handles_dev, void** exec_out) {
     const int nb = da->n_buckets;
     cudaGraph_t g, body;
@@ -326,24 +370,19 @@ extern "C" int mosstts_drain_build(void* step_graph, void** prefill_graphs, cons
     for (int j = 0; j < nb && e == cudaSuccess; ++j) {
         cudaGraphConditionalHandle hj;
         cudaGraph_t ib;
-        cudaGraphNode_t gat, pre, spl;
+        cudaGraphNode_t gat, pre;
         e = cudaGraphConditionalHandleCreate(&hj, body, 0, 0);
         hs[j] = hj;
         if (e == cudaSuccess) e = add_conditional(&node, body, &prev, 1, hj, cudaGraphCondTypeIf, &ib);
         const Seg* gs = gather[j];
-        const Seg* ss = splice;
         const int32_t* ctrl = ca->ctrl;
         void* pg[] = {&gs, &ctrl};
-        void* ps[] = {&ss, &ctrl};
         if (e == cudaSuccess)
             e = add_kernel(&gat, ib, nullptr, 0, (void*)copy_rows_kernel, dim3(8, n_gather[j]),
                            dim3(256), pg);
         if (e == cudaSuccess)
             e = cudaGraphAddChildGraphNode(&pre, ib, &gat, 1,
                                            static_cast<cudaGraph_t>(prefill_graphs[j]));
-        if (e == cudaSuccess)
-            e = add_kernel(&spl, ib, &pre, 1, (void*)copy_rows_kernel, dim3(264, n_splice),
-                           dim3(256), ps);
         prev = node;
     }
     if (e == cudaSuccess) e = cudaMemcpy(handles_dev, hs, nb * sizeof(hs[0]), cudaMemcpyHostToDevice);
@@ -391,6 +430,46 @@ extern "C" int mosstts_copy_rows(const Seg* segs, int n, const int32_t* ctrl, in
                                  void* stream) {
     copy_rows_kernel<<<dim3(blocks, n), 256, 0, static_cast<cudaStream_t>(stream)>>>(segs, ctrl);
     return (int)cudaGetLastError();
+}
+
+// text_lazy's condition kernel alone on `stream`: counts and records the
+// decision (the eager lazy step reads it; the plain-vs-kernel check).
+extern "C" int mosstts_lazy_cond(const LazyArgs* a, void* stream) {
+    lazy_cond_kernel<<<1, 256, 0, static_cast<cudaStream_t>(stream)>>>(*a, 0, 0, 0);
+    return (int)cudaGetLastError();
+}
+
+// text_lazy inside a capture under way on `stream`: adds to the capturing
+// graph, after the stream's current dependencies, the condition kernel, then
+// IF(full) { child: full } -> IF(2 columns) { child: cheap } on the handles the
+// kernel sets, and makes the stream's later work depend on the last IF node
+// (JAX's lax.cond(need_full, full, cheap)). The branch graphs are cloned.
+extern "C" int mosstts_lazy_capture(const LazyArgs* a, void* full, void* cheap, void* stream) {
+    cudaStream_t s = static_cast<cudaStream_t>(stream);
+    cudaStreamCaptureStatus status;
+    cudaGraph_t g;
+    const cudaGraphNode_t* deps = nullptr;
+    size_t n_deps = 0;
+    CHECK(cudaStreamGetCaptureInfo(s, &status, nullptr, &g, &deps, &n_deps));
+    if (status != cudaStreamCaptureStatusActive) return (int)cudaErrorStreamCaptureUnmatched;
+    cudaGraphNode_t before[64];
+    if (n_deps > 64) return (int)cudaErrorInvalidValue;
+    for (size_t i = 0; i < n_deps; ++i) before[i] = deps[i];
+    cudaGraphConditionalHandle hf, hc;
+    CHECK(cudaGraphConditionalHandleCreate(&hf, g, 0, 0));
+    CHECK(cudaGraphConditionalHandleCreate(&hc, g, 0, 0));
+    LazyArgs args = *a;
+    int one = 1;
+    void* params[] = {&args, &hf, &hc, &one};
+    cudaGraphNode_t k, nf, nc, cf, cc;
+    cudaGraph_t bf, bc;
+    CHECK(add_kernel(&k, g, before, n_deps, (void*)lazy_cond_kernel, dim3(1), dim3(256), params));
+    CHECK(add_conditional(&nf, g, &k, 1, hf, cudaGraphCondTypeIf, &bf));
+    CHECK(cudaGraphAddChildGraphNode(&cf, bf, nullptr, 0, static_cast<cudaGraph_t>(full)));
+    CHECK(add_conditional(&nc, g, &nf, 1, hc, cudaGraphCondTypeIf, &bc));
+    CHECK(cudaGraphAddChildGraphNode(&cc, bc, nullptr, 0, static_cast<cudaGraph_t>(cheap)));
+    CHECK(cudaStreamUpdateCaptureDependencies(s, &nc, 1, cudaStreamSetCaptureDependencies));
+    return 0;
 }
 
 extern "C" int mosstts_feed(const int64_t* staged, int64_t stride, int64_t* dst, int B,

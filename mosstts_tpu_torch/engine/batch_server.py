@@ -15,7 +15,10 @@ each also over a shared page pool (``paged``): slots borrow fixed-size pages
 as their utterances grow and return them on completion, so KV memory is
 sized for the expected load. The allocator runs off the host mirrors of
 ``pos`` with no device sync; pool exhaustion triggers recompute preemption
-(the slot's prompt plus what it generated is requeued at the front).
+(the slot's prompt plus what it generated is requeued at the front). Its
+table writes are JAX's ``_table_entry_fn`` and ``_table_clear_fn``: one
+row-copy launch each at the entry, page or row the host writes into the
+control words first.
 
 ``self.state`` is one set of static buffers for the server's whole life,
 and the decode steps advance it in place (``engine/step_graph.DecodeSteps``):
@@ -29,9 +32,15 @@ card one CUDA graph per prompt bucket (the JAX server's ``_prefill_fn``),
 captured at the bucket's second admission or in ``warmup()`` and kept for
 the server's life (at most ``cache_len / prompt_bucket`` graphs, as JAX
 keeps a program per bucket), drawing from JAX's key for the request,
-``PRNGKey(_request_seed(...))`` split to one row; the splice then copies
-that state's row, its key included, into the slot. ``graphs=False`` runs
-prefills and steps eagerly, to compare, and the CPU always does. The
+``PRNGKey(_request_seed(...))`` split to one row; the same program then
+splices that state's row, its key included, into the slot: one launch of
+the row-copy kernel (``graph_loop.RowCopy`` over ``splice_parts``; JAX's
+``_insert_fn``, paged its ``_insert_paged_fn(n0)``) at the slot, and
+paged the bucket's n0 pages and the table row, that the host writes into
+the server's int32 control words (``_ctrl``) before the launch, so one
+graph serves every slot, as JAX's traced ``row`` does. ``graphs=False``
+runs prefills and steps eagerly, to compare (the splice the same kernel,
+launched eagerly), and the CPU always does (its plain version). The
 per-slot sampling controls are static (slots,) buffers that an admission
 rewrites.
 
@@ -42,9 +51,10 @@ every step, so it stops after the step at which the event holds, as JAX
 does. ``run_drain`` (JAX ``_drain_fn``) stages the whole queue on the
 device once and runs JAX's scheduler there: on the card each attend
 bucket's segment is one launch of a loop graph whose body admits the next
-request into the first free slot (an admission kernel, then, per prompt
-bucket, an IF node that gathers the staged prompt row, replays the
-bucket's prefill graph and splices the row into the slot), decodes one
+request into the first free slot (an admission kernel that writes the
+slot into the control words, then, per prompt bucket, an IF node that
+gathers the staged prompt row and replays the bucket's admission graph,
+the one ``run`` replays: prefill and splice), decodes one
 step and writes stopped slots' frames into their request's result row
 (a collect kernel); the host reads the queue cursor, the slots' flags and
 cursors once per segment and the results once at the end.
@@ -71,6 +81,7 @@ batch-1 prefill splice cannot split the batch, so, as in JAX, a mesh with
 from __future__ import annotations
 
 import ctypes
+import functools
 import itertools
 import logging
 from dataclasses import dataclass
@@ -92,6 +103,7 @@ from ..models.delay import (
 from ..nn.qwen3 import init_kv_cache, init_paged_kv_cache, init_quant_kv_cache
 from ..ops import sampling as sampling_ops
 from ..ops.kernels import graph_loop, launches
+from ..ops.kernels.graph_loop import Part, RowCopy
 from .delay_engine import attend_bucket
 from .polling import request_seed, run_pipelined
 from .step_graph import DecodeSteps, Prefills, host_tensor, zero_state
@@ -119,64 +131,58 @@ _ROW_FIELDS = ("kv_valid", "cur_ids", "pos", "step", "rng", "is_stopping", "is_a
                "audio_lengths", "delayed", "seen")
 
 
-def _splice_parts(big: DelayGenState, small: DelayGenState, cache: bool = True) -> list:
-    """The layout of an admission's splice of the batch-1 state ``small``
-    into a row of ``big``: ``(dst, src, axis)`` triples, ``axis`` the batch
-    axis of both (1 for the cache lanes, each cache field's batch on axis 1;
-    0 for the per-row fields, the key included), ``src`` None where the
-    row's tail is zeroed (``out``/``out_valid`` past the small state's
-    capacity). The host copies them (``_copy_parts``), the drain graph's
-    splice kernel the same triples (``_Drain._exec``)."""
-    parts = [(bf, sf, 1) for bf, sf in zip(big.cache, small.cache)] if cache else []
-    parts += [(getattr(big, f), getattr(small, f), 0) for f in _ROW_FIELDS]
+def splice_parts(big: DelayGenState, small: DelayGenState, ctrl: torch.Tensor,
+                 n0: Optional[int] = None) -> list:
+    """An admission's splice of the batch-1 state ``small`` into the slot
+    ``ctrl[SLOT]`` of ``big`` as row-copy parts (``graph_loop.RowCopy``;
+    JAX's ``_insert_row``, a traced row): every per-row field, the key
+    included, ``out``/``out_valid`` with the tail past ``small``'s capacity
+    zeroed, and the slot's cache lane (each cache field's batch on axis 1).
+    Paged, ``n0`` pages (JAX's ``_insert_paged_fn(n0)``): the small linear
+    cache's first ``n0`` pages of slots into the pool pages
+    ``ctrl[TABLE_ROW + j]`` instead, and the slot's table row from the
+    words at ``TABLE_ROW`` on (the pages, then zeros: the trash page)."""
+    S, R = graph_loop.SLOT, graph_loop.TABLE_ROW
+    if n0 is None:
+        parts = [Part(bf, sf, dst_word=S, dst_axis=1, src_axis=1)
+                 for bf, sf in zip(big.cache, small.cache)]
+    else:
+        pool = big.cache
+        psz, npp = pool.page_size, pool.table.shape[1]
+        parts = [Part(pb, sb[:, :, :, j * psz:(j + 1) * psz], dst_word=R + j, dst_axis=1,
+                      src_axis=1)
+                 for pb, sb in zip(pool[:-1], small.cache) for j in range(n0)]
+        parts.append(Part(pool.table, ctrl[R:R + npp].view(1, npp), dst_word=S))
+    parts += [Part(getattr(big, f), getattr(small, f), dst_word=S) for f in _ROW_FIELDS]
     for f in ("out", "out_valid"):
         dst, src = getattr(big, f), getattr(small, f)
         n = src.shape[1]
-        parts += [(dst[:, :n], src, 0), (dst[:, n:], None, 0)]
+        parts += [Part(dst[:, :n], src, dst_word=S), Part(dst[:, n:], None, dst_word=S)]
     return parts
 
 
-@torch.no_grad()
-def _copy_parts(parts: list, r: int) -> None:
-    for dst, src, axis in parts:
-        d = dst.select(axis, r)
-        if src is None:
-            d.zero_()
-        else:
-            d.copy_(src.select(axis, 0))
+def table_entry_parts(table: torch.Tensor, ctrl: torch.Tensor) -> list:
+    """JAX's ``_table_entry_fn``, ``table[row, col] = page``: the entry
+    ``ctrl[ENTRY]`` (``row * width + col``) takes the page ``ctrl[PAGE]``."""
+    return [Part(table.view(-1), ctrl[graph_loop.PAGE:graph_loop.PAGE + 1],
+                 dst_word=graph_loop.ENTRY)]
 
 
-def _splice_fields(big: DelayGenState, small: DelayGenState, r: int) -> None:
-    """Copy the batch-1 state ``small``'s per-row fields, its key
-    included, into row ``r`` of ``big`` in place."""
-    _copy_parts(_splice_parts(big, small, cache=False), r)
+def table_clear_parts(table: torch.Tensor) -> list:
+    """JAX's ``_table_clear_fn``, ``table[row] = 0``: the row ``ctrl[SLOT]``
+    at the trash page."""
+    return [Part(table, None, dst_word=graph_loop.SLOT)]
 
 
-def _insert_row(big: DelayGenState, small: DelayGenState, row: int) -> None:
-    """Splice a batch-1 prefilled state into slot ``row`` of the running
-    batch: every per-row field and the slot's cache lane, in place."""
-    _copy_parts(_splice_parts(big, small), row)
+def _pages(Tb: int, page_size: int) -> int:
+    """The pages a prompt bucket's admission fills (page size 0: linear,
+    none)."""
+    return -(-Tb // page_size) if page_size else 0
 
 
-@torch.no_grad()
-def _insert_row_paged(big: DelayGenState, small: DelayGenState, row: int,
-                      pages: List[int]) -> None:
-    """Paged splice: copy the batch-1 linear prefill cache's first
-    ``len(pages)`` pages of slots into the pool ``pages`` and point slot
-    ``row``'s table at them (the rest of the row at the trash page 0). Pool
-    buffers pair with the small cache's fieldwise (k, v[, k_scale,
-    v_scale]); the table is the pool's last field."""
-    pool = big.cache
-    psz, n0 = pool.page_size, len(pages)
-    dev = pool.table.device
-    idx = host_tensor(np.asarray(pages, np.int64), dev).to(dev, non_blocking=True)
-    for pb, sb in zip(pool[:-1], small.cache):
-        blk = sb[:, 0, :, : n0 * psz]  # (L, KV, n0*P[, hd])
-        blk = blk.reshape(blk.shape[:2] + (n0, psz) + blk.shape[3:]).transpose(1, 2)
-        pb[:, idx] = blk.to(pb.dtype)
-    pool.table[row].zero_()
-    pool.table[row, :n0] = idx.to(torch.int32)
-    _splice_fields(big, small, row)
+def _run_splice(splices: dict, page_size: int, key: tuple) -> None:
+    """The end of a prefill program at ``key``: the splice of its bucket."""
+    splices[_pages(key[0], page_size)]()
 
 
 def request_key(seed: int) -> np.ndarray:
@@ -310,7 +316,23 @@ class DelayBatchServer:
                                  kv_quant=kv_quant, device=dev)
         self._prefill_samp = make_sampling(
             audio_rp_cross_batch=bool(d.audio_rp_cross_batch), device=dev)
-        self._prefills = Prefills(self._steps, self._small, self._prefill_samp)
+        # the admissions' control words (graph_loop: SLOT, the paged table
+        # row at TABLE_ROW, a table entry's ENTRY and PAGE), written by the
+        # host before a launch; run_drain's loops use them as theirs
+        npp = cache_len // page_size if paged else 0
+        self._ctrl = torch.zeros(graph_loop.CTRL_WORDS + npp, dtype=torch.int32, device=dev)
+        # the splice of _small into the slot, per page count (0: linear)
+        self._splices: Dict[int, RowCopy] = {}
+        if paged:
+            table = self.state.cache.table
+            self._table_entry = RowCopy(table_entry_parts(table, self._ctrl), self._ctrl, 1)
+            self._table_clear = RowCopy(table_clear_parts(table), self._ctrl, 1)
+        # each bucket's admission program: the prefill, then the splice (the
+        # hook holds the splices, not the server: no reference cycle)
+        self._prefills = Prefills(self._steps, self._small, self._prefill_samp,
+                                  after=functools.partial(_run_splice, self._splices,
+                                                          page_size if paged else 0))
+        self._splice(prompt_bucket)  # linear: every bucket's splice, made before any capture
         # run_drain's static staging buffers per (prompt buckets, nqcap), and
         # their loop graphs per attend bucket (JAX's compiled _drain_fn
         # programs), kept for the server's life
@@ -389,7 +411,9 @@ class DelayBatchServer:
             if not self._free_pages:
                 return False
             pg = self._free_pages.pop()
-            self.state.cache.table[slot, len(pages)] = pg
+            graph_loop.set_words(self._ctrl, graph_loop.ENTRY,
+                                 [slot * self.state.cache.table.shape[1] + len(pages), pg])
+            self._table_entry()
             pages.append(pg)
         return True
 
@@ -399,7 +423,8 @@ class DelayBatchServer:
         pages now owned by other slots."""
         self._free_pages.extend(reversed(self._slot_pages[slot]))
         self._slot_pages[slot] = []
-        self.state.cache.table[slot].zero_()
+        graph_loop.set_words(self._ctrl, graph_loop.SLOT, [slot])
+        self._table_clear()
 
     # ---- decode ----------------------------------------------------------
     def _step_kw(self, attend: int) -> dict:
@@ -536,19 +561,43 @@ class DelayBatchServer:
         self._active[slot] = req
         return True
 
+    def _splice(self, Tb: int) -> RowCopy:
+        """The splice of bucket ``Tb``'s admissions, made at its first use,
+        outside any capture."""
+        n0 = _pages(Tb, self.page_size if self.paged else 0)
+        rc = self._splices.get(n0)
+        if rc is None:
+            rc = self._splices[n0] = RowCopy(
+                splice_parts(self.state, self._small, self._ctrl, n0 if self.paged else None),
+                self._ctrl)
+        return rc
+
+    def _aim(self, slot: int, pages=()) -> None:
+        """Point the next splice at ``slot`` (paged: its ``pages``, the
+        table row's rest at the trash page 0)."""
+        row = list(pages) + [0] * (self._ctrl.shape[0] - graph_loop.TABLE_ROW - len(pages))
+        graph_loop.set_words(self._ctrl, graph_loop.SLOT,
+                             [slot] + [0] * (graph_loop.TABLE_ROW - graph_loop.SLOT - 1) + row)
+
+    def _aim_nowhere(self) -> None:
+        """A slot and pages out of range: the splice drops every row (a
+        capture's eager warm-up must not write into the pool)."""
+        n = self._ctrl.shape[0] - graph_loop.TABLE_ROW
+        self._aim(self.slots, [self.num_pages] * n if self.paged else ())
+
     def _prefill_into(self, slot: int, ids, mask, seed: int, pages=None) -> None:
-        """Prefill the batch-1 prompt ``ids``/``mask`` (its bucket's length)
+        """The admission program of the bucket ``ids.shape[1]`` (one graph
+        replay on the card): prefill the batch-1 prompt ``ids``/``mask``
         into the static admission state, drawing from the key of ``seed``
         (``request_key``), with the prefill sampling as it stands, and
-        splice it into ``slot`` (paged: into ``pages``), its key with it."""
+        splice it into ``slot`` (paged: into ``pages``), its key with it,
+        at the control words the host writes first."""
         self._small.rng.copy_(host_tensor(request_key(seed)[None], self.device),
                               non_blocking=True)
-        self._prefills.run(ids, mask, top_k_text=self.top_k_text, top_k_audio=self.top_k_audio)
         Tb = ids.shape[1]
-        if self.paged:
-            _insert_row_paged(self.state, self._small, slot, pages)
-        else:
-            _insert_row(self.state, self._small, slot)
+        self._splice(Tb)
+        self._aim(slot, pages or ())
+        self._prefills.run(ids, mask, top_k_text=self.top_k_text, top_k_audio=self.top_k_audio)
         # mirror the spliced cursors (delay_prefill sets pos=Tb, step=0)
         self._pos_host[slot] = Tb
         self._step_host[slot] = 0
@@ -860,8 +909,10 @@ class DelayBatchServer:
             g[-1, 0] = cfg.audio_assistant_gen_slot_token_id
             self.submit(g, max_new_tokens=2)
         self.run()
+        self._aim_nowhere()
         for Tb in sorted({-(-int(T) // self.prompt_bucket) * self.prompt_bucket
                           for T in prompt_lens}):
+            self._splice(Tb)
             self._prefills.capture(Tb, top_k_text=self.top_k_text, top_k_audio=self.top_k_audio)
         upto = min(attend_upto or self.cache_len, self.cache_len)
         pos = 2
@@ -910,7 +961,9 @@ class _Drain:
         self.budget = z((slots,), torch.int32)
         self.res = z((nqcap + 1, server.out_capacity, C), torch.int32)
         self.rsteps = z((nqcap + 1,), torch.int32)
-        self.ctrl = z((graph_loop.CTRL_WORDS,), torch.int32)
+        # the server's control words: the admission kernel writes the slot
+        # the admission program's splice reads
+        self.ctrl = server._ctrl
         self._host_ctrl = np.zeros(graph_loop.CTRL_WORDS, np.int32)  # the CPU loop's
         self._qbucket_host = np.zeros(nqcap, np.int32)
         self._execs: Dict[int, int] = {}  # attend -> executable drain graph
@@ -918,7 +971,7 @@ class _Drain:
         # attend -> the IF handles its drain graph's admission kernel sets:
         # each graph its own, since its build writes them
         self._handles: Dict[int, torch.Tensor] = {}
-        self._gathers = self._splice = None
+        self._gathers = None
 
     def __del__(self):
         graph_loop.release(getattr(self, "_execs", {}))
@@ -947,7 +1000,7 @@ class _Drain:
         self._host_ctrl[:] = ctrl
         self._qbucket_host[:] = qbucket
         self._done = (0, 0)  # the steps run and requests admitted so far
-        self.ctrl.copy_(host_tensor(ctrl, dev), non_blocking=True)
+        graph_loop.set_words(self.ctrl, 0, ctrl)
 
     def capture_steps(self, sv: DelayBatchServer) -> None:
         """Capture the step graph of every attend bucket a drain of these
@@ -985,7 +1038,7 @@ class _Drain:
             prompt = sv._prefills._prompts[self._prefill_key(sv, self.buckets[self._qbucket_host[q]])]
             launches.add_replay(prompt.launches)
         launches.add_replay({"loop_cond": di + 1, "drain_admit": di, "drain_collect": di,
-                             "row_copy": 2 * (qi - q0)})
+                             "row_copy": qi - q0})
         return qi, act, pos, int(ctrl[graph_loop.I])
 
     def _read(self, sv: DelayBatchServer):
@@ -1014,10 +1067,10 @@ class _Drain:
                                              sv._small.rng, samp)
             if j >= 0:
                 tb, qi = self.buckets[j], int(ctrl[graph_loop.ADM_QI])
+                sv._aim(int(ctrl[graph_loop.SLOT]))  # as the admission kernel writes it
                 sv._prefills.run(self.prompts[qi:qi + 1, t_max - tb:],
                                  self.masks[qi:qi + 1, t_max - tb:], top_k_text=sv.top_k_text,
                                  top_k_audio=sv.top_k_audio)
-                _insert_row(st, sv._small, int(ctrl[graph_loop.SLOT]))
             sv._steps.step(**sv._step_kw(attend))
             graph_loop.drain_collect_plain(self.active, st.is_stopping, st.step, self.budget,
                                            self.slot_rid, st.out, self.res, self.rsteps)
@@ -1027,25 +1080,24 @@ class _Drain:
 
     def _exec(self, sv: DelayBatchServer, attend: int) -> int:
         """The drain graph at ``attend``, built at first use over the
-        decode step's graph (``capture_steps``) and every bucket's prefill
-        graph, captured here where missing (an admission-state prefill)."""
+        decode step's graph (``capture_steps``) and every bucket's
+        admission graph (prefill and splice), captured here where missing
+        (its eager warm-up splices nowhere)."""
         ex = self._execs.get(attend)
         if ex is not None:
             return ex
         steps, st = sv._steps, sv.state
         key = steps._key(**sv._step_kw(attend))
+        sv._aim_nowhere()  # the admission kernel writes the slot before any splice
         for tb in self.buckets:
             sv._prefills.capture(tb, top_k_text=sv.top_k_text, top_k_audio=sv.top_k_audio)
         prompts = [sv._prefills._prompts[self._prefill_key(sv, tb)] for tb in self.buckets]
         if self._gathers is None:
-            S, t_max = graph_loop.SLOT, self.buckets[-1]
+            t_max = self.buckets[-1]
             self._gathers = [graph_loop.seg_table([
-                graph_loop.seg(p.ids, self.prompts[:, t_max - tb:], src_word=graph_loop.ADM_QI),
-                graph_loop.seg(p.mask, self.masks[:, t_max - tb:], src_word=graph_loop.ADM_QI),
+                Part(p.ids, self.prompts[:, t_max - tb:], src_word=graph_loop.ADM_QI),
+                Part(p.mask, self.masks[:, t_max - tb:], src_word=graph_loop.ADM_QI),
             ], sv.device) for p, tb in zip(prompts, self.buckets)]
-            self._splice = graph_loop.seg_table(
-                [graph_loop.seg(d, src, dst_word=S, dst_axis=a, src_axis=a)
-                 for d, src, a in _splice_parts(st, sv._small)], sv.device)
         samp = self._samp(sv)
         n_f32 = sum(1 for d, _, _ in samp if d.dtype != torch.bool)
         f, u = samp[:n_f32], samp[n_f32:]
@@ -1072,7 +1124,7 @@ class _Drain:
                                      pos=st.pos, attend=attend)
         ex = graph_loop.build_drain(steps._captured[key][0].raw_cuda_graph(),
                                     [p.graph.raw_cuda_graph() for p in prompts], cargs, dargs,
-                                    self._gathers, self._splice, handles)
+                                    self._gathers, handles)
         self._execs[attend] = ex
         return ex
 

@@ -6,7 +6,7 @@ sequential), ``run_events``, ``warmup`` and ``utilization``. A fixed pool
 of slots decodes frames in lock-step (a backbone step and the cached depth
 pass per frame); a finished slot admits a queued request mid-flight: a
 batch-1 prefill at the prompt bucket (``_admit``), spliced into the slot
-(``_insert_local_row_``, JAX ``_insert_local_row``). Each slot has its own
+(``local_splice_parts``, JAX ``_insert_local_row``). Each slot has its own
 cursors (the per-row ``LocalGenState``), so its backbone KV writes at its
 own slot, only advancing rows validate their next slot, and stopped or idle
 rows freeze.
@@ -20,8 +20,11 @@ loops over that graph on the card (``step_graph.DeviceLoop``). An admission, as 
 JAX, is a scalar-cursor prefill spliced into the slot: on the card the
 replay of a CUDA graph of ``local_prefill_split`` per prompt bucket (the
 JAX server's ``_prefill_fn``; ``step_graph.LocalPrefills``) into a static
-batch-1 state (``_small``), then the splice (``_insert_local_row_``, JAX's
-``_insert_fn``, a few eager copies). Only ``warmup()`` captures: the
+batch-1 state (``_small``), then, in the same graph, the splice
+(``local_splice_parts``, JAX's ``_insert_fn``): one launch of the
+row-copy kernel at the slot and cursor the host writes into the control
+words (``_ctrl``), so one graph serves every slot, the request's key
+riding in through ``_small``. Only ``warmup()`` captures: the
 admission graphs of the prompt buckets it is given and the frame graphs of
 the attend buckets it walks. A prompt bucket it did not name admits
 eagerly, every time: a capture mid-serve would stall every slot's
@@ -49,6 +52,8 @@ import torch
 
 from ..core.config import LocalConfig
 from ..models.local import LocalGenState, LocalParams, init_local_state, make_local_sampling
+from ..ops.kernels import graph_loop
+from ..ops.kernels.graph_loop import Part, RowCopy
 from ..ops.sampling import prng_key, row_keys
 from .delay_engine import _round_up, attend_bucket
 from .polling import request_seed, run_pipelined
@@ -70,18 +75,24 @@ class CompletedLocal:
     steps: int
 
 
-@torch.no_grad()
-def _insert_local_row_(big: LocalGenState, small: LocalGenState, row: int, pos0: int) -> None:
-    """Ports ``_insert_local_row``: splice the batch-1 scalar-cursor
-    prefilled state ``small`` into slot ``row`` of ``big`` in place, its
-    cursor at ``pos0``, its frame count at 0, its output zeroed."""
-    for bf, sf in zip(big.cache, small.cache):
-        bf[:, row].copy_(sf[:, 0])
-    for name in ("kv_valid", "cur_ids", "unfinished", "seen_text", "seen_audio"):
-        getattr(big, name)[row].copy_(getattr(small, name)[0])
-    big.pos[row] = pos0
-    big.step[row] = 0
-    big.out[row].zero_()
+def local_splice_parts(big: LocalGenState, small: LocalGenState, ctrl: torch.Tensor,
+                       true: torch.Tensor) -> list:
+    """JAX's ``_insert_local_row`` (a traced row and cursor) as row-copy
+    parts (``graph_loop.RowCopy``): the batch-1 scalar-cursor prefilled
+    state ``small`` into the slot ``ctrl[SLOT]`` of ``big``, its cursor
+    ``ctrl[POS0]``, its frame count 0, ``unfinished`` True (``true``, a
+    (1,) bool), its output ``small.out`` then zeros, and, by the port's
+    design, its key (JAX keeps one shared key)."""
+    S = graph_loop.SLOT
+    parts = [Part(bf, sf, dst_word=S, dst_axis=1, src_axis=1)
+             for bf, sf in zip(big.cache, small.cache)]
+    parts += [Part(getattr(big, f), getattr(small, f), dst_word=S)
+              for f in ("kv_valid", "cur_ids", "seen_text", "seen_audio", "rng")]
+    n = small.out.shape[1]
+    return parts + [Part(big.pos, ctrl[graph_loop.POS0:graph_loop.POS0 + 1], dst_word=S),
+                    Part(big.step, None, dst_word=S), Part(big.unfinished, true, dst_word=S),
+                    Part(big.out[:, :n], small.out, dst_word=S),
+                    Part(big.out[:, n:], None, dst_word=S)]
 
 
 _SEED_SALT = 0x10CA1  # ``polling.request_seed``'s salt for this family
@@ -122,10 +133,16 @@ class LocalBatchServer:
         self.sampling = make_local_sampling(layers, do_samples, config.channels, device=dev)
         self._steps = LocalSteps(params, config, self.state, self.sampling, graphs=graphs)
         # the static batch-1 admission state (a scalar cursor): each
-        # admission prefills into it, then is spliced into its slot
+        # admission prefills into it, then is spliced into its slot at the
+        # control words (SLOT, POS0) in the same program, the key with it
         self._small = init_local_state(config, 1, cache_len, 1, row_keys(0, 1),
                                        dtype=dtype, device=dev)
-        self._prefills = LocalPrefills(self._steps, self._small, capture_on_use=False)
+        self._ctrl = torch.zeros(graph_loop.CTRL_WORDS, dtype=torch.int32, device=dev)
+        splice = RowCopy(local_splice_parts(
+            self.state, self._small, self._ctrl, torch.ones(1, dtype=torch.bool, device=dev)),
+            self._ctrl)
+        self._prefills = LocalPrefills(self._steps, self._small, capture_on_use=False,
+                                       after=lambda key: splice())
         self.total_steps = 0
         self.util_sum = 0.0  # sum over steps of active/slots (mean = /total_steps)
         self._pos_host = np.zeros(slots, np.int64)  # upper bound (freezes lag)
@@ -156,11 +173,17 @@ class LocalBatchServer:
                                          max_new_tokens=max_new_tokens))
         return rid
 
+    def _aim(self, slot: int, pos0: int = 0) -> None:
+        """Point the next splice at ``slot``, its cursor at ``pos0``."""
+        graph_loop.set_words(self._ctrl, graph_loop.SLOT,
+                             [slot] + [0] * (graph_loop.POS0 - graph_loop.SLOT - 1) + [pos0])
+
     @torch.no_grad()
     def _admit(self, slot: int, req: _LocalRequest) -> None:
-        """A batch-1 prefill of the request's grid, left-padded to its
-        prompt bucket, into ``_small`` (the bucket's program), spliced into
-        ``slot``; the slot's key made from the request id."""
+        """The bucket's admission program: a batch-1 prefill of the
+        request's grid, left-padded to its prompt bucket, into ``_small``,
+        spliced into ``slot`` with the key made from the request id, which
+        the host writes into ``_small`` first."""
         cfg = self.config
         T = req.input_ids.shape[0]
         Tb = _round_up(T, self.prompt_bucket)
@@ -170,12 +193,13 @@ class LocalBatchServer:
         mask = np.zeros((1, Tb), bool)
         mask[0, Tb - T:] = True
         dev = self.device
-        small = self._prefills.run(host_tensor(ids, dev), host_tensor(mask, dev),
-                                   n_vq_infer=self.n_vq_infer)
+        self._small.rng.copy_(host_tensor(
+            prng_key(request_seed(_SEED_SALT, req.request_id)).numpy()[None], dev),
+            non_blocking=True)  # a prefill draws nothing: the key rides into the slot
         # local_prefill_split leaves pos = Tb-1 (the cur_ids row's slot)
-        _insert_local_row_(self.state, small, slot, Tb - 1)
-        self.state.rng[slot].copy_(host_tensor(
-            prng_key(request_seed(_SEED_SALT, req.request_id)).numpy(), dev), non_blocking=True)
+        self._aim(slot, Tb - 1)
+        self._prefills.run(host_tensor(ids, dev), host_tensor(mask, dev),
+                           n_vq_infer=self.n_vq_infer)
         self._active[slot] = req
         self._pos_host[slot] = Tb - 1
         self._step_host[slot] = 0
@@ -351,6 +375,7 @@ class LocalBatchServer:
             g[min(2, T - 1), 0] = cfg.audio_start_token_id
             self.submit(g, max_new_tokens=2)
         self.run()
+        self._aim(self.slots)  # out of range: a capture's eager warm-up splices nowhere
         for T in prompt_lens:
             self._prefills.capture(_round_up(int(T), self.prompt_bucket),
                                    n_vq_infer=self.n_vq_infer)

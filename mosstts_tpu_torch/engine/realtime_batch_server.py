@@ -8,7 +8,7 @@ overrides), ``step``, ``step_block``, ``run`` (pipelined and sequential),
 conversations are admitted into freed slots mid-flight: the admissions of
 one prompt bucket prefill together as one batch-k group (k rounded up to a
 power of two by repeating the last one) into a fresh state, and their rows
-are spliced into the slots (``_splice_rt_rows_``). Each slot has its own
+are spliced into the slots (``rt_splice_parts``). Each slot has its own
 cache cursor and frame counter (the per-row ``RealtimeState``), its own
 sampling controls, its own text feed (``_text_rest``) and its own
 threefry key.
@@ -23,15 +23,19 @@ attend bucket) has a static kb-row admission state, its linear cache
 ``attend`` slots long (what the prefill reads and writes), sampling
 buffers and keys (``_Admission``); the graph returns that state to a
 new conversation's and prefills the group into it
-(``step_graph.RealtimePrefills`` with ``fresh``), and the rows are then
-spliced into the first ``attend`` slots of theirs, the rest of each slot's
-mask cleared (``_splice_rt_rows_``, eager copies), each slot taking its
-admission row's key. Only ``warmup()``
+(``step_graph.RealtimePrefills`` with ``fresh``), then splices the rows
+into the first ``attend`` slots of theirs, the rest of each slot's mask
+cleared, each slot taking its admission row's key: one launch of the
+row-copy kernel (``rt_splice_parts``, JAX's ``_splice_rt_rows``) at the
+(kb,) int32 slots the host writes into ``_Admission.rows``, a padding
+row's out of range and dropped, as JAX's ``mode="drop"`` drops it, so
+one graph serves every slot combination. Only ``warmup()``
 captures: it keeps the admission states of the (k bucket, attend bucket)
 pairs of the prompt buckets it is given, captures their graphs, and
 captures the frame graphs of the attend buckets it walks. An admission of a
 prompt bucket it did not name runs eagerly, every time, into a transient
-admission state freed after the splice: a capture mid-serve would stall
+admission state freed after the splice (its splice the same kernel,
+launched eagerly): a capture mid-serve would stall
 every slot's frames. ``run_events`` (JAX ``_event_fn``) decodes until a
 scheduling event: on the card one launch of a loop graph whose body feeds
 frame i its text column from the staged (slots, ``_KMAX``) tokens (a feed
@@ -63,6 +67,7 @@ import torch
 from ..core.config import RealtimeConfig
 from ..models.realtime import (RealtimeParams, RealtimeSampling, RealtimeState,
                                init_realtime_srv_state, init_realtime_state, make_rt_sampling)
+from ..ops.kernels.graph_loop import Part, RowCopy, set_words
 from ..ops.sampling import prng_key, row_keys
 from .delay_engine import _round_up, attend_bucket
 from .polling import request_seed, run_pipelined
@@ -86,24 +91,35 @@ class CompletedStream:
     steps: int  # frames generated (incl. any post-EOS poll slack)
 
 
+def rt_splice_parts(big: RealtimeState, small: RealtimeState, k: int) -> list:
+    """JAX's ``_splice_rt_rows`` as row-copy parts (``graph_loop.RowCopy``):
+    row i < ``k`` of the batch-k scalar-cursor state ``small`` into the slot
+    ``rows[i]`` of ``big``, the control words being the (k,) int32 row
+    indices: its cache lane, mask, last frame, stop flag, history and key,
+    with ``small``'s scalar cursors. ``small``'s cache may hold fewer slots
+    than ``big``'s: its rows fill the slots' first ones, and the rest of
+    each slot's mask is cleared (what the cache holds there is never read).
+    A row index of ``slots`` or more is dropped (JAX's ``mode="drop"``: the
+    k bucket's padding rows). The keys go with the rows."""
+    A = small.kv_valid.shape[1]
+    parts = []
+    for i in range(k):
+        parts += [Part(bf[:, :, :, :A], sf[:, i:i + 1], dst_word=i, dst_axis=1, src_axis=1)
+                  for bf, sf in zip(big.cache, small.cache)]
+        parts += [Part(big.kv_valid[:, A:], None, dst_word=i),
+                  Part(big.kv_valid[:, :A], small.kv_valid[i:i + 1], dst_word=i)]
+        parts += [Part(getattr(big, f), getattr(small, f)[i:i + 1], dst_word=i)
+                  for f in ("last_audio", "is_stopping", "history", "rng")]
+        parts += [Part(big.cur_len, small.cur_len.view(1), dst_word=i),
+                  Part(big.hist_len, small.hist_len.view(1), dst_word=i)]
+    return parts
+
+
 @torch.no_grad()
 def _splice_rt_rows_(big: RealtimeState, small: RealtimeState, rows: torch.Tensor) -> None:
-    """Copy the first ``len(rows)`` rows of the batch-k scalar-cursor state
-    ``small`` into slots ``rows`` of ``big`` in place: their cache lanes,
-    masks, frames and history, with ``small``'s scalar cursors. ``small``'s
-    cache may hold fewer slots than ``big``'s: its rows fill the slots'
-    first ones, and the rest of each slot's mask is cleared (what the
-    cache holds there is never read). The keys go with the rows."""
-    k = rows.shape[0]
-    A = small.kv_valid.shape[1]
-    for bf, sf in zip(big.cache, small.cache):
-        bf[:, :, :, :A].index_copy_(1, rows, sf[:, :k])
-    big.kv_valid.index_fill_(0, rows, False)
-    big.kv_valid[:, :A].index_copy_(0, rows, small.kv_valid[:k])
-    for name in ("last_audio", "is_stopping", "history", "rng"):
-        getattr(big, name).index_copy_(0, rows, getattr(small, name)[:k])
-    big.cur_len.index_copy_(0, rows, small.cur_len.expand(k).contiguous())
-    big.hist_len.index_copy_(0, rows, small.hist_len.expand(k).contiguous())
+    """Splice the first ``len(rows)`` rows of ``small`` into slots ``rows``
+    of ``big`` in place (``rt_splice_parts``, one row copy)."""
+    RowCopy(rt_splice_parts(big, small, rows.shape[0]), rows.to(torch.int32))()
 
 
 _SEED_SALT = 0x52D417  # ``polling.request_seed``'s salt for this family
@@ -112,9 +128,12 @@ _SEED_SALT = 0x52D417  # ``polling.request_seed``'s salt for this family
 class _Admission:
     """A (k bucket, attend bucket)'s admission: a kb-row scalar-cursor
     state (a linear cache of ``attend`` slots) with kb keys of its own,
-    kb-row sampling buffers, and the prefill programs over them
-    (one per prompt bucket), which share the frames' capture stream and
-    pool and are captured only ahead (``warmup()``)."""
+    kb-row sampling buffers, the (kb,) int32 slots its rows go to
+    (``rows``; a padding row's is out of range) and the admission programs
+    over them (one per prompt bucket: the prefill, then the splice of the
+    rows into the server's slots, JAX's ``_admit_fn``), which share the
+    frames' capture stream and pool and are captured only ahead
+    (``warmup()``)."""
 
     def __init__(self, server: "RealtimeBatchServer", kb: int, attend: int):
         dev = server.device
@@ -122,8 +141,10 @@ class _Admission:
                                          row_keys(0, kb), dtype=server.dtype, device=dev)
         self.sampling = make_rt_sampling(*(np.zeros(kb, np.float32) for _ in range(3)),
                                          np.zeros(kb, bool), device=dev)
+        self.rows = torch.full((kb,), server.slots, dtype=torch.int32, device=dev)
+        splice = RowCopy(rt_splice_parts(server.state, self.state, kb), self.rows)
         self.prefills = RealtimePrefills(server._steps, self.state, self.sampling, fresh=True,
-                                         capture_on_use=False)
+                                         capture_on_use=False, after=lambda key: splice())
 
 
 class RealtimeBatchServer:
@@ -267,7 +288,8 @@ class RealtimeBatchServer:
         conversation's in the program,
         row i drawing from the key ``PRNGKey(seeds[i])`` (the padding rows
         past ``len(slots)`` from ``PRNGKey(0)``), and splice the first
-        ``len(slots)`` rows, their keys with them, into ``slots``."""
+        ``len(slots)`` rows, their keys with them, into ``slots``, in the
+        same program (the padding rows' slot is out of range: dropped)."""
         kb, Tb = ids.shape[:2]
         dev, k = self.device, len(slots)
         attend = self._admit_attend(Tb)
@@ -276,10 +298,9 @@ class RealtimeBatchServer:
             static.copy_(host_tensor(value, dev), non_blocking=True)
         keys = np.stack([prng_key(seed).numpy() for seed in list(seeds) + [0] * (kb - k)])
         adm.state.rng.copy_(host_tensor(keys, dev), non_blocking=True)
+        set_words(adm.rows, 0, list(slots) + [self.slots] * (kb - k))
         adm.prefills.run(host_tensor(ids, dev), host_tensor(valid, dev), attend_len=attend,
                          top_k=self.top_k)
-        rows = host_tensor(np.asarray(slots, np.int64), dev).to(dev, non_blocking=True)
-        _splice_rt_rows_(self.state, adm.state, rows)
 
     def _admit_group(self, Tb: int, group) -> None:
         """Admit every (slot, request, prompt rows) of ``group``, all in the
@@ -582,8 +603,9 @@ class RealtimeBatchServer:
                     self._admissions[kb, attend] = _Admission(self, kb, attend)
                 self._prefill_group(ids, np.ones((kb, Tb), bool), slots, [0] * len(slots),
                                     sampling)
-                self._admissions[kb, attend].prefills.capture(Tb, attend_len=attend,
-                                                              top_k=self.top_k)
+                adm = self._admissions[kb, attend]
+                set_words(adm.rows, 0, [self.slots] * kb)  # the capture's warm-up splices nowhere
+                adm.prefills.capture(Tb, attend_len=attend, top_k=self.top_k)
         a = max(self.prompt_bucket, 128)
         toks = host_tensor(np.full(self.slots, self.text_pad_id, np.int64), self.device)
         self._sync_sampling()

@@ -52,7 +52,10 @@ top_k_text, top_k_audio, hidden_out_layers)``, the prompt's exact length
 prompt and mask buffers of that length. ``RealtimePrefills`` (per ``(T,
 attend_len, top_k)``) and ``LocalPrefills`` (per ``(T, n_vq_infer)``) do
 the same for the other two families, on ``PrefillGraphs``, the machinery
-the three share. A key's first prefill runs
+the three share. A server's program ends, in the same graph, with its
+splice of the prefilled state into the slots (``after``: JAX's
+``_insert_fn``, ``_admit_fn``), at control words on the card, so one graph
+serves every slot. A key's first prefill runs
 eagerly; the second captures the graph and replays it, and so does every
 later one (``capture()`` captures ahead, for a server's ``warmup()``). So
 a prompt length seen once costs what an eager prefill costs, and the graphs
@@ -243,6 +246,7 @@ class GraphSteps:
         graph = torch.cuda.CUDAGraph(keep_graph=True)
         with _CAPTURE_LOCK:
             before = launches.read()
+            graph_loop.take_held()
             try:
                 with torch.cuda.graph(graph, pool=self.pool if pool is None else pool,
                                       stream=self._stream,
@@ -251,6 +255,9 @@ class GraphSteps:
             finally:
                 captured = launches.since(before)
                 launches.restore(before)
+                # the graphs a lazy step's conditional nodes cloned read
+                # their own pools: they live as long as this graph
+                graph.held = graph_loop.take_held()
         return graph, captured
 
     def run_key(self, key, fn: Callable[[], None]) -> None:
@@ -576,18 +583,22 @@ class PrefillGraphs:
     mask buffers, through CUDA graphs when ``steps`` replays them; the
     graphs share ``steps``' capture stream and memory pool (see the module
     docstring). A subclass says what one prefill does (``_eager``) and
-    which keys its calls take. ``max_graphs`` keeps that many keys, the least
-    recently used dropped first (None keeps every key). ``capture_on_use``
-    False captures only through ``capture()``: a key not captured ahead
-    runs eagerly at every use (a server, which must not stall its slots for
-    a capture mid-serve), on the caller's stream; ``capture()`` then warms
-    the key up on the capture stream itself."""
+    which keys its calls take. ``after`` (a server's splice of the prefilled
+    state into its slots, at control words on the device) ends every
+    program, in the same graph: ``after(key)``. ``max_graphs`` keeps that
+    many keys, the least recently used dropped first (None keeps every
+    key). ``capture_on_use`` False captures only through ``capture()``: a
+    key not captured ahead runs eagerly at every use (a server, which must
+    not stall its slots for a capture mid-serve), on the caller's stream;
+    ``capture()`` then warms the key up on the capture stream itself."""
 
     def __init__(self, steps: GraphSteps, state, B: int, C: int, device, *,
-                 max_graphs: Optional[int] = None, capture_on_use: bool = True):
+                 max_graphs: Optional[int] = None, capture_on_use: bool = True,
+                 after: Optional[Callable[[tuple], None]] = None):
         self.steps, self.state = steps, state
         self.max_graphs = max_graphs
         self.capture_on_use = capture_on_use
+        self.after = after
         self._shape = (B, C, device)
         self._prompts: "OrderedDict[tuple, _Prompt]" = OrderedDict()
         # runs of run(): eager (a key's first use, or graphs off), capture (the
@@ -628,11 +639,11 @@ class PrefillGraphs:
             prompt.graph.replay()
             launches.add_replay(prompt.launches)
         elif self.capture_on_use or not self.steps.graphs:
-            self.steps.warm(lambda: self._eager(key, prompt))
+            self.steps.warm(lambda: self._program(key, prompt))
             prompt.warm = True
             self.counts["eager"] += 1
         else:  # never captured on use: run where the caller runs
-            self._eager(key, prompt)
+            self._program(key, prompt)
             self.counts["eager"] += 1
 
     def _capture_ahead(self, key) -> None:
@@ -642,13 +653,18 @@ class PrefillGraphs:
         if prompt.graph is not None or not self.steps.graphs:
             return
         if not prompt.warm:
-            self.steps.warm(lambda: self._eager(key, prompt))
+            self.steps.warm(lambda: self._program(key, prompt))
             prompt.warm = True
         self._capture(key, prompt)
 
     def _capture(self, key, prompt: _Prompt) -> None:
         prompt.graph, prompt.launches = self.steps.capture(
-            lambda: self._eager(key, prompt))
+            lambda: self._program(key, prompt))
+
+    def _program(self, key, prompt: _Prompt) -> None:
+        self._eager(key, prompt)
+        if self.after is not None:
+            self.after(key)
 
     def _eager(self, key, prompt: _Prompt) -> None:
         raise NotImplementedError
@@ -661,9 +677,10 @@ class Prefills(PrefillGraphs):
     hidden_out_layers)``."""
 
     def __init__(self, steps: DecodeSteps, state: DelayGenState, sampling: DelaySampling,
-                 *, max_graphs: Optional[int] = None):
+                 *, max_graphs: Optional[int] = None,
+                 after: Optional[Callable[[tuple], None]] = None):
         super().__init__(steps, state, state.pos.shape[0], state.cur_ids.shape[-1],
-                         state.pos.device, max_graphs=max_graphs)
+                         state.pos.device, max_graphs=max_graphs, after=after)
         self.sampling = sampling
 
     @staticmethod
@@ -711,12 +728,13 @@ class RealtimePrefills(PrefillGraphs):
 
     def __init__(self, steps: GraphSteps, state: RealtimeState, sampling: RealtimeSampling, *,
                  fresh: bool = False, max_graphs: Optional[int] = None,
-                 capture_on_use: bool = True):
+                 capture_on_use: bool = True,
+                 after: Optional[Callable[[tuple], None]] = None):
         if state.cur_len.ndim != 0:
             raise ValueError("a Realtime prefill program runs on a scalar-cursor state")
         super().__init__(steps, state, state.is_stopping.shape[0],
                          state.last_audio.shape[1] + 1, state.is_stopping.device,
-                         max_graphs=max_graphs, capture_on_use=capture_on_use)
+                         max_graphs=max_graphs, capture_on_use=capture_on_use, after=after)
         self.sampling = sampling
         self.fresh = fresh
 
@@ -754,12 +772,13 @@ class LocalPrefills(PrefillGraphs):
     state's; the JAX engine's ``_prefill_fn``). A prefill draws nothing."""
 
     def __init__(self, steps: GraphSteps, state: LocalGenState, *,
-                 max_graphs: Optional[int] = None, capture_on_use: bool = True):
+                 max_graphs: Optional[int] = None, capture_on_use: bool = True,
+                 after: Optional[Callable[[tuple], None]] = None):
         if state.pos.ndim != 0:
             raise ValueError("a Local prefill program runs on a scalar-cursor state")
         super().__init__(steps, state, state.unfinished.shape[0],
                          state.cur_ids.shape[-1], state.unfinished.device,
-                         max_graphs=max_graphs, capture_on_use=capture_on_use)
+                         max_graphs=max_graphs, capture_on_use=capture_on_use, after=after)
 
     @torch.no_grad()
     def run(self, ids: torch.Tensor, mask: torch.Tensor, *, n_vq_infer: int) -> LocalGenState:

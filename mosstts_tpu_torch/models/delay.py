@@ -42,7 +42,7 @@ from ..core.config import DelayConfig
 from ..nn.qwen3 import (Qwen3Params, empty_param, fill_qwen3_params_, init_kv_cache,
                         init_quant_kv_cache, qwen3_forward, rank_config)
 from ..ops.basic import dense, put_drop_
-from ..ops.kernels import threefry, w8_gemm
+from ..ops.kernels import graph_loop, launches, threefry, w8_gemm
 from ..ops.quant import is_quantized
 from ..ops.sampling import (
     align_rows,
@@ -417,6 +417,43 @@ def _sample_text_full(keys, cfg: DelayConfig, s: DelaySampling, top_k_text: int,
                             do_sample=s.text_do_sample)
 
 
+def _text_logits2(hidden: torch.Tensor, text_head, cols: torch.Tensor) -> torch.Tensor:
+    """The text head's logits at the columns ``cols`` only (f32), rounded
+    to the activation dtype as ``dense()`` rounds the full logits."""
+    if is_quantized(text_head):
+        w2 = text_head.q.index_select(1, cols).to(hidden.dtype)
+        logits2 = torch.matmul(hidden.float(), w2.float()) * text_head.scale[cols]
+    else:
+        logits2 = torch.matmul(hidden.float(), text_head.index_select(1, cols).float())
+    return logits2.to(hidden.dtype).float()
+
+
+def _lazy_branches(keys, cfg: DelayConfig, s: DelaySampling, top_k_text: int,
+                   hidden: torch.Tensor, text_head, is_audio, first_step, early):
+    """JAX's two ``lax.cond`` branches of ``_sample_text_lazy`` as
+    functions of no argument: ``full`` (the full-vocab head and sampling)
+    and ``cheap`` (the gen and delay slots' two columns, in vocab order,
+    which keeps the full path's tie-breaking)."""
+    def full():
+        logits = dense(hidden, text_head).float() / align_rows(s.text_temperature, 2)
+        return _sample_text_full(keys, cfg, s, top_k_text, logits, is_audio, first_step, early)
+
+    def cheap():
+        lo, hi = sorted((cfg.audio_assistant_gen_slot_token_id,
+                         cfg.audio_assistant_delay_slot_token_id))
+        delay_col = (lo, hi).index(cfg.audio_assistant_delay_slot_token_id)
+        # the two ids on the device by kernels alone (no upload: capture-safe)
+        cols = torch.arange(2, device=hidden.device) * (hi - lo) + lo
+        logits2 = _text_logits2(hidden, text_head, cols) / align_rows(s.text_temperature, 2)
+        logits2 = torch.where(first_step[:, None] & (torch.arange(2, device=hidden.device)
+                                                     == delay_col)[None], NEG_INF, logits2)
+        choice = sample_topk_topp(keys, logits2, top_k=2, top_p=s.text_top_p,
+                                  do_sample=s.text_do_sample)
+        return cols[choice.long()].to(torch.int32)
+
+    return full, cheap
+
+
 def _sample_text_lazy(keys, cfg: DelayConfig, s: DelaySampling, top_k_text: int,
                       hidden: torch.Tensor,  # (B, D) the text head's source hidden
                       text_head, sampling_text, is_audio, first_step, early) -> torch.Tensor:
@@ -426,31 +463,76 @@ def _sample_text_lazy(keys, cfg: DelayConfig, s: DelaySampling, top_k_text: int,
     delay slots, so when no row samples free text a 2-column projection
     replaces the full one (the same greedy tokens; the columns in vocab
     order keep the full path's tie-breaking). JAX decides behind a
-    ``lax.cond``; here the decision is a host read of the flags, so a CUDA
-    graph cannot hold it: capturing this function raises. JAX records a
-    net loss for it on its own device, and no engine turns it on."""
-    if hidden.device.type == "cuda" and torch.cuda.is_current_stream_capturing():
-        raise ValueError("text_lazy decides on the host: a CUDA graph cannot capture it; "
-                         "run these steps eagerly")
-    if bool((sampling_text & ~is_audio).any()):
-        logits = dense(hidden, text_head).float() / align_rows(s.text_temperature, 2)
-        return _sample_text_full(keys, cfg, s, top_k_text, logits, is_audio, first_step, early)
-    ids2 = sorted((cfg.audio_assistant_gen_slot_token_id,
-                   cfg.audio_assistant_delay_slot_token_id))
-    delay_col = ids2.index(cfg.audio_assistant_delay_slot_token_id)
-    cols = torch.tensor(ids2, dtype=torch.long, device=hidden.device)
-    if is_quantized(text_head):
-        w2 = text_head.q.index_select(1, cols).to(hidden.dtype)
-        logits2 = torch.matmul(hidden.float(), w2.float()) * text_head.scale[cols]
-    else:
-        logits2 = torch.matmul(hidden.float(), text_head.index_select(1, cols).float())
-    # dense()'s rounding to the activation dtype, so the logits match it
-    logits2 = logits2.to(hidden.dtype).float() / align_rows(s.text_temperature, 2)
-    logits2 = torch.where(first_step[:, None] & (torch.arange(2, device=hidden.device)
-                                                 == delay_col)[None], NEG_INF, logits2)
-    choice = sample_topk_topp(keys, logits2, top_k=2, top_p=s.text_top_p,
-                              do_sample=s.text_do_sample)
-    return cols[choice.long()].to(torch.int32)
+    ``lax.cond``. Here the CPU decides on the host
+    (``graph_loop.lazy_cond_plain``); the card by the condition kernel
+    (``graph_loop.lazy_cond``), eagerly through a read of its decision,
+    and inside a CUDA graph's capture as the handles of two IF nodes whose
+    bodies are the two branches, each captured as a graph of its own on a
+    side stream (``_lazy_in_capture``), so one graph serves both. JAX
+    records a net loss for it on its own device, and no engine turns it
+    on."""
+    full, cheap = _lazy_branches(keys, cfg, s, top_k_text, hidden, text_head, is_audio,
+                                 first_step, early)
+    if hidden.device.type != "cuda":
+        return full() if graph_loop.lazy_cond_plain(sampling_text, is_audio) else cheap()
+    if torch.cuda.is_current_stream_capturing():
+        return _lazy_in_capture(full, cheap, sampling_text, is_audio)
+    _lazy_side_stream(hidden.device, (full, cheap))
+    return full() if graph_loop.lazy_cond(sampling_text, is_audio) else cheap()
+
+
+_LAZY_SIDE: dict = {}  # device -> the stream text_lazy's branch graphs are captured on
+
+
+def _lazy_side_stream(device, branches=()) -> torch.cuda.Stream:
+    """The side stream of ``device`` that ``_lazy_in_capture`` captures the
+    branches on, made at the first eager lazy step, which first runs both
+    ``branches`` on it (their cuBLAS workspace for the stream, which a
+    capture cannot make)."""
+    key = torch.device(device).index
+    side = _LAZY_SIDE.get(key)
+    if side is None:
+        if torch.cuda.is_current_stream_capturing():
+            raise RuntimeError("text_lazy: run a lazy step eagerly on the card before capturing "
+                               "one (its branches' side stream is made then)")
+        side = torch.cuda.Stream(device)
+        side.wait_stream(torch.cuda.current_stream(device))
+        with torch.cuda.stream(side):
+            for branch in branches:
+                branch()
+        torch.cuda.current_stream(device).wait_stream(side)
+        _LAZY_SIDE[key] = side
+    return side
+
+
+def _lazy_in_capture(full, cheap, sampling_text, is_audio) -> torch.Tensor:
+    """JAX's ``lax.cond(need_full, full, cheap)`` inside a capture under way:
+    each branch captured on the side stream as a graph of its own (one
+    memory pool for the two: they never run together) that writes its
+    tokens into one (B,) buffer, then the condition kernel and two IF
+    nodes over them added to the capturing graph
+    (``graph_loop.capture_lazy``), which keeps the branch graphs. A
+    branch runs or not by the data, so its kernels' launches are taken
+    back from the counts (``launches``); ``graph_loop.lazy_counts`` says
+    how many times each branch ran."""
+    dev = sampling_text.device
+    side = _lazy_side_stream(dev)
+    out = torch.empty(sampling_text.shape, dtype=torch.int32, device=dev)
+    pool = torch.cuda.graph_pool_handle()
+    graphs = []
+    before = launches.read()
+    for branch in (full, cheap):
+        g = torch.cuda.CUDAGraph(keep_graph=True)
+        with torch.cuda.stream(side):
+            g.capture_begin(pool=pool, capture_error_mode="thread_local")
+            try:
+                out.copy_(branch())
+            finally:
+                g.capture_end()
+        graphs.append(g)
+    launches.restore(before)
+    graph_loop.capture_lazy(sampling_text, is_audio, *graphs)
+    return out
 
 
 def _delay_sample_and_update(
@@ -550,8 +632,8 @@ def delay_decode_step(
     every row's cache cursor is equal (the solo engine: one slice write at
     ``pos[0]``); by default each row writes at its own cursor ``pos[b]``, as
     the continuous-batching server needs. ``text_lazy`` projects the text
-    head only when a row samples free text (``_sample_text_lazy``; eager
-    steps only)."""
+    head only when a row samples free text (``_sample_text_lazy``; a CUDA
+    graph captures it with an IF node per branch)."""
     positions = state.pos[:, None]
     text_logits, audio_logits, cache = delay_forward(
         params, cfg, state.cur_ids, positions=positions, kv_valid=state.kv_valid,

@@ -1,6 +1,7 @@
-"""Device-resident loops: the control kernels of ``csrc/graph_loop.cu``,
-their plain PyTorch versions, and the builders of the conditional-node CUDA
-graphs that run a loop on the card (``engine/step_graph.DeviceLoop``).
+"""Device-resident loops and splices: the control kernels of
+``csrc/graph_loop.cu``, their plain PyTorch versions, and the functions
+that build the conditional-node CUDA graphs that run a loop on the card
+(``engine/step_graph.DeviceLoop``).
 
 The JAX package runs its decode loops as single device programs: a
 ``lax.while_loop`` whose condition is read on the device after every step
@@ -14,6 +15,15 @@ admission kernel, one IF node per prompt bucket (gather the staged prompt
 row, replay the bucket's prefill graph, splice the row into the slot) and a
 collect kernel.
 
+The row copy (``RowCopy``) is every server admission's splice (JAX's
+``_insert_fn``, ``_insert_paged_fn``, the page-table programs,
+``_insert_local_row``, ``_splice_rt_rows``): a list of ``Part``s, each a row
+of a destination at an index read from an int32 control word on the device,
+so one captured program serves every slot; an index outside the
+destination's axis is dropped (JAX's ``mode="drop"``). ``text_lazy``'s
+``lax.cond`` becomes a condition kernel and two IF nodes added to a decode
+step's capture (``capture_lazy``).
+
 Replaces no Pallas kernel. Each kernel has its plain version here (the CPU
 runs the loops eagerly and evaluates the same condition after every step,
 which is JAX's ``while_loop`` exactly), and a launch count: a standalone
@@ -23,7 +33,7 @@ nodes' runs, read back after the launch (``DeviceLoop``).
 from __future__ import annotations
 
 import ctypes
-from typing import Optional, Sequence
+from typing import NamedTuple, Optional, Sequence
 
 import numpy as np
 import torch
@@ -33,13 +43,18 @@ from . import _build
 LAUNCHES_COND = 0  # loop-condition kernel runs since the count was last set to 0
 LAUNCHES_ADMIT = 0  # drain admission kernel runs
 LAUNCHES_COLLECT = 0  # drain collect kernel runs
-LAUNCHES_COPY = 0  # row-copy kernel runs (drain gather and splice)
+LAUNCHES_COPY = 0  # row-copy kernel runs (the admissions' splices, the drain's gather)
 LAUNCHES_FEED = 0  # fed-column kernel runs (the Realtime text feed)
+LAUNCHES_LAZY = 0  # text_lazy condition kernel runs
 
 GENERATE, EVENT, BLOCK, DRAIN = 0, 1, 2, 3
-# the int32 control words of a loop (csrc/graph_loop.cu)
-I, LIMIT, COND, QI, QN, SLOT, ADM_QI = 0, 1, 2, 3, 4, 5, 6
-CTRL_WORDS = 8
+# the int32 control words of a loop and of an admission (csrc/graph_loop.cu):
+# the loop's counters; the admission's slot, the drained request, a Local
+# admission's cursor, a page-table entry and its page; a paged admission's
+# table row follows at TABLE_ROW
+I, LIMIT, COND, QI, QN, SLOT, ADM_QI, POS0, ENTRY, PAGE = range(10)
+CTRL_WORDS = 12
+TABLE_ROW = CTRL_WORDS
 MAX_SAMP = 8
 MAX_BUCKETS = 64
 
@@ -51,6 +66,10 @@ class CondArgs(ctypes.Structure):
     _fields_ = [("kind", _i), ("B", _i), ("flags", _p), ("n_flags", _i), ("invert", _i),
                 ("step", _p), ("n_step", _i), ("ctrl", _p), ("watch", _p), ("budget", _p),
                 ("active", _p), ("pos", _p), ("attend", _i)]
+
+
+class LazyArgs(ctypes.Structure):
+    _fields_ = [("sampling_text", _p), ("is_audio", _p), ("B", _i), ("counts", _p)]
 
 
 class DrainArgs(ctypes.Structure):
@@ -191,36 +210,78 @@ def feed(staged: torch.Tensor, dst: torch.Tensor, ctrl: torch.Tensor) -> None:
     LAUNCHES_FEED += 1
 
 
-# ---- copy segments --------------------------------------------------------------
-def seg(dst: torch.Tensor, src: Optional[torch.Tensor], *, dst_word: int = -1,
-        src_word: int = -1, dst_axis: int = 0, src_axis: int = 0) -> list:
-    """One copy segment (``Seg``): ``dst`` at index ``ctrl[dst_word]`` of
-    its axis ``dst_axis`` (index 0 with -1) takes ``src`` at its index
-    alike, or zeros when ``src`` is None. The dimensions after the axis are
-    contiguous; those before it (at most one) are the outer chunks."""
-    def geom(t, axis):
-        if not t[(0,) * axis].is_contiguous() if axis else not t[0].is_contiguous():
-            raise ValueError("copy segment: the dimensions after the axis must be contiguous")
-        outer = int(np.prod(t.shape[:axis], dtype=np.int64))
-        inner = int(np.prod(t.shape[axis + 1:], dtype=np.int64)) * t.element_size()
-        outer_stride = t.stride(axis - 1) * t.element_size() if axis > 0 else 0
-        return t.data_ptr(), outer, inner, outer_stride, t.stride(axis) * t.element_size()
-
-    d_ptr, d_outer, d_chunk, d_ostride, d_idx = geom(dst, dst_axis)
-    if src is None:
-        s_ptr, s_ostride, s_idx = 0, 0, 0
-    else:
-        s_ptr, s_outer, s_chunk, s_ostride, s_idx = geom(src, src_axis)
-        if (s_outer, s_chunk) != (d_outer, d_chunk):
-            raise ValueError(f"copy segment: {(s_outer, s_chunk)} into {(d_outer, d_chunk)}")
-    return [d_ptr, s_ptr, d_outer, d_chunk, d_ostride, s_ostride, d_idx, s_idx,
-            (dst_word & 0xFFFFFFFF) | ((src_word & 0xFFFFFFFF) << 32)]
+# ---- the row copy ------------------------------------------------------------
+class Part(NamedTuple):
+    """One row copy: ``dst`` at index ``ctrl[dst_word]`` of its axis
+    ``dst_axis`` (index 0 with -1) takes ``src`` at its index alike
+    (``ctrl[src_word]`` of ``src_axis``), or zeros when ``src`` is None;
+    an index outside ``dst``'s axis drops the copy."""
+    dst: torch.Tensor
+    src: Optional[torch.Tensor]
+    dst_word: int = -1
+    src_word: int = -1
+    dst_axis: int = 0
+    src_axis: int = 0
 
 
-def seg_table(segs: list, device) -> torch.Tensor:
-    """The segments as the device array the row-copy kernel reads."""
-    a = np.asarray(segs, dtype=np.uint64).view(np.int64)
+def _levels(part: Part) -> tuple:
+    """A part's row as the kernel walks it: ``chunk`` contiguous bytes, at
+    most two levels of (count, dst stride, src stride) in bytes around
+    them, outer first. Raises where the row needs more."""
+    d = part.dst.select(part.dst_axis, 0)
+    s = None if part.src is None else part.src.select(part.src_axis, 0)
+    if s is not None and (s.shape != d.shape or s.dtype != d.dtype):
+        raise ValueError(f"row copy: {s.dtype} {tuple(s.shape)} into {d.dtype} {tuple(d.shape)}")
+    es = d.element_size()
+    dims = [(n, ds * es, (ss if s is not None else ds) * es)
+            for n, ds, ss in zip(d.shape, d.stride(), (s if s is not None else d).stride())
+            if n != 1]
+    chunk, levels = es, []
+    for n, ds, ss in reversed(dims):
+        if not levels and ds == chunk and ss == chunk:
+            chunk *= n
+        elif levels and (ds, ss) == (levels[-1][0] * levels[-1][1],
+                                     levels[-1][0] * levels[-1][2]):
+            m, mds, mss = levels[-1]
+            levels[-1] = (m * n, mds, mss)
+        else:
+            levels.append((n, ds, ss))
+    if len(levels) > 2:
+        raise ValueError(f"row copy: {tuple(d.shape)} with strides {d.stride()} takes more "
+                         "than two levels around its contiguous chunk")
+    levels += [(1, 0, 0)] * (2 - len(levels))
+    return chunk, levels[1], levels[0]
+
+
+def seg_table(parts: Sequence[Part], device) -> torch.Tensor:
+    """The parts as the device array of ``Seg`` the row-copy kernel reads
+    (made outside any capture: the upload is a host copy)."""
+    rows = []
+    for p in parts:
+        chunk, (n_o, d_o, s_o), (n_m, d_m, s_m) = _levels(p)
+        d_idx = p.dst.stride(p.dst_axis) * p.dst.element_size()
+        s_idx = 0 if p.src is None else p.src.stride(p.src_axis) * p.src.element_size()
+        rows.append([p.dst.data_ptr(), 0 if p.src is None else p.src.data_ptr(), n_o, n_m, chunk,
+                     d_o, s_o, d_m, s_m, d_idx, s_idx, p.dst.shape[p.dst_axis],
+                     (p.dst_word & 0xFFFFFFFF) | ((p.src_word & 0xFFFFFFFF) << 32)])
+    a = np.asarray(rows, dtype=np.uint64).view(np.int64)
     return torch.from_numpy(a.copy()).to(device)
+
+
+def copy_rows_plain(parts: Sequence[Part], ctrl: torch.Tensor) -> None:
+    """The row copy (``copy_rows_kernel``) part by part, the indices read
+    from ``ctrl``; the parts write disjoint rows, so their order does not
+    matter."""
+    words = ctrl.tolist()
+    for p in parts:
+        di = words[p.dst_word] if p.dst_word >= 0 else 0
+        if not 0 <= di < p.dst.shape[p.dst_axis]:
+            continue
+        d = p.dst.select(p.dst_axis, di)
+        if p.src is None:
+            d.zero_()
+        else:
+            d.copy_(p.src.select(p.src_axis, words[p.src_word] if p.src_word >= 0 else 0))
 
 
 def copy_rows(table: torch.Tensor, ctrl: torch.Tensor, blocks: int = 8) -> None:
@@ -229,6 +290,105 @@ def copy_rows(table: torch.Tensor, ctrl: torch.Tensor, blocks: int = 8) -> None:
                                    _stream(table.device)))
     global LAUNCHES_COPY
     LAUNCHES_COPY += 1
+
+
+class RowCopy:
+    """A fixed list of parts over the control words ``ctrl`` (int32, on the
+    parts' device): ``()`` runs them as one launch of the row-copy kernel
+    (``blocks`` blocks a part) for CUDA tensors, a launch a capture records,
+    and through the plain version for CPU tensors. The parts' tensors and
+    ``ctrl`` must outlive it at their addresses."""
+
+    def __init__(self, parts: Sequence[Part], ctrl: torch.Tensor, blocks: int = 264):
+        self.parts = [p for p in parts if p.dst.numel()]
+        self.ctrl, self.blocks = ctrl, blocks
+        self.table = seg_table(self.parts, ctrl.device) if ctrl.is_cuda else None
+
+    def __call__(self) -> None:
+        if self.table is None:
+            copy_rows_plain(self.parts, self.ctrl)
+        else:
+            copy_rows(self.table, self.ctrl, self.blocks)
+
+
+def set_words(ctrl: torch.Tensor, first: int, values) -> None:
+    """Write ``values`` into the control words from ``first`` on, behind the
+    work the stream holds (a pinned upload on the card)."""
+    v = torch.as_tensor(np.asarray(values, np.int32))
+    if ctrl.is_cuda:
+        ctrl[first:first + v.numel()].copy_(v.pin_memory(), non_blocking=True)
+    else:
+        ctrl[first:first + v.numel()] = v
+
+
+# ---- text_lazy's condition ------------------------------------------------------
+def lazy_cond_plain(sampling_text: torch.Tensor, is_audio: torch.Tensor) -> bool:
+    """``any(sampling_text & ~is_audio)``: some row samples free text, so
+    the full-vocab branch runs (``lazy_cond_kernel``)."""
+    return bool((sampling_text & ~is_audio).any())
+
+
+def lazy_counts(device) -> torch.Tensor:
+    """The card's text_lazy counters of ``device`` (int32: full-branch runs,
+    2-column runs, the last decision), made at the first eager lazy step
+    (a capture cannot make them)."""
+    dev = torch.device(device)
+    dev = torch.device(dev.type, torch.cuda.current_device() if dev.index is None else dev.index)
+    t = _LAZY_COUNTS.get(dev)
+    if t is None:
+        t = _LAZY_COUNTS[dev] = torch.zeros(3, dtype=torch.int32, device=dev)
+    return t
+
+
+_LAZY_COUNTS: dict = {}
+_HELD: list = []  # branch graphs the capture under way reads
+
+
+def _lazy_args(sampling_text, is_audio) -> LazyArgs:
+    return LazyArgs(sampling_text=sampling_text.data_ptr(), is_audio=is_audio.data_ptr(),
+                    B=sampling_text.shape[0], counts=lazy_counts(sampling_text.device).data_ptr())
+
+
+def lazy_cond_launch(sampling_text: torch.Tensor, is_audio: torch.Tensor) -> None:
+    """The condition kernel alone: it counts the branch it picks and
+    records the decision in ``lazy_counts``."""
+    fn = _fn("mosstts_lazy_cond", [ctypes.POINTER(LazyArgs), _p])
+    args = _lazy_args(sampling_text, is_audio)
+    _check("mosstts_lazy_cond", fn(ctypes.byref(args), _stream(sampling_text.device)))
+    global LAUNCHES_LAZY
+    LAUNCHES_LAZY += 1
+
+
+def lazy_cond(sampling_text: torch.Tensor, is_audio: torch.Tensor) -> bool:
+    """The condition kernel, then a read of its decision: the eager lazy
+    step on the card."""
+    lazy_cond_launch(sampling_text.contiguous(), is_audio.contiguous())
+    return bool(lazy_counts(sampling_text.device)[2])
+
+
+def capture_lazy(sampling_text: torch.Tensor, is_audio: torch.Tensor, full, cheap) -> None:
+    """Inside a capture under way on the current stream: the condition
+    kernel and IF(full) -> IF(2 columns) over the captured branch graphs
+    ``full`` and ``cheap`` (``torch.cuda.CUDAGraph(keep_graph=True)``),
+    which the capturing graph then reads; they are held until the
+    capture's owner takes them (``take_held``)."""
+    fn = _fn("mosstts_lazy_capture", [ctypes.POINTER(LazyArgs), _p, _p, _p])
+    st, ia = sampling_text.contiguous(), is_audio.contiguous()
+    _HELD.extend([st, ia, full, cheap])
+    args = _lazy_args(st, ia)
+    _check("mosstts_lazy_capture (a condition kernel and two IF nodes in the capture)",
+           fn(ctypes.byref(args), full.raw_cuda_graph(), cheap.raw_cuda_graph(),
+              _stream(st.device)))
+    global LAUNCHES_LAZY
+    LAUNCHES_LAZY += 1
+
+
+def take_held() -> list:
+    """The branch graphs (and their inputs) that captures made since the
+    last call: the captured graph's owner keeps them as long as it."""
+    held = list(_HELD)
+    _HELD.clear()
+    return held
 
 
 # ---- the loop graphs -------------------------------------------------------------
@@ -249,24 +409,23 @@ def build_loop(step_graph: int, args: CondArgs, feed_src: Optional[torch.Tensor]
 
 
 def build_drain(step_graph: int, prefill_graphs: Sequence[int], cargs: CondArgs,
-                dargs: DrainArgs, gathers: Sequence[torch.Tensor], splice: torch.Tensor,
-                handles: torch.Tensor) -> int:
+                dargs: DrainArgs, gathers: Sequence[torch.Tensor], handles: torch.Tensor) -> int:
     """Instantiate the drain graph (see the module docstring): one IF node
-    per prompt bucket j over ``prefill_graphs[j]``, its gather segments
-    ``gathers[j]``, and the shared ``splice`` segments; ``handles`` (int64,
-    one word a bucket, on the device) receives the IF nodes' handles, which
-    the admission kernel sets."""
+    per prompt bucket j over its gather segments ``gathers[j]`` and
+    ``prefill_graphs[j]`` (the bucket's admission: prefill and splice);
+    ``handles`` (int64, one word a bucket, on the device) receives the IF
+    nodes' handles, which the admission kernel sets."""
     nb = len(prefill_graphs)
     if nb > MAX_BUCKETS:
         raise ValueError(f"the drain graph takes at most {MAX_BUCKETS} prompt buckets, got {nb}")
     exec_out = _p()
     fn = _fn("mosstts_drain_build", [_p, _p, ctypes.POINTER(CondArgs), ctypes.POINTER(DrainArgs),
-                                     _p, _p, _p, _i, _p, ctypes.POINTER(_p)])
+                                     _p, _p, _p, ctypes.POINTER(_p)])
     graphs = (_p * nb)(*prefill_graphs)
     gptrs = (_p * nb)(*[g.data_ptr() for g in gathers])
     ngs = (_i * nb)(*[g.shape[0] for g in gathers])
     rc = fn(step_graph, graphs, ctypes.byref(cargs), ctypes.byref(dargs), gptrs, ngs,
-            splice.data_ptr(), splice.shape[0], handles.data_ptr(), ctypes.byref(exec_out))
+            handles.data_ptr(), ctypes.byref(exec_out))
     _check("mosstts_drain_build (conditional WHILE/IF nodes over the step and prefill "
            "graphs)", rc)
     return exec_out.value

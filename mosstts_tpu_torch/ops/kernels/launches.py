@@ -38,6 +38,7 @@ COUNTERS = {  # name -> (module, attribute) of a wrapper's launch count
     "drain_collect": (graph_loop, "LAUNCHES_COLLECT"),
     "row_copy": (graph_loop, "LAUNCHES_COPY"),
     "feed": (graph_loop, "LAUNCHES_FEED"),
+    "lazy_cond": (graph_loop, "LAUNCHES_LAZY"),
 }
 COLLECTIVES = {"nccl": (collectives, "LAUNCHES")}  # not kernels: counted alike
 _ALL = {**COUNTERS, **COLLECTIVES}

@@ -388,6 +388,84 @@ def test_admission_prefill_graphs_match_eager():
         np.testing.assert_array_equal(a.tokens, b.tokens)
 
 
+ADMIT_MODES = [{}, dict(kv_quant=True), dict(paged=True, page_size=64),
+               dict(paged=True, page_size=64, kv_quant=True)]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("mode", ADMIT_MODES, ids=["linear", "linear-q8", "paged", "paged-q8"])
+def test_warm_admissions_splice_inside_their_graph(mode):
+    """A warm admission (its bucket's graph captured by ``warmup``) is one
+    replay of the bucket's admission graph, prefill and splice: the row
+    copy runs once inside it and never eagerly, slots 2, 0 and 1 replay the
+    same graph (no capture), and the running state, pages and table
+    included, equals an eager server's after each; so do the completions."""
+    _need_card()
+    params = DelayEngine.random_init(seed=5, config=CFG, dtype=torch.bfloat16,
+                                     device="cuda").params
+    grids = _grids(3, seed=12, lo=33, hi=64)  # one prompt bucket, 64
+    servers = []
+    for graphs in (True, False):
+        srv = DelayBatchServer(params, CFG, slots=3, cache_len=512, out_capacity=64,
+                               prompt_bucket=32, dtype=torch.bfloat16, graphs=graphs,
+                               sampling=make_sampling(text_temperature=1.5,
+                                                      audio_temperature=1.7, device="cuda"),
+                               **mode)
+        srv.warmup(prompt_lens=(64,), attend_upto=256)
+        servers.append(srv)
+    counts = dict(servers[0]._prefills.counts)
+    for slot in (2, 0, 1):
+        launches.reset()
+        for srv in servers:
+            srv.submit(grids[slot], max_new_tokens=40, seed=20 + slot)
+            assert srv._admit(slot, srv._queue.pop(0))
+        torch.cuda.synchronize()
+        # the graph server's splice inside its replay; the eager server's one launch
+        assert launches.IN_GRAPHS["row_copy"] == 1 and launches.read()["row_copy"] == 2
+        _assert_same_state(servers[0].state, servers[1].state)
+    runs = {k: v - counts[k] for k, v in servers[0]._prefills.counts.items()}
+    assert runs == dict(eager=0, capture=0, replay=3)
+    done = [sorted(srv.run(), key=lambda c: c.request_id) for srv in servers]
+    for a, b in zip(*done):
+        assert a.steps == b.steps
+        np.testing.assert_array_equal(a.tokens, b.tokens)
+
+
+@pytest.mark.cuda
+def test_row_copy_kernel_drops_out_of_range_rows():
+    """The Realtime splice's row copy (``rt_splice_parts``: kb = 4 rows of a
+    128-slot admission state into a 256-slot server state, one padding row
+    at index ``slots``) on the card == its plain version on the CPU, bit
+    for bit: the padding row is dropped and the other slots keep theirs."""
+    _need_card()
+    from mosstts_tpu_torch.engine.realtime_batch_server import rt_splice_parts
+    from mosstts_tpu_torch.models.realtime import RealtimeState
+    from mosstts_tpu_torch.nn.qwen3 import KVCache
+    from mosstts_tpu_torch.ops.kernels import graph_loop
+
+    g = torch.Generator().manual_seed(4)
+
+    def state(B, S, scalar):
+        r = lambda *shape: torch.randint(0, 1000, shape, generator=g, dtype=torch.int32)
+        b = lambda *shape: torch.rand(shape, generator=g) < 0.5
+        cur = r(1)[0] if scalar else r(B)
+        return RealtimeState(
+            cache=KVCache(*[torch.randn((2, B, 2, S, 64), generator=g).bfloat16()
+                            for _ in range(2)]),
+            kv_valid=b(B, S), cur_len=cur, last_audio=r(B, 4), is_stopping=b(B),
+            history=r(B, 8, 4), hist_len=cur + 1, rng=r(B, 2).long())
+
+    big, small = state(5, 256, False), state(4, 128, True)
+    rows = torch.tensor([4, 0, 2, 5], dtype=torch.int32)
+    card = [RealtimeState(*[type(x)(*[t.cuda() for t in x]) if isinstance(x, tuple) else x.cuda()
+                            for x in st]) for st in (big, small)]
+    graph_loop.RowCopy(rt_splice_parts(big, small, 4), rows)()
+    graph_loop.RowCopy(rt_splice_parts(card[0], card[1], 4), rows.cuda())()
+    torch.cuda.synchronize()
+    for want, got in zip(list(big.cache) + list(big[1:]), list(card[0].cache) + list(card[0][1:])):
+        assert torch.equal(got.cpu(), want)
+
+
 def _same_completions(got, ref):
     """Equal completions; a request that stopped at ``<|im_end|>`` may hold
     frames past it that differ in number (the loops see a stop at other

@@ -16,8 +16,10 @@ in gloo processes: ``tests/test_torch_parallel_*.py``).
   activations to it. Through an identity weight its output is the sum of
   x's three bf16 terms bit for bit (x itself wherever the last term is a
   normal bf16), over the CPU tests' five input families and inf and NaN.
-* ``delay_decode_step(text_lazy=True)`` runs eagerly, and its capture
-  into a CUDA graph raises ``ValueError``.
+* ``delay_decode_step(text_lazy=True)`` captured into a CUDA graph (a
+  condition kernel and an IF node per branch) equals the eager lazy step
+  and the full path, replayed from states that take each branch; the
+  condition kernel equals its plain version.
 
 This file imports no JAX:
 
@@ -206,20 +208,75 @@ def test_w8f32_gemm_terms_sum_to_x_exactly(name, M):
     torch.testing.assert_close(out, want, rtol=0, atol=0, equal_nan=True)
 
 
-def test_text_lazy_is_eager_only():
+def test_text_lazy_condition_kernel_matches_plain():
+    """text_lazy's condition kernel (``graph_loop.lazy_cond``) decides as
+    its plain version, ``any(sampling_text & ~is_audio)``, and counts the
+    branch it picks."""
     _need_cards()
-    from mosstts_tpu_torch.engine.step_graph import GraphSteps, zero_state
-    from mosstts_tpu_torch.models.delay import delay_decode_step
+    from mosstts_tpu_torch.ops.kernels import graph_loop
+
+    rng = np.random.default_rng(5)
+    counts = graph_loop.lazy_counts("cuda")
+    for B in (1, 3, 16, 300):
+        for p in (0.0, 0.1, 1.0):
+            st = torch.from_numpy(rng.random(B) < 0.5)
+            ia = torch.from_numpy(rng.random(B) >= p)  # p: a row's chance to be out of audio
+            before = counts[:2].cpu()
+            want = graph_loop.lazy_cond_plain(st, ia)
+            assert graph_loop.lazy_cond(st.cuda(), ia.cuda()) is want
+            assert torch.equal(counts[:2].cpu() - before, torch.tensor([int(want), int(not want)],
+                                                                       dtype=torch.int32))
+
+
+def test_text_lazy_graph_equals_eager_and_full():
+    """``delay_decode_step(text_lazy=True)`` captured into one CUDA graph
+    (a condition kernel, then an IF node per branch) and replayed from a
+    state with a row in free text (the full head) and then from one with
+    every row in an audio block (the two columns): 6 replays from each give
+    the eager lazy steps' and the full path's greedy frames bit for bit,
+    and the device counters say each branch ran."""
+    _need_cards()
+    from mosstts_tpu_torch.engine.step_graph import STEP_FIELDS, GraphSteps, copy_state_, zero_state
+    from mosstts_tpu_torch.models.delay import delay_decode_step, delay_prefill
+    from mosstts_tpu_torch.ops.kernels import graph_loop
+    from mosstts_tpu_torch.ops.sampling import row_keys
 
     params = _params()
     greedy = make_sampling(text_temperature=0.0, audio_temperature=0.0, device="cuda")
-    state = zero_state(CFG, 1, 128, 8, dtype=torch.float32, kv_quant=False, device="cuda")
-    graphs = GraphSteps(params, "text_head", "cuda")
+
+    def prefilled(free_text):
+        ids = _prompts()  # every row in an open audio block (test_torch_text_lazy.py's prompt)
+        ids[:, 4, 0] = CFG.audio_start_token_id
+        if free_text:
+            ids[2, -1, 0] = 100
+        return delay_prefill(params, CFG, torch.as_tensor(ids, device="cuda"),
+                             torch.ones(ids.shape[:2], dtype=torch.bool, device="cuda"),
+                             max_new_tokens=16, cache_len=128, rng=row_keys(1, 3).cuda(),
+                             sampling=greedy, dtype=torch.float32)
+
+    state = zero_state(CFG, 3, 128, 16, dtype=torch.float32, kv_quant=False, device="cuda")
 
     def lazy_step():
-        delay_decode_step(params, CFG, state, greedy, attend_len=128, text_lazy=True)
+        new = delay_decode_step(params, CFG, state, greedy, attend_len=128, text_lazy=True)
+        for name in STEP_FIELDS:
+            getattr(state, name).copy_(getattr(new, name))
 
-    for _ in range(3):
+    graphs = GraphSteps(params, "text_head", "cuda")
+    with torch.no_grad():
+        copy_state_(state, prefilled(True))
         graphs.warm(lazy_step)
-    with pytest.raises(ValueError, match="eagerly"):
-        graphs.capture(lazy_step)
+        graph, _ = graphs.capture(lazy_step)
+        counts = graph_loop.lazy_counts("cuda")
+        for free_text in (True, False):
+            copy_state_(state, prefilled(free_text))
+            before = counts[:2].cpu()
+            for _ in range(6):
+                graph.replay()
+            ran = counts[:2].cpu() - before
+            assert int(ran.sum()) == 6 and int(ran[0 if free_text else 1]) >= 1
+            for lazy in (True, False):
+                st = prefilled(free_text)
+                for _ in range(6):
+                    st = delay_decode_step(params, CFG, st, greedy, attend_len=128,
+                                           text_lazy=lazy)
+                assert torch.equal(st.out, state.out) and torch.equal(st.cur_ids, state.cur_ids)
